@@ -10,13 +10,17 @@ It builds the CUDA kernels from ``orange3_spark_tpu_torch/ops/csrc`` (nvcc,
 prints one JSON line per phase:
 
   env      torch / CUDA versions, the card's name and power limit
-  build    nvcc wall seconds and ptxas' register / shared-memory report
+  build    nvcc wall seconds, ptxas' register / shared-memory report and
+           the atomic opcodes of the kernels' SASS (cuobjdump)
   check    each kernel against its plain PyTorch version on the card: a
            randomized sweep, zero-weight rows, a 20-tree batch, and the
-           shapes the HIGGS fit gives it at levels 0 and 4 (bitwise for
-           integer stats, within 1e-5·max|H| for float stats)
-  timing   kernel, plain version and one-library-call times at the
-           level-4 HIGGS shapes, beside the memory-bound least time
+           shapes the HIGGS fits give it at every level 0-4, with uint8
+           and int32 bins, with and without per-tree feature masks
+           (bitwise for integer stats, within 1e-5·max|H| for float stats)
+  timing   kernel time at every level of both fits (uint8 and int32 bins;
+           the forest also with its masks), beside the memory-bound least
+           time and the adds per second; plain version and one library
+           call at level 4; the histogram time of one fit
   parity   the fits on the card against the port's CPU path on a small
            table (same random draws for the forest)
   gbt, rf  the HIGGS proxy (BASELINE config 3) at full width:
@@ -85,16 +89,41 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # ------------------------------------------------------------------ phases
+def sass_atomics(lib_path) -> dict[str, list[str]]:
+    """{kernel: its atomic SASS opcodes}, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found: dict[str, set[str]] = {}
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn is not None:
+            for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDS|REDG|RED)(?:\.[A-Z0-9_]+)*)",
+                                 line):
+                found.setdefault(fn, set()).add(op)
+    return {k: sorted(v) for k, v in found.items()}
+
+
 def phase_build():
     from orange3_spark_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
     info = cuda_build.build()
-    ptxas = {name: re.findall(r"ptxas info\s*: (Used [^\n]*)", v["log"])
-             for name, v in info.items()}
-    return {"nvcc_s": round(time.perf_counter() - t0, 3),
+    nvcc_s = time.perf_counter() - t0
+    ptxas = {name: re.findall(r"ptxas info\s*: (Used [^\n]*)|(\d+ bytes stack frame[^\n]*)",
+                              v["log"]) for name, v in info.items()}
+    ptxas = {name: [a or b for a, b in lines] for name, lines in ptxas.items()}
+    sass = {p.stem: sass_atomics(cuda_build.library_path(p.stem))
+            for p in sorted(cuda_build.CSRC.glob("*.cu"))}
+    shared_add = sorted({op for kernels in sass.values() for ops in kernels.values()
+                         for op in ops if op.startswith("ATOMS")})
+    return {"nvcc_s": round(nvcc_s, 3),
             "per_source_s": {k: round(v["seconds"], 3) for k, v in info.items()},
-            "ptxas": ptxas}
+            "ptxas": ptxas, "sass_atomics": sass, "shared_add_sass": shared_add}
 
 
 def _hist_inputs(gen, N, d, s, T, nodes, n_bins, integer, dev):
@@ -115,9 +144,42 @@ def _hist_inputs(gen, N, d, s, T, nodes, n_bins, integer, dev):
     return B, S.contiguous(), pos
 
 
+# the two fits of the HIGGS config, as the histogram sees them
+FITS = {"gbt": {"T": 1, "s": 3, "integer": False},
+        "rf": {"T": 20, "s": 2, "integer": True}}
+D, N_BINS, DEPTH = 28, 32, 5
+
+
+def _fit_inputs(name, N, dev):
+    """(B int32, B uint8, S, masks f32[T, DEPTH, D]) of a fit at full rows.
+    The forest's stats and masks are the fit's own draws (``draw_forest``
+    with the default seed, sqrt feature subsets); boosting gets random
+    masks of the same density, since its fit passes none."""
+    import torch
+
+    from orange3_spark_tpu_torch.models.random_forest import draw_forest
+
+    f = FITS[name]
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    B = torch.randint(0, N_BINS, (N, D), generator=gen, device=dev, dtype=torch.int32)
+    keep_p = float(D ** 0.5 / D)
+    if name == "rf":
+        boot, keep = draw_forest(N, D, num_trees=f["T"], depth=DEPTH, keep_p=keep_p,
+                                 subsample=1.0, seed=0, device=dev)
+        keep = torch.where(keep.sum(-1, keepdim=True) > 0, keep, 1.0)
+        cls = torch.randint(0, f["s"], (N,), generator=gen, device=dev)
+        S = torch.nn.functional.one_hot(cls, f["s"]).float()[None] * boot[..., None]
+    else:
+        S = _hist_inputs(gen, N, 1, 3, 1, 1, N_BINS, False, dev)[1]
+        keep = (torch.rand((1, DEPTH, D), generator=gen, device=dev) < keep_p).float()
+    return B, B.to(torch.uint8), S.contiguous(), keep
+
+
 def _compare(got, ref, integer):
     """(agrees, max |got - ref|, max |ref|): bitwise for integer stats, else
-    within 1e-5·max|ref| (fp32 atomics add in a run-dependent order)."""
+    within 1e-5·max|ref| (the plain version's fp32 atomics add in a
+    run-dependent order; the kernel's fixed-point sums are exact to
+    n·2^(e-25), far inside that)."""
     import torch
 
     err = float((got - ref).abs().max()) if got.numel() else 0.0
@@ -136,45 +198,73 @@ def phase_check(train_rows, dev):
     from orange3_spark_tpu_torch.ops import histogram as th
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    cases = []
-    for seed in range(8):   # randomized shapes, ragged row counts
-        r = random.Random(100 + seed)
-        nodes, n_bins = r.choice([1, 2, 3, 5, 8, 16]), r.choice([4, 8, 16, 32, 64])
-        s, T, d = r.choice([1, 2, 3, 5]), r.choice([1, 3]), r.choice([1, 5, 28, 40])
-        cases.append((f"sweep{seed}", r.randint(1, 300_000), d, s, T, nodes,
-                      n_bins, False, False))
-    cases += [
-        ("zero_weight_rows", 200_000, 28, 3, 1, 4, 32, False, True),
-        ("forest_T20", 500_000, 28, 2, 20, 8, 32, True, False),
-        ("gbt_level0", train_rows, 28, 3, 1, 1, 32, False, False),
-        ("gbt_level4", train_rows, 28, 3, 1, 16, 32, False, False),
-        ("rf_level0", train_rows, 28, 2, 20, 1, 32, True, False),
-        ("rf_level4", train_rows, 28, 2, 20, 16, 32, True, False),
-    ]
     results, worst, failed = {}, 0.0, []
-    for name, N, d, s, T, nodes, n_bins, integer, zero_tail in cases:
-        B, S, pos = _hist_inputs(gen, N, d, s, T, nodes, n_bins, integer, dev)
-        if zero_tail:
-            S[:, N // 3:] = 0.0
-        got = th.node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins)
-        ref = th.node_histograms_reference(B, S, pos, nodes=nodes, n_bins=n_bins)
-        if zero_tail:   # dead rows add nothing: same as the live rows alone
-            n = N // 3
-            alone = th.node_histograms_reference(
-                B[:n], S[:, :n].contiguous(), pos[:, :n].contiguous(),
-                nodes=nodes, n_bins=n_bins)
-            ok2, _, _ = _compare(got, alone, False)
-        else:
-            ok2 = True
+
+    def record(name, shape, got, ref, integer, extra_ok=True):
+        nonlocal worst
         torch.cuda.synchronize()
         ok, err, scale = _compare(got, ref, integer)
         worst = max(worst, err)
-        results[name] = {"shape": [T, N, d, s, nodes, n_bins], "bitwise": integer,
-                         "max_abs_err": err, "max_abs_H": scale, "ok": ok and ok2}
-        if not (ok and ok2):
+        results[name] = {"shape": shape, "bitwise": integer, "max_abs_err": err,
+                         "max_abs_H": scale, "ok": ok and extra_ok}
+        if not (ok and extra_ok):
             failed.append(name)
-        del B, S, pos, got, ref
-    torch.cuda.empty_cache()
+
+    for seed in range(8):   # randomized shapes, ragged row counts, masks
+        r = random.Random(100 + seed)
+        nodes, n_bins = r.choice([1, 2, 3, 5, 8, 16]), r.choice([4, 8, 16, 32, 64])
+        s, T, d = r.choice([1, 2, 3, 5]), r.choice([1, 3]), r.choice([1, 5, 28, 40])
+        N = r.randint(1, 300_000)
+        B, S, pos = _hist_inputs(gen, N, d, s, T, nodes, n_bins, False, dev)
+        if seed % 2:
+            B = B.to(torch.uint8)
+        features = (torch.rand((T, d), generator=gen, device=dev) < 0.3) if seed % 4 >= 2 else None
+        got = th.node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins, features=features)
+        ref = th.node_histograms_reference(B, S, pos, nodes=nodes, n_bins=n_bins,
+                                           features=features)
+        record(f"sweep{seed}", [T, N, d, s, nodes, n_bins, str(B.dtype), features is not None],
+               got, ref, False)
+    # dead rows add nothing: the same as the live rows alone
+    N, n = 200_000, 200_000 // 3
+    B, S, pos = _hist_inputs(gen, N, 28, 3, 1, 4, 32, False, dev)
+    S[:, n:] = 0.0
+    got = th.node_histograms(B, S, pos, nodes=4, n_bins=32)
+    alone = th.node_histograms_reference(B[:n], S[:, :n].contiguous(),
+                                         pos[:, :n].contiguous(), nodes=4, n_bins=32)
+    record("zero_weight_rows", [1, N, 28, 3, 4, 32], got, alone, False)
+    B, S, pos = _hist_inputs(gen, 500_000, 28, 2, 20, 8, 32, True, dev)
+    got = th.node_histograms(B, S, pos, nodes=8, n_bins=32)
+    ref = th.node_histograms_reference(B, S, pos, nodes=8, n_bins=32)
+    record("forest_T20", [20, 500_000, 28, 2, 8, 32], got, ref, True)
+    del B, S, pos, got, ref, alone
+
+    # every level of both fits at full rows: uint8 and int32 bins, with and
+    # without masks; the masked plain result is the full one with the
+    # features that are not built zeroed
+    for fit, f in FITS.items():
+        B32, B8, S, masks = _fit_inputs(fit, train_rows, dev)
+        s_absmax = S.abs().amax()
+        for level in range(DEPTH):
+            nodes = 2 ** level
+            pos = torch.randint(0, nodes, (f["T"], train_rows), generator=gen,
+                                device=dev, dtype=torch.int32)
+            ref = th.node_histograms_reference(B32, S, pos, nodes=nodes, n_bins=N_BINS)
+            keep = masks[:, level]
+            built = th.kept_features(keep, f["T"], D)
+            ref_masked = torch.where(built[:, :, None, None], ref, 0.0)
+            for bname, B in (("u8", B8), ("i32", B32)):
+                for masked in (False, True):
+                    got = th.node_histograms(B, S, pos, nodes=nodes, n_bins=N_BINS,
+                                             features=keep if masked else None,
+                                             s_absmax=s_absmax)
+                    name = f"{fit}_level{level}_{bname}{'_masked' if masked else ''}"
+                    zero_ok = not masked or not bool(got[~built].any())
+                    record(name, [f["T"], train_rows, D, f["s"], nodes, N_BINS],
+                           got, ref_masked if masked else ref, f["integer"], zero_ok)
+                    del got
+            del pos, ref, ref_masked
+        del B32, B8, S, masks
+        torch.cuda.empty_cache()
     line = {"cases": results, "max_abs_err": worst, "failed": failed}
     if failed:
         raise AssertionError(f"kernel disagrees with its plain version: {failed}: {line}")
@@ -216,37 +306,72 @@ def _library_ms(B, S, pos, nodes, n_bins):
 
 
 def phase_timing(train_rows, dev, mem_bw, fp32_peak):
+    """Every level of both fits at full rows. The kernel is timed as the fit
+    calls it (``s_absmax`` given: grow_tree takes it once per tree); the
+    bound counts each input byte read once (B at the width passed) and H
+    written once, and the adds this run's data needs (non-zero stats of
+    live rows, times the features built)."""
     import torch
 
     from orange3_spark_tpu_torch.ops import histogram as th
 
     gen = torch.Generator(device=dev).manual_seed(99)
-    shapes = {}
-    for name, T, s, integer in (("gbt_level4", 1, 3, False), ("rf_level4", 20, 2, True)):
-        N, d, nodes, n_bins = train_rows, 28, 16, 32
-        B, S, pos = _hist_inputs(gen, N, d, s, T, nodes, n_bins, integer, dev)
-        f = lambda: th.node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins)
-        p = lambda: th.node_histograms_reference(B, S, pos, nodes=nodes, n_bins=n_bins)
-        f(), p()
-        torch.cuda.synchronize()
-        kernel_ms = cuda_ms(f, 20)
-        plain_ms = cuda_ms(p, 2)
-        library_ms, library_note = _library_ms(B, S, pos, nodes, n_bins)
-        nb = nodes * n_bins
-        n_bytes = N * d * 4 + T * N * s * 4 + T * N * 4 + T * d * nb * s * 4
-        n_ops = T * N * d * s               # fp32 adds
-        bytes_ms, ops_ms = n_bytes / mem_bw * 1e3, n_ops / fp32_peak * 1e3
-        shapes[name] = {
-            "T": T, "N": N, "d": d, "s": s, "nodes": nodes, "n_bins": n_bins,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_note": library_note, "bytes": n_bytes, "ops": n_ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "achieved_GBps": n_bytes / kernel_ms / 1e6,
-        }
-        del B, S, pos
+    shapes, per_fit = {}, {}
+    for fit, f in FITS.items():
+        T, s = f["T"], f["s"]
+        B32, B8, S, masks = _fit_inputs(fit, train_rows, dev)
+        s_absmax = S.abs().amax()
+        amax_ms = cuda_ms(lambda: S.abs().amax(), 5)
+        live = (S != 0).sum((1, 2)).double()                        # [T]
+        fit_ms = 0.0
+        for level in range(DEPTH):
+            nodes = 2 ** level
+            nb = nodes * N_BINS
+            pos = torch.randint(0, nodes, (T, train_rows), generator=gen, device=dev,
+                                dtype=torch.int32)
+            variants = [("u8", B8, None), ("i32", B32, None)]
+            if fit == "rf":   # the forest's main path: uint8 bins, its masks
+                variants.insert(0, ("u8_masked", B8, masks[:, level]))
+            for vname, B, keep in variants:
+                run = lambda: th.node_histograms(B, S, pos, nodes=nodes, n_bins=N_BINS,
+                                                 features=keep, s_absmax=s_absmax)
+                run()
+                torch.cuda.synchronize()
+                ms = cuda_ms(run, 10 if T > 1 else 20)
+                F = (th.kept_features(keep, T, D).sum(1).double() if keep is not None
+                     else torch.full((T,), float(D), dtype=torch.float64, device=dev))
+                adds = int((live * F).sum())
+                n_bytes = (B.numel() * B.element_size() + S.numel() * 4 + pos.numel() * 4
+                           + T * D * nb * s * 4
+                           + (keep.numel() * keep.element_size() if keep is not None else 0))
+                bytes_ms, ops_ms = n_bytes / mem_bw * 1e3, adds / fp32_peak * 1e3
+                shapes[f"{fit}_level{level}_{vname}"] = {
+                    "T": T, "N": train_rows, "d": D, "s": s, "nodes": nodes,
+                    "n_bins": N_BINS, "B_dtype": str(B.dtype), "masked": keep is not None,
+                    "ms": ms, "bytes": n_bytes, "adds": adds,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "achieved_GBps": n_bytes / ms / 1e6, "G_adds_per_s": adds / ms / 1e6}
+            main = f"{fit}_level{level}_{'u8_masked' if fit == 'rf' else 'u8'}"
+            fit_ms += shapes[main]["ms"]
+            if level == DEPTH - 1:   # the plain version and the library call at level 4
+                top = shapes[f"{fit}_level{level}_u8"]
+                p = lambda: th.node_histograms_reference(B32, S, pos, nodes=nodes,
+                                                         n_bins=N_BINS)
+                p()
+                torch.cuda.synchronize()
+                top["plain_ms"] = cuda_ms(p, 2)
+                top["library_ms"], top["library_note"] = _library_ms(B32, S, pos, nodes,
+                                                                     N_BINS)
+            del pos
+        # launches per fit: GBT one tree per round, 20 rounds; the forest once
+        rounds = 20 if fit == "gbt" else 1
+        per_fit[fit] = {"launches": rounds * DEPTH, "hist_ms": rounds * fit_ms,
+                        "s_absmax_ms": rounds * amax_ms,
+                        "variant": "u8" if fit == "gbt" else "u8_masked"}
+        del B32, B8, S, masks
         torch.cuda.empty_cache()
-    return shapes
+    return shapes, per_fit
 
 
 def phase_parity():
@@ -413,8 +538,9 @@ def main(argv=None) -> int:
         emit({"phase": phase, **check})
 
         phase = "timing"
-        shapes = phase_timing(train_rows, dev, mem_bw, fp32_peak)
-        emit({"phase": phase, "device": kind, "nvidia_smi": smi, **shapes})
+        shapes, hist_per_fit = phase_timing(train_rows, dev, mem_bw, fp32_peak)
+        emit({"phase": phase, "device": kind, "nvidia_smi": smi, "per_fit": hist_per_fit,
+              **shapes})
 
         phase = "parity"
         emit({"phase": phase, **phase_parity()})
@@ -453,7 +579,7 @@ def main(argv=None) -> int:
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
-        top = shapes["gbt_level4"]
+        top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
             "route": "cuda",
@@ -464,7 +590,8 @@ def main(argv=None) -> int:
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
-            "at": "gbt_level4",
+            "at": "gbt_level4_u8",
+            "per_fit": hist_per_fit,
             "shapes": shapes,
         }]})
         print(nvidia_smi_line(), flush=True)

@@ -2,7 +2,9 @@
 
 Port of ``orange3_spark_tpu/models/_tree.py``, same algorithm and layout:
 
-* features are quantile-binned once to int32 bins;
+* features are quantile-binned once to int32 bins (the reference's layout),
+  and a fit keeps one uint8 copy of them (``compact_bins``) for the kernel
+  and the row routing;
 * the tree is a PERFECT binary tree of static depth D: dead nodes stop
   splitting (split_bin = n_bins routes all rows left);
 * per level, ``ops.histogram.node_histograms`` sums the row stats per
@@ -76,6 +78,12 @@ def bin_features(X, edges):
     B = torch.searchsorted(e, Xt, out_int32=True)
     B = torch.where(torch.isnan(Xt), 0, B)
     return B.T.contiguous()
+
+
+def compact_bins(B, n_bins: int):
+    """uint8 copy of int32 bins when every bin fits (n_bins <= 256): a
+    quarter of the bytes for the histogram kernel and the row routing."""
+    return B.to(torch.uint8) if n_bins <= 256 else B
 
 
 _SCAN_BLOCK = 16
@@ -152,10 +160,11 @@ def _impurity_gain(Hc, gain_mode: str, reg: float, min_instances: float):
 
 
 def grow_tree(
-    B,            # i32[N, d] binned features
+    B,            # u8 or i32[N, d] binned features
     S,            # f32[N, s] or f32[T, N, s] per-row stats
     edges,        # f32[d, n_bins - 1] raw bin boundaries
-    feat_keep,    # f32[depth, d] or f32[T, depth, d] per-level feature masks
+    feat_keep,    # f32[depth, d] or f32[T, depth, d] per-level feature
+                  # masks, or None: every feature at every level
     min_gain,     # float minimum gain to split (MLlib minInfoGain)
     *,
     depth: int,
@@ -168,11 +177,13 @@ def grow_tree(
 
     Returns (Tree, pos, imp): pos i32[(T,) N] is the leaf of each row and imp
     f32[(T,) d] the per-feature sum of chosen split gains. The level loop
-    reads nothing back to the host.
+    reads nothing back to the host. The histograms of masked features are
+    not built (feature 0's always is: it gives the node weights).
     """
     single = S.ndim == 2
     if single:
-        S, feat_keep = S[None], feat_keep[None]
+        S = S[None]
+        feat_keep = None if feat_keep is None else feat_keep[None]
     T, N, s = S.shape
     d = B.shape[1]
     dev = S.device
@@ -184,14 +195,17 @@ def grow_tree(
     pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
     imp = torch.zeros((T, d), dtype=torch.float32, device=dev)
     tree_off = torch.arange(T, device=dev)[:, None] * d            # [T, 1]
+    s_absmax = S.abs().amax()     # one pass over S for every level's launch
 
     for level in range(depth):
         nodes = 2**level
-        H = node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins)
+        keep = None if feat_keep is None else feat_keep[:, level]
+        H = node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins,
+                            features=keep, s_absmax=s_absmax)
         Hc = bin_cumsum(H.view(T, d, nodes, n_bins, s))
         gains, node_w = _impurity_gain(Hc, gain_mode, reg, min_instances)
-        gains = torch.where(feat_keep[:, level, :, None, None] > 0, gains,
-                            -torch.inf)
+        if keep is not None:
+            gains = torch.where(keep[..., None, None] > 0, gains, -torch.inf)
         # flatten (nodes, d*n_bins) exactly as the reference does: argmax
         # returns the first maximum in both, so ties resolve the same way
         flat = gains.permute(0, 2, 1, 3).reshape(T, nodes, d * n_bins)

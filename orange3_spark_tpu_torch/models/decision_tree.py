@@ -18,6 +18,7 @@ from orange3_spark_tpu_torch.models._tree import (
     Tree,
     bin_features,
     class_one_hot,
+    compact_bins,
     compute_bin_edges,
     grow_tree,
     leaf_class_probs,
@@ -49,10 +50,9 @@ class DecisionTreeParams(Params):
 
 def _grow_single(table: TorchTable, Ystats, p: DecisionTreeParams, gain_mode: str):
     edges = compute_bin_edges(table.X, table.W, p.max_bins)
-    B = bin_features(table.X, edges)
-    keep = torch.ones((p.max_depth, table.n_attrs), device=table.X.device)
+    B = compact_bins(bin_features(table.X, edges), p.max_bins)
     tree, _, imp = grow_tree(
-        B, Ystats * table.W[:, None], edges, keep, p.min_info_gain,
+        B, Ystats * table.W[:, None], edges, None, p.min_info_gain,
         depth=p.max_depth, n_bins=p.max_bins, gain_mode=gain_mode,
         min_instances=p.min_instances_per_node,
     )

@@ -24,6 +24,7 @@ from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models._tree import (
     Tree,
     bin_features,
+    compact_bins,
     compute_bin_edges,
     grow_tree,
     leaf_newton_values,
@@ -53,8 +54,6 @@ class GBTParams(Params):
 def _gbt_round(F, B, edges, W, y, boot, *, p: GBTParams, loss: str,
                depth: int, n_bins: int):
     """One boosting round: (F + step·tree(F), tree, its importances)."""
-    d = B.shape[1]
-    feat_keep = torch.ones((depth, d), device=F.device)
     w = W if boot is None else W * boot
     if loss == "logistic":
         prob = torch.sigmoid(F)
@@ -65,7 +64,7 @@ def _gbt_round(F, B, edges, W, y, boot, *, p: GBTParams, loss: str,
         h = w
     S = torch.stack([g, h, w], dim=1)
     tree, leaf_idx, imp = grow_tree(
-        B, S, edges, feat_keep, p.min_info_gain,
+        B, S, edges, None, p.min_info_gain,
         depth=depth, n_bins=n_bins, gain_mode="newton", reg=p.reg_lambda,
         min_instances=p.min_instances_per_node,
     )
@@ -164,7 +163,7 @@ class GBTClassifier(Estimator):
         if len(class_values) != 2:
             raise ValueError("GBTClassifier is binary (MLlib parity)")
         edges = compute_bin_edges(table.X, table.W, p.max_bins)
-        B = bin_features(table.X, edges)
+        B = compact_bins(bin_features(table.X, edges), p.max_bins)
         f0, forest, imp = _boost(B, edges, table.W, table.y, p.max_depth,
                                  p.max_bins, p, loss="logistic")
         model = GBTClassifierModel(p, f0, forest, class_values)
@@ -199,7 +198,7 @@ class GBTRegressor(Estimator):
     def _fit(self, table: TorchTable) -> GBTRegressorModel:
         p = self.params
         edges = compute_bin_edges(table.X, table.W, p.max_bins)
-        B = bin_features(table.X, edges)
+        B = compact_bins(bin_features(table.X, edges), p.max_bins)
         f0, forest, imp = _boost(B, edges, table.W, table.y, p.max_depth,
                                  p.max_bins, p, loss="squared")
         model = GBTRegressorModel(p, f0, forest)

@@ -24,6 +24,7 @@ from orange3_spark_tpu_torch.models._tree import (
     Tree,
     bin_features,
     class_one_hot,
+    compact_bins,
     compute_bin_edges,
     grow_tree,
     leaf_class_probs,
@@ -97,7 +98,7 @@ def grow_forest(B, edges, Ystats, W, boot, keep, min_gain, *, depth: int,
 def _fit_forest(table: TorchTable, Ystats, p: RandomForestParams,
                 gain_mode: str, is_classification: bool):
     edges = compute_bin_edges(table.X, table.W, p.max_bins)
-    B = bin_features(table.X, edges)
+    B = compact_bins(bin_features(table.X, edges), p.max_bins)
     keep_p = _subset_fraction(p.feature_subset_strategy, table.n_attrs,
                               is_classification)
     boot, keep = draw_forest(

@@ -29,32 +29,87 @@ def cuda_device():
 def _inputs(rng, n, d, s, T, nodes, n_bins, integer):
     B = rng.integers(0, n_bins, (n, d)).astype(np.int32)
     pos = rng.integers(0, nodes, (T, n)).astype(np.int32)
-    if integer:
-        S = rng.poisson(1.0, (T, n, s)).astype(np.float32)
+    if integer:   # forest gini stats: a class one-hot times a Poisson weight
+        cls = rng.integers(0, s, (T, n))
+        S = (np.eye(s, dtype=np.float32)[cls]
+             * rng.poisson(1.0, (T, n, 1)).astype(np.float32))
     else:
         S = rng.standard_normal((T, n, s)).astype(np.float32)
     return B, S, pos
 
 
+def _agree(got, ref, integer):
+    """Bitwise for integer stats; within 1e-5·max|H| for float stats (the
+    plain version's fp32 atomics round in a run-dependent order)."""
+    if integer:
+        return torch.equal(got, ref)
+    return float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# (T, s, nodes, integer, d, uint8 bins, masked)
+_CASES = [(1, 3, 16, False, 28, False, False), (20, 2, 16, True, 28, False, False),
+          (1, 3, 1, False, 28, False, False), (3, 5, 3, False, 28, False, False),
+          (1, 3, 16, False, 28, True, False), (20, 2, 16, True, 28, True, True),
+          (4, 3, 8, False, 28, True, True), (1, 3, 1, False, 40, True, False),
+          (2, 2, 4, True, 40, False, True)]
+# every level of both fits: GBT (T=1, s=3, no mask), RF (T=20, s=2, masks)
+_CASES += [(1, 3, 2**lv, False, 28, True, False) for lv in range(5)]
+_CASES += [(20, 2, 2**lv, True, 28, True, True) for lv in range(5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,s,nodes,integer", [(1, 3, 16, False), (20, 2, 16, True),
-                                               (1, 3, 1, False), (3, 5, 3, False)])
-def test_kernel_matches_plain_on_cuda(cuda_device, T, s, nodes, integer):
-    """Bitwise for integer stats, within 1e-5·max|H| for float stats (fp32
-    atomics add in a run-dependent order)."""
+@pytest.mark.parametrize("T,s,nodes,integer,d,uint8,masked", _CASES)
+def test_kernel_matches_plain_on_cuda(cuda_device, T, s, nodes, integer, d, uint8,
+                                      masked):
+    """The kernel against the plain version on the card, uint8 and int32
+    bins, with and without per-tree masks (feature 0 dropped from some
+    trees' lists: it is built all the same)."""
     rng = np.random.default_rng(5)
-    n, d, n_bins = 50_001, 28, 32
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in _inputs(rng, n, d, s, T, nodes, n_bins, integer)]
+    n, n_bins = 50_001, 32
+    B, S, pos = _inputs(rng, n, d, s, T, nodes, n_bins, integer)
+    if uint8:
+        B = B.astype(np.uint8)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (B, S, pos)]
+    features = None
+    if masked:
+        keep = rng.random((T, d)) < 0.19
+        keep[: T // 2 + 1, 0] = False
+        features = torch.from_numpy(keep).to(cuda_device)
     before = th.node_histograms.launches
-    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
-    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins)
+    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins, features=features)
+    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins,
+                                       features=features)
     torch.cuda.synchronize()
     assert th.node_histograms.launches == before + 1
-    if integer:
-        assert torch.equal(got, ref)
-    else:
-        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert _agree(got, ref, integer)
+    if masked:
+        built = th.kept_features(features, T, d)
+        assert built[:, 0].all() and not got[~built].any()
+
+
+@pytest.mark.cuda
+def test_kernel_fixed_point_bound_and_repeatable(cuda_device):
+    """The fixed-point sums are the same on every run and within
+    n·2^(e-25) + one fp32 rounding of the float64 sums (max|S| < 2^e, n
+    the adds into a cell)."""
+    rng = np.random.default_rng(6)
+    n, d, s, nodes, n_bins = 200_003, 8, 3, 4, 32
+    B, S, pos = _inputs(rng, n, d, s, 1, nodes, n_bins, False)
+    S[0, :, 0] *= 1e-3    # stats of very different scales in one launch
+    args = [torch.from_numpy(x).to(cuda_device) for x in (B.astype(np.uint8), S, pos)]
+    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
+    again = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
+    assert torch.equal(got, again)
+    key = torch.from_numpy(pos[0, :, None] * n_bins + B).long()    # [n, d]
+    exact = torch.zeros((d, nodes * n_bins, s), dtype=torch.float64)
+    count = torch.zeros((d, nodes * n_bins), dtype=torch.float64)
+    S64 = torch.from_numpy(S[0]).double()
+    for j in range(d):
+        exact[j].index_add_(0, key[:, j], S64)
+        count[j].index_add_(0, key[:, j], torch.ones(n, dtype=torch.float64))
+    e = int(np.frexp(np.abs(S).max())[1])
+    bound = count[..., None] * 2.0 ** (e - 25) + exact.abs() * 2.0 ** -24
+    assert ((got.cpu().double() - exact).abs() <= bound).all()
 
 
 @pytest.mark.cuda
@@ -77,4 +132,96 @@ def test_forest_on_cuda_equals_cpu_path_bitwise(cuda_device):
             depth=5, n_bins=32, gain_mode="gini", min_instances=1.0)
         out.append([x.cpu() for x in forest])
     for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_misaligned_inputs_and_many_stats(cuda_device):
+    """Views that start off a 16-byte line (the kernel's bulk copies move
+    whole lines) and more stats than one launch takes (gini with six
+    classes) give the plain version's histograms."""
+    rng = np.random.default_rng(8)
+    T, n, d, s, nodes, n_bins = 3, 30_001, 9, 6, 4, 16
+    B, S, pos = _inputs(rng, n, d, s, T, nodes, n_bins, True)
+    def shifted(x):   # the same values, 4 bytes past an aligned start
+        flat = torch.empty(x.size + 1, dtype=torch.from_numpy(x).dtype, device=cuda_device)
+        flat[1:] = torch.from_numpy(x.reshape(-1)).to(cuda_device)
+        return flat[1:].view(x.shape)
+    args = [shifted(x) for x in (B.astype(np.uint8), S, pos)]
+    assert all(a.data_ptr() % 16 for a in args)
+    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
+    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_launch_plan_matches_kernel_layout(cuda_device):
+    """ops/histogram.py plans shared memory with its own copy of the
+    kernel's layout; the kernel's own sum agrees at every level of both
+    fits and for int32 bins."""
+    import ctypes
+
+    fn = th._lib().node_histograms_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_longlong
+    for s, T in ((3, 1), (2, 20), (1, 1), (4, 3)):
+        for nodes in (1, 2, 4, 8, 16, 32):
+            for b_bytes in (1, 4):
+                shape = th.launch_shape(10_737_856, 28, s, T, nodes, 32, 132, b_bytes)
+                assert fn(28, s, nodes, 32, b_bytes, shape.group, shape.copies,
+                          shape.tile_rows, shape.stages) == shape.smem_bytes
+
+
+# (T, N, d, s, nodes, n_bins): 256 bins in uint8, more blocks than one wave,
+# more features than threads, a row or a few, four feature groups
+_EDGE = [(1, 20_011, 5, 3, 2, 256), (300, 3_001, 4, 2, 2, 8),
+         (1, 5_003, 600, 1, 1, 4), (2, 1, 28, 3, 1, 32), (3, 17, 28, 2, 4, 32),
+         (1, 40_000, 28, 3, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,d,s,nodes,n_bins", _EDGE)
+def test_kernel_edge_shapes(cuda_device, T, N, d, s, nodes, n_bins):
+    rng = np.random.default_rng(9)
+    B, S, pos = _inputs(rng, N, d, s, T, nodes, n_bins, True)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (B.astype(np.uint8), S, pos)]
+    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
+    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_decision_tree_and_five_class_forest_on_cuda_equal_cpu_path(cuda_device):
+    """A decision tree (one tree, no masks) and a 5-class forest (five
+    stats: the kernel takes them four at a time) grow the same trees on the
+    card as on the CPU from the same data and draws: their gini counts are
+    integers, summed exactly."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.core.domain import (
+        ContinuousVariable, DiscreteVariable, Domain)
+    from orange3_spark_tpu_torch.models.decision_tree import DecisionTreeClassifier
+
+    rng = np.random.default_rng(10)
+    X = rng.standard_normal((20_000, 6)).astype(np.float32)
+    z = X[:, 0] + 0.5 * X[:, 1]
+    boot = rng.poisson(1.0, (4, len(X))).astype(np.float32)
+    keep = (rng.random((4, 4, 6)) < 0.5).astype(np.float32)
+    domain = Domain([ContinuousVariable(f"x{i}") for i in range(6)],
+                    DiscreteVariable("y", ("0", "1")))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        y2 = (z > 0).astype(np.float32)
+        tab = TorchTable.from_numpy(domain, X, y2, session=TorchSession(str(dev)))
+        dt = DecisionTreeClassifier(max_depth=5).fit(tab).tree
+        Xt = torch.from_numpy(X).to(dev)
+        W = torch.ones(len(X), device=dev)
+        edges = _tree.compute_bin_edges(Xt, W, 32)
+        B = _tree.compact_bins(_tree.bin_features(Xt, edges), 32)
+        y5 = torch.from_numpy(np.digitize(z, np.linspace(-1.5, 1.5, 4)).astype(np.float32))
+        forest, _ = grow_forest(
+            B, edges, _tree.class_one_hot(y5.to(dev), 5), W,
+            torch.from_numpy(boot).to(dev), torch.from_numpy(keep).to(dev), 0.0,
+            depth=4, n_bins=32, gain_mode="gini", min_instances=1.0)
+        out[str(dev)] = [x.cpu() for x in (*dt, *forest)]
+    for a, b in zip(*out.values()):
         assert torch.equal(a, b)

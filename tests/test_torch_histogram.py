@@ -1,6 +1,6 @@
 """The port's node×bin histogram (orange3_spark_tpu_torch/ops/histogram.py)
 against the JAX package's segment_sum path and its Pallas kernel run in
-interpret mode, on the same numpy inputs."""
+interpret mode, on the same numpy inputs, and the kernel's launch plan."""
 
 import functools
 
@@ -104,17 +104,138 @@ def test_cpu_tensors_take_the_plain_version():
     assert th.node_histograms.launches == before
 
 
-@pytest.mark.parametrize("s,nodes,group", [(3, 16, 7), (2, 16, 11), (3, 1, 28)])
-def test_launch_shape_at_higgs_width(s, nodes, group):
-    """At HIGGS width (d=28, 32 bins) a block's shared histogram of `group`
-    features stays within 48 KB, and the blocks fill one wave of 4 per SM."""
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("integer", [False, True])
+def test_uint8_bins_equal_int32_bins(seed, integer):
+    """uint8 B gives the int32 histograms, bit for bit, through
+    node_histograms on the CPU; 256 bins with s = 3 would wrap if the bins
+    were not widened before B·s."""
+    rng = np.random.default_rng(200 + seed)
+    n, d, s = int(rng.integers(1, 3000)), int(rng.integers(1, 9)), 3
+    nodes, n_bins = int(rng.choice([1, 2, 5])), int(rng.choice([8, 32, 256]))
+    T = int(rng.choice([1, 3]))
+    B, S, pos = _inputs(rng, n, d, s, nodes, n_bins, T=T)
+    if integer:
+        S = rng.integers(0, 4, S.shape).astype(np.float32)
+    kw = dict(nodes=nodes, n_bins=n_bins)
+    got = _port(B.astype(np.uint8), S, pos, **kw)
+    ref = _port(B, S, pos, **kw)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _masked(rng, T, d):
+    keep = rng.random((T, d)) < 0.4
+    keep[:, 0] = rng.random(T) < 0.5   # the caller may drop feature 0
+    return keep
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_masked_features_match_xla_and_pallas(seed):
+    """With a per-tree feature mask, the kept features and feature 0 (always
+    built) equal both JAX paths on the same inputs; the other features are
+    exactly zero. uint8 and int32 B alike."""
+    rng = np.random.default_rng(300 + seed)
+    nodes = int(rng.choice([1, 2, 4, 8]))
+    n_bins = int(rng.choice([8, 16, 32]))
+    s, T = int(rng.integers(1, 4)), int(rng.choice([1, 2, 4]))
+    n, d = int(rng.integers(1, 2500)), int(rng.integers(2, 12))
+    B, S, pos = _inputs(rng, n, d, s, nodes, n_bins, T=T)
+    keep = _masked(rng, T, d)
+    kw = dict(nodes=nodes, n_bins=n_bins)
+    feats = torch.from_numpy(keep.astype(np.float32) if seed % 2 else keep)
+    got = _port(B, S, pos, features=feats, **kw)
+    got8 = _port(B.astype(np.uint8), S, pos, features=feats, **kw)
+    np.testing.assert_array_equal(got8, got)
+    built = keep.copy()
+    built[:, 0] = True
+    for t in range(T):
+        args = (jnp.asarray(B), jnp.asarray(S[t]), jnp.asarray(pos[t]))
+        ref = np.asarray(_hist_xla(*args, **kw))
+        pal = np.asarray(_hist_pallas(*args, interpret=True, **kw))
+        msg = f"tree {t}, shape=({nodes},{n_bins},{s},{n},{d})"
+        np.testing.assert_allclose(got[t][built[t]], ref[built[t]], rtol=1e-5,
+                                   atol=1e-4, err_msg=msg)
+        np.testing.assert_allclose(got[t][built[t]], pal[built[t]], rtol=1e-5,
+                                   atol=1e-4, err_msg=msg)
+        assert not got[t][~built[t]].any(), msg
+
+
+def test_masked_features_bitwise_on_integer_stats():
+    rng = np.random.default_rng(7)
+    T, n, d, s, nodes, n_bins = 3, 2000, 7, 2, 4, 32
+    B, _, pos = _inputs(rng, n, d, s, nodes, n_bins, T=T)
+    S = rng.integers(0, 4, (T, n, s)).astype(np.float32)
+    keep = _masked(rng, T, d)
+    got = _port(B.astype(np.uint8), S, pos, nodes=nodes, n_bins=n_bins,
+                features=torch.from_numpy(keep))
+    keep[:, 0] = True
+    for t in range(T):
+        ref = np.asarray(_hist_xla(jnp.asarray(B), jnp.asarray(S[t]),
+                                   jnp.asarray(pos[t]), nodes=nodes, n_bins=n_bins))
+        np.testing.assert_array_equal(got[t][keep[t]], ref[keep[t]])
+        assert not got[t][~keep[t]].any()
+
+
+def test_single_tree_mask_and_kept_features():
+    """A single tree takes a [d] mask; kept_features always keeps feature 0
+    and leaves the caller's mask as it was."""
+    rng = np.random.default_rng(8)
+    B, S, pos = _inputs(rng, 300, 5, 2, 2, 8)
+    mask = torch.tensor([0.0, 1.0, 0.0, 0.0, 1.0])
+    got = _port(B, S, pos, nodes=2, n_bins=8, features=mask)
+    full = _port(B, S, pos, nodes=2, n_bins=8)
+    np.testing.assert_array_equal(got[[0, 1, 4]], full[[0, 1, 4]])
+    assert not got[[2, 3]].any()
+    keep = th.kept_features(mask, 1, 5)
+    assert keep.tolist() == [[True, True, False, False, True]]
+    assert mask[0] == 0.0
+
+
+# (s, nodes, T, B bytes) -> (group, copies, tile rows, stages, blocks per SM)
+_SHAPES = {
+    (3, 16, 1, 1): (28, 1, 512, 2, 1),    # GBT level 4: all 28 features, one pass
+    (2, 16, 20, 1): (28, 1, 1024, 2, 1),  # RF level 4: a row for each of 1024 threads
+    (3, 1, 1, 1): (28, 1, 512, 4, 2),     # GBT level 0: two blocks an SM, a deep ring
+    (2, 1, 20, 1): (28, 3, 512, 4, 2),    # RF level 0: copies in the room left
+    (3, 16, 1, 4): (28, 1, 128, 3, 1),    # int32 B: smaller tiles, still one pass
+    (3, 32, 1, 1): (14, 1, 512, 2, 1),    # deeper than the fits: two groups
+}
+
+
+@pytest.mark.parametrize("key", list(_SHAPES), ids=str)
+def test_launch_shape_at_higgs_width(key):
+    """At HIGGS width (d=28, 32 bins) the features go in as few groups as
+    fit, a block's shared memory (copies and the staging ring included)
+    stays within 227 KB and its SM's 228 KB, and the blocks fill one wave on
+    the SMs."""
+    s, nodes, T, b_bytes = key
     N, d, n_bins, sms = 10_737_856, 28, 32, 132
-    T = 20 if s == 2 else 1
-    g, row_tiles = th.launch_shape(N, d, s, T, nodes, n_bins, sms)
-    assert g == group
-    assert g * (nodes * n_bins * s + 1) * 4 <= 48 * 1024
-    n_groups = -(-d // g)
-    assert 4 * sms - n_groups * T < row_tiles * n_groups * T <= 4 * sms
+    shape = th.launch_shape(N, d, s, T, nodes, n_bins, sms, b_bytes)
+    assert (shape.group, shape.copies, shape.tile_rows, shape.stages,
+            shape.blocks_per_sm) == _SHAPES[key]
+    assert shape.smem_bytes == th.smem_bytes(d, s, nodes, n_bins, b_bytes, shape.group,
+                                             shape.copies, shape.tile_rows, shape.stages)
+    assert shape.smem_bytes <= 232_448
+    assert shape.blocks_per_sm * (shape.smem_bytes + 1024) <= 233_472
+    # a row a thread at most; the SM's 2048 threads and 64 registers each
+    assert shape.tile_rows <= shape.threads
+    assert shape.blocks_per_sm * shape.threads <= 2048
+    # one feature's cells, all copies: the histogram itself fits
+    cstride = (nodes * n_bins) | 1
+    assert shape.copies * shape.group * ((s * cstride) | 1) * 4 <= 232_448
+    lanes = T * -(-d // shape.group)
+    blocks = lanes * shape.row_blocks
+    wave = shape.blocks_per_sm * sms
+    assert wave - lanes < blocks <= wave
+
+
+def test_launch_shape_small_inputs():
+    """Few rows: no more row blocks than tiles; one feature too big for
+    shared memory raises."""
+    shape = th.launch_shape(1000, 28, 3, 1, 1, 32, 132)
+    assert shape.row_blocks == -(-1000 // shape.tile_rows)
+    with pytest.raises(ValueError, match="does not fit"):
+        th.launch_shape(1000, 4, 3, 1, 1024, 32, 132)
 
 
 def test_kernel_wrapper_rejects_bad_inputs():
@@ -128,3 +249,6 @@ def test_kernel_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="do not agree"):
         th._node_histograms_cuda(B.int(), S, pos[:, :5].contiguous(),
                                  nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="features must be"):
+        th._node_histograms_cuda(B.to(torch.uint8), S, pos, nodes=1, n_bins=4,
+                                 features=torch.ones(4))

@@ -127,7 +127,7 @@ def test_impurity_gain_allclose(mode):
 
 
 def _grow_both(mode, *, seed, n=3000, d=6, depth=4, n_bins=32, keep=None,
-               min_gain=0.0):
+               min_gain=0.0, uint8=False):
     rng, X = _data(n=n, d=d, seed=seed)
     edges = np.asarray(jt.compute_bin_edges(jnp.asarray(X), jnp.ones(n), n_bins))
     B = np.asarray(jt.bin_features(jnp.asarray(X), jnp.asarray(edges)))
@@ -136,7 +136,8 @@ def _grow_both(mode, *, seed, n=3000, d=6, depth=4, n_bins=32, keep=None,
     kw = dict(depth=depth, n_bins=n_bins, gain_mode=mode)
     ref = jt.grow_tree(jnp.asarray(B), jnp.asarray(S), jnp.asarray(edges),
                        jnp.asarray(keep), jnp.float32(min_gain), **kw)
-    got = tt.grow_tree(_t(B), _t(S), _t(edges), _t(keep), min_gain, **kw)
+    Bp = tt.compact_bins(_t(B), n_bins) if uint8 else _t(B)
+    got = tt.grow_tree(Bp, _t(S), _t(edges), _t(keep), min_gain, **kw)
     return X, ref, got
 
 
@@ -152,6 +153,50 @@ def test_grow_tree_gini_integer_stats_bitwise():
     np.testing.assert_array_equal(pos_g.numpy(), np.asarray(pos_r))
     np.testing.assert_allclose(imp_g.numpy(), np.asarray(imp_r), rtol=1e-5)
     assert (tg.split_bin.numpy() < 32).sum() >= 7   # it really split
+
+
+@pytest.mark.parametrize("seed", [4, 11])
+def test_grow_tree_gini_feature0_masked_uint8_bitwise(seed):
+    """Feature 0 masked out on some levels with a min-gain threshold: the
+    node weights still come from feature 0's totals, so do_split matches
+    the reference bit for bit; uint8 bins route rows as int32 bins do."""
+    rng = np.random.default_rng(seed + 20)
+    keep = (rng.random((4, 6)) < 0.7).astype(np.float32)
+    keep[[0, 2], 0] = 0.0
+    keep[[1, 3], 0] = 1.0
+    _, (tr, pos_r, imp_r), (tg, pos_g, imp_g) = _grow_both(
+        "gini", seed=seed, keep=keep, min_gain=0.01, uint8=True)
+    for f in ("feature", "split_bin", "threshold", "leaf_value"):
+        np.testing.assert_array_equal(getattr(tg, f).numpy(),
+                                      np.asarray(getattr(tr, f)), err_msg=f)
+    np.testing.assert_array_equal(pos_g.numpy(), np.asarray(pos_r))
+    np.testing.assert_allclose(imp_g.numpy(), np.asarray(imp_r), rtol=1e-5)
+    assert (tg.split_bin.numpy() < 32).sum() >= 7
+    # no split on a masked feature at levels 0 and 2
+    assert (tg.feature.numpy()[[0, 3, 4, 5, 6]][tg.split_bin.numpy()[[0, 3, 4, 5, 6]] < 32]
+            != 0).all()
+
+
+def test_compact_bins():
+    B = torch.tensor([[0, 31], [255, 7]], dtype=torch.int32)
+    small = tt.compact_bins(B, 256)
+    assert small.dtype == torch.uint8 and torch.equal(small.int(), B)
+    assert tt.compact_bins(B, 257) is B
+
+
+def test_grow_tree_no_mask_equals_all_ones():
+    """feat_keep=None (boosting, a single decision tree) grows the tree an
+    all-ones mask grows."""
+    rng, X = _data(n=1500, d=5, seed=12)
+    edges = tt.compute_bin_edges(_t(X), torch.ones(1500), 16)
+    B = tt.compact_bins(tt.bin_features(_t(X), edges), 16)
+    S = torch.from_numpy(_stats("newton", rng, X))
+    kw = dict(depth=3, n_bins=16, gain_mode="newton")
+    a = tt.grow_tree(B, S, edges, None, 0.0, **kw)
+    b = tt.grow_tree(B, S, edges, torch.ones((3, 5)), 0.0, **kw)
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
 
 
 @pytest.mark.parametrize("mode", ["variance", "newton"])
