@@ -13,14 +13,17 @@ prints one JSON line per phase:
   build    nvcc wall seconds, ptxas' register / shared-memory report and
            the atomic opcodes of the kernels' SASS (cuobjdump)
   check    each kernel against its plain PyTorch version on the card: a
-           randomized sweep, zero-weight rows, a 20-tree batch, and the
-           shapes the HIGGS fits give it at every level 0-4, with uint8
-           and int32 bins, with and without per-tree feature masks
-           (bitwise for integer stats, within 1e-5·max|H| for float stats)
+           randomized sweep, zero-weight rows, a 20-tree batch, regression
+           stats [wy, wy², w] with y in [1e4, 1e5], and the shapes the
+           HIGGS fits give it at every level 0-4, with uint8 and int32
+           bins, with and without per-tree feature masks (bitwise for
+           integer stats; for float stats each stat within 1e-5 of its own
+           max|H| of the plain version summed in float64)
   timing   kernel time at every level of both fits (uint8 and int32 bins;
            the forest also with its masks), beside the memory-bound least
            time and the adds per second; plain version and one library
-           call at level 4; the histogram time of one fit
+           call at level 4; an estimate of the histogram time of one fit
+           (launch-weighted level times)
   parity   the fits on the card against the port's CPU path on a small
            table (same random draws for the forest)
   gbt, rf  the HIGGS proxy (BASELINE config 3) at full width:
@@ -29,9 +32,12 @@ prints one JSON line per phase:
            with a 262,144-row holdout: a warm-up fit and a timed fit,
            holdout AUC, histogram launches of the timed fit
   profile  one more fit of each under torch.profiler: device time by
-           kernel and the device's idle share of the fit
+           kernel, the device's idle share of the fit, and the histogram's
+           device time in the fit: its kernel and finalize pass, and the
+           PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
-then the ``kernels`` line (launches counted over the gbt and rf phases),
+then the ``kernels`` line (launches counted over the gbt and rf phases;
+``per_fit`` from the timed fits' launch counts and the profile),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -176,21 +182,28 @@ def _fit_inputs(name, N, dev):
 
 
 def _compare(got, ref, integer):
-    """(agrees, max |got - ref|, max |ref|): bitwise for integer stats, else
-    within 1e-5·max|ref| (the plain version's fp32 atomics add in a
-    run-dependent order; the kernel's fixed-point sums are exact to
-    n·2^(e-25), far inside that)."""
+    """(agrees, max |got - ref|, max |ref| of each stat, the largest
+    |got - ref| of a stat over its max |ref|). Integer stats:
+    bitwise against the fp32 plain version. Float stats: ``ref`` is the
+    plain version summed in float64, and each stat must be within 1e-5 of
+    its own max|ref| (the kernel's fixed-point sums are within
+    n·2^(e_c-25) of the exact ones, far inside that; one tolerance over all
+    stats would hide a small stat beside a large one)."""
     import torch
 
-    err = float((got - ref).abs().max()) if got.numel() else 0.0
-    scale = float(ref.abs().max()) if ref.numel() else 0.0
-    ok = torch.equal(got, ref) if integer else err <= 1e-5 * scale
-    return ok, err, scale
+    if not got.numel():
+        return True, 0.0, [], 0.0
+    lead = tuple(range(ref.ndim - 1))
+    err = (got.double() - ref.double()).abs().amax(dim=lead)
+    scale = ref.double().abs().amax(dim=lead)
+    ok = torch.equal(got, ref) if integer else bool((err <= 1e-5 * scale).all())
+    rel = float((err / scale.clamp_min(1e-300)).max())
+    return ok, float(err.max()), scale.tolist(), rel
 
 
 def phase_check(train_rows, dev):
     """Kernel vs plain version: bitwise on integer stats, 1e-5·max|H| on
-    float stats. Returns (line, max_abs_err)."""
+    float stats. Returns (line, the largest |got - ref| at the fits' shapes)."""
     import random
 
     import torch
@@ -200,13 +213,17 @@ def phase_check(train_rows, dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results, worst, failed = {}, 0.0, []
 
+    def plain(B, S, pos, integer, **kw):   # the reference _compare expects
+        return th.node_histograms_reference(B, S if integer else S.double(), pos, **kw)
+
     def record(name, shape, got, ref, integer, extra_ok=True):
         nonlocal worst
         torch.cuda.synchronize()
-        ok, err, scale = _compare(got, ref, integer)
-        worst = max(worst, err)
+        ok, err, scale, rel = _compare(got, ref, integer)
+        if name.startswith(tuple(FITS)):   # the main path's shapes
+            worst = max(worst, err)
         results[name] = {"shape": shape, "bitwise": integer, "max_abs_err": err,
-                         "max_abs_H": scale, "ok": ok and extra_ok}
+                         "max_abs_H": scale, "max_rel_err": rel, "ok": ok and extra_ok}
         if not (ok and extra_ok):
             failed.append(name)
 
@@ -220,8 +237,7 @@ def phase_check(train_rows, dev):
             B = B.to(torch.uint8)
         features = (torch.rand((T, d), generator=gen, device=dev) < 0.3) if seed % 4 >= 2 else None
         got = th.node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins, features=features)
-        ref = th.node_histograms_reference(B, S, pos, nodes=nodes, n_bins=n_bins,
-                                           features=features)
+        ref = plain(B, S, pos, False, nodes=nodes, n_bins=n_bins, features=features)
         record(f"sweep{seed}", [T, N, d, s, nodes, n_bins, str(B.dtype), features is not None],
                got, ref, False)
     # dead rows add nothing: the same as the live rows alone
@@ -229,34 +245,43 @@ def phase_check(train_rows, dev):
     B, S, pos = _hist_inputs(gen, N, 28, 3, 1, 4, 32, False, dev)
     S[:, n:] = 0.0
     got = th.node_histograms(B, S, pos, nodes=4, n_bins=32)
-    alone = th.node_histograms_reference(B[:n], S[:, :n].contiguous(),
-                                         pos[:, :n].contiguous(), nodes=4, n_bins=32)
+    alone = plain(B[:n], S[:, :n].contiguous(), pos[:, :n].contiguous(), False,
+                  nodes=4, n_bins=32)
     record("zero_weight_rows", [1, N, 28, 3, 4, 32], got, alone, False)
     B, S, pos = _hist_inputs(gen, 500_000, 28, 2, 20, 8, 32, True, dev)
     got = th.node_histograms(B, S, pos, nodes=8, n_bins=32)
     ref = th.node_histograms_reference(B, S, pos, nodes=8, n_bins=32)
     record("forest_T20", [20, 500_000, 28, 2, 8, 32], got, ref, True)
-    del B, S, pos, got, ref, alone
+    # regression stats [wy, wy², w], y in [1e4, 1e5]: y² in the 1e10s beside
+    # a weight column of Poisson counts, each stat on its own scale
+    N, T = 2_000_000, 4
+    B, _, pos = _hist_inputs(gen, N, 28, 1, T, 16, 32, False, dev)
+    yv = torch.rand((T, N), generator=gen, device=dev) * 9e4 + 1e4
+    w = torch.poisson(torch.ones((T, N), device=dev), generator=gen)
+    S = torch.stack([w * yv, w * yv * yv, w], dim=2).contiguous()
+    got = th.node_histograms(B.to(torch.uint8), S, pos, nodes=16, n_bins=32)
+    ref = plain(B, S, pos, False, nodes=16, n_bins=32)
+    record("regression_stats", [T, N, 28, 3, 16, 32], got, ref, False,
+           torch.equal(got[..., 2], ref[..., 2].float()))
+    del B, S, pos, got, ref, alone, yv, w
 
     # every level of both fits at full rows: uint8 and int32 bins, with and
     # without masks; the masked plain result is the full one with the
     # features that are not built zeroed
     for fit, f in FITS.items():
         B32, B8, S, masks = _fit_inputs(fit, train_rows, dev)
-        s_absmax = S.abs().amax()
         for level in range(DEPTH):
             nodes = 2 ** level
             pos = torch.randint(0, nodes, (f["T"], train_rows), generator=gen,
                                 device=dev, dtype=torch.int32)
-            ref = th.node_histograms_reference(B32, S, pos, nodes=nodes, n_bins=N_BINS)
+            ref = plain(B32, S, pos, f["integer"], nodes=nodes, n_bins=N_BINS)
             keep = masks[:, level]
             built = th.kept_features(keep, f["T"], D)
             ref_masked = torch.where(built[:, :, None, None], ref, 0.0)
             for bname, B in (("u8", B8), ("i32", B32)):
                 for masked in (False, True):
                     got = th.node_histograms(B, S, pos, nodes=nodes, n_bins=N_BINS,
-                                             features=keep if masked else None,
-                                             s_absmax=s_absmax)
+                                             features=keep if masked else None)
                     name = f"{fit}_level{level}_{bname}{'_masked' if masked else ''}"
                     zero_ok = not masked or not bool(got[~built].any())
                     record(name, [f["T"], train_rows, D, f["s"], nodes, N_BINS],
@@ -306,22 +331,22 @@ def _library_ms(B, S, pos, nodes, n_bins):
 
 
 def phase_timing(train_rows, dev, mem_bw, fp32_peak):
-    """Every level of both fits at full rows. The kernel is timed as the fit
-    calls it (``s_absmax`` given: grow_tree takes it once per tree); the
-    bound counts each input byte read once (B at the width passed) and H
-    written once, and the adds this run's data needs (non-zero stats of
-    live rows, times the features built)."""
+    """Every level of both fits at full rows, timed as the fit calls the
+    kernel (the wrapper's max|S| pass included). The bound counts each
+    input byte read once (B at the width passed) and H written once, and
+    the adds this run's data needs (non-zero stats of live rows, times the
+    features built). The per-fit figure is an estimate: the level times on
+    these uniform random inputs, weighted by the launches a fit makes; the
+    fits' own histogram time is read in the profile phase."""
     import torch
 
     from orange3_spark_tpu_torch.ops import histogram as th
 
     gen = torch.Generator(device=dev).manual_seed(99)
-    shapes, per_fit = {}, {}
+    shapes, estimate = {}, {}
     for fit, f in FITS.items():
         T, s = f["T"], f["s"]
         B32, B8, S, masks = _fit_inputs(fit, train_rows, dev)
-        s_absmax = S.abs().amax()
-        amax_ms = cuda_ms(lambda: S.abs().amax(), 5)
         live = (S != 0).sum((1, 2)).double()                        # [T]
         fit_ms = 0.0
         for level in range(DEPTH):
@@ -334,7 +359,7 @@ def phase_timing(train_rows, dev, mem_bw, fp32_peak):
                 variants.insert(0, ("u8_masked", B8, masks[:, level]))
             for vname, B, keep in variants:
                 run = lambda: th.node_histograms(B, S, pos, nodes=nodes, n_bins=N_BINS,
-                                                 features=keep, s_absmax=s_absmax)
+                                                 features=keep)
                 run()
                 torch.cuda.synchronize()
                 ms = cuda_ms(run, 10 if T > 1 else 20)
@@ -366,12 +391,11 @@ def phase_timing(train_rows, dev, mem_bw, fp32_peak):
             del pos
         # launches per fit: GBT one tree per round, 20 rounds; the forest once
         rounds = 20 if fit == "gbt" else 1
-        per_fit[fit] = {"launches": rounds * DEPTH, "hist_ms": rounds * fit_ms,
-                        "s_absmax_ms": rounds * amax_ms,
-                        "variant": "u8" if fit == "gbt" else "u8_masked"}
+        estimate[fit] = {"launches": rounds * DEPTH, "hist_ms": rounds * fit_ms,
+                         "variant": "u8" if fit == "gbt" else "u8_masked"}
         del B32, B8, S, masks
         torch.cuda.empty_cache()
-    return shapes, per_fit
+    return shapes, estimate
 
 
 def phase_parity():
@@ -455,9 +479,12 @@ def phase_fit(name, est, table, eval_table, y_eval, floor):
 
 
 def phase_profile(est, table):
-    """One more fit under torch.profiler: device time by kernel, and the
+    """One more fit under torch.profiler: device time by kernel, the
     device's busy and idle share of the fit's wall time (the profiler's own
-    cost is in that wall)."""
+    cost is in that wall), and the histogram's share of the fit: the device
+    time of the kernel and its finalize pass by name, and of the PyTorch ops
+    under the wrapper's ``node_histograms`` profiler range (the accumulator
+    fill, the max|S| pass and the mask lists)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,11 +492,26 @@ def phase_profile(est, table):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         est.fit(table)
+        table.session.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events, less the range's own span on the device timeline
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name != "node_histograms"]
     if not kernels:
         return {"fit_wall_s": wall_us / 1e6,
                 "device_time": "not measured: the profiler saw no device events"}
+    # demangled names: "void (anonymous namespace)::node_hist_kernel<...>(...)"
+    hist_us = sum(e.time_range.elapsed_us() for e in kernels
+                  if "node_hist_kernel" in e.name or "node_hist_finalize" in e.name)
+    hist_launches = sum("node_hist_kernel" in e.name for e in kernels)
+    ranges = [e for e in prof.events()
+              if e.name == "node_histograms" and e.device_type == DeviceType.CPU]
+    range_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                   else e.cuda_time_total for e in ranges)
+    # the range's device time holds the PyTorch ops inside it (the max|S|
+    # pass, the accumulator fill, the mask lists); the kernels launched by
+    # ctypes are in it only if the profiler linked them to the range
+    linked = any("node_hist_kernel" in k.name for e in ranges for k in e.kernels)
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -486,6 +528,10 @@ def phase_profile(est, table):
     return {"fit_wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
             "device_idle_share": 1 - busy / wall_us,
             "device_kernels": len(kernels),
+            "hist_kernel_launches": hist_launches,
+            "hist_kernel_ms": hist_us / 1e3,
+            "hist_torch_ops_ms": (range_us - hist_us if linked else range_us) / 1e3,
+            "hist_ms": (range_us if linked else range_us + hist_us) / 1e3,
             "top_kernels": [{"name": n[:90], "ms": us / 1e3, "share": us / total}
                             for n, us in top]}
 
@@ -538,9 +584,9 @@ def main(argv=None) -> int:
         emit({"phase": phase, **check})
 
         phase = "timing"
-        shapes, hist_per_fit = phase_timing(train_rows, dev, mem_bw, fp32_peak)
-        emit({"phase": phase, "device": kind, "nvidia_smi": smi, "per_fit": hist_per_fit,
-              **shapes})
+        shapes, estimate = phase_timing(train_rows, dev, mem_bw, fp32_peak)
+        emit({"phase": phase, "device": kind, "nvidia_smi": smi,
+              "per_fit_estimate": estimate, **shapes})
 
         phase = "parity"
         emit({"phase": phase, **phase_parity()})
@@ -565,17 +611,26 @@ def main(argv=None) -> int:
                  GBT_AUC_FLOOR, 100),
                 ("rf", RandomForestClassifier(num_trees=20, max_depth=5, max_bins=32),
                  RF_AUC_FLOOR, 5)]
+        fit_launches = {}
         for phase, est, floor, per_fit in fits:
             line = phase_fit(phase, est, table, eval_table, y_eval, floor)
             emit({"phase": phase, **line})
             if line["hist_launches"] != per_fit:
                 raise AssertionError(f"{phase} fit launched the histogram kernel "
                                      f"{line['hist_launches']} times, not {per_fit}")
+            fit_launches[phase] = line["hist_launches"]
         main_launches = th.node_histograms.launches
         # ----
         phase = "profile"
-        emit({"phase": phase, **{name: phase_profile(est, table)
-                                 for name, est, _, _ in fits}})
+        profiles = {name: phase_profile(est, table) for name, est, _, _ in fits}
+        emit({"phase": phase, **profiles})
+        # the histogram in each fit: the timed fit's launches, and the device
+        # time of the profiled fit (the same estimator on the same table)
+        per_fit = {name: {"launches": fit_launches[name],
+                          **{k: profiles[name].get(k, "not measured") for k in
+                             ("hist_kernel_launches", "hist_kernel_ms",
+                              "hist_torch_ops_ms", "hist_ms")}}
+                   for name in fit_launches}
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
@@ -591,7 +646,7 @@ def main(argv=None) -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "at": "gbt_level4_u8",
-            "per_fit": hist_per_fit,
+            "per_fit": per_fit,
             "shapes": shapes,
         }]})
         print(nvidia_smi_line(), flush=True)

@@ -195,13 +195,11 @@ def grow_tree(
     pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
     imp = torch.zeros((T, d), dtype=torch.float32, device=dev)
     tree_off = torch.arange(T, device=dev)[:, None] * d            # [T, 1]
-    s_absmax = S.abs().amax()     # one pass over S for every level's launch
 
     for level in range(depth):
         nodes = 2**level
         keep = None if feat_keep is None else feat_keep[:, level]
-        H = node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins,
-                            features=keep, s_absmax=s_absmax)
+        H = node_histograms(B, S, pos, nodes=nodes, n_bins=n_bins, features=keep)
         Hc = bin_cumsum(H.view(T, d, nodes, n_bins, s))
         gains, node_w = _impurity_gain(Hc, gain_mode, reg, min_instances)
         if keep is not None:

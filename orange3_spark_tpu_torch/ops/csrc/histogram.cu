@@ -25,16 +25,21 @@
 // and pos (2.6 GB) and B once per tree, through L2.
 //
 // Design, cause by cause:
-// * Fixed point. Stats are accumulated as 64-bit fixed-point integers:
-//   q = round(v * 2^k) with k = 24 - e where max|S| < 2^e (frexp), so
-//   |q| <= 2^24. A cell's low 32 bits live in shared memory and take q by
+// * Fixed point. Stats are accumulated as 64-bit fixed-point integers,
+//   each stat c on its own scale: q = round(v * 2^k_c) with k_c = 24 - e_c
+//   where max|S[..., c]| < 2^e_c (frexp), so |q| <= 2^24. (One scale for
+//   all stats would round a weight column of ones to zero beside a column
+//   of squared targets in the thousands.) A column whose max is below
+//   2^-103 keeps k_c = 127, so 2^k_c is a normal float and v * 2^k_c is
+//   exact. A cell's low 32 bits live in shared memory and take q by
 //   a native atomicAdd; the add returns the old word, and on a carry or
 //   borrow (rare: |q| / 2^32 of adds at most) the +-2^32 goes straight to
 //   the cell's 64-bit sum in global memory (acc). Low words start at 2^31,
 //   so sums that wander around zero do not borrow on every add. The sums
 //   are exact: the same on every run and in any order, integer stats
-//   (class counts) bitwise, and a float sum is off the exact sum of S by at
-//   most n * 2^(e-25) plus one rounding to fp32 (n = adds into the cell).
+//   (class counts) bitwise, and a float sum of stat c is off the exact sum
+//   by at most n * 2^(e_c-25) plus one rounding to fp32 (n = adds into the
+//   cell).
 //   node_hist_finalize turns acc into H.
 // * One pass over S and pos. A block holds the histograms of all the
 //   features it serves (up to 227 KB of dynamic shared memory); only when
@@ -57,9 +62,9 @@
 //   an odd stat stride (the s stats of a bin fall in different banks for
 //   s = 2 and 3) and an odd feature stride (one cell of neighbouring
 //   features in neighbouring banks).
-// * Copies. Where the histograms are small (shallow levels), a block keeps
-//   up to 16 copies, one per warp or group of warps, in the shared memory
-//   the ring leaves, and sums them when it flushes.
+// * One copy of the histograms a block. The native add runs as fast on a
+//   few hot cells as on random ones (probes/shared_add.py), and copies per
+//   warp at the shallow levels bought nothing on the card.
 // * Masks. A block maps its threads to the kept features of its tree only;
 //   blocks of a feature group past a tree's kept count exit at once.
 // * Grid. One wave of persistent blocks (two of 512 threads an SM, or one
@@ -69,7 +74,8 @@
 //   through L2.
 // * A bin or node index out of range is dropped rather than written outside
 //   the shared histogram (the plain version raises on it instead). A
-//   non-finite stat makes max|S| non-finite, and then every cell is NaN.
+//   non-finite stat makes its column's max non-finite, and then every cell
+//   of the launch is NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,10 +103,10 @@ struct Layout {
   int cstride, fstride;  // words between stats of a bin, between features
   size_t hist, flist, counters, stage_b, stage_s, stage_p, stage, entries, total;
   __host__ __device__ Layout(int d, int s, int nodes, int n_bins, int b_bytes,
-                             int group, int copies, int tile_rows, int stages) {
+                             int group, int tile_rows, int stages) {
     cstride = (nodes * n_bins) | 1;
     fstride = (s * cstride) | 1;
-    hist = round16((size_t)copies * group * fstride * 4);
+    hist = round16((size_t)group * fstride * 4);
     flist = round16((size_t)group * 4);
     counters = round16(kMaxThreads / 32 * 4 + kMaxStages * 8);  // live rows a warp; mbarriers
     // a tile's S and pos may start anywhere in a 16-byte line: 32 bytes of
@@ -120,10 +126,10 @@ struct Args {
   const int* pos;
   const int* feat;      // null: every feature kept
   const int* n_feat;
-  const float* smax;
+  const float* smax;    // max|S| of each stat
   unsigned long long* acc;
   long long N;
-  int d, s, T, nodes, n_bins, b_bytes, group, copies, tile_rows, stages, row_blocks;
+  int d, s, T, nodes, n_bins, b_bytes, group, tile_rows, stages, row_blocks;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -217,11 +223,12 @@ __device__ __noinline__ void load_tile(const Args& a, int t, long long tile, int
   sp.copy(slot, src, bar);
 }
 
-// Exponent shift k of the fixed point: max|S| < 2^e, k = kQBits - e.
+// Exponent shift k of a stat's fixed point: max|S[..., c]| < 2^e,
+// k = kQBits - e, at most 127 (2^k stays a normal float).
 __device__ __forceinline__ int fixed_shift(float smax) {
   int e;
   frexpf(smax, &e);
-  return kQBits - e;
+  return min(kQBits - e, 127);
 }
 
 // BT: the type of a bin; SC: the number of stats (compiled for 1-4, so a
@@ -231,8 +238,8 @@ template <typename BT, int SC>
 __global__ void __launch_bounds__(kMaxThreads)
 node_hist_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(a.d, a.s, a.nodes, a.n_bins, a.b_bytes, a.group, a.copies,
-                 a.tile_rows, a.stages);
+  const Layout L(a.d, a.s, a.nodes, a.n_bins, a.b_bytes, a.group, a.tile_rows,
+                 a.stages);
   unsigned* hist = reinterpret_cast<unsigned*>(smem);
   int* flist = reinterpret_cast<int*>(smem + L.hist);
   int* warp_live = reinterpret_cast<int*>(smem + L.hist + L.flist);
@@ -249,20 +256,23 @@ node_hist_kernel(const __grid_constant__ Args a) {
   const int j0 = g * a.group;
   const int kept = a.feat ? a.n_feat[t] : a.d;
   const int F = min(a.group, kept - j0);
-  const float smax = *a.smax;
-  if (F <= 0 || !isfinite(smax)) return;  // finalize writes NaN for the latter
-  const int k = fixed_shift(smax);
-  // v * 2^k is exact: as a float multiply where 2^k is a normal float
-  const bool exact_scale = k >= -126 && k <= 127;
-  const float scale = exact_scale ? ldexpf(1.f, k) : 0.f;
+  if (F <= 0) return;
+  // 2^k_c of each stat: -104 <= k_c <= 127, a normal float, so v * 2^k_c
+  // is exact
+  float scale[SC];
+#pragma unroll
+  for (int c = 0; c < SC; ++c) {
+    const float m = a.smax[c];
+    if (!isfinite(m)) return;   // finalize writes NaN
+    scale[c] = ldexpf(1.f, fixed_shift(m));
+  }
 
   constexpr int s = SC;
   static_assert(1 + SC <= entry_ints(SC), "an entry holds its key and stats");
   const int nb = a.nodes * a.n_bins;
-  const int copy_words = F * L.fstride;
   for (int i = threadIdx.x; i < F; i += blockDim.x)
     flist[i] = a.feat ? a.feat[(long long)t * a.d + j0 + i] : j0 + i;
-  for (int i = threadIdx.x; i < a.copies * copy_words; i += blockDim.x) hist[i] = kBias;
+  for (int i = threadIdx.x; i < F * L.fstride; i += blockDim.x) hist[i] = kBias;
   // this block's contiguous range of row tiles
   const long long n_tiles = (a.N + a.tile_rows - 1) / a.tile_rows;
   const long long tile0 = n_tiles * rb / a.row_blocks;
@@ -286,7 +296,7 @@ node_hist_kernel(const __grid_constant__ Args a) {
   const int e_first = threadIdx.x / F;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
-  const int slice = (warp % a.copies) * copy_words + f_me * L.fstride;
+  const int slice = f_me * L.fstride;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < a.stages; ++i) mbar_init(bars + i);
@@ -350,7 +360,7 @@ node_hist_kernel(const __grid_constant__ Args a) {
 #pragma unroll
       for (int c = SC - 1; c >= 0; --c) {
         const float v = Ss[r * SC + c];
-        const int q = __float2int_rn(exact_scale ? v * scale : ldexpf(v, k));
+        const int q = __float2int_rn(v * scale[c]);
         if (q != 0) {
 #pragma unroll
           for (int i = 3; i > 0; --i) slot[i] = slot[i - 1];
@@ -412,16 +422,14 @@ node_hist_kernel(const __grid_constant__ Args a) {
   }
   __syncthreads();
 
-  // ---- flush: the copies' low words, less their bias, into acc
+  // ---- flush: the low words, less their bias, into acc
   const int per_feature = nb * s;
   for (int i = threadIdx.x; i < F * per_feature; i += blockDim.x) {
     const int fi = i / per_feature;
     const int rem = i - fi * per_feature;
     const int cnb = rem / s, c = rem - cnb * s;
     const int word = fi * L.fstride + c * L.cstride + cnb;
-    long long sum = 0;
-    for (int cp = 0; cp < a.copies; ++cp)
-      sum += (long long)hist[cp * copy_words + word] - (long long)kBias;
+    const long long sum = (long long)hist[word] - (long long)kBias;
     if (sum != 0)
       atomicAdd(a.acc + ((long long)t * a.d + flist[fi]) * per_feature + rem,
                 (unsigned long long)sum);
@@ -429,47 +437,48 @@ node_hist_kernel(const __grid_constant__ Args a) {
 }
 
 __global__ void node_hist_finalize(const long long* __restrict__ acc,
-                                   float* __restrict__ H, long long n,
-                                   const float* __restrict__ smax_p) {
+                                   float* __restrict__ H, long long n, int s,
+                                   const float* __restrict__ smax) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float smax = *smax_p;
-  if (!isfinite(smax)) {
+  bool finite = true;
+  for (int c = 0; c < s; ++c) finite &= isfinite(smax[c]);
+  if (!finite) {
     H[i] = __int_as_float(0x7fc00000);  // NaN
     return;
   }
-  H[i] = ldexpf(__ll2float_rn(acc[i]), -fixed_shift(smax));
+  H[i] = ldexpf(__ll2float_rn(acc[i]), -fixed_shift(smax[i % s]));
 }
 
 }  // namespace
 
 // Shared memory bytes of one block of the launch below.
 extern "C" long long node_histograms_smem_bytes(int d, int s, int nodes, int n_bins,
-                                                int b_bytes, int group, int copies,
-                                                int tile_rows, int stages) {
-  return (long long)Layout(d, s, nodes, n_bins, b_bytes, group, copies, tile_rows,
-                           stages).total;
+                                                int b_bytes, int group, int tile_rows,
+                                                int stages) {
+  return (long long)Layout(d, s, nodes, n_bins, b_bytes, group, tile_rows, stages).total;
 }
 
 // Launches the accumulation and the finalize pass on `stream`; returns
-// cudaGetLastError() (0 on success). acc (int64[T, d, nodes*n_bins, s]) must
-// be zeroed by the caller; H is written whole. B must be 16-byte aligned.
+// cudaGetLastError() (0 on success). smax holds max|S[..., c]| of each of the
+// s stats. acc (int64[T, d, nodes*n_bins, s]) must be zeroed by the caller;
+// H is written whole. B must be 16-byte aligned.
 // Allocates nothing and does not synchronise.
 extern "C" int node_histograms_launch(const void* B, int b_bytes, const float* S,
                                       const int* pos, const int* feat,
                                       const int* n_feat, const float* smax,
                                       long long* acc, float* H, long long N, int d,
                                       int s, int T, int nodes, int n_bins, int group,
-                                      int copies, int tile_rows, int stages,
-                                      int row_blocks, int threads, void* stream) {
+                                      int tile_rows, int stages, int row_blocks,
+                                      int threads, void* stream) {
   const cudaStream_t cs = (cudaStream_t)stream;
   if (stages < 2 || stages > 5 || tile_rows % 16 || tile_rows > threads ||
       threads % 32 || threads < 32 * kIssuers || threads > kMaxThreads || group > threads)
     return (int)cudaErrorInvalidValue;
-  const Layout L(d, s, nodes, n_bins, b_bytes, group, copies, tile_rows, stages);
+  const Layout L(d, s, nodes, n_bins, b_bytes, group, tile_rows, stages);
   const Args a{static_cast<const unsigned char*>(B), S, pos, feat, n_feat, smax,
                reinterpret_cast<unsigned long long*>(acc), N, d, s, T, nodes,
-               n_bins, b_bytes, group, copies, tile_rows, stages, row_blocks};
+               n_bins, b_bytes, group, tile_rows, stages, row_blocks};
   const int groups = (d + group - 1) / group;
   const long long blocks = (long long)T * groups * row_blocks;
   if (s < 1 || s > kMaxStats || (b_bytes != 1 && b_bytes != 4))
@@ -488,7 +497,7 @@ extern "C" int node_histograms_launch(const void* B, int b_bytes, const float* S
   if (e != cudaSuccess) return (int)e;
   const long long n = (long long)T * d * nodes * n_bins * s;
   node_hist_finalize<<<(unsigned)((n + 255) / 256), 256, 0, cs>>>(
-      acc, H, n, smax);
+      acc, H, n, s, smax);
   return (int)cudaGetLastError();
 }
 

@@ -38,12 +38,17 @@ def _inputs(rng, n, d, s, T, nodes, n_bins, integer):
     return B, S, pos
 
 
-def _agree(got, ref, integer):
-    """Bitwise for integer stats; within 1e-5·max|H| for float stats (the
-    plain version's fp32 atomics round in a run-dependent order)."""
+def _agree(got, args, integer, **kw):
+    """Bitwise against the plain version for integer stats. For float stats,
+    each stat within 1e-5 of its own max|H| of the plain version summed in
+    float64 (fp32 atomics would round in a run-dependent order, and one
+    tolerance over all stats would hide a small stat beside a large one)."""
+    B, S, pos = args
     if integer:
-        return torch.equal(got, ref)
-    return float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        return torch.equal(got, th.node_histograms_reference(B, S, pos, **kw))
+    ref = th.node_histograms_reference(B, S.double(), pos, **kw)
+    err = (got.double() - ref).abs().amax(dim=tuple(range(ref.ndim - 1)))
+    return bool((err <= 1e-5 * ref.abs().amax(dim=tuple(range(ref.ndim - 1)))).all())
 
 
 # (T, s, nodes, integer, d, uint8 bins, masked)
@@ -77,25 +82,21 @@ def test_kernel_matches_plain_on_cuda(cuda_device, T, s, nodes, integer, d, uint
         features = torch.from_numpy(keep).to(cuda_device)
     before = th.node_histograms.launches
     got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins, features=features)
-    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins,
-                                       features=features)
     torch.cuda.synchronize()
-    assert th.node_histograms.launches == before + 1
-    assert _agree(got, ref, integer)
+    assert th.node_histograms.launches == before + -(-s // 4)   # four stats a launch
+    assert _agree(got, args, integer, nodes=nodes, n_bins=n_bins, features=features)
     if masked:
         built = th.kept_features(features, T, d)
         assert built[:, 0].all() and not got[~built].any()
 
 
 @pytest.mark.cuda
-def test_kernel_fixed_point_bound_and_repeatable(cuda_device):
-    """The fixed-point sums are the same on every run and within
-    n·2^(e-25) + one fp32 rounding of the float64 sums (max|S| < 2^e, n
-    the adds into a cell)."""
-    rng = np.random.default_rng(6)
-    n, d, s, nodes, n_bins = 200_003, 8, 3, 4, 32
-    B, S, pos = _inputs(rng, n, d, s, 1, nodes, n_bins, False)
-    S[0, :, 0] *= 1e-3    # stats of very different scales in one launch
+def _fixed_point_bound_holds(cuda_device, B, S, pos, nodes, n_bins):
+    """The kernel's sums are the same on every run and within
+    n·2^(e_c-25) + one fp32 rounding of the float64 sums (max|S[..., c]| <
+    2^e_c, n the adds into a cell)."""
+    n, d = B.shape
+    s = S.shape[2]
     args = [torch.from_numpy(x).to(cuda_device) for x in (B.astype(np.uint8), S, pos)]
     got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
     again = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
@@ -107,9 +108,56 @@ def test_kernel_fixed_point_bound_and_repeatable(cuda_device):
     for j in range(d):
         exact[j].index_add_(0, key[:, j], S64)
         count[j].index_add_(0, key[:, j], torch.ones(n, dtype=torch.float64))
-    e = int(np.frexp(np.abs(S).max())[1])
+    e = torch.from_numpy(np.frexp(np.abs(S).max(axis=(0, 1)))[1]).double()
     bound = count[..., None] * 2.0 ** (e - 25) + exact.abs() * 2.0 ** -24
     assert ((got.cpu().double() - exact).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_kernel_fixed_point_bound_and_repeatable(cuda_device):
+    rng = np.random.default_rng(6)
+    n, d, s, nodes, n_bins = 200_003, 8, 3, 4, 32
+    B, S, pos = _inputs(rng, n, d, s, 1, nodes, n_bins, False)
+    S[0, :, 0] *= 1e-3    # stats of very different scales in one launch
+    _fixed_point_bound_holds(cuda_device, B, S, pos, nodes, n_bins)
+
+
+def _regression_stats(rng, T, n, bootstrap):
+    """[wy, wy², w] with y ~ U(1e4, 1e5): the variance stats, y² up to 1e10
+    beside a weight column of ones (or Poisson bootstrap counts)."""
+    y = rng.uniform(1e4, 1e5, (T, n))
+    w = rng.poisson(1.0, (T, n)) if bootstrap else np.ones((T, n))
+    return np.stack([w * y, w * y * y, w], axis=2).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,nodes,bootstrap", [(1, 1, False), (1, 16, False),
+                                               (4, 8, True)])
+def test_regression_stats_per_stat_scale(cuda_device, T, nodes, bootstrap):
+    """Each stat has its own fixed-point scale: the weight column beside y²
+    in the 1e10s keeps its exact counts (one scale for all stats rounded
+    each 1 to 0), and every stat holds the bound and the plain version."""
+    rng = np.random.default_rng(12)
+    n, d, n_bins = 100_003, 6, 32
+    B = rng.integers(0, n_bins, (n, d)).astype(np.int32)
+    pos = rng.integers(0, nodes, (T, n)).astype(np.int32)
+    S = _regression_stats(rng, T, n, bootstrap)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (B.astype(np.uint8), S, pos)]
+    got = th.node_histograms(*args, nodes=nodes, n_bins=n_bins)
+    ref = th.node_histograms_reference(*args, nodes=nodes, n_bins=n_bins)
+    assert torch.equal(got[..., 2], ref[..., 2])     # integer weights: exact
+    assert _agree(got, args, False, nodes=nodes, n_bins=n_bins)
+    if T == 1:
+        _fixed_point_bound_holds(cuda_device, B, S, pos, nodes, n_bins)
+
+
+@pytest.mark.cuda
+def test_non_finite_stat_makes_every_cell_nan(cuda_device):
+    rng = np.random.default_rng(13)
+    B, S, pos = _inputs(rng, 5_000, 4, 3, 1, 2, 8, False)
+    S[0, 17, 1] = np.nan
+    args = [torch.from_numpy(x).to(cuda_device) for x in (B, S, pos)]
+    assert th.node_histograms(*args, nodes=2, n_bins=8).isnan().all()
 
 
 @pytest.mark.cuda
@@ -162,14 +210,14 @@ def test_launch_plan_matches_kernel_layout(cuda_device):
     import ctypes
 
     fn = th._lib().node_histograms_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 9
+    fn.argtypes = [ctypes.c_int] * 8
     fn.restype = ctypes.c_longlong
     for s, T in ((3, 1), (2, 20), (1, 1), (4, 3)):
         for nodes in (1, 2, 4, 8, 16, 32):
             for b_bytes in (1, 4):
                 shape = th.launch_shape(10_737_856, 28, s, T, nodes, 32, 132, b_bytes)
-                assert fn(28, s, nodes, 32, b_bytes, shape.group, shape.copies,
-                          shape.tile_rows, shape.stages) == shape.smem_bytes
+                assert fn(28, s, nodes, 32, b_bytes, shape.group, shape.tile_rows,
+                          shape.stages) == shape.smem_bytes
 
 
 # (T, N, d, s, nodes, n_bins): 256 bins in uint8, more blocks than one wave,
@@ -225,3 +273,42 @@ def test_decision_tree_and_five_class_forest_on_cuda_equal_cpu_path(cuda_device)
         out[str(dev)] = [x.cpu() for x in (*dt, *forest)]
     for a, b in zip(*out.values()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_regression_trees_on_cuda_equal_cpu_path(cuda_device):
+    """DecisionTreeRegressor, and the forest RandomForestRegressor grows
+    (``grow_forest`` with variance stats, fed the same bootstrap draws on
+    both devices), on targets in [1e4, 1e5] grow the CPU path's trees on
+    the card: the same features, split bins and thresholds, and leaf sums
+    within fp32 rounding."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
+    from orange3_spark_tpu_torch.models.decision_tree import DecisionTreeRegressor
+
+    rng = np.random.default_rng(11)
+    n = 20_000
+    X = rng.integers(0, 10, (n, 6)).astype(np.float32)
+    y = (1e4 + 4e4 * (X[:, 0] >= 5) + 2e4 * (X[:, 1] >= 3) + 1e4 * (X[:, 2] >= 6)
+         + 5e3 * (X[:, 3] >= 4) + rng.uniform(0, 1e4, n)).astype(np.float32)
+    boot = rng.poisson(1.0, (4, n)).astype(np.float32)
+    domain = Domain([ContinuousVariable(f"x{i}") for i in range(6)],
+                    ContinuousVariable("y"))
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        tab = TorchTable.from_numpy(domain, X, y, session=TorchSession(dev))
+        dt = DecisionTreeRegressor(max_depth=4).fit(tab).tree
+        edges = _tree.compute_bin_edges(tab.X, tab.W, 32)
+        B = _tree.compact_bins(_tree.bin_features(tab.X, edges), 32)
+        rf, _ = grow_forest(
+            B, edges, _tree.regression_stats(tab.y), tab.W,
+            torch.from_numpy(boot).to(dev), torch.ones((4, 4, 6), device=dev), 0.0,
+            depth=4, n_bins=32, gain_mode="variance", min_instances=1.0)
+        out[dev] = [x.cpu() for x in (*dt, *rf)]
+    cpu, gpu = out.values()
+    assert cpu[1][0] < 32            # the root splits
+    for i, (a, b) in enumerate(zip(cpu, gpu)):
+        if i % 4 == 3:    # leaf sums: fp32 adds in another order
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=0.0)
+        else:
+            assert torch.equal(a, b)

@@ -92,6 +92,28 @@ def test_batched_trees_share_B():
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+def test_plain_sums_float64_stats_in_double():
+    """float64 stats give float64 histograms summed in double, the reference
+    the kernel's fixed point is held to per stat: regression stats
+    [y, y², 1] with y in [1e4, 1e5] against numpy's float64 sums, and in
+    float32 against the JAX path."""
+    rng = np.random.default_rng(9)
+    n, d, nodes, n_bins = 3000, 4, 2, 8
+    B, _, pos = _inputs(rng, n, d, 1, nodes, n_bins)
+    y = rng.uniform(1e4, 1e5, n)
+    S = np.stack([y, y * y, np.ones(n)], axis=1)
+    got = th.node_histograms_reference(torch.from_numpy(B), torch.from_numpy(S),
+                                       torch.from_numpy(pos), nodes=nodes, n_bins=n_bins)
+    assert got.dtype == torch.float64
+    exact = np.zeros((d, nodes * n_bins, 3))
+    for j in range(d):
+        np.add.at(exact[j], pos * n_bins + B[:, j], S)
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-12)
+    ref = _hist_xla(jnp.asarray(B), jnp.asarray(S.astype(np.float32)), jnp.asarray(pos),
+                    nodes=nodes, n_bins=n_bins)
+    np.testing.assert_allclose(np.asarray(ref), exact, rtol=1e-5, atol=1e-4)
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(4)
     B, S, pos = _inputs(rng, 64, 3, 2, 2, 8)
@@ -191,38 +213,37 @@ def test_single_tree_mask_and_kept_features():
     assert mask[0] == 0.0
 
 
-# (s, nodes, T, B bytes) -> (group, copies, tile rows, stages, blocks per SM)
+# (s, nodes, T, B bytes) -> (group, tile rows, stages, blocks per SM)
 _SHAPES = {
-    (3, 16, 1, 1): (28, 1, 512, 2, 1),    # GBT level 4: all 28 features, one pass
-    (2, 16, 20, 1): (28, 1, 1024, 2, 1),  # RF level 4: a row for each of 1024 threads
-    (3, 1, 1, 1): (28, 1, 512, 4, 2),     # GBT level 0: two blocks an SM, a deep ring
-    (2, 1, 20, 1): (28, 3, 512, 4, 2),    # RF level 0: copies in the room left
-    (3, 16, 1, 4): (28, 1, 128, 3, 1),    # int32 B: smaller tiles, still one pass
-    (3, 32, 1, 1): (14, 1, 512, 2, 1),    # deeper than the fits: two groups
+    (3, 16, 1, 1): (28, 512, 2, 1),    # GBT level 4: all 28 features, one pass
+    (2, 16, 20, 1): (28, 1024, 2, 1),  # RF level 4: a row for each of 1024 threads
+    (3, 1, 1, 1): (28, 512, 4, 2),     # GBT level 0: two blocks an SM, a deep ring
+    (2, 1, 20, 1): (28, 512, 4, 2),    # RF level 0: the same plan
+    (3, 16, 1, 4): (28, 128, 3, 1),    # int32 B: smaller tiles, still one pass
+    (3, 32, 1, 1): (14, 512, 2, 1),    # deeper than the fits: two groups
 }
 
 
 @pytest.mark.parametrize("key", list(_SHAPES), ids=str)
 def test_launch_shape_at_higgs_width(key):
     """At HIGGS width (d=28, 32 bins) the features go in as few groups as
-    fit, a block's shared memory (copies and the staging ring included)
-    stays within 227 KB and its SM's 228 KB, and the blocks fill one wave on
-    the SMs."""
+    fit, a block's shared memory (the staging ring included) stays within
+    227 KB and its SM's 228 KB, and the blocks fill one wave on the SMs."""
     s, nodes, T, b_bytes = key
     N, d, n_bins, sms = 10_737_856, 28, 32, 132
     shape = th.launch_shape(N, d, s, T, nodes, n_bins, sms, b_bytes)
-    assert (shape.group, shape.copies, shape.tile_rows, shape.stages,
+    assert (shape.group, shape.tile_rows, shape.stages,
             shape.blocks_per_sm) == _SHAPES[key]
     assert shape.smem_bytes == th.smem_bytes(d, s, nodes, n_bins, b_bytes, shape.group,
-                                             shape.copies, shape.tile_rows, shape.stages)
+                                             shape.tile_rows, shape.stages)
     assert shape.smem_bytes <= 232_448
     assert shape.blocks_per_sm * (shape.smem_bytes + 1024) <= 233_472
     # a row a thread at most; the SM's 2048 threads and 64 registers each
     assert shape.tile_rows <= shape.threads
     assert shape.blocks_per_sm * shape.threads <= 2048
-    # one feature's cells, all copies: the histogram itself fits
+    # the group's cells: the histogram itself fits
     cstride = (nodes * n_bins) | 1
-    assert shape.copies * shape.group * ((s * cstride) | 1) * 4 <= 232_448
+    assert shape.group * ((s * cstride) | 1) * 4 <= 232_448
     lanes = T * -(-d // shape.group)
     blocks = lanes * shape.row_blocks
     wave = shape.blocks_per_sm * sms
