@@ -36,6 +36,26 @@ prints one JSON line per phase:
            device time in the fit: its kernel and finalize pass, and the
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
+then the Criteo path (BASELINE config 2, ``bench.py --config criteo``),
+which runs PyTorch ops and no kernel of the package:
+
+  criteo_check    on the card against the port's CPU path: the hash
+                  bitwise at 1..2^22 dims; theta after a small
+                  sparse_adagrad fit (2^16 dims, 4 chunks of 4096 rows, 3
+                  epochs), 'sort' on the card against 'plan' and 'sort' on
+                  the CPU; the eval accumulators of one theta on both
+  criteo_data     ``gen_criteo_csv`` at bench.py's 8,000,000 rows into a
+                  temporary directory outside the checkout
+  criteo          a warm-up fit on a 2-chunk CSV, then the timed fit at
+                  full width (2^22 dims, 13 + 26 columns, 2^18-row chunks,
+                  sparse_adagrad with the in-step 'sort', f32 chunk cache,
+                  100 epochs, 2 holdout chunks) and ``evaluate_device`` on
+                  the holdout: value (rows / (fit + eval) / 1 card, as
+                  bench.py), pure_step_ms (CUDA events over cached chunks),
+                  parse and copy seconds, holdout AUC (floor 0.73)
+  criteo_profile  replay epochs under torch.profiler: device time by
+                  kernel, the device's idle share, launches per step
+
 then the ``kernels`` line (launches counted over the gbt and rf phases;
 ``per_fit`` from the timed fits' launch counts and the profile),
 the card's ``nvidia-smi`` name and power limit, and last
@@ -50,14 +70,22 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HOLDOUT = 1 << 18
 GBT_AUC_FLOOR, RF_AUC_FLOOR = 0.72, 0.82
+# the Criteo configuration of bench.py (:87-97, :404-428)
+CRITEO_ROWS, CRITEO_EPOCHS, CRITEO_AUC_FLOOR = 8_000_000, 100, 0.73
+CRITEO = dict(n_dims=1 << 22, n_dense=13, n_cat=26, chunk_rows=1 << 18, step_size=0.04,
+              reg_param=1e-5, loss="logistic", label_in_chunk=True, prefetch_depth=2,
+              optim_update="sparse_adagrad", missing="zero", cache_dtype="f32")
+CRITEO_HOLDOUT_CHUNKS = 2
 # H100 rates from NVIDIA's data sheets: memory bytes/s and fp32 (non tensor
 # core) FLOP/s, by the form factor in the card's name
 RATES = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
@@ -515,14 +543,7 @@ def phase_profile(est, table):
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:          # union of the kernels' time ranges
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
+    busy = _busy_us(kernels)
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"fit_wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
@@ -536,10 +557,287 @@ def phase_profile(est, table):
                             for n, us in top]}
 
 
+def _busy_us(events) -> float:
+    """Microseconds of the union of the events' device time ranges."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return busy + hi - lo
+
+
+# ------------------------------------------------------------- Criteo path
+# theta of the card against the CPU path: CUDA's index_add_ sums a row's
+# occurrences with atomics in no fixed order, so the two agree to float32
+# rounding carried through the steps, not bitwise
+THETA_ATOL, THETA_RTOL = 1e-5, 1e-4
+
+
+def _criteo_estimator(**kw):
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+
+    return StreamingHashedLinearEstimator(**{**CRITEO, **kw})
+
+
+def phase_criteo_check(tmp):
+    """The hash bitwise on the card; a small fit on the card against the
+    CPU path; the eval accumulators of one theta on both devices."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import HashedLinearModel
+    from orange3_spark_tpu_torch.ops.hashing import column_salts, hash_columns, hash_columns_np
+
+    rng = np.random.default_rng(0)
+    salts = column_salts(26, seed=0)
+    codes = rng.integers(-(1 << 24), 1 << 24, size=(1 << 18, 26)).astype(np.float32)
+    codes[:3] = [[0.0], [-1.0], [float((1 << 24) - 1)]]
+    on_card = torch.from_numpy(codes).cuda()
+    hash_mismatches = {str(d): int((hash_columns(on_card, salts, d).cpu().numpy()
+                                    != hash_columns_np(codes, salts, d)).sum())
+                       for d in (1, 256, 1 << 20, 1 << 22)}
+
+    path = os.path.join(tmp, "criteo_check.csv")
+    gen_criteo_csv(path, 4 * 4096, seed=1)
+    fits = {}
+    for dev, lowering in (("cuda", "sort"), ("cpu", "plan"), ("cpu", "sort")):
+        est = _criteo_estimator(n_dims=1 << 16, chunk_rows=4096, epochs=3,
+                                sparse_lowering=lowering)
+        fits[f"{dev}_{lowering}"] = est.fit_stream(
+            csv_raw_chunk_source(path, chunk_rows=4096), session=TorchSession(dev),
+            cache_device=True)
+    gpu = fits["cuda_sort"]
+    theta_err, theta_ok = {}, True
+    for name in ("cpu_plan", "cpu_sort"):
+        for k, want in fits[name].theta.items():
+            err = (gpu.theta[k].cpu() - want).abs()
+            theta_err[f"{name}.{k}"] = float(err.max())
+            theta_ok &= bool((err <= THETA_ATOL + THETA_RTOL * want.abs()).all())
+    # one theta (the CPU fit's), its eval accumulators on the card's cached
+    # chunks and on the CPU's: the same rows on both
+    cpu = fits["cpu_sort"]
+    on_gpu = HashedLinearModel(cpu.params, {k: v.cuda() for k, v in cpu.theta.items()},
+                               cpu.salts, cpu.class_values)
+    a = [x.cpu().numpy() for x in on_gpu.eval_accumulators(gpu.device_chunks_)]
+    b = [x.cpu().numpy() for x in cpu.eval_accumulators(cpu.device_chunks_)]
+    ev_gpu, ev_cpu = on_gpu.evaluate_device(gpu.device_chunks_), cpu.evaluate_device(
+        cpu.device_chunks_)
+    evals = {"loss_sum_rel_err": float(abs(a[0] - b[0]) / abs(b[0])),
+             "correct_diff": float(abs(a[1] - b[1])), "weight_diff": float(abs(a[2] - b[2])),
+             "hist_rows_moved": float(np.abs(a[3] - b[3]).sum() + np.abs(a[4] - b[4]).sum()),
+             "auc_diff": abs(ev_gpu["auc"] - ev_cpu["auc"]), "rows": float(b[2])}
+    ev_ok = (evals["loss_sum_rel_err"] <= 1e-5 and evals["correct_diff"] <= 2
+             and evals["weight_diff"] == 0 and evals["hist_rows_moved"] <= 8
+             and evals["auc_diff"] <= 1e-4)
+    line = {"hash_mismatches": hash_mismatches, "hash_rows": len(codes),
+            "fit": {"n_dims": 1 << 16, "chunks": 4, "chunk_rows": 4096, "epochs": 3,
+                    "optim_update": "sparse_adagrad"},
+            "theta_max_abs_err": theta_err,
+            "theta_tolerance": f"|card - cpu| <= {THETA_ATOL} + {THETA_RTOL}*|cpu|",
+            "eval": evals,
+            "eval_tolerance": "loss_sum rel <= 1e-5, correct <= 2 rows, weights equal, "
+                              "<= 8 rows in another AUC bin, AUC <= 1e-4"}
+    if any(hash_mismatches.values()) or not theta_ok or not ev_ok:
+        raise AssertionError(f"the Criteo path on the card disagrees with the CPU path: {line}")
+    return line
+
+
+def phase_criteo_data(tmp, rows):
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+
+    path = os.path.join(tmp, f"criteo_{rows}.csv")
+    t0 = time.perf_counter()
+    gen_criteo_csv(path, rows, seed=0)
+    return path, {"rows": rows, "GB": os.path.getsize(path) / 1e9,
+                  "seconds": time.perf_counter() - t0}
+
+
+def _fresh_state(model, sess):
+    """A step's inputs as a new fit would have them, with the model's
+    theta: (theta, opt_state, salts, static_kw, (reg, lr, l1))."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.models.hashed_linear import _init_fit_state
+
+    p = model.params
+    _, opt, _, salts, kw = _init_fit_state(p, sess)
+    theta = {k: v.clone() for k, v in model.theta.items()}
+    hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
+    return theta, opt, salts, kw, hyper
+
+
+def _replay_steps(state, chunks):
+    """One step per chunk, as a replay epoch runs them."""
+    from orange3_spark_tpu_torch.models.hashed_linear import _step_core
+
+    theta, opt, salts, kw, (reg, lr, l1) = state
+    loss = None
+    for c in chunks:
+        theta, opt, loss = _step_core(theta, opt, c[0], c[1], c[2], c[3], salts, reg, lr,
+                                      c[4] if len(c) > 4 else None, l1, **kw)
+    return (theta, opt, salts, kw, (reg, lr, l1)), loss
+
+
+def phase_criteo(path, tmp, rows, epochs, sess):
+    """bench.py's Criteo fit at full width, then evaluate_device."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+
+    chunk = CRITEO["chunk_rows"]
+    warm_path = os.path.join(tmp, "criteo_warm.csv")
+    t0 = time.perf_counter()
+    gen_criteo_csv(warm_path, 2 * chunk, seed=1)
+    warm = _criteo_estimator(epochs=2).fit_stream(
+        csv_raw_chunk_source(warm_path, chunk_rows=chunk), session=sess,
+        cache_device=True, holdout_chunks=1)
+    warm.evaluate_device(warm.holdout_chunks_)
+    warm_s = time.perf_counter() - t0
+    del warm
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    st: dict = {}
+    est = _criteo_estimator(epochs=epochs)
+    t0 = time.perf_counter()
+    model = est.fit_stream(csv_raw_chunk_source(path, chunk_rows=chunk), session=sess,
+                           cache_device=True, cache_device_bytes=8 << 30,
+                           holdout_chunks=CRITEO_HOLDOUT_CHUNKS, stage_times=st)
+    sess.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = model.evaluate_device(model.holdout_chunks_)
+    eval_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    holdout_rows = sum(int(c[1]) for c in model.holdout_chunks_)
+    train_rows = rows - holdout_rows
+
+    # pure step: cached chunks through fresh optimizer state, timed by CUDA
+    # events over 20 steps after one warm step (bench.py's probe)
+    state = _fresh_state(model, sess)
+    chunks = model.device_chunks_[:4]
+    state, _ = _replay_steps(state, chunks[:1])
+    n_probe = 20
+    pure_step_ms = cuda_ms(lambda: _replay_steps(state, chunks), n_probe // len(chunks)) / len(chunks)
+    del state
+
+    walls = st["epoch_s"]
+    line = {"rows": rows, "train_rows": train_rows, "holdout_rows": holdout_rows,
+            "epochs": epochs, "cached_chunks": len(model.device_chunks_),
+            "steps": model.n_steps_, "fit_s": fit_s, "eval_s": eval_s,
+            "value": rows / (fit_s + eval_s) / 1,
+            "train_rows_x_epochs_per_sec": train_rows * epochs / fit_s,
+            "pure_step_ms": pure_step_ms, "pure_step_probe_steps": n_probe,
+            "parse_s": st["parse_s"], "h2d_s": st["h2d_s"],
+            "epoch1_s": walls[0], "replay_epoch_mean_s": (float(np.mean(walls[1:]))
+                                                          if len(walls) > 1 else None),
+            "overlap_pct": st.get("overlap_pct"), "cache_bytes": st.get("cache_bytes"),
+            "optim_update": st["optim_update"], "sparse_lowering": st["sparse_lowering"],
+            "cache_dtype": st["cache_dtype"], "auc": ev.get("auc"),
+            "logloss": ev["logloss"], "accuracy": ev["accuracy"],
+            "final_loss": model.final_loss_, "peak_mem_GiB": peak / 2**30,
+            "warmup_s": warm_s, "auc_floor": CRITEO_AUC_FLOOR,
+            "cuts": {"epochs": f"{CRITEO_EPOCHS} -> {epochs}" if epochs != CRITEO_EPOCHS
+                     else None,
+                     "rows": f"{CRITEO_ROWS} -> {rows}" if rows != CRITEO_ROWS else None}}
+    if not (np.isfinite([ev["logloss"], model.final_loss_]).all()
+            and ev.get("auc") is not None):
+        raise AssertionError(f"criteo: non-finite or missing results: {line}")
+    if ev["auc"] < CRITEO_AUC_FLOOR:
+        raise AssertionError(f"criteo: holdout AUC {ev['auc']:.4f} below "
+                             f"{CRITEO_AUC_FLOOR}: {line}")
+    return model, line
+
+
+def phase_criteo_profile(model, sess, epochs=3):
+    """Replay epochs over the cached chunks under torch.profiler: device
+    time by kernel, by ATen op and by stage of the step (with each stage's
+    host time), the device's busy and idle share of the window, and device
+    launches per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orange3_spark_tpu_torch.models.hashed_linear import STEP_STAGES
+
+    state = _fresh_state(model, sess)
+    chunks = model.device_chunks_
+    state, _ = _replay_steps(state, chunks[:2])
+    sess.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            state, _ = _replay_steps(state, chunks)
+        sess.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    steps = epochs * len(chunks)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the stage ranges show on the device timeline too, as spans from their
+    # first kernel to their last: kept apart from the kernels
+    events = [e for e in device if e.name not in STEP_STAGES]
+    if not events:
+        return {"wall_s": wall_us / 1e6, "steps": steps,
+                "device_time": "not measured: the profiler saw no device events"}
+    by_name: dict[str, list] = {}
+    for e in events:
+        slot = by_name.setdefault(e.name, [0.0, 0])
+        slot[0] += e.time_range.elapsed_us()
+        slot[1] += 1
+    total = sum(v[0] for v in by_name.values())
+    busy = _busy_us(events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    # the step's stages (its profiler ranges): device time of the kernels
+    # launched inside each, the span they cover on the device timeline
+    # (kernels and the gaps between them), and the host time in each
+    stages = {name: {"device_ms_per_step": 0.0, "device_span_ms_per_step": 0.0,
+                     "host_ms_per_step": 0.0} for name in STEP_STAGES}
+    for e in prof.events():
+        if e.name not in stages:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            stages[e.name]["device_span_ms_per_step"] += (
+                e.time_range.elapsed_us() / 1e3 / steps)
+        else:
+            dev_us = getattr(e, "device_time_total", None)
+            stages[e.name]["device_ms_per_step"] += (
+                e.cuda_time_total if dev_us is None else dev_us) / 1e3 / steps
+            stages[e.name]["host_ms_per_step"] += e.cpu_time_total / 1e3 / steps
+    # device time by ATen op (the kernels each op launched itself)
+    ops = []
+    for a in prof.key_averages():
+        self_us = getattr(a, "self_device_time_total", None)
+        self_us = a.self_cuda_time_total if self_us is None else self_us
+        if self_us > 0 and a.key.startswith("aten::"):
+            ops.append({"op": a.key, "ms_per_step": self_us / 1e3 / steps,
+                        "calls_per_step": a.count / steps, "share": self_us / total})
+    ops.sort(key=lambda o: -o["ms_per_step"])
+    return {"wall_s": wall_us / 1e6, "steps": steps, "chunks": len(chunks),
+            "step_wall_ms": wall_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_idle_share": 1 - busy / wall_us,
+            "device_launches_per_step": len(events) / steps,
+            "stages": stages, "top_ops": ops[:12],
+            "top_kernels": [{"name": n[:110], "ms_per_step": v[0] / 1e3 / steps,
+                             "launches_per_step": v[1] / steps, "share": v[0] / total}
+                            for n, v in top]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
                     help="HIGGS-proxy rows (the config's 11M by default)")
+    ap.add_argument("--criteo-rows", type=int, default=CRITEO_ROWS,
+                    help="Criteo CSV rows (bench.py's 8M by default)")
+    ap.add_argument("--criteo-epochs", type=int, default=CRITEO_EPOCHS,
+                    help="Criteo fit epochs (bench.py's 100 by default)")
     args = ap.parse_args(argv)
 
     import torch
@@ -631,6 +929,29 @@ def main(argv=None) -> int:
                              ("hist_kernel_launches", "hist_kernel_ms",
                               "hist_torch_ops_ms", "hist_ms")}}
                    for name in fit_launches}
+        del table, eval_table
+        torch.cuda.empty_cache()
+
+        # ---- the Criteo path (no kernel of the package: PyTorch ops)
+        from orange3_spark_tpu_torch.io.native import tune_malloc
+
+        tune_malloc()   # keep parse buffers resident, as bench.py's process does
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_criteo_")
+        try:
+            phase = "criteo_check"
+            emit({"phase": phase, **phase_criteo_check(tmp)})
+            phase = "criteo_data"
+            path, line = phase_criteo_data(tmp, args.criteo_rows)
+            emit({"phase": phase, **line})
+            phase = "criteo"
+            model, line = phase_criteo(path, tmp, args.criteo_rows, args.criteo_epochs, sess)
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi, **line})
+            phase = "criteo_profile"
+            emit({"phase": phase, "device": kind, **phase_criteo_profile(model, sess)})
+            del model
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")

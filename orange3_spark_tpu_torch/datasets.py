@@ -2,6 +2,10 @@
 
 from __future__ import annotations
 
+import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from orange3_spark_tpu_torch.core.domain import (
@@ -41,3 +45,62 @@ def auc(scores: np.ndarray, labels: np.ndarray) -> float:
     nneg = len(labels) - npos
     return float((ranks[labels > 0.5].sum() - npos * (npos + 1) / 2)
                  / (npos * nneg))
+
+
+CRITEO_DENSE, CRITEO_CAT = 13, 26
+CRITEO_COLUMNS = (["label"] + [f"i{j}" for j in range(CRITEO_DENSE)]
+                  + [f"c{j}" for j in range(CRITEO_CAT)])
+
+
+def gen_criteo_csv(path: str, n_rows: int, seed: int = 0) -> None:
+    """Write a Criteo-shaped CSV: label + 13 skewed numerics + 26 categorical
+    codes whose per-level latent effects drive the label (most signal lives
+    in the categoricals, as in real click-through data).
+
+    The generator of ``bench.py --config criteo``: the same
+    ``default_rng(seed)`` draws in the same order, in blocks of 1M rows, so
+    a seed gives the same parsed rows as that script's file. Blocks are
+    written by the package's native CSV writer on worker threads (the
+    writer releases the GIL), each to its own part file, and the parts are
+    joined into ``path`` (written as ``path + '.tmp'`` first, then renamed:
+    a killed run leaves no final file)."""
+    from orange3_spark_tpu_torch.io.native import write_csv_native
+
+    rng = np.random.default_rng(seed)
+    card = 200_000           # per-column cardinality
+    eff_card = 1024          # latent effects live on code % eff_card
+    effects = rng.normal(0.0, 0.9, size=(CRITEO_CAT, eff_card)).astype(np.float32)
+    w_dense = rng.normal(0.0, 0.4, size=CRITEO_DENSE).astype(np.float32)
+    tmp = path + ".tmp"
+    parts = []
+    gen_chunk = 1_000_000
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        futures = []
+        done = 0
+        while done < n_rows:
+            n = min(gen_chunk, n_rows - done)
+            dense = rng.lognormal(0.0, 1.0, size=(n, CRITEO_DENSE)).astype(np.float32)
+            cats = rng.integers(0, card, size=(n, CRITEO_CAT), dtype=np.int32)
+            logit = (dense - 1.6) @ w_dense - 0.5
+            for j in range(CRITEO_CAT):
+                logit += effects[j, cats[:, j] % eff_card]
+            y = (logit + 0.5 * rng.standard_normal(n).astype(np.float32) > 0)
+            block = np.concatenate([y[:, None].astype(np.float32), dense,
+                                    cats.astype(np.float32)], axis=1)
+            part = f"{tmp}.{len(parts)}"
+            parts.append(part)
+            futures.append(pool.submit(write_csv_native, part, block,
+                                       CRITEO_COLUMNS if done == 0 else None))
+            done += n
+        for f in futures:
+            f.result()
+    try:
+        with open(tmp, "wb") as out:
+            for part in parts:
+                with open(part, "rb") as src:
+                    shutil.copyfileobj(src, out, 16 << 20)
+        os.replace(tmp, path)
+    finally:
+        for part in parts + [tmp]:
+            if os.path.exists(part):
+                os.unlink(part)

@@ -1,4 +1,4 @@
-"""Carry fitted tree models from the JAX package into this one.
+"""Carry fitted models from the JAX package into this one.
 
 Each function takes a JAX model's ``state_pytree`` with its leaves as numpy
 arrays (``{k: np.asarray(v) for k, v in model.state_pytree.items()}``) and
@@ -22,9 +22,13 @@ from orange3_spark_tpu_torch.models.decision_tree import (
 from orange3_spark_tpu_torch.models.gbt import (
     GBTClassifierModel, GBTParams, GBTRegressorModel,
 )
+from orange3_spark_tpu_torch.models.hashed_linear import (
+    HashedLinearModel, HashedLinearParams,
+)
 from orange3_spark_tpu_torch.models.random_forest import (
     RandomForestClassifierModel, RandomForestParams, RandomForestRegressorModel,
 )
+from orange3_spark_tpu_torch.ops.hashing import column_salts
 
 _DTYPES = {"feature": torch.int32, "split_bin": torch.int32,
            "threshold": torch.float32, "leaf_value": torch.float32}
@@ -72,3 +76,17 @@ def random_forest_regressor(state, params: Mapping,
                             device=None) -> RandomForestRegressorModel:
     return RandomForestRegressorModel(
         RandomForestParams(**params), tree_from_state(state, device))
+
+
+def hashed_linear_model(state, params: Mapping, class_values: Sequence[str] | None,
+                        device=None) -> HashedLinearModel:
+    """A ``HashedLinearModel`` from the JAX model's ``state_pytree`` (emb,
+    coef, intercept as numpy arrays) and params. The salts are not in the
+    state: both packages derive them from ``seed`` and ``n_cat``."""
+    device = TorchSession.active().device if device is None else device
+    p = HashedLinearParams(**params)
+    if p.value_weighted:   # its salts are one per model, not one per column
+        raise NotImplementedError("value_weighted models are not ported yet")
+    theta = {k: torch.tensor(np.asarray(state[k], np.float32), device=device)
+             for k in ("emb", "coef", "intercept")}
+    return HashedLinearModel(p, theta, column_salts(p.n_cat, p.seed), class_values)

@@ -1,0 +1,83 @@
+"""Feature hashing on the device — the Criteo-scale categorical path.
+
+Raw categorical codes go to the device as one [N, C] array (4 bytes a
+cell, no per-cell host work), and the murmur3 32-bit finalizer runs there
+as a handful of vector integer ops before the embedding gather that
+consumes the indices.
+
+PyTorch has few uint32 ops, so the hash works on uint32 values held in
+int64. A 32-bit product h * c (h, c < 2^32) can pass 2^63, so it is taken
+in two halves of c, h * c_lo + ((h * c_hi) mod 2^16) * 2^16, each under
+2^49: nothing overflows, and the result is the uint32 product bit for bit.
+``hash_columns_np`` is the numpy twin the host-side plan builder uses; the
+two must agree bitwise, or a step would update the wrong table rows.
+
+``n_dims`` must be a power of two so the bucket map is a bit-mask.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["column_salts", "hash_columns", "hash_columns_np", "salts_tensor"]
+
+_U32 = 0xFFFFFFFF
+_M1, _M2 = 0x85EBCA6B, 0xC2B2AE35
+
+
+def _check_dims(n_dims: int) -> None:
+    if n_dims < 1 or n_dims & (n_dims - 1):
+        raise ValueError(f"n_dims must be a power of two, got {n_dims}")
+
+
+def column_salts(n_columns: int, seed: int = 0) -> np.ndarray:
+    """Per-column uint32 salts: the same raw code in different columns lands
+    in different buckets (a salt is xor-ed into the code)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, size=n_columns, dtype=np.uint32)
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for uint32 values h held in int64, without
+    overflowing int64."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def hash_columns(cats: torch.Tensor, salts, n_dims: int) -> torch.Tensor:
+    """[N, C] integer categorical codes -> [N, C] int32 bucket indices in
+    [0, n_dims). ``cats`` may be any integer dtype or float32 holding exact
+    integers (the CSV parser yields float32; ints < 2^24 are exact).
+    ``salts``: [C] uint32 (numpy) or the int64 tensor of ``salts_tensor``."""
+    _check_dims(n_dims)
+    if not isinstance(salts, torch.Tensor):
+        salts = salts_tensor(salts, cats.device)
+    h = cats.to(torch.int32).to(torch.int64) & _U32   # negatives wrap to uint32
+    h = h ^ salts[None, :]
+    h = h ^ (h >> 16)
+    h = _mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _M2)
+    h = h ^ (h >> 16)
+    return (h & (n_dims - 1)).to(torch.int32)
+
+
+def salts_tensor(salts: np.ndarray, device) -> torch.Tensor:
+    """uint32 salts as the int64 tensor ``hash_columns`` xors in."""
+    return torch.as_tensor(np.asarray(salts, np.uint32).astype(np.int64),
+                           device=device)
+
+
+def hash_columns_np(cats: np.ndarray, salts: np.ndarray, n_dims: int) -> np.ndarray:
+    """Host twin of ``hash_columns``: the same buckets, bit for bit."""
+    _check_dims(n_dims)
+    u = np.asarray(cats).astype(np.int32).astype(np.uint32)
+    h = u ^ np.asarray(salts, np.uint32)[None, :]
+    h ^= h >> np.uint32(16)
+    h = (h * np.uint32(_M1)) & np.uint32(_U32)
+    h ^= h >> np.uint32(13)
+    h = (h * np.uint32(_M2)) & np.uint32(_U32)
+    h ^= h >> np.uint32(16)
+    return (h & np.uint32(n_dims - 1)).astype(np.int32)

@@ -1,7 +1,10 @@
 """The port stands alone: no module of orange3_spark_tpu_torch imports jax or
-orange3_spark_tpu, and its session runs on the GPU unless told otherwise."""
+orange3_spark_tpu or reads a file inside it, and its session runs on the GPU
+unless told otherwise."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -13,6 +16,7 @@ from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "orange3_spark_tpu_torch")
 
 _BLOCKED_IMPORT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -40,7 +44,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12   # every module was walked
+    assert int(out.stdout.split()[-1]) >= 22   # every module was walked
 
 
 def test_chip_smoke_imports_without_jax():
@@ -87,3 +91,45 @@ def test_kernel_library_name_follows_source_and_flags():
     assert path.name.startswith("libhistogram-") and path.suffix == ".so"
     assert "-gencode=arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert sorted(p.stem for p in cuda_build.CSRC.glob("*.cu")) == ["histogram"]
+
+
+def _port_sources(suffixes):
+    for d, _, files in os.walk(PORT):
+        if "_build" in d.split(os.sep):
+            continue
+        yield from (os.path.join(d, f) for f in sorted(files) if f.endswith(suffixes))
+
+
+def _code_strings(path):
+    """The string literals of a Python file, docstrings left out."""
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_source_of_the_port_names_a_path_in_the_jax_package():
+    """The port reads nothing inside orange3_spark_tpu/: no string in its
+    Python code and nothing outside the comments of its C++/CUDA sources
+    names that directory (the fastcsv copy is compiled from the port's
+    own native/)."""
+    pattern = re.compile(r"orange3_spark_tpu(?!_torch)")
+    checked = 0
+    for path in _port_sources((".py",)):
+        hits = [s for s in _code_strings(path) if pattern.search(s)]
+        assert not hits, (path, hits)
+        checked += 1
+    for path in _port_sources((".cpp", ".cu", ".cuh", ".h")):
+        text = open(path).read()
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+        assert not pattern.search(code), path
+        checked += 1
+    assert checked >= 24
+    assert os.path.exists(os.path.join(PORT, "native", "fastcsv.cpp"))
