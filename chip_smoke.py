@@ -36,25 +36,38 @@ prints one JSON line per phase:
            device time in the fit: its kernel and finalize pass, and the
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
-then the Criteo path (BASELINE config 2, ``bench.py --config criteo``),
-which runs PyTorch ops and no kernel of the package:
+then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
+accelerator), which runs PyTorch ops and no kernel of the package:
 
   criteo_check    on the card against the port's CPU path: the hash
-                  bitwise at 1..2^22 dims; theta after a small
-                  sparse_adagrad fit (2^16 dims, 4 chunks of 4096 rows, 3
-                  epochs), 'sort' on the card against 'plan' and 'sort' on
-                  the CPU; the eval accumulators of one theta on both
+                  bitwise at 1..2^22 dims; bit packing at widths 1..31 and
+                  a packed Criteo chunk (22 bits × 26 columns, its plan)
+                  decoded on the card against the hash of its f32 codes;
+                  theta after small packed, deferred sparse_adagrad fits
+                  (2^16 dims, 4 chunks of 4096 rows, 3 epochs): the captured
+                  graph replay against the eager per-chunk replay on the
+                  card and against 'plan' and 'sort' on the CPU; a fit whose
+                  cache budget is below its data, replayed from the disk
+                  spill in captured groups, against the cache replay; adam
+                  (the update, and two fit steps); the eval accumulators of
+                  one theta on both
   criteo_data     ``gen_criteo_csv`` at bench.py's 8,000,000 rows into a
                   temporary directory outside the checkout
-  criteo          a warm-up fit on a 2-chunk CSV, then the timed fit at
-                  full width (2^22 dims, 13 + 26 columns, 2^18-row chunks,
-                  sparse_adagrad with the in-step 'sort', f32 chunk cache,
-                  100 epochs, 2 holdout chunks) and ``evaluate_device`` on
-                  the holdout: value (rows / (fit + eval) / 1 card, as
-                  bench.py), pure_step_ms (CUDA events over cached chunks),
-                  parse and copy seconds, holdout AUC (floor 0.73)
-  criteo_profile  replay epochs under torch.profiler: device time by
-                  kernel, the device's idle share, launches per step
+  criteo          bench.py's warm-up (one chunk parsed, ``warm_replay``,
+                  the eval path), then the timed fit at full width (2^22
+                  dims, 13 + 26 columns, 2^18-row chunks, sparse_adagrad
+                  with the in-step 'sort', the packed cache, epoch 1
+                  deferred, 100 epochs as one captured CUDA graph replayed
+                  100 times, 2 holdout chunks) and ``evaluate_device`` on
+                  the packed holdout: value (rows / (fit + eval) / 1 card,
+                  as bench.py), bench.py's keys, pure_step_ms (eager steps,
+                  CUDA events) and its A/B arms pure_step_ms_dense (adam)
+                  and pure_step_ms_f32cache (the head re-cached at f32),
+                  holdout AUC (floor 0.73)
+  criteo_profile  eager steps under torch.profiler: device time by kernel,
+                  ATen op and stage, the idle share, launches and
+                  ``nonzero`` calls per step; then the captured replay:
+                  device busy time, idle share and launches per epoch
 
 then the ``kernels`` line (launches counted over the gbt and rf phases;
 ``per_fit`` from the timed fits' launch counts and the profile),
@@ -82,9 +95,11 @@ HOLDOUT = 1 << 18
 GBT_AUC_FLOOR, RF_AUC_FLOOR = 0.72, 0.82
 # the Criteo configuration of bench.py (:87-97, :404-428)
 CRITEO_ROWS, CRITEO_EPOCHS, CRITEO_AUC_FLOOR = 8_000_000, 100, 0.73
+# (on an accelerator: the packed cache, epoch 1 deferred into the fused replay)
 CRITEO = dict(n_dims=1 << 22, n_dense=13, n_cat=26, chunk_rows=1 << 18, step_size=0.04,
               reg_param=1e-5, loss="logistic", label_in_chunk=True, prefetch_depth=2,
-              optim_update="sparse_adagrad", missing="zero", cache_dtype="f32")
+              optim_update="sparse_adagrad", missing="zero", cache_dtype="packed",
+              defer_epoch1=True, fused_replay=True)
 CRITEO_HOLDOUT_CHUNKS = 2
 # H100 rates from NVIDIA's data sheets: memory bytes/s and fp32 (non tensor
 # core) FLOP/s, by the form factor in the card's name
@@ -582,16 +597,84 @@ def _criteo_estimator(**kw):
     return StreamingHashedLinearEstimator(**{**CRITEO, **kw})
 
 
+def _theta_err(got, want) -> tuple[dict, bool]:
+    """Per-parameter max |got - want| and whether every entry is within
+    THETA_ATOL + THETA_RTOL·|want|."""
+    errs, ok = {}, True
+    for k, w in want.items():
+        w = w.cpu()
+        err = (got[k].cpu() - w).abs()
+        errs[k] = float(err.max())
+        ok &= bool((err <= THETA_ATOL + THETA_RTOL * w.abs()).all())
+    return errs, ok
+
+
+def _check_codec_on_card(rng, path):
+    """Bit packing on the card at every width and at the Criteo width
+    (22 bits × 26 columns), and a packed chunk decoded on the card against
+    the hash of its float32 codes on the card."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.io.codec import (
+        pack_flat_np, pack_rows_np, unpack_flat, unpack_rows,
+    )
+    from orange3_spark_tpu_torch.io.native import NativeCsvReader
+    from orange3_spark_tpu_torch.models import hashed_linear as hl
+    from orange3_spark_tpu_torch.ops.hashing import hash_columns, salts_tensor
+    from orange3_spark_tpu_torch.optim.sparse import build_plan_np, pack_plan_np, unpack_plan
+
+    def card(words):
+        return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).cuda()
+
+    bad = {}
+    for bits in range(1, 32):
+        vals = rng.integers(0, 1 << bits, size=(4099, 26), dtype=np.int64)
+        rows = unpack_rows(card(pack_rows_np(vals, bits)), bits, 26).cpu().numpy()
+        flat = unpack_flat(card(pack_flat_np(vals[:, 3], bits)), bits, 4099).cpu().numpy()
+        bad[bits] = int((rows != vals).sum() + (flat != vals[:, 3]).sum())
+    # a Criteo chunk: encoded on the host as the fit encodes it, decoded on
+    # the card; its indices against hash_columns of the f32 codes there
+    with NativeCsvReader(path) as r:
+        X = r.read_all(chunk_rows=1 << 14)[:4096]
+    p = _criteo_estimator().params
+    codec = hl.resolve_chunk_codec(p)
+    salts = hl.column_salts(p.n_cat, p.seed)
+    enc = hl._encode_chunk_np(codec, X, salts)
+    h2d = hl._HostToDevice(torch.device("cuda"))
+    enc_d = h2d.ready(h2d.put(enc), h2d.done())
+    s_d = salts_tensor(salts, "cuda")
+    yv, dense, idx, wv = hl._decode_chunk(codec, enc_d, 4000, None, None, s_d)
+    Xd = torch.from_numpy(X).cuda()
+    cats = Xd[:, 1 + p.n_dense:]
+    want = hash_columns(torch.where(torch.isnan(cats), 0.0, cats), s_d, p.n_dims)
+    plan = build_plan_np(X[:, 1 + p.n_dense:], salts, p.n_dims, 4000, impute_missing=True)
+    got_plan = unpack_plan(h2d.ready(h2d.put(pack_plan_np(plan, 4096, p.n_cat, p.n_dims)),
+                                     h2d.done()), 4096, p.n_cat, p.n_dims)
+    return {"pack_mismatches_by_width": bad,
+            "criteo_width": {"bits": codec.idx_bits, "words_per_row": codec.cat_words,
+                             "index_mismatches": int((idx != want).sum()),
+                             "label_mismatches": int((yv.cpu() != Xd[:, 0].cpu()).sum()),
+                             "live_rows": float(wv.sum()),
+                             "plan_mismatches": sum(int((got_plan[k].cpu().numpy()
+                                                         != plan[k]).sum()) for k in plan)}}
+
+
 def phase_criteo_check(tmp):
-    """The hash bitwise on the card; a small fit on the card against the
-    CPU path; the eval accumulators of one theta on both devices."""
+    """On the card against the CPU path: the hash; bit packing and the
+    packed decode; small packed, deferred fits (the captured graph replay,
+    the eager per-chunk replay, the CPU's 'plan' and 'sort'); a fit that
+    replays from the disk spill against the cache replay; adam; the eval
+    accumulators of one theta."""
     import numpy as np
     import torch
 
     from orange3_spark_tpu_torch import TorchSession
     from orange3_spark_tpu_torch.datasets import gen_criteo_csv
     from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
-    from orange3_spark_tpu_torch.models.hashed_linear import HashedLinearModel
+    from orange3_spark_tpu_torch.models.hashed_linear import (
+        HashedLinearModel, estimate_cached_chunk_bytes,
+    )
     from orange3_spark_tpu_torch.ops.hashing import column_salts, hash_columns, hash_columns_np
 
     rng = np.random.default_rng(0)
@@ -605,25 +688,57 @@ def phase_criteo_check(tmp):
 
     path = os.path.join(tmp, "criteo_check.csv")
     gen_criteo_csv(path, 4 * 4096, seed=1)
-    fits = {}
-    for dev, lowering in (("cuda", "sort"), ("cpu", "plan"), ("cpu", "sort")):
-        est = _criteo_estimator(n_dims=1 << 16, chunk_rows=4096, epochs=3,
-                                sparse_lowering=lowering)
-        fits[f"{dev}_{lowering}"] = est.fit_stream(
+    codec = _check_codec_on_card(rng, path)
+    codec_ok = (not any(codec["pack_mismatches_by_width"].values())
+                and not codec["criteo_width"]["index_mismatches"]
+                and not codec["criteo_width"]["label_mismatches"]
+                and not codec["criteo_width"]["plan_mismatches"]
+                and codec["criteo_width"]["live_rows"] == 4000)
+
+    small = dict(n_dims=1 << 16, chunk_rows=4096, epochs=3)
+    fits, st_graph = {}, {}
+    for name, dev, lowering, fused in (("cuda_graph", "cuda", "sort", True),
+                                       ("cuda_eager", "cuda", "sort", False),
+                                       ("cpu_plan", "cpu", "plan", True),
+                                       ("cpu_sort", "cpu", "sort", True)):
+        fits[name] = _criteo_estimator(sparse_lowering=lowering, fused_replay=fused,
+                                       **small).fit_stream(
             csv_raw_chunk_source(path, chunk_rows=4096), session=TorchSession(dev),
-            cache_device=True)
-    gpu = fits["cuda_sort"]
-    theta_err, theta_ok = {}, True
-    for name in ("cpu_plan", "cpu_sort"):
-        for k, want in fits[name].theta.items():
-            err = (gpu.theta[k].cpu() - want).abs()
-            theta_err[f"{name}.{k}"] = float(err.max())
-            theta_ok &= bool((err <= THETA_ATOL + THETA_RTOL * want.abs()).all())
+            cache_device=True, stage_times=st_graph if name == "cuda_graph" else None)
+    gpu = fits["cuda_graph"]
+    theta_err, theta_ok = {}, st_graph["replay_source"] == "fused"
+    for name in ("cuda_eager", "cpu_plan", "cpu_sort"):
+        errs, ok = _theta_err(gpu.theta, fits[name].theta)
+        theta_err.update({f"{name}.{k}": v for k, v in errs.items()})
+        theta_ok &= ok
+    # the disk spill: 12 chunks of 1024 rows, a budget of 9 chunks, so the
+    # cache overflows and the replay trains groups of 2 records as one
+    # captured graph; against the same fit replayed from the cache
+    spill_path = os.path.join(tmp, "criteo_spill.csv")
+    gen_criteo_csv(spill_path, 12 * 1024, seed=2)
+    spill_kw = dict(n_dims=1 << 16, chunk_rows=1024, epochs=3)
+    budget = 9 * estimate_cached_chunk_bytes(_criteo_estimator(**spill_kw).params,
+                                             TorchSession("cuda"))
+    st_spill: dict = {}
+    spill_dir = os.path.join(tmp, "spill")
+    spilled = _criteo_estimator(**spill_kw).fit_stream(
+        csv_raw_chunk_source(spill_path, chunk_rows=1024), session=TorchSession("cuda"),
+        cache_device=True, cache_device_bytes=budget, cache_spill_dir=spill_dir,
+        stage_times=st_spill)
+    cached = _criteo_estimator(**spill_kw).fit_stream(
+        csv_raw_chunk_source(spill_path, chunk_rows=1024), session=TorchSession("cuda"),
+        cache_device=True)
+    spill_err, spill_ok = _theta_err(spilled.theta, cached.theta)
+    spill_ok &= (st_spill["replay_source"] == "disk"
+                 and st_spill.get("disk_replay_group") == 2
+                 and spilled.n_steps_ == cached.n_steps_ == 36 and not os.listdir(spill_dir))
+    adam = _check_adam(path)
     # one theta (the CPU fit's), its eval accumulators on the card's cached
     # chunks and on the CPU's: the same rows on both
     cpu = fits["cpu_sort"]
     on_gpu = HashedLinearModel(cpu.params, {k: v.cuda() for k, v in cpu.theta.items()},
                                cpu.salts, cpu.class_values)
+    on_gpu.cache_codec_ = gpu.cache_codec_
     a = [x.cpu().numpy() for x in on_gpu.eval_accumulators(gpu.device_chunks_)]
     b = [x.cpu().numpy() for x in cpu.eval_accumulators(cpu.device_chunks_)]
     ev_gpu, ev_cpu = on_gpu.evaluate_device(gpu.device_chunks_), cpu.evaluate_device(
@@ -635,17 +750,77 @@ def phase_criteo_check(tmp):
     ev_ok = (evals["loss_sum_rel_err"] <= 1e-5 and evals["correct_diff"] <= 2
              and evals["weight_diff"] == 0 and evals["hist_rows_moved"] <= 8
              and evals["auc_diff"] <= 1e-4)
-    line = {"hash_mismatches": hash_mismatches, "hash_rows": len(codes),
+    line = {"hash_mismatches": hash_mismatches, "hash_rows": len(codes), "codec": codec,
             "fit": {"n_dims": 1 << 16, "chunks": 4, "chunk_rows": 4096, "epochs": 3,
-                    "optim_update": "sparse_adagrad"},
+                    "optim_update": "sparse_adagrad", "cache_dtype": "packed",
+                    "defer_epoch1": True},
+            "graph_replay": {"replay_source": st_graph["replay_source"],
+                             "graph_capture_s": st_graph.get("graph_capture_s")},
             "theta_max_abs_err": theta_err,
-            "theta_tolerance": f"|card - cpu| <= {THETA_ATOL} + {THETA_RTOL}*|cpu|",
+            "theta_tolerance": f"|card - other| <= {THETA_ATOL} + {THETA_RTOL}*|other|",
+            "spill": {"replay_source": st_spill["replay_source"],
+                      "disk_replay_group": st_spill.get("disk_replay_group"),
+                      "steps": spilled.n_steps_, "theta_max_abs_err_vs_cache": spill_err,
+                      "ok": spill_ok},
+            "adam": adam,
             "eval": evals,
             "eval_tolerance": "loss_sum rel <= 1e-5, correct <= 2 rows, weights equal, "
                               "<= 8 rows in another AUC bin, AUC <= 1e-4"}
-    if any(hash_mismatches.values()) or not theta_ok or not ev_ok:
+    if (any(hash_mismatches.values()) or not codec_ok or not theta_ok or not spill_ok
+            or not adam["ok"] or not ev_ok):
         raise AssertionError(f"the Criteo path on the card disagrees with the CPU path: {line}")
     return line
+
+
+def _check_adam(path):
+    """'adam' on the card against the CPU: the update on the same inputs
+    (within 1e-7 + 1e-6·|θ|: pow may round an ulp apart), and two fit steps
+    (losses within 1e-5 relative; θ within the atomics tolerance on all but
+    1e-4 of the entries and within 2·lr·steps everywhere: adam divides by
+    sqrt(v) + 1e-8, so a row whose first gradient is a near-cancelled sum
+    can move by up to lr when the card sums it in another order)."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.optim.sparse import adam_update, init_adam_state
+
+    rng = np.random.default_rng(4)
+    theta = {k: rng.standard_normal(s).astype(np.float32)
+             for k, s in (("emb", (1 << 16, 1)), ("coef", (13, 1)), ("intercept", (1,)))}
+    grads = {k: (rng.standard_normal(v.shape) * 1e-3).astype(np.float32)
+             for k, v in theta.items()}
+    upd = {}
+    for dev in ("cpu", "cuda"):
+        th = {k: torch.from_numpy(v).to(dev) for k, v in theta.items()}
+        state = init_adam_state(th)
+        for _ in range(3):
+            th, state = adam_update(th, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in grads.items()}, state, 0.04)
+        upd[dev] = th
+    update_err = {k: float((upd["cuda"][k].cpu() - upd["cpu"][k]).abs().max()) for k in theta}
+    update_ok = all(bool(((upd["cuda"][k].cpu() - upd["cpu"][k]).abs()
+                          <= 1e-7 + 1e-6 * upd["cpu"][k].abs()).all()) for k in theta)
+    fits = {dev: _criteo_estimator(optim_update="adam", n_dims=1 << 16, chunk_rows=4096,
+                                   epochs=1, defer_epoch1=False).fit_stream(
+        csv_raw_chunk_source(path, chunk_rows=4096), session=TorchSession(dev),
+        cache_device=True, holdout_chunks=2) for dev in ("cuda", "cpu")}
+    lr = CRITEO["step_size"]
+    steps = fits["cuda"].n_steps_
+    off, worst = {}, {}
+    for k, want in fits["cpu"].theta.items():
+        err = (fits["cuda"].theta[k].cpu() - want).abs()
+        off[k] = int((err > THETA_ATOL + THETA_RTOL * want.abs()).sum())
+        worst[k] = float(err.max())
+    loss_rel = abs(fits["cuda"].final_loss_ - fits["cpu"].final_loss_) / abs(
+        fits["cpu"].final_loss_)
+    fit_ok = (steps == 2 and loss_rel <= 1e-5
+              and all(off[k] <= 1e-4 * fits["cpu"].theta[k].numel() for k in off)
+              and all(w <= 2 * lr * steps for w in worst.values()))
+    return {"update_max_abs_err": update_err, "steps": steps, "loss_rel_err": loss_rel,
+            "theta_max_abs_err": worst, "entries_outside_tolerance": off,
+            "ok": update_ok and fit_ok}
 
 
 def phase_criteo_data(tmp, rows):
@@ -658,59 +833,78 @@ def phase_criteo_data(tmp, rows):
                   "seconds": time.perf_counter() - t0}
 
 
-def _fresh_state(model, sess):
-    """A step's inputs as a new fit would have them, with the model's
-    theta: (theta, opt_state, salts, static_kw, (reg, lr, l1))."""
+def _fresh_state(params, theta, sess):
+    """A step's inputs as a new fit of ``params`` would have them, with
+    ``theta``: (theta, opt_state, salts, static_kw, (reg, lr, l1))."""
     import numpy as np
 
     from orange3_spark_tpu_torch.models.hashed_linear import _init_fit_state
 
-    p = model.params
-    _, opt, _, salts, kw = _init_fit_state(p, sess)
-    theta = {k: v.clone() for k, v in model.theta.items()}
-    hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
+    _, opt, _, salts, kw = _init_fit_state(params, sess)
+    theta = {k: v.clone() for k, v in theta.items()}
+    hyper = tuple(float(np.float32(v)) for v in (params.reg_param, params.step_size,
+                                                 params.l1_param))
     return theta, opt, salts, kw, hyper
 
 
 def _replay_steps(state, chunks):
-    """One step per chunk, as a replay epoch runs them."""
-    from orange3_spark_tpu_torch.models.hashed_linear import _step_core
+    """One eager step per chunk, as a per-chunk replay epoch runs them."""
+    from orange3_spark_tpu_torch.models.hashed_linear import _step_into
 
-    theta, opt, salts, kw, (reg, lr, l1) = state
+    theta, opt, salts, kw, hyper = state
     loss = None
     for c in chunks:
-        theta, opt, loss = _step_core(theta, opt, c[0], c[1], c[2], c[3], salts, reg, lr,
-                                      c[4] if len(c) > 4 else None, l1, **kw)
-    return (theta, opt, salts, kw, (reg, lr, l1)), loss
+        loss = _step_into(theta, opt, c, salts, hyper, kw)
+    return loss
 
 
-def phase_criteo(path, tmp, rows, epochs, sess):
-    """bench.py's Criteo fit at full width, then evaluate_device."""
+def _step_ms(params, theta, chunks, sess, n_steps):
+    """Mean time of ``n_steps`` eager steps cycling over ``chunks`` (CUDA
+    events around them all, one warm step first), from fresh optimizer
+    state of ``params``' rule: bench.py's ``step_rate``."""
+    state = _fresh_state(params, theta, sess)
+    _replay_steps(state, chunks[:1])
+    sess.synchronize()
+    steps = [chunks[i % len(chunks)] for i in range(n_steps)]
+    return cuda_ms(lambda: _replay_steps(state, steps), 1) / n_steps
+
+
+def phase_criteo(path, rows, epochs, sess):
+    """bench.py's Criteo fit on an accelerator, at full width: warm-up as
+    bench.py:508-531 does it (one chunk parsed, ``warm_replay`` over the
+    train chunk count, the eval path on a zero chunk), the timed fit,
+    ``evaluate_device`` on the holdout, then the A/B arms."""
     import numpy as np
     import torch
 
-    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.io.codec import force_cache_dtype
     from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import (
+        HashedLinearModel, resolve_chunk_codec, warm_eval_chunk,
+    )
 
     chunk = CRITEO["chunk_rows"]
-    warm_path = os.path.join(tmp, "criteo_warm.csv")
+    budget = 8 << 30
+    source = csv_raw_chunk_source(path, chunk_rows=chunk)
+    n_chunks = -(-rows // chunk)
+    holdout_chunks = max(min(CRITEO_HOLDOUT_CHUNKS, n_chunks - 1), 0)
     t0 = time.perf_counter()
-    gen_criteo_csv(warm_path, 2 * chunk, seed=1)
-    warm = _criteo_estimator(epochs=2).fit_stream(
-        csv_raw_chunk_source(warm_path, chunk_rows=chunk), session=sess,
-        cache_device=True, holdout_chunks=1)
-    warm.evaluate_device(warm.holdout_chunks_)
+    next(iter(source()))                 # the reader and the parse, once
+    est_w = _criteo_estimator(epochs=epochs)
+    theta_w, salts_w = est_w.warm_replay(n_chunks - holdout_chunks, session=sess)
+    m0 = HashedLinearModel(est_w.params, theta_w, salts_w, ("0", "1"))
+    m0.cache_codec_ = resolve_chunk_codec(est_w.params, sess)
+    m0.evaluate_device([warm_eval_chunk(est_w.params, sess)])
     warm_s = time.perf_counter() - t0
-    del warm
+    del est_w, theta_w, m0
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     st: dict = {}
     est = _criteo_estimator(epochs=epochs)
     t0 = time.perf_counter()
-    model = est.fit_stream(csv_raw_chunk_source(path, chunk_rows=chunk), session=sess,
-                           cache_device=True, cache_device_bytes=8 << 30,
-                           holdout_chunks=CRITEO_HOLDOUT_CHUNKS, stage_times=st)
+    model = est.fit_stream(source, session=sess, cache_device=True, cache_device_bytes=budget,
+                           holdout_chunks=holdout_chunks, stage_times=st)
     sess.synchronize()
     fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -720,29 +914,48 @@ def phase_criteo(path, tmp, rows, epochs, sess):
     holdout_rows = sum(int(c[1]) for c in model.holdout_chunks_)
     train_rows = rows - holdout_rows
 
-    # pure step: cached chunks through fresh optimizer state, timed by CUDA
-    # events over 20 steps after one warm step (bench.py's probe)
-    state = _fresh_state(model, sess)
+    # the probes (bench.py:650-857): eager steps over cached chunks from
+    # fresh optimizer state, timed by CUDA events after one warm step
     chunks = model.device_chunks_[:4]
-    state, _ = _replay_steps(state, chunks[:1])
-    n_probe = 20
-    pure_step_ms = cuda_ms(lambda: _replay_steps(state, chunks), n_probe // len(chunks)) / len(chunks)
-    del state
+    pure_step_ms = _step_ms(est.params, model.theta, chunks, sess, 20)
+    dense_ms = _step_ms(est.params.replace(optim_update="adam"), model.theta, chunks, sess, 6)
+    # the f32-cache arm: the same head re-cached at f32 within the same
+    # budget, stepped with the fit's rule
+    def head():
+        for i, c in enumerate(source()):
+            if i >= len(chunks):
+                break
+            yield c
+
+    with force_cache_dtype("f32"):    # the arm's fit and its steps
+        m_f32 = _criteo_estimator(epochs=1, defer_epoch1=False).fit_stream(
+            head, session=sess, cache_device=True, cache_device_bytes=budget)
+        f32_ms = _step_ms(m_f32.params, model.theta, m_f32.device_chunks_, sess, 6)
+    f32_chunk_bytes = m_f32.device_chunks_[0][0].numel() * 4
+    del m_f32
 
     walls = st["epoch_s"]
+    n_rep = epochs if est.params.defer_epoch1 else epochs - 1
+    replay_steps = n_rep * len(model.device_chunks_)
     line = {"rows": rows, "train_rows": train_rows, "holdout_rows": holdout_rows,
             "epochs": epochs, "cached_chunks": len(model.device_chunks_),
             "steps": model.n_steps_, "fit_s": fit_s, "eval_s": eval_s,
             "value": rows / (fit_s + eval_s) / 1,
             "train_rows_x_epochs_per_sec": train_rows * epochs / fit_s,
-            "pure_step_ms": pure_step_ms, "pure_step_probe_steps": n_probe,
-            "parse_s": st["parse_s"], "h2d_s": st["h2d_s"],
-            "epoch1_s": walls[0], "replay_epoch_mean_s": (float(np.mean(walls[1:]))
-                                                          if len(walls) > 1 else None),
-            "overlap_pct": st.get("overlap_pct"), "cache_bytes": st.get("cache_bytes"),
+            "pure_step_ms": pure_step_ms, "pure_step_probe_steps": 20,
+            "pure_step_ms_dense": dense_ms, "pure_step_ms_f32cache": f32_ms,
+            "ab_probe_steps": 6, "f32_chunk_bytes": f32_chunk_bytes,
             "optim_update": st["optim_update"], "sparse_lowering": st["sparse_lowering"],
-            "cache_dtype": st["cache_dtype"], "auc": ev.get("auc"),
-            "logloss": ev["logloss"], "accuracy": ev["accuracy"],
+            "cache_dtype": st["cache_dtype"], "defer_epoch1": est.params.defer_epoch1,
+            "replay_source": st["replay_source"], "replay_fused_s": st.get("replay_fused_s"),
+            "graph_capture_s": st.get("graph_capture_s"),
+            "replay_step_ms": ((st["replay_fused_s"] - st["graph_capture_s"]) * 1e3
+                               / replay_steps if st.get("replay_fused_s") else None),
+            "epoch1_s": walls[0], "parse_s": st["parse_s"], "encode_s": st["encode_s"],
+            "h2d_s": st["h2d_s"], "overlap_pct": st.get("overlap_pct"),
+            "cache_bytes": st.get("cache_bytes"), "cache_raw_bytes": st.get("cache_raw_bytes"),
+            "compression_ratio": st["cache_raw_bytes"] / st["cache_bytes"],
+            "auc": ev.get("auc"), "logloss": ev["logloss"], "accuracy": ev["accuracy"],
             "final_loss": model.final_loss_, "peak_mem_GiB": peak / 2**30,
             "warmup_s": warm_s, "auc_floor": CRITEO_AUC_FLOOR,
             "cuts": {"epochs": f"{CRITEO_EPOCHS} -> {epochs}" if epochs != CRITEO_EPOCHS
@@ -751,83 +964,127 @@ def phase_criteo(path, tmp, rows, epochs, sess):
     if not (np.isfinite([ev["logloss"], model.final_loss_]).all()
             and ev.get("auc") is not None):
         raise AssertionError(f"criteo: non-finite or missing results: {line}")
+    if (st["cache_dtype"], st["replay_source"]) != ("packed", "fused"):
+        raise AssertionError(f"criteo: not the accelerator configuration: {line}")
     if ev["auc"] < CRITEO_AUC_FLOOR:
         raise AssertionError(f"criteo: holdout AUC {ev['auc']:.4f} below "
                              f"{CRITEO_AUC_FLOOR}: {line}")
     return model, line
 
 
-def phase_criteo_profile(model, sess, epochs=3):
-    """Replay epochs over the cached chunks under torch.profiler: device
-    time by kernel, by ATen op and by stage of the step (with each stage's
-    host time), the device's busy and idle share of the window, and device
-    launches per step."""
-    import torch
+def _device_profile(prof, exclude=()):
+    """Device events of a profile: (events, by name [us, count], busy us)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from orange3_spark_tpu_torch.models.hashed_linear import STEP_STAGES
-
-    state = _fresh_state(model, sess)
-    chunks = model.device_chunks_
-    state, _ = _replay_steps(state, chunks[:2])
-    sess.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(epochs):
-            state, _ = _replay_steps(state, chunks)
-        sess.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    steps = epochs * len(chunks)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    # the stage ranges show on the device timeline too, as spans from their
-    # first kernel to their last: kept apart from the kernels
-    events = [e for e in device if e.name not in STEP_STAGES]
-    if not events:
-        return {"wall_s": wall_us / 1e6, "steps": steps,
-                "device_time": "not measured: the profiler saw no device events"}
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.name not in exclude]
     by_name: dict[str, list] = {}
     for e in events:
         slot = by_name.setdefault(e.name, [0.0, 0])
         slot[0] += e.time_range.elapsed_us()
         slot[1] += 1
-    total = sum(v[0] for v in by_name.values())
-    busy = _busy_us(events)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    # the step's stages (its profiler ranges): device time of the kernels
-    # launched inside each, the span they cover on the device timeline
-    # (kernels and the gaps between them), and the host time in each
-    stages = {name: {"device_ms_per_step": 0.0, "device_span_ms_per_step": 0.0,
-                     "host_ms_per_step": 0.0} for name in STEP_STAGES}
-    for e in prof.events():
-        if e.name not in stages:
-            continue
-        if e.device_type == DeviceType.CUDA:
-            stages[e.name]["device_span_ms_per_step"] += (
-                e.time_range.elapsed_us() / 1e3 / steps)
-        else:
-            dev_us = getattr(e, "device_time_total", None)
-            stages[e.name]["device_ms_per_step"] += (
-                e.cuda_time_total if dev_us is None else dev_us) / 1e3 / steps
-            stages[e.name]["host_ms_per_step"] += e.cpu_time_total / 1e3 / steps
-    # device time by ATen op (the kernels each op launched itself)
-    ops = []
-    for a in prof.key_averages():
-        self_us = getattr(a, "self_device_time_total", None)
-        self_us = a.self_cuda_time_total if self_us is None else self_us
-        if self_us > 0 and a.key.startswith("aten::"):
-            ops.append({"op": a.key, "ms_per_step": self_us / 1e3 / steps,
-                        "calls_per_step": a.count / steps, "share": self_us / total})
-    ops.sort(key=lambda o: -o["ms_per_step"])
-    return {"wall_s": wall_us / 1e6, "steps": steps, "chunks": len(chunks),
-            "step_wall_ms": wall_us / 1e3 / steps,
-            "device_busy_ms_per_step": busy / 1e3 / steps,
-            "device_idle_share": 1 - busy / wall_us,
-            "device_launches_per_step": len(events) / steps,
-            "stages": stages, "top_ops": ops[:12],
-            "top_kernels": [{"name": n[:110], "ms_per_step": v[0] / 1e3 / steps,
-                             "launches_per_step": v[1] / steps, "share": v[0] / total}
-                            for n, v in top]}
+    return events, by_name, (_busy_us(events) if events else 0.0)
+
+
+def phase_criteo_profile(model, sess, epochs=3):
+    """Under torch.profiler: (1) eager steps over the cached (packed)
+    chunks: device time by kernel, by ATen op and by stage of the step
+    (with each stage's host time), the device's busy and idle share,
+    launches per step, and the ``nonzero`` calls a step makes (none: the
+    step never waits for the device); (2) the captured graph replay of the
+    same chunks: device busy time, idle share and launches per replay
+    epoch, beside CUDA-event times of a replay epoch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orange3_spark_tpu_torch.models.hashed_linear import STEP_STAGES, _Replay, _step_into
+
+    chunks = model.device_chunks_
+    state = _fresh_state(model.params, model.theta, sess)
+    _replay_steps(state, chunks[:2])
+    sess.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            _replay_steps(state, chunks)
+        sess.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    steps = epochs * len(chunks)
+    # the stage ranges show on the device timeline too, as spans from their
+    # first kernel to their last: kept apart from the kernels
+    events, by_name, busy = _device_profile(prof, exclude=STEP_STAGES)
+    nonzero = sum(a.count for a in prof.key_averages() if a.key == "aten::nonzero")
+    if not events:
+        eager = {"wall_s": wall_us / 1e6, "steps": steps,
+                 "device_time": "not measured: the profiler saw no device events"}
+    else:
+        total = sum(v[0] for v in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        stages = {name: {"device_ms_per_step": 0.0, "device_span_ms_per_step": 0.0,
+                         "host_ms_per_step": 0.0} for name in STEP_STAGES}
+        for e in prof.events():
+            if e.name not in stages:
+                continue
+            if e.device_type == DeviceType.CUDA:
+                stages[e.name]["device_span_ms_per_step"] += (
+                    e.time_range.elapsed_us() / 1e3 / steps)
+            else:
+                dev_us = getattr(e, "device_time_total", None)
+                stages[e.name]["device_ms_per_step"] += (
+                    e.cuda_time_total if dev_us is None else dev_us) / 1e3 / steps
+                stages[e.name]["host_ms_per_step"] += e.cpu_time_total / 1e3 / steps
+        ops = []
+        for a in prof.key_averages():
+            self_us = getattr(a, "self_device_time_total", None)
+            self_us = a.self_cuda_time_total if self_us is None else self_us
+            if self_us > 0 and a.key.startswith("aten::"):
+                ops.append({"op": a.key, "ms_per_step": self_us / 1e3 / steps,
+                            "calls_per_step": a.count / steps, "share": self_us / total})
+        ops.sort(key=lambda o: -o["ms_per_step"])
+        eager = {"wall_s": wall_us / 1e6, "steps": steps, "chunks": len(chunks),
+                 "step_wall_ms": wall_us / 1e3 / steps,
+                 "device_busy_ms_per_step": busy / 1e3 / steps,
+                 "device_idle_share": 1 - busy / wall_us,
+                 "device_launches_per_step": len(events) / steps,
+                 "stages": stages, "top_ops": ops[:12],
+                 "top_kernels": [{"name": n[:110], "ms_per_step": v[0] / 1e3 / steps,
+                                  "launches_per_step": v[1] / steps, "share": v[0] / total}
+                                 for n, v in top]}
+    eager["nonzero_calls_per_step"] = nonzero / steps
+
+    # the captured replay of the same chunks, from fresh state
+    theta, opt, salts, kw, hyper = _fresh_state(model.params, model.theta, sess)
+    replay = _Replay(theta, opt, chunks,
+                     lambda th, op, c: _step_into(th, op, c, salts, hyper, kw))
+    t0 = time.perf_counter()
+    replay.capture()
+    capture_s = time.perf_counter() - t0
+    replay.run(1)
+    sess.synchronize()
+    epoch_ms = cuda_ms(lambda: replay.run(1), epochs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay.run(epochs)
+        sess.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy = _device_profile(prof)
+    graph = {"capture_s": capture_s, "replay_epoch_ms": epoch_ms,
+             "replay_step_ms": epoch_ms / len(chunks), "epochs": epochs,
+             "wall_s": wall_us / 1e6}
+    if events:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        graph.update(device_busy_ms_per_epoch=busy / 1e3 / epochs,
+                     device_idle_share=1 - busy / wall_us,
+                     device_launches_per_epoch=len(events) / epochs,
+                     top_kernels=[{"name": n[:110], "ms_per_epoch": v[0] / 1e3 / epochs,
+                                   "launches_per_epoch": v[1] / epochs}
+                                  for n, v in top])
+    else:
+        graph["device_time"] = ("not measured: the profiler saw no device events "
+                                "inside the graph replays")
+    del replay
+    return {"eager": eager, "graph": graph}
 
 
 def main(argv=None) -> int:
@@ -944,7 +1201,7 @@ def main(argv=None) -> int:
             path, line = phase_criteo_data(tmp, args.criteo_rows)
             emit({"phase": phase, **line})
             phase = "criteo"
-            model, line = phase_criteo(path, tmp, args.criteo_rows, args.criteo_epochs, sess)
+            model, line = phase_criteo(path, args.criteo_rows, args.criteo_epochs, sess)
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **line})
             phase = "criteo_profile"
             emit({"phase": phase, "device": kind, **phase_criteo_profile(model, sess)})

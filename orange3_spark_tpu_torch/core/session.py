@@ -22,6 +22,8 @@ class TorchSession:
 
     _lock = threading.Lock()
     _active: "TorchSession | None" = None
+    #: what ``cache_dtype='auto'`` resolves to (io/codec.py): full compression
+    default_cache_dtype: str = "packed"
 
     def __init__(self, device: str | torch.device | None = None):
         if device is None:

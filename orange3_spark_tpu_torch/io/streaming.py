@@ -3,25 +3,34 @@
 The chunk pipeline of a streaming fit:
 
     native fastcsv chunk (C++ threads, f32 row-major)
+      -> pad, encode (io/codec.py), spill (prefetch thread)
       -> pinned host copy -> device (on a copy stream, prefetch thread)
       -> one update step per chunk on the device
 
 Every chunk is padded to the same row count, so the step sees one shape for
 the whole stream, and the host prepares chunk t+1 while the device runs
 step t. This module holds the host side of that pipeline: re-iterable
-sources, rechunking and padding, the prefetch thread and the budgeted
-cache that keeps epoch 1's device chunks for the replay epochs.
+sources, rechunking and padding, the prefetch thread, the budgeted cache
+that keeps epoch 1's device chunks for the replay epochs, and the disk
+spill that replays them when the cache overflows.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
+import uuid
 import warnings
+import weakref
+import zlib
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.exec.pipeline import PipelineStats, prefetch_iter
+from orange3_spark_tpu_torch.io.codec import SpillCorruptionError
 
 # (X [n, d], y [n] or None) or (X, y, w) — sources may carry row weights
 Chunk = tuple
@@ -156,6 +165,222 @@ class _DeviceCache:
         if self.first_miss is not None:
             self.degraded = True
             self._drop()
+
+
+def _resilience_enabled() -> bool:
+    """``OTPU_RESILIENCE=0`` skips the spill's CRC check (read per call)."""
+    return os.environ.get("OTPU_RESILIENCE", "1") != "0"
+
+
+def _storage_dtype(name) -> np.dtype:
+    """A spill field's numpy dtype; the name "bfloat16" (what the JAX
+    package writes for a bf16 field) is its 16 bits, read as uint16."""
+    return np.dtype(np.uint16) if str(name) == "bfloat16" else np.dtype(name)
+
+
+def _spill_cleanup(f, path: str, named: list) -> None:
+    """Module-level so the finalizer holds no reference to the cache: close
+    the file (which frees an unlinked inode) and unlink a named spill an
+    aborted fit left behind."""
+    try:
+        f.close()
+    except OSError:
+        pass
+    if named and named[0]:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+class DiskChunkCache:
+    """Epoch-1 disk spill of padded (and encoded) chunks: when a many-epoch
+    fit outgrows the device cache, the later epochs replay these records
+    at disk bandwidth instead of re-parsing the CSV.
+
+    Format (version 2): the magic ``OTPUSPL1``, a u32 header length and a
+    JSON header (shapes and dtype names), padded to 8 bytes; then records
+    of fixed size, each a little-endian u32 live-row count, a u32 CRC32 of
+    the record's bytes after those eight, and the fields' raw bytes in
+    order, each field 8-byte aligned. Version 1 has zeros where the CRC
+    is (the same offsets); version 0 is headerless float32 fields back to
+    back, with no live-row counts. ``attach`` reads all three, as the JAX
+    package writes them. ``read`` checks a version-2 record's CRC once
+    (``OTPU_RESILIENCE=0`` skips it) and raises ``SpillCorruptionError``
+    naming the record; ``finalize`` and ``attach`` refuse a file that is
+    not a whole number of records.
+
+    One writer (the prefetch thread), then ``finalize()`` turns it into a
+    read-only memmap. By default the file is unlinked as soon as it is
+    opened, so a crashed fit leaves nothing on disk; a finalizer closes
+    the file (and unlinks a ``keep_file=True`` spill) if the object dies
+    without ``delete()``."""
+
+    MAGIC = b"OTPUSPL1"
+
+    def __init__(self, dir_path: str, shapes: tuple, dtypes: tuple | None = None,
+                 *, keep_file: bool = False):
+        self.shapes = [tuple(s) for s in shapes]
+        self.dtypes = ([np.dtype(np.float32)] * len(self.shapes) if dtypes is None
+                       else [_storage_dtype(d) for d in dtypes])
+        if len(self.dtypes) != len(self.shapes):
+            raise ValueError("one dtype per field")
+        self._init_layout()
+        self._version = 2
+        os.makedirs(dir_path, exist_ok=True)
+        self.path = os.path.join(dir_path, f"spill_{uuid.uuid4().hex}.otpu")
+        self._f = open(self.path, "w+b")
+        header = json.dumps({"version": 2, "shapes": self.shapes,
+                             "dtypes": [dt.name for dt in self.dtypes]}).encode()
+        head = self.MAGIC + struct.pack("<I", len(header)) + header
+        head += b"\0" * (-len(head) % 8)
+        self._f.write(head)
+        self._data_start = len(head)
+        self._named = [bool(keep_file)]
+        if not keep_file:
+            os.unlink(self.path)
+        self._finalizer = weakref.finalize(self, _spill_cleanup, self._f, self.path,
+                                           self._named)
+        self.n_valid: list[int] = []
+        self._mm: np.memmap | None = None
+        self._crc_ok: set[int] = set()
+
+    def _init_layout(self, header_words: int = 8) -> None:
+        """Field offsets: after ``header_words`` bytes (the live-row count
+        and the CRC), each field at the next 8-byte boundary; version 0
+        packs the fields back to back from offset 0."""
+        self._field_bytes = [int(np.prod(s)) * dt.itemsize
+                             for s, dt in zip(self.shapes, self.dtypes)]
+        #: bytes of one record's arrays, what a device copy of it costs
+        self.payload_bytes = sum(self._field_bytes)
+        self._offsets, ofs = [], header_words
+        for nb in self._field_bytes:
+            self._offsets.append(ofs)
+            ofs += -(-nb // 8) * 8 if header_words else nb
+        self.record_bytes = ofs
+
+    @classmethod
+    def attach(cls, path: str, shapes: tuple | None = None,
+               dtypes: tuple | None = None) -> "DiskChunkCache":
+        """Open an existing spill file read-only. Versions 1 and 2 describe
+        themselves; a headerless (version 0) file needs ``shapes`` (float32
+        unless ``dtypes`` says otherwise) and reads every record as full."""
+        obj = cls.__new__(cls)
+        obj._f = open(path, "rb")
+        obj.path = path
+        obj._named = [False]
+        obj._finalizer = weakref.finalize(obj, _spill_cleanup, obj._f, path, obj._named)
+        obj._mm = None
+        obj._crc_ok = set()
+        if obj._f.read(len(cls.MAGIC)) == cls.MAGIC:
+            (hlen,) = struct.unpack("<I", obj._f.read(4))
+            layout = json.loads(obj._f.read(hlen))
+            obj.shapes = [tuple(s) for s in layout["shapes"]]
+            obj.dtypes = [_storage_dtype(d) for d in layout["dtypes"]]
+            obj._init_layout()
+            head = len(cls.MAGIC) + 4 + hlen
+            obj._data_start = head + (-head % 8)
+            obj._version = int(layout.get("version", 1))
+        else:
+            if shapes is None:
+                raise ValueError("headerless (version-0) spill files need shapes=")
+            obj.shapes = [tuple(s) for s in shapes]
+            obj.dtypes = ([np.dtype(np.float32)] * len(obj.shapes) if dtypes is None
+                          else [_storage_dtype(d) for d in dtypes])
+            obj._init_layout(header_words=0)
+            obj._data_start = 0
+            obj._version = 0
+        n_bytes = os.path.getsize(path) - obj._data_start
+        n_rec = n_bytes // obj.record_bytes if obj.record_bytes else 0
+        if obj._version >= 1 and obj.record_bytes and n_bytes % obj.record_bytes:
+            raise SpillCorruptionError(
+                f"spill file {path!r} is truncated: {n_bytes} data bytes is not a "
+                f"whole number of {obj.record_bytes}-byte records — record {n_rec} "
+                f"(of {n_rec + 1} started) was cut mid-write")
+        obj._mm = np.memmap(obj._f, dtype=np.uint8, mode="r", offset=obj._data_start,
+                            shape=(n_rec, obj.record_bytes))
+        if obj._version >= 1:
+            obj.n_valid = [int(v) for v in
+                           np.asarray(obj._mm[:, :4]).copy().view("<u4")[:, 0]]
+        else:
+            obj.n_valid = [obj.shapes[0][0]] * n_rec
+        return obj
+
+    def append(self, arrays: tuple, n_valid: int) -> None:
+        """Write one record (on the prefetch thread, sequentially)."""
+        arrs = []
+        for a, shape, dt in zip(arrays, self.shapes, self.dtypes):
+            a = np.ascontiguousarray(a, dtype=dt)
+            if a.shape != shape:
+                raise ValueError(f"spill record shape {a.shape} != {shape}")
+            arrs.append(a)
+        # the CRC covers every byte after the 8-byte record header, the
+        # alignment zeros included, so it lands in that header first
+        crc, written = 0, 8
+        for a, ofs, nb in zip(arrs, self._offsets, self._field_bytes):
+            if ofs > written:
+                crc = zlib.crc32(b"\0" * (ofs - written), crc)
+            crc = zlib.crc32(a, crc)
+            written = ofs + nb
+        if self.record_bytes > written:
+            crc = zlib.crc32(b"\0" * (self.record_bytes - written), crc)
+        self._f.write(struct.pack("<II", int(n_valid), crc & 0xFFFFFFFF))
+        written = 8
+        for a, ofs, nb in zip(arrs, self._offsets, self._field_bytes):
+            if ofs > written:
+                self._f.write(b"\0" * (ofs - written))
+            a.tofile(self._f)
+            written = ofs + nb
+        if self.record_bytes > written:
+            self._f.write(b"\0" * (self.record_bytes - written))
+        self.n_valid.append(int(n_valid))
+
+    @property
+    def n_records(self) -> int:
+        return len(self.n_valid)
+
+    def finalize(self) -> None:
+        """End of writing: check the file holds every record, then map it."""
+        if self._mm is None and self._f is not None and self.n_valid:
+            self._f.flush()
+            expected = self._data_start + self.n_records * self.record_bytes
+            actual = os.fstat(self._f.fileno()).st_size
+            if actual != expected:
+                raise SpillCorruptionError(
+                    f"spill file {self.path!r} holds {actual} bytes where {expected} "
+                    f"were written ({self.n_records} records x {self.record_bytes} B): "
+                    f"record {max(0, (actual - self._data_start) // self.record_bytes)}"
+                    " was truncated mid-write")
+            self._mm = np.memmap(self._f, dtype=np.uint8, mode="r",
+                                 offset=self._data_start,
+                                 shape=(self.n_records, self.record_bytes))
+
+    def read(self, i: int) -> tuple[tuple, int]:
+        """Record ``i`` as typed views into the memmap, and its live-row
+        count. A version-2 record's CRC is checked on its first read (the
+        file does not change after ``finalize``)."""
+        rec = self._mm[i]
+        if self._version >= 2 and i not in self._crc_ok and _resilience_enabled():
+            stored = int(np.asarray(rec[4:8]).copy().view("<u4")[0])
+            computed = zlib.crc32(rec[8:]) & 0xFFFFFFFF
+            if stored != computed:
+                raise SpillCorruptionError(
+                    f"spill record {i} of {self.n_records} in {self.path!r} failed "
+                    f"CRC verification (stored 0x{stored:08x} != computed "
+                    f"0x{computed:08x}): the record was corrupted on disk. Delete the "
+                    "spill and re-run the fit (OTPU_RESILIENCE=0 skips verification).")
+            self._crc_ok.add(i)
+        out = tuple(rec[ofs:ofs + nb].view(dt).reshape(shape)
+                    for shape, dt, ofs, nb in zip(self.shapes, self.dtypes,
+                                                  self._offsets, self._field_bytes))
+        return out, self.n_valid[i]
+
+    def delete(self) -> None:
+        """Release the file (a ``keep_file`` spill is unlinked too)."""
+        self._mm = None
+        if self._f is not None:
+            self._f = None
+            self._finalizer()
 
 
 def warn_cache_overflow(cache_device_bytes: int, epochs_left: int,

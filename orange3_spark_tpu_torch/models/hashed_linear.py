@@ -5,42 +5,47 @@ numerics and 26 categoricals hashed into millions of dimensions, fit with
 logistic regression over a CSV stream.
 
 * Every row has EXACTLY ``n_cat`` categorical slots, so the sparse
-  structure is two fixed-shape arrays: raw codes [N, C] (hashed to indices
-  on the device, ops/hashing.py) and an embedding table [n_dims, k]. The
-  forward is an embedding gather and sum plus a small matmul for the dense
-  block.
+  structure is two fixed-shape arrays: raw codes [N, C] (hashed to indices,
+  ops/hashing.py) and an embedding table [n_dims, k]. The forward is an
+  embedding gather and sum plus a small matmul for the dense block.
 * Binary targets use the k = 1 sigmoid form (``binary_logistic``): the
   optimum of the 2-column softmax at half the gather and update bytes.
 * A chunk arrives as ONE [N, 1 + n_dense + n_cat] f32 array from fastcsv,
-  label column included (``label_in_chunk``): the host does no per-cell
-  work and the copy to the device is one transfer; the split into label,
-  dense and categorical columns happens on the device. Padding rows are
-  masked by ``n_valid``, not by a shipped weight vector.
-* Epoch 1 streams: parse, pad and the copy of chunk t+1 run on a prefetch
-  thread (io/streaming.py ``prefetch_map``) while the device runs step t.
+  label column included (``label_in_chunk``). Padding rows are masked by
+  ``n_valid``, not by a shipped weight vector.
+* Epoch 1 streams: parse, pad, encode and the copy of chunk t+1 run on a
+  prefetch thread (io/streaming.py ``prefetch_map``) while the device runs
+  step t.
+* ``cache_dtype`` (io/codec.py) sets what the cache, the disk spill and
+  the copies carry: float32 chunks, or 'bf16' / 'packed' blocks (bf16
+  dense columns, a uint8 label, under 'packed' the indices hashed on the
+  host and bit-packed) that the step decodes on the device.
 * ``cache_device=True`` keeps each chunk on the device and replays the
-  cache for epochs 2+, with no host work (Spark's ``persist()`` before an
-  iterative fit). A stream that outgrows ``cache_device_bytes`` degrades to
-  streaming every epoch: a partial replay would reorder chunks.
-* Epochs 2+ replay the cached chunks one step per chunk, in the order of
-  the JAX package's replay scan, so the step sequence is the same.
+  cache for the later epochs (Spark's ``persist()`` before an iterative
+  fit). A stream that outgrows ``cache_device_bytes`` replays from the
+  disk spill (``cache_spill_dir``), or else re-runs the source every
+  epoch: a partial replay would reorder chunks.
+* ``fused_replay`` (the reference's one XLA scan over the replay epochs):
+  on CUDA one replay epoch — one step per cached chunk, reading the cache
+  in place — is captured as ONE CUDA graph and replayed once per epoch;
+  the state is updated in place at fixed addresses. On the CPU the same
+  steps run one by one. ``defer_epoch1`` makes epoch 1 ingest only, and
+  every epoch then runs in the replay.
 
-The update rules are optim/sparse.py's ``{dense,sparse}_{sgd,adagrad,
-ftrl}`` with a float32 chunk cache. Not in this package yet (each raises
-``NotImplementedError`` where a parameter asks for it): the 'adam' rule,
-the 'per_column' and 'sorted' ``emb_update`` lowerings, value-weighted
-rows, ``missing='keep'``, compressed caches (``cache_dtype`` other than
-'f32'), ``defer_epoch1``, a compute dtype other than float32, disk spill
-and checkpoints. ``fused_replay``, ``replay_granularity`` and
-``epochs_per_dispatch`` choose how the JAX package dispatches the replay;
-here every replay epoch runs per chunk, with the same steps.
+The update rules are optim/sparse.py's ``adam`` and ``{dense,sparse}_
+{sgd,adagrad,ftrl}``. Not in this package yet (each raises
+``NotImplementedError`` where a parameter asks for it): the 'per_column'
+and 'sorted' ``emb_update`` lowerings, value-weighted rows,
+``missing='keep'``, a compute dtype other than float32, and checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
 
 import numpy as np
@@ -49,21 +54,27 @@ from torch.profiler import record_function
 
 from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.exec.pipeline import PipelineStats
+from orange3_spark_tpu_torch.io.codec import (
+    bf16_bits_np, bf16_to_f32, bit_width, pack_rows_np, resolve_cache_dtype, unpack_rows,
+)
 from orange3_spark_tpu_torch.models._linear import (
     EPS_TOTAL_WEIGHT, per_row_loss, per_row_loss_grad,
 )
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params
 from orange3_spark_tpu_torch.ops.hashing import (
-    column_salts, hash_columns, salts_tensor,
+    column_salts, hash_columns, hash_columns_np, salts_tensor,
 )
 from orange3_spark_tpu_torch.optim.sparse import (
-    build_plan_np, dense_update, finalize_lazy_decay, init_optim_state,
-    is_sparse_update, optim_kind, resolve_optim_update, resolve_sparse_lowering,
-    sparse_embedding_update,
+    adam_update, build_plan_np, dense_update, finalize_lazy_decay, init_optim_state,
+    is_sparse_update, optim_kind, pack_plan_np, plan_field_shapes,
+    plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
+    sparse_embedding_update, unpack_plan,
 )
 
 AUC_BINS = 4096
-#: the profiler ranges of ``_step_core``, in step order
+#: the profiler ranges of ``_step_core``, in step order ('split_hash' is
+#: the decode under a compressed cache; under 'adam' the whole update of
+#: the three parameters is 'embedding_update')
 STEP_STAGES = ("split_hash", "forward", "loss_grad", "embedding_update", "dense_update")
 
 
@@ -80,7 +91,7 @@ class HashedLinearParams(Params):
     n_classes: int = 2
     epochs: int = 1
     step_size: float = 0.02
-    reg_param: float = 0.0       # decoupled weight decay (ftrl: closed-form L2)
+    reg_param: float = 0.0       # adam: in-loss L2; the others: decoupled decay
     chunk_rows: int = 1 << 18
     threshold: float = 0.5
     seed: int = 0
@@ -88,19 +99,23 @@ class HashedLinearParams(Params):
     label_in_chunk: bool = False  # chunks carry the label as column 0
     prefetch_depth: int = 2       # host->device pipeline depth (0 disables)
     emb_update: str = "auto"     # 'auto' | 'fused' (| 'per_column' | 'sorted')
-    optim_update: str = "adam"   # '{dense,sparse}_{sgd,adagrad,ftrl}' (| 'adam')
+    optim_update: str = "adam"   # 'adam' | '{dense,sparse}_{sgd,adagrad,ftrl}'
     sparse_lowering: str = "auto"   # 'auto' | 'plan' | 'sort'
     l1_param: float = 0.0        # FTRL-proximal l1 (ftrl rules only)
-    fused_replay: bool = True
+    fused_replay: bool = True    # replay epochs as one captured CUDA graph
+    # 'all': replay every epoch back to back; 'epoch': groups of
+    # epochs_per_dispatch epochs with a device sync between groups
     replay_granularity: str = "all"
     epochs_per_dispatch: int = 1
+    # epoch 1 only ingests (parse, pad, encode, cache, spill); all `epochs`
+    # passes then run in the replay, the same step sequence
     defer_epoch1: bool = False
     checkpoint_every_epochs: int = 0
     value_weighted: bool = False
     # 'zero': NaN dense cells -> 0 and NaN categorical cells -> the reserved
-    # code 0, on the device
+    # code 0, on the device (or in the host hash under 'packed')
     missing: str = "zero"        # 'zero' (| 'keep')
-    cache_dtype: str = "f32"     # 'f32' (| 'bf16' | 'packed' | 'auto')
+    cache_dtype: str = "f32"     # 'f32' | 'bf16' | 'packed' | 'auto'
 
 
 def _effective_k(p: HashedLinearParams) -> int:
@@ -129,21 +144,21 @@ def _row_loss_kind(p: HashedLinearParams) -> str:
     return p.loss
 
 
-def _check_ported(p: HashedLinearParams, optim: str) -> None:
+def _check_ported(p: HashedLinearParams) -> None:
     """Raise on a parameter value whose path this package does not run yet."""
     missing = [
-        (optim == "adam", "optim_update='adam' (use a dense_* or sparse_* rule)"),
         (resolve_emb_update(p) != "fused", f"emb_update={p.emb_update!r}"),
         (p.value_weighted, "value_weighted=True"),
         (not _impute_flag(p), f"missing={p.missing!r}"),
-        (p.cache_dtype != "f32", f"cache_dtype={p.cache_dtype!r}"),
-        (p.defer_epoch1, "defer_epoch1=True"),
         (p.compute_dtype != "float32", f"compute_dtype={p.compute_dtype!r}"),
     ]
     names = [name for hit, name in missing if hit]
     if names:
         raise NotImplementedError(
             "not ported to orange3_spark_tpu_torch yet: " + ", ".join(names))
+    if p.replay_granularity not in ("all", "epoch"):
+        raise ValueError(
+            f"replay_granularity must be 'all' or 'epoch', got {p.replay_granularity!r}")
 
 
 def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -158,6 +173,12 @@ def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch
     return logits + theta["intercept"]
 
 
+def _row_mask(n_rows: int, n_valid, device) -> torch.Tensor:
+    """f32 [N]: 1 on the first ``n_valid`` rows (an int, or a device int
+    scalar in a captured replay whose chunk buffers are refilled)."""
+    return (torch.arange(n_rows, device=device) < n_valid).to(torch.float32)
+
+
 def _split_chunk(Xall, n_valid, y, w, *, label_in_chunk: bool, n_dense: int,
                  impute_missing: bool = False):
     """Chunk anatomy, on the device. label_in_chunk: column 0 is the label
@@ -168,7 +189,7 @@ def _split_chunk(Xall, n_valid, y, w, *, label_in_chunk: bool, n_dense: int,
     if label_in_chunk:
         yv = Xall[:, 0]
         feat = Xall[:, 1:]
-        wv = (torch.arange(Xall.shape[0], device=Xall.device) < n_valid).to(torch.float32)
+        wv = _row_mask(Xall.shape[0], n_valid, Xall.device)
     else:
         yv, feat, wv = y, Xall, w
     dense, cats = feat[:, :n_dense], feat[:, n_dense:]
@@ -178,30 +199,253 @@ def _split_chunk(Xall, n_valid, y, w, *, label_in_chunk: bool, n_dense: int,
     return yv, dense, cats, wv
 
 
+# ------------------------------------------------------------ the chunk codec
+
+#: spill order of the touched-row plan's arrays, raw and packed
+_PLAN_ORDER = ("row", "seg", "uniq", "inv")
+_PLAN_PACKED_ORDER = ("rowp", "segb", "uniqp", "invp")
+
+
+@dataclasses.dataclass(frozen=True)
+class _ChunkCodec:
+    """The compressed chunk layout of a fit, resolved once at its entry
+    (``resolve_chunk_codec``). ``None`` stands for float32 chunks."""
+
+    mode: str             # 'bf16' | 'packed'
+    label_in_chunk: bool
+    n_dense: int
+    n_cat: int
+    n_dims: int
+    label_u8: bool        # classification labels stored uint8 (exact)
+    impute: bool          # NaN -> 0 in the decode (and the host hash)
+
+    @property
+    def idx_bits(self) -> int:
+        return bit_width(self.n_dims)
+
+    @property
+    def cat_words(self) -> int:
+        return -(-(self.n_cat * self.idx_bits) // 32)
+
+
+def resolve_chunk_codec(p: HashedLinearParams, session: TorchSession | None = None):
+    """The cache codec of a fit, or ``None`` for float32 chunks
+    (``OTPU_CACHE_DTYPE=f32`` forces that). 'packed' falls back to 'bf16'
+    under ``missing='keep'``: a NaN code must reach the device hash, where
+    it shows, not vanish in a host hash."""
+    mode = resolve_cache_dtype(p.cache_dtype, session)
+    if mode == "f32" or p.value_weighted:
+        return None
+    impute = _impute_flag(p)
+    if mode == "packed" and not impute and p.n_cat:
+        mode = "bf16"
+    kind = _row_loss_kind(p)
+    return _ChunkCodec(
+        mode=mode, label_in_chunk=p.label_in_chunk, n_dense=p.n_dense, n_cat=p.n_cat,
+        n_dims=p.n_dims,
+        # class ids are exact in a byte while there are at most 256 classes
+        label_u8=(p.label_in_chunk
+                  and (kind in ("binary_logistic", "hinge", "squared_hinge")
+                       or (kind == "logistic" and p.n_classes <= 256))),
+        impute=impute)
+
+
+def _encode_chunk_np(codec: _ChunkCodec, Xp: np.ndarray, salts_np: np.ndarray,
+                     idx: np.ndarray | None = None) -> dict:
+    """Host encode of one PADDED chunk, on the prefetch thread: the dict the
+    cache, the spill and the copy to the device carry. ``idx``: the [N, C]
+    indices when the caller has hashed them already (one host hash a chunk
+    serves the plan and the encode). bf16 fields are uint16 bits."""
+    off = 1 if codec.label_in_chunk else 0
+    enc = {}
+    if codec.label_in_chunk:
+        lab = Xp[:, 0]
+        if codec.label_u8:
+            lab8 = lab.astype(np.uint8)
+            if not np.array_equal(lab8.astype(np.float32), lab):
+                raise ValueError(
+                    "cache_dtype compression stores classification labels as u8, but a "
+                    "label is not an integer in [0, 255] — soft labels need "
+                    "cache_dtype='f32' (or OTPU_CACHE_DTYPE=f32)")
+            enc["y"] = lab8
+        else:
+            enc["y"] = np.ascontiguousarray(lab, np.float32)
+    if codec.n_dense:
+        enc["dense"] = bf16_bits_np(Xp[:, off:off + codec.n_dense])
+    cats = Xp[:, off + codec.n_dense:]
+    if codec.mode == "packed":
+        if idx is None:
+            if codec.impute:
+                cats = np.where(np.isnan(cats), np.float32(0.0), cats)
+            idx = hash_columns_np(cats, salts_np, codec.n_dims)
+        enc["cats"] = pack_rows_np(idx, codec.idx_bits)
+    else:
+        enc["cats"] = np.ascontiguousarray(cats, np.float32)
+    return enc
+
+
+def _hash_and_encode(codec: _ChunkCodec, Xp: np.ndarray, salts_np: np.ndarray,
+                     cats_off: int):
+    """A chunk's (or a row block's) one host hash under 'packed', then its
+    encode: (the encoded dict, the [N, C] indices or None). The blocks of a
+    chunk are row-aligned, so encoding row blocks apart and joining them
+    gives the whole chunk's bytes."""
+    idx = None
+    if codec.mode == "packed":
+        c = Xp[:, cats_off:cats_off + codec.n_cat]
+        if codec.impute:
+            c = np.where(np.isnan(c), np.float32(0.0), c)
+        idx = hash_columns_np(c, salts_np, codec.n_dims)
+    return _encode_chunk_np(codec, Xp, salts_np, idx=idx), idx
+
+
+def _decode_chunk(codec: _ChunkCodec, enc: dict, n_valid, y, w, salts):
+    """Device decode: the encoded blocks -> (yv, dense f32, idx i32, wv).
+    Under 'packed' the indices were hashed on the host (bitwise the device
+    hash), so the step only unpacks them; under 'bf16' it hashes the codes
+    as the float32 step does."""
+    N = enc["cats"].shape[0]
+    dev = enc["cats"].device
+    if codec.label_in_chunk:
+        yv = enc["y"].to(torch.float32)
+        wv = _row_mask(N, n_valid, dev)
+    else:
+        yv, wv = y, w
+    if codec.n_dense:
+        dense = bf16_to_f32(enc["dense"])
+        if codec.impute:
+            dense = torch.where(torch.isnan(dense), 0.0, dense)
+    else:
+        dense = torch.zeros((N, 0), dtype=torch.float32, device=dev)
+    if codec.mode == "packed":
+        idx = unpack_rows(enc["cats"], codec.idx_bits, codec.n_cat)
+    else:
+        cats = enc["cats"]
+        if codec.impute:
+            cats = torch.where(torch.isnan(cats), 0.0, cats)
+        idx = hash_columns(cats, salts, codec.n_dims)
+    return yv, dense, idx, wv
+
+
+def _chunk_field_specs(p: HashedLinearParams, codec, pad_rows: int) -> tuple:
+    """Ordered (name, shape, numpy dtype) of one spill record's chunk
+    fields; the plan's fields (``_plan_store_specs``) follow them. A bf16
+    field is its uint16 bits."""
+    if codec is None:
+        fields = [("x", (pad_rows, _chunk_cols(p)), np.dtype(np.float32))]
+        if not p.label_in_chunk:
+            fields += [("yv", (pad_rows,), np.dtype(np.float32)),
+                       ("wv", (pad_rows,), np.dtype(np.float32))]
+        return tuple(fields)
+    fields = []
+    if codec.label_in_chunk:
+        fields.append(("y", (pad_rows,),
+                       np.dtype(np.uint8 if codec.label_u8 else np.float32)))
+    if codec.n_dense:
+        fields.append(("dense", (pad_rows, codec.n_dense), np.dtype(np.uint16)))
+    if codec.mode == "packed":
+        fields.append(("cats", (pad_rows, codec.cat_words), np.dtype(np.uint32)))
+    else:
+        fields.append(("cats", (pad_rows, codec.n_cat), np.dtype(np.float32)))
+    if not codec.label_in_chunk:
+        fields += [("yv", (pad_rows,), np.dtype(np.float32)),
+                   ("wv", (pad_rows,), np.dtype(np.float32))]
+    return tuple(fields)
+
+
+def _plan_store_specs(p: HashedLinearParams, codec, pad_rows: int) -> tuple:
+    """Ordered (name, shape, dtype) of the plan's spill fields: packed u32
+    words under the 'packed' codec, int32 arrays else."""
+    if codec is not None and codec.mode == "packed":
+        d = plan_packed_field_shapes(pad_rows, p.n_cat, p.n_dims)
+        return tuple((k, d[k][0], np.dtype(d[k][1])) for k in _PLAN_PACKED_ORDER)
+    shapes = plan_field_shapes(pad_rows, p.n_cat, p.n_dims)
+    return tuple((k, shapes[k], np.dtype(np.int32)) for k in _PLAN_ORDER)
+
+
+def _plan_device_form(codec, plan_np: dict, pad_rows: int, p: HashedLinearParams) -> dict:
+    """The plan as it travels with its chunk: bit-packed under 'packed'."""
+    if codec is not None and codec.mode == "packed":
+        return pack_plan_np(plan_np, pad_rows, p.n_cat, p.n_dims)
+    return plan_np
+
+
+def _raw_chunk_bytes(p: HashedLinearParams, pad_rows: int, sparse_plan: bool) -> int:
+    """Bytes of one cached chunk (and its plan) in the float32 layout: the
+    denominator of ``compression_ratio``."""
+    n = pad_rows * _chunk_cols(p) * 4
+    if not p.label_in_chunk:
+        n += 2 * pad_rows * 4
+    if sparse_plan:
+        n += 4 * sum(int(np.prod(s)) for s in
+                     plan_field_shapes(pad_rows, p.n_cat, p.n_dims).values())
+    return n
+
+
+def estimate_cached_chunk_bytes(p: HashedLinearParams, session: TorchSession) -> int:
+    """Device cache bytes of one chunk under the resolved codec and
+    lowering: what ``fit_stream``'s cache accounting will count."""
+    pad_rows = session.pad_rows(p.chunk_rows)
+    codec = resolve_chunk_codec(p, session)
+    sparse_plan = (is_sparse_update(resolve_optim_update(p.optim_update))
+                   and resolve_sparse_lowering(p.sparse_lowering, session.device) == "plan")
+    specs = _chunk_field_specs(p, codec, pad_rows)
+    if sparse_plan:
+        specs = specs + _plan_store_specs(p, codec, pad_rows)
+    return sum(int(np.prod(s)) * dt.itemsize for _, s, dt in specs)
+
+
+def warm_eval_chunk(p: HashedLinearParams, session: TorchSession) -> tuple:
+    """A zero device chunk in the fit's cache layout, to warm the eval path
+    before a timed run."""
+    pad_rows = session.pad_rows(p.chunk_rows)
+    codec = resolve_chunk_codec(p, session)
+    h2d = _HostToDevice(session.device)
+    Xp0 = np.zeros((pad_rows, _chunk_cols(p)), np.float32)
+    if codec is None:
+        Xd = h2d.put(Xp0)
+    else:
+        Xd = h2d.put(_encode_chunk_np(codec, Xp0, column_salts(p.n_cat, p.seed)))
+    zy = zw = None
+    if not p.label_in_chunk:
+        zy = h2d.put(np.zeros((pad_rows,), np.float32))
+        zw = zy
+    return h2d.ready((Xd, 1, zy, zw), h2d.done())
+
+
+# ------------------------------------------------------------------ the step
+
 def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: float,
                lr: float, plan=None, l1: float = 0.0, *, loss_kind: str, n_dims: int,
                n_dense: int, label_in_chunk: bool = False, impute_missing: bool = False,
                optim_update: str, sparse_lowering: str = "none",
-               use_decay: bool = False):
+               use_decay: bool = False, codec: _ChunkCodec | None = None):
     """One optimizer step on one chunk. Returns (theta, opt_state, loss).
 
-    The rules report the pure data loss and treat ``reg`` as decoupled
-    weight decay. The sparse rules update only the touched rows, with
+    'adam' is the reference's dense optax path: the loss includes the L2
+    term ``0.5·reg·(Σemb² + Σcoef²)``, the table's gradient is dense (every
+    occurrence added into a full-table gradient, ``index_add_`` in
+    occurrence order, plus ``reg·θ``) and adam sweeps every parameter. The
+    other rules report the pure data loss and treat ``reg`` as decoupled
+    weight decay; the sparse ones update only the touched rows, with
     ``plan`` carrying the host-built dedup under the 'plan' lowering; the
-    dense twins add every occurrence's gradient into a full-table gradient
-    (``index_add_`` in occurrence order) and sweep the whole table.
+    dense twins sweep the whole table.
 
-    Its stages run in profiler ranges named by ``STEP_STAGES``, so a
-    profile of the step gives each stage's device time."""
+    ``codec``: None for float32 chunks; else ``Xall`` is the encoded block
+    dict, decoded here (and a packed plan unpacked), so the cache holds the
+    compressed bytes. Nothing here waits for the device, so the step can be
+    captured. Its stages run in profiler ranges named by ``STEP_STAGES``."""
     kind = optim_kind(optim_update)
-    decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
-    step = opt_state["step"]
-    slots = opt_state["slots"]
     with record_function("split_hash"):
-        yv, dense, cats, wv = _split_chunk(
-            Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
-            impute_missing=impute_missing)
-        idx = hash_columns(cats, salts, n_dims)
+        if codec is None:
+            yv, dense, cats, wv = _split_chunk(
+                Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
+                impute_missing=impute_missing)
+            idx = hash_columns(cats, salts, n_dims)
+        else:
+            yv, dense, idx, wv = _decode_chunk(codec, Xall, n_valid, y, w, salts)
+            if plan is not None and codec.mode == "packed":
+                plan = unpack_plan(plan, idx.shape[0], codec.n_cat, n_dims)
     with record_function("forward"):
         logits = _hashed_logits(theta, dense, idx)
     with record_function("loss_grad"):
@@ -210,30 +454,114 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
         dl = per_row_loss_grad(loss_kind, logits, yv) * (wv / sw)[:, None]   # [N, k]
         g_coef = dense.T @ dl
         g_int = dl.sum(dim=0)
+        if kind == "adam":
+            loss = loss + 0.5 * reg * ((theta["emb"] ** 2).sum()
+                                       + (theta["coef"] ** 2).sum())
+            g_coef = g_coef + reg * theta["coef"]
     with record_function("embedding_update"):
         if is_sparse_update(optim_update):
+            decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
             emb, t, eslots = sparse_embedding_update(
-                kind, theta["emb"], opt_state["t"], slots["emb"], dl, idx, lr, decay,
-                reg, l1, step, lowering=sparse_lowering, use_decay=use_decay, plan=plan,
-                n_valid=n_valid)
+                kind, theta["emb"], opt_state["t"], opt_state["slots"]["emb"], dl, idx,
+                lr, decay, reg, l1, opt_state["step"], lowering=sparse_lowering,
+                use_decay=use_decay, plan=plan, n_valid=n_valid)
         else:
             N, C = idx.shape
             g_emb = torch.zeros_like(theta["emb"]).index_add_(
                 0, idx.reshape(-1),
                 dl[:, None, :].expand(N, C, dl.shape[1]).reshape(N * C, -1))
+            if kind == "adam":
+                return (*adam_update(
+                    theta, {"emb": g_emb + reg * theta["emb"], "coef": g_coef,
+                            "intercept": g_int}, opt_state, lr), loss)
+            decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
             t = opt_state["t"]
-            emb, eslots = dense_update(kind, theta["emb"], slots["emb"], g_emb, lr,
-                                       decay, reg, l1, use_decay=use_decay)
+            emb, eslots = dense_update(kind, theta["emb"], opt_state["slots"]["emb"],
+                                       g_emb, lr, decay, reg, l1, use_decay=use_decay)
     with record_function("dense_update"):
+        slots = opt_state["slots"]
         coef, cslots = dense_update(kind, theta["coef"], slots["coef"], g_coef, lr,
-                                   decay, reg, l1, use_decay=use_decay)
+                                    decay, reg, l1, use_decay=use_decay)
         intercept, islots = dense_update(kind, theta["intercept"], slots["intercept"],
                                          g_int, lr, decay, reg, l1, use_decay=False)
     theta = {"emb": emb, "coef": coef, "intercept": intercept}
-    opt_state = {"step": step + 1, "t": t,
+    opt_state = {"step": opt_state["step"] + 1, "t": t,
                  "slots": {"emb": eslots, "coef": cslots, "intercept": islots}}
     return theta, opt_state, loss
 
+
+def _write_back(dst: dict, src: dict) -> None:
+    """Copy a step's results into the state's own tensors, so the state
+    keeps its addresses (a captured graph reads and writes them there)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_back(dst[k], v)
+        elif v is not dst[k]:
+            dst[k].copy_(v)
+
+
+def _step_into(theta: dict, opt_state: dict, chunk: tuple, salts, hyper: tuple,
+               static_kw: dict) -> torch.Tensor:
+    """One step on a device chunk ``(X, n_valid, y, w[, plan])``, updating
+    ``theta`` and ``opt_state`` in place. Returns the loss (a device scalar)."""
+    reg, lr, l1 = hyper
+    Xd, n_valid, yd, wd = chunk[:4]
+    plan = chunk[4] if len(chunk) > 4 else None
+    new_theta, new_opt, loss = _step_core(theta, opt_state, Xd, n_valid, yd, wd, salts,
+                                          reg, lr, plan, l1, **static_kw)
+    _write_back(theta, new_theta)
+    _write_back(opt_state, new_opt)
+    return loss
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+class _Replay:
+    """Replay epochs: one step per chunk, in order, on a state updated in
+    place. ``capture()`` (CUDA) records one epoch as a CUDA graph — every
+    step's kernels, reading the chunks where they lie (the cache itself, no
+    stacked copy), the losses into the fixed ``losses`` buffer — and
+    ``run(n)`` replays it ``n`` times. Uncaptured (the CPU), ``run`` runs
+    the same steps one by one. A failed capture raises; nothing falls
+    back to the eager steps."""
+
+    def __init__(self, theta: dict, opt_state: dict, chunks: list, step: Callable):
+        self.theta, self.opt_state, self.chunks, self.step = theta, opt_state, chunks, step
+        self.losses = torch.zeros(len(chunks), dtype=torch.float32,
+                                  device=theta["emb"].device)
+        self.graph = None
+
+    def _epoch(self) -> None:
+        for i, c in enumerate(self.chunks):
+            self.losses[i].copy_(self.step(self.theta, self.opt_state, c))
+
+    def capture(self) -> None:
+        """Warm one step on a copy of the state on a side stream (library
+        handles and workspaces), then capture one epoch. Thread-local
+        capture mode lets the prefetch thread keep copying meanwhile."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.step(_clone_tree(self.theta), _clone_tree(self.opt_state), self.chunks[0])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._epoch()
+        self.graph = graph
+
+    def run(self, n_epochs: int) -> None:
+        for _ in range(n_epochs):
+            if self.graph is None:
+                self._epoch()
+            else:
+                self.graph.replay()
+
+
+# ------------------------------------------------------------- predict, eval
 
 def _hashed_predict(theta, Xall, salts, *, n_dims: int, n_dense: int,
                     impute_missing: bool = False) -> torch.Tensor:
@@ -244,14 +572,19 @@ def _hashed_predict(theta, Xall, salts, *, n_dims: int, n_dense: int,
 
 def _hashed_eval_chunk(theta, Xall, n_valid, y, w, salts, *, loss_kind: str,
                        n_dims: int, n_dense: int, label_in_chunk: bool,
-                       impute_missing: bool = False):
+                       impute_missing: bool = False, codec: _ChunkCodec | None = None):
     """Device-side eval accumulators of one chunk: (weighted logloss sum,
     weighted correct sum, weight sum, pos/neg score histograms for AUC).
-    Only these small tensors ever go back to the host."""
-    yv, dense, cats, wv = _split_chunk(
-        Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
-        impute_missing=impute_missing)
-    logits = _hashed_logits(theta, dense, hash_columns(cats, salts, n_dims))
+    Only these small tensors ever go back to the host. ``codec``: the fit's
+    codec for encoded cached chunks."""
+    if codec is None:
+        yv, dense, cats, wv = _split_chunk(
+            Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
+            impute_missing=impute_missing)
+        idx = hash_columns(cats, salts, n_dims)
+    else:
+        yv, dense, idx, wv = _decode_chunk(codec, Xall, n_valid, y, w, salts)
+    logits = _hashed_logits(theta, dense, idx)
     loss_sum = (per_row_loss(loss_kind, logits, yv) * wv).sum()
     if loss_kind == "binary_logistic":
         score = torch.sigmoid(logits[:, 0])
@@ -291,6 +624,9 @@ class HashedLinearModel(Model):
         self.final_loss_: float | None = None
         self.device_chunks_ = None
         self.holdout_chunks_ = None
+        # the cache codec of the producing fit (None: float32 chunks), the
+        # decode ``evaluate_device`` applies to its chunks by default
+        self.cache_codec_ = None
 
     @property
     def state_pytree(self) -> dict:
@@ -364,10 +700,14 @@ class HashedLinearModel(Model):
             out["auc"] = auc
         return out
 
-    def eval_accumulators(self, device_chunks) -> tuple:
+    def eval_accumulators(self, device_chunks, *, codec="auto") -> tuple:
         """Sums of ``_hashed_eval_chunk`` over device chunks (as a cached fit
-        keeps them: (Xall, n_valid, y, w[, plan]) tuples), on the device."""
+        keeps them: (X, n_valid, y, w[, plan]) tuples), on the device.
+        ``codec='auto'`` decodes with the producing fit's ``cache_codec_``;
+        pass ``None`` for float32 chunks made by hand."""
         p = self.params
+        if codec == "auto":
+            codec = self.cache_codec_
         salts = salts_tensor(self.salts, self.device)
         tot = None
         for chunk in device_chunks:
@@ -375,19 +715,19 @@ class HashedLinearModel(Model):
             out = _hashed_eval_chunk(
                 self.theta, Xd, n_valid, yd, wd, salts, loss_kind=_row_loss_kind(p),
                 n_dims=p.n_dims, n_dense=p.n_dense, label_in_chunk=p.label_in_chunk,
-                impute_missing=_impute_flag(p))
+                impute_missing=_impute_flag(p), codec=codec)
             tot = out if tot is None else tuple(a + b for a, b in zip(tot, out))
         if tot is None:
             raise ValueError("no chunks to evaluate")
         return tot
 
-    def evaluate_device(self, device_chunks) -> dict:
+    def evaluate_device(self, device_chunks, *, codec="auto") -> dict:
         """Evaluate over device-resident chunks (``fit_stream(...,
-        cache_device=True)``'s ``device_chunks_`` or ``holdout_chunks_``).
-        All reduction happens on the device; five small tensors come back
-        at the end."""
+        cache_device=True)``'s ``device_chunks_`` or ``holdout_chunks_``,
+        encoded under the fit's cache codec). All reduction happens on the
+        device; five small tensors come back at the end."""
         loss_sum, correct, wsum, pos, neg = (
-            a.cpu().numpy() for a in self.eval_accumulators(device_chunks))
+            a.cpu().numpy() for a in self.eval_accumulators(device_chunks, codec=codec))
         out = {"logloss": float(loss_sum / max(wsum, 1e-12)),
                "accuracy": float(correct / max(wsum, 1e-12))}
         # AUC only for probability scores: margins are unbounded, and their
@@ -406,10 +746,11 @@ def _chunk_cols(p: HashedLinearParams) -> int:
 
 def _init_fit_state(p: HashedLinearParams, session: TorchSession):
     """Fresh (theta, opt_state, salts_np, salts, static_kw) exactly as a fit
-    starts: a zero theta, the rule's zero state and the numpy salts, so two
-    fits (or this package and the JAX package) compare step for step."""
+    starts: a zero theta, the rule's zero state, the numpy salts and the
+    resolved statics (rule, lowering, codec), so two fits (or this package
+    and the JAX package) compare step for step."""
+    _check_ported(p)
     optim = resolve_optim_update(p.optim_update)
-    _check_ported(p, optim)
     k = _effective_k(p)
     dev = session.device
     theta = {
@@ -427,9 +768,21 @@ def _init_fit_state(p: HashedLinearParams, session: TorchSession):
                          if is_sparse_update(optim) else "none"),
         # reg == 0 runs the sparse step without the timestamp gathers and
         # the pow (and ftrl owns its L2 in closed form)
-        use_decay=(p.reg_param != 0.0 and optim_kind(optim) != "ftrl"),
+        use_decay=(p.reg_param != 0.0 and optim_kind(optim) not in ("ftrl", "adam")),
+        codec=resolve_chunk_codec(p, session),
     )
     return theta, opt_state, salts_np, salts_tensor(salts_np, dev), static_kw
+
+
+def _torch_view(a: np.ndarray) -> np.ndarray:
+    """uint32 / uint16 host arrays as int32 / int16, their bits unchanged:
+    the device decodes them as bits, and PyTorch's unsigned types have
+    few ops."""
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    if a.dtype == np.uint16:
+        return a.view(np.int16)
+    return a
 
 
 class _HostToDevice:
@@ -440,14 +793,21 @@ class _HostToDevice:
     wait for it. Each array gets its own staging buffer from PyTorch's
     pinned-memory cache, which does not hand a buffer out again before the
     copy that reads it has finished. On the CPU a chunk's tensors share the
-    host arrays' memory (nothing writes to them)."""
+    host arrays' memory (nothing writes to them); a read-only array (a
+    spill record's memmap view) is copied."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def put(self, a: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(a))
+    def put(self, a):
+        """One array, or a dict of them (an encoded chunk, a plan)."""
+        if isinstance(a, dict):
+            return {k: self.put(v) for k, v in a.items()}
+        a = _torch_view(np.ascontiguousarray(a))
+        if not a.flags.writeable:
+            a = a.copy()
+        host = torch.from_numpy(a)
         if self.stream is None:
             return host
         staged = host.pin_memory()
@@ -463,9 +823,10 @@ class _HostToDevice:
         return ev
 
     @staticmethod
-    def ready(chunk: tuple, event) -> tuple:
-        """Make the current stream wait for ``chunk``'s copies, and tell the
-        allocator the chunk's memory is in use there."""
+    def ready(chunk, event):
+        """Make the current stream wait for ``chunk``'s copies (a chunk, or
+        a list of them), and tell the allocator their memory is in use
+        there."""
         if event is None:
             return chunk
         stream = torch.cuda.current_stream()
@@ -474,13 +835,40 @@ class _HostToDevice:
         def mark(x):
             if isinstance(x, torch.Tensor):
                 x.record_stream(stream)
-            elif isinstance(x, dict):
-                for v in x.values():
+            elif isinstance(x, (dict, tuple, list)):
+                for v in (x.values() if isinstance(x, dict) else x):
                     mark(v)
 
-        for x in chunk:
-            mark(x)
+        mark(chunk)
         return chunk
+
+
+def _chunk_slot(chunk: tuple) -> tuple:
+    """Device buffers shaped like ``chunk``, with ``n_valid`` as a device
+    int32 scalar: a slot of the captured disk-group replay, refilled by
+    ``_fill_slot`` for every group."""
+    def like(x):
+        if isinstance(x, dict):
+            return {k: like(v) for k, v in x.items()}
+        return None if x is None else torch.empty_like(x)
+
+    Xd, n, yd, wd = chunk[:4]
+    dev = (Xd["cats"] if isinstance(Xd, dict) else Xd).device
+    slot = (like(Xd), torch.zeros((), dtype=torch.int32, device=dev), like(yd), like(wd))
+    return slot + tuple(like(x) for x in chunk[4:])
+
+
+def _fill_slot(slot: tuple, chunk: tuple) -> None:
+    def fill(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k])
+        elif dst is not None:
+            dst.copy_(src)
+
+    slot[1].fill_(chunk[1])
+    for i in (0, 2, 3) + tuple(range(4, len(chunk))):
+        fill(slot[i], chunk[i])
 
 
 class StreamingHashedLinearEstimator(Estimator):
@@ -509,27 +897,91 @@ class StreamingHashedLinearEstimator(Estimator):
             array_chunk_source(X, y, W, chunk_rows=self.params.chunk_rows),
             session=table.session, class_values=class_values)
 
+    def warm_replay(self, n_chunks: int, *, session: TorchSession | None = None):
+        """Pay a replay's one-time costs before a timed ``fit_stream``:
+        library handles, the sort's workspace, a first graph capture and
+        replay (its memory pool), on a zero chunk of the fit's layout
+        (encoded as the fit encodes) referenced ``n_chunks`` times, the
+        train chunks the fit will cache. Without ``defer_epoch1`` one eager
+        step runs first, as epoch 1 would. Returns ``(theta, salts_np)``
+        after one warm replay epoch, or None where the fit has no fused
+        replay (``fused_replay`` off, one epoch without defer, no chunks)."""
+        p = self.params
+        session = session or TorchSession.active()
+        if not (p.fused_replay and (p.epochs > 1 or p.defer_epoch1) and n_chunks > 0):
+            return None
+        pad_rows = session.pad_rows(p.chunk_rows)
+        theta, opt, salts_np, salts, kw = _init_fit_state(p, session)
+        codec = kw["codec"]
+        h2d = _HostToDevice(session.device)
+        Xp0 = np.zeros((pad_rows, _chunk_cols(p)), np.float32)
+        z = h2d.put(Xp0 if codec is None else _encode_chunk_np(codec, Xp0, salts_np))
+        zy = zw = None
+        if not p.label_in_chunk:
+            zy = h2d.put(np.zeros((pad_rows,), np.float32))
+            zw = h2d.put(np.ones((pad_rows,), np.float32))
+        chunk = (z, pad_rows, zy, zw)
+        if kw["sparse_lowering"] == "plan":
+            plan_np = build_plan_np(np.zeros((pad_rows, p.n_cat), np.float32), salts_np,
+                                    p.n_dims, pad_rows, impute_missing=kw["impute_missing"])
+            chunk = chunk + (h2d.put(_plan_device_form(codec, plan_np, pad_rows, p)),)
+        chunk = h2d.ready(chunk, h2d.done())
+        hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
+
+        def step(th, op, c):
+            return _step_into(th, op, c, salts, hyper, kw)
+
+        if not p.defer_epoch1:
+            step(theta, opt, chunk)
+        replay = _Replay(theta, opt, [chunk] * n_chunks, step)
+        if session.device.type == "cuda":
+            replay.capture()
+        replay.run(1)
+        session.synchronize()
+        return theta, salts_np
+
     def fit_stream(self, source: Callable[[], Iterator], *,
                    session: TorchSession | None = None,
                    class_values: tuple | None = None, cache_device: bool = False,
-                   cache_device_bytes: int = 8 << 30, holdout_chunks: int = 0,
+                   cache_device_bytes: int = 8 << 30, cache_spill_dir: str | None = None,
+                   holdout_chunks: int = 0,
                    stage_times: dict | None = None) -> HashedLinearModel:
         """Fit over a re-iterable chunk source.
 
-        cache_device: keep the device chunks of epoch 1 and replay them for
-          epochs 2+. If the stream outgrows ``cache_device_bytes`` the fit
-          degrades to re-running the source every epoch (a warning says
-          so). The cached list is ``model.device_chunks_``.
+        cache_device: keep the device chunks of epoch 1 (encoded per
+          ``cache_dtype``) and replay them for the later epochs. With
+          ``fused_replay`` (the default) and a full cache, the replay is
+          one captured CUDA graph per epoch on CUDA. Its gate is only that
+          the cache fits ``cache_device_bytes``: the graph reads the cache
+          in place, with no second stacked copy (the reference also needs
+          half the budget free for its stack). If the stream outgrows the
+          budget the fit replays from the disk spill when
+          ``cache_spill_dir`` is set, and else re-runs the source every
+          epoch (a warning says so). The cached list is
+          ``model.device_chunks_``.
+        cache_spill_dir: where epoch 1 writes the spill (io/streaming.py
+          ``DiskChunkCache``: the encoded records, CRC-checked, released
+          when the fit returns). It is written whether or not the cache
+          overflows (that is known only at the end of the stream). A
+          spill replay with ``fused_replay`` trains groups of records as
+          one captured graph over fixed device buffers, refilled per
+          group; a partial last group runs step by step.
         holdout_chunks: keep the LAST n device chunks of each epoch out of
           training; with cache_device they are kept on the device as
           ``model.holdout_chunks_`` for ``evaluate_device``.
         stage_times: receives host stage seconds ('parse_s', 'h2d_s',
-          accumulated on the prefetch thread, so they overlap device work)
-          and 'epoch_s', one wall per epoch, each ended by a device
-          synchronize; plus the resolved rule, lowering and cache figures.
+          'plan_s', 'encode_s' (the host hash of the packed codec and the
+          encode), 'spill_s', accumulated on the prefetch thread, so they
+          overlap device work) and 'epoch_s', one wall per epoch, each
+          ended by a device synchronize; with the fused replay 'epoch_s'
+          is [epoch 1, the whole replay] and 'replay_fused_s' (the replay
+          phase, capture included) and 'graph_capture_s' say so; plus the
+          resolved rule, lowering, codec, 'replay_source' and the cache's
+          bytes ('cache_bytes', and 'cache_raw_bytes' at float32).
         """
         from orange3_spark_tpu_torch.io.streaming import (
-            _DeviceCache, _pad_chunk, _rechunk, prefetch_map, warn_cache_overflow,
+            DiskChunkCache, _DeviceCache, _pad_chunk, _rechunk, prefetch_map,
+            warn_cache_overflow,
         )
 
         p = self.params
@@ -537,17 +989,71 @@ class StreamingHashedLinearEstimator(Estimator):
         theta, opt_state, salts_np, salts, static_kw = _init_fit_state(p, session)
         pad_rows = session.pad_rows(p.chunk_rows)
         n_cols = _chunk_cols(p)
-        reg, lr, l1 = (float(np.float32(v)) for v in
-                       (p.reg_param, p.step_size, p.l1_param))
+        hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
         optim_resolved = static_kw["optim_update"]
         sparse_plan = static_kw["sparse_lowering"] == "plan"
+        codec = static_kw["codec"]
+        chunk_specs = _chunk_field_specs(p, codec, pad_rows)
+        plan_specs = _plan_store_specs(p, codec, pad_rows) if sparse_plan else ()
         cats_off = (1 if p.label_in_chunk else 0) + p.n_dense
-        times = {"parse_s": 0.0, "h2d_s": 0.0} if stage_times is not None else None
+        times = ({"parse_s": 0.0, "h2d_s": 0.0, "encode_s": 0.0}
+                 if stage_times is not None else None)
         pipe_stats = PipelineStats()
         h2d = _HostToDevice(session.device)
+        is_cuda = session.device.type == "cuda"
+
+        def put_chunk(payload, n, yp, wp, plan_store):
+            """(X, n_valid, y, w[, plan]) on the device, and its event."""
+            t0 = time.perf_counter()
+            out = (h2d.put(payload), n,
+                   None if yp is None else h2d.put(yp),
+                   None if wp is None else h2d.put(wp))
+            if plan_store is not None:
+                out = out + (h2d.put(plan_store),)
+            event = h2d.done()
+            if times is not None:
+                times["h2d_s"] += time.perf_counter() - t0
+            return out, event
+
+        def record_arrays(payload, yp, wp, plan_store):
+            """A spill record's fields, in ``chunk_specs`` + ``plan_specs``
+            order."""
+            if codec is None:
+                rec = (payload,) if p.label_in_chunk else (payload, yp, wp)
+            else:
+                rec = tuple(yp if name == "yv" else wp if name == "wv" else payload[name]
+                            for name, _, _ in chunk_specs)
+            if plan_store is not None:
+                rec = rec + tuple(plan_store[name] for name, _, _ in plan_specs)
+            return rec
+
+        def record_to_host(arrays):
+            """A spill record's fields -> (payload, y, w, plan): the inverse
+            of ``record_arrays``."""
+            chunk_arr = arrays[:len(chunk_specs)]
+            y_np = w_np = None
+            if codec is None:
+                payload = chunk_arr[0]
+                if not p.label_in_chunk:
+                    y_np, w_np = chunk_arr[1], chunk_arr[2]
+            else:
+                payload = {}
+                for (name, _, _), a in zip(chunk_specs, chunk_arr):
+                    if name == "yv":
+                        y_np = a
+                    elif name == "wv":
+                        w_np = a
+                    else:
+                        payload[name] = a
+            plan_np = None
+            if plan_specs:
+                plan_np = {name: a for (name, _, _), a
+                           in zip(plan_specs, arrays[len(chunk_specs):])}
+            return payload, y_np, w_np, plan_np
 
         def to_device(host_chunk):
-            """Prefetch-thread side: pad, build the plan, copy to the device."""
+            """Prefetch-thread side: pad, hash and encode, build the plan,
+            spill, copy to the device."""
             if p.label_in_chunk:
                 X_np = (host_chunk if isinstance(host_chunk, np.ndarray)
                         else host_chunk[0])
@@ -566,23 +1072,39 @@ class StreamingHashedLinearEstimator(Estimator):
                 yp = wp = None
             else:
                 Xp, yp, wp = _pad_chunk(X_np, y_np, w_np, pad_rows, n_cols)
+            payload, idx_np = Xp, None
+            if codec is not None:
+                # hash (under 'packed', once: the plan reuses the indices)
+                # and encode, in row blocks on the encode threads (numpy
+                # releases the GIL): the epoch-1 host work a chunk costs
+                t_en = time.perf_counter()
+                parts = list(encode_pool.map(
+                    lambda ab: _hash_and_encode(codec, Xp[ab[0]:ab[1]], salts_np, cats_off),
+                    encode_blocks))
+                payload = {k: np.concatenate([e[k] for e, _ in parts]) for k in parts[0][0]}
+                if codec.mode == "packed":
+                    idx_np = np.concatenate([i for _, i in parts])
+                if times is not None:
+                    times["encode_s"] += time.perf_counter() - t_en
             plan_np = None
             if sparse_plan:
                 # the host-sorted touched-row plan, built once here,
                 # overlapping device steps, and replayed every epoch
+                t_pl = time.perf_counter()
                 plan_np = build_plan_np(Xp[:, cats_off:cats_off + p.n_cat], salts_np,
                                         p.n_dims, n,
-                                        impute_missing=static_kw["impute_missing"])
-            t0 = time.perf_counter()
-            out = (h2d.put(Xp), n,
-                   None if yp is None else h2d.put(yp),
-                   None if wp is None else h2d.put(wp))
-            if plan_np is not None:
-                out = out + ({k: h2d.put(v) for k, v in plan_np.items()},)
-            event = h2d.done()
-            if times is not None:
-                times["h2d_s"] += time.perf_counter() - t0
-            return out, event
+                                        impute_missing=static_kw["impute_missing"],
+                                        idx=idx_np)
+                if times is not None:
+                    times["plan_s"] = times.get("plan_s", 0.0) + time.perf_counter() - t_pl
+            plan_store = (None if plan_np is None
+                          else _plan_device_form(codec, plan_np, pad_rows, p))
+            if spill_active[0]:
+                t_sp = time.perf_counter()
+                spill.append(record_arrays(payload, yp, wp, plan_store), n)
+                if times is not None:
+                    times["spill_s"] = times.get("spill_s", 0.0) + time.perf_counter() - t_sp
+            return put_chunk(payload, n, yp, wp, plan_store)
 
         def host_chunks():
             """The rechunked host stream, with parse time attributed."""
@@ -600,62 +1122,169 @@ class StreamingHashedLinearEstimator(Estimator):
                     times["parse_s"] += time.perf_counter() - t0
                 yield item[0] if p.label_in_chunk else item
 
-        def device_chunk_iter():
+        def staged(fn, items, depth):
+            """``fn`` over ``items`` behind the prefetch thread (or inline
+            with prefetch_depth 0), each result made ready on this stream."""
             if p.prefetch_depth > 0:
-                staged = prefetch_map(to_device, host_chunks(), depth=p.prefetch_depth,
-                                      stats_into=pipe_stats)
+                it = prefetch_map(fn, items, depth=depth, stats_into=pipe_stats)
             else:
-                staged = (to_device(c) for c in host_chunks())
-            for chunk, event in staged:
-                yield h2d.ready(chunk, event)
+                it = (fn(x) for x in items)
+            for out, event in it:
+                yield h2d.ready(out, event)
 
+        def device_chunk_iter():
+            return staged(to_device, host_chunks(), p.prefetch_depth)
+
+        def read_record(i):
+            arrays, n = spill.read(i)
+            payload, y_np, w_np, plan_np = record_to_host(arrays)
+            return put_chunk(payload, n, y_np, w_np, plan_np)
+
+        def disk_chunk_iter(start: int = 0):
+            """Device feed of a spill replay epoch: records straight off the
+            memmap (no parse), the holdout tail skipped."""
+            return staged(read_record, iter(range(start, spill.n_records - holdout_chunks)),
+                          p.prefetch_depth)
+
+        def disk_group_iter(group: int, n_full: int):
+            """Groups of ``group`` records on the device, one list per
+            group, for the captured group replay."""
+            def read_group(start):
+                chunks, events = zip(*(read_record(start + j) for j in range(group)))
+                return list(chunks), events[-1]
+
+            return staged(read_group, iter(range(0, n_full, group)), 1)
+
+        # encode threads: one row block each, blocks of at least 4096 rows
+        n_blocks = max(1, min(8, os.cpu_count() or 1, pad_rows // 4096))
+        bounds = np.linspace(0, pad_rows, n_blocks + 1).astype(int)
+        encode_blocks = list(zip(bounds[:-1], bounds[1:]))
+        encode_pool = (ThreadPoolExecutor(n_blocks, thread_name_prefix="encode")
+                       if codec is not None else None)
         cache = _DeviceCache(cache_device, cache_device_bytes,
                              may_exclude_tail=holdout_chunks)
+        # defer: the streaming pass only ingests and all `epochs` passes run
+        # in the replay (at epochs == 1 too), the same step sequence
+        defer = p.defer_epoch1 and cache_device and p.epochs > 0
+        spill: DiskChunkCache | None = None
+        spill_active = [False]      # read by to_device on the prefetch thread
+        if cache_device and cache_spill_dir is not None and (p.epochs > 1 or defer):
+            specs = chunk_specs + plan_specs
+            spill = DiskChunkCache(cache_spill_dir, tuple(s for _, s, _ in specs),
+                                   tuple(dt for _, _, dt in specs))
+            spill_active[0] = True
+        use_disk = False
         holdout: list = []
         n_steps = 0
         last_loss = None
 
+        def step(th, op, chunk):
+            return _step_into(th, op, chunk, salts, hyper, static_kw)
+
         def run_step(dev_chunk):
-            nonlocal theta, opt_state, n_steps, last_loss
-            Xd, n_valid, yd, wd = dev_chunk[:4]
-            plan = dev_chunk[4] if len(dev_chunk) > 4 else None
-            theta, opt_state, last_loss = _step_core(
-                theta, opt_state, Xd, n_valid, yd, wd, salts, reg, lr, plan, l1,
-                **static_kw)
+            nonlocal n_steps, last_loss
+            last_loss = step(theta, opt_state, dev_chunk)
             n_steps += 1
 
+        fuse_replay = p.fused_replay and cache_device and (p.epochs > 1 or defer)
         epoch_walls: list = []
-        for epoch in range(p.epochs):
-            t_epoch = time.perf_counter()
-            if epoch == 0 or not cache.enabled:
-                # stream from the source; a look-ahead window keeps the last
-                # holdout_chunks device chunks out of training
-                window: list = []
-                for dev_chunk in device_chunk_iter():
+        replay_fused_s = graph_capture_s = None
+        disk_replay: _Replay | None = None
+        try:
+            for epoch in range(p.epochs + (1 if defer else 0)):
+                t_epoch = time.perf_counter()
+                if epoch == 0 or not (cache.enabled or use_disk):
+                    # stream from the source; a look-ahead window keeps the
+                    # last holdout_chunks device chunks out of training
+                    window: list = []
+                    for dev_chunk in device_chunk_iter():
+                        if epoch == 0:
+                            cache.offer(dev_chunk)
+                        if holdout_chunks > 0:
+                            window.append(dev_chunk)
+                            if len(window) <= holdout_chunks:
+                                continue
+                            dev_chunk = window.pop(0)
+                        if epoch == 0 and defer:
+                            continue          # ingest only
+                        run_step(dev_chunk)
                     if epoch == 0:
-                        cache.offer(dev_chunk)
-                    if holdout_chunks > 0:
-                        window.append(dev_chunk)
-                        if len(window) <= holdout_chunks:
-                            continue
-                        dev_chunk = window.pop(0)
-                    run_step(dev_chunk)
-                if epoch == 0:
-                    if holdout_chunks > 0:
-                        holdout = window[-holdout_chunks:]
-                        if cache.enabled:
-                            # the tail lives in the cache too: never replay it
-                            cache.exclude({id(c[0]) for c in holdout})
-                            cache.forgive_tail(holdout_chunks)
-                    cache.settle()
-                    if cache.degraded and p.epochs > 1:
-                        warn_cache_overflow(cache_device_bytes, p.epochs - 1)
-            else:
-                for dev_chunk in cache.batches:   # replay: no host work at all
-                    run_step(dev_chunk)
-            if times is not None:
-                session.synchronize()   # an honest epoch wall
-                epoch_walls.append(time.perf_counter() - t_epoch)
+                        if holdout_chunks > 0:
+                            holdout = window[-holdout_chunks:]
+                            if cache.enabled:
+                                # the tail lives in the cache too: never replay it
+                                cache.exclude({id(c[0]) for c in holdout})
+                                cache.forgive_tail(holdout_chunks)
+                        spill_active[0] = False   # the prefetch thread is done
+                        if spill is not None:
+                            spill.finalize()
+                        cache.settle()
+                        if cache.degraded and (p.epochs > 1 or defer):
+                            use_disk = spill is not None and spill.n_records > holdout_chunks
+                            if not use_disk:
+                                warn_cache_overflow(
+                                    cache_device_bytes, p.epochs - 1 + (1 if defer else 0),
+                                    detail=("The disk spill has no trainable records "
+                                            "(fewer chunks than the holdout tail)."
+                                            if spill is not None else
+                                            "Set cache_spill_dir= to replay parsed "
+                                            "chunks from disk instead."))
+                elif cache.enabled:
+                    for dev_chunk in cache.batches:   # replay: no host work at all
+                        run_step(dev_chunk)
+                else:
+                    # a replay epoch off the disk spill: read + copy, no parse
+                    n_train = spill.n_records - holdout_chunks
+                    group = max(1, min(spill.n_records,
+                                       cache_device_bytes // (4 * spill.payload_bytes)))
+                    n_full = (n_train // group) * group if p.fused_replay and group > 1 else 0
+                    if n_full:
+                        if times is not None:
+                            times["disk_replay_group"] = group
+                        for chunks in disk_group_iter(group, n_full):
+                            if disk_replay is None:
+                                disk_replay = _Replay(theta, opt_state,
+                                                      [_chunk_slot(c) for c in chunks], step)
+                            for slot, c in zip(disk_replay.chunks, chunks):
+                                _fill_slot(slot, c)
+                            if is_cuda and disk_replay.graph is None:
+                                disk_replay.capture()   # once a fit, on filled slots
+                            disk_replay.run(1)
+                            last_loss = disk_replay.losses[-1]
+                            n_steps += group
+                    for dev_chunk in disk_chunk_iter(start=n_full):
+                        run_step(dev_chunk)
+                if times is not None:
+                    session.synchronize()   # an honest epoch wall
+                    epoch_walls.append(time.perf_counter() - t_epoch)
+                if epoch == 0 and fuse_replay and cache.enabled and cache.batches:
+                    # the remaining epochs: one captured epoch, replayed
+                    n_rep = p.epochs - 1 + (1 if defer else 0)
+                    t_rep = time.perf_counter()
+                    replay = _Replay(theta, opt_state, cache.batches, step)
+                    if is_cuda:
+                        replay.capture()
+                    graph_capture_s = time.perf_counter() - t_rep
+                    if p.replay_granularity == "epoch":
+                        group_epochs = max(1, p.epochs_per_dispatch)
+                        for done in range(0, n_rep, group_epochs):
+                            replay.run(min(group_epochs, n_rep - done))
+                            session.synchronize()
+                    else:
+                        replay.run(n_rep)
+                    last_loss = replay.losses[-1]
+                    n_steps += n_rep * len(cache.batches)
+                    session.synchronize()
+                    replay_fused_s = time.perf_counter() - t_rep
+                    if times is not None:
+                        epoch_walls.append(replay_fused_s)
+                    del replay
+                    break
+        finally:
+            if spill is not None:
+                spill.delete()
+            if encode_pool is not None:
+                encode_pool.shutdown()
 
         if last_loss is not None and not (
                 math.isfinite(float(last_loss))
@@ -665,17 +1294,27 @@ class StreamingHashedLinearEstimator(Estimator):
                 f"{float(last_loss)} after {n_steps} steps")
         # settle the decay the table still owes, so the returned model
         # equals the dense schedule's
-        theta = finalize_lazy_decay(theta, opt_state, lr, reg, optim_resolved)
+        theta = finalize_lazy_decay(theta, opt_state, hyper[1], hyper[0], optim_resolved)
         if stage_times is not None:
             stage_times.update(times)
             stage_times.update(
                 optim_update=optim_resolved, sparse_lowering=static_kw["sparse_lowering"],
-                cache_dtype="f32", epoch_s=epoch_walls, cache_overflow=cache.degraded,
-                replay_source=(None if p.epochs <= 1 else
-                               "hbm" if cache.enabled else "stream"))
+                cache_dtype=codec.mode if codec else "f32", epoch_s=epoch_walls,
+                cache_overflow=cache.degraded,
+                replay_source=(None if p.epochs <= 1 and not defer
+                               else ("fused" if p.replay_granularity != "epoch"
+                                     else "fused_epoch") if replay_fused_s is not None
+                               else "disk" if use_disk
+                               else "hbm" if cache.enabled
+                               else "stream"))
+            if replay_fused_s is not None:
+                stage_times.update(replay_fused_s=replay_fused_s,
+                                   graph_capture_s=graph_capture_s)
             if cache_device:
-                stage_times.update(cache_bytes=cache.nbytes,
-                                   cache_chunks=len(cache.batches))
+                stage_times.update(
+                    cache_bytes=cache.nbytes, cache_chunks=len(cache.batches),
+                    cache_raw_bytes=len(cache.batches) * _raw_chunk_bytes(
+                        p, pad_rows, sparse_plan))
             if pipe_stats.items:
                 stage_times.update(overlap_pct=pipe_stats.overlap_pct,
                                    prefetch_prep_s=pipe_stats.prep_s,
@@ -688,5 +1327,5 @@ class StreamingHashedLinearEstimator(Estimator):
         model.final_loss_ = float(last_loss) if last_loss is not None else None
         model.device_chunks_ = cache.batches if cache_device else None
         model.holdout_chunks_ = holdout if holdout_chunks > 0 else None
+        model.cache_codec_ = codec
         return model
-

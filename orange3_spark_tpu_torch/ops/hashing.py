@@ -71,13 +71,16 @@ def salts_tensor(salts: np.ndarray, device) -> torch.Tensor:
 
 
 def hash_columns_np(cats: np.ndarray, salts: np.ndarray, n_dims: int) -> np.ndarray:
-    """Host twin of ``hash_columns``: the same buckets, bit for bit."""
+    """Host twin of ``hash_columns``: the same buckets, bit for bit. It
+    works in place on its one uint32 copy of the codes (uint32 products
+    wrap mod 2^32 in numpy), the hot loop of a packed cache's encode."""
     _check_dims(n_dims)
-    u = np.asarray(cats).astype(np.int32).astype(np.uint32)
-    h = u ^ np.asarray(salts, np.uint32)[None, :]
+    h = np.asarray(cats).astype(np.int32).view(np.uint32)   # a fresh copy
+    h ^= np.asarray(salts, np.uint32)[None, :]
     h ^= h >> np.uint32(16)
-    h = (h * np.uint32(_M1)) & np.uint32(_U32)
+    h *= np.uint32(_M1)
     h ^= h >> np.uint32(13)
-    h = (h * np.uint32(_M2)) & np.uint32(_U32)
+    h *= np.uint32(_M2)
     h ^= h >> np.uint32(16)
-    return (h & np.uint32(n_dims - 1)).astype(np.int32)
+    h &= np.uint32(n_dims - 1)
+    return h.view(np.int32)

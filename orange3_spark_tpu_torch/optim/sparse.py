@@ -26,8 +26,11 @@ in large-scale click-through training):
     step becomes gather -> segment sum -> rule -> gather-based writeback.
     The CPU default. Its ``inv`` map is an [n_dims] array per chunk.
   - ``'sort'`` — the dedup runs in the step: a stable ``torch.sort``,
-    segment ids by a cumsum of boundaries, writeback of the live slots
-    only. No per-chunk memory beside the chunk. The CUDA default.
+    segment ids by a cumsum of boundaries, writeback in place. No
+    per-chunk memory beside the chunk. The CUDA default.
+  - under the 'packed' cache dtype the plan is stored bit-packed
+    (``pack_plan_np``) and unpacked in the step (``unpack_plan``),
+    exactly.
 
 * **kill-switch** — ``OTPU_SPARSE_UPDATE=0`` resolves every ``sparse_*``
   rule to its ``dense_*`` twin, once, at fit entry.
@@ -39,10 +42,20 @@ with atomics in an order that is not fixed, so two runs on the card, or
 the card against the CPU, agree to float32 rounding of those sums, not
 bitwise; the tests and the chip check state that tolerance.
 
-What the 'sort' lowering cannot take from JAX is a scatter that drops
-out-of-range indices: PyTorch raises on the CPU and asserts on CUDA. So it
-selects the live slots first (one ``nonzero``, which waits for the
-device), and updates and writes back exactly those rows.
+The step has no host sync, so a replay epoch can be captured as one CUDA
+graph: the step counter ``opt_state["step"]`` is a device int32 scalar
+that the step advances, and the 'sort' lowering works on all
+``plan_slots`` segment slots (as the reference does) instead of selecting
+the live ones. What it cannot take from JAX is a scatter that drops
+out-of-range indices (PyTorch raises on the CPU and asserts on CUDA), so
+a slot past the live segments repeats the last live slot: the same row,
+the same new value, written twice. The live segments come first (the
+dead sentinel ``n_dims`` sorts last), so that slot is ``min(j, L - 1)``
+with ``L`` the live count, a device scalar.
+
+'adam' (the params' default) is the dense optax rule ``optax.adam(1.0)``
+scaled by the learning rate, written as plain tensor functions over
+``opt_state`` (``init_adam_state``, ``adam_update``).
 
 Layering: this module knows nothing about chunks or streams;
 ``models/hashed_linear`` composes it into the step.
@@ -55,11 +68,15 @@ import os
 import numpy as np
 import torch
 
+from orange3_spark_tpu_torch.io.codec import bit_width, flat_words, pack_flat_np, unpack_flat
+
 __all__ = [
     "OPTIM_UPDATES", "SPARSE_UPDATES", "DENSE_UPDATES", "ADAGRAD_EPS", "FTRL_BETA",
     "sparse_updates_enabled", "resolve_optim_update", "resolve_sparse_lowering",
     "optim_kind", "is_sparse_update", "init_optim_state", "apply_rule",
-    "dense_update", "plan_slots", "plan_field_shapes", "build_plan_np",
+    "dense_update", "ADAM_B1", "ADAM_B2", "ADAM_EPS", "init_adam_state",
+    "adam_update", "plan_slots", "plan_field_shapes", "build_plan_np",
+    "plan_pack_widths", "plan_packed_field_shapes", "pack_plan_np", "unpack_plan",
     "occurrence_dead", "sparse_embedding_update", "finalize_lazy_decay",
 ]
 
@@ -122,15 +139,16 @@ def _rule_slots(kind: str, param: torch.Tensor) -> dict:
 
 
 def init_optim_state(resolved: str, theta: dict) -> dict:
-    """Fresh state of a non-adam rule: the step counter (a host int), the
-    per-row last-seen steps ``t`` (the lazy-decay timestamps; unused by the
-    dense twins and ftrl) and per-parameter slot dicts."""
+    """Fresh state of a rule. 'adam': ``init_adam_state``. The others: the
+    step counter (a device int32 scalar, so a captured step advances it),
+    the per-row last-seen steps ``t`` (the lazy-decay timestamps; unused by
+    the dense twins and ftrl) and per-parameter slot dicts."""
     kind = optim_kind(resolved)
     if kind == "adam":
-        raise ValueError("'adam' keeps optax-style moments; no rule state here")
+        return init_adam_state(theta)
     emb = theta["emb"]
     return {
-        "step": 0,
+        "step": torch.zeros((), dtype=torch.int32, device=emb.device),
         "t": torch.zeros(emb.shape[0], dtype=torch.int32, device=emb.device),
         "slots": {name: _rule_slots(kind, p) for name, p in theta.items()},
     }
@@ -167,6 +185,40 @@ def dense_update(kind: str, p, slots: dict, g, lr: float, decay: float, reg: flo
     if use_decay and kind != "ftrl":
         p = p * decay
     return apply_rule(kind, p, slots, g, lr, reg, l1)
+
+
+# ------------------------------------------------------- the dense adam rule
+#: ``optax.adam(1.0)``'s constants (eps_root 0)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def init_adam_state(theta: dict) -> dict:
+    """Zero moments and an int32 count on the device, as optax's
+    ``ScaleByAdamState``."""
+    dev = theta["emb"].device
+    return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+            "mu": {k: torch.zeros_like(v) for k, v in theta.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in theta.items()}}
+
+
+def adam_update(theta: dict, grads: dict, state: dict, lr: float):
+    """One ``optax.adam(1.0)`` update scaled by ``lr`` and applied: the
+    moments ``(1 - b) * g^i + b * m``, bias-corrected by ``1 - b^count``
+    with the count advanced first (saturating, int32), the update
+    ``m_hat / (sqrt(v_hat) + eps)``. Returns (theta, state)."""
+    count = torch.where(state["count"] < torch.iinfo(torch.int32).max,
+                        state["count"] + 1, state["count"])
+    c = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(ADAM_B1, c)
+    bc2 = 1.0 - torch.pow(ADAM_B2, c)
+    new_theta, mu, nu = {}, {}, {}
+    for k, p in theta.items():
+        g = grads[k]
+        mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state["mu"][k]
+        nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][k]
+        u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
+        new_theta[k] = p + lr * -u
+    return new_theta, {"count": count, "mu": mu, "nu": nu}
 
 
 # ------------------------------------------------- plan building (host side)
@@ -228,9 +280,87 @@ def build_plan_np(cats: np.ndarray, salts: np.ndarray, n_dims: int, n_valid: int
     return {"row": (order // C).astype(np.int32), "seg": seg, "uniq": uniq, "inv": inv}
 
 
-def occurrence_dead(n_rows: int, n_cat: int, n_valid: int, device) -> torch.Tensor:
+def plan_pack_widths(pad_rows: int, n_cat: int, n_dims: int) -> dict:
+    """Static bit widths of the packed plan arrays (io/codec.py), each
+    bounded by the chunk and table shape: 'row' < pad_rows, 'uniq' + 1 <=
+    n_dims (the -1 dead sentinel shifts to 0), 'inv' + 1 <= U. 'seg' has
+    no width: it rises in 0/1 steps, so it is stored as its boundary bits
+    and rebuilt by a running count."""
+    U = plan_slots(pad_rows, n_cat, n_dims)
+    return {"row": bit_width(pad_rows), "uniq": bit_width(n_dims + 1),
+            "inv": bit_width(U + 1)}
+
+
+def plan_packed_field_shapes(pad_rows: int, n_cat: int, n_dims: int) -> dict:
+    """name -> (shape, dtype) of the packed plan's u32 arrays, in spill
+    order. 'segb' holds one anchor per word and the boundary bits, hence
+    twice the word count."""
+    M = pad_rows * n_cat
+    U = plan_slots(pad_rows, n_cat, n_dims)
+    wb = plan_pack_widths(pad_rows, n_cat, n_dims)
+    return {
+        "rowp": ((flat_words(M, wb["row"]),), np.uint32),
+        "segb": ((2 * -(-M // 32),), np.uint32),
+        "uniqp": ((flat_words(U, wb["uniq"]),), np.uint32),
+        "invp": ((flat_words(n_dims, wb["inv"]),), np.uint32),
+    }
+
+
+def _popcount_u32(words: np.ndarray) -> np.ndarray:
+    """Set bits of each u32 word (numpy < 2.0 has no ``bitwise_count``)."""
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(words).astype(np.uint32)
+    v = words.copy()
+    v = v - ((v >> np.uint32(1)) & np.uint32(0x55555555))
+    v = (v & np.uint32(0x33333333)) + ((v >> np.uint32(2)) & np.uint32(0x33333333))
+    v = (v + (v >> np.uint32(4))) & np.uint32(0x0F0F0F0F)
+    return ((v * np.uint32(0x01010101)) >> np.uint32(24)).astype(np.uint32)
+
+
+def pack_plan_np(plan: dict, pad_rows: int, n_cat: int, n_dims: int) -> dict:
+    """The lossless bit-packed form of a plan, cached and spilled in place
+    of the int32 arrays under the 'packed' cache dtype; ``unpack_plan`` is
+    its exact inverse on the device. 'segb' is one running anchor per
+    word (the set bits before it) followed by the segment-boundary bits."""
+    wb = plan_pack_widths(pad_rows, n_cat, n_dims)
+    seg = plan["seg"]
+    M = seg.shape[0]
+    start = np.empty(M, np.uint32)
+    start[0] = 1
+    start[1:] = (seg[1:] != seg[:-1]).astype(np.uint32)
+    bitwords = pack_flat_np(start, 1)
+    pops = _popcount_u32(bitwords)
+    anchors = np.zeros(bitwords.shape[0], np.uint32)
+    np.cumsum(pops[:-1], out=anchors[1:], dtype=np.uint32)
+    return {
+        "rowp": pack_flat_np(plan["row"], wb["row"]),
+        "segb": np.concatenate([anchors, bitwords]),
+        "uniqp": pack_flat_np(plan["uniq"] + 1, wb["uniq"]),
+        "invp": pack_flat_np(plan["inv"] + 1, wb["inv"]),
+    }
+
+
+def unpack_plan(enc: dict, pad_rows: int, n_cat: int, n_dims: int) -> dict:
+    """Device decode of ``pack_plan_np``'s arrays back to the int32 plan.
+    'seg' is the running count of the boundary bits less one (the anchors
+    only spare the reference a scan; a cumsum gives the same integers)."""
+    M = pad_rows * n_cat
+    U = plan_slots(pad_rows, n_cat, n_dims)
+    wb = plan_pack_widths(pad_rows, n_cat, n_dims)
+    B = enc["segb"].shape[0] // 2
+    start = unpack_flat(enc["segb"][B:], 1, M)
+    return {
+        "row": unpack_flat(enc["rowp"], wb["row"], M),
+        "seg": (torch.cumsum(start, 0, dtype=torch.int32) - 1),
+        "uniq": unpack_flat(enc["uniqp"], wb["uniq"], U) - 1,
+        "inv": unpack_flat(enc["invp"], wb["inv"], n_dims) - 1,
+    }
+
+
+def occurrence_dead(n_rows: int, n_cat: int, n_valid, device) -> torch.Tensor:
     """[N, C] dead-occurrence mask of the 'sort' lowering — the device twin
-    of ``build_plan_np``'s rule: every occurrence of a padding row."""
+    of ``build_plan_np``'s rule: every occurrence of a padding row.
+    ``n_valid`` is an int or a device int scalar."""
     rows = torch.arange(n_rows, dtype=torch.int32, device=device)
     return (rows[:, None] >= n_valid).expand(n_rows, n_cat)
 
@@ -274,8 +404,10 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     'plan': the host-built plan gives the sort order, segments, unique rows
     and inverse map; the writeback is a gather
     (``where(touched, new_rows[inv], emb)``) into new tensors.
-    'sort': everything derived in the step; the live rows are written back
-    in place (``index_copy_``: the touched rows are unique)."""
+    'sort': everything derived in the step over all ``plan_slots`` slots;
+    the rows are written back in place (``index_copy_``), a slot past the
+    live segments repeating the last live one (module docstring). No step
+    of either lowering waits for the device."""
     D = emb.shape[0]
     if lowering == "plan":
         g = dl.index_select(0, plan["row"])
@@ -295,7 +427,10 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
 
     if lowering != "sort":
         raise ValueError(f"unknown sparse lowering {lowering!r}")
+    if isinstance(n_valid, int) and n_valid == 0:
+        return emb, t, slots          # every occurrence dead: no row moves
     N, C = idx.shape
+    U = plan_slots(N, C, D)
     dead = occurrence_dead(N, C, n_valid, idx.device)
     flat = idx.masked_fill(dead, D).reshape(-1)
     s_idx, order = torch.sort(flat, stable=True)
@@ -303,18 +438,23 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     start = torch.ones_like(s_idx, dtype=torch.bool)
     torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
     seg = torch.cumsum(start, 0) - 1
-    sums = _segment_sums(g, seg, plan_slots(N, C, D))
-    # the live segments are the first ones (the dead sentinel D sorts last):
-    # select them, then update and write back exactly those rows
-    rid = s_idx[torch.nonzero(start & (s_idx < D)).squeeze(1)].to(torch.int64)
+    sums = _segment_sums(g, seg, U)
+    # the row of each segment: every occurrence of a segment writes the
+    # same value, so the scatter is deterministic with duplicates
+    uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)
+    # slots past the live segments (the dead sentinel's, the empty ones)
+    # repeat the last live slot: its row and its new values, written twice
+    n_live = (start & (s_idx < D)).sum()
+    src = torch.minimum(torch.arange(U, device=idx.device), n_live - 1)
+    rid = uniq.index_select(0, src).to(torch.int64)
     p_rows, slot_rows = _touched_rows_update(
-        kind, emb, t, slots, sums[:rid.shape[0]], rid, lr, decay, reg, l1, step,
+        kind, emb, t, slots, sums.index_select(0, src), rid, lr, decay, reg, l1, step,
         use_decay=use_decay)
     emb.index_copy_(0, rid, p_rows)
     for n, v in slot_rows.items():
         slots[n].index_copy_(0, rid, v)
     if use_decay:
-        t.index_fill_(0, rid, step + 1)
+        t.index_copy_(0, rid, (step + 1).to(t.dtype).expand(U))
     return emb, t, slots
 
 

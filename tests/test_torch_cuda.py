@@ -397,3 +397,114 @@ def test_default_session_fits_on_cuda(cuda_device, tmp_path):
     assert all(c[0].device.type == "cuda" for c in model.device_chunks_)
     assert st["sparse_lowering"] == "sort" and model.n_steps_ == 6
     assert np.isfinite(model.final_loss_)
+
+
+# ------------------------------------- the packed cache and the graph replay
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 7, 13, 22, 31])
+def test_packed_decode_on_cuda(cuda_device, bits):
+    """The device unpack on the card equals the values packed on the host,
+    bitwise: per-row words (26 columns), flat planes and a packed plan."""
+    from orange3_spark_tpu_torch.io.codec import (
+        pack_flat_np, pack_rows_np, unpack_flat, unpack_rows,
+    )
+    from orange3_spark_tpu_torch.ops.hashing import column_salts
+    from orange3_spark_tpu_torch.optim.sparse import (
+        build_plan_np, pack_plan_np, unpack_plan,
+    )
+
+    rng = np.random.default_rng(bits)
+    vals = rng.integers(0, 1 << bits, size=(70_001, 26), dtype=np.int64)
+    words = torch.from_numpy(pack_rows_np(vals, bits).view(np.int32)).to(cuda_device)
+    assert np.array_equal(unpack_rows(words, bits, 26).cpu().numpy(), vals)
+    flat = vals[:, 0]
+    fw = torch.from_numpy(pack_flat_np(flat, bits).view(np.int32)).to(cuda_device)
+    assert np.array_equal(unpack_flat(fw, bits, len(flat)).cpu().numpy(), flat)
+    N, C, D = 4096, 26, 1 << 16
+    cats = rng.integers(0, 50_000, (N, C)).astype(np.float32)
+    plan = build_plan_np(cats, column_salts(C), D, N - 100)
+    enc = {k: torch.from_numpy(v.view(np.int32)).to(cuda_device)
+           for k, v in pack_plan_np(plan, N, C, D).items()}
+    for k, v in unpack_plan(enc, N, C, D).items():
+        assert np.array_equal(v.cpu().numpy(), plan[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,lowering", [("sparse_adagrad", "sort"),
+                                           ("sparse_adagrad", "plan"), ("sparse_sgd", "sort")])
+def test_graph_replay_matches_eager_replay_on_cuda(cuda_device, tmp_path, rule, lowering):
+    """A packed, deferred fit whose replay runs as one captured CUDA graph
+    against the same fit replayed step by step (``fused_replay=False``) on
+    the card, and against the CPU path: theta within the atomics tolerance
+    (atol 1e-5, rtol 1e-4); the graph replays really ran."""
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+
+    path = str(tmp_path / "criteo.csv")
+    gen_criteo_csv(path, 9000, seed=3)
+    kw = dict(optim_update=rule, cache_dtype="packed", defer_epoch1=True, epochs=4)
+    st: dict = {}
+    fits = {}
+    for name, dev, fused in (("graph", "cuda", True), ("eager", "cuda", False),
+                             ("cpu", "cpu", True)):
+        from orange3_spark_tpu_torch import TorchSession
+        from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+        from orange3_spark_tpu_torch.models.hashed_linear import (
+            StreamingHashedLinearEstimator,
+        )
+
+        params = dict(n_dims=1 << 14, n_dense=13, n_cat=26, chunk_rows=1024,
+                      step_size=0.04, reg_param=1e-5, label_in_chunk=True,
+                      sparse_lowering=lowering, fused_replay=fused, **kw)
+        fits[name] = StreamingHashedLinearEstimator(**params).fit_stream(
+            csv_raw_chunk_source(path, chunk_rows=1000), session=TorchSession(dev),
+            cache_device=True, holdout_chunks=1,
+            stage_times=st if name == "graph" else None)
+    assert st["replay_source"] == "fused" and st["graph_capture_s"] > 0
+    assert fits["graph"].n_steps_ == fits["eager"].n_steps_ == 4 * 8
+    for other in ("eager", "cpu"):
+        for name, want in fits[other].theta.items():
+            np.testing.assert_allclose(fits["graph"].theta[name].cpu().numpy(),
+                                       want.cpu().numpy(), atol=1e-5, rtol=1e-4,
+                                       err_msg=f"{other}.{name}")
+
+
+@pytest.mark.cuda
+def test_adam_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """'adam' on the card against the CPU path. The update on the same
+    inputs: within 1e-7 + 1e-6·|θ| (pow may round an ulp apart). Three
+    steps of a fit: the losses within 1e-5 relative and θ within the
+    atomics tolerance (1e-5 + 1e-4·|θ|) on all but 1e-4 of the entries; the
+    rest within 2·lr·steps. Adam divides by sqrt(v) + 1e-8, so where a
+    row's first gradient is a near-cancelled sum, the card's reordered
+    sums (atomics, another reduction order in the forward) move that one
+    update by up to lr."""
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.optim.sparse import adam_update, init_adam_state
+
+    rng = np.random.default_rng(4)
+    theta = {k: rng.standard_normal(s).astype(np.float32)
+             for k, s in (("emb", (5000, 1)), ("coef", (13, 1)), ("intercept", (1,)))}
+    grads = {k: rng.standard_normal(v.shape).astype(np.float32) * 1e-3
+             for k, v in theta.items()}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        th = {k: torch.from_numpy(v).to(dev) for k, v in theta.items()}
+        state = init_adam_state(th)
+        for _ in range(3):
+            th, state = adam_update(th, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in grads.items()}, state, 0.04)
+        out[str(dev)] = {k: v.cpu().numpy() for k, v in th.items()}
+    for k in theta:
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], atol=1e-7, rtol=1e-6)
+    path = str(tmp_path / "c.csv")
+    gen_criteo_csv(path, 3 * 4096, seed=5)
+    fits = {dev: _criteo_fit(dev, "sort", path, optim_update="adam", epochs=1,
+                             chunk_rows=4096) for dev in ("cuda", "cpu")}
+    assert fits["cuda"].n_steps_ == 2              # one chunk held out
+    assert fits["cuda"].final_loss_ == pytest.approx(fits["cpu"].final_loss_, rel=1e-5)
+    for name, want in fits["cpu"].theta.items():
+        got, want = fits["cuda"].theta[name].cpu().numpy(), want.numpy()
+        off = np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)
+        assert off.mean() <= 1e-4, (name, int(off.sum()))
+        assert np.abs(got - want).max() <= 2 * 0.04 * 2, name

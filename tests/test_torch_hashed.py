@@ -298,9 +298,10 @@ def test_fit_protocol_and_auc_helper(cpu, data):
 
 
 @pytest.mark.parametrize("override", [
-    dict(optim_update="adam"), dict(value_weighted=True, n_dense=0),
-    dict(missing="keep"), dict(cache_dtype="packed"), dict(emb_update="sorted"),
-    dict(defer_epoch1=True), dict(compute_dtype="bfloat16")])
+    dict(emb_update="per_column"), dict(value_weighted=True, n_dense=0),
+    dict(missing="keep"), dict(missing="keep", cache_dtype="packed"),
+    dict(emb_update="sorted"), dict(compute_dtype="float16"),
+    dict(compute_dtype="bfloat16")])
 def test_unported_options_raise(cpu, data, override):
     X, y = data
     kw = {**BASE, "optim_update": "sparse_sgd", **override}

@@ -1,6 +1,7 @@
 """The port stands alone: no module of orange3_spark_tpu_torch imports jax or
-orange3_spark_tpu or reads a file inside it, and its session runs on the GPU
-unless told otherwise."""
+orange3_spark_tpu or reads a file inside it (nor ml_dtypes or optax, which
+come with jax and are absent on the GPU machine), and its session runs on
+the GPU unless told otherwise."""
 
 import ast
 import os
@@ -24,7 +25,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "orange3_spark_tpu"):
+            if top in ("jax", "jaxlib", "orange3_spark_tpu", "ml_dtypes", "optax"):
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -33,7 +34,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "orange3_spark_tpu")]
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "orange3_spark_tpu", "ml_dtypes", "optax")]
     assert not leaked, leaked
     print(len(names))
 """)
@@ -133,3 +135,18 @@ def test_no_source_of_the_port_names_a_path_in_the_jax_package():
         checked += 1
     assert checked >= 24
     assert os.path.exists(os.path.join(PORT, "native", "fastcsv.cpp"))
+
+
+def test_no_source_of_the_port_imports_jax_companions():
+    """No import statement of the port names jax, ml_dtypes or optax, even
+    one inside a function that the import walk above would not run."""
+    banned = {"jax", "jaxlib", "ml_dtypes", "optax", "orange3_spark_tpu"}
+    for path in list(_port_sources((".py",))) + [os.path.join(ROOT, "chip_smoke.py")]:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            else:
+                continue
+            assert not {n.split(".")[0] for n in names} & banned, (path, names)

@@ -265,5 +265,7 @@ def test_csv_fit_and_evaluate_end_to_end(tmp_path):
                                    atol=1e-6, rtol=1e-5)
     assert st["optim_update"] == "sparse_adagrad" and st["sparse_lowering"] == "plan"
     assert st["cache_dtype"] == "f32" and st["cache_chunks"] == 5
-    assert len(st["epoch_s"]) == 4 and st["parse_s"] > 0 and st["h2d_s"] > 0
-    assert st["replay_source"] == "hbm" and not st["cache_overflow"]
+    # fused_replay (the default): [epoch 1, the whole replay], as the reference
+    assert len(st["epoch_s"]) == 2 and st["parse_s"] > 0 and st["h2d_s"] > 0
+    assert st["epoch_s"][1] == st["replay_fused_s"]
+    assert st["replay_source"] == "fused" and not st["cache_overflow"]
