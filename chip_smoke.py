@@ -69,6 +69,31 @@ accelerator), which runs PyTorch ops and no kernel of the package:
                   ``nonzero`` calls per step; then the captured replay:
                   device busy time, idle share and launches per epoch
 
+then the serving path (``bench.py --config serving``; PyTorch ops in captured
+CUDA graphs, no kernel of the package), on the Criteo CSV:
+
+  serving_check   a 2^16-dim model fit on the CSV's head, served through a
+                  64..2048 ladder against its eager raw logits at one
+                  request size in every rung (again after allocator churn:
+                  a repeat captures nothing and gives the same bits); 32
+                  requests from 8 threads; 48 micro-batched requests from
+                  16 threads (coalesced, scattered right); a hot reload
+                  (one fresh graph) and an in-place theta update (none);
+                  RF and GBT through the ``predict-pad`` route, bitwise
+  serving         bench.py's configuration: a 2^18-dim model fit for one
+                  epoch on 4 chunks of 2^18 rows, a 2^19-row request pool,
+                  120 requests log-uniform on [16, 8192] run raw, bucketed
+                  (ladder 256..16384 warmed rung by rung: seconds and device
+                  bytes per rung) and coalesced (16 threads); then the
+                  ``criteo`` phase's full-width model through the same
+                  ladder; bench.py's keys, graph captures (7, then 0 on a
+                  repeat), every bucketed request a graph replay, no
+                  breaker, served against raw over the whole trace
+  serving_profile one bucketed request at 256 and 8192 rows: the served
+                  call, the host copy in (host clock and CUDA events), the
+                  pad zeroing, the graph's device time, the copy back, the
+                  Python around them; the launches in the graph
+
 then the ``kernels`` line (launches counted over the gbt and rf phases;
 ``per_fit`` from the timed fits' launch counts and the profile),
 the card's ``nvidia-smi`` name and power limit, and last
@@ -1087,6 +1112,482 @@ def phase_criteo_profile(model, sess, epochs=3):
     return {"eager": eager, "graph": graph}
 
 
+# ------------------------------------------------------------------ serving
+# bench.py --config serving (bench.py:1104-1214): the CTR model, its request
+# pool and its mixed-size trace
+SERVE_DIMS, SERVE_FIT_CHUNKS, SERVE_POOL_ROWS = 1 << 18, 4, 1 << 19
+SERVE_REQUESTS, SERVE_MIN_REQ, SERVE_MAX_REQ, SERVE_TRACE_SEED = 120, 16, 8192, 11
+SERVE_LADDER = dict(min_bucket=256, max_bucket=1 << 14)
+# served against eager raw logits on the card (tests/test_torch_cuda.py):
+# the graph runs the raw path's ops at the bucket's row count, where cuBLAS
+# and the reduction kernels may round apart; a wrong row, bucket or pad
+# would move a logit by far more than this
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5
+
+
+def _serve_model(path, sess, n_dims, chunk_rows, n_chunks):
+    """bench_serving's model: StreamingHashedLinearEstimator's defaults,
+    one epoch over the first ``n_chunks`` chunks of the CSV."""
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+
+    def head():
+        for i, c in enumerate(csv_raw_chunk_source(path, chunk_rows=chunk_rows)()):
+            if i >= n_chunks:
+                break
+            yield c
+
+    est = StreamingHashedLinearEstimator(n_dims=n_dims, n_dense=13, n_cat=26, epochs=1,
+                                         step_size=CRITEO["step_size"],
+                                         chunk_rows=chunk_rows, label_in_chunk=True)
+    return est.fit_stream(head, session=sess), head
+
+
+def _request_pool(head, rows):
+    """The first ``rows`` parsed rows, label column stripped (bench.py)."""
+    import numpy as np
+
+    pool, n = [], 0
+    for c in head():
+        pool.append(np.asarray(c)[:, 1:])
+        n += c.shape[0]
+        if n >= rows:
+            break
+    return np.ascontiguousarray(np.concatenate(pool)[:rows].astype(np.float32))
+
+
+def _serve_err(served, raw) -> dict:
+    """Served against eager raw logits: max |Δ|, bitwise, within the
+    stated bound, and equal predictions wherever |logit| exceeds it."""
+    import numpy as np
+
+    d = np.abs(served.astype(np.float64) - raw)
+    tol = SERVE_ATOL + SERVE_RTOL * np.abs(raw)
+    sure = np.abs(raw) > tol
+    return {"max_abs_err": float(d.max()) if d.size else 0.0,
+            "bitwise": bool(np.array_equal(served, raw)),
+            "ok": bool(served.shape == raw.shape and (d <= tol).all()
+                       and np.array_equal(served[sure] > 0, raw[sure] > 0))}
+
+
+def phase_serving_check(path, sess):
+    """The serving path on the card at small sizes: served vs raw logits at
+    a request size in every rung of a 64..2048 ladder; 32 requests from 8
+    threads by direct dispatch; micro-batched requests from 16 threads; a
+    hot reload and an in-place theta update; capture counts; an RF and a
+    GBT model through the ``predict-pad`` route."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.datasets import higgs_domain, make_higgs_proxy
+    from orange3_spark_tpu_torch.models.gbt import GBTClassifier
+    from orange3_spark_tpu_torch.models.random_forest import RandomForestClassifier
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.serve.context import _raw_calls
+    from orange3_spark_tpu_torch.utils.profiling import (
+        graph_capture_count, reset_serve_counters, serve_counters,
+    )
+
+    model, head = _serve_model(path, sess, 1 << 16, 1 << 14, 4)
+    pool = _request_pool(head, 1 << 14)
+    ladder = BucketLadder(min_bucket=64, max_bucket=2048)
+    failed = []
+
+    def check(name, cond):
+        if not cond:
+            failed.append(name)
+
+    # one request size in every rung, twice (the repeat captures nothing)
+    sizes = (50, 100, 200, 300, 700, 1500)
+    raws = {n: model._logits(pool[:n]) for n in sizes}
+    reqs = [(int(37 * i), int((61 * i) % 900 + 5)) for i in range(32)]
+    raw_reqs = [model._logits(pool[o:o + n]) for o, n in reqs]
+    reset_serve_counters()
+    with ServingContext(ladder) as ctx:
+        c0 = graph_capture_count()
+        served = {n: model._logits(pool[:n]) for n in sizes}
+        captures = graph_capture_count() - c0
+        # churn the allocator: a tensor a graph reads but no one holds
+        # would be handed out and overwritten here
+        junk = [torch.full((1 << 18,), -7, dtype=torch.int64, device=sess.device)
+                for _ in range(64)]
+        del junk
+        again = {n: model._logits(pool[:n]) for n in sizes}
+        repeat_captures = graph_capture_count() - c0 - captures
+        one_thread = [model._logits(pool[o:o + n]) for o, n in reqs]
+        with ThreadPoolExecutor(8) as ex:
+            threaded = list(ex.map(lambda r: model._logits(pool[r[0]:r[0] + r[1]]), reqs))
+        direct_breakers = ctx.breaker_states()
+        rung_bytes = ctx.cache.device_bytes() / max(len(ctx.cache), 1)
+    direct = serve_counters()
+    rungs = {n: _serve_err(served[n], raws[n]) for n in sizes}
+    threads = [_serve_err(a, b) for a, b in zip(threaded, raw_reqs)]
+    check("rungs", all(r["ok"] for r in rungs.values()))
+    check("repeat_bitwise", all(np.array_equal(served[n], again[n]) for n in sizes))
+    check("captures", captures == len({ladder.bucket_for(n) for n in sizes}) and
+          repeat_captures == 0)
+    check("threads", all(t["ok"] for t in threads) and all(
+        np.array_equal(a, b) for a, b in zip(threaded, one_thread)))
+    dispatches = direct["bucket_hits"] + direct["bucket_misses"]
+    check("graph_replays", direct["graph_replays"] == dispatches == 2 * len(sizes) + 64)
+
+    # micro-batched: 48 small requests from 16 threads, coalesced
+    mb_reqs = [(int(53 * i), int((29 * i) % 120 + 1)) for i in range(48)]
+    raw_mb = [model._logits(pool[o:o + n]) for o, n in mb_reqs]
+    with ServingContext(ladder, micro_batch=True, max_batch=2048, max_wait_ms=5.0) as ctx:
+        ctx.warmup(model, n_cols=pool.shape[1])
+        reset_serve_counters()
+        with ThreadPoolExecutor(16) as ex:
+            got_mb = list(ex.map(lambda r: model._logits(pool[r[0]:r[0] + r[1]]), mb_reqs))
+        mb_breakers = ctx.breaker_states()
+    mb = serve_counters()
+    mb_errs = [_serve_err(a, b) for a, b in zip(got_mb, raw_mb)]
+    check("micro_batch", all(e["ok"] for e in mb_errs)
+          and mb["mb_requests"] == len(mb_reqs) and 1 <= mb["mb_batches"] < mb["mb_requests"]
+          and mb["graph_replays"] == mb["mb_batches"])
+
+    # hot reload keys a fresh graph; an in-place update reaches the same graph
+    with ServingContext(ladder) as ctx:
+        before = model._logits(pool[:300])
+        c0 = graph_capture_count()
+        model.load_state_pytree({k: v * 0.5 for k, v in model.theta.items()})
+        reloaded = model._logits(pool[:300])
+        with _raw_calls():
+            raw_reloaded = model._logits(pool[:300])
+        reload_captures = graph_capture_count() - c0
+        model.theta["intercept"].add_(1.0)
+        in_place = model._logits(pool[:300])
+        with _raw_calls():
+            raw_in_place = model._logits(pool[:300])
+        in_place_captures = graph_capture_count() - c0 - reload_captures
+        reload_breakers = ctx.breaker_states()
+    reload = {"reloaded": _serve_err(reloaded, raw_reloaded),
+              "in_place": _serve_err(in_place, raw_in_place),
+              "captures_on_reload": reload_captures,
+              "captures_on_in_place_update": in_place_captures,
+              "moved": bool(not np.allclose(before, reloaded))}
+    check("hot_reload", reload["reloaded"]["ok"] and reload["in_place"]["ok"]
+          and reload_captures == 1 and in_place_captures == 0 and reload["moved"])
+    check("breakers", not (direct_breakers or mb_breakers or reload_breakers)
+          and direct["build_failures"] == mb["build_failures"] == 0)
+
+    # tree models: predict-pad (the table bucket-padded, the raw predict run)
+    X, y = make_higgs_proxy(20_000, seed=3)
+    table = TorchTable.from_numpy(higgs_domain(), X, y, session=sess)
+    trees = {"rf": RandomForestClassifier(num_trees=5, max_depth=5).fit(table),
+             "gbt": GBTClassifier(max_iter=5, max_depth=4).fit(table)}
+    tree_lines = {}
+    for name, m in trees.items():
+        eq = []
+        for k in (9, 300, 5000):
+            t = TorchTable.from_numpy(higgs_domain(), X[:k], y[:k], session=sess)
+            raw = m.predict(t)
+            with ServingContext(BucketLadder(min_bucket=16, max_bucket=8192)) as ctx:
+                got = m.predict(t)
+                pad = [key[0] for key in ctx.cache.keys()] == ["predict-pad"]
+            eq.append(bool(np.array_equal(got, raw) and pad and got.shape == (k,)))
+        tree_lines[name] = {"sizes": [9, 300, 5000], "bitwise_equal": eq}
+        check(f"{name}_predict_pad", all(eq))
+    line = {"model": {"n_dims": 1 << 16, "fit_chunks": 4, "chunk_rows": 1 << 14},
+            "ladder": list(ladder.buckets()),
+            "rungs": {str(n): r for n, r in rungs.items()},
+            "served_bitwise_equal_raw": all(r["bitwise"] for r in rungs.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rungs.values()),
+            "tolerance": f"|served - raw| <= {SERVE_ATOL} + {SERVE_RTOL}*|raw|, "
+                         "equal predictions beyond it",
+            "captures": captures, "repeat_captures": repeat_captures,
+            "device_bytes_per_rung": rung_bytes,
+            "threads": {"requests": len(reqs), "threads": 8,
+                        "max_abs_err": max(t["max_abs_err"] for t in threads)},
+            "direct_counters": direct,
+            "micro_batch": {"requests": mb["mb_requests"], "batches": mb["mb_batches"],
+                            "merge_factor": mb["mb_merge_factor"],
+                            "max_abs_err": max(e["max_abs_err"] for e in mb_errs)},
+            "hot_reload": reload, "trees": tree_lines, "failed": failed}
+    if failed:
+        raise AssertionError(f"serving on the card failed {failed}: {line}")
+    return line
+
+
+def _traced_requests_total() -> int:
+    from orange3_spark_tpu_torch.obs.registry import REGISTRY
+
+    m = REGISTRY.get("otpu_traced_requests_total")
+    return int(m.total()) if m is not None else 0
+
+
+def _serve_trace(pool_rows):
+    """bench.py's trace: log-uniform sizes on [16, 8192], default_rng(11)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_TRACE_SEED)
+    max_req = min(SERVE_MAX_REQ, pool_rows)
+    sizes = np.exp(rng.uniform(np.log(SERVE_MIN_REQ), np.log(max_req),
+                               SERVE_REQUESTS)).astype(np.int64)
+    offs = rng.integers(0, pool_rows - int(sizes.max()) + 1, len(sizes))
+    return [(int(o), int(s)) for o, s in zip(offs, sizes)]
+
+
+def _run_trace(model, pool, trace):
+    """Per-request latency (ms) of ``model.predict``, the wall, the outputs."""
+    lat, outs = [], []
+    t0 = time.perf_counter()
+    for off, sz in trace:
+        t1 = time.perf_counter()
+        out = model.predict(pool[off:off + sz])
+        lat.append((time.perf_counter() - t1) * 1e3)
+        outs.append(out)
+    return lat, time.perf_counter() - t0, outs
+
+
+def _pctl(lat, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(lat), q))
+
+
+def _trace_check(model, pool, trace, got, want, ctx) -> dict:
+    """Served against raw over a trace: the served predictions equal the
+    raw ones wherever the raw logit lies outside the stated bound of 0,
+    and the served logits (one more pass through ``ctx``) are within the
+    bound of the raw ones. Names the worst request."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.serve.context import _raw_calls
+
+    flips, worst = 0, {"max_abs_err": 0.0}
+    with ctx:
+        for (off, sz), a, b in zip(trace, got, want):
+            X = pool[off:off + sz]
+            served = model._logits(X)
+            with _raw_calls():
+                raw = model._logits(X)
+            err = _serve_err(served, raw)
+            sure = np.abs(raw[:, 0]) > SERVE_ATOL + SERVE_RTOL * np.abs(raw[:, 0])
+            flips += int(((a != b) & sure).sum()) + int(a.shape != b.shape)
+            if not err["ok"] or err["max_abs_err"] > worst["max_abs_err"]:
+                worst = {**err, "rows": sz, "offset": off,
+                         "bucket": ctx.ladder.bucket_for(sz)}
+                if not err["ok"]:
+                    break
+    return {"prediction_flips": flips, "worst_request": worst,
+            "ok": flips == 0 and worst.get("ok", True)}
+
+
+def phase_serving(path, sess, full_model):
+    """bench.py's serving configuration on the card: a 2^18-dim CTR model fit
+    for one epoch on the CSV's first 4 chunks of 2^18 rows, a 2^19-row
+    request pool, 120 requests log-uniform on [16, 8192] (default_rng(11))
+    run raw, bucketed through the warmed 256..16384 ladder, and coalesced
+    (the requests of <= 1024 rows, twice, from 16 threads); then the
+    full-width model of the ``criteo`` phase through the same ladder."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import (
+        graph_capture_count, reset_serve_counters, serve_counters,
+    )
+
+    chunk = CRITEO["chunk_rows"]
+    model, head = _serve_model(path, sess, SERVE_DIMS, chunk, SERVE_FIT_CHUNKS)
+    pool = _request_pool(head, SERVE_POOL_ROWS)
+    trace = _serve_trace(pool.shape[0])
+    total_rows = sum(s for _, s in trace)
+    ladder = BucketLadder(**SERVE_LADDER)
+
+    c0 = graph_capture_count()
+    lat_raw, wall_raw, out_raw = _run_trace(model, pool, trace)
+    captures_raw = graph_capture_count() - c0
+
+    reset_serve_counters()
+    traced0 = _traced_requests_total()
+    rung_bytes, rung_s = {}, {}
+    with ServingContext(ladder) as ctx:
+        c0 = graph_capture_count()
+        t0 = time.perf_counter()
+        warmed = 0
+        for b in ladder.buckets():    # one rung at a time: its bytes and seconds
+            b0, t1 = ctx.cache.device_bytes(), time.perf_counter()
+            warmed += ctx.warmup(model, n_cols=pool.shape[1], buckets=[b])["compiled"]
+            rung_s[b], rung_bytes[b] = time.perf_counter() - t1, ctx.cache.device_bytes() - b0
+        warmup_s = time.perf_counter() - t0
+        lat_b, wall_b, out_b = _run_trace(model, pool, trace)
+        captures_b = graph_capture_count() - c0
+        sc = serve_counters()
+        traced = _traced_requests_total() - traced0
+        c1 = graph_capture_count()
+        _run_trace(model, pool, trace)
+        repeat_captures = graph_capture_count() - c1
+        breakers = ctx.breaker_states()
+
+    small = [(o, s) for o, s in trace if s <= 1024] * 2
+    mb_rows = sum(s for _, s in small)
+    with ServingContext(ladder, micro_batch=True, max_batch=8192, max_wait_ms=2.0) as ctx_mb:
+        ctx_mb.warmup(model, n_cols=pool.shape[1])
+        reset_serve_counters()
+        with ThreadPoolExecutor(16) as ex:
+            t0 = time.perf_counter()
+            futs = [ex.submit(model.predict, pool[o:o + s]) for o, s in small]
+            mb_out = [f.result() for f in futs]
+            wall_mb = time.perf_counter() - t0
+        breakers_mb = ctx_mb.breaker_states()
+    mb = serve_counters()
+
+    # the full-width model of the criteo phase through the same ladder
+    with ServingContext(ladder) as ctx_full:
+        t0 = time.perf_counter()
+        warm_full = ctx_full.warmup(full_model, n_cols=pool.shape[1])
+        warmup_full_s = time.perf_counter() - t0
+        reset_serve_counters()
+        lat_f, wall_f, out_f = _run_trace(full_model, pool, trace)
+        sc_full = serve_counters()
+        breakers_full = ctx_full.breaker_states()
+    _, _, out_f_raw = _run_trace(full_model, pool, trace)
+
+    vs_raw = {"n_dims_%d" % m.params.n_dims: _trace_check(m, pool, trace, got, want,
+                                                         ServingContext(ladder))
+              for m, got, want in ((model, out_b, out_raw), (full_model, out_f, out_f_raw))}
+    predictions_ok = (all(v["ok"] for v in vs_raw.values())
+                      and all(o.shape == (s,) for (_, s), o in zip(small, mb_out)))
+    line = {
+        "metric": "criteo_serving_predict_rows_per_sec_per_chip",
+        "value": total_rows / wall_b / 1, "unit": "rows/s/chip",
+        "requests": len(trace), "distinct_sizes": len({s for _, s in trace}),
+        "trace_rows": total_rows, "n_dims": SERVE_DIMS, "fit_chunks": SERVE_FIT_CHUNKS,
+        "pool_rows": pool.shape[0], "ladder": list(ladder.buckets()),
+        "cuts": ({"pool_rows": f"{SERVE_POOL_ROWS} -> {pool.shape[0]} (--criteo-rows)"}
+                 if pool.shape[0] < SERVE_POOL_ROWS else None),
+        "graph_captures": captures_b, "graph_captures_unbucketed": captures_raw,
+        "graph_captures_repeat": repeat_captures,
+        "compile_reduction": ("no ratio: the eager raw path captures no graph (and "
+                              "compiles nothing); the bucketed path captures one "
+                              "graph per rung, warm-up included"),
+        "p50_ms": _pctl(lat_b, 50), "p99_ms": _pctl(lat_b, 99), "wall_s": wall_b,
+        "warmup_s": warmup_s, "warmup_buckets": warmed,
+        "warmup_s_per_rung": {str(b): v for b, v in rung_s.items()},
+        "device_bytes_per_rung": {str(b): v for b, v in rung_bytes.items()},
+        "bucket_hits": sc["bucket_hits"], "bucket_misses": sc["bucket_misses"],
+        "aot_hits": sc["aot_hits"], "graph_replays": sc["graph_replays"],
+        "pad_overhead": sc["pad_overhead"],
+        "p50_ms_unbucketed": _pctl(lat_raw, 50), "p99_ms_unbucketed": _pctl(lat_raw, 99),
+        "wall_s_unbucketed": wall_raw,
+        "unbucketed_rows_per_sec_per_chip": total_rows / wall_raw / 1,
+        "mb_requests": mb["mb_requests"], "mb_batches": mb["mb_batches"],
+        "mb_merge_factor": mb["mb_merge_factor"],
+        "mb_rows_per_sec_per_chip": mb_rows / wall_mb / 1,
+        "traced_requests": traced, "trace_coverage": traced / len(trace),
+        "full_width": {"n_dims": full_model.params.n_dims, "value": total_rows / wall_f / 1,
+                       "p50_ms": _pctl(lat_f, 50), "p99_ms": _pctl(lat_f, 99),
+                       "wall_s": wall_f, "warmup_s": warmup_full_s,
+                       "warmup_buckets": warm_full["compiled"],
+                       "graph_replays": sc_full["graph_replays"]},
+        "breakers": {**breakers, **breakers_mb, **breakers_full},
+        "served_vs_raw": vs_raw,
+        "tolerance": f"|served - raw| <= {SERVE_ATOL} + {SERVE_RTOL}*|raw|, "
+                     "equal predictions beyond it",
+        "predictions_equal_raw": predictions_ok,
+    }
+    dispatches = sc["bucket_hits"] + sc["bucket_misses"]
+    problems = [name for name, bad in (
+        ("warmup_buckets", warmed != len(ladder.buckets())),
+        ("graph_captures", captures_b > len(ladder.buckets()) or repeat_captures != 0),
+        ("graph_replays", sc["graph_replays"] != dispatches or dispatches != len(trace)
+         or sc_full["graph_replays"] != len(trace)),
+        ("mb_merge_factor", not (mb["mb_merge_factor"] or 0) > 1),
+        ("mb_graph_replays", mb["graph_replays"] != mb["mb_batches"]),
+        ("breakers", bool(line["breakers"])),
+        ("build_failures", sc["build_failures"] + mb["build_failures"]
+         + sc_full["build_failures"] != 0),
+        ("predictions", not predictions_ok)) if bad]
+    if problems:
+        raise AssertionError(f"serving: {problems}: {line}")
+    return model, pool, line
+
+
+def phase_serving_profile(model, pool):
+    """Where one bucketed request's time goes, at 256 and 8192 rows: the
+    whole served call (host clock), and inside it the host copy of the
+    request into the bucket's static input (host clock and CUDA events),
+    the pad zeroing, the graph's device time, the copy of the result back,
+    and the rest (Python: routing, the cache, counters); the launches in
+    the graph (torch.profiler over one replay)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.serve.context import _fingerprint, _rows
+
+    ladder = BucketLadder(**SERVE_LADDER)
+    reps = 50
+    out = {}
+    with ServingContext(ladder) as ctx:
+        for n in (256, 8192):
+            ctx.warmup(model, n_cols=pool.shape[1], buckets=[ladder.bucket_for(n)])
+            key = ("array", _fingerprint(model), ladder.bucket_for(n), pool.shape[1],
+                   "float32", str(model.device))
+            prog = ctx.cache.get_or_build(key, lambda: None)
+            X = pool[:n]
+            total = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                model.predict(X)
+                total.append((time.perf_counter() - t0) * 1e3)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            stages = {k: [] for k in ("host_prep_ms", "h2d_host_ms", "h2d_ms", "pad_zero_ms",
+                                      "graph_ms", "d2h_ms", "d2h_host_ms", "parts_host_ms")}
+            buf, outs = prog.inputs[0], prog.outputs
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                src = _rows(X, n)
+                t1 = time.perf_counter()
+                ev[0].record()
+                buf[:n].copy_(src)
+                ev[1].record()
+                t2 = time.perf_counter()
+                if n < prog.n_pad:
+                    buf[n:].zero_()
+                ev[2].record()
+                prog.graph.replay()
+                ev[3].record()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                res = outs[:n].cpu().numpy()
+                ev[4].record()
+                t4 = time.perf_counter()
+                torch.cuda.synchronize()
+                stages["host_prep_ms"].append((t1 - t0) * 1e3)
+                stages["h2d_host_ms"].append((t2 - t1) * 1e3)
+                stages["h2d_ms"].append(ev[0].elapsed_time(ev[1]))
+                stages["pad_zero_ms"].append(ev[1].elapsed_time(ev[2]))
+                stages["graph_ms"].append(ev[2].elapsed_time(ev[3]))
+                stages["d2h_ms"].append(ev[3].elapsed_time(ev[4]))
+                stages["d2h_host_ms"].append((t4 - t3) * 1e3)
+                stages["parts_host_ms"].append((t4 - t0) * 1e3)
+            assert res.shape == (n, 1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prog.graph.replay()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            by_name: dict = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            med = {k: float(np.median(v)) for k, v in stages.items()}
+            served_ms = float(np.median(total))
+            out[str(n)] = {"bucket": prog.n_pad, "served_ms_median": served_ms,
+                           "served_ms_p99": float(np.percentile(total, 99)), **med,
+                           "python_overhead_ms": served_ms - med["parts_host_ms"],
+                           "graph_launches": len(kernels) if kernels else "not measured",
+                           "graph_kernels_us": {k[:90]: v for k, v in sorted(
+                               by_name.items(), key=lambda kv: -kv[1])[:8]},
+                           "reps": reps}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -1205,7 +1706,17 @@ def main(argv=None) -> int:
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **line})
             phase = "criteo_profile"
             emit({"phase": phase, "device": kind, **phase_criteo_profile(model, sess)})
+            torch.cuda.empty_cache()
+            phase = "serving_check"
+            emit({"phase": phase, "device": kind, **phase_serving_check(path, sess)})
+            phase = "serving"
+            serve_model, pool, line = phase_serving(path, sess, model)
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi, **line})
             del model
+            phase = "serving_profile"
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi,
+                  **phase_serving_profile(serve_model, pool)})
+            del serve_model, pool
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 

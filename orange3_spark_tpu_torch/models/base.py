@@ -3,12 +3,15 @@
 Port of ``orange3_spark_tpu/models/base.py``: params are frozen dataclasses
 (hashable, introspectable through ``dataclasses.fields``), ``Estimator.fit``
 returns a ``Model`` that holds its fitted state as device tensors and
-records the fit's wall time in ``last_fit_metrics``.
+records the fit's wall time in ``last_fit_metrics``. Every subclass's
+``transform``/``predict`` routes through the serving path (serve/) when a
+``ServingContext`` is active.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any
 
@@ -19,6 +22,23 @@ from orange3_spark_tpu_torch.core.domain import (
     ContinuousVariable, DiscreteVariable, Domain,
 )
 from orange3_spark_tpu_torch.core.table import TorchTable
+
+
+def _serve_routed(kind: str, raw_fn):
+    """Route a subclass-defined ``transform``/``predict`` through the
+    serving path (serve/context.py) when a ServingContext is active. With
+    no active context this is one None check of overhead; inside a serving
+    build the per-thread reentrancy guard goes straight to the raw
+    method."""
+
+    @functools.wraps(raw_fn)
+    def wrapper(self, *args, **kwargs):
+        from orange3_spark_tpu_torch.serve.context import route
+
+        return route(kind, raw_fn, self, *args, **kwargs)
+
+    wrapper.__serve_raw__ = raw_fn
+    return wrapper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +80,20 @@ class HasParams:
 
 
 class Transformer(HasParams):
-    """transform(table) -> table."""
+    """transform(table) -> table.
+
+    Every subclass-defined ``transform``/``predict`` is wrapped at class
+    creation to route through the serving subsystem (serve/) when a
+    ``ServingContext`` is active — shape-bucketed padding, the cache of
+    bucket programs, optional micro-batching. Without a context the raw
+    method runs untouched."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for kind in ("transform", "predict"):
+            fn = cls.__dict__.get(kind)
+            if fn is not None and callable(fn) and not hasattr(fn, "__serve_raw__"):
+                setattr(cls, kind, _serve_routed(kind, fn))
 
     def transform(self, table: TorchTable) -> TorchTable:
         raise NotImplementedError
@@ -79,9 +112,23 @@ class Model(Transformer):
     def state_pytree(self) -> dict[str, Any]:
         raise NotImplementedError
 
+    def _touch_serving_state(self) -> None:
+        """Move the serving fingerprint after the state's tensors were
+        replaced: a bucket program reads the tensors it was built with
+        (serve/context folds this version into the model fingerprint), so
+        every ``load_state_pytree`` — base or override — must call this.
+        An in-place update of the same tensors needs no call: the next
+        replay reads it."""
+        self._serve_state_version = getattr(self, "_serve_state_version", 0) + 1
+
+    def _serve_state_token(self):
+        """The version token serve/context folds into the fingerprint."""
+        return getattr(self, "_serve_state_version", 0)
+
     def load_state_pytree(self, state: dict[str, Any]) -> None:
         for k, v in state.items():
             setattr(self, k, v)
+        self._touch_serving_state()
 
 
 class Estimator(HasParams):

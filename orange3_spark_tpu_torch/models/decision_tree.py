@@ -71,6 +71,7 @@ class DecisionTreeClassifierModel(Model):
 
     def load_state_pytree(self, state):
         self.tree = Tree(**{k: state[k] for k in Tree._fields})
+        self._touch_serving_state()
 
     def _probs(self, X):
         leaves = tree_apply(X, self.tree)                    # [N]
@@ -115,6 +116,7 @@ class DecisionTreeRegressorModel(Model):
 
     def load_state_pytree(self, state):
         self.tree = Tree(**{k: state[k] for k in Tree._fields})
+        self._touch_serving_state()
 
     def _yhat(self, X):
         return leaf_means(self.tree.leaf_value)[tree_apply(X, self.tree)]

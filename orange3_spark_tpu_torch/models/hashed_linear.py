@@ -70,6 +70,7 @@ from orange3_spark_tpu_torch.optim.sparse import (
     plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
     sparse_embedding_update, unpack_plan,
 )
+from orange3_spark_tpu_torch.utils.profiling import count_graph_capture
 
 AUC_BINS = 4096
 #: the profiler ranges of ``_step_core``, in step order ('split_hash' is
@@ -551,6 +552,7 @@ class _Replay:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._epoch()
+        count_graph_capture()
         self.graph = graph
 
     def run(self, n_epochs: int) -> None:
@@ -640,7 +642,38 @@ class HashedLinearModel(Model):
     def _binary(self) -> bool:
         return _row_loss_kind(self.params) == "binary_logistic"
 
+    def load_state_pytree(self, state: dict) -> None:
+        """Replace theta with ``state`` (emb, coef, intercept), as the JAX
+        package's checkpoints carry it; moves the serving fingerprint."""
+        self.theta = dict(state)
+        self._touch_serving_state()
+
+    def _serve_array_state(self):
+        """Serving hook (serve/context.py ``served_array``): the state the
+        bucket program reads where it lies — theta itself, so an in-place
+        update of theta is served by the next request, as the JAX
+        package's state-as-arguments executables serve it."""
+        return {"theta": self.theta, "salts": salts_tensor(self.salts, self.device)}
+
+    def _serve_array_fn(self, state, Xp):
+        """Device fn of the bucket program: row-wise (hash + gather + sum +
+        dense product), so bucket padding changes no live row's inputs (a
+        CPU BLAS may still round a row's dense product an ulp apart at
+        another row count; the card's cuBLAS did not)."""
+        p = self.params
+        return _hashed_predict(state["theta"], Xp, state["salts"], n_dims=p.n_dims,
+                               n_dense=p.n_dense, impute_missing=_impute_flag(p))
+
     def _logits(self, Xall: np.ndarray) -> np.ndarray:
+        from orange3_spark_tpu_torch.serve.context import (
+            _reentrant, active_serving_context,
+        )
+
+        ctx = active_serving_context()
+        if ctx is not None and not _reentrant():
+            out = ctx.served_array(self, np.asarray(Xall, np.float32))
+            if out is not None:
+                return out
         p = self.params
         X = torch.as_tensor(np.asarray(Xall, np.float32), device=self.device)
         out = _hashed_predict(self.theta, X, salts_tensor(self.salts, self.device),

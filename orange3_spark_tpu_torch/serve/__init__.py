@@ -1,0 +1,28 @@
+"""serve/ — the bucketed inference path, on captured CUDA graphs.
+
+Public surface::
+
+    from orange3_spark_tpu_torch.serve import ServingContext, BucketLadder
+
+    ctx = ServingContext(BucketLadder(min_bucket=256, max_bucket=1 << 14),
+                         micro_batch=True)
+    with ctx:
+        ctx.warmup(model, n_cols=39)     # capture the ladder ahead of traffic
+        model.predict(batch)             # bucketed + cached + coalesced
+
+Counters: ``orange3_spark_tpu_torch.utils.profiling.serve_counters()``.
+Not ported yet: ``ServedWorkflow`` (fused workflow serving).
+"""
+
+from orange3_spark_tpu_torch.serve.bucketing import BucketLadder
+from orange3_spark_tpu_torch.serve.cache import ExecutableCache
+from orange3_spark_tpu_torch.serve.context import (
+    ServingContext, active_serving_context,
+)
+
+__all__ = [
+    "BucketLadder",
+    "ExecutableCache",
+    "ServingContext",
+    "active_serving_context",
+]

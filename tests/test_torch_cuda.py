@@ -508,3 +508,150 @@ def test_adam_on_cuda_matches_cpu(cuda_device, tmp_path):
         off = np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)
         assert off.mean() <= 1e-4, (name, int(off.sum()))
         assert np.abs(got - want).max() <= 2 * 0.04 * 2, name
+
+
+# ------------------------------------------------------------- serving
+# served against eager raw logits on the card: the graph runs the same ops
+# as the raw path at the bucket's row count, where cuBLAS and the
+# reduction kernels may pick another launch shape than at the request's;
+# a wrong row, bucket or pad would move a logit by far more than this
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5
+
+
+def _served_model(device, n_dims=1 << 14, seed=0):
+    """A hashed model with random theta on ``device`` (13 + 26 columns)
+    and requests drawn from the Criteo generator's shape."""
+    from orange3_spark_tpu_torch.models.hashed_linear import (
+        HashedLinearModel, HashedLinearParams,
+    )
+    from orange3_spark_tpu_torch.ops.hashing import column_salts
+
+    rng = np.random.default_rng(seed)
+    p = HashedLinearParams(n_dims=n_dims, n_dense=13, n_cat=26)
+    theta = {"emb": torch.from_numpy(rng.normal(0, 0.3, (n_dims, 1)).astype(np.float32)),
+             "coef": torch.from_numpy(rng.normal(0, 0.3, (13, 1)).astype(np.float32)),
+             "intercept": torch.tensor([0.1])}
+    model = HashedLinearModel(p, {k: v.to(device) for k, v in theta.items()},
+                              column_salts(26, 0), ("0", "1"))
+    X = np.concatenate([rng.lognormal(0, 1, (4096, 13)).astype(np.float32),
+                        rng.integers(0, 200_000, (4096, 26)).astype(np.float32)], axis=1)
+    return model, X
+
+
+def _assert_served_close(served, raw):
+    np.testing.assert_allclose(served, raw, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    sure = np.abs(raw[:, 0]) > SERVE_ATOL + SERVE_RTOL * np.abs(raw[:, 0])
+    assert np.array_equal(served[sure] > 0, raw[sure] > 0)
+
+
+@pytest.mark.cuda
+def test_served_graph_logits_match_eager_at_every_rung(cuda_device):
+    """Every rung of a 64..2048 ladder serves from a captured graph, within
+    the stated bound of the eager raw logits; a repeat of the trace
+    captures nothing and replays one graph per request."""
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import (
+        graph_capture_count, reset_serve_counters, serve_counters,
+    )
+
+    model, X = _served_model(cuda_device)
+    sizes = (1, 50, 64, 100, 200, 300, 700, 1500, 2048)
+    raws = {n: model._logits(X[:n]) for n in sizes}
+    reset_serve_counters()
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=2048)) as ctx:
+        c0 = graph_capture_count()
+        served = {n: model._logits(X[:n]) for n in sizes}
+        first = graph_capture_count() - c0
+        # churn the allocator: memory freed after a build (a tensor the
+        # graph still reads) would be handed out and overwritten here
+        junk = [torch.full((1 << 16,), -7, dtype=torch.int64, device=cuda_device)
+                for _ in range(64)]
+        del junk
+        again = {n: model._logits(X[:n]) for n in sizes}
+        assert graph_capture_count() - c0 == first      # a repeat captures nothing
+        assert ctx.breaker_states() == {}
+        assert ctx.cache.device_bytes() > 0
+    assert first == 6                                   # the six rungs touched
+    assert serve_counters()["graph_replays"] == 2 * len(sizes)
+    for n in sizes:
+        assert served[n].shape == raws[n].shape
+        assert np.array_equal(served[n], again[n])      # one graph, same bits
+        _assert_served_close(served[n], raws[n])
+
+
+@pytest.mark.cuda
+def test_served_from_eight_threads(cuda_device):
+    """Direct dispatch from 8 threads: the entry's lock keeps one request's
+    fill, replay and copy-out together, so each caller gets its own rows,
+    equal to a single-threaded served answer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    model, X = _served_model(cuda_device)
+    reqs = [(int(o), int(n)) for o, n in zip(np.arange(32) * 37, (np.arange(32) * 61) % 900 + 5)]
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=1024)) as ctx:
+        ctx.warmup(model, n_cols=X.shape[1])
+        want = [model._logits(X[o:o + n]) for o, n in reqs]
+        with ThreadPoolExecutor(8) as ex:
+            got = list(ex.map(lambda r: model._logits(X[r[0]:r[0] + r[1]]), reqs))
+    for (o, n), a, b in zip(reqs, got, want):
+        assert a.shape == (n, 1) and np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_served_hot_reload_and_in_place_theta(cuda_device):
+    """``load_state_pytree`` keys a fresh graph (one more capture); an
+    in-place update of theta is read by the next replay of the same graph."""
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import graph_capture_count
+
+    model, X = _served_model(cuda_device)
+    other = {k: v * 0.5 for k, v in model.theta.items()}
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=1024)):
+        before = model._logits(X[:100])
+        c0 = graph_capture_count()
+        model.load_state_pytree(other)
+        reloaded = model._logits(X[:100])
+        assert graph_capture_count() == c0 + 1
+        with torch.no_grad():
+            model.theta["intercept"].add_(3.0)
+        in_place = model._logits(X[:100])
+        assert graph_capture_count() == c0 + 1
+    _assert_served_close(reloaded, model._logits(X[:100]) - 3.0)
+    _assert_served_close(in_place, model._logits(X[:100]))
+    assert not np.allclose(before, reloaded)
+
+
+@pytest.mark.cuda
+def test_no_cpu_tensor_on_the_served_path(cuda_device):
+    """On a CUDA model, every ATen op of a served request runs on the card,
+    apart from wrapping the host request as a tensor, its copy in and the
+    result's copy out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    class Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            devs = {a.device.type for a in torch.utils._pytree.tree_leaves((args, kwargs))
+                    if isinstance(a, torch.Tensor)}
+            self.ops.append((str(func), devs))
+            return func(*args, **(kwargs or {}))
+
+    model, X = _served_model(cuda_device)
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=1024)) as ctx:
+        ctx.warmup(model, n_cols=X.shape[1])
+        with Devices() as mode:
+            out = model._logits(X[:300])
+    assert out.shape == (300, 1)
+    on_cpu = [op for op, devs in mode.ops if "cpu" in devs
+              and not op.startswith(("aten.lift_fresh", "aten.copy_", "aten._to_copy",
+                                     "aten.slice", "aten.alias", "aten.detach"))]
+    assert not on_cpu, on_cpu
+    assert any(op.startswith("aten.copy_") and devs == {"cpu", "cuda"}
+               for op, devs in mode.ops)

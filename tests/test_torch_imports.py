@@ -46,7 +46,22 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22   # every module was walked
+    assert int(out.stdout.split()[-1]) >= 44   # every module was walked
+
+
+@pytest.mark.parametrize("sub,n_modules", [("serve", 5), ("obs", 4), ("resilience", 3),
+                                           ("utils", 3), ("online", 1)])
+def test_serving_layers_import_without_jax(sub, n_modules):
+    """The serving path and the host layers it stands on (copies of the JAX
+    package's modules) import neither jax, ml_dtypes, optax nor anything of
+    the JAX package, each subpackage on its own."""
+    code = _BLOCKED_IMPORT.replace("import orange3_spark_tpu_torch as pkg",
+                                   f"import orange3_spark_tpu_torch.{sub} as pkg")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= n_modules
 
 
 def test_chip_smoke_imports_without_jax():
