@@ -73,8 +73,8 @@ then the serving path (``bench.py --config serving``; PyTorch ops in captured
 CUDA graphs, no kernel of the package), on the Criteo CSV:
 
   serving_check   a 2^16-dim model fit on the CSV's head, served through a
-                  64..2048 ladder against its eager raw logits at one
-                  request size in every rung (again after allocator churn:
+                  64..2048 ladder, bitwise against its eager raw logits at
+                  one request size in every rung (again after allocator churn:
                   a repeat captures nothing and gives the same bits); 32
                   requests from 8 threads; 48 micro-batched requests from
                   16 threads (coalesced, scattered right); a hot reload
@@ -88,7 +88,8 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   ``criteo`` phase's full-width model through the same
                   ladder; bench.py's keys, graph captures (7, then 0 on a
                   repeat), every bucketed request a graph replay, no
-                  breaker, served against raw over the whole trace
+                  breaker, served bitwise equal to raw over the whole trace;
+                  the coalesced arm's dispatch time against its wall
   serving_profile one bucketed request at 256 and 8192 rows: the served
                   call, the host copy in (host clock and CUDA events), the
                   pad zeroing, the graph's device time, the copy back, the
@@ -1118,11 +1119,11 @@ def phase_criteo_profile(model, sess, epochs=3):
 SERVE_DIMS, SERVE_FIT_CHUNKS, SERVE_POOL_ROWS = 1 << 18, 4, 1 << 19
 SERVE_REQUESTS, SERVE_MIN_REQ, SERVE_MAX_REQ, SERVE_TRACE_SEED = 120, 16, 8192, 11
 SERVE_LADDER = dict(min_bucket=256, max_bucket=1 << 14)
-# served against eager raw logits on the card (tests/test_torch_cuda.py):
-# the graph runs the raw path's ops at the bucket's row count, where cuBLAS
-# and the reduction kernels may round apart; a wrong row, bucket or pad
-# would move a logit by far more than this
-SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5
+# served logits are held to eager raw logits bitwise on the card (as in
+# tests/test_torch_cuda.py): the graph runs the raw path's ops at the
+# bucket's row count, and on the H100 none of them rounded a live row apart
+# there. If one ever does, that is a finding (ROADMAP queue 3: the op and
+# its measured max |Δ|), and the bound to hold the card to is that one.
 
 
 def _serve_model(path, sess, n_dims, chunk_rows, n_chunks):
@@ -1157,17 +1158,14 @@ def _request_pool(head, rows):
 
 
 def _serve_err(served, raw) -> dict:
-    """Served against eager raw logits: max |Δ|, bitwise, within the
-    stated bound, and equal predictions wherever |logit| exceeds it."""
+    """Served against eager raw logits: max |Δ| and whether they are
+    bitwise equal (same shape, same bits), which every check requires."""
     import numpy as np
 
-    d = np.abs(served.astype(np.float64) - raw)
-    tol = SERVE_ATOL + SERVE_RTOL * np.abs(raw)
-    sure = np.abs(raw) > tol
+    same_shape = served.shape == raw.shape
+    d = np.abs(served.astype(np.float64) - raw) if same_shape else np.array([np.inf])
     return {"max_abs_err": float(d.max()) if d.size else 0.0,
-            "bitwise": bool(np.array_equal(served, raw)),
-            "ok": bool(served.shape == raw.shape and (d <= tol).all()
-                       and np.array_equal(served[sure] > 0, raw[sure] > 0))}
+            "bitwise": bool(same_shape and np.array_equal(served, raw))}
 
 
 def phase_serving_check(path, sess):
@@ -1225,11 +1223,11 @@ def phase_serving_check(path, sess):
     direct = serve_counters()
     rungs = {n: _serve_err(served[n], raws[n]) for n in sizes}
     threads = [_serve_err(a, b) for a, b in zip(threaded, raw_reqs)]
-    check("rungs", all(r["ok"] for r in rungs.values()))
+    check("rungs", all(r["bitwise"] for r in rungs.values()))
     check("repeat_bitwise", all(np.array_equal(served[n], again[n]) for n in sizes))
     check("captures", captures == len({ladder.bucket_for(n) for n in sizes}) and
           repeat_captures == 0)
-    check("threads", all(t["ok"] for t in threads) and all(
+    check("threads", all(t["bitwise"] for t in threads) and all(
         np.array_equal(a, b) for a, b in zip(threaded, one_thread)))
     dispatches = direct["bucket_hits"] + direct["bucket_misses"]
     check("graph_replays", direct["graph_replays"] == dispatches == 2 * len(sizes) + 64)
@@ -1245,7 +1243,7 @@ def phase_serving_check(path, sess):
         mb_breakers = ctx.breaker_states()
     mb = serve_counters()
     mb_errs = [_serve_err(a, b) for a, b in zip(got_mb, raw_mb)]
-    check("micro_batch", all(e["ok"] for e in mb_errs)
+    check("micro_batch", all(e["bitwise"] for e in mb_errs)
           and mb["mb_requests"] == len(mb_reqs) and 1 <= mb["mb_batches"] < mb["mb_requests"]
           and mb["graph_replays"] == mb["mb_batches"])
 
@@ -1269,7 +1267,7 @@ def phase_serving_check(path, sess):
               "captures_on_reload": reload_captures,
               "captures_on_in_place_update": in_place_captures,
               "moved": bool(not np.allclose(before, reloaded))}
-    check("hot_reload", reload["reloaded"]["ok"] and reload["in_place"]["ok"]
+    check("hot_reload", reload["reloaded"]["bitwise"] and reload["in_place"]["bitwise"]
           and reload_captures == 1 and in_place_captures == 0 and reload["moved"])
     check("breakers", not (direct_breakers or mb_breakers or reload_breakers)
           and direct["build_failures"] == mb["build_failures"] == 0)
@@ -1296,8 +1294,7 @@ def phase_serving_check(path, sess):
             "rungs": {str(n): r for n, r in rungs.items()},
             "served_bitwise_equal_raw": all(r["bitwise"] for r in rungs.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rungs.values()),
-            "tolerance": f"|served - raw| <= {SERVE_ATOL} + {SERVE_RTOL}*|raw|, "
-                         "equal predictions beyond it",
+            "tolerance": "bitwise",
             "captures": captures, "repeat_captures": repeat_captures,
             "device_bytes_per_rung": rung_bytes,
             "threads": {"requests": len(reqs), "threads": 8,
@@ -1351,14 +1348,11 @@ def _pctl(lat, q):
 
 def _trace_check(model, pool, trace, got, want, ctx) -> dict:
     """Served against raw over a trace: the served predictions equal the
-    raw ones wherever the raw logit lies outside the stated bound of 0,
-    and the served logits (one more pass through ``ctx``) are within the
-    bound of the raw ones. Names the worst request."""
-    import numpy as np
-
+    raw ones, and the served logits (one more pass through ``ctx``) equal
+    the raw ones bitwise. Names the first request that differs."""
     from orange3_spark_tpu_torch.serve.context import _raw_calls
 
-    flips, worst = 0, {"max_abs_err": 0.0}
+    flips, worst = 0, {"max_abs_err": 0.0, "bitwise": True}
     with ctx:
         for (off, sz), a, b in zip(trace, got, want):
             X = pool[off:off + sz]
@@ -1366,15 +1360,31 @@ def _trace_check(model, pool, trace, got, want, ctx) -> dict:
             with _raw_calls():
                 raw = model._logits(X)
             err = _serve_err(served, raw)
-            sure = np.abs(raw[:, 0]) > SERVE_ATOL + SERVE_RTOL * np.abs(raw[:, 0])
-            flips += int(((a != b) & sure).sum()) + int(a.shape != b.shape)
-            if not err["ok"] or err["max_abs_err"] > worst["max_abs_err"]:
+            flips += int((a != b).sum()) if a.shape == b.shape else sz
+            if not err["bitwise"]:
                 worst = {**err, "rows": sz, "offset": off,
                          "bucket": ctx.ladder.bucket_for(sz)}
-                if not err["ok"]:
-                    break
-    return {"prediction_flips": flips, "worst_request": worst,
-            "ok": flips == 0 and worst.get("ok", True)}
+                break
+    return {"prediction_flips": flips, "first_difference": worst,
+            "ok": flips == 0 and worst["bitwise"]}
+
+
+def _time_dispatches(ctx):
+    """Wrap ``ctx._dispatch`` (what the micro-batcher's worker calls once
+    per flush) to record each call's host seconds and rows."""
+    seconds, rows = [], []
+    inner = ctx._dispatch
+
+    def timed(kind, rec, arrays, n, *, meta):
+        t0 = time.perf_counter()
+        try:
+            return inner(kind, rec, arrays, n, meta=meta)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+            rows.append(n)
+
+    ctx._dispatch = timed
+    return seconds, rows
 
 
 def phase_serving(path, sess, full_model):
@@ -1427,6 +1437,7 @@ def phase_serving(path, sess, full_model):
     mb_rows = sum(s for _, s in small)
     with ServingContext(ladder, micro_batch=True, max_batch=8192, max_wait_ms=2.0) as ctx_mb:
         ctx_mb.warmup(model, n_cols=pool.shape[1])
+        mb_dispatch_s, mb_flush_rows = _time_dispatches(ctx_mb)
         reset_serve_counters()
         with ThreadPoolExecutor(16) as ex:
             t0 = time.perf_counter()
@@ -1434,6 +1445,7 @@ def phase_serving(path, sess, full_model):
             mb_out = [f.result() for f in futs]
             wall_mb = time.perf_counter() - t0
         breakers_mb = ctx_mb.breaker_states()
+        mb_wait_ms_end = ctx_mb.micro_batcher._adapt.current_wait_s() * 1e3
     mb = serve_counters()
 
     # the full-width model of the criteo phase through the same ladder
@@ -1478,6 +1490,13 @@ def phase_serving(path, sess, full_model):
         "mb_requests": mb["mb_requests"], "mb_batches": mb["mb_batches"],
         "mb_merge_factor": mb["mb_merge_factor"],
         "mb_rows_per_sec_per_chip": mb_rows / wall_mb / 1,
+        # one worker thread flushes: its wall is the dispatches plus the
+        # coalescing windows (and the concatenation and scatter around them)
+        "mb_wall_s": wall_mb, "mb_dispatch_s": sum(mb_dispatch_s),
+        "mb_dispatch_ms_per_batch": 1e3 * sum(mb_dispatch_s) / max(len(mb_dispatch_s), 1),
+        "mb_rest_ms_per_batch": 1e3 * (wall_mb - sum(mb_dispatch_s)) / max(len(mb_dispatch_s), 1),
+        "mb_rows_per_batch": sum(mb_flush_rows) / max(len(mb_flush_rows), 1),
+        "mb_max_wait_ms_at_end": mb_wait_ms_end,
         "traced_requests": traced, "trace_coverage": traced / len(trace),
         "full_width": {"n_dims": full_model.params.n_dims, "value": total_rows / wall_f / 1,
                        "p50_ms": _pctl(lat_f, 50), "p99_ms": _pctl(lat_f, 99),
@@ -1486,8 +1505,7 @@ def phase_serving(path, sess, full_model):
                        "graph_replays": sc_full["graph_replays"]},
         "breakers": {**breakers, **breakers_mb, **breakers_full},
         "served_vs_raw": vs_raw,
-        "tolerance": f"|served - raw| <= {SERVE_ATOL} + {SERVE_RTOL}*|raw|, "
-                     "equal predictions beyond it",
+        "tolerance": "bitwise",
         "predictions_equal_raw": predictions_ok,
     }
     dispatches = sc["bucket_hits"] + sc["bucket_misses"]

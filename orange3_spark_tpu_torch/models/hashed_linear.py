@@ -70,7 +70,7 @@ from orange3_spark_tpu_torch.optim.sparse import (
     plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
     sparse_embedding_update, unpack_plan,
 )
-from orange3_spark_tpu_torch.utils.profiling import count_graph_capture
+from orange3_spark_tpu_torch.utils.graphs import capture_graph
 
 AUC_BINS = 4096
 #: the profiler ranges of ``_step_core``, in step order ('split_hash' is
@@ -544,16 +544,10 @@ class _Replay:
         """Warm one step on a copy of the state on a side stream (library
         handles and workspaces), then capture one epoch. Thread-local
         capture mode lets the prefetch thread keep copying meanwhile."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.step(_clone_tree(self.theta), _clone_tree(self.opt_state), self.chunks[0])
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._epoch()
-        count_graph_capture()
-        self.graph = graph
+        theta, opt_state = self.theta, self.opt_state
+        self.graph, _, _ = capture_graph(
+            self._epoch, theta["emb"].device,
+            warm=lambda: self.step(_clone_tree(theta), _clone_tree(opt_state), self.chunks[0]))
 
     def run(self, n_epochs: int) -> None:
         for _ in range(n_epochs):
@@ -643,9 +637,13 @@ class HashedLinearModel(Model):
         return _row_loss_kind(self.params) == "binary_logistic"
 
     def load_state_pytree(self, state: dict) -> None:
-        """Replace theta with ``state`` (emb, coef, intercept), as the JAX
-        package's checkpoints carry it; moves the serving fingerprint."""
-        self.theta = dict(state)
+        """Replace theta with ``state`` (emb, coef, intercept): tensors, or
+        numpy arrays as the JAX package's checkpoints carry them, each put
+        on the model's device as a tensor (a served graph then reads theta
+        itself, so a later in-place update reaches it). Moves the serving
+        fingerprint."""
+        device = self.device
+        self.theta = {k: torch.as_tensor(v, device=device) for k, v in state.items()}
         self._touch_serving_state()
 
     def _serve_array_state(self):

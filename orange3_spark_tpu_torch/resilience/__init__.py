@@ -22,7 +22,6 @@ from orange3_spark_tpu_torch.resilience.overload import (
     AdmissionController,
     CircuitBreaker,
     OverloadShedError,
-    brownout_level,
     request_deadline,
 )
 from orange3_spark_tpu_torch.resilience.retry import (
@@ -42,7 +41,6 @@ __all__ = [
     "TransientBuildError",
     "TransientSourceError",
     "active_fault_spec",
-    "brownout_level",
     "inject_faults",
     "is_transient",
     "request_deadline",

@@ -17,14 +17,6 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   ``fails=-1`` = always fails (the retry-exhaustion pattern).
 * ``slow_source``   straggler chunks: sleep ``delay_ms`` before serving
   targeted ordinals (``every=K`` / ``chunk=N``; every read, no budget).
-* ``spill_corrupt`` corrupt spill record ``record=N`` at WRITE time:
-  ``mode=flip`` XORs one payload byte after the CRC was computed (so the
-  v2 read-side check trips), ``mode=truncate`` writes only half the
-  record (a crash-mid-write; caught by the finalize/attach size check).
-* ``wedge``         the ``at=N``-th guarded dispatch sync (1-based) holds
-  for ``hold_s`` seconds (default 3600) instead of completing — the
-  never-returning-dispatch signature the watchdog must convert into a
-  typed ``DispatchWedgedError``. Consumed once per matching ordinal.
 * ``aot_build``     the first ``fails=N`` AOT builds in the serving
   ``ExecutableCache`` raise ``TransientBuildError`` (optionally only for
   keys whose repr contains ``key=SUBSTR``).
@@ -33,22 +25,16 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   default) — the deterministic slow-service load the admission
   controller's shed/deadline logic is tested and benched against
   (resilience/overload.py).
-* ``mem_pressure``  report a synthetic memory-pressure fraction
-  ``frac=F`` to the brownout watermarks (after the first ``after=K``
-  queries, default 0) — drives the shrink-admission/force-spill/degrade
-  ladder without actually exhausting host RAM.
 * ``drift``         the serving tap (online/tap.py) shifts the features
   it logs by ``shift=S`` (default 3.0) from tapped-chunk ordinal
   ``after=K`` (default 0) on — the deterministic distribution-shift the
   promotion drift gate must reject before any replica flips.
-* ``label_skew``    the label joiner flips a ``flip=F`` fraction of
-  joined labels (seeded per-example crc32 coin, ``seed=S``) from joined
-  chunk ``after=K`` on — feature stats stay clean, so only the holdout
-  regression bound can catch the poisoned candidate.
-* ``trainer_crash`` the ``at=N``-th incremental-trainer device step
-  (1-based) raises instead of running — the SIGKILL stand-in the
-  checkpoint-resume drill kills the online trainer thread with.
-  Consumed once.
+
+The JAX package's ``spill_corrupt``, ``wedge``, ``mem_pressure``,
+``label_skew`` and ``trainer_crash`` kinds are not kept: what consumes
+them (the spill's CRC check, the dispatch watchdog, the brownout ladder,
+the label joiner, the online trainer) is not ported, so a spec naming
+them raises here instead of injecting nothing.
 
 State (per-ordinal fail budgets, sync counters) lives on the ``FaultSpec``
 instance, so a retried read observes the budget already consumed — that is
@@ -94,9 +80,7 @@ class TransientBuildError(RuntimeError):
     """Injected transient AOT-build failure (retryable by contract)."""
 
 
-_KINDS = ("source_io", "slow_source", "spill_corrupt", "wedge", "aot_build",
-          "overload", "mem_pressure", "drift", "label_skew",
-          "trainer_crash")
+_KINDS = ("source_io", "slow_source", "aot_build", "overload", "drift")
 
 
 def _record_fault(kind: str) -> None:
@@ -112,10 +96,9 @@ class _Clause:
         self.kind = kind
         self.args = args
         self.fail_left: dict[int, int] = {}   # ordinal -> remaining fails
-        self.sync_seen = 0                    # wedge/overload/mem_pressure:
-        #                                       consuming queries seen
+        self.sync_seen = 0                    # overload: dispatches seen
         self.build_fails_done = 0             # aot_build: raises so far
-        self.fired = False                    # mem_pressure: counter ticked
+        self.fired = False                    # drift: counter ticked
 
     def _arg(self, key, default=None, cast=float):
         v = self.args.get(key)
@@ -210,32 +193,7 @@ class FaultSpec:
                     f" ({'always' if fails < 0 else f'{left} left'})"
                 )
 
-    # ----------------------------------------------------- storage hooks
-    def take_spill_corrupt(self, record: int) -> str | None:
-        """'flip' / 'truncate' when record ``record`` should be corrupted
-        at write time (consumed: each clause fires once)."""
-        for c in self._of("spill_corrupt"):
-            with self._lock:
-                if c.fail_left.get(record, 1) == 0:
-                    continue
-                if record == int(c._arg("record", 0, cast=int)):
-                    c.fail_left[record] = 0
-                    _record_fault("spill_corrupt")
-                    return str(c.args.get("mode", "flip"))
-        return None
-
     # ---------------------------------------------------- dispatch hooks
-    def take_wedge(self) -> float | None:
-        """hold-seconds when THIS guarded dispatch sync should wedge
-        (the Nth sync since the spec was installed), else None."""
-        for c in self._of("wedge"):
-            with self._lock:
-                c.sync_seen += 1
-                if c.sync_seen == int(c._arg("at", 1, cast=int)):
-                    _record_fault("wedge")
-                    return c._arg("hold_s", 3600.0)
-        return None
-
     def take_overload_delay(self) -> float | None:
         """Seconds of injected service delay for THIS serving dispatch
         (the Nth since the spec was installed), else None. ``requests=N``
@@ -248,29 +206,6 @@ class FaultSpec:
                     continue
             _record_fault("overload")
             return c._arg("delay_ms", 10.0) / 1e3
-        return None
-
-    def mem_pressure_frac(self, consume: bool = True) -> float | None:
-        """Synthetic memory-pressure fraction for the brownout
-        watermarks, else None. ``after=K`` keeps the first K CONSUMING
-        queries (chunk offers) pressure-free so a ladder test can cache
-        a prefix before the squeeze; side observers (/healthz scrapes)
-        pass ``consume=False`` and never advance the budget — a load
-        balancer polling health must not shift deterministic targeting.
-        The fault counter ticks once per clause, at first activation."""
-        for c in self._of("mem_pressure"):
-            fire = False
-            with self._lock:
-                if consume:
-                    c.sync_seen += 1
-                if c.sync_seen <= int(c._arg("after", 0, cast=int)):
-                    continue
-                if consume and not c.fired:
-                    c.fired = True
-                    fire = True
-            if fire:
-                _record_fault("mem_pressure")
-            return c._arg("frac", 1.0)
         return None
 
     # ------------------------------------------------------ online hooks
@@ -290,42 +225,6 @@ class FaultSpec:
                 _record_fault("drift")
             return c._arg("shift", 3.0)
         return None
-
-    def take_label_flip(self, ordinal: int, n_rows: int):
-        """Boolean mask of labels to flip in joined chunk ``ordinal``,
-        else None. Seeded per-(chunk, row) crc32 coin so the SAME rows
-        flip in a subprocess bench arm and an in-process test; counter
-        ticks once per clause."""
-        for c in self._of("label_skew"):
-            fire = False
-            with self._lock:
-                if ordinal < int(c._arg("after", 0, cast=int)):
-                    continue
-                if not c.fired:
-                    c.fired = True
-                    fire = True
-            if fire:
-                _record_fault("label_skew")
-            frac = c._arg("flip", 0.5)
-            seed = int(c._arg("seed", 0, cast=int))
-            mask = [
-                zlib.crc32(f"{seed}:{ordinal}:{r}".encode()) / 0xFFFFFFFF
-                < frac for r in range(n_rows)
-            ]
-            return mask
-        return None
-
-    def take_trainer_crash(self) -> bool:
-        """True when THIS trainer device step (the Nth since the spec was
-        installed, 1-based ``at=N``) should die. Consumed once per
-        matching clause."""
-        for c in self._of("trainer_crash"):
-            with self._lock:
-                c.sync_seen += 1
-                if c.sync_seen == int(c._arg("at", 1, cast=int)):
-                    _record_fault("trainer_crash")
-                    return True
-        return False
 
     # ----------------------------------------------------- serving hooks
     def maybe_fail_aot_build(self, key) -> None:

@@ -1,16 +1,21 @@
 """Overload protection & graceful degradation.
 
-A copy of the JAX package's ``resilience/overload.py``, without the
-flight-recorder dump of the first shed (``obs/flight.auto_dump``), which
-waits for ``obs/flight.py``: a shed here raises, counts and flags its
-trace, and writes no bundle.
+A copy of the JAX package's ``resilience/overload.py``, without three
+parts that wait for what consumes them: the flight-recorder dump of the
+first shed (``obs/flight.auto_dump``, for ``obs/flight.py``: a shed here
+raises, counts and flags its trace, and writes no bundle), the
+process-wide dispatch breaker (``wedge_breaker``, for the dispatch
+watchdog) and the memory-pressure brownout ladder (``brownout_level``,
+``memory_pressure_fraction`` and their ``OTPU_MEM_BUDGET_MB`` /
+``OTPU_MEM_WATERMARKS`` knobs, for the fit's device cache).
 
 The paper's Spark substrate survives overload by elastic cluster
 scheduling — a swamped executor just makes the stage slower. A
 single-process accelerator runtime has no scheduler to lean on: unbounded queues
 turn a traffic spike into unbounded p99, a process-lifetime blacklist is
-the only serving failure ladder, and an over-budget fit dies on OOM.
-This module is the missing control plane, four pieces:
+the only serving failure ladder.
+
+This module is the missing control plane, three pieces:
 
 * **AdmissionController** — bounded in-flight serving work with optional
   per-request deadline budgets. A request whose PROJECTED queue wait
@@ -21,8 +26,7 @@ This module is the missing control plane, four pieces:
   thread-local > ``OTPU_ADMISSION_DEADLINE_S`` (0 = none).
 * **CircuitBreaker** — closed -> open -> half-open with a seeded probe
   cadence. Replaces the serving ``_unservable`` first-failure
-  process-lifetime blacklist and guards repeated ``DispatchWedgedError``
-  syncs: a transient bad spell stops costing work (open = fast-fail),
+  process-lifetime blacklist: a transient bad spell stops costing work (open = fast-fail),
   but a recovered backend is re-admitted automatically (half-open probe
   succeeds -> closed). Under ``OTPU_RESILIENCE=0`` the breaker IS the
   legacy latch: the first failure opens it and it never half-opens.
@@ -30,22 +34,14 @@ This module is the missing control plane, four pieces:
   queue depth grows ``max_wait_ms`` and the merge target (never past the
   bucket ladder's top rung / ``OTPU_MB_MAX_WAIT_MS``), an idle queue
   shrinks both back to their configured base.
-* **BrownoutMonitor** (:func:`brownout_level`) — memory-pressure
-  watermarks over host RSS (``OTPU_MEM_BUDGET_MB``) and the injected
-  ``mem_pressure`` fault fraction. The level feeds the ``_DeviceCache``
-  brownout ladder during fits: 1 = shrink chunk admission (half the HBM
-  budget), 2 = stop admitting (force the disk spill / re-stream path),
-  3 = degrade the HBM replay cache entirely — a typed, measured degrade
-  instead of an opaque OOM.
 
-Everything is deterministic-testable through the ``overload`` and
-``mem_pressure`` fault injectors (resilience/faults.py) and inert under
-the ``OTPU_RESILIENCE=0`` kill-switch (legacy unbounded queues, the
-first-failure latch, fixed micro-batch wait, no brownout). Breaker
-state, queue depth, shed counts and the brownout level all export
-through the obs registry (``otpu_shed_total{reason=}``,
-``otpu_breaker_state{name=}``, ``otpu_admission_inflight``,
-``otpu_brownout_level``) and ``/healthz`` reports the brownout level.
+Everything is deterministic-testable through the ``overload`` fault
+injector (resilience/faults.py) and inert under the
+``OTPU_RESILIENCE=0`` kill-switch (legacy unbounded queues, the
+first-failure latch, fixed micro-batch wait). Breaker state, queue
+depth and shed counts export through the obs registry
+(``otpu_shed_total{reason=}``, ``otpu_breaker_state{name=}``,
+``otpu_admission_inflight``).
 """
 
 from __future__ import annotations
@@ -68,13 +64,9 @@ __all__ = [
     "AdmissionController",
     "CircuitBreaker",
     "OverloadShedError",
-    "brownout_level",
-    "host_rss_bytes",
     "maybe_injected_service_delay",
     "request_deadline",
-    "reset_wedge_breaker",
     "shed_total",
-    "wedge_breaker",
 ]
 
 log = logging.getLogger("orange3_spark_tpu_torch")
@@ -94,10 +86,6 @@ _M_BREAKER_STATE = REGISTRY.gauge(
 _M_MB_ADAPT = REGISTRY.gauge(
     "otpu_mb_adapt_factor",
     "adaptive micro-batch wait/merge growth factor (1.0 = base)")
-_M_BROWNOUT = REGISTRY.gauge(
-    "otpu_brownout_level",
-    "memory-pressure brownout level (0=normal, 1=shrink chunk admission, "
-    "2=force spill, 3=degrade HBM replay cache)")
 
 
 # --------------------------------------------------------------- shedding
@@ -577,30 +565,6 @@ class CircuitBreaker:
                 self._opened_at = now
 
 
-# process-wide breaker guarding repeated DispatchWedgedErrors: once a
-# budgeted sync wedges, later guarded syncs fast-fail (typed, ~0 s)
-# instead of each burning the full watchdog budget, until a half-open
-# probe sync completes and re-admits the backend
-_wedge_breaker: CircuitBreaker | None = None
-_wedge_lock = threading.Lock()
-
-
-def wedge_breaker() -> CircuitBreaker:
-    global _wedge_breaker
-    if _wedge_breaker is None:
-        with _wedge_lock:
-            if _wedge_breaker is None:
-                _wedge_breaker = CircuitBreaker("dispatch")
-    return _wedge_breaker
-
-
-def reset_wedge_breaker() -> None:
-    """Drop the process-wide dispatch breaker (tests / post-mortem)."""
-    global _wedge_breaker
-    with _wedge_lock:
-        _wedge_breaker = None
-
-
 # ------------------------------------------------- adaptive coalescing
 class AdaptiveCoalescer:
     """The micro-batcher's load-adaptive wait/merge dial.
@@ -676,107 +640,3 @@ def maybe_injected_service_delay() -> None:
     d = spec.take_overload_delay()
     if d:
         time.sleep(d)
-
-
-# ------------------------------------------------- memory-pressure brownout
-def host_rss_bytes() -> int:
-    """This process's resident set size. /proc on linux; the ru_maxrss
-    high-water mark elsewhere (conservative: brownout then considers the
-    worst the process has been, which is the safe direction)."""
-    try:
-        with open("/proc/self/status", encoding="ascii") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1]) * 1024
-    except OSError:
-        pass
-    try:
-        import resource
-
-        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    except Exception:  # noqa: BLE001 - no RSS source on this platform
-        return 0
-
-
-def _watermarks() -> tuple[float, float, float]:
-    from orange3_spark_tpu_torch.utils import knobs
-
-    raw = knobs.get_str("OTPU_MEM_WATERMARKS")
-    try:
-        parts = [float(p) for p in raw.split(",")]
-        if len(parts) == 3 and 0 < parts[0] <= parts[1] <= parts[2]:
-            return parts[0], parts[1], parts[2]
-    except ValueError:
-        pass
-    return 0.75, 0.88, 0.96
-
-
-_BROWNOUT_ACTIONS = {
-    1: "shrinking HBM chunk admission to half budget",
-    2: "forcing new chunks to the spill/stream path",
-    3: "degrading the HBM replay cache",
-}
-_last_brownout_level = 0
-_brownout_lock = threading.Lock()
-
-
-def memory_pressure_fraction(consume: bool = True) -> float | None:
-    """Current memory-pressure fraction: the injected ``mem_pressure``
-    fault fraction when one is active, else host RSS over the
-    ``OTPU_MEM_BUDGET_MB`` budget. None = no pressure source configured
-    (watermarks inert — the common case costs two cheap checks).
-    ``consume=False`` = a side observer (/healthz): never advances the
-    injector's ``after=`` budget."""
-    spec = active_fault_spec()
-    if spec is not None:
-        frac = spec.mem_pressure_frac(consume=consume)
-        if frac is not None:
-            return frac
-    from orange3_spark_tpu_torch.utils import knobs
-
-    budget_mb = float(knobs.get_float("OTPU_MEM_BUDGET_MB"))
-    if budget_mb <= 0:
-        return None
-    return host_rss_bytes() / (budget_mb * 1024 * 1024)
-
-
-def brownout_level(consume: bool = True) -> int:
-    """The brownout ladder rung the current memory pressure lands on:
-    0 normal, 1 shrink chunk admission, 2 force spill, 3 degrade the
-    HBM replay cache. 0 whenever no pressure source is configured or
-    the kill-switch is on (legacy: fits die on OOM instead). Level
-    transitions land on the obs timeline and the
-    ``otpu_brownout_level`` gauge, and warn once per escalation.
-    ``consume=False`` (health scrapes) never advances an injected
-    spec's ``after=`` budget."""
-    global _last_brownout_level
-    frac = memory_pressure_fraction(consume=consume)
-    if frac is None or not resilience_enabled():
-        level = 0
-    else:
-        w1, w2, w3 = _watermarks()
-        level = 3 if frac >= w3 else 2 if frac >= w2 else \
-            1 if frac >= w1 else 0
-    if level != _last_brownout_level:
-        with _brownout_lock:
-            prev, _last_brownout_level = _last_brownout_level, level
-        if level != prev:
-            _M_BROWNOUT.set(level)
-            from orange3_spark_tpu_torch.obs import trace as _trace
-
-            _trace.instant("brownout", level=level,
-                           frac=round(frac or 0.0, 4))
-            if level > prev:
-                log.warning(
-                    "memory pressure %.0f%%: brownout level %d (%s); "
-                    "OTPU_MEM_WATERMARKS tunes the ladder, "
-                    "OTPU_RESILIENCE=0 disables it",
-                    100.0 * (frac or 0.0), level,
-                    _BROWNOUT_ACTIONS.get(level, "recovering"))
-    return level
-
-
-def current_brownout_level() -> int:
-    """The last level :func:`brownout_level` computed (no re-read) —
-    the /healthz report field."""
-    return _last_brownout_level

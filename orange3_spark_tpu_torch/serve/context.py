@@ -30,8 +30,8 @@ into the static inputs and zeroes the pad rows, replays the graph and
 copies the live rows out — under the entry's lock, because a graph's
 static buffers are shared state (a JAX executable is reentrant; a
 captured graph is not). Captures are serialized and thread-local
-(``capture_error_mode="thread_local"``), so a capture can run beside live
-replays. **On the CPU there are no graphs**: a bucket's program
+(``utils/graphs.capture_graph``, the fit's replay recipe too), so a
+capture can run beside live replays. **On the CPU there are no graphs**: a bucket's program
 (:class:`_BucketEager`) is the same function applied to the padded
 bucket, so the CPU tests cover the bucketing, padding, cache, breakers
 and micro-batching, but not the capture (``tests/test_torch_cuda.py`` and
@@ -66,7 +66,6 @@ staged keys.
 from __future__ import annotations
 
 import copy
-import gc
 import logging
 import threading
 import time
@@ -89,7 +88,8 @@ from orange3_spark_tpu_torch.serve.bucketing import BucketLadder, domain_sig, ta
 from orange3_spark_tpu_torch.serve.cache import ExecutableCache
 from orange3_spark_tpu_torch.serve.tenancy import current_tenant, tenancy_enabled
 from orange3_spark_tpu_torch.utils.dispatch import beat
-from orange3_spark_tpu_torch.utils.profiling import count_graph_capture, record_serve
+from orange3_spark_tpu_torch.utils.graphs import capture_graph
+from orange3_spark_tpu_torch.utils.profiling import record_serve
 
 # routed serve calls currently executing (a liveness probe treats a stale
 # heartbeat as unhealthy only while this is > 0)
@@ -106,9 +106,6 @@ log = logging.getLogger("orange3_spark_tpu_torch")
 _ACTIVE: list["ServingContext"] = []
 _ACTIVE_LOCK = threading.Lock()
 _TLS = threading.local()
-# one capture at a time in this process (warmup captures the ladder before
-# traffic; a late first touch captures beside live replays, thread-local)
-_CAPTURE_LOCK = threading.Lock()
 
 
 def active_serving_context() -> "ServingContext | None":
@@ -268,26 +265,9 @@ class _BucketGraph:
         self.inputs = [None if s is None else torch.zeros(s[0], dtype=s[1], device=device)
                        for s in specs]
         in_bytes = torch.cuda.memory_allocated(device) - mem0
-        with _CAPTURE_LOCK:
-            # warm on a side stream first (library handles, workspaces),
-            # as the fit's _Replay.capture does
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn(*self.inputs)
-            torch.cuda.current_stream(device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # what torch.cuda.graph does on entry, done first so that the
-            # reserved bytes read before and after differ by the graph's pool
-            torch.cuda.synchronize(device)
-            gc.collect()
-            torch.cuda.empty_cache()
-            pool0 = torch.cuda.memory_reserved(device)
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.outputs = fn(*self.inputs)
-            self.device_bytes = in_bytes + torch.cuda.memory_reserved(device) - pool0
-            count_graph_capture()
-        self.graph = graph
+        self.graph, self.outputs, pool_bytes = capture_graph(
+            lambda: fn(*self.inputs), device)
+        self.device_bytes = in_bytes + pool_bytes
         self.lock = threading.Lock()
 
     def fill(self, arrays, n: int) -> None:

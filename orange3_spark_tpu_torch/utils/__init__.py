@@ -1,2 +1,3 @@
-"""utils/ — the knob registry, the serving and resilience counters, and
-the liveness heartbeat (copies of the JAX package's modules)."""
+"""utils/ — the knob registry, the serving and resilience counters, the
+liveness heartbeat (copies of the JAX package's modules) and the one
+recipe this package captures a CUDA graph with."""

@@ -1,0 +1,54 @@
+"""How this package captures a CUDA graph: one recipe for the fit's replay
+(``models/hashed_linear._Replay``) and the serving path's bucket programs
+(``serve/context._BucketGraph``).
+
+The recipe: under one process-wide lock, run the warm-up once on a side
+stream (library handles, workspaces), wait for it, then capture in
+thread-local mode (``capture_error_mode="thread_local"``), so another
+thread may keep copying or replaying while a capture runs, and tick the
+capture count (``utils.profiling.count_graph_capture``) inside the lock.
+"""
+
+from __future__ import annotations
+
+import gc
+import threading
+from typing import Any, Callable
+
+import torch
+
+from orange3_spark_tpu_torch.utils.profiling import count_graph_capture
+
+# one capture at a time in this process (a serving warm-up captures the
+# ladder before traffic; a late first touch captures beside live replays)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def capture_graph(fn: Callable[[], Any], device: torch.device,
+                  warm: Callable[[], Any] | None = None
+                  ) -> tuple[torch.cuda.CUDAGraph, Any, int]:
+    """Capture ``fn()`` on ``device`` into a CUDA graph, after running
+    ``warm()`` (default ``fn()``) once on a side stream.
+
+    Returns the graph, what ``fn`` returned while captured (the graph's
+    static outputs) and the bytes the graph's memory pool reserved. The
+    device sync, ``gc.collect()`` and ``empty_cache()`` that
+    ``torch.cuda.graph`` runs on entry run first here, so the reserved
+    bytes read before and after differ by the pool alone. A failed
+    capture raises; nothing falls back to eager execution."""
+    with _CAPTURE_LOCK:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            (warm or fn)()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool0 = torch.cuda.memory_reserved(device)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+        pool_bytes = torch.cuda.memory_reserved(device) - pool0
+        count_graph_capture()
+    return graph, out, pool_bytes

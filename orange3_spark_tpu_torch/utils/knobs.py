@@ -96,12 +96,6 @@ _ALL = [
     Knob("OTPU_MB_MAX_WAIT_MS", "float", 20.0, "resilience",
          "Ceiling the adaptive coalescer may grow max_wait_ms to under "
          "sustained queue depth."),
-    Knob("OTPU_MEM_BUDGET_MB", "float", 0.0, "resilience",
-         "Host-RSS budget the brownout watermarks read against "
-         "(0 = brownout inert unless a mem_pressure fault is injected)."),
-    Knob("OTPU_MEM_WATERMARKS", "str", "0.75,0.88,0.96", "resilience",
-         "Brownout ladder fractions: shrink chunk admission / force "
-         "spill / degrade the HBM replay cache."),
     # ----------------------------------------------------------- serve/
     Knob("OTPU_TENANCY", "flag", "1", "serve",
          "Multi-tenant weighted-fair serving kill-switch; 0 = no tenant "

@@ -511,11 +511,11 @@ def test_adam_on_cuda_matches_cpu(cuda_device, tmp_path):
 
 
 # ------------------------------------------------------------- serving
-# served against eager raw logits on the card: the graph runs the same ops
-# as the raw path at the bucket's row count, where cuBLAS and the
-# reduction kernels may pick another launch shape than at the request's;
-# a wrong row, bucket or pad would move a logit by far more than this
-SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5
+# served logits against eager raw logits on the card: bitwise. The graph
+# runs the raw path's ops at the bucket's row count, and on the H100 no op
+# of the path (the gather-sum, ``dense @ coef``) rounded a live row apart
+# there; a change that makes them round apart is a finding for ROADMAP
+# queue 3 (the op and its measured max |Δ|), not a tolerance to widen here.
 
 
 def _served_model(device, n_dims=1 << 14, seed=0):
@@ -538,16 +538,15 @@ def _served_model(device, n_dims=1 << 14, seed=0):
     return model, X
 
 
-def _assert_served_close(served, raw):
-    np.testing.assert_allclose(served, raw, rtol=SERVE_RTOL, atol=SERVE_ATOL)
-    sure = np.abs(raw[:, 0]) > SERVE_ATOL + SERVE_RTOL * np.abs(raw[:, 0])
-    assert np.array_equal(served[sure] > 0, raw[sure] > 0)
+def _assert_served_bitwise(served, raw):
+    assert served.shape == raw.shape and served.dtype == raw.dtype
+    assert np.array_equal(served, raw), float(np.abs(served - raw).max())
 
 
 @pytest.mark.cuda
 def test_served_graph_logits_match_eager_at_every_rung(cuda_device):
-    """Every rung of a 64..2048 ladder serves from a captured graph, within
-    the stated bound of the eager raw logits; a repeat of the trace
+    """Every rung of a 64..2048 ladder serves from a captured graph, bitwise
+    equal to the eager raw logits; a repeat of the trace
     captures nothing and replays one graph per request."""
     from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
     from orange3_spark_tpu_torch.utils.profiling import (
@@ -576,7 +575,7 @@ def test_served_graph_logits_match_eager_at_every_rung(cuda_device):
     for n in sizes:
         assert served[n].shape == raws[n].shape
         assert np.array_equal(served[n], again[n])      # one graph, same bits
-        _assert_served_close(served[n], raws[n])
+        _assert_served_bitwise(served[n], raws[n])
 
 
 @pytest.mark.cuda
@@ -601,26 +600,33 @@ def test_served_from_eight_threads(cuda_device):
 
 @pytest.mark.cuda
 def test_served_hot_reload_and_in_place_theta(cuda_device):
-    """``load_state_pytree`` keys a fresh graph (one more capture); an
-    in-place update of theta is read by the next replay of the same graph."""
+    """``load_state_pytree`` keys a fresh graph (one more capture), and a
+    state of numpy arrays (as the JAX package's checkpoints carry it) lands
+    on the card; an in-place update of theta is read by the next replay of
+    the same graph. Both bitwise equal to the eager raw logits."""
     from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.serve.context import _raw_calls
     from orange3_spark_tpu_torch.utils.profiling import graph_capture_count
 
     model, X = _served_model(cuda_device)
-    other = {k: v * 0.5 for k, v in model.theta.items()}
+    other = {k: (v * 0.5).cpu().numpy() for k, v in model.theta.items()}
     with ServingContext(BucketLadder(min_bucket=64, max_bucket=1024)):
         before = model._logits(X[:100])
         c0 = graph_capture_count()
         model.load_state_pytree(other)
+        assert all(v.is_cuda for v in model.theta.values())
         reloaded = model._logits(X[:100])
+        with _raw_calls():
+            raw_reloaded = model._logits(X[:100])
         assert graph_capture_count() == c0 + 1
         with torch.no_grad():
             model.theta["intercept"].add_(3.0)
         in_place = model._logits(X[:100])
         assert graph_capture_count() == c0 + 1
-    _assert_served_close(reloaded, model._logits(X[:100]) - 3.0)
-    _assert_served_close(in_place, model._logits(X[:100]))
+    _assert_served_bitwise(reloaded, raw_reloaded)
+    _assert_served_bitwise(in_place, model._logits(X[:100]))
     assert not np.allclose(before, reloaded)
+    assert not np.allclose(in_place, reloaded)
 
 
 @pytest.mark.cuda

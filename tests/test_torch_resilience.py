@@ -5,27 +5,35 @@ seeded clock and injected faults, and the traces must be equal.
 Covered: the knob registry's names and defaults, ``CircuitBreaker``'s state
 sequence, ``AdmissionController``'s shed decisions, ``retry_call``'s
 backoff schedule and the ``aot_build`` fault it absorbs, the
-``AdaptiveCoalescer``'s dial, the metrics registry and the span tracer
-(whose one JAX use, ``jax.profiler.TraceAnnotation``, became a
-``torch.profiler.record_function`` range taken only while a profiler runs).
+``AdaptiveCoalescer``'s dial, the fault-spec grammar, the tenancy layer
+(``OTPU_TENANT_SPEC``'s grammar, ``TenantFairShare``'s grants, share caps
+and token buckets, tenant-scoped admission sheds), the online tap, the
+metrics registry and the span tracer (whose one JAX use,
+``jax.profiler.TraceAnnotation``, became a ``torch.profiler.record_function``
+range taken only while a profiler runs).
 """
 
+import dataclasses
 import threading
 
 import numpy as np
 import pytest
 import torch
 
+import orange3_spark_tpu.online.tap as j_tap
 import orange3_spark_tpu.resilience.faults as j_faults
 import orange3_spark_tpu.resilience.overload as j_overload
 import orange3_spark_tpu.resilience.retry as j_retry
 import orange3_spark_tpu.serve.cache as j_cache
+import orange3_spark_tpu.serve.tenancy as j_tenancy
 import orange3_spark_tpu.utils.knobs as j_knobs
 import orange3_spark_tpu.utils.profiling as j_prof
+import orange3_spark_tpu_torch.online.tap as t_tap
 import orange3_spark_tpu_torch.resilience.faults as t_faults
 import orange3_spark_tpu_torch.resilience.overload as t_overload
 import orange3_spark_tpu_torch.resilience.retry as t_retry
 import orange3_spark_tpu_torch.serve.cache as t_cache
+import orange3_spark_tpu_torch.serve.tenancy as t_tenancy
 import orange3_spark_tpu_torch.utils.knobs as t_knobs
 import orange3_spark_tpu_torch.utils.profiling as t_prof
 from orange3_spark_tpu_torch.obs import trace as t_trace
@@ -40,8 +48,10 @@ PACKAGES = {
 @pytest.fixture(autouse=True)
 def _default_knobs(monkeypatch):
     for k in ("OTPU_ADMISSION_DEADLINE_S", "OTPU_ADMISSION_SERVICE_MS",
-              "OTPU_RESILIENCE", "OTPU_MEM_BUDGET_MB", "OTPU_FAULT_SPEC",
-              "OTPU_MB_ADAPT", "OTPU_BREAKER_COOLDOWN_S"):
+              "OTPU_RESILIENCE", "OTPU_FAULT_SPEC",
+              "OTPU_MB_ADAPT", "OTPU_BREAKER_COOLDOWN_S", "OTPU_TENANCY",
+              "OTPU_TENANT_SPEC", "OTPU_TENANT_DEFAULT_WEIGHT", "OTPU_TENANT_RATE",
+              "OTPU_TENANT_BURST", "OTPU_ONLINE"):
         monkeypatch.delenv(k, raising=False)
 
 
@@ -59,7 +69,8 @@ def test_knobs_keep_the_reference_names_and_defaults():
     read = {"OTPU_OBS", "OTPU_OBS_TRACE_CAP", "OTPU_TRACE_SAMPLE", "OTPU_TRACE_SLOW_MS",
             "OTPU_RESILIENCE", "OTPU_RETRY_ATTEMPTS", "OTPU_MB_DEADLINE_S",
             "OTPU_ADMISSION_MAX_INFLIGHT", "OTPU_BREAKER_THRESHOLD", "OTPU_MB_ADAPT",
-            "OTPU_MEM_WATERMARKS", "OTPU_TENANCY", "OTPU_TENANT_SPEC", "OTPU_ONLINE"}
+            "OTPU_TENANCY", "OTPU_TENANT_SPEC", "OTPU_TENANT_DEFAULT_WEIGHT",
+            "OTPU_TENANT_RATE", "OTPU_TENANT_BURST", "OTPU_ONLINE"}
     assert read <= set(t_knobs.KNOBS)
 
 
@@ -254,6 +265,213 @@ def test_fault_spec_grammar_equals_reference():
         j.take_overload_delay() for _ in range(3)]
     with pytest.raises(ValueError, match="unknown fault kind"):
         t_faults.FaultSpec.parse("no_such_kind:fails=1")
+
+
+@pytest.mark.parametrize("kind", ["spill_corrupt:record=1", "wedge:at=2",
+                                  "mem_pressure:frac=0.9", "label_skew:flip=0.5",
+                                  "trainer_crash:at=1"])
+def test_fault_kinds_without_a_consumer_raise(kind):
+    """Kinds whose consumer is not ported (the spill's CRC check, the
+    watchdog, the brownout ladder, the label joiner, the online trainer)
+    raise instead of injecting nothing; the JAX package parses them."""
+    j_faults.FaultSpec.parse(kind)
+    with pytest.raises(ValueError, match="unknown fault kind"):
+        t_faults.FaultSpec.parse(kind)
+
+
+# ---------------------------------------------------------------- tenancy
+TENANT_SPECS = ["gold:weight=4;silver:weight=2,max_inflight=8,deadline_s=0.5",
+                "", "  ;  ", "a:weight=1", "bronze", "gold:weight", "gold:weight=fast",
+                "gold:weight=0", "gold:max_inflight=1.5", "gold:deadline_s=0",
+                "gold:turbo=1"]
+
+
+def _parsed(tenancy, spec):
+    try:
+        return sorted(dataclasses.astuple(v) for v in tenancy.parse_tenant_spec(spec).values())
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+@pytest.mark.parametrize("spec", TENANT_SPECS)
+def test_tenant_spec_grammar_equals_reference(spec):
+    """``OTPU_TENANT_SPEC`` parses to the same quotas, or raises the same
+    error naming the item (the JAX package's
+    ``test_parse_tenant_spec_full_grammar`` and
+    ``test_parse_tenant_spec_malformed_raises_naming_item``)."""
+    assert _parsed(t_tenancy, spec) == _parsed(j_tenancy, spec)
+
+
+def _fair_share_trace(tenancy):
+    """Deficit-round-robin grants over 70 freed slots (weights 4:2:1), the
+    share caps under contention, and a token bucket draining and refilling
+    on a fake clock."""
+    tenancy.reset_tenant_sheds()
+    out = []
+    fair = tenancy.TenantFairShare(tenancy.parse_tenant_spec("a:weight=4;b:weight=2;c:weight=1"),
+                                   clock=lambda: 0.0)
+    for name in ("a", "b", "c"):
+        fair.note_waiting(name, +1)
+    for _ in range(70):
+        head = next(n for n in ("a", "b", "c") if fair.may_grant(n))
+        fair.granted(head)
+        out.append(head)
+        fair.release(head)
+    for name in ("a", "b", "c"):
+        fair.note_waiting(name, -1)
+    for _ in range(3):               # a holds slots while b waits: a's share caps it
+        out.append(fair.try_admit("a", max_inflight=4, max_queue=4))
+        fair.granted("a")
+    fair.note_waiting("b", +1)
+    out.append(fair.try_admit("a", max_inflight=4, max_queue=4))
+    out.append(fair.try_admit("b", max_inflight=4, max_queue=4))
+    out.append(sorted(fair.snapshot().items()))
+    clk = [0.0]
+    bucket = tenancy.TenantFairShare(tenancy.parse_tenant_spec("a:weight=1"),
+                                     clock=lambda: clk[0])
+    for t in (0.0, 0.0, 0.0, 0.5, 1.0, 1.0, 3.0, 3.0, 3.0, 3.0):
+        clk[0] = t
+        q = bucket.try_admit("a", max_inflight=8, max_queue=8)
+        out.append(q)
+        if q is None:
+            bucket.granted("a")
+            bucket.release("a")
+    return out
+
+
+def test_fair_share_trace_equals_reference(monkeypatch):
+    """``TenantFairShare`` grants the same tenants in the same order, caps
+    the same shares and drains and refills its token buckets the same
+    (``test_drr_grants_follow_weights_on_fake_clock`` and
+    ``test_token_bucket_rate_limits_and_refills_on_fake_clock``)."""
+    monkeypatch.setenv("OTPU_TENANT_RATE", "1.0")
+    monkeypatch.setenv("OTPU_TENANT_BURST", "2")
+    ref = _fair_share_trace(j_tenancy)
+    assert _fair_share_trace(t_tenancy) == ref
+    assert ref[:70].count("a") == 40 and ref[:70].count("c") == 10
+    assert any(isinstance(q, tuple) and q[0] == "tenant_rate" for q in ref)
+    assert any(isinstance(q, tuple) and q[0] == "tenant_inflight" for q in ref)
+
+
+def _tenant_admission_trace(overload, tenancy, monkeypatch):
+    """A tenant at its spec'd in-flight cap sheds typed while another is
+    admitted; the kill-switch builds no fair-share state."""
+    tenancy.reset_tenant_sheds()
+    monkeypatch.setenv("OTPU_TENANT_SPEC", "heavy:weight=1,max_inflight=1;light:weight=4")
+    ac = overload.AdmissionController(max_inflight=4, max_queue=16)
+    entered, release = threading.Event(), threading.Event()
+
+    def hold():
+        with tenancy.tenant_scope("heavy"):
+            with ac.slot():
+                entered.set()
+                release.wait(10.0)
+
+    t = threading.Thread(target=hold, daemon=True)
+    t.start()
+    assert entered.wait(5.0)
+    out = []
+    try:
+        with tenancy.tenant_scope("heavy"):
+            with ac.slot():
+                out.append("admitted")
+    except tenancy.TenantQuotaShedError as e:
+        out.append((type(e).__mro__[1].__name__, e.tenant, e.reason, e.usage, e.quota))
+    with tenancy.tenant_scope("light"):
+        with ac.slot():
+            out.append(("light", tenancy.current_tenant()))
+    release.set()
+    t.join(5.0)
+    assert not t.is_alive()
+    out.append(sorted(ac.tenancy_snapshot().items()))
+    out.append(tenancy.tenant_shed_counts())
+    monkeypatch.setenv("OTPU_TENANCY", "0")
+    ac2 = overload.AdmissionController(max_inflight=2, max_queue=8)
+    with tenancy.tenant_scope("heavy"):
+        with ac2.slot():
+            pass
+    out.append((tenancy.tenancy_enabled(), ac2._fair_share, ac2.tenancy_snapshot()))
+    return out
+
+
+def test_tenant_admission_sheds_equal_reference(monkeypatch):
+    """Tenant-scoped admission sheds the same request, with the same quota
+    evidence, as the JAX package's ``AdmissionController``
+    (``test_tenant_max_inflight_hard_cap_sheds_typed``,
+    ``test_tenancy_kill_switch_no_fair_state``)."""
+    ref = _tenant_admission_trace(j_overload, j_tenancy, monkeypatch)
+    monkeypatch.delenv("OTPU_TENANCY")
+    got = _tenant_admission_trace(t_overload, t_tenancy, monkeypatch)
+    assert got == ref
+    assert ref[0] == ("OverloadShedError", "heavy", "tenant_inflight", 1.0, 1.0)
+    assert ref[-1] == (False, None, {})
+
+
+def test_tenant_scope_nests_and_is_thread_local():
+    seen = []
+    assert t_tenancy.current_tenant() is None
+    with t_tenancy.tenant_scope("a"):
+        with t_tenancy.tenant_scope("b"):
+            seen.append(t_tenancy.current_tenant())
+        seen.append(t_tenancy.current_tenant())
+        th = threading.Thread(target=lambda: seen.append(t_tenancy.current_tenant()))
+        th.start()
+        th.join(5.0)
+    assert seen == ["b", "a", None] and t_tenancy.current_tenant() is None
+
+
+# ------------------------------------------------------------- online tap
+class _ListLog:
+    """The request log's two appends, kept in memory."""
+
+    def __init__(self):
+        self.requests, self.labels = [], []
+
+    def append_request(self, X):
+        self.requests.append(np.array(X))
+        return len(self.requests) - 1
+
+    def append_label(self, req_id, y):
+        self.labels.append((req_id, np.array(y)))
+
+
+def _tap_trace(tap_mod, faults, monkeypatch):
+    """What an installed tap logs: one record per request, once inside a
+    replica's ``tap_scope``, shifted by an injected drift from its onset,
+    nothing under the kill-switch or once uninstalled."""
+    log = _ListLog()
+    X = np.arange(8, dtype=np.float32).reshape(4, 2)
+    tap_mod.maybe_tap_request(X)                   # no tap installed
+    tap = tap_mod.OnlineTap(log).install()
+    try:
+        tap_mod.maybe_tap_request(X)
+        with tap_mod.tap_scope(X + 1):
+            tap_mod.maybe_tap_request(X)
+            tap_mod.maybe_tap_request(X)
+        with faults.inject_faults("drift:shift=8,after=3"):
+            tap.tap_request(X)                     # ordinal 2: before the onset
+            tap.tap_request(X)                     # ordinal 3: shifted
+        tap.tap_label(1, np.ones(4, np.float32))
+        last = tap.last_request_id()
+        monkeypatch.setenv("OTPU_ONLINE", "0")
+        off = (tap.tap_request(X), tap_mod.online_enabled())
+        tap.tap_label(0, np.ones(4, np.float32))
+        monkeypatch.delenv("OTPU_ONLINE")
+    finally:
+        tap.uninstall()
+    tap_mod.maybe_tap_request(X)                   # uninstalled
+    return ([r.tolist() for r in log.requests], [(i, y.tolist()) for i, y in log.labels],
+            last, off, tap_mod.active_tap())
+
+
+def test_tap_trace_equals_reference(monkeypatch):
+    """The copied tap logs the same records as the JAX package's
+    (``test_tap_global_install_scope_and_kill_switch`` and
+    ``test_tap_drift_injector_shifts_logged_features``)."""
+    ref = _tap_trace(j_tap, j_faults, monkeypatch)
+    assert _tap_trace(t_tap, t_faults, monkeypatch) == ref
+    assert len(ref[0]) == 4 and ref[0][3][0] == [8.0, 9.0] and ref[2] == 3
+    assert ref[3] == (None, False) and ref[4] is None
 
 
 def test_registry_counts_and_exports():

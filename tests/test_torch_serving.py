@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import orange3_spark_tpu.online.tap as j_tap
+import orange3_spark_tpu_torch.online.tap as t_tap
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.io.streaming import array_chunk_source as j_array_source
 from orange3_spark_tpu.models.hashed_linear import (
@@ -275,18 +277,25 @@ def test_warmup_builds_the_ladder_and_a_repeat_builds_nothing(hashed):
             ctx.warmup(port, kinds=("array",))
 
 
-def test_hot_reload_keys_fresh_programs_and_in_place_updates_serve(hashed):
+@pytest.mark.parametrize("leaves", ["tensor", "numpy"])
+def test_hot_reload_keys_fresh_programs_and_in_place_updates_serve(hashed, leaves):
     """``load_state_pytree`` replaces theta and moves the fingerprint, so the
     next request builds a fresh program; an in-place update of theta is
     served by the next request through the same program
-    (``test_state_hot_reload_keys_fresh_executables``)."""
+    (``test_state_hot_reload_keys_fresh_executables``). A state of numpy
+    arrays, as the JAX package's checkpoints carry it, becomes tensors on
+    the model's device, so the in-place update reaches the program too."""
     port, X = _port_hashed(hashed)
     other = {k: v + 0.25 for k, v in port.theta.items()}
+    if leaves == "numpy":
+        other = {k: v.numpy() for k, v in other.items()}
     with ServingContext(BucketLadder(min_bucket=64, max_bucket=2048)) as ctx:
         before = port._logits(X[:77])
         fp0 = _fingerprint(port)
         port.load_state_pytree(other)
         assert _fingerprint(port) != fp0
+        assert all(isinstance(v, torch.Tensor) and v.device == port.device
+                   for v in port.theta.values())
         reloaded = port._logits(X[:77])
         assert len(ctx.cache) == 2
         with torch.no_grad():
@@ -296,6 +305,41 @@ def test_hot_reload_keys_fresh_programs_and_in_place_updates_serve(hashed):
     assert not np.array_equal(reloaded, before)
     assert np.array_equal(in_place, port._logits(X[:77]))
     np.testing.assert_allclose(in_place - reloaded, 2.0, rtol=1e-5)   # two columns
+
+
+class _ListLog:
+    """The online request log's two appends, kept in memory."""
+
+    def __init__(self):
+        self.requests = []
+
+    def append_request(self, X):
+        self.requests.append(np.array(X).tolist())
+        return len(self.requests) - 1
+
+    def append_label(self, req_id, y):
+        pass
+
+
+def test_served_requests_reach_an_installed_tap(hashed):
+    """``served_array`` hands each request to an installed online tap once,
+    as the JAX package's does (``serve/context.py``'s tap call site)."""
+    ref, port, X = hashed
+    logs = {}
+    for name, tap_mod, model, ctx in (
+            ("jax", j_tap, ref, JServingContext(JBucketLadder(min_bucket=64, max_bucket=2048))),
+            ("torch", t_tap, port, ServingContext(BucketLadder(min_bucket=64, max_bucket=2048)))):
+        log = _ListLog()
+        tap = tap_mod.OnlineTap(log).install()
+        try:
+            with ctx:
+                model.predict(X[:9])
+                model.predict_proba(X[:77])
+        finally:
+            tap.uninstall()
+        logs[name] = log.requests
+    assert logs["torch"] == logs["jax"]
+    assert len(logs["jax"]) == 2 and logs["jax"][1] == X[:77].tolist()
 
 
 # ---------------------------------------------------- the table paths
