@@ -37,7 +37,8 @@ prints one JSON line per phase:
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
-accelerator), which runs PyTorch ops and no kernel of the package:
+accelerator): PyTorch ops and one kernel of the package, the deterministic
+segment sum of the touched-row update (``ops/csrc/segment_sum.cu``):
 
   criteo_check    on the card against the port's CPU path: the hash
                   bitwise at 1..2^22 dims; bit packing at widths 1..31 and
@@ -68,6 +69,26 @@ accelerator), which runs PyTorch ops and no kernel of the package:
                   ATen op and stage, the idle share, launches and
                   ``nonzero`` calls per step; then the captured replay:
                   device busy time, idle share and launches per epoch
+  segment_sum     the kernel at one step's own inputs (the fit's first
+                  cached chunk): five launches bitwise equal, against its
+                  plain version on the card (max |err|: float atomics) and
+                  on a CPU copy (bitwise on every segment of at most
+                  WALK_MAX rows), captured against eager, one 2^20-row
+                  segment within 1e-6·Σ|g|; its time beside the bound,
+                  the plain version, ``index_add_`` and ``index_add_``
+                  under deterministic mode (and whether a graph captures it)
+  criteo_resume   the full-width fit with ``replay_granularity='epoch'``,
+                  snapshots every 2 epochs, ``--resume-epochs`` (10): a
+                  clean fit, a fit whose checkpointer crashes after its
+                  3rd snapshot, a fresh estimator resuming from it; theta,
+                  the optimizer state at the end, the steps and the holdout
+                  AUC must be bitwise the clean fit's; ``snapshot_s`` per
+                  save, the resume's fit_s, the replay epochs it skipped
+  criteo_fault    the same fit clean and under bench.py's fault spec
+                  (transient reads, stragglers; 0.02 s backoff): bitwise
+                  parity, retries, ``recovery_overhead_pct``; then a wedged
+                  dispatch under a 0.25 s watchdog budget must raise
+                  ``DispatchWedgedError`` within 2 s
 
 then the serving path (``bench.py --config serving``; PyTorch ops in captured
 CUDA graphs, no kernel of the package), on the Criteo CSV:
@@ -95,8 +116,10 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   pad zeroing, the graph's device time, the copy back, the
                   Python around them; the launches in the graph
 
-then the ``kernels`` line (launches counted over the gbt and rf phases;
-``per_fit`` from the timed fits' launch counts and the profile),
+then the ``kernels`` line (``node_histograms``: launches counted over the
+gbt and rf phases, ``per_fit`` from the timed fits' launch counts and the
+profile; ``segment_sum_sorted``: launches counted over the ``criteo``
+phase's fit, the times of the ``segment_sum`` phase),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -458,9 +481,11 @@ def phase_timing(train_rows, dev, mem_bw, fp32_peak):
                 top["library_ms"], top["library_note"] = _library_ms(B32, S, pos, nodes,
                                                                      N_BINS)
             del pos
-        # launches per fit: GBT one tree per round, 20 rounds; the forest once
+        # launches per fit: GBT one tree per round, 20 rounds; the forest
+        # once; each grow adds two small launches (importances, leaf sums)
+        # that hist_ms leaves out
         rounds = 20 if fit == "gbt" else 1
-        estimate[fit] = {"launches": rounds * DEPTH, "hist_ms": rounds * fit_ms,
+        estimate[fit] = {"launches": rounds * (DEPTH + 2), "hist_ms": rounds * fit_ms,
                          "variant": "u8" if fit == "gbt" else "u8_masked"}
         del B32, B8, S, masks
         torch.cuda.empty_cache()
@@ -908,6 +933,7 @@ def phase_criteo(path, rows, epochs, sess):
     from orange3_spark_tpu_torch.models.hashed_linear import (
         HashedLinearModel, resolve_chunk_codec, warm_eval_chunk,
     )
+    from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
 
     chunk = CRITEO["chunk_rows"]
     budget = 8 << 30
@@ -928,11 +954,15 @@ def phase_criteo(path, rows, epochs, sess):
     torch.cuda.reset_peak_memory_stats()
     st: dict = {}
     est = _criteo_estimator(epochs=epochs)
+    # ---- the main path: the kernel's count starts at 0 here
+    segment_sum_sorted.launches = 0
     t0 = time.perf_counter()
     model = est.fit_stream(source, session=sess, cache_device=True, cache_device_bytes=budget,
                            holdout_chunks=holdout_chunks, stage_times=st)
     sess.synchronize()
     fit_s = time.perf_counter() - t0
+    seg_launches = segment_sum_sorted.launches
+    # ----
     t0 = time.perf_counter()
     ev = model.evaluate_device(model.holdout_chunks_)
     eval_s = time.perf_counter() - t0
@@ -966,6 +996,13 @@ def phase_criteo(path, rows, epochs, sess):
     line = {"rows": rows, "train_rows": train_rows, "holdout_rows": holdout_rows,
             "epochs": epochs, "cached_chunks": len(model.device_chunks_),
             "steps": model.n_steps_, "fit_s": fit_s, "eval_s": eval_s,
+            # the wrapper's count: one launch a step, the capture's warm
+            # step and the captured epoch's; the graph runs its launches
+            # once a replay
+            "segment_sum_launches": seg_launches,
+            "segment_sum_runs": (seg_launches - len(model.device_chunks_)
+                                 + len(model.device_chunks_) * n_rep
+                                 if st.get("replay_fused_s") else seg_launches),
             "value": rows / (fit_s + eval_s) / 1,
             "train_rows_x_epochs_per_sec": train_rows * epochs / fit_s,
             "pure_step_ms": pure_step_ms, "pure_step_probe_steps": 20,
@@ -1111,6 +1148,364 @@ def phase_criteo_profile(model, sess, epochs=3):
                                 "inside the graph replays")
     del replay
     return {"eager": eager, "graph": graph}
+
+
+# ------------------------------------------------------ recovery of the fit
+#: the resume drill's epochs (``--resume-epochs``), cut from bench.py's 100
+#: so the three fits stay a small part of the script's time
+RESUME_EPOCHS, RESUME_EVERY_EPOCHS = 10, 2
+FAULT_SPEC = "source_io:every=7,fails=2;slow_source:every=8,delay_ms=5"
+
+
+class _Killed(RuntimeError):
+    """The injected crash of the resume drill."""
+
+
+def _drill_checkpointer(path, die_after=None):
+    """A ``StreamCheckpointer`` that times each save (``save_s``: the host
+    copies and the pickle to disk), keeps a host copy of its last save
+    (outside the timing) and raises right after ``die_after`` saves."""
+    from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer, host_tree
+
+    class Drill(StreamCheckpointer):
+        def __init__(self):
+            super().__init__(path)
+            self.save_s, self.last, self.nbytes = [], None, 0
+
+        def save(self, step, state, meta=None):
+            t0 = time.perf_counter()
+            super().save(step, state, meta)
+            self.save_s.append(time.perf_counter() - t0)
+            self.nbytes = os.path.getsize(self.path)
+            self.last = (step, host_tree(state))
+            if die_after is not None and len(self.save_s) >= die_after:
+                raise _Killed(f"injected crash after save {len(self.save_s)}")
+
+    return Drill()
+
+
+def _resume_fit(path, rows, epochs, sess, checkpointer=None, stage_times=None):
+    """The ``criteo`` phase's fit at full width, with epoch-granular replay
+    and epoch snapshots every RESUME_EVERY_EPOCHS: (model, fit seconds)."""
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+
+    chunk = CRITEO["chunk_rows"]
+    holdout = max(min(CRITEO_HOLDOUT_CHUNKS, -(-rows // chunk) - 1), 0)
+    est = _criteo_estimator(epochs=epochs, replay_granularity="epoch",
+                            checkpoint_every_epochs=RESUME_EVERY_EPOCHS)
+    t0 = time.perf_counter()
+    model = est.fit_stream(csv_raw_chunk_source(path, chunk_rows=chunk), session=sess,
+                           cache_device=True, cache_device_bytes=8 << 30,
+                           holdout_chunks=holdout, checkpointer=checkpointer,
+                           stage_times=stage_times)
+    sess.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _fit_result(model):
+    """Host copies of theta, the step count and the holdout evaluation."""
+    return ({k: v.cpu() for k, v in model.theta.items()}, model.n_steps_,
+            model.evaluate_device(model.holdout_chunks_))
+
+
+def _trees_equal(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k]) for k in a)
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def phase_criteo_resume(tmp, path, rows, epochs, sess):
+    """The full-width fit made recoverable: a clean fit with epoch
+    snapshots; a fit whose checkpointer crashes right after its 3rd
+    snapshot (mid-replay); a fresh estimator that resumes from that
+    snapshot. The resumed fit must equal the clean one bit for bit: theta,
+    the optimizer state at the last snapshot (the fit's end), the step
+    count and the holdout AUC."""
+    import torch
+
+    from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer
+
+    clean_ck = _drill_checkpointer(os.path.join(tmp, "clean.ckpt"))
+    st: dict = {}
+    model, clean_s = _resume_fit(path, rows, epochs, sess, clean_ck, st)
+    spe = len(model.device_chunks_)
+    clean = _fit_result(model)
+    del model
+    torch.cuda.empty_cache()
+    ck_path = os.path.join(tmp, "killed.ckpt")
+    killed_ck = _drill_checkpointer(ck_path, die_after=3)
+    t0 = time.perf_counter()
+    try:
+        _resume_fit(path, rows, epochs, sess, killed_ck)
+        raise AssertionError("criteo_resume: the crashing checkpointer never crashed")
+    except _Killed:
+        killed_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    step, _ = StreamCheckpointer(ck_path).load()
+    resumed_ck = _drill_checkpointer(ck_path)
+    model, resume_s = _resume_fit(path, rows, epochs, sess, resumed_ck)
+    resumed = _fit_result(model)
+    final_loss = model.final_loss_
+    del model
+    torch.cuda.empty_cache()
+    checks = {
+        "theta_bitwise": all(torch.equal(resumed[0][k], clean[0][k]) for k in clean[0]),
+        "opt_state_bitwise": (resumed_ck.last is not None and clean_ck.last is not None
+                              and resumed_ck.last[0] == clean_ck.last[0] == clean[1]
+                              and _trees_equal(resumed_ck.last[1], clean_ck.last[1])),
+        "n_steps_equal": resumed[1] == clean[1],
+        "auc_bitwise": resumed[2].get("auc") == clean[2].get("auc"),
+    }
+    save_s = clean_ck.save_s + killed_ck.save_s + resumed_ck.save_s
+    line = {"epochs": epochs, "checkpoint_every_epochs": RESUME_EVERY_EPOCHS,
+            "steps_per_epoch": spe, "steps": clean[1], "replay_source": st["replay_source"],
+            "clean_fit_s": clean_s, "killed_fit_s": killed_s, "resume_fit_s": resume_s,
+            "killed_at_step": step, "replay_epochs_skipped": step // spe,
+            "saves": {"clean": len(clean_ck.save_s), "killed": len(killed_ck.save_s),
+                      "resumed": len(resumed_ck.save_s)},
+            "snapshot_s": save_s, "snapshot_s_mean": sum(save_s) / len(save_s),
+            "snapshot_bytes": clean_ck.nbytes,
+            "replay_epoch_ms": ((st["replay_fused_s"] - st["graph_capture_s"]) * 1e3
+                                / epochs),
+            "auc": clean[2].get("auc"), "resumed_auc": resumed[2].get("auc"),
+            "final_loss": final_loss, **checks,
+            "cuts": {"epochs": f"{CRITEO_EPOCHS} -> {epochs}"}}
+    if not all(checks.values()) or st["replay_source"] != "fused_epoch" or step % spe:
+        raise AssertionError(f"criteo_resume: the resumed fit differs: {line}")
+    return line, clean[0]
+
+
+def _wedge_demo(path, sess):
+    """``wedge:at=1,hold_s=30`` under a 0.25 s budget on a small eager fit
+    of the CSV's head (24 steps; the guarded wait comes every 4th): the fit
+    must raise ``DispatchWedgedError`` within 2 s instead of hanging."""
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.resilience import DispatchWedgedError, inject_faults
+    from orange3_spark_tpu_torch.resilience.overload import reset_wedge_breaker
+
+    def head():
+        for i, c in enumerate(csv_raw_chunk_source(path, chunk_rows=1 << 12)()):
+            if i >= 24:
+                break
+            yield c
+
+    est = StreamingHashedLinearEstimator(
+        n_dims=1 << 16, n_dense=13, n_cat=26, epochs=1, chunk_rows=1 << 12,
+        label_in_chunk=True, optim_update="sparse_adagrad")
+    est.fit_stream(head, session=sess)          # warm: first-use costs off the clock
+    old = os.environ.get("OTPU_DISPATCH_BUDGET_S")
+    os.environ["OTPU_DISPATCH_BUDGET_S"] = "0.25"
+    reset_wedge_breaker()
+    out = {"raised": False}
+    try:
+        with inject_faults("wedge:at=1,hold_s=30"):
+            t0 = time.perf_counter()
+            try:
+                est.fit_stream(head, session=sess)
+            except DispatchWedgedError as e:
+                out.update(raised=True, step=e.step, waited_s=e.waited_s)
+            out["seconds"] = time.perf_counter() - t0
+    finally:
+        reset_wedge_breaker()
+        if old is None:
+            os.environ.pop("OTPU_DISPATCH_BUDGET_S", None)
+        else:
+            os.environ["OTPU_DISPATCH_BUDGET_S"] = old
+    return out
+
+
+def phase_criteo_fault(path, rows, epochs, sess, clean_theta):
+    """bench.py's fault protocol (bench.py:1316-1360) on the full-width
+    fit: the ``criteo_resume`` configuration fitted clean and then under
+    transient source faults (every 7th chunk fails twice) and stragglers
+    (every 8th waits 5 ms), with 0.02 s backoff. The recovered fit must
+    equal the clean one bitwise (and the resume drill's clean theta);
+    ``recovery_overhead_pct`` is what surviving the faults cost in wall
+    time. Then the watchdog demo."""
+    import torch
+
+    from orange3_spark_tpu_torch.resilience import inject_faults
+    from orange3_spark_tpu_torch.utils.profiling import (
+        reset_resilience_counters, resilience_counters,
+    )
+
+    model, wall_clean = _resume_fit(path, rows, epochs, sess)
+    clean = {k: v.cpu() for k, v in model.theta.items()}
+    del model
+    torch.cuda.empty_cache()
+    reset_resilience_counters()
+    old = os.environ.get("OTPU_RETRY_BASE_S")
+    os.environ["OTPU_RETRY_BASE_S"] = "0.02"
+    st: dict = {}
+    try:
+        with inject_faults(FAULT_SPEC):
+            model, wall_fault = _resume_fit(path, rows, epochs, sess, stage_times=st)
+    finally:
+        if old is None:
+            os.environ.pop("OTPU_RETRY_BASE_S", None)
+        else:
+            os.environ["OTPU_RETRY_BASE_S"] = old
+    res = resilience_counters()
+    faulted = {k: v.cpu() for k, v in model.theta.items()}
+    del model
+    torch.cuda.empty_cache()
+    parity = all(torch.equal(faulted[k], clean[k]) for k in clean)
+    same_as_drill = all(torch.equal(clean[k], clean_theta[k]) for k in clean)
+    wedge = _wedge_demo(path, sess)
+    line = {"spec": FAULT_SPEC, "epochs": epochs, "wall_clean_s": wall_clean,
+            "wall_fault_s": wall_fault,
+            "recovery_overhead_pct": 100.0 * (wall_fault - wall_clean) / wall_clean,
+            "retries": st["retries"], "faults_injected": res["faults_injected"],
+            "retry_wait_s": res["retry_wait_s"], "parity_bitwise": parity,
+            "clean_equals_resume_drill": same_as_drill, "watchdog": wedge,
+            "cuts": {"epochs": f"{CRITEO_EPOCHS} -> {epochs}"}}
+    if not (parity and same_as_drill and st["retries"] > 0 and wedge["raised"]
+            and wedge["seconds"] < 2.0):
+        raise AssertionError(f"criteo_fault: recovery failed its checks: {line}")
+    return line
+
+
+# --------------------------------------------------------- the segment sum
+#: rows of the one long segment the check sums (a heavy hitter)
+SEG_LONG_ROWS = 1 << 20
+
+
+def _step_segment_inputs(model, sess):
+    """The arguments one step of the fit passes to ``segment_sum_sorted``
+    on its first cached chunk, from fresh optimizer state and the fitted
+    theta: recorded by wrapping the function the step calls, so they are
+    the step's own (the sorted gradients, segments, keys, slot count)."""
+    from orange3_spark_tpu_torch.models.hashed_linear import _step_into
+    from orange3_spark_tpu_torch.optim import sparse
+
+    seen = []
+    real = sparse.segment_sum_sorted
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    theta, opt, salts, kw, hyper = _fresh_state(model.params, model.theta, sess)
+    sparse.segment_sum_sorted = record
+    try:
+        _step_into(theta, opt, model.device_chunks_[0], salts, hyper, kw)
+    finally:
+        sparse.segment_sum_sorted = real
+    sess.synchronize()
+    (g, seg, n_slots), kws = seen[0]
+    return g, seg, n_slots, kws.get("keys"), kws.get("n_dims")
+
+
+def _time_deterministic_index_add(g, seg, n_slots):
+    """``index_add_`` under ``torch.use_deterministic_algorithms(True)``:
+    its time, whether two calls agree bitwise, and whether a CUDA graph
+    can capture it (a yardstick only; the port never calls it)."""
+    import torch
+
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        run = lambda: torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(
+            0, seg, g)
+        a, b = run(), run()
+        out["bitwise_repeat"] = bool(torch.equal(a, b))
+        out["ms"] = cuda_ms(run, 10)
+        try:
+            graph, static, _ = capture_graph(run, g.device)
+            graph.replay()
+            torch.cuda.synchronize()
+            out["capturable"] = bool(torch.equal(static, a))
+        except Exception as e:  # noqa: BLE001 - the yardstick's own failure is a finding
+            out["capturable"] = False
+            out["capture_error"] = f"{type(e).__name__}: {str(e)[:200]}"
+    except Exception as e:  # noqa: BLE001 - as above
+        out["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def phase_segment_sum(inputs, mem_bw):
+    """``segment_sum_sorted`` on the card at the step's inputs: five
+    launches bitwise equal; against its plain version on the card
+    (``index_add_`` with float atomics: max |err|) and on a CPU copy (the
+    index order: bitwise on every segment of at most ``WALK_MAX`` rows);
+    a captured launch against the eager one; one segment of 2^20 rows
+    (summed by a block) within 1e-6·Σ|g| of the float64 sum. Times of the
+    kernel, the plain version, the library call (``index_add_`` alone)
+    and ``index_add_`` under deterministic mode, beside the bound."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    g, seg, n_slots, keys, n_dims = inputs
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    outs = [run() for _ in range(5)]
+    torch.cuda.synchronize()
+    got = outs[0]
+    deterministic = all(torch.equal(got, o) for o in outs[1:])
+    plain = ss.segment_sum_sorted_reference(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    max_abs_err = float((got - plain).abs().max())
+    cpu = ss.segment_sum_sorted_reference(
+        g.cpu(), seg.cpu(), n_slots, keys=None if keys is None else keys.cpu(),
+        n_dims=n_dims)
+    seg_rows = torch.bincount(seg, minlength=n_slots)[:n_slots].cpu()
+    short = seg_rows <= ss.WALK_MAX
+    cpu_mismatch = int((got.cpu() != cpu)[short].sum())
+    graph, static, _ = capture_graph(run, g.device)
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_equal = bool(torch.equal(static, got))
+    del graph, static, outs
+
+    # one long segment between short ones, summed by a block
+    gen = torch.Generator(device=g.device).manual_seed(5)
+    n_long = SEG_LONG_ROWS
+    lens = torch.cat([torch.full((1000,), 3, device=g.device),
+                      torch.tensor([n_long], device=g.device),
+                      torch.full((1000,), 2, device=g.device)])
+    lseg = torch.repeat_interleave(torch.arange(len(lens), device=g.device), lens)
+    lg = torch.randn((lseg.numel(), 1), generator=gen, device=g.device)
+    lgot = ss.segment_sum_sorted(lg, lseg, len(lens))
+    lref = torch.zeros((len(lens), 1), dtype=torch.float64, device=g.device).index_add_(
+        0, lseg, lg.double())
+    labs = torch.zeros_like(lref).index_add_(0, lseg, lg.double().abs())
+    long_err = float((lgot.double() - lref).abs()[1000])
+    long_ok = bool(((lgot.double() - lref).abs() <= 1e-6 * labs).all())
+    long_repeat = bool(torch.equal(lgot, ss.segment_sum_sorted(lg, lseg, len(lens))))
+    del lens, lseg, lg, lgot, lref, labs
+
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(lambda: ss.segment_sum_sorted_reference(
+        g, seg, n_slots, keys=keys, n_dims=n_dims), 20)
+    library_ms = cuda_ms(lambda: torch.zeros((n_slots, g.shape[1]), device=g.device)
+                         .index_add_(0, seg, g), 20)
+    n_bytes = (g.numel() * 4 + seg.numel() * seg.element_size() + n_slots * g.shape[1] * 4
+               + (0 if keys is None else keys.numel() * keys.element_size()))
+    bytes_ms = n_bytes / mem_bw * 1e3
+    line = {"M": g.shape[0], "k": g.shape[1], "n_slots": n_slots,
+            "seg_dtype": str(seg.dtype), "keys": keys is not None,
+            "segments": int((seg_rows > 0).sum()), "max_segment_rows": int(seg_rows.max()),
+            "deterministic": deterministic, "max_abs_err": max_abs_err,
+            "cpu_order_mismatches": cpu_mismatch, "graph_equal_eager": graph_equal,
+            "long_segment": {"rows": n_long, "abs_err_vs_f64": long_err,
+                             "within_1e-6_sum_abs": long_ok, "bitwise_repeat": long_repeat},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "deterministic_index_add": _time_deterministic_index_add(g, seg, n_slots),
+            "bytes": n_bytes, "bound_ms": bytes_ms, "bound_by": "bytes",
+            "tolerance": "max_abs_err against the card's atomic index_add_ is float32 "
+                         "rounding of its run-dependent order; bitwise against the CPU's "
+                         "index order on segments of at most WALK_MAX rows"}
+    if not (deterministic and graph_equal and cpu_mismatch == 0 and long_ok
+            and long_repeat):
+        raise AssertionError(f"segment_sum_sorted failed its checks: {line}")
+    return line
 
 
 # ------------------------------------------------------------------ serving
@@ -1614,7 +2009,14 @@ def main(argv=None) -> int:
                     help="Criteo CSV rows (bench.py's 8M by default)")
     ap.add_argument("--criteo-epochs", type=int, default=CRITEO_EPOCHS,
                     help="Criteo fit epochs (bench.py's 100 by default)")
+    ap.add_argument("--resume-epochs", type=int, default=RESUME_EPOCHS,
+                    help="epochs of the criteo_resume and criteo_fault fits "
+                         f"({RESUME_EPOCHS} by default)")
     args = ap.parse_args(argv)
+    if args.resume_epochs < 8 or args.resume_epochs % RESUME_EVERY_EPOCHS:
+        # the drill crashes after its 3rd snapshot and compares the last,
+        # which must be the fit's end
+        ap.error(f"--resume-epochs must be a multiple of {RESUME_EVERY_EPOCHS}, at least 8")
 
     import torch
 
@@ -1681,10 +2083,13 @@ def main(argv=None) -> int:
         # ---- the main path: every launch count starts at 0 here
         th.node_histograms.launches = 0
         # (name, estimator of the config, AUC floor, launches per fit)
+        # launches a fit: one a level, plus the importances and the leaf sums
+        # of each grow (the fixed-point sums of models/_tree._bucket_sums):
+        # GBT 20 rounds x (5 + 2), the forest's one grow 5 + 2
         fits = [("gbt", GBTClassifier(max_iter=20, max_depth=5, max_bins=32),
-                 GBT_AUC_FLOOR, 100),
+                 GBT_AUC_FLOOR, 140),
                 ("rf", RandomForestClassifier(num_trees=20, max_depth=5, max_bins=32),
-                 RF_AUC_FLOOR, 5)]
+                 RF_AUC_FLOOR, 7)]
         fit_launches = {}
         for phase, est, floor, per_fit in fits:
             line = phase_fit(phase, est, table, eval_table, y_eval, floor)
@@ -1722,8 +2127,23 @@ def main(argv=None) -> int:
             phase = "criteo"
             model, line = phase_criteo(path, args.criteo_rows, args.criteo_epochs, sess)
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **line})
+            criteo_line = line
             phase = "criteo_profile"
             emit({"phase": phase, "device": kind, **phase_criteo_profile(model, sess)})
+            torch.cuda.empty_cache()
+            phase = "segment_sum"
+            seg_line = phase_segment_sum(_step_segment_inputs(model, sess), mem_bw)
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi, **seg_line})
+            torch.cuda.empty_cache()
+            phase = "criteo_resume"
+            resume_line, clean_theta = phase_criteo_resume(
+                tmp, path, args.criteo_rows, args.resume_epochs, sess)
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi, **resume_line})
+            phase = "criteo_fault"
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi,
+                  **phase_criteo_fault(path, args.criteo_rows, args.resume_epochs, sess,
+                                       clean_theta)})
+            del clean_theta
             torch.cuda.empty_cache()
             phase = "serving_check"
             emit({"phase": phase, "device": kind, **phase_serving_check(path, sess)})
@@ -1741,6 +2161,8 @@ def main(argv=None) -> int:
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
+        if criteo_line["segment_sum_launches"] == 0:
+            raise AssertionError("the Criteo fit never launched segment_sum_sorted")
         top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
@@ -1755,6 +2177,21 @@ def main(argv=None) -> int:
             "at": "gbt_level4_u8",
             "per_fit": per_fit,
             "shapes": shapes,
+        }, {
+            "name": "segment_sum_sorted",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/segment_sum.cu",
+            # no Pallas kernel: the XLA segment sum of the touched-row update
+            "replaces": "orange3_spark_tpu/optim/sparse.py:435",
+            "launches": criteo_line["segment_sum_launches"],
+            "runs_in_replayed_graphs": criteo_line["segment_sum_runs"],
+            "max_abs_err": seg_line["max_abs_err"],
+            "deterministic": seg_line["deterministic"],
+            "ms": seg_line["ms"], "plain_ms": seg_line["plain_ms"],
+            "bound_ms": seg_line["bound_ms"], "bound_by": seg_line["bound_by"],
+            "library_ms": seg_line["library_ms"],
+            "deterministic_index_add": seg_line["deterministic_index_add"],
+            "at": "one step of the criteo fit on its first cached chunk",
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,6 +41,7 @@ class PipelineStats:
     prep_s: float = 0.0   # producer time pulling items and inside prep
     wait_s: float = 0.0   # consumer time blocked waiting on the queue
     wall_s: float = 0.0   # consumer wall from first wait to stream end
+    retries: int = 0      # transient source-read retries (resilience/retry.py)
     done: bool = False
 
     @property
@@ -57,6 +58,7 @@ class PipelineStats:
         self.prep_s += other.prep_s
         self.wait_s += other.wait_s
         self.wall_s += other.wall_s
+        self.retries += other.retries
         return self
 
 

@@ -1,10 +1,13 @@
-"""Carry fitted models from the JAX package into this one.
+"""Carry fitted models, and fits in progress, between the JAX package and
+this one.
 
-Each function takes a JAX model's ``state_pytree`` with its leaves as numpy
-arrays (``{k: np.asarray(v) for k, v in model.state_pytree.items()}``) and
-its params (``model.params.to_dict()``), and builds the PyTorch model that
-predicts what the JAX model predicts. Nothing here imports JAX: the caller
-does the conversion to numpy.
+Each model function takes a JAX model's ``state_pytree`` with its leaves as
+numpy arrays (``{k: np.asarray(v) for k, v in model.state_pytree.items()}``)
+and its params (``model.params.to_dict()``), and builds the PyTorch model
+that predicts what the JAX model predicts. ``hashed_fit_state`` and
+``jax_hashed_fit_state`` convert the state a streaming hashed fit
+checkpoints (``utils/fault.StreamCheckpointer``) between the two packages'
+layouts. Nothing here imports JAX: the caller does the conversion to numpy.
 """
 
 from __future__ import annotations
@@ -90,3 +93,39 @@ def hashed_linear_model(state, params: Mapping, class_values: Sequence[str] | No
     theta = {k: torch.tensor(np.asarray(state[k], np.float32), device=device)
              for k in ("emb", "coef", "intercept")}
     return HashedLinearModel(p, theta, column_salts(p.n_cat, p.seed), class_values)
+
+
+def _np_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def hashed_fit_state(saved: Mapping) -> dict:
+    """A streaming hashed fit's snapshot state (``{"theta", "opt_state"}``,
+    numpy leaves) in this package's layout, from either package's snapshot.
+    theta and the sparse rules' state (``step``, ``t``, ``slots``) are the
+    same dicts in both. 'adam': the JAX package keeps optax's
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())``, this one the dict
+    ``{"count", "mu", "nu"}`` (optim/sparse.py ``init_adam_state``)."""
+    opt = saved["opt_state"]
+    if not isinstance(opt, Mapping):
+        count, mu, nu = opt[0]
+        opt = {"count": count, "mu": mu, "nu": nu}
+    return {"theta": _np_tree(saved["theta"]), "opt_state": _np_tree(opt)}
+
+
+def jax_hashed_fit_state(state: Mapping, *, adam_state=None) -> dict:
+    """The inverse of ``hashed_fit_state``: this package's snapshot state in
+    the JAX package's layout, which its ``fit_stream`` resumes from. The
+    sparse rules' state passes as it is. An 'adam' state needs optax's
+    classes, which this package does not import: ``adam_state(count, mu,
+    nu)`` builds the JAX state, e.g. ``lambda c, m, n:
+    (optax.ScaleByAdamState(c, m, n), optax.EmptyState())``."""
+    state = hashed_fit_state(state)
+    opt = state["opt_state"]
+    if "count" in opt:
+        if adam_state is None:
+            raise ValueError("an 'adam' fit state needs adam_state= to build optax's state")
+        opt = adam_state(opt["count"], opt["mu"], opt["nu"])
+    return {"theta": state["theta"], "opt_state": opt}

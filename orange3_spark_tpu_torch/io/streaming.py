@@ -394,6 +394,81 @@ def warn_cache_overflow(cache_device_bytes: int, epochs_left: int,
         RuntimeWarning, stacklevel=3)
 
 
+def resolve_epoch_checkpointing(params, checkpointer) -> int:
+    """The rule for ``checkpoint_every_epochs``: the epoch cadence is live
+    only with a checkpointer, a positive K, and outside the
+    ``OTPU_RESILIENCE=0`` kill-switch. Returns K, or 0 (the per-step
+    ``maybe_save`` cadence)."""
+    from orange3_spark_tpu_torch.resilience.faults import resilience_enabled
+
+    k = getattr(params, "checkpoint_every_epochs", 0)
+    return k if (checkpointer is not None and k > 0 and resilience_enabled()) else 0
+
+
+def epoch_boundary_snapshot(checkpointer, every_epochs: int, epoch: int, defer: bool,
+                            n_steps: int, resume_from: int, snapshot, meta) -> None:
+    """One epoch-boundary save decision for every streaming epoch path
+    (live stream, cache replay, disk replay); ``run_epoch_replay`` holds
+    the fused replay's own. A deferred fit's step-free ingest pass trains
+    no epoch; a fast-forwarded epoch (``n_steps <= resume_from``) rewrites
+    nothing."""
+    trained = epoch + 1 - (1 if defer else 0)
+    if (every_epochs and trained > 0 and trained % every_epochs == 0
+            and n_steps > resume_from):
+        checkpointer.save(n_steps, snapshot(), meta=meta)
+
+
+def run_epoch_replay(n_replay: int, spe: int, n_steps: int, resume_from: int,
+                     checkpointer, dispatch_epochs, snapshot, ckpt_meta,
+                     epochs_per_dispatch: int = 1, every_epochs: int = 0):
+    """The per-epoch replay protocol: fast-forward whole checkpointed
+    epochs without running them, run the rest in groups of
+    ``epochs_per_dispatch`` epochs, bound the dispatch queue (period 2:
+    one running, one queued) and snapshot at epoch boundaries, every
+    ``every_epochs`` epochs or, without it, every
+    ``checkpointer.every_steps`` steps rounded to whole epochs. A group
+    never crosses a snapshot boundary (it is clamped), so the cadence is
+    the same at every group size and a snapshot resumes under any. The
+    snapshot is taken between dispatches, after the wait that
+    ``snapshot()`` makes for the device.
+
+    Each save is preceded by ``check_finite_training`` on the last loss.
+    ``dispatch_epochs(k)`` runs k epochs and returns a tensor to wait on;
+    ``snapshot()`` returns the state to save. Returns ``(n_steps, last,
+    n_dispatched)``: ``last`` is None when every epoch was fast-forwarded
+    (resume at completion)."""
+    from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
+    from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+
+    save_every = ((every_epochs or max(1, checkpointer.every_steps // spe))
+                  if checkpointer is not None else 0)
+    group = max(1, int(epochs_per_dispatch))
+    last = None
+    n_disp = 0
+    rep = 0
+    while rep < n_replay:
+        if n_steps + spe <= resume_from:
+            n_steps += spe          # a checkpointed epoch: skipped, not run
+            rep += 1
+            continue
+        k = min(group, n_replay - rep)
+        if save_every:
+            # snapshots land between dispatches: a group spanning a
+            # boundary would skip it
+            k = min(k, save_every - (rep % save_every))
+        last = dispatch_epochs(k)
+        n_steps += k * spe
+        rep += k
+        n_disp += 1
+        bound_dispatch(n_disp, last, period=2)
+        if save_every and rep % save_every == 0:
+            # the non-finite guard before the save: NaN state is never
+            # checkpointed (epoch: the 0-based trained epoch just ended)
+            check_finite_training(last, epoch=n_steps // spe - 1, chunk=n_steps)
+            checkpointer.save(n_steps, snapshot(), meta=ckpt_meta)
+    return n_steps, last, n_disp
+
+
 def _rechunk(stream: Iterator[Chunk], rows: int) -> Iterator[tuple]:
     """Normalize a stream of (X, y[, w]) chunks of any sizes into batches of
     EXACTLY ``rows`` rows (the final one may be short). Row weights must be

@@ -16,6 +16,13 @@ Port of ``orange3_spark_tpu/models/_tree.py``, same algorithm and layout:
 
 Gain modes: 'gini' (classification, stats = per-class weighted counts),
 'variance' ([Σwy, Σwy², Σw]) and 'newton' ([G, H, Σw], used by GBT).
+
+The two other sums of a tree, the importances (chosen gains by feature)
+and the leaf stat sums (row stats by leaf), are ``index_add_`` on the CPU,
+in the reference's order. On CUDA, where that would add with float atomics
+in an order that changes from run to run, they go through the same
+fixed-point kernel as one histogram with a single constant bin
+(``_bucket_sums``): integer adds, the same bits on every run.
 """
 
 from __future__ import annotations
@@ -193,8 +200,7 @@ def grow_tree(
     threshold = torch.full((T, n_internal), torch.inf, dtype=torch.float32,
                            device=dev)
     pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
-    imp = torch.zeros((T, d), dtype=torch.float32, device=dev)
-    tree_off = torch.arange(T, device=dev)[:, None] * d            # [T, 1]
+    gain_at = torch.zeros((T, n_internal), dtype=torch.float32, device=dev)
 
     for level in range(depth):
         nodes = 2**level
@@ -221,12 +227,8 @@ def grow_tree(
             torch.inf,
         )
         thr = torch.where(do_split, thr, torch.inf)
-        # index_add_, not imp[bf] += ...: several nodes may pick one feature
-        # and indexed += keeps only one of the duplicate adds
-        imp.view(-1).index_add_(
-            0, (tree_off + bf).view(-1),
-            torch.where(do_split, best_gain, 0.0).view(-1))
         off = nodes - 1  # level-order offset of this level
+        gain_at[:, off:off + nodes] = torch.where(do_split, best_gain, 0.0)
         feature[:, off:off + nodes] = bf
         split_bin[:, off:off + nodes] = bb
         threshold[:, off:off + nodes] = thr
@@ -237,16 +239,41 @@ def grow_tree(
         x_b = torch.gather(B.expand(T, N, d), 2, row_f.long()[..., None])[..., 0]
         pos = 2 * pos + (x_b > row_b).to(torch.int32)
 
-    # per-leaf stat sums (the reference's segment_sum), index_add_ for the
-    # same duplicate-index reason as the importances
-    L = 2**depth
-    leaf = torch.zeros((T * L, s), dtype=torch.float32, device=dev)
-    leaf_idx = (torch.arange(T, device=dev)[:, None] * L + pos).view(-1)
-    leaf.index_add_(0, leaf_idx, S.reshape(T * N, s))
-    tree = Tree(feature, split_bin, threshold, leaf.view(T, L, s))
+    # importances: each node's chosen gain added into its feature, in level
+    # order (the reference adds them level by level, in the same order)
+    imp = _bucket_sums(gain_at[..., None], feature, d)[..., 0]
+    # per-leaf stat sums (the reference's segment_sum)
+    leaf = _bucket_sums(S, pos, 2**depth)
+    tree = Tree(feature, split_bin, threshold, leaf)
     if single:
         return Tree(*(x[0] for x in tree)), pos[0], imp[0]
     return tree, pos, imp
+
+
+def _bucket_sums(S, pos, n_buckets: int):
+    """f32[T, n_buckets, s]: ``S`` f32[T, N, s] summed by bucket ``pos``
+    i32[T, N]. CPU: ``index_add_`` in row order (several rows share a
+    bucket, so it is an add, not an indexed assignment). CUDA: the
+    histogram kernel with one feature of one constant bin, whose
+    fixed-point integer adds give the same bits in any order (exact for
+    integer stats, float stats within its stated bound)."""
+    T, N, s = S.shape
+    if S.device.type != "cuda":
+        out = torch.zeros((T * n_buckets, s), dtype=torch.float32, device=S.device)
+        idx = (torch.arange(T, device=S.device)[:, None] * n_buckets + pos).view(-1)
+        return out.index_add_(0, idx, S.reshape(T * N, s)).view(T, n_buckets, s)
+    return _bucket_sums_histogram(S, pos, n_buckets)
+
+
+def _bucket_sums_histogram(S, pos, n_buckets: int):
+    """``_bucket_sums``' CUDA form: one histogram of one feature whose bin
+    is always 0, ``pos`` as the node (on the CPU it runs the histogram's
+    plain version, which the tests hold to the ``index_add_`` form)."""
+    N = S.shape[1]
+    one_bin = torch.zeros((N, 1), dtype=torch.uint8, device=S.device)
+    H = node_histograms(one_bin, S.contiguous(), pos.contiguous(), nodes=n_buckets,
+                        n_bins=1)
+    return H[:, 0]
 
 
 def normalize_importances(imp):

@@ -32,17 +32,25 @@ logistic regression over a CSV stream.
   steps run one by one. ``defer_epoch1`` makes epoch 1 ingest only, and
   every epoch then runs in the replay.
 
+* Recovery (the JAX package's resilience layer): the source goes through
+  ``resilient_source`` (transient read errors retried, faults injected
+  there); ``check_finite_training`` guards every epoch and the end; the
+  periodic dispatch wait runs under the watchdog (``bound_dispatch``); a
+  ``StreamCheckpointer`` snapshots per step, or per epoch with
+  ``checkpoint_every_epochs``, and a restarted fit resumes from the
+  snapshot (its own or the JAX package's) to the same bits as an
+  uninterrupted one.
+
 The update rules are optim/sparse.py's ``adam`` and ``{dense,sparse}_
 {sgd,adagrad,ftrl}``. Not in this package yet (each raises
 ``NotImplementedError`` where a parameter asks for it): the 'per_column'
 and 'sorted' ``emb_update`` lowerings, value-weighted rows,
-``missing='keep'``, a compute dtype other than float32, and checkpoints.
+``missing='keep'`` and a compute dtype other than float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -65,12 +73,15 @@ from orange3_spark_tpu_torch.ops.hashing import (
     column_salts, hash_columns, hash_columns_np, salts_tensor,
 )
 from orange3_spark_tpu_torch.optim.sparse import (
-    adam_update, build_plan_np, dense_update, finalize_lazy_decay, init_optim_state,
-    is_sparse_update, optim_kind, pack_plan_np, plan_field_shapes,
+    adam_update, build_plan_np, dense_table_grad, dense_update, finalize_lazy_decay,
+    init_optim_state, is_sparse_update, optim_kind, pack_plan_np, plan_field_shapes,
     plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
     sparse_embedding_update, unpack_plan,
 )
+from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
+from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
 from orange3_spark_tpu_torch.utils.graphs import capture_graph
+from orange3_spark_tpu_torch.utils.profiling import count_dispatch
 
 AUC_BINS = 4096
 #: the profiler ranges of ``_step_core``, in step order ('split_hash' is
@@ -111,6 +122,8 @@ class HashedLinearParams(Params):
     # epoch 1 only ingests (parse, pad, encode, cache, spill); all `epochs`
     # passes then run in the replay, the same step sequence
     defer_epoch1: bool = False
+    # with a checkpointer: snapshot every K trained epochs instead of every
+    # checkpointer.every_steps steps (io/streaming.resolve_epoch_checkpointing)
     checkpoint_every_epochs: int = 0
     value_weighted: bool = False
     # 'zero': NaN dense cells -> 0 and NaN categorical cells -> the reserved
@@ -425,8 +438,8 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
 
     'adam' is the reference's dense optax path: the loss includes the L2
     term ``0.5·reg·(Σemb² + Σcoef²)``, the table's gradient is dense (every
-    occurrence added into a full-table gradient, ``index_add_`` in
-    occurrence order, plus ``reg·θ``) and adam sweeps every parameter. The
+    occurrence added into a full-table gradient in occurrence order,
+    ``dense_table_grad``, plus ``reg·θ``) and adam sweeps every parameter. The
     other rules report the pure data loss and treat ``reg`` as decoupled
     weight decay; the sparse ones update only the touched rows, with
     ``plan`` carrying the host-built dedup under the 'plan' lowering; the
@@ -467,10 +480,7 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
                 lr, decay, reg, l1, opt_state["step"], lowering=sparse_lowering,
                 use_decay=use_decay, plan=plan, n_valid=n_valid)
         else:
-            N, C = idx.shape
-            g_emb = torch.zeros_like(theta["emb"]).index_add_(
-                0, idx.reshape(-1),
-                dl[:, None, :].expand(N, C, dl.shape[1]).reshape(N * C, -1))
+            g_emb = dense_table_grad(idx, dl, theta["emb"].shape[0])
             if kind == "adam":
                 return (*adam_update(
                     theta, {"emb": g_emb + reg * theta["emb"], "coef": g_coef,
@@ -513,6 +523,22 @@ def _step_into(theta: dict, opt_state: dict, chunk: tuple, salts, hyper: tuple,
     _write_back(theta, new_theta)
     _write_back(opt_state, new_opt)
     return loss
+
+
+def _load_into(dst: dict, src: dict) -> None:
+    """Copy a snapshot's numpy leaves into the fit's own tensors, in place:
+    a captured graph reads and writes the state at fixed addresses, so the
+    state is never rebound. Raises on a missing leaf or a shape that
+    differs."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _load_into(d, src[k])
+            continue
+        v = torch.from_numpy(np.array(src[k]))     # a copy; 0-d stays 0-d
+        if tuple(v.shape) != tuple(d.shape):
+            raise ValueError(f"checkpoint leaf {k!r} has shape {tuple(v.shape)}, "
+                             f"the fit's has {tuple(d.shape)}")
+        d.copy_(v)
 
 
 def _clone_tree(tree):
@@ -976,7 +1002,8 @@ class StreamingHashedLinearEstimator(Estimator):
                    class_values: tuple | None = None, cache_device: bool = False,
                    cache_device_bytes: int = 8 << 30, cache_spill_dir: str | None = None,
                    holdout_chunks: int = 0,
-                   stage_times: dict | None = None) -> HashedLinearModel:
+                   stage_times: dict | None = None,
+                   checkpointer=None) -> HashedLinearModel:
         """Fit over a re-iterable chunk source.
 
         cache_device: keep the device chunks of epoch 1 (encoded per
@@ -1008,16 +1035,45 @@ class StreamingHashedLinearEstimator(Estimator):
           is [epoch 1, the whole replay] and 'replay_fused_s' (the replay
           phase, capture included) and 'graph_capture_s' say so; plus the
           resolved rule, lowering, codec, 'replay_source' and the cache's
-          bytes ('cache_bytes', and 'cache_raw_bytes' at float32).
+          bytes ('cache_bytes', and 'cache_raw_bytes' at float32), and the
+          transient source reads retried ('retries').
+        checkpointer: a ``utils/fault.StreamCheckpointer``. The fit resumes
+          from its snapshot if there is one (written by this package or by
+          the JAX package for the same params), snapshots every
+          ``every_steps`` steps, or every ``checkpoint_every_epochs``
+          trained epochs, and deletes the snapshot when it returns. With
+          ``defer_epoch1`` or a fused replay it composes only under
+          ``replay_granularity='epoch'`` (snapshots at epoch boundaries,
+          between graph replays); else the fit runs its steps one by one.
         """
         from orange3_spark_tpu_torch.io.streaming import (
-            DiskChunkCache, _DeviceCache, _pad_chunk, _rechunk, prefetch_map,
+            DiskChunkCache, _DeviceCache, _pad_chunk, _rechunk, epoch_boundary_snapshot,
+            prefetch_map, resolve_epoch_checkpointing, run_epoch_replay,
             warn_cache_overflow,
         )
+        from orange3_spark_tpu_torch.resilience.retry import resilient_source
 
         p = self.params
         session = session or TorchSession.active()
         theta, opt_state, salts_np, salts, static_kw = _init_fit_state(p, session)
+        resume_from = 0
+        ckpt_meta = {"params": p.to_dict(), "k": _effective_k(p)}
+        ckpt_epochs = resolve_epoch_checkpointing(p, checkpointer)
+        if checkpointer is not None:
+            step0, saved = checkpointer.load(expect_meta=ckpt_meta)
+            if saved is not None:
+                from orange3_spark_tpu_torch.interop import hashed_fit_state
+
+                saved = hashed_fit_state(saved)
+                _load_into(theta, saved["theta"])
+                _load_into(opt_state, saved["opt_state"])
+                resume_from = step0
+
+        def snapshot():
+            # the host copies in StreamCheckpointer.save run on this
+            # stream, after every step the device has been given
+            return {"theta": theta, "opt_state": opt_state}
+
         pad_rows = session.pad_rows(p.chunk_rows)
         n_cols = _chunk_cols(p)
         hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
@@ -1030,6 +1086,10 @@ class StreamingHashedLinearEstimator(Estimator):
         times = ({"parse_s": 0.0, "h2d_s": 0.0, "encode_s": 0.0}
                  if stage_times is not None else None)
         pipe_stats = PipelineStats()
+        # the source chokepoint: fault injection and bounded retries of
+        # transient reads, on the prefetch thread; retries count into
+        # pipe_stats
+        source = resilient_source(source, stats=pipe_stats)
         h2d = _HostToDevice(session.device)
         is_cuda = session.device.type == "cuda"
 
@@ -1195,8 +1255,14 @@ class StreamingHashedLinearEstimator(Estimator):
         cache = _DeviceCache(cache_device, cache_device_bytes,
                              may_exclude_tail=holdout_chunks)
         # defer: the streaming pass only ingests and all `epochs` passes run
-        # in the replay (at epochs == 1 too), the same step sequence
-        defer = p.defer_epoch1 and cache_device and p.epochs > 0
+        # in the replay (at epochs == 1 too), the same step sequence. Per-step
+        # snapshots need per-chunk steps, so a checkpointed fit defers only
+        # under replay_granularity='epoch', whose epoch boundaries are the
+        # snapshot and resume grain
+        ckpt_epoch_ok = p.replay_granularity == "epoch"
+        defer = (p.defer_epoch1 and cache_device and p.epochs > 0
+                 and (checkpointer is None or ckpt_epoch_ok)
+                 and (resume_from == 0 or ckpt_epoch_ok))
         spill: DiskChunkCache | None = None
         spill_active = [False]      # read by to_device on the prefetch thread
         if cache_device and cache_spill_dir is not None and (p.epochs > 1 or defer):
@@ -1212,12 +1278,20 @@ class StreamingHashedLinearEstimator(Estimator):
         def step(th, op, chunk):
             return _step_into(th, op, chunk, salts, hyper, static_kw)
 
+        # the dispatch queue's depth follows the staging depth: a loop that
+        # runs further ahead than the prefetcher stages gains nothing
+        step_period = max(2, 2 * p.prefetch_depth)
+
         def run_step(dev_chunk):
             nonlocal n_steps, last_loss
             last_loss = step(theta, opt_state, dev_chunk)
             n_steps += 1
+            bound_dispatch(n_steps, last_loss, period=step_period)
+            if checkpointer is not None and not ckpt_epochs:
+                checkpointer.maybe_save(n_steps, snapshot(), meta=ckpt_meta)
 
-        fuse_replay = p.fused_replay and cache_device and (p.epochs > 1 or defer)
+        fuse_replay = (p.fused_replay and cache_device and (p.epochs > 1 or defer)
+                       and ((checkpointer is None and resume_from == 0) or ckpt_epoch_ok))
         epoch_walls: list = []
         replay_fused_s = graph_capture_s = None
         disk_replay: _Replay | None = None
@@ -1238,6 +1312,9 @@ class StreamingHashedLinearEstimator(Estimator):
                             dev_chunk = window.pop(0)
                         if epoch == 0 and defer:
                             continue          # ingest only
+                        if n_steps < resume_from:
+                            n_steps += 1      # checkpointed: fast-forward
+                            continue
                         run_step(dev_chunk)
                     if epoch == 0:
                         if holdout_chunks > 0:
@@ -1262,14 +1339,22 @@ class StreamingHashedLinearEstimator(Estimator):
                                             "chunks from disk instead."))
                 elif cache.enabled:
                     for dev_chunk in cache.batches:   # replay: no host work at all
+                        if n_steps < resume_from:
+                            n_steps += 1
+                            continue
                         run_step(dev_chunk)
                 else:
                     # a replay epoch off the disk spill: read + copy, no parse
                     n_train = spill.n_records - holdout_chunks
                     group = max(1, min(spill.n_records,
                                        cache_device_bytes // (4 * spill.payload_bytes)))
-                    n_full = (n_train // group) * group if p.fused_replay and group > 1 else 0
+                    # captured groups skip no step: not while resuming or
+                    # snapshotting per step
+                    grouped = (p.fused_replay and group > 1 and checkpointer is None
+                               and resume_from == 0)
+                    n_full = (n_train // group) * group if grouped else 0
                     if n_full:
+                        n_groups = 0
                         if times is not None:
                             times["disk_replay_group"] = group
                         for chunks in disk_group_iter(group, n_full):
@@ -1283,28 +1368,59 @@ class StreamingHashedLinearEstimator(Estimator):
                             disk_replay.run(1)
                             last_loss = disk_replay.losses[-1]
                             n_steps += group
+                            n_groups += 1
+                            # each group in flight holds its chunks: one
+                            # running, one queued
+                            bound_dispatch(n_groups, last_loss, period=2)
                     for dev_chunk in disk_chunk_iter(start=n_full):
+                        if n_steps < resume_from:
+                            n_steps += 1
+                            continue
                         run_step(dev_chunk)
+                # the non-finite guard BEFORE the save: a divergent epoch
+                # raises typed and never checkpoints NaN state
+                check_finite_training(last_loss, theta, epoch=epoch, chunk=n_steps,
+                                      estimator="StreamingHashedLinearEstimator")
+                epoch_boundary_snapshot(checkpointer, ckpt_epochs, epoch, defer, n_steps,
+                                        resume_from, snapshot, ckpt_meta)
                 if times is not None:
                     session.synchronize()   # an honest epoch wall
                     epoch_walls.append(time.perf_counter() - t_epoch)
-                if epoch == 0 and fuse_replay and cache.enabled and cache.batches:
+                if (epoch == 0 and fuse_replay and cache.enabled and cache.batches
+                        # whole epochs are the replay's resume grain: a
+                        # snapshot off an epoch boundary takes the per-chunk
+                        # replay, which skips at step grain
+                        and resume_from % len(cache.batches) == 0):
                     # the remaining epochs: one captured epoch, replayed
                     n_rep = p.epochs - 1 + (1 if defer else 0)
+                    spe = len(cache.batches)
+                    if n_steps + n_rep * spe <= resume_from:
+                        # the snapshot covers every replay epoch: nothing to
+                        # run (final_loss_ stays None)
+                        n_steps += n_rep * spe
+                        break
                     t_rep = time.perf_counter()
                     replay = _Replay(theta, opt_state, cache.batches, step)
                     if is_cuda:
                         replay.capture()
                     graph_capture_s = time.perf_counter() - t_rep
                     if p.replay_granularity == "epoch":
-                        group_epochs = max(1, p.epochs_per_dispatch)
-                        for done in range(0, n_rep, group_epochs):
-                            replay.run(min(group_epochs, n_rep - done))
-                            session.synchronize()
+                        def dispatch_epochs(k):
+                            replay.run(k)
+                            return replay.losses[-1]
+
+                        n_steps, last, _ = run_epoch_replay(
+                            n_rep, spe, n_steps, resume_from, checkpointer,
+                            dispatch_epochs, snapshot, ckpt_meta,
+                            epochs_per_dispatch=p.epochs_per_dispatch,
+                            every_epochs=ckpt_epochs)
+                        if last is not None:
+                            last_loss = last
                     else:
                         replay.run(n_rep)
-                    last_loss = replay.losses[-1]
-                    n_steps += n_rep * len(cache.batches)
+                        count_dispatch()   # one call: no loop to bound
+                        last_loss = replay.losses[-1]
+                        n_steps += n_rep * spe
                     session.synchronize()
                     replay_fused_s = time.perf_counter() - t_rep
                     if times is not None:
@@ -1317,12 +1433,11 @@ class StreamingHashedLinearEstimator(Estimator):
             if encode_pool is not None:
                 encode_pool.shutdown()
 
-        if last_loss is not None and not (
-                math.isfinite(float(last_loss))
-                and bool(torch.isfinite(theta["emb"]).all())):
-            raise FloatingPointError(
-                f"StreamingHashedLinearEstimator diverged: final loss "
-                f"{float(last_loss)} after {n_steps} steps")
+        # the fused replay leaves the loop before the per-epoch guard: the
+        # final check sweeps theta too (a last-step divergence shows only
+        # there)
+        check_finite_training(last_loss, theta, epoch=p.epochs - 1, chunk=n_steps,
+                              final=True, estimator="StreamingHashedLinearEstimator")
         # settle the decay the table still owes, so the returned model
         # equals the dense schedule's
         theta = finalize_lazy_decay(theta, opt_state, hyper[1], hyper[0], optim_resolved)
@@ -1331,7 +1446,7 @@ class StreamingHashedLinearEstimator(Estimator):
             stage_times.update(
                 optim_update=optim_resolved, sparse_lowering=static_kw["sparse_lowering"],
                 cache_dtype=codec.mode if codec else "f32", epoch_s=epoch_walls,
-                cache_overflow=cache.degraded,
+                cache_overflow=cache.degraded, retries=pipe_stats.retries,
                 replay_source=(None if p.epochs <= 1 and not defer
                                else ("fused" if p.replay_granularity != "epoch"
                                      else "fused_epoch") if replay_fused_s is not None
@@ -1359,4 +1474,6 @@ class StreamingHashedLinearEstimator(Estimator):
         model.device_chunks_ = cache.batches if cache_device else None
         model.holdout_chunks_ = holdout if holdout_chunks > 0 else None
         model.cache_codec_ = codec
+        if checkpointer is not None:
+            checkpointer.delete()
         return model

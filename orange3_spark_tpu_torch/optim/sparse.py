@@ -35,12 +35,16 @@ in large-scale click-through training):
 * **kill-switch** — ``OTPU_SPARSE_UPDATE=0`` resolves every ``sparse_*``
   rule to its ``dense_*`` twin, once, at fit entry.
 
-Segment sums use ``index_add_``. On the CPU it adds in index order, so a
-row's occurrences are summed one after another in their stable-sorted
-order (bitwise the dense twin's sums, and the reference's). On CUDA it adds
-with atomics in an order that is not fixed, so two runs on the card, or
-the card against the CPU, agree to float32 rounding of those sums, not
-bitwise; the tests and the chip check state that tolerance.
+Segment sums go through ``ops/segment_sum.segment_sum_sorted``: on the CPU
+its plain version, an ``index_add_`` that adds in index order, so a row's
+occurrences are summed one after another in their stable-sorted order
+(bitwise the dense twin's sums, and the reference's); on CUDA the
+hand-written kernel, which adds without float atomics in an order fixed by
+the data, so two fits on the card give the same bits (a segment of up to
+``WALK_MAX`` occurrences even in the CPU's order). The dense gradient of
+the table (``dense_table_grad``, the 'adam' rule and the dense twins) is
+built the same way on CUDA: a stable sort of the occurrences, the segment
+sums, one write per touched row.
 
 The step has no host sync, so a replay epoch can be captured as one CUDA
 graph: the step counter ``opt_state["step"]`` is a device int32 scalar
@@ -69,6 +73,7 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.io.codec import bit_width, flat_words, pack_flat_np, unpack_flat
+from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
 
 __all__ = [
     "OPTIM_UPDATES", "SPARSE_UPDATES", "DENSE_UPDATES", "ADAGRAD_EPS", "FTRL_BETA",
@@ -77,7 +82,8 @@ __all__ = [
     "dense_update", "ADAM_B1", "ADAM_B2", "ADAM_EPS", "init_adam_state",
     "adam_update", "plan_slots", "plan_field_shapes", "build_plan_np",
     "plan_pack_widths", "plan_packed_field_shapes", "pack_plan_np", "unpack_plan",
-    "occurrence_dead", "sparse_embedding_update", "finalize_lazy_decay",
+    "occurrence_dead", "sparse_embedding_update", "dense_table_grad",
+    "finalize_lazy_decay",
 ]
 
 SPARSE_UPDATES = ("sparse_sgd", "sparse_adagrad", "sparse_ftrl")
@@ -387,12 +393,45 @@ def _touched_rows_update(kind, emb, t, slots, sums, rid, lr, decay, reg, l1, ste
     return apply_rule(kind, p_rows, slot_rows, sums, lr, reg, l1)
 
 
-def _segment_sums(g_sorted: torch.Tensor, seg: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """Per-segment sums of SORTED per-occurrence gradients (see the module
-    docstring for the order of the adds on each device)."""
-    out = torch.zeros((n_slots,) + tuple(g_sorted.shape[1:]), dtype=g_sorted.dtype,
-                      device=g_sorted.device)
-    return out.index_add_(0, seg, g_sorted)
+def _sort_segments(flat: torch.Tensor):
+    """Stable sort of flat occurrence keys and their segments: (sorted
+    keys, the sort order, segment-start flags, segment ids from 0). No
+    host sync."""
+    s_idx, order = torch.sort(flat, stable=True)
+    start = torch.ones_like(s_idx, dtype=torch.bool)
+    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
+    return s_idx, order, start, torch.cumsum(start, 0) - 1
+
+
+def dense_table_grad(idx: torch.Tensor, dl: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The table's [n_rows, k] gradient: each row of ``dl`` [N, k] added
+    into the table rows of its ``idx`` [N, C] occurrences. The CPU adds by
+    ``index_add_`` in occurrence order (the reference's order). CUDA sorts
+    the occurrences stably, sums them by segment with the deterministic
+    kernel (the same order for segments of up to ``WALK_MAX``) and writes
+    each touched row once; slots past the live segments repeat the last
+    live one, the same row and value written twice (no host sync)."""
+    N, C = idx.shape
+    k = dl.shape[1]
+    if idx.device.type != "cuda":
+        return torch.zeros((n_rows, k), dtype=dl.dtype, device=dl.device).index_add_(
+            0, idx.reshape(-1), dl[:, None, :].expand(N, C, k).reshape(N * C, k))
+    return _dense_table_grad_sorted(idx, dl, n_rows)
+
+
+def _dense_table_grad_sorted(idx: torch.Tensor, dl: torch.Tensor, n_rows: int):
+    """``dense_table_grad``'s CUDA form (also runs on the CPU, where the
+    tests hold it to the ``index_add_`` form bitwise)."""
+    N, C = idx.shape
+    k = dl.shape[1]
+    s_idx, order, start, seg = _sort_segments(idx.reshape(-1))
+    U = min(N * C, n_rows)
+    sums = segment_sum_sorted(dl.index_select(0, order // C), seg, U)
+    uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)
+    src = torch.minimum(torch.arange(U, device=idx.device), start.sum() - 1)
+    out = torch.zeros((n_rows, k), dtype=dl.dtype, device=dl.device)
+    return out.index_copy_(0, uniq.index_select(0, src).to(torch.int64),
+                           sums.index_select(0, src))
 
 
 def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, step, *,
@@ -411,7 +450,7 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     D = emb.shape[0]
     if lowering == "plan":
         g = dl.index_select(0, plan["row"])
-        sums = _segment_sums(g, plan["seg"], plan["uniq"].shape[0])
+        sums = segment_sum_sorted(g, plan["seg"], plan["uniq"].shape[0])
         p_rows, slot_rows = _touched_rows_update(
             kind, emb, t, slots, sums, plan["uniq"], lr, decay, reg, l1, step,
             use_decay=use_decay)
@@ -432,13 +471,10 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     N, C = idx.shape
     U = plan_slots(N, C, D)
     dead = occurrence_dead(N, C, n_valid, idx.device)
-    flat = idx.masked_fill(dead, D).reshape(-1)
-    s_idx, order = torch.sort(flat, stable=True)
+    s_idx, order, start, seg = _sort_segments(idx.masked_fill(dead, D).reshape(-1))
     g = dl.index_select(0, order // C)
-    start = torch.ones_like(s_idx, dtype=torch.bool)
-    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
-    seg = torch.cumsum(start, 0) - 1
-    sums = _segment_sums(g, seg, U)
+    # the dead sentinel's segment (padding rows) is never read: not summed
+    sums = segment_sum_sorted(g, seg, U, keys=s_idx, n_dims=D)
     # the row of each segment: every occurrence of a segment writes the
     # same value, so the scatter is deterministic with duplicates
     uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)

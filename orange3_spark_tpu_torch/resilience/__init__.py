@@ -1,10 +1,13 @@
 """resilience/ — fault injection, bounded retries and overload protection.
 
-Copies of the JAX package's ``faults``, ``retry`` and ``overload``
-modules, which the serving path stands on (``serve/cache.py`` retries a
-failed build; ``serve/context.py`` admits, sheds and opens breakers).
-``OTPU_RESILIENCE=0`` restores fail-fast behaviour, as there. Not ported
-yet: the dispatch watchdog, the numerics guard and the fit checkpointer.
+Copies of the JAX package's ``faults``, ``retry``, ``overload``,
+``numerics`` and ``watchdog`` modules. The serving path stands on the
+first three (``serve/cache.py`` retries a failed build;
+``serve/context.py`` admits, sheds and opens breakers); the streaming fit
+on all five (``resilient_source`` wraps its source, ``check_finite_training``
+guards each epoch, the watchdog bounds its periodic sync). The fit's
+checkpointer is ``utils/fault.StreamCheckpointer``. ``OTPU_RESILIENCE=0``
+restores fail-fast behaviour, as there.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from orange3_spark_tpu_torch.resilience.faults import (
     active_fault_spec,
     inject_faults,
     resilience_enabled,
+)
+from orange3_spark_tpu_torch.resilience.numerics import (
+    NumericalDivergenceError,
+    check_finite_training,
 )
 from orange3_spark_tpu_torch.resilience.overload import (
     AdaptiveCoalescer,
@@ -30,17 +37,25 @@ from orange3_spark_tpu_torch.resilience.retry import (
     resilient_source,
     retry_call,
 )
+from orange3_spark_tpu_torch.resilience.watchdog import (
+    DispatchWedgedError,
+    dispatch_budget_s,
+)
 
 __all__ = [
     "AdaptiveCoalescer",
     "AdmissionController",
     "CircuitBreaker",
+    "DispatchWedgedError",
     "FaultSpec",
+    "NumericalDivergenceError",
     "OverloadShedError",
     "RetryPolicy",
     "TransientBuildError",
     "TransientSourceError",
     "active_fault_spec",
+    "check_finite_training",
+    "dispatch_budget_s",
     "inject_faults",
     "is_transient",
     "request_deadline",

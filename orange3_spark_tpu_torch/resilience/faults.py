@@ -17,6 +17,10 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   ``fails=-1`` = always fails (the retry-exhaustion pattern).
 * ``slow_source``   straggler chunks: sleep ``delay_ms`` before serving
   targeted ordinals (``every=K`` / ``chunk=N``; every read, no budget).
+* ``wedge``         the ``at=N``-th guarded dispatch sync (1-based) holds
+  for ``hold_s`` seconds (default 3600) before syncing
+  (resilience/watchdog.py): under ``OTPU_DISPATCH_BUDGET_S`` the watchdog
+  raises ``DispatchWedgedError``; without a budget it is a finite stall.
 * ``aot_build``     the first ``fails=N`` AOT builds in the serving
   ``ExecutableCache`` raise ``TransientBuildError`` (optionally only for
   keys whose repr contains ``key=SUBSTR``).
@@ -30,11 +34,10 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   ``after=K`` (default 0) on — the deterministic distribution-shift the
   promotion drift gate must reject before any replica flips.
 
-The JAX package's ``spill_corrupt``, ``wedge``, ``mem_pressure``,
-``label_skew`` and ``trainer_crash`` kinds are not kept: what consumes
-them (the spill's CRC check, the dispatch watchdog, the brownout ladder,
-the label joiner, the online trainer) is not ported, so a spec naming
-them raises here instead of injecting nothing.
+The JAX package's ``spill_corrupt``, ``mem_pressure``, ``label_skew`` and
+``trainer_crash`` kinds are not kept: what consumes them (the spill's CRC
+check, the brownout ladder, the label joiner, the online trainer) is not
+ported, so a spec naming them raises here instead of injecting nothing.
 
 State (per-ordinal fail budgets, sync counters) lives on the ``FaultSpec``
 instance, so a retried read observes the budget already consumed — that is
@@ -80,7 +83,7 @@ class TransientBuildError(RuntimeError):
     """Injected transient AOT-build failure (retryable by contract)."""
 
 
-_KINDS = ("source_io", "slow_source", "aot_build", "overload", "drift")
+_KINDS = ("source_io", "slow_source", "wedge", "aot_build", "overload", "drift")
 
 
 def _record_fault(kind: str) -> None:
@@ -96,7 +99,7 @@ class _Clause:
         self.kind = kind
         self.args = args
         self.fail_left: dict[int, int] = {}   # ordinal -> remaining fails
-        self.sync_seen = 0                    # overload: dispatches seen
+        self.sync_seen = 0                    # wedge/overload: syncs seen
         self.build_fails_done = 0             # aot_build: raises so far
         self.fired = False                    # drift: counter ticked
 
@@ -194,6 +197,17 @@ class FaultSpec:
                 )
 
     # ---------------------------------------------------- dispatch hooks
+    def take_wedge(self) -> float | None:
+        """hold-seconds when THIS guarded dispatch sync should wedge
+        (the Nth sync since the spec was installed), else None."""
+        for c in self._of("wedge"):
+            with self._lock:
+                c.sync_seen += 1
+                if c.sync_seen == int(c._arg("at", 1, cast=int)):
+                    _record_fault("wedge")
+                    return c._arg("hold_s", 3600.0)
+        return None
+
     def take_overload_delay(self) -> float | None:
         """Seconds of injected service delay for THIS serving dispatch
         (the Nth since the spec was installed), else None. ``requests=N``

@@ -1,13 +1,13 @@
 """Overload protection & graceful degradation.
 
-A copy of the JAX package's ``resilience/overload.py``, without three
-parts that wait for what consumes them: the flight-recorder dump of the
-first shed (``obs/flight.auto_dump``, for ``obs/flight.py``: a shed here
-raises, counts and flags its trace, and writes no bundle), the
-process-wide dispatch breaker (``wedge_breaker``, for the dispatch
-watchdog) and the memory-pressure brownout ladder (``brownout_level``,
-``memory_pressure_fraction`` and their ``OTPU_MEM_BUDGET_MB`` /
-``OTPU_MEM_WATERMARKS`` knobs, for the fit's device cache).
+A copy of the JAX package's ``resilience/overload.py``, without two parts
+that wait for what consumes them: the flight-recorder dump of the first
+shed (``obs/flight.auto_dump``, for ``obs/flight.py``: a shed here raises,
+counts and flags its trace, and writes no bundle) and the memory-pressure
+brownout ladder (``brownout_level``, ``memory_pressure_fraction`` and their
+``OTPU_MEM_BUDGET_MB`` / ``OTPU_MEM_WATERMARKS`` knobs, for the fit's
+device cache). The process-wide dispatch breaker (``wedge_breaker``) is
+kept: the dispatch watchdog (resilience/watchdog.py) consumes it.
 
 The paper's Spark substrate survives overload by elastic cluster
 scheduling — a swamped executor just makes the stage slower. A
@@ -66,7 +66,9 @@ __all__ = [
     "OverloadShedError",
     "maybe_injected_service_delay",
     "request_deadline",
+    "reset_wedge_breaker",
     "shed_total",
+    "wedge_breaker",
 ]
 
 log = logging.getLogger("orange3_spark_tpu_torch")
@@ -563,6 +565,30 @@ class CircuitBreaker:
                 self._open_count += 1
                 self._set_state("open")
                 self._opened_at = now
+
+
+# process-wide breaker guarding repeated DispatchWedgedErrors: once a
+# budgeted sync wedges, later guarded syncs fast-fail (typed, ~0 s)
+# instead of each burning the full watchdog budget, until a half-open
+# probe sync completes and re-admits the backend
+_wedge_breaker: CircuitBreaker | None = None
+_wedge_lock = threading.Lock()
+
+
+def wedge_breaker() -> CircuitBreaker:
+    global _wedge_breaker
+    if _wedge_breaker is None:
+        with _wedge_lock:
+            if _wedge_breaker is None:
+                _wedge_breaker = CircuitBreaker("dispatch")
+    return _wedge_breaker
+
+
+def reset_wedge_breaker() -> None:
+    """Drop the process-wide dispatch breaker (tests / post-mortem)."""
+    global _wedge_breaker
+    with _wedge_lock:
+        _wedge_breaker = None
 
 
 # ------------------------------------------------- adaptive coalescing

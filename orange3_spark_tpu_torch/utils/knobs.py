@@ -54,6 +54,9 @@ _ALL = [
     Knob("OTPU_FAULT_SPEC", "str", "", "resilience",
          "Fault-injection spec grammar (docs/resilience.md), e.g. "
          "'source_io:every=7,fails=2'."),
+    Knob("OTPU_DISPATCH_BUDGET_S", "float", 0.0, "resilience",
+         "Watchdog budget for the periodic dispatch sync; 0 = unbounded "
+         "waits (a long compile must never be misread as a wedge)."),
     Knob("OTPU_RETRY_ATTEMPTS", "int", 4, "resilience",
          "Total attempts per transient failure (1 first + N-1 retries)."),
     Knob("OTPU_RETRY_BASE_S", "float", 0.05, "resilience",

@@ -11,10 +11,10 @@ layers tick:
   count: a captured graph is this package's counterpart of a compiled XLA
   executable. The serving builds and the fit's replay (``_Replay``) tick it.
 
-The wedge and spill-CRC counters keep their place in
-``resilience_counters()`` (the JAX package's fields); nothing in this
-package ticks them until the watchdog and the spill's CRC failures report
-here (ROADMAP queue 1 item 12).
+The spill-CRC counter keeps its place in ``resilience_counters()`` (the
+JAX package's field); nothing in this package ticks it until the spill's
+CRC failures report here (ROADMAP queue 1 item 12). The wedge counter is
+ticked by the dispatch watchdog (``record_wedge``).
 """
 
 from __future__ import annotations
@@ -200,6 +200,11 @@ def record_retry(cause: str, wait_s: float = 0.0) -> None:
     _M_RETRIES.inc(1, cause=cause)
     _M_RETRY_WAIT_S.inc(wait_s)
     _trace.instant("retry", cause=cause, wait_s=round(wait_s, 6))
+
+
+def record_wedge() -> None:
+    _M_WEDGES.inc()
+    _trace.instant("wedge")
 
 
 def record_fault(kind: str) -> None:

@@ -354,10 +354,11 @@ def _criteo_fit(device, lowering, path, **kw):
 @pytest.mark.parametrize("rule", ["sparse_adagrad", "sparse_sgd", "dense_adagrad"])
 def test_criteo_fit_on_cuda_matches_cpu_path(cuda_device, tmp_path, rule):
     """The 'sort' lowering on the card against the CPU path's 'plan' and
-    'sort'. CUDA's index_add_ adds with atomics in no fixed order, so theta
-    agrees to float32 rounding of the segment sums carried through the
-    steps: atol 1e-5, rtol 1e-4 (not bitwise). The holdout evaluation of
-    the same theta agrees within 1e-4 in AUC."""
+    'sort'. The segment sums agree bitwise (the kernel adds short segments
+    in the CPU's order), but the card's matmuls, reductions and ``pow``
+    round apart from the CPU's, so theta agrees to float32 rounding carried
+    through the steps: atol 1e-5, rtol 1e-4 (not bitwise). The holdout
+    evaluation of the same theta agrees within 1e-4 in AUC."""
     from orange3_spark_tpu_torch.datasets import gen_criteo_csv
 
     path = str(tmp_path / "criteo.csv")
@@ -436,8 +437,8 @@ def test_packed_decode_on_cuda(cuda_device, bits):
 def test_graph_replay_matches_eager_replay_on_cuda(cuda_device, tmp_path, rule, lowering):
     """A packed, deferred fit whose replay runs as one captured CUDA graph
     against the same fit replayed step by step (``fused_replay=False``) on
-    the card, and against the CPU path: theta within the atomics tolerance
-    (atol 1e-5, rtol 1e-4); the graph replays really ran."""
+    the card, and against the CPU path: theta within the CPU-against-card
+    tolerance (atol 1e-5, rtol 1e-4); the graph replays really ran."""
     from orange3_spark_tpu_torch.datasets import gen_criteo_csv
 
     path = str(tmp_path / "criteo.csv")
@@ -661,3 +662,245 @@ def test_no_cpu_tensor_on_the_served_path(cuda_device):
     assert not on_cpu, on_cpu
     assert any(op.startswith("aten.copy_") and devs == {"cpu", "cuda"}
                for op, devs in mode.ops)
+
+
+# ----------------------------------------------- the deterministic segment sum
+
+def _sorted_segments(dev, M, n_dims, *, dead=0, heavy=0, seed=0):
+    """The 'sort' lowering's inputs on the card: M occurrence keys uniform
+    over ``n_dims`` rows (``heavy`` of them on one row, the last ``dead``
+    on the sentinel ``n_dims``), stably sorted, their segments and
+    gradients."""
+    from orange3_spark_tpu_torch.optim.sparse import _sort_segments
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, n_dims, (M,), generator=gen, device=dev, dtype=torch.int32)
+    if heavy:
+        keys[torch.randperm(M - dead, generator=gen, device=dev)[:heavy]] = n_dims // 2
+    if dead:
+        keys[M - dead:] = n_dims
+    s_idx, order, _, seg = _sort_segments(keys)
+    g = torch.randn((M, 1), generator=gen, device=dev).index_select(0, order)
+    return g, seg, s_idx
+
+
+@pytest.mark.cuda
+def test_segment_sum_walk_max_matches_kernel(cuda_device):
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    assert ss._lib().segment_sum_walk_max() == ss.WALK_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n_dims,dead", [(6_815_744, 1 << 22, 0),
+                                           (1_000_003, 1 << 16, 26_000),
+                                           (31, 1 << 10, 0), (5000, 64, 100)])
+def test_segment_sum_repeats_bitwise_and_keeps_the_cpu_order(cuda_device, M, n_dims, dead):
+    """Five launches give the same bits; every segment of at most WALK_MAX
+    rows equals the plain version on the CPU (index order) bit for bit,
+    longer ones within 1e-6·Σ|g| of a float64 sum; the dead segment is
+    +0.0; against the plain version on the card (float atomics) within
+    float32 rounding."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    g, seg, keys = _sorted_segments(cuda_device, M, n_dims, dead=dead)
+    n_slots = min(M, n_dims) + 1
+    runs = [ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+            for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    got = runs[0].cpu()
+    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, keys=keys.cpu(),
+                                          n_dims=n_dims)
+    rows = torch.bincount(seg.cpu(), minlength=n_slots)[:n_slots]
+    short = rows <= ss.WALK_MAX
+    assert torch.equal(got[short], cpu[short])
+    f64, sum_abs = (ss.segment_sum_sorted_reference(x, seg.cpu(), n_slots, keys=keys.cpu(),
+                                                    n_dims=n_dims)
+                    for x in (g.cpu().double(), g.cpu().double().abs()))
+    long_ok = ((got.double() - f64).abs() <= 1e-6 * sum_abs)[:, 0]
+    assert bool(long_ok[~short].all())
+    card = ss.segment_sum_sorted_reference(g, seg, n_slots, keys=keys, n_dims=n_dims).cpu()
+    torch.testing.assert_close(got, card, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_sum_long_segment_within_tolerance(cuda_device):
+    """A heavy hitter of 2^20 occurrences, summed by one block in a fixed
+    order: within 1e-6·Σ|g| of the float64 sum, and the same bits twice."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    M, n_dims = 3_000_000, 1 << 20
+    g, seg, keys = _sorted_segments(cuda_device, M, n_dims, heavy=1 << 20, seed=4)
+    n_slots = n_dims + 1
+    a = ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    b = ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    assert torch.equal(a, b)
+    rows = torch.bincount(seg, minlength=n_slots)[:n_slots]
+    assert int(rows.max()) >= 1 << 20
+    f64 = torch.zeros((n_slots, 1), dtype=torch.float64, device=cuda_device).index_add_(
+        0, seg, g.double())
+    sum_abs = torch.zeros_like(f64).index_add_(0, seg, g.double().abs())
+    assert bool(((a.double() - f64).abs() <= 1e-6 * sum_abs).all())
+
+
+@pytest.mark.cuda
+def test_segment_sum_in_a_captured_graph_equals_eager(cuda_device):
+    """Launched inside a CUDA graph (no host sync in the wrapper), the
+    kernel's replayed output equals its eager launch, twice."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    g, seg, keys = _sorted_segments(cuda_device, 500_000, 1 << 18, dead=1000, heavy=5000)
+    n_slots = (1 << 18) + 1
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=1 << 18)
+    eager = run()
+    graph, static, _ = capture_graph(run, cuda_device)
+    for _ in range(2):
+        static.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, eager)
+
+
+@pytest.mark.cuda
+def test_segment_sum_int32_segments_with_gaps_and_columns(cuda_device):
+    """int32 segment ids that skip slots (the gaps hold +0.0) and k = 3
+    columns: bitwise the CPU's sums."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    rng = np.random.default_rng(6)
+    seg = np.sort(rng.integers(0, 50_000, 200_000)) * 2 + 1
+    g = rng.standard_normal((200_000, 3)).astype(np.float32)
+    n_slots = int(seg[-1]) + 5
+    got = ss.segment_sum_sorted(torch.from_numpy(g).to(cuda_device),
+                                torch.from_numpy(seg.astype(np.int32)).to(cuda_device),
+                                n_slots).cpu()
+    want = torch.zeros((n_slots, 3)).index_add_(0, torch.from_numpy(seg), torch.from_numpy(g))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,n_rows", [(4096, 26, 1 << 14), (1000, 6, 16)])
+def test_dense_table_grad_on_cuda_equals_cpu(cuda_device, N, C, n_rows):
+    """The dense table gradient (adam, the dense twins) on the card: the
+    same bits on every call, and the CPU's ``index_add_`` bits wherever a
+    row has at most WALK_MAX occurrences (every row here but the 16-row
+    table's)."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.optim.sparse import dense_table_grad
+
+    rng = np.random.default_rng(N)
+    idx = torch.from_numpy(rng.integers(0, n_rows, (N, C)).astype(np.int32))
+    dl = torch.from_numpy(rng.standard_normal((N, 1)).astype(np.float32))
+    want = dense_table_grad(idx, dl, n_rows)
+    a = dense_table_grad(idx.to(cuda_device), dl.to(cuda_device), n_rows)
+    b = dense_table_grad(idx.to(cuda_device), dl.to(cuda_device), n_rows)
+    assert torch.equal(a, b)
+    rows = torch.bincount(idx.reshape(-1).long(), minlength=n_rows)
+    short = rows <= ss.WALK_MAX
+    assert torch.equal(a.cpu()[short], want[short])
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _packed_fit(path, dev, ck=None, **kw):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+
+    params = dict(n_dims=1 << 16, n_dense=13, n_cat=26, chunk_rows=1024, epochs=6,
+                  step_size=0.04, reg_param=1e-5, label_in_chunk=True,
+                  optim_update="sparse_adagrad", cache_dtype="packed", defer_epoch1=True,
+                  replay_granularity="epoch")
+    params.update(kw)
+    return StreamingHashedLinearEstimator(**params).fit_stream(
+        csv_raw_chunk_source(path, chunk_rows=1000), session=TorchSession(dev),
+        cache_device=True, holdout_chunks=1, checkpointer=ck)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sparse_adagrad", "adam"])
+def test_two_fits_on_cuda_give_the_same_bits(cuda_device, tmp_path, rule):
+    """Two identical packed, deferred fits on the card (the replay a
+    captured graph) give the same theta bit for bit: no sum of the step
+    adds in a run-dependent order any more."""
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+
+    path = str(tmp_path / "criteo.csv")
+    gen_criteo_csv(path, 9000, seed=3)
+    a = _packed_fit(path, "cuda", optim_update=rule)
+    b = _packed_fit(path, "cuda", optim_update=rule)
+    for k in a.theta:
+        assert torch.equal(a.theta[k], b.theta[k]), k
+    assert a.final_loss_ == b.final_loss_
+
+
+@pytest.mark.cuda
+def test_killed_and_resumed_fit_on_cuda_is_bitwise(cuda_device, tmp_path):
+    """The defer + epoch-granularity drill on the card: killed after its 3rd
+    epoch snapshot (mid-replay), a fresh estimator resumes from the
+    snapshot, copying it into the tensors the captured graph reads, and
+    lands on the uninterrupted fit's theta, optimizer state at the last
+    snapshot and step count, bitwise."""
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer, host_tree
+
+    class Killed(RuntimeError):
+        pass
+
+    class Recorder(StreamCheckpointer):
+        def __init__(self, path, die_after=None):
+            super().__init__(path, every_steps=8)
+            self.saves, self.die_after = {}, die_after
+
+        def save(self, step, state, meta=None):
+            super().save(step, state, meta)
+            self.saves[step] = host_tree(state)
+            if self.die_after and len(self.saves) >= self.die_after:
+                raise Killed
+
+    path = str(tmp_path / "criteo.csv")
+    gen_criteo_csv(path, 9000, seed=3)
+    clean_ck = Recorder(str(tmp_path / "clean.ckpt"))
+    clean = _packed_fit(path, "cuda", clean_ck)
+    ck_path = str(tmp_path / "killed.ckpt")
+    with pytest.raises(Killed):
+        _packed_fit(path, "cuda", Recorder(ck_path, die_after=3))
+    assert StreamCheckpointer(ck_path).load()[0] == 24
+    resumed_ck = Recorder(ck_path)
+    resumed = _packed_fit(path, "cuda", resumed_ck)
+    for k in clean.theta:
+        assert torch.equal(resumed.theta[k], clean.theta[k]), k
+    assert resumed.n_steps_ == clean.n_steps_ == 48
+    last = max(clean_ck.saves)
+    assert last == 48 and last in resumed_ck.saves
+
+    def equal(a, b):
+        for k in a:
+            if isinstance(a[k], dict):
+                equal(a[k], b[k])
+            else:
+                assert np.array_equal(a[k], b[k]), k
+
+    equal(resumed_ck.saves[last], clean_ck.saves[last])
+
+
+@pytest.mark.cuda
+def test_tree_sums_repeat_bitwise_on_cuda(cuda_device):
+    """The forest's leaf sums and importances go through the fixed-point
+    kernel on the card: two forests from the same draws, with float
+    (variance) stats, are equal bit for bit."""
+    X, y = make_higgs_proxy(20_000, seed=3)
+    rng = np.random.default_rng(3)
+    boot = torch.from_numpy(rng.poisson(1.0, (4, len(X))).astype(np.float32)).to(cuda_device)
+    keep = torch.ones((4, 4, 28), device=cuda_device)
+    Xt = torch.from_numpy(X).to(cuda_device)
+    W = torch.ones(len(X), device=cuda_device)
+    edges = _tree.compute_bin_edges(Xt, W, 32)
+    B = _tree.compact_bins(_tree.bin_features(Xt, edges), 32)
+    yt = torch.from_numpy(y).to(cuda_device) * 3.7 + 0.1
+    runs = [grow_forest(B, edges, _tree.regression_stats(yt), W, boot, keep, 0.0, depth=4,
+                        n_bins=32, gain_mode="variance", min_instances=1.0)
+            for _ in range(2)]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -51,7 +51,7 @@ def _default_knobs(monkeypatch):
               "OTPU_RESILIENCE", "OTPU_FAULT_SPEC",
               "OTPU_MB_ADAPT", "OTPU_BREAKER_COOLDOWN_S", "OTPU_TENANCY",
               "OTPU_TENANT_SPEC", "OTPU_TENANT_DEFAULT_WEIGHT", "OTPU_TENANT_RATE",
-              "OTPU_TENANT_BURST", "OTPU_ONLINE"):
+              "OTPU_TENANT_BURST", "OTPU_ONLINE", "OTPU_DISPATCH_BUDGET_S"):
         monkeypatch.delenv(k, raising=False)
 
 
@@ -70,7 +70,7 @@ def test_knobs_keep_the_reference_names_and_defaults():
             "OTPU_RESILIENCE", "OTPU_RETRY_ATTEMPTS", "OTPU_MB_DEADLINE_S",
             "OTPU_ADMISSION_MAX_INFLIGHT", "OTPU_BREAKER_THRESHOLD", "OTPU_MB_ADAPT",
             "OTPU_TENANCY", "OTPU_TENANT_SPEC", "OTPU_TENANT_DEFAULT_WEIGHT",
-            "OTPU_TENANT_RATE", "OTPU_TENANT_BURST", "OTPU_ONLINE"}
+            "OTPU_TENANT_RATE", "OTPU_TENANT_BURST", "OTPU_ONLINE", "OTPU_DISPATCH_BUDGET_S"}
     assert read <= set(t_knobs.KNOBS)
 
 
@@ -267,16 +267,29 @@ def test_fault_spec_grammar_equals_reference():
         t_faults.FaultSpec.parse("no_such_kind:fails=1")
 
 
-@pytest.mark.parametrize("kind", ["spill_corrupt:record=1", "wedge:at=2",
-                                  "mem_pressure:frac=0.9", "label_skew:flip=0.5",
-                                  "trainer_crash:at=1"])
+@pytest.mark.parametrize("kind", ["spill_corrupt:record=1", "mem_pressure:frac=0.9",
+                                  "label_skew:flip=0.5", "trainer_crash:at=1"])
 def test_fault_kinds_without_a_consumer_raise(kind):
     """Kinds whose consumer is not ported (the spill's CRC check, the
-    watchdog, the brownout ladder, the label joiner, the online trainer)
-    raise instead of injecting nothing; the JAX package parses them."""
+    brownout ladder, the label joiner, the online trainer) raise instead of
+    injecting nothing; the JAX package parses them."""
     j_faults.FaultSpec.parse(kind)
     with pytest.raises(ValueError, match="unknown fault kind"):
         t_faults.FaultSpec.parse(kind)
+
+
+@pytest.mark.parametrize("spec", ["wedge:at=2,hold_s=0.5", "wedge", "wedge:at=1;overload"])
+def test_wedge_kind_parses_and_is_consumed_like_the_reference(spec):
+    """``wedge`` has its consumer now (the dispatch watchdog): it parses,
+    and ``take_wedge`` fires on the ``at``-th guarded sync only, with the
+    reference's hold and counters."""
+    j, t = j_faults.FaultSpec.parse(spec), t_faults.FaultSpec.parse(spec)
+    assert [(c.kind, c.args) for c in t.clauses] == [(c.kind, c.args) for c in j.clauses]
+    before = t_prof.resilience_counters()["faults_by_kind"].get("wedge", 0)
+    got = [t.take_wedge() for _ in range(4)]
+    assert got == [j.take_wedge() for _ in range(4)]
+    assert sum(h is not None for h in got) == 1
+    assert t_prof.resilience_counters()["faults_by_kind"]["wedge"] == before + 1
 
 
 # ---------------------------------------------------------------- tenancy
@@ -507,3 +520,99 @@ def test_spans_take_a_profiler_range_only_while_a_profiler_records():
     names = [e[1] for e in t_trace.events()]
     assert {"serve_test_no_profiler", "serve_test_profiled"} <= set(names)
     assert any(e.name == "serve_test_profiled" for e in prof.events())
+
+
+# ------------------------------------------------- the streaming fit's recovery
+def _hashed_data(n=4096, seed=4):
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n, 4)).astype(np.float32)
+    cats = rng.integers(0, 40, (n, 6)).astype(np.float32)
+    y = (dense[:, 0] + 0.3 * (cats[:, 0] % 3) + 0.3 * rng.standard_normal(n) > 0)
+    return np.concatenate([dense, cats], axis=1), y.astype(np.float32)
+
+
+def _hashed_fit(X, y, chunk_rows, *, checkpointer=None, stage_times=None, cache=True,
+                **kw):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+
+    est = StreamingHashedLinearEstimator(**{
+        "n_dims": 1 << 10, "n_dense": 4, "n_cat": 6, "epochs": 3, "step_size": 0.05,
+        "chunk_rows": chunk_rows, "optim_update": "sparse_adagrad", **kw})
+    return est.fit_stream(array_chunk_source(X, y, chunk_rows=chunk_rows),
+                          session=TorchSession("cpu"), cache_device=cache,
+                          checkpointer=checkpointer, stage_times=stage_times)
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_hashed_fit_recovers_from_source_faults_bitwise(monkeypatch, defer):
+    """bench.py's fault protocol on the port's hashed fit: transient reads
+    (every 7th chunk fails twice) and stragglers are absorbed by
+    ``resilient_source``, and the fit equals the clean one bit for bit."""
+    monkeypatch.setenv("OTPU_RETRY_BASE_S", "0.001")
+    X, y = _hashed_data()
+    kw = dict(defer_epoch1=defer)
+    clean = _hashed_fit(X, y, 256, **kw)
+    st: dict = {}
+    with t_faults.inject_faults("source_io:every=7,fails=2;slow_source:every=8,delay_ms=5"):
+        faulted = _hashed_fit(X, y, 256, stage_times=st, **kw)
+    assert st["retries"] == 4          # ordinals 6 and 13 of 16, twice each
+    for k in clean.theta:
+        assert torch.equal(faulted.theta[k], clean.theta[k]), k
+    assert faulted.n_steps_ == clean.n_steps_
+    monkeypatch.setenv("OTPU_RESILIENCE", "0")     # fail-fast: the fault surfaces
+    with t_faults.inject_faults("source_io:every=7,fails=2"):
+        with pytest.raises(t_faults.TransientSourceError):
+            _hashed_fit(X, y, 256, **kw)
+
+
+@pytest.mark.parametrize("path", ["per_chunk", "epoch_replay"])
+def test_nan_raises_typed_and_writes_no_snapshot(monkeypatch, tmp_path, path):
+    """An Inf feature makes the first step's loss non-finite: the epoch
+    guard raises ``NumericalDivergenceError`` naming epoch 0, before the
+    epoch snapshot, so no NaN state reaches the disk (the JAX package's
+    ``tests/test_criteo_tsv.py`` pins the same). Under the kill-switch the
+    fit trains to NaN, as there."""
+    from orange3_spark_tpu_torch.resilience import NumericalDivergenceError
+    from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer
+
+    X, y = _hashed_data()
+    X[3, 1] = np.inf
+    kw = (dict(cache=False, checkpoint_every_epochs=1) if path == "per_chunk" else
+          dict(defer_epoch1=True, replay_granularity="epoch"))
+    ck = StreamCheckpointer(str(tmp_path / "nan.ckpt"), every_steps=4)
+    with pytest.raises(NumericalDivergenceError, match="epoch 0") as e:
+        _hashed_fit(X, y, 512, checkpointer=ck, **kw)
+    assert e.value.what == "loss"
+    assert not (tmp_path / "nan.ckpt").exists()
+    monkeypatch.setenv("OTPU_RESILIENCE", "0")
+    model = _hashed_fit(X, y, 512, **kw)
+    assert not np.isfinite(model.final_loss_)
+
+
+def test_wedged_sync_raises_typed_within_its_budget(monkeypatch):
+    """``wedge:at=1,hold_s=30`` under a 0.25 s budget: the first guarded
+    sync of a 32-step eager fit (``bound_dispatch`` waits every 4th step at
+    prefetch depth 2) holds on the monitor thread, and the fit raises
+    ``DispatchWedgedError`` within about a second instead of hanging."""
+    import time
+
+    from orange3_spark_tpu_torch.resilience import DispatchWedgedError
+    from orange3_spark_tpu_torch.resilience.overload import reset_wedge_breaker
+
+    X, y = _hashed_data()
+    monkeypatch.setenv("OTPU_DISPATCH_BUDGET_S", "0.25")
+    before = t_prof.resilience_counters()["wedges"]
+    reset_wedge_breaker()
+    try:
+        with t_faults.inject_faults("wedge:at=1,hold_s=30"):
+            t0 = time.perf_counter()
+            with pytest.raises(DispatchWedgedError) as e:
+                _hashed_fit(X, y, 128, cache=False, epochs=1)
+            waited = time.perf_counter() - t0
+        assert waited < 1.5, waited
+        assert e.value.step == 4 and e.value.budget_s == 0.25
+        assert t_prof.resilience_counters()["wedges"] == before + 1
+    finally:
+        reset_wedge_breaker()
