@@ -73,7 +73,7 @@ segment sum of the touched-row update (``ops/csrc/segment_sum.cu``):
                   cached chunk): five launches bitwise equal, against its
                   plain version on the card (max |err|: float atomics) and
                   on a CPU copy (bitwise on every segment of at most
-                  WALK_MAX rows), captured against eager, one 2^20-row
+                  ``walk_max()`` rows), captured against eager, one 2^20-row
                   segment within 1e-6·Σ|g|; its time beside the bound,
                   the plain version, ``index_add_`` and ``index_add_``
                   under deterministic mode (and whether a graph captures it)
@@ -996,13 +996,10 @@ def phase_criteo(path, rows, epochs, sess):
     line = {"rows": rows, "train_rows": train_rows, "holdout_rows": holdout_rows,
             "epochs": epochs, "cached_chunks": len(model.device_chunks_),
             "steps": model.n_steps_, "fit_s": fit_s, "eval_s": eval_s,
-            # the wrapper's count: one launch a step, the capture's warm
-            # step and the captured epoch's; the graph runs its launches
-            # once a replay
+            # the wrapper's count: one launch a step it runs eagerly or
+            # records into the captured epoch (a graph replay re-runs the
+            # recorded launches without the wrapper, so it counts none)
             "segment_sum_launches": seg_launches,
-            "segment_sum_runs": (seg_launches - len(model.device_chunks_)
-                                 + len(model.device_chunks_) * n_rep
-                                 if st.get("replay_fused_s") else seg_launches),
             "value": rows / (fit_s + eval_s) / 1,
             "train_rows_x_epochs_per_sec": train_rows * epochs / fit_s,
             "pure_step_ms": pure_step_ms, "pure_step_probe_steps": 20,
@@ -1377,7 +1374,8 @@ def _step_segment_inputs(model, sess):
     """The arguments one step of the fit passes to ``segment_sum_sorted``
     on its first cached chunk, from fresh optimizer state and the fitted
     theta: recorded by wrapping the function the step calls, so they are
-    the step's own (the sorted gradients, segments, keys, slot count)."""
+    the step's own (the sorted gradients, segments, slot count, the flag
+    that skips the dead segment)."""
     from orange3_spark_tpu_torch.models.hashed_linear import _step_into
     from orange3_spark_tpu_torch.optim import sparse
 
@@ -1396,7 +1394,7 @@ def _step_segment_inputs(model, sess):
         sparse.segment_sum_sorted = real
     sess.synchronize()
     (g, seg, n_slots), kws = seen[0]
-    return g, seg, n_slots, kws.get("keys"), kws.get("n_dims")
+    return g, seg, n_slots, kws.get("skip_last")
 
 
 def _time_deterministic_index_add(g, seg, n_slots):
@@ -1434,7 +1432,7 @@ def phase_segment_sum(inputs, mem_bw):
     """``segment_sum_sorted`` on the card at the step's inputs: five
     launches bitwise equal; against its plain version on the card
     (``index_add_`` with float atomics: max |err|) and on a CPU copy (the
-    index order: bitwise on every segment of at most ``WALK_MAX`` rows);
+    index order: bitwise on every segment of at most ``walk_max()`` rows);
     a captured launch against the eager one; one segment of 2^20 rows
     (summed by a block) within 1e-6·Σ|g| of the float64 sum. Times of the
     kernel, the plain version, the library call (``index_add_`` alone)
@@ -1444,19 +1442,18 @@ def phase_segment_sum(inputs, mem_bw):
     from orange3_spark_tpu_torch.ops import segment_sum as ss
     from orange3_spark_tpu_torch.utils.graphs import capture_graph
 
-    g, seg, n_slots, keys, n_dims = inputs
-    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    g, seg, n_slots, skip = inputs
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip)
     outs = [run() for _ in range(5)]
     torch.cuda.synchronize()
     got = outs[0]
     deterministic = all(torch.equal(got, o) for o in outs[1:])
-    plain = ss.segment_sum_sorted_reference(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    plain = ss.segment_sum_sorted_reference(g, seg, n_slots, skip_last=skip)
     max_abs_err = float((got - plain).abs().max())
     cpu = ss.segment_sum_sorted_reference(
-        g.cpu(), seg.cpu(), n_slots, keys=None if keys is None else keys.cpu(),
-        n_dims=n_dims)
+        g.cpu(), seg.cpu(), n_slots, skip_last=None if skip is None else skip.cpu())
     seg_rows = torch.bincount(seg, minlength=n_slots)[:n_slots].cpu()
-    short = seg_rows <= ss.WALK_MAX
+    short = seg_rows <= ss.walk_max()
     cpu_mismatch = int((got.cpu() != cpu)[short].sum())
     graph, static, _ = capture_graph(run, g.device)
     graph.replay()
@@ -1483,14 +1480,16 @@ def phase_segment_sum(inputs, mem_bw):
 
     ms = cuda_ms(run, 20)
     plain_ms = cuda_ms(lambda: ss.segment_sum_sorted_reference(
-        g, seg, n_slots, keys=keys, n_dims=n_dims), 20)
+        g, seg, n_slots, skip_last=skip), 20)
     library_ms = cuda_ms(lambda: torch.zeros((n_slots, g.shape[1]), device=g.device)
                          .index_add_(0, seg, g), 20)
+    # each input read once (g, the segment ids, the one-byte skip flag),
+    # the output written once
     n_bytes = (g.numel() * 4 + seg.numel() * seg.element_size() + n_slots * g.shape[1] * 4
-               + (0 if keys is None else keys.numel() * keys.element_size()))
+               + (0 if skip is None else skip.numel()))
     bytes_ms = n_bytes / mem_bw * 1e3
     line = {"M": g.shape[0], "k": g.shape[1], "n_slots": n_slots,
-            "seg_dtype": str(seg.dtype), "keys": keys is not None,
+            "seg_dtype": str(seg.dtype), "skip_last": None if skip is None else bool(skip),
             "segments": int((seg_rows > 0).sum()), "max_segment_rows": int(seg_rows.max()),
             "deterministic": deterministic, "max_abs_err": max_abs_err,
             "cpu_order_mismatches": cpu_mismatch, "graph_equal_eager": graph_equal,
@@ -1501,7 +1500,7 @@ def phase_segment_sum(inputs, mem_bw):
             "bytes": n_bytes, "bound_ms": bytes_ms, "bound_by": "bytes",
             "tolerance": "max_abs_err against the card's atomic index_add_ is float32 "
                          "rounding of its run-dependent order; bitwise against the CPU's "
-                         "index order on segments of at most WALK_MAX rows"}
+                         "index order on segments of at most walk_max() rows"}
     if not (deterministic and graph_equal and cpu_mismatch == 0 and long_ok
             and long_repeat):
         raise AssertionError(f"segment_sum_sorted failed its checks: {line}")
@@ -2184,7 +2183,6 @@ def main(argv=None) -> int:
             # no Pallas kernel: the XLA segment sum of the touched-row update
             "replaces": "orange3_spark_tpu/optim/sparse.py:435",
             "launches": criteo_line["segment_sum_launches"],
-            "runs_in_replayed_graphs": criteo_line["segment_sum_runs"],
             "max_abs_err": seg_line["max_abs_err"],
             "deterministic": seg_line["deterministic"],
             "ms": seg_line["ms"], "plain_ms": seg_line["plain_ms"],

@@ -9,10 +9,10 @@
 //
 //   g     f32[M, k]      per-occurrence gradients in stable-sorted order
 //   seg   i32 or i64[M]  segment of each row, non-decreasing from 0
-//   keys  i32 or i64[M]  optional: the sorted table row of each occurrence;
-//                        a segment whose key is >= n_dims (the dead
-//                        sentinel of padding rows) is not summed, its
-//                        slot holds +0.0 (nothing reads it)
+//   skip_last  u8[1]     optional: when nonzero the last segment (the dead
+//                        sentinel's, which sorts last, in a chunk with
+//                        padding rows) is not summed; its slot holds +0.0
+//                        (nothing reads it)
 //   out   f32[n_slots, k]; a slot with no row holds +0.0
 //
 // Order of the adds. No float atomics: every sum is taken by one thread,
@@ -52,9 +52,7 @@ struct Args {
   const float* g;
   const void* seg;
   int seg_bytes;
-  const void* keys;   // null: no dead segment to skip
-  int keys_bytes;
-  long long n_dims;
+  const unsigned char* skip_last;   // null: every segment is summed
   long long M;
   int k;
   long long n_slots;
@@ -74,14 +72,15 @@ __device__ __forceinline__ void zero_slot(const Args& a, long long j) {
 
 __global__ void __launch_bounds__(kThreads) seg_sum_walk(Args a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t < a.n_slots && t > load_index(a.seg, a.seg_bytes, a.M - 1)) zero_slot(a, t);
+  const long long last = load_index(a.seg, a.seg_bytes, a.M - 1);
+  if (t < a.n_slots && t > last) zero_slot(a, t);
   if (t >= a.M) return;
   const long long s = load_index(a.seg, a.seg_bytes, t);
   const long long prev = t == 0 ? -1 : load_index(a.seg, a.seg_bytes, t - 1);
   if (s == prev) return;                       // not the first row of its segment
   for (long long j = prev + 1; j < s && j < a.n_slots; ++j) zero_slot(a, j);
   if (s >= a.n_slots) return;                  // the caller's slots end before it
-  if (a.keys != nullptr && load_index(a.keys, a.keys_bytes, t) >= a.n_dims) {
+  if (s == last && a.skip_last != nullptr && *a.skip_last != 0) {
     zero_slot(a, s);                           // the dead segment: never read
     return;
   }
@@ -134,16 +133,15 @@ extern "C" int segment_sum_walk_max() { return kWalkMax; }
 // least M / (kWalkMax + 1) entries; n_long is one int, zeroed here. out is
 // written whole. Allocates nothing and does not synchronise.
 extern "C" int segment_sum_sorted_launch(const float* g, const void* seg, int seg_bytes,
-                                         const void* keys, int keys_bytes, long long n_dims,
+                                         const unsigned char* skip_last,
                                          long long M, int k, long long n_slots, float* out,
                                          long long* long_starts, int* n_long,
                                          int long_blocks, void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (M < 1 || k < 1 || n_slots < 1 || (seg_bytes != 4 && seg_bytes != 8) ||
-      (keys != nullptr && keys_bytes != 4 && keys_bytes != 8) || long_blocks < 0)
+      long_blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{g, seg, seg_bytes, keys, keys_bytes, n_dims, M, k, n_slots, out,
-               long_starts, n_long};
+  const Args a{g, seg, seg_bytes, skip_last, M, k, n_slots, out, long_starts, n_long};
   cudaError_t e = cudaMemsetAsync(n_long, 0, sizeof(int), cs);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long threads = M > n_slots ? M : n_slots;

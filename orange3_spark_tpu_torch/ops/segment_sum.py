@@ -11,43 +11,40 @@ atomics: each sum in an order fixed by the data) and a CPU tensor the plain
 version, ``segment_sum_sorted_reference``. There is no switch between them:
 the device of the tensors decides, and a failed build or launch raises.
 
-Which sums equal the CPU's bit for bit: a segment of at most ``WALK_MAX``
-rows is added by one thread in sorted order from +0.0, the order of the
-CPU's ``index_add_``. A longer one is added by one block (strided partials,
-then a fixed tree), deterministic but within float32 rounding of the CPU's
-sum. Segment ids past ``n_slots`` are dropped by the kernel (the plain
-version raises on them).
+Which sums equal the CPU's bit for bit: a segment of at most
+``walk_max()`` rows (the kernel's ``kWalkMax``, 32) is added by one thread
+in sorted order from +0.0, the order of the CPU's ``index_add_``. A longer
+one is added by one block (strided partials, then a fixed tree),
+deterministic but within float32 rounding of the CPU's sum. Segment ids
+past ``n_slots`` are dropped by the kernel (the plain version raises on
+them).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from orange3_spark_tpu_torch.ops import cuda_build
 
-#: rows a segment may have and still be summed in the CPU's order
-#: (``kWalkMax`` of csrc/segment_sum.cu, checked against it on the card)
-WALK_MAX = 32
 #: blocks of the long-segment pass: two per SM of an H100 (1024 threads each)
 _LONG_BLOCKS_PER_SM = 2
 
 
-def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *, keys=None,
-                                 n_dims: int | None = None) -> torch.Tensor:
+def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *,
+                                 skip_last=None) -> torch.Tensor:
     """Plain PyTorch version: ``index_add_`` into zeros, which on the CPU
-    adds a segment's rows in index order. With ``keys`` and ``n_dims`` the
-    dead segment (keys >= n_dims) holds +0.0, as the kernel leaves it."""
+    adds a segment's rows in index order. Where ``skip_last`` is true the
+    last segment's slot holds +0.0, as the kernel leaves it."""
     out = torch.zeros((n_slots,) + tuple(g_sorted.shape[1:]), dtype=g_sorted.dtype,
                       device=g_sorted.device)
     out.index_add_(0, seg, g_sorted)
-    if keys is not None:
-        # every row of a segment has the same key, so the scatter's
-        # duplicates agree
-        dead = torch.zeros(n_slots, dtype=torch.bool, device=out.device).scatter_(
-            0, seg, keys >= n_dims)
-        out = torch.where(dead.view((n_slots,) + (1,) * (out.ndim - 1)), 0.0, out)
+    if skip_last is not None:
+        last = seg[-1:]
+        flag = skip_last.reshape((1,) * out.ndim)
+        out.index_copy_(0, last, torch.where(flag, 0.0, out.index_select(0, last)))
     return out
 
 
@@ -56,8 +53,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.segment_sum_sorted_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 3
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.segment_sum_error_string.argtypes = [ctypes.c_int]
@@ -67,29 +64,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _segment_sum_cuda(g_sorted, seg, n_slots: int, keys, n_dims):
+@functools.cache
+def walk_max() -> int:
+    """Rows a segment may have and still be summed in the CPU's order: the
+    kernel's ``kWalkMax`` (builds the kernel on first use)."""
+    return _lib().segment_sum_walk_max()
+
+
+def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last):
     dev = g_sorted.device
     if g_sorted.dtype != torch.float32 or g_sorted.ndim != 2 or not g_sorted.is_contiguous():
         raise ValueError(f"segment_sum_sorted: g_sorted must be a contiguous float32 "
                          f"[M, k] tensor, got {g_sorted.dtype} {tuple(g_sorted.shape)}")
     M, k = g_sorted.shape
-    for name, x in (("seg", seg), ("keys", keys)):
-        if x is None:
-            continue
-        if (x.device != dev or x.dtype not in (torch.int32, torch.int64)
-                or x.shape != (M,) or not x.is_contiguous()):
-            raise ValueError(
-                f"segment_sum_sorted: {name} must be a contiguous int32 or int64 [{M}] "
-                f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if keys is not None and n_dims is None:
-        raise ValueError("segment_sum_sorted: keys need n_dims")
+    if (seg.device != dev or seg.dtype not in (torch.int32, torch.int64)
+            or seg.shape != (M,) or not seg.is_contiguous()):
+        raise ValueError(
+            f"segment_sum_sorted: seg must be a contiguous int32 or int64 [{M}] "
+            f"tensor on {dev}, got {seg.dtype} {tuple(seg.shape)} on {seg.device}")
+    if skip_last is not None and (skip_last.device != dev or skip_last.dtype != torch.bool
+                                  or skip_last.numel() != 1):
+        raise ValueError(
+            f"segment_sum_sorted: skip_last must be one bool on {dev}, got "
+            f"{skip_last.dtype} {tuple(skip_last.shape)} on {skip_last.device}")
     out = torch.empty((n_slots, k), dtype=torch.float32, device=dev)
     if M == 0 or k == 0 or n_slots == 0:
         return out.zero_()
-    long_starts = torch.empty(M // (WALK_MAX + 1) + 1, dtype=torch.int64, device=dev)
+    wmax = walk_max()
+    long_starts = torch.empty(M // (wmax + 1) + 1, dtype=torch.int64, device=dev)
     n_long = torch.empty(1, dtype=torch.int32, device=dev)
     long_blocks = 0
-    if M > WALK_MAX:
+    if M > wmax:
         long_blocks = (_LONG_BLOCKS_PER_SM
                        * torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
@@ -97,9 +102,8 @@ def _segment_sum_cuda(g_sorted, seg, n_slots: int, keys, n_dims):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segment_sum_sorted_launch(
             g_sorted.data_ptr(), seg.data_ptr(), seg.element_size(),
-            None if keys is None else keys.data_ptr(),
-            0 if keys is None else keys.element_size(),
-            0 if n_dims is None else int(n_dims), M, k, n_slots, out.data_ptr(),
+            None if skip_last is None else skip_last.data_ptr(), M, k, n_slots,
+            out.data_ptr(),
             long_starts.data_ptr(), n_long.data_ptr(), long_blocks, stream)
     if err != 0:
         msg = lib.segment_sum_error_string(err).decode()
@@ -109,21 +113,20 @@ def _segment_sum_cuda(g_sorted, seg, n_slots: int, keys, n_dims):
     return out
 
 
-def segment_sum_sorted(g_sorted, seg, n_slots: int, *, keys=None,
-                       n_dims: int | None = None) -> torch.Tensor:
+def segment_sum_sorted(g_sorted, seg, n_slots: int, *, skip_last=None) -> torch.Tensor:
     """Per-segment sums of sorted rows: f32[n_slots, k], slot ``j`` the sum
     of the rows of ``g_sorted`` (f32[M, k], in stable-sorted order) whose
     ``seg`` (i32 or i64[M], non-decreasing from 0) is ``j``; a slot with no
-    row holds +0.0. ``keys`` (the sorted table row of each occurrence) and
-    ``n_dims``: the dead segment, whose key is ``n_dims`` or more, is not
-    summed and holds +0.0. Runs on the tensors' device, without waiting for
-    it, so a captured graph can hold the launch."""
+    row holds +0.0. ``skip_last``: one bool on the tensors' device, read
+    there; when true the last segment (the dead sentinel's, which sorts
+    last) is not summed and its slot holds +0.0. Runs on the tensors'
+    device, without waiting for it, so a captured graph can hold the
+    launch."""
     if g_sorted.device.type == "cpu":
-        return segment_sum_sorted_reference(g_sorted, seg, n_slots, keys=keys,
-                                            n_dims=n_dims)
+        return segment_sum_sorted_reference(g_sorted, seg, n_slots, skip_last=skip_last)
     if g_sorted.device.type == "cuda":
         with torch.profiler.record_function("segment_sum_sorted"):
-            return _segment_sum_cuda(g_sorted, seg, n_slots, keys, n_dims)
+            return _segment_sum_cuda(g_sorted, seg, n_slots, skip_last)
     raise ValueError(f"segment_sum_sorted: no kernel for device {g_sorted.device}")
 
 

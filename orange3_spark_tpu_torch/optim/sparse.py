@@ -41,7 +41,7 @@ occurrences are summed one after another in their stable-sorted order
 (bitwise the dense twin's sums, and the reference's); on CUDA the
 hand-written kernel, which adds without float atomics in an order fixed by
 the data, so two fits on the card give the same bits (a segment of up to
-``WALK_MAX`` occurrences even in the CPU's order). The dense gradient of
+32 occurrences, the kernel's ``walk_max()``, even in the CPU's order). The dense gradient of
 the table (``dense_table_grad``, the 'adam' rule and the dense twins) is
 built the same way on CUDA: a stable sort of the occurrences, the segment
 sums, one write per touched row.
@@ -408,9 +408,9 @@ def dense_table_grad(idx: torch.Tensor, dl: torch.Tensor, n_rows: int) -> torch.
     into the table rows of its ``idx`` [N, C] occurrences. The CPU adds by
     ``index_add_`` in occurrence order (the reference's order). CUDA sorts
     the occurrences stably, sums them by segment with the deterministic
-    kernel (the same order for segments of up to ``WALK_MAX``) and writes
-    each touched row once; slots past the live segments repeat the last
-    live one, the same row and value written twice (no host sync)."""
+    kernel (the same order for segments of up to ``walk_max()`` rows) and
+    writes each touched row once; slots past the live segments repeat the
+    last live one, the same row and value written twice (no host sync)."""
     N, C = idx.shape
     k = dl.shape[1]
     if idx.device.type != "cuda":
@@ -473,8 +473,9 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     dead = occurrence_dead(N, C, n_valid, idx.device)
     s_idx, order, start, seg = _sort_segments(idx.masked_fill(dead, D).reshape(-1))
     g = dl.index_select(0, order // C)
-    # the dead sentinel's segment (padding rows) is never read: not summed
-    sums = segment_sum_sorted(g, seg, U, keys=s_idx, n_dims=D)
+    # the dead sentinel's segment (padding rows) sorts last and is never
+    # read: not summed
+    sums = segment_sum_sorted(g, seg, U, skip_last=s_idx[-1:] >= D)
     # the row of each segment: every occurrence of a segment writes the
     # same value, so the scatter is deterministic with duplicates
     uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)

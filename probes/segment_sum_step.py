@@ -69,7 +69,7 @@ def main(argv=None) -> int:
 
     kernel_sum, kernel_grad = sparse.segment_sum_sorted, hl.dense_table_grad
 
-    def atomic_sum(g, seg, n_slots, *, keys=None, n_dims=None):
+    def atomic_sum(g, seg, n_slots, *, skip_last=None):
         return torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(0, seg, g)
 
     def atomic_grad(idx, dl, n_rows):

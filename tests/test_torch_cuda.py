@@ -685,19 +685,12 @@ def _sorted_segments(dev, M, n_dims, *, dead=0, heavy=0, seed=0):
 
 
 @pytest.mark.cuda
-def test_segment_sum_walk_max_matches_kernel(cuda_device):
-    from orange3_spark_tpu_torch.ops import segment_sum as ss
-
-    assert ss._lib().segment_sum_walk_max() == ss.WALK_MAX
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("M,n_dims,dead", [(6_815_744, 1 << 22, 0),
                                            (1_000_003, 1 << 16, 26_000),
                                            (31, 1 << 10, 0), (5000, 64, 100)])
 def test_segment_sum_repeats_bitwise_and_keeps_the_cpu_order(cuda_device, M, n_dims, dead):
-    """Five launches give the same bits; every segment of at most WALK_MAX
-    rows equals the plain version on the CPU (index order) bit for bit,
+    """Five launches give the same bits; every segment of at most
+    ``walk_max()`` rows equals the plain version on the CPU (index order) bit for bit,
     longer ones within 1e-6·Σ|g| of a float64 sum; the dead segment is
     +0.0; against the plain version on the card (float atomics) within
     float32 rounding."""
@@ -705,21 +698,22 @@ def test_segment_sum_repeats_bitwise_and_keeps_the_cpu_order(cuda_device, M, n_d
 
     g, seg, keys = _sorted_segments(cuda_device, M, n_dims, dead=dead)
     n_slots = min(M, n_dims) + 1
-    runs = [ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
-            for _ in range(5)]
+    skip = keys[-1:] >= n_dims
+    runs = [ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip) for _ in range(5)]
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     got = runs[0].cpu()
-    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, keys=keys.cpu(),
-                                          n_dims=n_dims)
+    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, skip_last=skip.cpu())
     rows = torch.bincount(seg.cpu(), minlength=n_slots)[:n_slots]
-    short = rows <= ss.WALK_MAX
+    short = rows <= ss.walk_max()
     assert torch.equal(got[short], cpu[short])
-    f64, sum_abs = (ss.segment_sum_sorted_reference(x, seg.cpu(), n_slots, keys=keys.cpu(),
-                                                    n_dims=n_dims)
+    f64, sum_abs = (ss.segment_sum_sorted_reference(x, seg.cpu(), n_slots,
+                                                    skip_last=skip.cpu())
                     for x in (g.cpu().double(), g.cpu().double().abs()))
     long_ok = ((got.double() - f64).abs() <= 1e-6 * sum_abs)[:, 0]
     assert bool(long_ok[~short].all())
-    card = ss.segment_sum_sorted_reference(g, seg, n_slots, keys=keys, n_dims=n_dims).cpu()
+    if dead:
+        assert got[int(seg[-1])].item() == 0.0 and not torch.signbit(got[int(seg[-1])])
+    card = ss.segment_sum_sorted_reference(g, seg, n_slots, skip_last=skip).cpu()
     torch.testing.assert_close(got, card, rtol=1e-5, atol=1e-5)
 
 
@@ -732,8 +726,9 @@ def test_segment_sum_long_segment_within_tolerance(cuda_device):
     M, n_dims = 3_000_000, 1 << 20
     g, seg, keys = _sorted_segments(cuda_device, M, n_dims, heavy=1 << 20, seed=4)
     n_slots = n_dims + 1
-    a = ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
-    b = ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=n_dims)
+    skip = keys[-1:] >= n_dims
+    a = ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip)
+    b = ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip)
     assert torch.equal(a, b)
     rows = torch.bincount(seg, minlength=n_slots)[:n_slots]
     assert int(rows.max()) >= 1 << 20
@@ -752,7 +747,7 @@ def test_segment_sum_in_a_captured_graph_equals_eager(cuda_device):
 
     g, seg, keys = _sorted_segments(cuda_device, 500_000, 1 << 18, dead=1000, heavy=5000)
     n_slots = (1 << 18) + 1
-    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, keys=keys, n_dims=1 << 18)
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, skip_last=keys[-1:] >= 1 << 18)
     eager = run()
     graph, static, _ = capture_graph(run, cuda_device)
     for _ in range(2):
@@ -784,7 +779,7 @@ def test_segment_sum_int32_segments_with_gaps_and_columns(cuda_device):
 def test_dense_table_grad_on_cuda_equals_cpu(cuda_device, N, C, n_rows):
     """The dense table gradient (adam, the dense twins) on the card: the
     same bits on every call, and the CPU's ``index_add_`` bits wherever a
-    row has at most WALK_MAX occurrences (every row here but the 16-row
+    row has at most ``walk_max()`` occurrences (every row here but the 16-row
     table's)."""
     from orange3_spark_tpu_torch.ops import segment_sum as ss
     from orange3_spark_tpu_torch.optim.sparse import dense_table_grad
@@ -797,7 +792,7 @@ def test_dense_table_grad_on_cuda_equals_cpu(cuda_device, N, C, n_rows):
     b = dense_table_grad(idx.to(cuda_device), dl.to(cuda_device), n_rows)
     assert torch.equal(a, b)
     rows = torch.bincount(idx.reshape(-1).long(), minlength=n_rows)
-    short = rows <= ss.WALK_MAX
+    short = rows <= ss.walk_max()
     assert torch.equal(a.cpu()[short], want[short])
     torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-6)
 

@@ -72,15 +72,16 @@ def test_plain_version_equals_index_add_and_the_reference(M, n_dims, k, dead, lo
 
 @pytest.mark.parametrize("dead", [0, 1, 900])
 def test_dead_segment_is_zero_with_keys(dead):
-    """Given the sorted keys and n_dims, the dead sentinel's slot holds
-    +0.0 (the kernel skips it; nothing reads it); every other slot is the
-    plain sum."""
+    """Given the flag the sorted keys give (the last key is the sentinel
+    n_dims), the dead sentinel's slot holds +0.0 (the kernel skips it;
+    nothing reads it); every other slot is the plain sum. Without dead
+    rows the flag is false and every slot is the plain sum."""
     rng = np.random.default_rng(dead)
     n_dims = 1 << 10
     s, seg, g = _sorted_inputs(rng, 4000, n_dims, 1, dead=dead)
     n_slots = int(seg[-1]) + 2
     gt, segt, st = (torch.from_numpy(a) for a in (g, seg, s))
-    got = ss.segment_sum_sorted(gt, segt, n_slots, keys=st, n_dims=n_dims)
+    got = ss.segment_sum_sorted(gt, segt, n_slots, skip_last=st[-1:] >= n_dims)
     plain = ss.segment_sum_sorted(gt, segt, n_slots)
     dead_slot = int(seg[-1]) if dead else None
     for j in range(n_slots):
