@@ -37,8 +37,12 @@ prints one JSON line per phase:
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
-accelerator): PyTorch ops and one kernel of the package, the deterministic
-segment sum of the touched-row update (``ops/csrc/segment_sum.cu``):
+accelerator): PyTorch ops and two kernels of the package
+(``ops/csrc/segment_sum.cu``): ``segment_update_sorted``, the whole
+touched-row update of the 'sort' lowering after its sort (sums, lazy decay,
+rule, write-back of the live rows) in one launch a step, and
+``segment_sum_sorted``, the deterministic segment sum of the dense table
+gradient (the adam rule) and the 'plan' lowering:
 
   criteo_check    on the card against the port's CPU path: the hash
                   bitwise at 1..2^22 dims; bit packing at widths 1..31 and
@@ -64,19 +68,33 @@ segment sum of the touched-row update (``ops/csrc/segment_sum.cu``):
                   as bench.py), bench.py's keys, pure_step_ms (eager steps,
                   CUDA events) and its A/B arms pure_step_ms_dense (adam)
                   and pure_step_ms_f32cache (the head re-cached at f32),
-                  holdout AUC (floor 0.73)
+                  holdout AUC (floor 0.73); the update kernel's launches
+                  over the timed fit, the segment sum's over the adam arm
   criteo_profile  eager steps under torch.profiler: device time by kernel,
                   ATen op and stage, the idle share, launches and
                   ``nonzero`` calls per step; then the captured replay:
                   device busy time, idle share and launches per epoch
-  segment_sum     the kernel at one step's own inputs (the fit's first
-                  cached chunk): five launches bitwise equal, against its
+  segment_sum     the kernel at the inputs the dense table gradient of
+                  one adam step gives it (the fit's first cached chunk,
+                  i32 segment ids): five launches bitwise equal, against its
                   plain version on the card (max |err|: float atomics) and
                   on a CPU copy (bitwise on every segment of at most
                   ``walk_max()`` rows), captured against eager, one 2^20-row
                   segment within 1e-6·Σ|g|; its time beside the bound,
                   the plain version, ``index_add_`` and ``index_add_``
                   under deterministic mode (and whether a graph captures it)
+  segment_update  the fused update at one sparse_adagrad step's own inputs
+                  (the first cached chunk, fresh optimizer state, the fitted
+                  theta; recorded by wrapping the function the step calls):
+                  five launches from copies of the same state bitwise
+                  equal; bitwise equal on every row of emb, acc and t to the
+                  chain it replaced (the segment-sum kernel's sums, the torch
+                  rule, ``index_copy_``; ``_chain_update``); untouched rows
+                  unchanged; captured equal to eager; sgd and ftrl at the
+                  same inputs equal to their chains; one 2^20-row segment
+                  repeatable and equal to the chain; the kernel's, the
+                  chain's and the plain version's times, bytes, the bound
+                  and the ratio to it (and the 32-byte-sector bytes)
   criteo_resume   the full-width fit with ``replay_granularity='epoch'``,
                   snapshots every 2 epochs, ``--resume-epochs`` (10): a
                   clean fit, a fit whose checkpointer crashes after its
@@ -116,10 +134,13 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   pad zeroing, the graph's device time, the copy back, the
                   Python around them; the launches in the graph
 
-then the ``kernels`` line (``node_histograms``: launches counted over the
-gbt and rf phases, ``per_fit`` from the timed fits' launch counts and the
-profile; ``segment_sum_sorted``: launches counted over the ``criteo``
-phase's fit, the times of the ``segment_sum`` phase),
+then the ``kernels`` line of three kernels (``node_histograms``: launches
+counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
+counts and the profile; ``segment_sum_sorted``: launches counted over the
+``criteo`` phase's adam arm, the times of the ``segment_sum`` phase;
+``segment_update_sorted``: launches counted over the ``criteo`` phase's
+timed fit, the times of the ``segment_update`` phase, the chain's time as
+its yardstick; each fails the run if it counted no launch),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -184,6 +205,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one ``fn()``: ``reps`` calls captured
+    into one CUDA graph, its replays timed by CUDA events. Unlike
+    ``cuda_ms`` this leaves out the host's time to issue a call, which for
+    a call of tens of microseconds can exceed the device's."""
+    import torch
+
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    graph, _, _ = capture_graph(lambda: [fn() for _ in range(reps)],
+                                torch.device("cuda", torch.cuda.current_device()))
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, 3) / reps
+    del graph
+    return ms
 
 
 # ------------------------------------------------------------------ phases
@@ -933,7 +972,9 @@ def phase_criteo(path, rows, epochs, sess):
     from orange3_spark_tpu_torch.models.hashed_linear import (
         HashedLinearModel, resolve_chunk_codec, warm_eval_chunk,
     )
-    from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from orange3_spark_tpu_torch.ops.segment_sum import (
+        segment_sum_sorted, segment_update_sorted,
+    )
 
     chunk = CRITEO["chunk_rows"]
     budget = 8 << 30
@@ -954,14 +995,14 @@ def phase_criteo(path, rows, epochs, sess):
     torch.cuda.reset_peak_memory_stats()
     st: dict = {}
     est = _criteo_estimator(epochs=epochs)
-    # ---- the main path: the kernel's count starts at 0 here
-    segment_sum_sorted.launches = 0
+    # ---- the main path: the fused update's count starts at 0 here
+    segment_update_sorted.launches = 0
     t0 = time.perf_counter()
     model = est.fit_stream(source, session=sess, cache_device=True, cache_device_bytes=budget,
                            holdout_chunks=holdout_chunks, stage_times=st)
     sess.synchronize()
     fit_s = time.perf_counter() - t0
-    seg_launches = segment_sum_sorted.launches
+    update_launches = segment_update_sorted.launches
     # ----
     t0 = time.perf_counter()
     ev = model.evaluate_device(model.holdout_chunks_)
@@ -974,7 +1015,11 @@ def phase_criteo(path, rows, epochs, sess):
     # fresh optimizer state, timed by CUDA events after one warm step
     chunks = model.device_chunks_[:4]
     pure_step_ms = _step_ms(est.params, model.theta, chunks, sess, 20)
+    # ---- the adam arm: the dense table gradient's segment sums, counted
+    segment_sum_sorted.launches = 0
     dense_ms = _step_ms(est.params.replace(optim_update="adam"), model.theta, chunks, sess, 6)
+    seg_launches = segment_sum_sorted.launches
+    # ----
     # the f32-cache arm: the same head re-cached at f32 within the same
     # budget, stepped with the fit's rule
     def head():
@@ -996,9 +1041,11 @@ def phase_criteo(path, rows, epochs, sess):
     line = {"rows": rows, "train_rows": train_rows, "holdout_rows": holdout_rows,
             "epochs": epochs, "cached_chunks": len(model.device_chunks_),
             "steps": model.n_steps_, "fit_s": fit_s, "eval_s": eval_s,
-            # the wrapper's count: one launch a step it runs eagerly or
-            # records into the captured epoch (a graph replay re-runs the
-            # recorded launches without the wrapper, so it counts none)
+            # the wrappers' counts: one launch a step run eagerly or
+            # recorded into the captured epoch (a graph replay re-runs the
+            # recorded launches without the wrapper, so it counts none);
+            # the update's over the timed fit, the sum's over the adam arm
+            "segment_update_launches": update_launches,
             "segment_sum_launches": seg_launches,
             "value": rows / (fit_s + eval_s) / 1,
             "train_rows_x_epochs_per_sec": train_rows * epochs / fit_s,
@@ -1370,31 +1417,59 @@ def phase_criteo_fault(path, rows, epochs, sess, clean_theta):
 SEG_LONG_ROWS = 1 << 20
 
 
-def _step_segment_inputs(model, sess):
-    """The arguments one step of the fit passes to ``segment_sum_sorted``
-    on its first cached chunk, from fresh optimizer state and the fitted
-    theta: recorded by wrapping the function the step calls, so they are
-    the step's own (the sorted gradients, segments, slot count, the flag
-    that skips the dead segment)."""
+def _record_call(module, name, model, sess, optim_update, snapshot=None):
+    """The arguments one step of the fit passes to ``module.name`` on its
+    first cached chunk, from fresh optimizer state of ``optim_update`` and
+    the fitted theta: recorded by wrapping the function the step calls, so
+    they are the step's own. ``snapshot(args)`` copies what the call
+    updates in place before it runs."""
     from orange3_spark_tpu_torch.models.hashed_linear import _step_into
-    from orange3_spark_tpu_torch.optim import sparse
 
     seen = []
-    real = sparse.segment_sum_sorted
+    real = getattr(module, name)
 
     def record(*args, **kw):
-        seen.append((args, kw))
+        seen.append((snapshot(args) if snapshot else args, kw))
         return real(*args, **kw)
 
-    theta, opt, salts, kw, hyper = _fresh_state(model.params, model.theta, sess)
-    sparse.segment_sum_sorted = record
+    params = model.params.replace(optim_update=optim_update)
+    theta, opt, salts, kw, hyper = _fresh_state(params, model.theta, sess)
+    setattr(module, name, record)
     try:
         _step_into(theta, opt, model.device_chunks_[0], salts, hyper, kw)
     finally:
-        sparse.segment_sum_sorted = real
+        setattr(module, name, real)
     sess.synchronize()
-    (g, seg, n_slots), kws = seen[0]
+    return seen[0]
+
+
+def _step_segment_inputs(model, sess):
+    """The arguments of ``segment_sum_sorted`` in one 'adam' step (the
+    dense table gradient, ``dense_table_grad``, of bench.py's
+    ``pure_step_ms_dense`` arm): the sorted gradients, the segment ids and
+    the slot count."""
+    from orange3_spark_tpu_torch.optim import sparse
+
+    (g, seg, n_slots), kws = _record_call(sparse, "segment_sum_sorted", model, sess, "adam")
     return g, seg, n_slots, kws.get("skip_last")
+
+
+def _step_update_inputs(model, sess):
+    """The arguments of ``segment_update_sorted`` in one ``sparse_adagrad``
+    step of the fit (the sorted keys, the order, C, dl, and copies of the
+    table, slots, last-seen steps and step counter as the call found
+    them), with the hyper-parameters and ``use_decay``."""
+    from orange3_spark_tpu_torch.optim import sparse
+
+    def snapshot(args):
+        kind, s_idx, order, C, dl, emb, slots, t, step, *rest = args
+        return (kind, s_idx, order, C, dl, emb.clone(), {n: v.clone() for n, v in
+                                                         slots.items()},
+                t.clone(), step.clone(), *rest)
+
+    args, kws = _record_call(sparse, "segment_update_sorted", model, sess,
+                             model.params.optim_update, snapshot)
+    return args, kws["use_decay"]
 
 
 def _time_deterministic_index_add(g, seg, n_slots):
@@ -1478,11 +1553,13 @@ def phase_segment_sum(inputs, mem_bw):
     long_repeat = bool(torch.equal(lgot, ss.segment_sum_sorted(lg, lseg, len(lens))))
     del lens, lseg, lg, lgot, lref, labs
 
-    ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(lambda: ss.segment_sum_sorted_reference(
-        g, seg, n_slots, skip_last=skip), 20)
-    library_ms = cuda_ms(lambda: torch.zeros((n_slots, g.shape[1]), device=g.device)
-                         .index_add_(0, seg, g), 20)
+    plain = lambda: ss.segment_sum_sorted_reference(g, seg, n_slots, skip_last=skip)
+    library = lambda: torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(0, seg, g)
+    # device times from captured launches; beside them the eager calls'
+    # times, which include the host's time to issue each call
+    ms, plain_ms, library_ms = (graph_ms(f, 20) for f in (run, plain, library))
+    eager_ms = {name: cuda_ms(f, 20) for name, f in (("kernel", run), ("plain", plain),
+                                                     ("library", library))}
     # each input read once (g, the segment ids, the one-byte skip flag),
     # the output written once
     n_bytes = (g.numel() * 4 + seg.numel() * seg.element_size() + n_slots * g.shape[1] * 4
@@ -1495,7 +1572,7 @@ def phase_segment_sum(inputs, mem_bw):
             "cpu_order_mismatches": cpu_mismatch, "graph_equal_eager": graph_equal,
             "long_segment": {"rows": n_long, "abs_err_vs_f64": long_err,
                              "within_1e-6_sum_abs": long_ok, "bitwise_repeat": long_repeat},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": eager_ms,
             "deterministic_index_add": _time_deterministic_index_add(g, seg, n_slots),
             "bytes": n_bytes, "bound_ms": bytes_ms, "bound_by": "bytes",
             "tolerance": "max_abs_err against the card's atomic index_add_ is float32 "
@@ -1504,6 +1581,193 @@ def phase_segment_sum(inputs, mem_bw):
     if not (deterministic and graph_equal and cpu_mismatch == 0 and long_ok
             and long_repeat):
         raise AssertionError(f"segment_sum_sorted failed its checks: {line}")
+    return line
+
+
+def _chain_update(kind, s_idx, order, C, dl, emb, slots, t, step, lr, decay, reg, l1, *,
+                  use_decay):
+    """The CUDA chain that ``segment_update_sorted`` replaced (the 'sort'
+    lowering after its sort, op by op): the segments by a
+    cumsum of the key boundaries, the gathered gradients, the
+    segment-sum kernel's sums, the row of each slot by a scatter, slots past
+    the live segments repeating the last live one, the torch rule over all
+    slots, ``index_copy_`` back. In place, like the kernel."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from orange3_spark_tpu_torch.optim.sparse import _touched_rows_update
+
+    D = emb.shape[0]
+    U = min(s_idx.shape[0], D) + 1
+    start = torch.ones_like(s_idx, dtype=torch.bool)
+    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
+    seg = torch.cumsum(start, 0) - 1
+    sums = segment_sum_sorted(dl.index_select(0, order // C), seg, U, skip_last=s_idx[-1:] >= D)
+    uniq = torch.zeros(U, dtype=s_idx.dtype, device=s_idx.device).scatter_(0, seg, s_idx)
+    src = torch.minimum(torch.arange(U, device=s_idx.device), (start & (s_idx < D)).sum() - 1)
+    rid = uniq.index_select(0, src).to(torch.int64)
+    p_rows, slot_rows = _touched_rows_update(kind, emb, t, slots, sums.index_select(0, src),
+                                             rid, lr, decay, reg, l1, step,
+                                             use_decay=use_decay)
+    emb.index_copy_(0, rid, p_rows)
+    for n, v in slot_rows.items():
+        slots[n].index_copy_(0, rid, v)
+    if use_decay:
+        t.index_copy_(0, rid, (step + 1).to(t.dtype).expand(U))
+
+
+def _update_copy(args, kind=None):
+    """The update's arguments with fresh copies of what it writes in place
+    (the table, the slots, ``t``); ``kind`` swaps the rule, with zero
+    (fresh) slots for it."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.segment_sum import RULE_SLOTS
+
+    k0, s_idx, order, C, dl, emb, slots, t, step, *hyper = args
+    if kind is None:
+        slots = {n: v.clone() for n, v in slots.items()}
+    else:
+        slots = {n: torch.zeros_like(emb) for n in RULE_SLOTS[kind]}
+    return (kind or k0, s_idx, order, C, dl, emb.clone(), slots, t.clone(), step, *hyper)
+
+
+def _update_state_equal(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a[5], b[5]) and torch.equal(a[7], b[7]) and a[6].keys() == b[6].keys()
+            and all(torch.equal(a[6][n], b[6][n]) for n in a[6]))
+
+
+def _long_update_case(dev, n_long):
+    """An update whose keys hold one segment of ``n_long`` occurrences
+    between short ones (C = 1, a random sort order, adagrad with history):
+    its arguments."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lens = torch.cat([torch.full((1000,), 3, device=dev), torch.tensor([n_long], device=dev),
+                      torch.full((1000,), 2, device=dev)])
+    keys = torch.repeat_interleave(torch.arange(len(lens), device=dev, dtype=torch.int32) * 7,
+                                   lens)
+    M, D = keys.numel(), 7 * len(lens) + 1
+    order = torch.randperm(M, generator=gen, device=dev)
+    dl = torch.randn((M, 1), generator=gen, device=dev) * 0.01
+    emb = torch.randn((D, 1), generator=gen, device=dev)
+    slots = {"acc": torch.rand((D, 1), generator=gen, device=dev)}
+    t = torch.randint(0, 10, (D,), generator=gen, device=dev, dtype=torch.int32)
+    step = torch.tensor(9, dtype=torch.int32, device=dev)
+    return ("adagrad", keys, order, 1, dl, emb, slots, t, step, 0.04, 0.9999996, 1e-5, 0.0)
+
+
+def phase_segment_update(inputs, mem_bw):
+    """``segment_update_sorted`` on the card at one ``sparse_adagrad``
+    step's own inputs (the fit's first cached chunk, fresh optimizer state,
+    the fitted theta): five launches from copies of the same state bitwise
+    equal; bitwise equal to the chain it replaced (``_chain_update``) on
+    every row of emb, acc and t; rows no occurrence touches unchanged; a
+    captured launch equal to the eager one; sgd and ftrl (fresh slots) at
+    the same inputs equal to their chains; one 2^20-occurrence segment
+    repeatable and bitwise the chain's (the same block order in both
+    kernels). Times of the kernel, the chain and the plain version, beside
+    the bound."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    args, use_decay = inputs
+    s_idx, emb0, slots0, t0 = args[1], args[5], args[6], args[7]
+    D, k = emb0.shape
+    dev = emb0.device
+
+    def kernel(a):
+        ss.segment_update_sorted(*a, use_decay=use_decay)
+        return a
+
+    def chain(a):
+        _chain_update(*a, use_decay=use_decay)
+        return a
+
+    outs = [kernel(_update_copy(args)) for _ in range(5)]
+    torch.cuda.synchronize()
+    got = outs[0]
+    deterministic = all(_update_state_equal(got, o) for o in outs[1:])
+    chain_equal = _update_state_equal(got, chain(_update_copy(args)))
+    touched = torch.zeros(D, dtype=torch.bool, device=dev)
+    touched[s_idx[s_idx < D].long()] = True
+    untouched_equal = (torch.equal(got[5][~touched], emb0[~touched])
+                       and torch.equal(got[7][~touched], t0[~touched])
+                       and all(torch.equal(got[6][n][~touched], v[~touched])
+                               for n, v in slots0.items()))
+    plain = _update_copy(args)
+    ss.segment_update_sorted_reference(*plain, use_decay=use_decay)
+    max_abs_err = max(float((got[5] - plain[5]).abs().max()),
+                      *(float((got[6][n] - plain[6][n]).abs().max()) for n in got[6]))
+    cap = _update_copy(args)
+
+    def captured():
+        cap[5].copy_(emb0)
+        cap[7].copy_(t0)
+        for n, v in slots0.items():
+            cap[6][n].copy_(v)
+        return kernel(cap)
+
+    graph, _, _ = capture_graph(captured, dev)
+    cap[5].fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_equal = _update_state_equal(cap, got)
+    del graph, outs, plain
+    rules = {rule: _update_state_equal(kernel(_update_copy(args, rule)),
+                                       chain(_update_copy(args, rule)))
+             for rule in ("sgd", "ftrl")}
+
+    long_args = _long_update_case(dev, SEG_LONG_ROWS)
+    la, lb = kernel(_update_copy(long_args)), kernel(_update_copy(long_args))
+    long_line = {"rows": SEG_LONG_ROWS, "bitwise_repeat": _update_state_equal(la, lb),
+                 "equal_chain": _update_state_equal(la, chain(_update_copy(long_args)))}
+    del long_args, la, lb
+
+    work = [_update_copy(args) for _ in range(3)]
+    timed = (("kernel", lambda: kernel(work[0])), ("chain", lambda: chain(work[1])),
+             ("plain", lambda: ss.segment_update_sorted_reference(*work[2],
+                                                                  use_decay=use_decay)))
+    # device times from captured launches (the fit runs it in a captured
+    # graph); beside them the eager calls' times, host included
+    ms, chain_ms, plain_ms = (graph_ms(f, 20) for _, f in timed)
+    eager_ms = {name: cuda_ms(f, 20) for name, f in timed}
+    del work
+    # each input read once (the keys, the order, dl), each live row's
+    # table, slot and t entries read and written once; beside it the
+    # 32-byte sectors those rows fall in (what the card moves at least)
+    M, dl = s_idx.numel(), args[4]
+    rows = s_idx.unique()
+    rows = rows[rows < D].long()
+    n_state = 1 + len(slots0)
+    row_bytes = n_state * k * 4 + (4 if use_decay else 0)
+    n_bytes = M * 4 + M * 8 + dl.numel() * 4 + 2 * rows.numel() * row_bytes
+    sectors = (n_state * (rows * k * 4 // 32).unique().numel()
+               + ((rows * 4 // 32).unique().numel() if use_decay else 0))
+    sector_bytes = M * 4 + M * 8 + dl.numel() * 4 + 2 * 32 * sectors
+    bound_ms = n_bytes / mem_bw * 1e3
+    line = {"M": M, "k": k, "D": D, "rule": args[0], "use_decay": use_decay,
+            "live_rows": rows.numel(), "deterministic": deterministic,
+            "equal_chain": chain_equal, "untouched_rows_equal": untouched_equal,
+            "graph_equal_eager": graph_equal, "rules_equal_chain": rules,
+            "long_segment": long_line, "max_abs_err": max_abs_err,
+            "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms, "library_ms": None,
+            "eager_ms": eager_ms,
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "x_bound": ms / bound_ms, "sector_bytes": sector_bytes,
+            "sector_bound_ms": sector_bytes / mem_bw * 1e3,
+            "tolerance": "bitwise against the chain it replaced (the segment-sum kernel's "
+                         "sums, the torch rule, index_copy_) on every row; max_abs_err "
+                         "against the plain version on the card, whose index_add_ adds "
+                         "with float atomics"}
+    if not (deterministic and chain_equal and untouched_equal and graph_equal
+            and all(rules.values()) and all(long_line.values())):
+        raise AssertionError(f"segment_update_sorted failed its checks: {line}")
     return line
 
 
@@ -2134,6 +2398,10 @@ def main(argv=None) -> int:
             seg_line = phase_segment_sum(_step_segment_inputs(model, sess), mem_bw)
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **seg_line})
             torch.cuda.empty_cache()
+            phase = "segment_update"
+            upd_line = phase_segment_update(_step_update_inputs(model, sess), mem_bw)
+            emit({"phase": phase, "device": kind, "nvidia_smi": smi, **upd_line})
+            torch.cuda.empty_cache()
             phase = "criteo_resume"
             resume_line, clean_theta = phase_criteo_resume(
                 tmp, path, args.criteo_rows, args.resume_epochs, sess)
@@ -2160,8 +2428,10 @@ def main(argv=None) -> int:
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
+        if criteo_line["segment_update_launches"] == 0:
+            raise AssertionError("the Criteo fit never launched segment_update_sorted")
         if criteo_line["segment_sum_launches"] == 0:
-            raise AssertionError("the Criteo fit never launched segment_sum_sorted")
+            raise AssertionError("the adam arm never launched segment_sum_sorted")
         top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
@@ -2183,13 +2453,29 @@ def main(argv=None) -> int:
             # no Pallas kernel: the XLA segment sum of the touched-row update
             "replaces": "orange3_spark_tpu/optim/sparse.py:435",
             "launches": criteo_line["segment_sum_launches"],
+            "launches_counted_over": "the criteo phase's adam arm (pure_step_ms_dense)",
             "max_abs_err": seg_line["max_abs_err"],
             "deterministic": seg_line["deterministic"],
             "ms": seg_line["ms"], "plain_ms": seg_line["plain_ms"],
             "bound_ms": seg_line["bound_ms"], "bound_by": seg_line["bound_by"],
             "library_ms": seg_line["library_ms"],
             "deterministic_index_add": seg_line["deterministic_index_add"],
-            "at": "one step of the criteo fit on its first cached chunk",
+            "at": "the dense table gradient of one adam step on the fit's first cached chunk",
+        }, {
+            "name": "segment_update_sorted",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/segment_sum.cu",
+            # no Pallas kernel: the XLA 'sort' lowering after its sort
+            "replaces": "orange3_spark_tpu/optim/sparse.py:477-511",
+            "launches": criteo_line["segment_update_launches"],
+            "launches_counted_over": "the criteo phase's timed fit",
+            "max_abs_err": upd_line["max_abs_err"],
+            "deterministic": upd_line["deterministic"],
+            "ms": upd_line["ms"], "plain_ms": upd_line["plain_ms"],
+            "bound_ms": upd_line["bound_ms"], "bound_by": upd_line["bound_by"],
+            "library_ms": upd_line["library_ms"],
+            "chain_ms": upd_line["chain_ms"],
+            "at": "one sparse_adagrad step of the criteo fit on its first cached chunk",
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -175,15 +175,27 @@ def _check_ported(p: HashedLinearParams) -> None:
             f"replay_granularity must be 'all' or 'epoch', got {p.replay_granularity!r}")
 
 
+def _dense_term(dense: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """``dense @ coef`` as a sum of elementwise products over the dense
+    columns in column order, each op rounding on its own: a row rounds the
+    same whatever the row count. (A BLAS sgemm need not: MKL's rounds the
+    rows of a ragged tail block apart from those of its full blocks, so a
+    served request and its padded bucket could differ by an ulp.)"""
+    out = dense[:, :1] * coef[0]
+    for j in range(1, coef.shape[0]):
+        out = out + dense[:, j:j + 1] * coef[j]
+    return out
+
+
 def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """[N, k] logits: the 'fused' form, one gather of the [N, C] embedding
-    rows summed over the columns, plus the dense block's matmul."""
+    rows summed over the columns, plus the dense block's term."""
     emb = theta["emb"]
     N, C = idx.shape
     rows = emb.index_select(0, idx.reshape(-1)).view(N, C, emb.shape[1])
     logits = rows.sum(dim=1)
     if theta["coef"].shape[0]:
-        logits = logits + dense @ theta["coef"]
+        logits = logits + _dense_term(dense, theta["coef"])
     return logits + theta["intercept"]
 
 

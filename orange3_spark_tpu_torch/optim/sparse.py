@@ -25,9 +25,11 @@ in large-scale click-through training):
     segment ids, unique rows, inverse map) rides the chunk cache and the
     step becomes gather -> segment sum -> rule -> gather-based writeback.
     The CPU default. Its ``inv`` map is an [n_dims] array per chunk.
-  - ``'sort'`` — the dedup runs in the step: a stable ``torch.sort``,
-    segment ids by a cumsum of boundaries, writeback in place. No
-    per-chunk memory beside the chunk. The CUDA default.
+  - ``'sort'`` — the dedup runs in the step: a stable ``torch.sort`` of
+    the occurrence keys, then ``segment_update_sorted`` does the rest in
+    place (on CUDA one kernel: the sums, the decay, the rule and the
+    write-back of the live rows only). No per-chunk memory beside the
+    chunk. The CUDA default.
   - under the 'packed' cache dtype the plan is stored bit-packed
     (``pack_plan_np``) and unpacked in the step (``unpack_plan``),
     exactly.
@@ -35,20 +37,22 @@ in large-scale click-through training):
 * **kill-switch** — ``OTPU_SPARSE_UPDATE=0`` resolves every ``sparse_*``
   rule to its ``dense_*`` twin, once, at fit entry.
 
-Segment sums go through ``ops/segment_sum.segment_sum_sorted``: on the CPU
-its plain version, an ``index_add_`` that adds in index order, so a row's
+Segment sums go through ``ops/segment_sum``: on the CPU the plain
+versions, an ``index_add_`` that adds in index order, so a row's
 occurrences are summed one after another in their stable-sorted order
 (bitwise the dense twin's sums, and the reference's); on CUDA the
-hand-written kernel, which adds without float atomics in an order fixed by
+hand-written kernels, which add without float atomics in an order fixed by
 the data, so two fits on the card give the same bits (a segment of up to
-32 occurrences, the kernel's ``walk_max()``, even in the CPU's order). The dense gradient of
-the table (``dense_table_grad``, the 'adam' rule and the dense twins) is
-built the same way on CUDA: a stable sort of the occurrences, the segment
-sums, one write per touched row.
+32 occurrences, the kernels' ``walk_max()``, even in the CPU's order). The
+'plan' lowering and the dense gradient of the table (``dense_table_grad``,
+the 'adam' rule and the dense twins) call ``segment_sum_sorted``; on CUDA
+the dense gradient is a stable sort of the occurrences, the segment sums
+and one write per touched row.
 
 The step has no host sync, so a replay epoch can be captured as one CUDA
 graph: the step counter ``opt_state["step"]`` is a device int32 scalar
-that the step advances, and the 'sort' lowering works on all
+that the step advances. On CUDA the 'sort' lowering's kernel finds the
+segments and the live rows on the device. Its plain version works on all
 ``plan_slots`` segment slots (as the reference does) instead of selecting
 the live ones. What it cannot take from JAX is a scatter that drops
 out-of-range indices (PyTorch raises on the CPU and asserts on CUDA), so
@@ -73,7 +77,9 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.io.codec import bit_width, flat_words, pack_flat_np, unpack_flat
-from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
+from orange3_spark_tpu_torch.ops.segment_sum import (
+    RULE_SLOTS, segment_sum_sorted, segment_update_sorted,
+)
 
 __all__ = [
     "OPTIM_UPDATES", "SPARSE_UPDATES", "DENSE_UPDATES", "ADAGRAD_EPS", "FTRL_BETA",
@@ -137,11 +143,7 @@ def is_sparse_update(resolved: str) -> bool:
 
 
 def _rule_slots(kind: str, param: torch.Tensor) -> dict:
-    if kind == "adagrad":
-        return {"acc": torch.zeros_like(param)}
-    if kind == "ftrl":
-        return {"z": torch.zeros_like(param), "n": torch.zeros_like(param)}
-    return {}
+    return {n: torch.zeros_like(param) for n in RULE_SLOTS[kind]}
 
 
 def init_optim_state(resolved: str, theta: dict) -> dict:
@@ -394,13 +396,13 @@ def _touched_rows_update(kind, emb, t, slots, sums, rid, lr, decay, reg, l1, ste
 
 
 def _sort_segments(flat: torch.Tensor):
-    """Stable sort of flat occurrence keys and their segments: (sorted
-    keys, the sort order, segment-start flags, segment ids from 0). No
-    host sync."""
+    """Stable sort of flat occurrence keys and their segments, for the dense
+    table gradient: (sorted keys, the sort order, segment-start flags, i32
+    segment ids from 0). No host sync."""
     s_idx, order = torch.sort(flat, stable=True)
     start = torch.ones_like(s_idx, dtype=torch.bool)
     torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
-    return s_idx, order, start, torch.cumsum(start, 0) - 1
+    return s_idx, order, start, torch.cumsum(start, 0, dtype=torch.int32) - 1
 
 
 def dense_table_grad(idx: torch.Tensor, dl: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -443,10 +445,11 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     'plan': the host-built plan gives the sort order, segments, unique rows
     and inverse map; the writeback is a gather
     (``where(touched, new_rows[inv], emb)``) into new tensors.
-    'sort': everything derived in the step over all ``plan_slots`` slots;
-    the rows are written back in place (``index_copy_``), a slot past the
-    live segments repeating the last live one (module docstring). No step
-    of either lowering waits for the device."""
+    'sort': a stable sort of the occurrence keys in the step, then
+    ``segment_update_sorted`` updates the touched rows in place (on CUDA one
+    kernel; on the CPU its plain version, the chain over all ``plan_slots``
+    slots of the module docstring). No step of either lowering waits for
+    the device."""
     D = emb.shape[0]
     if lowering == "plan":
         g = dl.index_select(0, plan["row"])
@@ -469,30 +472,11 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     if isinstance(n_valid, int) and n_valid == 0:
         return emb, t, slots          # every occurrence dead: no row moves
     N, C = idx.shape
-    U = plan_slots(N, C, D)
     dead = occurrence_dead(N, C, n_valid, idx.device)
-    s_idx, order, start, seg = _sort_segments(idx.masked_fill(dead, D).reshape(-1))
-    g = dl.index_select(0, order // C)
-    # the dead sentinel's segment (padding rows) sorts last and is never
-    # read: not summed
-    sums = segment_sum_sorted(g, seg, U, skip_last=s_idx[-1:] >= D)
-    # the row of each segment: every occurrence of a segment writes the
-    # same value, so the scatter is deterministic with duplicates
-    uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)
-    # slots past the live segments (the dead sentinel's, the empty ones)
-    # repeat the last live slot: its row and its new values, written twice
-    n_live = (start & (s_idx < D)).sum()
-    src = torch.minimum(torch.arange(U, device=idx.device), n_live - 1)
-    rid = uniq.index_select(0, src).to(torch.int64)
-    p_rows, slot_rows = _touched_rows_update(
-        kind, emb, t, slots, sums.index_select(0, src), rid, lr, decay, reg, l1, step,
-        use_decay=use_decay)
-    emb.index_copy_(0, rid, p_rows)
-    for n, v in slot_rows.items():
-        slots[n].index_copy_(0, rid, v)
-    if use_decay:
-        t.index_copy_(0, rid, (step + 1).to(t.dtype).expand(U))
-    return emb, t, slots
+    # dead occurrences (padding rows) take the sentinel D and sort last
+    s_idx, order = torch.sort(idx.masked_fill(dead, D).reshape(-1), stable=True)
+    return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, lr, decay,
+                                 reg, l1, use_decay=use_decay)
 
 
 def finalize_lazy_decay(theta: dict, state: dict, lr: float, reg: float,

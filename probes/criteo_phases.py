@@ -4,11 +4,13 @@
     python3 probes/criteo_phases.py [--rows 8000000] [--epochs 100]
 
 Calls ``chip_smoke.py``'s ``phase_criteo_check``, ``phase_criteo_data``,
-``phase_criteo`` and ``phase_criteo_profile`` in that order and prints one
-JSON line per phase, as the script does, without the tree phases and
-without building the CUDA kernels (the Criteo path runs PyTorch ops only).
-Its CSV goes to a temporary directory that is removed at the end. Needs one
-CUDA device; exits non-zero on a machine without one.
+``phase_criteo``, ``phase_criteo_profile``, ``phase_segment_sum`` and
+``phase_segment_update`` (the two kernels of ``ops/csrc/segment_sum.cu`` at
+one step's own inputs) in that order and prints one JSON line per phase,
+as the script does, without the tree, recovery and serving phases. The
+first step builds the segment-sum kernels (seconds). Its CSV goes to a
+temporary directory that is removed at the end. Needs one CUDA device;
+exits non-zero on a machine without one.
 """
 
 from __future__ import annotations
@@ -52,6 +54,11 @@ def main(argv=None) -> int:
         model, line = cs.phase_criteo(path, args.rows, args.epochs, sess)
         cs.emit({"phase": "criteo", "nvidia_smi": cs.nvidia_smi_line(), **line})
         cs.emit({"phase": "criteo_profile", **cs.phase_criteo_profile(model, sess)})
+        mem_bw = cs.card_rates(torch.cuda.get_device_name(0))[1]
+        cs.emit({"phase": "segment_sum",
+                 **cs.phase_segment_sum(cs._step_segment_inputs(model, sess), mem_bw)})
+        cs.emit({"phase": "segment_update",
+                 **cs.phase_segment_update(cs._step_update_inputs(model, sess), mem_bw)})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What the deterministic segment sum costs the Criteo step, on one card.
+"""What the deterministic kernels cost the Criteo step, on one card.
 
     python3 probes/segment_sum_step.py [--rows 1048576] [--steps 20] [--rounds 2]
 
@@ -9,11 +9,13 @@ steps over its cached chunks (``chip_smoke._step_ms``: CUDA events around
 ``steps`` steps after a warm one) with the step's sums computed two ways,
 in turns (kernel, index_add_, index_add_, kernel, ...):
 
-* ``kernel``: the port as it is (``segment_sum_sorted`` and, for adam,
-  ``dense_table_grad``'s sort + kernel + one write a row);
-* ``index_add``: ``segment_sum_sorted`` swapped for ``index_add_`` with
-  float atomics, and ``dense_table_grad`` for one ``index_add_`` (the
-  port before the kernel).
+* ``kernel``: the port as it is (``segment_update_sorted`` after the
+  sort and, for adam, ``dense_table_grad``'s sort + ``segment_sum_sorted``
+  + one write a row);
+* ``index_add``: ``segment_update_sorted`` swapped for its plain version
+  (the chain over all segment slots, its sums an ``index_add_`` with float
+  atomics), and ``dense_table_grad`` for one ``index_add_`` (the port
+  before the kernels).
 
 Also the host time of one wrapper call against one ``index_add_`` on a
 small input (no device wait), and the captured replay epoch of each
@@ -67,9 +69,9 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     chunks = model.device_chunks_
 
-    kernel_sum, kernel_grad = sparse.segment_sum_sorted, hl.dense_table_grad
+    kernel_update, kernel_grad = sparse.segment_update_sorted, hl.dense_table_grad
 
-    def atomic_sum(g, seg, n_slots, *, skip_last=None):
+    def atomic_sum(g, seg, n_slots):
         return torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(0, seg, g)
 
     def atomic_grad(idx, dl, n_rows):
@@ -77,10 +79,11 @@ def main(argv=None) -> int:
         return torch.zeros((n_rows, dl.shape[1]), device=dl.device).index_add_(
             0, idx.reshape(-1), dl[:, None, :].expand(N, C, dl.shape[1]).reshape(N * C, -1))
 
-    variants = {"kernel": (kernel_sum, kernel_grad), "index_add": (atomic_sum, atomic_grad)}
+    variants = {"kernel": (kernel_update, kernel_grad),
+                "index_add": (ss.segment_update_sorted_reference, atomic_grad)}
 
     def use(name):
-        sparse.segment_sum_sorted, hl.dense_table_grad = variants[name]
+        sparse.segment_update_sorted, hl.dense_table_grad = variants[name]
 
     def replay_epoch_ms():
         theta, opt, salts, kw, hyper = cs._fresh_state(model.params, model.theta, sess)

@@ -899,3 +899,226 @@ def test_tree_sums_repeat_bitwise_on_cuda(cuda_device):
     for a, b in zip(runs[0][0], runs[1][0]):
         assert torch.equal(a, b)
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+# ------------------------------------------- the fused touched-row update
+_RULE_SLOTS = {"sgd": (), "adagrad": ("acc",), "ftrl": ("z", "n")}
+_LR, _REG, _L1 = 0.04, 1e-5, 1e-4
+
+
+def _update_inputs(dev, kind, *, N=20_000, C=26, D=1 << 16, k=1, dead=0, heavy=0, seed=0):
+    """A 'sort' step's inputs on the card: the sorted keys and order of
+    N x C occurrences (the last ``dead`` rows padding, ``heavy`` occurrences
+    on one row), dl, and a table, slots and last-seen steps with history."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, D, (N, C), generator=gen, device=dev, dtype=torch.int32)
+    if heavy:
+        flat = idx.view(-1)
+        flat[torch.randperm((N - dead) * C, generator=gen, device=dev)[:heavy]] = D // 3
+    rows = torch.arange(N, device=dev)[:, None].expand(N, C)
+    s_idx, order = torch.sort(idx.masked_fill(rows >= N - dead, D).reshape(-1), stable=True)
+    dl = torch.randn((N, k), generator=gen, device=dev) * 0.01
+    emb = torch.randn((D, k), generator=gen, device=dev)
+    slots = {n: torch.rand((D, k), generator=gen, device=dev) for n in _RULE_SLOTS[kind]}
+    if kind == "ftrl":
+        slots["z"] = torch.randn((D, k), generator=gen, device=dev)
+    step = torch.tensor(9, dtype=torch.int32, device=dev)
+    t = torch.randint(0, 10, (D,), generator=gen, device=dev, dtype=torch.int32)
+    return idx, N - dead, s_idx, order, C, dl, emb, slots, t, step
+
+
+def _update_state(emb, slots, t):
+    return emb.clone(), {n: v.clone() for n, v in slots.items()}, t.clone()
+
+
+def _chain_update(kind, s_idx, order, C, dl, emb, slots, t, step, *, use_decay):
+    """The CUDA chain the kernel replaced: the segments by a cumsum, the
+    kernel's segment sums, the torch rule over all slots, ``index_copy_``."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.optim.sparse import _touched_rows_update
+
+    D = emb.shape[0]
+    U = min(s_idx.shape[0], D) + 1
+    start = torch.ones_like(s_idx, dtype=torch.bool)
+    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
+    seg = torch.cumsum(start, 0) - 1
+    sums = ss.segment_sum_sorted(dl.index_select(0, order // C), seg, U,
+                                 skip_last=s_idx[-1:] >= D)
+    uniq = torch.zeros(U, dtype=s_idx.dtype, device=s_idx.device).scatter_(0, seg, s_idx)
+    src = torch.minimum(torch.arange(U, device=s_idx.device),
+                        (start & (s_idx < D)).sum() - 1)
+    rid = uniq.index_select(0, src).to(torch.int64)
+    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
+    p_rows, slot_rows = _touched_rows_update(kind, emb, t, slots, sums.index_select(0, src),
+                                             rid, _LR, decay, _REG, _L1, step,
+                                             use_decay=use_decay)
+    emb.index_copy_(0, rid, p_rows)
+    for n, v in slot_rows.items():
+        slots[n].index_copy_(0, rid, v)
+    if use_decay:
+        t.index_copy_(0, rid, (step + 1).to(t.dtype).expand(U))
+
+
+def _kernel_update(kind, s_idx, order, C, dl, emb, slots, t, step, *, use_decay):
+    from orange3_spark_tpu_torch.ops.segment_sum import segment_update_sorted
+
+    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
+    return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, _LR, decay,
+                                 _REG, _L1, use_decay=use_decay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,use_decay,k,dead,heavy", [
+    ("adagrad", True, 1, 0, 0), ("adagrad", True, 1, 700, 0), ("adagrad", False, 3, 0, 0),
+    ("adagrad", True, 1, 300, 100_000), ("sgd", True, 1, 50, 0), ("sgd", False, 2, 0, 5000),
+    ("ftrl", False, 1, 0, 0), ("ftrl", True, 3, 900, 40)])
+def test_segment_update_repeats_and_equals_the_chain_bitwise(cuda_device, kind, use_decay, k,
+                                                             dead, heavy):
+    """Five launches from copies of the same state give the same bits; they
+    equal the chain they replaced (the segment-sum kernel, the torch rule,
+    ``index_copy_``) on every row of the table, the slots and ``t``; rows
+    that no live occurrence touches keep their bits."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    idx, n_valid, s_idx, order, C, dl, emb, slots, t, step = _update_inputs(
+        cuda_device, kind, k=k, dead=dead, heavy=heavy)
+    before = ss.segment_update_sorted.launches
+    runs = []
+    for _ in range(5):
+        e, sl, tt = _update_state(emb, slots, t)
+        _kernel_update(kind, s_idx, order, C, dl, e, sl, tt, step, use_decay=use_decay)
+        runs.append((e, sl, tt))
+    assert ss.segment_update_sorted.launches == before + 5
+    e, sl, tt = _update_state(emb, slots, t)
+    _chain_update(kind, s_idx, order, C, dl, e, sl, tt, step, use_decay=use_decay)
+    for got in runs:
+        assert torch.equal(got[0], e) and torch.equal(got[2], tt)
+        assert all(torch.equal(got[1][n], sl[n]) for n in sl)
+    touched = torch.zeros(emb.shape[0], dtype=torch.bool, device=cuda_device)
+    touched[idx[:n_valid].reshape(-1).long()] = True
+    got = runs[0]
+    assert torch.equal(got[0][~touched], emb[~touched]) and torch.equal(got[2][~touched],
+                                                                        t[~touched])
+    assert all(torch.equal(got[1][n][~touched], slots[n][~touched]) for n in slots)
+    assert not torch.equal(got[0][touched], emb[touched])
+    if use_decay:
+        assert bool((got[2][touched] == 10).all())
+
+
+@pytest.mark.cuda
+def test_segment_update_in_a_captured_graph_equals_eager(cuda_device):
+    """Launched inside a CUDA graph (no host sync in the wrapper), the
+    update replays to the eager launch's bits, twice, with a long segment
+    and padding rows in the chunk."""
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    _, _, s_idx, order, C, dl, emb0, slots0, t0, step = _update_inputs(
+        cuda_device, "adagrad", dead=500, heavy=20_000)
+    eager = _update_state(emb0, slots0, t0)
+    _kernel_update("adagrad", s_idx, order, C, dl, *eager, step, use_decay=True)
+    emb, slots, t = _update_state(emb0, slots0, t0)
+
+    def run():
+        emb.copy_(emb0)
+        slots["acc"].copy_(slots0["acc"])
+        t.copy_(t0)
+        _kernel_update("adagrad", s_idx, order, C, dl, emb, slots, t, step, use_decay=True)
+        return emb
+
+    graph, _, _ = capture_graph(run, cuda_device)
+    for _ in range(2):
+        emb.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(emb, eager[0]) and torch.equal(t, eager[2])
+        assert torch.equal(slots["acc"], eager[1]["acc"])
+
+
+@pytest.mark.cuda
+def test_sort_lowering_launches_one_kernel_after_the_sort(cuda_device):
+    """On CUDA the 'sort' lowering sorts and then launches
+    ``segment_update_sorted`` once: none of the old chain's ops (no
+    ``index_copy_``, no live-count sum, no gather or scatter over the
+    segment slots) runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.optim.sparse import sparse_embedding_update
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    idx, n_valid, _, _, _, dl, emb, slots, t, step = _update_inputs(cuda_device, "adagrad",
+                                                                    dead=100)
+    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
+    before = ss.segment_update_sorted.launches
+    with Ops() as mode:
+        sparse_embedding_update("adagrad", emb, t, slots, dl, idx, _LR, decay, _REG, _L1,
+                                step, lowering="sort", use_decay=True,
+                                n_valid=torch.tensor(n_valid, device=cuda_device))
+    assert ss.segment_update_sorted.launches == before + 1
+    banned = ("index_copy", "index_select", "scatter", "sum", "cumsum", "index_add",
+              "minimum")
+    assert not [op for op in mode.ops if any(b in op for b in banned)], mode.ops
+    assert any("sort" in op for op in mode.ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_dtype,k,offset,M", [
+    (torch.int64, 1, 0, 700_001), (torch.int32, 5, 0, 700_001), (torch.int64, 2, 1, 700_001),
+    (torch.int32, 1, 3, 700_001), (torch.int32, 40, 0, 300_007)])
+def test_segment_sum_tiles_keep_the_cpu_order(cuda_device, seg_dtype, k, offset, M):
+    """The tiled segment sum with i32 and i64 ids, several columns (40: a
+    tile of fewer rows than threads), and inputs that start off a 16-byte
+    boundary (``offset`` elements into their storage: the 4-byte copy
+    path): every segment of at most ``walk_max()`` rows bitwise the CPU's
+    ``index_add_``, segments that cross tile edges included; longer ones
+    within 1e-6·Σ|g|; repeatable."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    rng = np.random.default_rng(k + offset)
+    lens = rng.integers(1, 40, 60_000)
+    lens[::997] = rng.integers(33, 3000, lens[::997].shape)
+    seg = np.repeat(np.arange(lens.size), lens)[:M]
+    g = rng.standard_normal((seg.size + offset, k)).astype(np.float32)
+    seg_t = torch.from_numpy(np.concatenate([np.zeros(offset, np.int64), seg])).to(
+        cuda_device, seg_dtype)[offset:]
+    g_t = torch.from_numpy(g).to(cuda_device)[offset:]
+    assert seg_t.is_contiguous() and g_t.is_contiguous()
+    n_slots = int(seg[-1]) + 10
+    a = ss.segment_sum_sorted(g_t, seg_t, n_slots)
+    assert torch.equal(a, ss.segment_sum_sorted(g_t, seg_t, n_slots))
+    cpu = ss.segment_sum_sorted_reference(g_t.cpu(), seg_t.cpu(), n_slots)
+    rows = torch.bincount(seg_t.cpu().long(), minlength=n_slots)
+    short = rows <= ss.walk_max()
+    assert int((~short).sum()) > 10
+    assert torch.equal(a.cpu()[short], cpu[short])
+    f64 = ss.segment_sum_sorted_reference(g_t.cpu().double(), seg_t.cpu(), n_slots)
+    sum_abs = ss.segment_sum_sorted_reference(g_t.cpu().double().abs(), seg_t.cpu(), n_slots)
+    assert bool(((a.cpu().double() - f64).abs() <= 1e-6 * sum_abs)[~short].all())
+
+
+@pytest.mark.cuda
+def test_segment_sum_mixed_widths_in_one_process(cuda_device):
+    """Launches of one kernel with different shared-memory sizes (columns
+    5, 3, 2, 3, 5, i64 ids) in turn: each launch still runs (a later, smaller
+    launch must not lower the limit an earlier, larger one was planned
+    with) and gives the CPU's sums."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    rng = np.random.default_rng(9)
+    seg = np.sort(rng.integers(0, 20_000, 100_000))
+    for k in (5, 3, 2, 3, 5):
+        g = rng.standard_normal((seg.size, k)).astype(np.float32)
+        got = ss.segment_sum_sorted(torch.from_numpy(g).to(cuda_device),
+                                    torch.from_numpy(seg).to(cuda_device), 20_001).cpu()
+        want = torch.zeros((20_001, k)).index_add_(0, torch.from_numpy(seg),
+                                                   torch.from_numpy(g))
+        rows = torch.bincount(torch.from_numpy(seg), minlength=20_001)
+        assert torch.equal(got[rows <= ss.walk_max()], want[rows <= ss.walk_max()]), k

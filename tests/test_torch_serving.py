@@ -7,14 +7,13 @@ function applied to the padded bucket, so these tests cover the ladder,
 the padding, the cache, the breakers and the micro-batcher, and
 ``tests/test_torch_cuda.py`` covers the captured graphs on the card.
 
-Tolerances: served predictions equal the port's raw predictions bitwise.
-Served logits and probabilities equal raw within rtol 1e-6, atol 1e-7 (a
-few float32 ulps), not bitwise: the dense block's product ``dense @ coef``
-goes to the CPU's BLAS (MKL here), whose sgemm rounds the rows of a ragged
-tail block apart from those of its full blocks, so the same row can round
-one ulp apart in a 9-row request and in its 64-row bucket (measured: 1 ulp
-at n = 9; the embedding gather-sum rounds the same at every row count).
-Trees are bitwise. Against the JAX package, predictions are equal and
+Tolerances: served predictions, logits and probabilities equal the port's
+raw ones bitwise at every request size: the dense block's term is a sum of
+elementwise products in column order (``hashed_linear._dense_term``), not a
+BLAS sgemm, whose tail block rounds rows apart from its full blocks (MKL's
+once made a 9-row request and its 64-row bucket differ by one ulp), and
+the embedding gather-sum rounds a row the same at every row count. Trees
+are bitwise. Against the JAX package, predictions are equal and
 logits and probabilities are within rtol 1e-5, atol 1e-6
 (``test_reference_model_through_interop``'s bound: XLA's fused sums and
 dot products round apart from PyTorch's).
@@ -53,7 +52,6 @@ from orange3_spark_tpu_torch.utils.profiling import reset_serve_counters, serve_
 
 SIZES = (9, 77, 256, 600)
 RTOL, ATOL = 1e-5, 1e-6
-SERVE_RTOL, SERVE_ATOL = 1e-6, 1e-7
 
 
 @pytest.fixture(scope="module")
@@ -233,9 +231,8 @@ def test_lru_eviction_releases_model_pins(hashed):
 @pytest.mark.parametrize("n", SIZES)
 def test_hashed_served_equals_raw_and_the_reference(hashed, n):
     """``HashedLinearModel`` through ``served_array`` with a 64..2048
-    ladder: predictions bitwise equal to the port's raw path, logits and
-    probabilities within a few ulps of it (the BLAS tail, see the module
-    docstring); predictions equal to the JAX package's served predictions
+    ladder: predictions, logits and probabilities bitwise equal to the
+    port's raw path; predictions equal to the JAX package's served predictions
     from the same theta, probabilities within its stated bound
     (``test_parity_hashed_linear_array_path``)."""
     ref, port, X = hashed
@@ -248,9 +245,8 @@ def test_hashed_served_equals_raw_and_the_reference(hashed, n):
     assert c["padded_rows"] == 3 * max(64, 1 << (n - 1).bit_length())
     for a, b in zip(served, raw):
         assert a.shape == b.shape and a.dtype == b.dtype
-    assert np.array_equal(served[1], raw[1])
-    np.testing.assert_allclose(served[0], raw[0], rtol=SERVE_RTOL, atol=SERVE_ATOL)
-    np.testing.assert_allclose(served[2], raw[2], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    for a, b in zip(served, raw):
+        assert np.array_equal(a, b)
     with JServingContext(JBucketLadder(min_bucket=64, max_bucket=2048)):
         ref_pred = np.asarray(ref.predict(X[:n]))
         ref_proba = np.asarray(ref.predict_proba(X[:n]))
