@@ -176,15 +176,13 @@ def _check_ported(p: HashedLinearParams) -> None:
 
 
 def _dense_term(dense: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """``dense @ coef`` as a sum of elementwise products over the dense
-    columns in column order, each op rounding on its own: a row rounds the
-    same whatever the row count. (A BLAS sgemm need not: MKL's rounds the
-    rows of a ragged tail block apart from those of its full blocks, so a
-    served request and its padded bucket could differ by an ulp.)"""
-    out = dense[:, :1] * coef[0]
-    for j in range(1, coef.shape[0]):
-        out = out + dense[:, j:j + 1] * coef[j]
-    return out
+    """``dense @ coef`` as the elementwise products [N, d, k] summed over
+    the d dense columns, the form of the embedding sum beside it: a row's
+    reduction runs over its own d products alone, so it rounds the same
+    whatever the row count. (A BLAS sgemm need not: MKL's rounds the rows of
+    a ragged tail block apart from those of its full blocks, so a served
+    request and its padded bucket could differ by an ulp.)"""
+    return (dense[:, :, None] * coef).sum(dim=1)
 
 
 def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

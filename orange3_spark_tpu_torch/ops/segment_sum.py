@@ -34,6 +34,7 @@ them).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -65,15 +66,21 @@ def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *,
 
 def segment_update_sorted_reference(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
                                     t, step, lr: float, decay: float, reg: float,
-                                    l1: float, *, use_decay: bool):
+                                    l1: float, *, use_decay: bool,
+                                    segment_sum=segment_sum_sorted_reference):
     """Plain PyTorch version of ``segment_update_sorted``: the 'sort'
     lowering's chain after the sort. The segments by a cumsum of the key
     boundaries; each occurrence's gradient ``dl[order // C]``; the sums
-    (the dead sentinel's last segment skipped); the row of each segment by
-    a scatter; slots past the live segments repeat the last live one (the
-    same row and value written twice: no host sync); the rows gathered,
-    decayed and updated by the rule; ``index_copy_`` back. Updates ``emb``,
-    ``slots`` and ``t`` in place and returns them."""
+    (the dead sentinel's last segment skipped) by ``segment_sum``; the row
+    of each segment by a scatter; slots past the live segments repeat the
+    last live one (the same row and value written twice: no host sync);
+    the rows gathered, decayed and updated by the rule; ``index_copy_``
+    back. Updates ``emb``, ``slots`` and ``t`` in place and returns them.
+
+    ``segment_sum`` takes ``segment_sum_sorted_reference``'s arguments.
+    Given ``segment_sum_sorted`` on CUDA tensors, this is the op-by-op chain
+    the fused kernel replaced: the rule as torch ops, the sums by the
+    standalone kernel (whose tile and walk code the fused kernel shares)."""
     from orange3_spark_tpu_torch.optim.sparse import _touched_rows_update
 
     D = emb.shape[0]
@@ -82,7 +89,7 @@ def segment_update_sorted_reference(kind: str, s_idx, order, C: int, dl, emb, sl
     torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
     seg = torch.cumsum(start, 0) - 1
     g = dl.index_select(0, order // C)
-    sums = segment_sum_sorted_reference(g, seg, U, skip_last=s_idx[-1:] >= D)
+    sums = segment_sum(g, seg, U, skip_last=s_idx[-1:] >= D)
     # the row of each segment: every occurrence of a segment writes the
     # same value, so the scatter is deterministic with duplicates
     uniq = torch.zeros(U, dtype=s_idx.dtype, device=s_idx.device).scatter_(0, seg, s_idx)
@@ -124,19 +131,36 @@ def walk_max() -> int:
 
 
 def _scratch(M: int, dev):
-    """The long-segment list (at most M / (walk_max() + 1) entries) and the
-    kernel's three counters (list entries, blocks done, tiles taken), which
-    the launch zeroes."""
-    return (torch.empty(M // (walk_max() + 1) + 1, dtype=torch.int64, device=dev),
-            torch.empty(3, dtype=torch.int32, device=dev))
+    """One int64 buffer for the kernel's scratch: the three int32 counters
+    (list entries, blocks done, tiles taken; the launch zeroes them) in its
+    first 16 bytes, then the long-segment list (at most M / (walk_max() +
+    1) entries). Returns the buffer and the two pointers."""
+    buf = torch.empty(2 + M // (walk_max() + 1) + 1, dtype=torch.int64, device=dev)
+    return buf, buf.data_ptr() + 16, buf.data_ptr()
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _range(name: str):
+    """A ``record_function`` range when a torch profiler is recording, else
+    none (the range costs the host two dispatcher calls a launch)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def _launch(name: str, *args, dev) -> None:
+    """Launches on the current stream of ``dev``, making ``dev`` the current
+    device for the call only when it is not."""
     lib = _lib()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, sms, stream)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    here = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(index):
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        err = getattr(lib, f"{name}_launch")(*args, _sms(index), stream)
     if err != 0:
         msg = lib.segment_sum_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
@@ -163,10 +187,10 @@ def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last):
     out = torch.empty((n_slots, k), dtype=torch.float32, device=dev)
     if M == 0 or k == 0 or n_slots == 0:
         return out.zero_()
-    long_starts, counters = _scratch(M, dev)
+    _buf, long_starts, counters = _scratch(M, dev)
     _launch("segment_sum_sorted", g_sorted.data_ptr(), seg.data_ptr(), seg.element_size(),
             None if skip_last is None else skip_last.data_ptr(), M, k, n_slots,
-            out.data_ptr(), long_starts.data_ptr(), counters.data_ptr(), dev=dev)
+            out.data_ptr(), long_starts, counters, dev=dev)
     segment_sum_sorted.launches += 1
     return out
 
@@ -183,7 +207,7 @@ def segment_sum_sorted(g_sorted, seg, n_slots: int, *, skip_last=None) -> torch.
     if g_sorted.device.type == "cpu":
         return segment_sum_sorted_reference(g_sorted, seg, n_slots, skip_last=skip_last)
     if g_sorted.device.type == "cuda":
-        with torch.profiler.record_function("segment_sum_sorted"):
+        with _range("segment_sum_sorted"):
             return _segment_sum_cuda(g_sorted, seg, n_slots, skip_last)
     raise ValueError(f"segment_sum_sorted: no kernel for device {g_sorted.device}")
 
@@ -249,13 +273,13 @@ def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
     # its float reciprocal; 2·reg is a Python float cast to float32
     f32 = np.float32
     inv_lr = float(f32(1.0) / f32(lr))
-    with torch.profiler.record_function("segment_update_sorted"):
-        long_starts, counters = _scratch(M, dev)
+    with _range("segment_update_sorted"):
+        _buf, long_starts, counters = _scratch(M, dev)
         _launch("segment_update_sorted", s_idx.data_ptr(), order.data_ptr(), M, C,
                 dl.data_ptr(), emb.shape[1], emb.shape[0], emb.data_ptr(), s0, s1,
                 t.data_ptr(), step.data_ptr(), list(RULE_SLOTS).index(kind), int(use_decay), lr,
-                inv_lr, decay, ADAGRAD_EPS, FTRL_BETA, l1, 2.0 * reg,
-                long_starts.data_ptr(), counters.data_ptr(), dev=dev)
+                inv_lr, decay, ADAGRAD_EPS, FTRL_BETA, l1, 2.0 * reg, long_starts, counters,
+                dev=dev)
     segment_update_sorted.launches += 1
     return emb, t, slots
 

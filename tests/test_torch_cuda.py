@@ -8,6 +8,8 @@ package, so they run on a GPU machine without JAX:
 CUDA device every test here skips with its reason.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -931,47 +933,45 @@ def _update_state(emb, slots, t):
     return emb.clone(), {n: v.clone() for n, v in slots.items()}, t.clone()
 
 
-def _chain_update(kind, s_idx, order, C, dl, emb, slots, t, step, *, use_decay):
-    """The CUDA chain the kernel replaced: the segments by a cumsum, the
-    kernel's segment sums, the torch rule over all slots, ``index_copy_``."""
-    from orange3_spark_tpu_torch.ops import segment_sum as ss
-    from orange3_spark_tpu_torch.optim.sparse import _touched_rows_update
+def _decay():
+    return float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
 
-    D = emb.shape[0]
-    U = min(s_idx.shape[0], D) + 1
-    start = torch.ones_like(s_idx, dtype=torch.bool)
-    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
-    seg = torch.cumsum(start, 0) - 1
-    sums = ss.segment_sum_sorted(dl.index_select(0, order // C), seg, U,
-                                 skip_last=s_idx[-1:] >= D)
-    uniq = torch.zeros(U, dtype=s_idx.dtype, device=s_idx.device).scatter_(0, seg, s_idx)
-    src = torch.minimum(torch.arange(U, device=s_idx.device),
-                        (start & (s_idx < D)).sum() - 1)
-    rid = uniq.index_select(0, src).to(torch.int64)
-    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
-    p_rows, slot_rows = _touched_rows_update(kind, emb, t, slots, sums.index_select(0, src),
-                                             rid, _LR, decay, _REG, _L1, step,
-                                             use_decay=use_decay)
-    emb.index_copy_(0, rid, p_rows)
-    for n, v in slot_rows.items():
-        slots[n].index_copy_(0, rid, v)
-    if use_decay:
-        t.index_copy_(0, rid, (step + 1).to(t.dtype).expand(U))
+
+def _chain_update(kind, s_idx, order, C, dl, emb, slots, t, step, *, use_decay):
+    """The CUDA chain the kernel replaced: the plain version with the
+    segment-sum kernel's sums."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    ss.segment_update_sorted_reference(kind, s_idx, order, C, dl, emb, slots, t, step, _LR,
+                                       _decay(), _REG, _L1, use_decay=use_decay,
+                                       segment_sum=ss.segment_sum_sorted)
+
+
+def _cpu_sums(g, seg, n_slots, *, skip_last=None):
+    """The plain segment sum on a CPU copy (index order from +0.0), back on
+    the inputs' device."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    return ss.segment_sum_sorted_reference(
+        g.cpu(), seg.cpu(), n_slots,
+        skip_last=None if skip_last is None else skip_last.cpu()).to(g.device)
 
 
 def _kernel_update(kind, s_idx, order, C, dl, emb, slots, t, step, *, use_decay):
     from orange3_spark_tpu_torch.ops.segment_sum import segment_update_sorted
 
-    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
-    return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, _LR, decay,
-                                 _REG, _L1, use_decay=use_decay)
+    return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, _LR,
+                                 _decay(), _REG, _L1, use_decay=use_decay)
+
+
+_UPDATE_CASES = [
+    ("adagrad", True, 1, 0, 0), ("adagrad", True, 1, 700, 0), ("adagrad", False, 3, 0, 0),
+    ("adagrad", True, 1, 300, 100_000), ("sgd", True, 1, 50, 0), ("sgd", False, 2, 0, 5000),
+    ("ftrl", False, 1, 0, 0), ("ftrl", True, 3, 900, 40)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,use_decay,k,dead,heavy", [
-    ("adagrad", True, 1, 0, 0), ("adagrad", True, 1, 700, 0), ("adagrad", False, 3, 0, 0),
-    ("adagrad", True, 1, 300, 100_000), ("sgd", True, 1, 50, 0), ("sgd", False, 2, 0, 5000),
-    ("ftrl", False, 1, 0, 0), ("ftrl", True, 3, 900, 40)])
+@pytest.mark.parametrize("kind,use_decay,k,dead,heavy", _UPDATE_CASES)
 def test_segment_update_repeats_and_equals_the_chain_bitwise(cuda_device, kind, use_decay, k,
                                                              dead, heavy):
     """Five launches from copies of the same state give the same bits; they
@@ -1003,6 +1003,51 @@ def test_segment_update_repeats_and_equals_the_chain_bitwise(cuda_device, kind, 
     assert not torch.equal(got[0][touched], emb[touched])
     if use_decay:
         assert bool((got[2][touched] == 10).all())
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module: its ``segment_update`` checks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,use_decay,k,dead,heavy", _UPDATE_CASES)
+def test_segment_update_equals_the_plain_version(cuda_device, kind, use_decay, k, dead, heavy):
+    """Held to the plain version whose segment sums come from a CPU copy
+    (``index_add_`` in index order; no device code shared with the kernel),
+    as ``chip_smoke.py``'s ``segment_update`` phase holds it: ``t`` bitwise
+    on every row, the table and the slots bitwise on every row of a segment
+    of at most ``walk_max()`` occurrences. The sums alone (an sgd update
+    with lr 1 on a zero table, where a row holds minus its sum) bitwise
+    there and within 1e-6·Σ|g| on the longer segments; that comparison
+    fails a plain version with one occurrence dropped or doubled."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    cs = _smoke()
+    _, _, s_idx, order, C, dl, emb, slots, t, step = _update_inputs(
+        cuda_device, kind, k=k, dead=dead, heavy=heavy)
+    args = (kind, s_idx, order, C, dl, emb, slots, t, step, _LR, _decay(), _REG, _L1)
+
+    def kernel(a):
+        ss.segment_update_sorted(*a, use_decay=use_decay)
+        return a
+
+    def chain(a):
+        ss.segment_update_sorted_reference(*a, use_decay=use_decay,
+                                           segment_sum=ss.segment_sum_sorted)
+        return a
+
+    long_rows = cs._long_rows(s_idx, emb.shape[0])
+    line = cs._update_checks(kernel, chain, args, use_decay, long_rows)
+    assert cs._update_case_ok(line), line
+    assert bool(long_rows.any()) == (heavy > ss.walk_max())
+    assert line["sum_probe"]["mutation_caught"] == {"dropped": True, "doubled": True}
 
 
 @pytest.mark.cuda
@@ -1056,10 +1101,9 @@ def test_sort_lowering_launches_one_kernel_after_the_sort(cuda_device):
 
     idx, n_valid, _, _, _, dl, emb, slots, t, step = _update_inputs(cuda_device, "adagrad",
                                                                     dead=100)
-    decay = float(np.float32(1.0) - np.float32(_LR) * np.float32(_REG))
     before = ss.segment_update_sorted.launches
     with Ops() as mode:
-        sparse_embedding_update("adagrad", emb, t, slots, dl, idx, _LR, decay, _REG, _L1,
+        sparse_embedding_update("adagrad", emb, t, slots, dl, idx, _LR, _decay(), _REG, _L1,
                                 step, lowering="sort", use_decay=True,
                                 n_valid=torch.tensor(n_valid, device=cuda_device))
     assert ss.segment_update_sorted.launches == before + 1

@@ -10,7 +10,11 @@ version ``segment_update_sorted_reference``:
   frozen copy below), called through the port's
   ``sparse_embedding_update``: bitwise;
 * the wrapper: the plain version for CPU tensors, no launch counted, and a
-  ValueError on a wrong dtype, shape, device, rule or slot set.
+  ValueError on a wrong dtype, shape, device, rule or slot set;
+* ``chip_smoke.py``'s checks of the kernel against the plain version, with
+  the plain version in the kernel's place: they pass it, fail it once an
+  occurrence's gradient is lost from the sums, and their sum probe fails a
+  plain version with one occurrence dropped or doubled.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``'s ``segment_update`` phase).
@@ -32,6 +36,8 @@ a denominator of at least 1/lr, to that bound times lr. Untouched rows are
 bitwise (neither package writes them).
 """
 
+import importlib.util
+import os
 import zlib
 
 import jax.numpy as jnp
@@ -266,3 +272,52 @@ def test_wrapper_has_no_kernel_for_other_devices():
             for n, v in _wrapper_args().items()}
     with pytest.raises(ValueError, match="no kernel for device"):
         _call(args)
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module: its ``segment_update`` checks."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _lossy_sums(g, seg, n_slots, *, skip_last=None):
+    """The plain segment sum with the first occurrence's gradient lost."""
+    out = ss.segment_sum_sorted_reference(g, seg, n_slots, skip_last=skip_last)
+    out[seg[0]] -= g[0]
+    return out
+
+
+@pytest.mark.parametrize("long_rows", [0, 60])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "ftrl"])
+def test_smoke_update_checks_pass_the_plain_version_and_fail_a_lost_occurrence(
+        monkeypatch, kind, long_rows):
+    # walk_max() reads the kernel's constant from the built library
+    monkeypatch.setattr(ss, "walk_max", lambda: 32)
+    cs = _smoke()
+    emb, slots, t, dl, idx, n_valid, step = _inputs(
+        _seed(kind, long_rows, "smoke"), kind, 1, dead=9, long_rows=long_rows)
+    s_idx, order = _port_sorted(idx, n_valid)
+    args = (kind, s_idx, order, C, torch.from_numpy(dl), torch.from_numpy(emb),
+            {n: torch.from_numpy(v) for n, v in slots.items()}, torch.from_numpy(t),
+            torch.tensor(step, dtype=torch.int32), LR, _decay(True), REG, L1)
+
+    def update(segment_sum):
+        def run(a):
+            ss.segment_update_sorted_reference(*a, use_decay=True, segment_sum=segment_sum)
+            return a
+        return run
+
+    chain = update(ss.segment_sum_sorted)
+    long = cs._long_rows(s_idx, D)
+    assert bool(long.any()) == bool(long_rows)
+    line = cs._update_checks(update(ss.segment_sum_sorted_reference), chain, args, True, long)
+    assert cs._update_case_ok(line), line
+    assert line["sum_probe"]["mutation_caught"] == {"dropped": True, "doubled": True}
+    if long_rows:
+        assert line["sum_probe"]["long_rel_err"] == 0.0
+    bad = cs._update_checks(update(_lossy_sums), chain, args, True, long)
+    assert not cs._update_case_ok(bad)
+    assert bad["sum_probe"]["mismatches"] > 0 and not bad["equal_chain"]
