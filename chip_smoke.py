@@ -36,6 +36,33 @@ prints one JSON line per phase:
            device time in the fit: its kernel and finalize pass, and the
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
 
+then the dense linear family (BASELINE config 1 and ``bench.py --config
+dense_logreg``; PyTorch ops, no kernel of the package: the products are
+``torch.mm``, as the reference's are XLA's dot):
+
+  linear_check    the card against the port's CPU path at a small size
+                  (Iris; ``make_classification`` 4096 x 16, 2 and 3
+                  classes): ``fit_linear`` for logistic, hinge,
+                  squared_hinge, squared and OWLQN, with and without the
+                  column scale, after 1, 2 and 3 iterations (1e-4) and
+                  converged (1e-3, the same predictions, the same zero
+                  set); LinearRegression 'normal' with p-values; the three
+                  evaluators; a Pipeline of one LogisticRegression; the
+                  fitted model served through a 64..2048 ladder (direct and
+                  micro-batched), predict and transform bitwise equal to
+                  raw; TF32 off
+  iris            BASELINE config 1: LogisticRegression(max_iter=200,
+                  reg_param=1e-4), a warm-up fit and a timed fit: accuracy
+                  (floor 0.96), iterations, objective evaluations, host
+                  reads
+  dense_logreg    bench_dense_logreg at full width (4,000,000 x 40,
+                  ``default_rng(0)``, 20 iterations, tol 0, reg 1e-6), its
+                  bf16 arm and an f32 arm: ``value`` (bench's
+                  logreg_fit_rows_per_sec_per_chip), evaluations and host
+                  reads per iteration, the device's busy and idle share of
+                  a profiled fit, one objective evaluation's device time
+                  beside its byte bound (X read twice), training accuracy
+
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
 accelerator): PyTorch ops and two kernels of the package
 (``ops/csrc/segment_sum.cu``): ``segment_update_sorted``, the whole
@@ -2385,6 +2412,429 @@ def phase_serving_profile(model, pool):
     return out
 
 
+# ------------------------------------------------------ the dense linear family
+# (BASELINE config 1 and bench.py --config dense_logreg: PyTorch ops, no
+# kernel of the package: the products are torch.mm, as the reference's are
+# XLA's dot)
+# card against the port's CPU path: the first iterations agree to float32
+# summation order (cuBLAS against MKL), converged fits at the optimum
+LINEAR_FIRST_RTOL, LINEAR_CONVERGED_RTOL, LINEAR_LOSS_RTOL = 1e-4, 1e-3, 1e-5
+LINEAR_NORMAL_RTOL, LINEAR_PVALUE_ATOL, LINEAR_METRIC_ATOL = 1e-4, 1e-5, 1e-5
+IRIS_ACC_FLOOR = 0.96
+# bench_dense_logreg (bench.py:1268-1312)
+DENSE_LOGREG = dict(rows=4_000_000, features=40, max_iter=20, tol=0.0, reg_param=1e-6)
+# the converging settings of tests/test_torch_linear.py: (loss, classes,
+# reg_l2, reg_l1, tol); hinge and OWLQN stop on looser tols: a non-smooth
+# objective's gradient never falls below 1e-5, and OWLQN's iterate freezes
+# once its Armijo test sees the loss flat to a float32 ulp, at a
+# pseudo-gradient floor that float32 sums set (1.4e-6 to 1.4e-5 across the
+# devices and the reference: probes/owlqn_trace.py), so whether a run stops
+# at 1e-5 is chance
+LINEAR_LOSSES = [("logistic", 3, 1e-2, None, 1e-5), ("logistic", 2, 1e-2, None, 1e-5),
+                 ("hinge", 2, 1e-2, None, 1e-2), ("squared_hinge", 2, 1e-2, None, 1e-5),
+                 ("squared", 2, 1e-2, None, 1e-5), ("logistic", 3, 0.05, 0.05, 1e-3)]
+# the bf16 arm's card-only products (torch.mm with an f32 result, G's
+# three-part split) against the CPU's widened ones, first iterations only:
+# (classes, reg_l2); converged bf16 fits are not compared: the loss that
+# bf16-rounded coefficients give is flat there
+LINEAR_BF16 = [(3, 1e-2), (2, 1e-2)]
+OWLQN_TOL = 1e-3
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (both moved to the host)."""
+    import numpy as np
+
+    got, want = (np.asarray(v.detach().cpu() if hasattr(v, "detach") else v, np.float64)
+                 for v in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _linear_fit_pair(tables, loss, k, reg_l2, reg_l1, tol, max_iter, scale,
+                     dtype="float32"):
+    """fit_linear on the card and on the CPU: (card, cpu) results."""
+    from orange3_spark_tpu_torch.models import _linear as lin
+
+    out = []
+    for t in tables:
+        y = t.y if loss in ("logistic", "squared") else (t.y > 0).float()
+        s = lin.column_inv_std(t.X, t.W) if scale else None
+        out.append(lin.fit_linear(t.X, y, t.W, reg_l2, tol, max_iter, s, reg_l1,
+                                  loss_kind=loss, k=k, compute_dtype=dtype))
+    return out
+
+
+def _first_iterations_line(card, host, iters) -> dict:
+    """A card fit against the CPU's after ``iters`` iterations: the errors
+    beside LINEAR_FIRST_RTOL, and ``ok``."""
+    line = {"iters": iters, "n_iter": [card.n_iter, host.n_iter],
+            "coef_err": _rel_err(card.coef, host.coef),
+            "intercept_err": _rel_err(card.intercept, host.intercept),
+            "loss_err": abs(card.final_loss - host.final_loss) / max(abs(host.final_loss), 1e-30),
+            "rtol": LINEAR_FIRST_RTOL, "loss_rtol": LINEAR_FIRST_RTOL}
+    line["ok"] = bool(max(line["coef_err"], line["intercept_err"], line["loss_err"])
+                      <= LINEAR_FIRST_RTOL and card.n_iter == host.n_iter == iters)
+    return line
+
+
+def _linear_predictions(res, X, loss):
+    """Class (or value, for 'squared') of each row from a fit's coefficients."""
+    import numpy as np
+
+    z = X @ res.coef.cpu().numpy() + res.intercept.cpu().numpy()
+    if loss == "logistic":
+        return np.argmax(z, axis=1)
+    return z[:, 0] if loss == "squared" else z[:, 0] > 0
+
+
+def _served_equal(model, tables, sess, ctx_kw) -> dict:
+    """A LogisticRegressionModel's predict and transform through a
+    ServingContext against its raw calls on the card, at one request size
+    in every rung of a 64..2048 ladder, again after allocator churn."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import graph_capture_count
+
+    raw = {n: (model.predict(t), model.transform(t).X.cpu().numpy())
+           for n, t in tables.items()}
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=2048), **ctx_kw) as ctx:
+        c0 = graph_capture_count()
+        served = {n: (model.predict(t), model.transform(t).X.cpu().numpy())
+                  for n, t in tables.items()}
+        captures = graph_capture_count() - c0
+        junk = [torch.full((1 << 18,), -7, dtype=torch.int64, device=sess.device)
+                for _ in range(64)]
+        del junk
+        again = {n: (model.predict(t), model.transform(t).X.cpu().numpy())
+                 for n, t in tables.items()}
+        repeat = graph_capture_count() - c0 - captures
+        routes = sorted({key[0] for key in ctx.cache.keys()})
+        breakers = ctx.breaker_states()
+    out = {"sizes": sorted(tables), "graph_captures": captures,
+           "graph_captures_repeat": repeat, "routes": routes, "breakers": breakers}
+    for name, got in (("served", served), ("after_churn", again)):
+        out[name] = {str(n): {"predict_bitwise": bool(np.array_equal(got[n][0], raw[n][0])),
+                              "transform_bitwise": bool(np.array_equal(got[n][1], raw[n][1])),
+                              "transform_max_abs_err": float(np.abs(
+                                  got[n][1].astype(np.float64) - raw[n][1]).max())}
+                     for n in tables}
+    out["bitwise"] = all(v["predict_bitwise"] and v["transform_bitwise"]
+                         for name in ("served", "after_churn") for v in out[name].values())
+    return out
+
+
+def phase_linear_check(sess):
+    """The dense linear family on the card against the port's CPU path at a
+    small size (Iris; ``make_classification`` 4096 x 16, 2 and 3 classes):
+    ``fit_linear`` for each loss with and without the column scale after
+    1, 2 and 3 iterations and converged (coef, intercept, loss; converged:
+    the same predictions); the bf16 arm (2 and 3 classes, with and
+    without the scale) after 1, 2 and 3 iterations; OWLQN at
+    elastic_net_param=0.5 (the same exactly-zero coefficients); LinearRegression 'normal' with its
+    p-values; the three evaluators; a Pipeline of one LogisticRegression;
+    the fitted LogisticRegressionModel served at every rung of a ladder,
+    predict and transform bitwise equal to raw. Each max |err| stands
+    beside its tolerance; TF32 must be off for the f32 products."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
+    from orange3_spark_tpu_torch.datasets import load_iris, make_classification
+    from orange3_spark_tpu_torch.models.base import Pipeline
+    from orange3_spark_tpu_torch.models.evaluation import (
+        BinaryClassificationEvaluator, MulticlassClassificationEvaluator,
+        RegressionEvaluator,
+    )
+    from orange3_spark_tpu_torch.models.linear_regression import LinearRegression
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls; the f32 fits need it off")
+    cpu = TorchSession("cpu")
+    both = (sess, cpu)
+    data = {"iris": [load_iris(s) for s in both],
+            2: [make_classification(4096, 16, 2, seed=0, session=s) for s in both],
+            3: [make_classification(4096, 16, 3, seed=1, session=s) for s in both]}
+    failed, fits = [], []
+
+    def check(name, ok):
+        if not ok:
+            failed.append(name)
+
+    for loss, k, reg_l2, reg_l1, tol in LINEAR_LOSSES:
+        for scale in (False, True):
+            for iters in (1, 2, 3, 500):
+                card, host = _linear_fit_pair(data[k], loss, k if loss == "logistic" else 1,
+                                              reg_l2, reg_l1, tol, iters, scale)
+                conv = iters == 500
+                tol_c = LINEAR_CONVERGED_RTOL if conv else LINEAR_FIRST_RTOL
+                line = {"loss": loss, "k": k, "l1": reg_l1, "scale": scale,
+                        "iters": "converged" if conv else iters,
+                        "n_iter": [card.n_iter, host.n_iter],
+                        "coef_err": _rel_err(card.coef, host.coef),
+                        "intercept_err": _rel_err(card.intercept, host.intercept),
+                        "loss_err": abs(card.final_loss - host.final_loss)
+                        / max(abs(host.final_loss), 1e-30), "rtol": tol_c,
+                        "loss_rtol": LINEAR_LOSS_RTOL if conv else LINEAR_FIRST_RTOL}
+                ok = (line["coef_err"] <= tol_c and line["intercept_err"] <= tol_c
+                      and line["loss_err"] <= line["loss_rtol"])
+                if conv:
+                    ok = ok and card.n_iter < 500 and host.n_iter < 500
+                    X = data[k][1].X.numpy()
+                    pc, ph = (_linear_predictions(r, X, loss) for r in (card, host))
+                    line["predictions_equal"] = bool(
+                        np.allclose(pc, ph, rtol=1e-4, atol=1e-5) if loss == "squared"
+                        else np.array_equal(pc, ph))
+                    ok = ok and line["predictions_equal"]
+                else:
+                    ok = ok and card.n_iter == host.n_iter == iters
+                if reg_l1 is not None:
+                    line["zeros"] = [int((r.coef == 0).sum()) for r in (card, host)]
+                    line["zero_set_equal"] = bool(np.array_equal(
+                        card.coef.cpu().numpy() == 0, host.coef.numpy() == 0))
+                    ok = ok and line["zero_set_equal"]
+                line["ok"] = bool(ok)
+                check(f"fit_linear {loss} k={k} scale={scale} iters={iters}", ok)
+                fits.append(line)
+    # the bf16 arm step for step: the card's products against the CPU's
+    for k, reg_l2 in LINEAR_BF16:
+        for scale in (False, True):
+            for iters in (1, 2, 3):
+                card, host = _linear_fit_pair(data[k], "logistic", k, reg_l2, None, 1e-6,
+                                              iters, scale, dtype="bfloat16")
+                line = {"loss": "logistic", "k": k, "dtype": "bfloat16", "scale": scale,
+                        **_first_iterations_line(card, host, iters)}
+                check(f"fit_linear bf16 k={k} scale={scale} iters={iters}", line["ok"])
+                fits.append(line)
+    # Iris, BASELINE config 1's setting, step for step
+    for iters in (1, 2, 3):
+        card, host = _linear_fit_pair(data["iris"], "logistic", 3, 1e-4, None, 1e-6,
+                                      iters, True)
+        err = _rel_err(card.coef, host.coef)
+        fits.append({"loss": "logistic", "data": "iris", "iters": iters, "coef_err": err,
+                     "rtol": LINEAR_FIRST_RTOL, "ok": err <= LINEAR_FIRST_RTOL})
+        check(f"iris iters={iters}", err <= LINEAR_FIRST_RTOL)
+
+    # OWLQN through the estimator: the same exactly-zero coefficients
+    en = [LogisticRegression(reg_param=0.1, elastic_net_param=0.5, max_iter=500,
+                             tol=OWLQN_TOL).fit(t) for t in data[3]]
+    owlqn = {"zeros": [int((m.coef == 0).sum()) for m in en],
+             "zero_set_equal": bool(np.array_equal(en[0].coef.cpu().numpy() == 0,
+                                                   en[1].coef.numpy() == 0)),
+             "coef_err": _rel_err(en[0].coef, en[1].coef), "rtol": LINEAR_CONVERGED_RTOL,
+             "n_iter": [en[0].n_iter_, en[1].n_iter_], "tol": OWLQN_TOL}
+    check("owlqn zero set", owlqn["zero_set_equal"] and owlqn["zeros"][1] > 0
+          and owlqn["coef_err"] <= LINEAR_CONVERGED_RTOL and max(owlqn["n_iter"]) < 500)
+
+    # LinearRegression 'normal' with its inference statistics
+    rng = np.random.default_rng(5)
+    Xr = rng.standard_normal((4096, 16)).astype(np.float32)
+    yr = (Xr @ rng.standard_normal(16) + 0.3 + rng.standard_normal(4096)).astype(np.float32)
+    dom = Domain([ContinuousVariable(f"x{i}") for i in range(16)], ContinuousVariable("y"))
+    reg = [TorchTable.from_numpy(dom, Xr, yr, session=s) for s in both]
+    lr = [LinearRegression().fit(t) for t in reg]
+    normal = {"coef_err": _rel_err(lr[0].coef, lr[1].coef),
+              "p_value_max_abs_err": float((lr[0].p_values_.cpu() - lr[1].p_values_).abs().max()),
+              "t_value_err": _rel_err(lr[0].t_values_, lr[1].t_values_),
+              "rtol": LINEAR_NORMAL_RTOL, "p_atol": LINEAR_PVALUE_ATOL,
+              "p_values_card": lr[0].p_values_.cpu().tolist()}
+    check("normal equations", normal["coef_err"] <= LINEAR_NORMAL_RTOL
+          and normal["t_value_err"] <= LINEAR_NORMAL_RTOL
+          and normal["p_value_max_abs_err"] <= LINEAR_PVALUE_ATOL)
+
+    # the evaluators on each device's own scored tables
+    kw = dict(max_iter=500, reg_param=1e-2, tol=1e-5)
+    binom = [LogisticRegression(**kw).fit(t).transform(t) for t in data[2]]
+    multi = [LogisticRegression(**kw).fit(t).transform(t) for t in data[3]]
+    scored_reg = [m.transform(t) for m, t in zip(lr, reg)]
+    evals = {}
+    for name, ev, tabs in (
+            ("areaUnderROC", BinaryClassificationEvaluator(metric_name="areaUnderROC"), binom),
+            ("areaUnderPR", BinaryClassificationEvaluator(metric_name="areaUnderPR"), binom),
+            *((m, MulticlassClassificationEvaluator(metric_name=m), multi)
+              for m in ("accuracy", "f1", "weightedPrecision", "weightedRecall")),
+            *((m, RegressionEvaluator(metric_name=m), scored_reg)
+              for m in ("rmse", "mse", "mae", "r2"))):
+        card_v, host_v = (ev.evaluate(t) for t in tabs)
+        evals[name] = {"card": card_v, "cpu": host_v, "abs_err": abs(card_v - host_v)}
+        check(f"evaluator {name}", abs(card_v - host_v) <= LINEAR_METRIC_ATOL)
+
+    # a Pipeline of one LogisticRegression: its transform is the model's
+    pipe = Pipeline([LogisticRegression(**kw)]).fit(data[3][0])
+    direct = LogisticRegression(**kw).fit(data[3][0])
+    pipeline = {"transform_bitwise_vs_direct_fit": bool(torch.equal(
+        pipe.transform(data[3][0]).X, direct.transform(data[3][0]).X))}
+    check("pipeline", pipeline["transform_bitwise_vs_direct_fit"])
+
+    # the fitted model served at every rung, bitwise
+    dom3 = data[3][0].domain
+    X3 = data[3][1].X.numpy()
+    tables = {n: TorchTable.from_numpy(dom3, X3[:n], data[3][1].y[:n].numpy(), session=sess)
+              for n in (50, 100, 200, 300, 700, 1500)}
+    serving = _served_equal(direct, tables, sess, {})
+    check("served equal to raw", serving["bitwise"] and serving["graph_captures_repeat"] == 0
+          and not serving["breakers"])
+    serving_mb = _served_equal(direct, tables, sess, {"micro_batch": True, "max_batch": 2048})
+    check("micro-batched served equal to raw", serving_mb["bitwise"])
+    out = {"fits": fits, "owlqn": owlqn, "normal": normal, "evaluators": evals,
+           "evaluator_atol": LINEAR_METRIC_ATOL, "pipeline": pipeline,
+           "serving": serving, "serving_micro_batch": {"bitwise": serving_mb["bitwise"],
+                                                       "breakers": serving_mb["breakers"]},
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "failed": failed}
+    if failed:
+        emit({"phase": "linear_check", **out})
+        raise AssertionError(f"linear_check failed: {failed}")
+    return out
+
+
+def phase_iris(sess):
+    """BASELINE config 1 on the card: LogisticRegression(max_iter=200,
+    reg_param=1e-4) on Iris, a warm-up fit, then the timed fit: accuracy
+    (floor 0.96), iterations, objective evaluations and host reads."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.datasets import load_iris
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+
+    iris = load_iris(sess)
+    est = LogisticRegression(max_iter=200, reg_param=1e-4)
+    est.fit(iris)
+    sess.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(iris)
+    sess.synchronize()
+    fit_s = time.perf_counter() - t0
+    acc = float(np.mean(model.predict(iris) == iris.y.cpu().numpy()))
+    if acc < IRIS_ACC_FLOOR:
+        raise AssertionError(f"Iris accuracy {acc} below {IRIS_ACC_FLOOR}")
+    return {"accuracy": acc, "accuracy_floor": IRIS_ACC_FLOOR, "n_iter": model.n_iter_,
+            "fit_s": fit_s, "n_evals": model.n_evals_, "host_reads": model.host_reads_,
+            "evals_per_iter": model.n_evals_ / model.n_iter_,
+            "host_reads_per_iter": model.host_reads_ / model.n_iter_,
+            "ms_per_host_read": fit_s * 1e3 / model.host_reads_}
+
+
+def _dense_logreg_arm(table, y, dtype, mem_bw):
+    """One arm of dense_logreg: a warm-up fit, the timed fit, a profiled
+    fit, one objective evaluation at the fitted coefficients, accuracy, and
+    the fitted model's predict over the whole table."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orange3_spark_tpu_torch.models._linear import (
+        LinearObjective, column_inv_std, dense_logits,
+    )
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+
+    cfg = DENSE_LOGREG
+    sess = table.session
+    est = LogisticRegression(max_iter=cfg["max_iter"], tol=cfg["tol"],
+                             reg_param=cfg["reg_param"], compute_dtype=dtype)
+    est.fit(table)
+    sess.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    sess.synchronize()
+    wall = time.perf_counter() - t0
+    iters = model.n_iter_
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.fit(table)
+        sess.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy = _device_profile(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    # one evaluation of the objective (value and gradient) at the fit's end
+    s = column_inv_std(table.X, table.W)
+    obj = LinearObjective(table.X, table.y, table.W, cfg["reg_param"], s,
+                          loss_kind="logistic", k=2, fit_intercept=True,
+                          compute_dtype=getattr(torch, dtype))
+    theta = torch.cat([(model.coef / s[:, None]).reshape(-1), model.intercept])
+    eval_ms = graph_ms(lambda: obj.value_and_grad(theta), 10)
+    eval_eager_ms = cuda_ms(lambda: obj.value_and_grad(theta), 20, warmup=3)
+    x_bytes = obj.Xc.numel() * obj.Xc.element_size()
+    del obj
+    # predict over all rows: its wall (the D2H of the predictions included),
+    # the temporary it needs, and the logits' device time beside their byte
+    # bound and beside the library's product
+    pred = model.predict(table)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = model.predict(table)
+    predict_s = time.perf_counter() - t0
+    predict_temp = torch.cuda.max_memory_allocated() - base
+    acc = float(np.mean(pred == y))
+    coef = model.coef
+    logits_bytes = table.X.numel() * 4 + table.n_rows * coef.shape[1] * 4
+    predict = {"predict_s": predict_s, "predict_temp_bytes": predict_temp,
+               "logits_ms": cuda_ms(lambda: dense_logits(table.X, coef), 10, warmup=2),
+               "logits_bound_ms": logits_bytes / mem_bw * 1e3,
+               "logits_library_ms": cuda_ms(lambda: table.X @ coef, 10, warmup=2),
+               "logits_library": "torch.mm (X @ coef, f32, TF32 off)"}
+    return {"metric": "logreg_fit_rows_per_sec_per_chip",
+            "value": table.n_rows * iters / wall / sess.n_devices, "unit": "rows/s/chip",
+            "fit_wall_s": wall, "n_iter": iters, "n_evals": model.n_evals_,
+            "iter_evals": list(model.iter_evals_),
+            "host_reads": model.host_reads_, "evals_per_iter": model.n_evals_ / iters,
+            "host_reads_per_iter": model.host_reads_ / iters,
+            "ms_per_iter": wall * 1e3 / iters,
+            "profiled_fit_wall_s": prof_wall_us / 1e6, "device_busy_s": busy / 1e6,
+            "device_idle_share": (1 - busy / prof_wall_us) if events else "not measured",
+            "device_kernels": len(events),
+            "top_kernels": [{"name": n[:90], "ms": v[0] / 1e3, "launches": v[1]}
+                            for n, v in top],
+            "eval_ms": eval_ms, "eval_eager_ms": eval_eager_ms,
+            "eval_bytes": 2 * x_bytes, "eval_bound_ms": 2 * x_bytes / mem_bw * 1e3,
+            "eval_bound": "X read twice (the forward and the gradient product)",
+            "train_accuracy": acc, **predict}
+
+
+def phase_dense_logreg(sess, mem_bw):
+    """``bench.py --config dense_logreg`` at full width on the card (4M x 40
+    f32 rows from ``default_rng(0)``, the same labels; LogisticRegression
+    max_iter=20, tol=0, reg_param=1e-6): the bf16 arm, as bench.py runs
+    it, then an f32 arm. Per arm: ``value`` (rows x iterations / fit wall
+    / cards), evaluations (in all and by iteration) and host reads per
+    iteration, the device's busy and idle share of a profiled fit, one
+    objective evaluation's device time beside its byte bound, training
+    accuracy, and predict over the 4M rows (wall, temporary bytes, the
+    logits' device time beside their byte bound and ``X @ coef``'s)."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.core.domain import (
+        ContinuousVariable, DiscreteVariable, Domain,
+    )
+
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls; the f32 arm needs it off")
+    cfg = DENSE_LOGREG
+    n, d = cfg["rows"], cfg["features"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n, d), dtype=np.float32)
+    true_w = rng.standard_normal((d,)).astype(np.float32)
+    y = (X @ true_w + 0.5 * rng.standard_normal(n).astype(np.float32) > 0).astype(np.float32)
+    domain = Domain([ContinuousVariable(f"f{i}") for i in range(d)],
+                    DiscreteVariable("click", ("0", "1")))
+    table = TorchTable.from_numpy(domain, X, y, session=sess)
+    del X
+    data_s = time.perf_counter() - t0
+    arms = {dtype: _dense_logreg_arm(table, y, dtype, mem_bw)
+            for dtype in ("bfloat16", "float32")}
+    return {**arms["bfloat16"], "data_s": data_s, "rows": n, "features": d,
+            "config": {**cfg, "compute_dtype": "bfloat16"}, "cuts": None,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "f32_arm": arms["float32"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -2495,6 +2945,16 @@ def main(argv=None) -> int:
                               "hist_torch_ops_ms", "hist_ms")}}
                    for name in fit_launches}
         del table, eval_table
+        torch.cuda.empty_cache()
+
+        # ---- the dense linear family (no kernel of the package: PyTorch ops)
+        phase = "linear_check"
+        emit({"phase": phase, "device": kind, **phase_linear_check(sess)})
+        phase = "iris"
+        emit({"phase": phase, "device": kind, "nvidia_smi": smi, **phase_iris(sess)})
+        phase = "dense_logreg"
+        emit({"phase": phase, "device": kind, "nvidia_smi": smi,
+              **phase_dense_logreg(sess, mem_bw)})
         torch.cuda.empty_cache()
 
         # ---- the Criteo path (no kernel of the package: PyTorch ops)

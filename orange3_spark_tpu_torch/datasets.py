@@ -1,7 +1,9 @@
-"""Synthetic datasets of the PyTorch package."""
+"""Datasets of the PyTorch package: the Iris table (BASELINE config 1) and
+generators that give the JAX package's draws from the same seed."""
 
 from __future__ import annotations
 
+import csv
 import os
 import shutil
 from concurrent.futures import ThreadPoolExecutor
@@ -11,6 +13,44 @@ import numpy as np
 from orange3_spark_tpu_torch.core.domain import (
     ContinuousVariable, DiscreteVariable, Domain,
 )
+from orange3_spark_tpu_torch.core.table import TorchTable
+
+IRIS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "iris.csv")
+IRIS_FEATURES = ("sepal length (cm)", "sepal width (cm)", "petal length (cm)",
+                 "petal width (cm)")
+
+
+def load_iris(session=None) -> TorchTable:
+    """Iris-150 as a TorchTable (BASELINE config 1), from the package's own
+    copy of scikit-learn's ``iris.csv`` (its header row: rows, features,
+    the class names; then four measurements and a class index a row), read
+    as scikit-learn reads it."""
+    with open(IRIS_CSV, encoding="utf-8", newline="") as f:
+        rows = csv.reader(f)
+        head = next(rows)
+        n, d, names = int(head[0]), int(head[1]), tuple(head[2:])
+        X = np.empty((n, d), dtype=np.float64)
+        y = np.empty((n,), dtype=np.int64)
+        for i, row in enumerate(rows):
+            X[i] = np.asarray(row[:-1], dtype=np.float64)
+            y[i] = int(row[-1])
+    domain = Domain([ContinuousVariable(c) for c in IRIS_FEATURES],
+                    DiscreteVariable("iris", names))
+    return TorchTable.from_numpy(domain, X, y, session=session)
+
+
+def make_classification(n_rows: int, n_features: int, n_classes: int = 2, seed: int = 0,
+                        noise: float = 1.0, session=None) -> TorchTable:
+    """Linearly separable-ish classifier data: the argmax of X @ true_w plus
+    noise, with the JAX package's ``make_classification`` draws."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n_rows, n_features), dtype=np.float32)
+    true_w = rng.standard_normal((n_features, n_classes)).astype(np.float32)
+    logits = X @ true_w + noise * rng.standard_normal((n_rows, n_classes)).astype(np.float32)
+    y = np.argmax(logits, axis=1).astype(np.float32)
+    domain = Domain([ContinuousVariable(f"f{i}") for i in range(n_features)],
+                    DiscreteVariable("label", tuple(str(c) for c in range(n_classes))))
+    return TorchTable.from_numpy(domain, X, y, session=session)
 
 HIGGS_FEATURES = 28
 

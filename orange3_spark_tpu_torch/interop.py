@@ -28,6 +28,13 @@ from orange3_spark_tpu_torch.models.gbt import (
 from orange3_spark_tpu_torch.models.hashed_linear import (
     HashedLinearModel, HashedLinearParams,
 )
+from orange3_spark_tpu_torch.models.linear_regression import (
+    LinearRegressionModel, LinearRegressionParams,
+)
+from orange3_spark_tpu_torch.models.linear_svc import LinearSVCModel, LinearSVCParams
+from orange3_spark_tpu_torch.models.logistic_regression import (
+    LogisticRegressionModel, LogisticRegressionParams,
+)
 from orange3_spark_tpu_torch.models.random_forest import (
     RandomForestClassifierModel, RandomForestParams, RandomForestRegressorModel,
 )
@@ -93,6 +100,35 @@ def hashed_linear_model(state, params: Mapping, class_values: Sequence[str] | No
     theta = {k: torch.tensor(np.asarray(state[k], np.float32), device=device)
              for k in ("emb", "coef", "intercept")}
     return HashedLinearModel(p, theta, column_salts(p.n_cat, p.seed), class_values)
+
+
+def _linear_state(state, device):
+    device = TorchSession.active().device if device is None else device
+    return [torch.tensor(np.asarray(state[k], np.float32), device=device)
+            for k in ("coef", "intercept")]
+
+
+def logistic_regression(state, params: Mapping, class_values: Sequence[str],
+                        device=None) -> LogisticRegressionModel:
+    """A ``LogisticRegressionModel`` from the JAX model's ``state_pytree``
+    (coef [d, k], intercept [k]) and params."""
+    return LogisticRegressionModel(LogisticRegressionParams(**params),
+                                   *_linear_state(state, device), class_values)
+
+
+def linear_svc(state, params: Mapping, class_values: Sequence[str],
+               device=None) -> LinearSVCModel:
+    """A ``LinearSVCModel`` from the JAX model's state (coef [d, 1],
+    intercept [1]) and params."""
+    return LinearSVCModel(LinearSVCParams(**params), *_linear_state(state, device),
+                          class_values)
+
+
+def linear_regression(state, params: Mapping, device=None) -> LinearRegressionModel:
+    """A ``LinearRegressionModel`` from the JAX model's state (coef [d],
+    intercept []) and params."""
+    return LinearRegressionModel(LinearRegressionParams(**params),
+                                 *_linear_state(state, device))
 
 
 def _np_tree(tree):

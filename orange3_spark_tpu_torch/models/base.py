@@ -5,7 +5,9 @@ Port of ``orange3_spark_tpu/models/base.py``: params are frozen dataclasses
 returns a ``Model`` that holds its fitted state as device tensors and
 records the fit's wall time in ``last_fit_metrics``. Every subclass's
 ``transform``/``predict`` routes through the serving path (serve/) when a
-``ServingContext`` is active.
+``ServingContext`` is active. A transformer pickles its tensors as numpy arrays;
+they come back on the active session's device. ``Pipeline`` chains
+estimators and transformers (pyspark.ml.Pipeline).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Any
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +23,7 @@ import torch
 from orange3_spark_tpu_torch.core.domain import (
     ContinuousVariable, DiscreteVariable, Domain,
 )
+from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.core.table import TorchTable
 
 
@@ -79,6 +82,27 @@ class HasParams:
         self.params = params
 
 
+class _HostTensor:
+    """A tensor's values in a pickle: numpy, off the device."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, array: np.ndarray):
+        self.array = array
+
+
+def _map_leaves(obj, fn: Callable):
+    """``fn`` on every leaf of nested dicts, lists and tuples (named
+    tuples, such as a tree's arrays, keep their type)."""
+    if isinstance(obj, dict):
+        return {k: _map_leaves(v, fn) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_map_leaves(v, fn) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_leaves(v, fn) for v in obj)
+    return fn(obj)
+
+
 class Transformer(HasParams):
     """transform(table) -> table.
 
@@ -86,7 +110,11 @@ class Transformer(HasParams):
     creation to route through the serving subsystem (serve/) when a
     ``ServingContext`` is active — shape-bucketed padding, the cache of
     bucket programs, optional micro-batching. Without a context the raw
-    method runs untouched."""
+    method runs untouched.
+
+    Pickling copies every tensor (also inside dicts, lists and tuples) to
+    numpy, so a pickle is portable between hosts and devices; unpickled,
+    the tensors are on the active session's device."""
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -100,6 +128,22 @@ class Transformer(HasParams):
 
     def __call__(self, table: TorchTable) -> TorchTable:
         return self.transform(table)
+
+    def __getstate__(self):
+        return _map_leaves(dict(self.__dict__), lambda x: _HostTensor(
+            x.detach().cpu().numpy()) if isinstance(x, torch.Tensor) else x)
+
+    def __setstate__(self, state):
+        device = TorchSession.active().device
+        self.__dict__.update(_map_leaves(state, lambda x: torch.from_numpy(
+            x.array).to(device) if isinstance(x, _HostTensor) else x))
+
+    def __copy__(self):
+        """A shallow copy shares the tensors where they lie (``copy.copy``
+        would otherwise go through the pickle state, to the host and back)."""
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        return new
 
 
 class Model(Transformer):
@@ -162,6 +206,56 @@ class Estimator(HasParams):
         return f"{type(self).__name__}({self.params})"
 
 
+class Pipeline(Estimator):
+    """Chain of estimators/transformers (pyspark.ml.Pipeline): each
+    estimator is fit on the table the stages before it transformed."""
+
+    def __init__(self, stages: Sequence[Estimator | Transformer]):
+        super().__init__(Params())
+        self.stages = list(stages)
+
+    def _fit(self, table: TorchTable) -> "PipelineModel":
+        fitted: list[Transformer] = []
+        for stage in self.stages:
+            if isinstance(stage, Estimator):
+                stage = stage.fit(table)
+            fitted.append(stage)
+            table = stage.transform(table)
+        return PipelineModel(fitted)
+
+
+class PipelineModel(Model):
+    def __init__(self, stages: Sequence[Transformer]):
+        self.params = Params()
+        self.stages = list(stages)
+
+    def transform(self, table: TorchTable) -> TorchTable:
+        for stage in self.stages:
+            table = stage.transform(table)
+        return table
+
+    @property
+    def state_pytree(self) -> dict[str, Any]:
+        return {f"stage{i}": s.state_pytree for i, s in enumerate(self.stages)
+                if isinstance(s, Model)}
+
+    def load_state_pytree(self, state: dict[str, Any]) -> None:
+        for key, sub in state.items():
+            idx = int(key.removeprefix("stage"))
+            stage = self.stages[idx]
+            if not isinstance(stage, Model):
+                raise ValueError(f"checkpoint has state for non-model stage {idx}")
+            stage.load_state_pytree(sub)
+        # the pipeline itself can be the served object (its bucket programs
+        # read the stages' state), so its fingerprint must move too
+        self._touch_serving_state()
+
+    def _serve_state_token(self):
+        return (getattr(self, "_serve_state_version", 0),
+                tuple(s._serve_state_token() for s in self.stages
+                      if isinstance(s, Model)))
+
+
 def infer_class_values(table: TorchTable) -> tuple[str, ...]:
     """Class labels from the domain, or '0'..'max(y)' when untyped.
 
@@ -188,6 +282,28 @@ def classification_columns(probs, class_values):
     new_vars = [ContinuousVariable(f"probability_{c}") for c in class_values]
     new_vars.append(DiscreteVariable("prediction", class_values))
     return [probs, pred[:, None]], new_vars
+
+
+def predictions_to_numpy(table: TorchTable, column: str = "prediction") -> np.ndarray:
+    """One prediction column on the host, padding stripped.
+
+    Padding is stripped by the validity mask, not only by ``n_rows``: a
+    bucket-padded table whose caller did not track the logical row count
+    (``n_rows == n_pad``) still has W == 0 on every pad row, so the
+    trailing zero-weight run is trimmed too. Interior zero-weight
+    (filtered) rows are logical rows and stay.
+
+    Carve-out: on a table with no padding a trailing run of filtered rows
+    cannot be told from padding, and is trimmed. A caller that filters
+    trailing rows and needs them back tracks the logical row count
+    (``n_rows < n_pad``): then every logical row is returned."""
+    col = table.column(column)[: table.n_rows].cpu().numpy()
+    if table.n_rows < table.n_pad:
+        return col
+    live = np.flatnonzero(table.W[: table.n_rows].cpu().numpy() > 0)
+    if live.size == 0:
+        return col[:0]
+    return col[: int(live[-1]) + 1]
 
 
 def to_host(x: torch.Tensor, n_rows: int) -> np.ndarray:

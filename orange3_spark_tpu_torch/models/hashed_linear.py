@@ -66,7 +66,7 @@ from orange3_spark_tpu_torch.io.codec import (
     bf16_bits_np, bf16_to_f32, bit_width, pack_rows_np, resolve_cache_dtype, unpack_rows,
 )
 from orange3_spark_tpu_torch.models._linear import (
-    EPS_TOTAL_WEIGHT, per_row_loss, per_row_loss_grad,
+    EPS_TOTAL_WEIGHT, dense_logits, per_row_loss, per_row_loss_grad,
 )
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params
 from orange3_spark_tpu_torch.ops.hashing import (
@@ -175,16 +175,6 @@ def _check_ported(p: HashedLinearParams) -> None:
             f"replay_granularity must be 'all' or 'epoch', got {p.replay_granularity!r}")
 
 
-def _dense_term(dense: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """``dense @ coef`` as the elementwise products [N, d, k] summed over
-    the d dense columns, the form of the embedding sum beside it: a row's
-    reduction runs over its own d products alone, so it rounds the same
-    whatever the row count. (A BLAS sgemm need not: MKL's rounds the rows of
-    a ragged tail block apart from those of its full blocks, so a served
-    request and its padded bucket could differ by an ulp.)"""
-    return (dense[:, :, None] * coef).sum(dim=1)
-
-
 def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """[N, k] logits: the 'fused' form, one gather of the [N, C] embedding
     rows summed over the columns, plus the dense block's term."""
@@ -193,7 +183,7 @@ def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch
     rows = emb.index_select(0, idx.reshape(-1)).view(N, C, emb.shape[1])
     logits = rows.sum(dim=1)
     if theta["coef"].shape[0]:
-        logits = logits + _dense_term(dense, theta["coef"])
+        logits = logits + dense_logits(dense, theta["coef"])
     return logits + theta["intercept"]
 
 

@@ -1166,3 +1166,132 @@ def test_segment_sum_mixed_widths_in_one_process(cuda_device):
                                                    torch.from_numpy(g))
         rows = torch.bincount(torch.from_numpy(seg), minlength=20_001)
         assert torch.equal(got[rows <= ss.walk_max()], want[rows <= ss.walk_max()]), k
+
+
+# ------------------------------------------------------ the dense linear family
+def _linear_tables(cuda_device, n=2048, d=12, k=3, seed=1):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_classification
+
+    return [make_classification(n, d, k, seed=seed, session=TorchSession(dev))
+            for dev in (cuda_device, "cpu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss,k,l1,tol,dtype", [("logistic", 3, None, 1e-5, "float32"),
+                                                 ("squared_hinge", 2, None, 1e-5, "float32"),
+                                                 ("hinge", 2, None, 1e-2, "float32"),
+                                                 ("squared", 2, None, 1e-5, "float32"),
+                                                 ("logistic", 3, 0.05, 1e-3, "float32"),
+                                                 ("logistic", 3, None, 1e-5, "bfloat16"),
+                                                 ("logistic", 2, None, 1e-5, "bfloat16")])
+def test_linear_fit_on_cuda_matches_cpu(cuda_device, loss, k, l1, tol, dtype):
+    """fit_linear on the card against the CPU path: after 3 iterations
+    within 1e-4 relative (float32 summation order, cuBLAS against MKL), and
+    converged within 1e-3 with the same predictions (and, with an L1 term,
+    the same exactly-zero coefficients), as ``chip_smoke.py`` holds it.
+    Hinge and OWLQN stop on looser tols: a non-smooth gradient never falls
+    below 1e-5, and OWLQN's iterate freezes once its Armijo test sees the
+    loss flat to a float32 ulp, at a pseudo-gradient floor that float32
+    sums set (here 1.4e-6 on the CPU, which stops at 16 iterations at tol
+    1e-5, and 1.4e-5 on the card, which runs to the limit). The bf16
+    arm's card-only products (``torch.mm`` with an f32 result, G split in
+    three bf16 parts) are held to the CPU's widened ones after 1, 2 and 3
+    iterations, with and without the column scale, at 1e-4 for coef,
+    intercept and loss; it is not compared converged, where the loss that
+    bf16-rounded coefficients give is flat."""
+    smoke = _smoke()
+    tables = _linear_tables(cuda_device, k=k)
+    kk = k if loss == "logistic" else 1
+    if dtype == "bfloat16":
+        for scale in (False, True):
+            for iters in (1, 2, 3):
+                card, host = smoke._linear_fit_pair(tables, loss, kk, 1e-2, l1, tol, iters,
+                                                    scale, dtype=dtype)
+                line = smoke._first_iterations_line(card, host, iters)
+                assert line["ok"], line
+        return
+    for iters, rtol in ((3, 1e-4), (500, 1e-3)):
+        card, host = smoke._linear_fit_pair(tables, loss, kk, 1e-2, l1, tol, iters, True)
+        assert smoke._rel_err(card.coef, host.coef) <= rtol
+        assert smoke._rel_err(card.intercept, host.intercept) <= rtol
+        if iters == 500:
+            assert card.n_iter < 500 and host.n_iter < 500
+            X = tables[1].X.numpy()
+            pc, ph = (smoke._linear_predictions(r, X, loss) for r in (card, host))
+            if loss == "squared":
+                np.testing.assert_allclose(pc, ph, rtol=1e-4, atol=1e-5)
+            else:
+                assert np.array_equal(pc, ph)
+            if l1 is not None:
+                assert np.array_equal(card.coef.cpu().numpy() == 0, host.coef.numpy() == 0)
+
+
+@pytest.mark.cuda
+def test_dense_logits_blocks_keep_each_rows_bits_on_cuda(cuda_device):
+    """Past LOGIT_BLOCK_ROWS rows the logits are taken a block at a time:
+    each row's bits are those of the row alone and of a one-block call."""
+    from orange3_spark_tpu_torch.models._linear import LOGIT_BLOCK_ROWS, dense_logits
+
+    rng = np.random.default_rng(4)
+    n = 2 * LOGIT_BLOCK_ROWS + 77
+    X = torch.from_numpy(rng.standard_normal((n, 40), dtype=np.float32)).to(cuda_device)
+    coef = torch.from_numpy(rng.standard_normal((40, 2), dtype=np.float32)).to(cuda_device)
+    got = dense_logits(X, coef)
+    assert got.shape == (n, 2)
+    for lo in (0, LOGIT_BLOCK_ROWS - 3, n - 100):
+        assert torch.equal(got[lo:lo + 100], dense_logits(X[lo:lo + 100], coef))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro_batch", [False, True])
+def test_served_logistic_regression_equals_raw_on_cuda(cuda_device, micro_batch):
+    """predict and transform through captured bucket graphs equal the raw
+    calls bit for bit at a size in every rung, also after allocator churn
+    (the dense term is a row-wise sum of products, not an sgemm)."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+
+    smoke = _smoke()
+    sess = TorchSession(cuda_device)
+    card, host = _linear_tables(cuda_device)
+    model = LogisticRegression(max_iter=100, reg_param=1e-2).fit(card)
+    X, y = host.X.numpy(), host.y.numpy()
+    tables = {n: TorchTable.from_numpy(card.domain, X[:n], y[:n], session=sess)
+              for n in (50, 100, 200, 300, 700, 1500)}
+    kw = {"micro_batch": True, "max_batch": 2048} if micro_batch else {}
+    out = smoke._served_equal(model, tables, sess, kw)
+    assert out["bitwise"], out
+    assert not out["breakers"] and out["graph_captures_repeat"] == 0
+
+
+@pytest.mark.cuda
+def test_bf16_arm_within_its_tolerance_of_the_f32_arm(cuda_device):
+    """dense_logreg's two arms at 200,000 x 40 (20 iterations, tol 0): the
+    bf16 arm rounds X, the coefficients and the coefficient gradient to
+    bf16 (8 significant bits), so its coefficients stay within 2e-2
+    relative of the f32 arm's, its predictions agree on 99.5 % of the rows
+    and its training accuracy is within 0.002."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.core.domain import (
+        ContinuousVariable, DiscreteVariable, Domain,
+    )
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+
+    rng = np.random.default_rng(0)
+    n, d = 200_000, 40
+    X = rng.standard_normal((n, d), dtype=np.float32)
+    w = rng.standard_normal(d).astype(np.float32)
+    y = (X @ w + 0.5 * rng.standard_normal(n).astype(np.float32) > 0).astype(np.float32)
+    dom = Domain([ContinuousVariable(f"f{i}") for i in range(d)],
+                 DiscreteVariable("click", ("0", "1")))
+    t = TorchTable.from_numpy(dom, X, y, session=TorchSession(cuda_device))
+    arms = {dt: LogisticRegression(max_iter=20, tol=0.0, reg_param=1e-6,
+                                   compute_dtype=dt).fit(t) for dt in ("float32", "bfloat16")}
+    f32, bf16 = (arms[dt] for dt in ("float32", "bfloat16"))
+    assert f32.n_iter_ == bf16.n_iter_ == 20
+    rel = float((bf16.coef - f32.coef).abs().max() / f32.coef.abs().max())
+    assert rel <= 2e-2
+    pf, pb = f32.predict(t), bf16.predict(t)
+    assert np.mean(pf == pb) >= 0.995
+    assert abs(np.mean(pf == y) - np.mean(pb == y)) <= 0.002

@@ -9,7 +9,7 @@ the padding, the cache, the breakers and the micro-batcher, and
 
 Tolerances: served predictions, logits and probabilities equal the port's
 raw ones bitwise at every request size: the dense block's term is a sum of
-elementwise products in column order (``hashed_linear._dense_term``), not a
+elementwise products in column order (``_linear.dense_logits``), not a
 BLAS sgemm, whose tail block rounds rows apart from its full blocks (MKL's
 once made a 9-row request and its 64-row bucket differ by one ulp), and
 the embedding gather-sum rounds a row the same at every row count. Trees
