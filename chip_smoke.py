@@ -63,6 +63,37 @@ dense_logreg``; PyTorch ops, no kernel of the package: the products are
                   a profiled fit, one objective evaluation's device time
                   beside its byte bound (X read twice), training accuracy
 
+then the taxi feature pipeline (BASELINE config 5: OWTable ->
+OWStandardScaler(with_mean) -> OWPCA(k=4) -> OWKMeans(k=10, max_iter=10) as
+a widget graph; PyTorch ops, no kernel of the package: the products are
+``torch.mm`` or per-row sums, as the reference's are XLA's dot):
+
+  taxi_check      200,000 x 8 rows of ``datasets.make_taxi_proxy`` on the
+                  card against the port's CPU path: scaler shift and scale
+                  within 1e-6 relative; each principal component, sign-
+                  aligned, within 1e-5 or, where its eigenvalue lies close to
+                  another, within the Davis–Kahan bound of the two
+                  covariances' difference; KMeans on the same input seeded
+                  bitwise, centers within 1e-4, cluster ids equal on 99.99 %;
+                  Lloyd's fixed-trip form bitwise the eager loop; two fits
+                  of the graph bitwise; the staged transform bitwise the
+                  eager walk; two replays of the staged refit bitwise and its
+                  KMeans the eager run of the same device init;
+                  StreamingKMeans' cached (captured) replay bitwise the
+                  re-streamed fit; served fused = stage by stage = raw,
+                  bitwise, at a request size in every rung of a 64..512
+                  ladder (1 and 3 dispatches)
+  taxi_pipeline   ``bench_suite.py:193-238`` at 10,000,000 x 8
+                  (``default_rng(2)``, ``--taxi-rows``) with bench's keys: the
+                  eager fit walk after a warm-up (``workflow_fit_s``), the
+                  staged transform and refit (captured graphs;
+                  ``graph_segments``, ``refit_fallbacks``), the eager
+                  transform, bench.py's streaming arm (2^16-row chunks,
+                  ``StreamingKMeans(k=10, epochs=2)``) and its serving A/B
+                  (24 requests of 256 rows, ``default_rng(11)``, interleaved:
+                  p50s, dispatches, parity, gated); launches, busy time and
+                  idle share of one profiled eager walk and staged call
+
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
 accelerator): PyTorch ops and two kernels of the package
 (``ops/csrc/segment_sum.cu``): ``segment_update_sorted``, the whole
@@ -2835,6 +2866,447 @@ def phase_dense_logreg(sess, mem_bw):
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "f32_arm": arms["float32"]}
 
 
+# ------------------------------------------------ the taxi feature pipeline
+# BASELINE config 5 (bench_suite.py:193-238, bench.py:3203-3411): OWTable ->
+# OWStandardScaler(with_mean) -> OWPCA(k=4) -> OWKMeans(k=10, max_iter=10)
+TAXI_ROWS = 10_000_000
+TAXI_CHECK_ROWS = 200_000
+TAXI_LADDER = dict(min_bucket=64, max_bucket=512)
+TAXI_STREAM_CHUNK = 1 << 16
+# the card against the port's CPU path (taxi_check)
+TAXI_SCALER_RTOL, TAXI_PCA_ATOL, TAXI_CENTERS_ATOL, TAXI_IDS_SHARE = 1e-6, 1e-5, 1e-4, 0.9999
+
+
+def _taxi_graph(table):
+    from orange3_spark_tpu_torch.widgets.catalog import WIDGET_REGISTRY, OWTable
+    from orange3_spark_tpu_torch.workflow.graph import WorkflowGraph
+
+    g = WorkflowGraph()
+    src = g.add(OWTable(table))
+    sc = g.add(WIDGET_REGISTRY["OWStandardScaler"](with_mean=True))
+    pca = g.add(WIDGET_REGISTRY["OWPCA"](k=4))
+    km = g.add(WIDGET_REGISTRY["OWKMeans"](k=10, max_iter=10))
+    g.connect(src, "data", sc, "data")
+    g.connect(sc, "data", pca, "data")
+    g.connect(pca, "data", km, "data")
+    return g, src, sc, pca, km
+
+
+def _sign_aligned(got, ref):
+    """``got``'s columns, each negated where that aligns it with ``ref``'s
+    (an eigenvector's sign is arbitrary in every solver)."""
+    import torch
+
+    s = torch.sign((got * ref).sum(dim=0))
+    return got * torch.where(s == 0, 1.0, s)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    # the bits, so NaNs and signed zeros compare as they are stored
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def _table_bits_equal(a, b) -> bool:
+    return all(_bits_equal(x, y) for x, y in ((a.X, b.X), (a.Y, b.Y), (a.W, b.W)))
+
+
+def _served_taxi(wf, models, X, dom, sess, ladder):
+    """Fused, stage-by-stage and raw at one request size in every rung of
+    ``ladder``: {n: {fused_equal_raw, stagewise_equal_raw, transform_equal,
+    dispatch_fused, dispatch_staged}}."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import reset_serve_counters, serve_counters
+
+    def dispatches():
+        c = serve_counters()
+        return c.get("bucket_hits", 0) + c.get("bucket_misses", 0)
+
+    scaler, pca, km = models
+    out = {}
+    rungs = list(BucketLadder(**ladder).buckets())
+    sizes = [1] + [r - r // 3 for r in rungs] + [rungs[-1]]
+    for n in sizes:
+        t = TorchTable.from_numpy(dom, X[:n], session=sess)
+        raw = km.predict(pca.transform(scaler.transform(t)))
+        raw_tr = km.transform(pca.transform(scaler.transform(t)))
+        with ServingContext(BucketLadder(**ladder)):
+            reset_serve_counters()
+            fused = wf.predict(t)
+            d_fused = dispatches()
+            fused_tr = wf.transform(t)
+            os.environ["OTPU_WORKFLOW_SERVE"] = "0"
+            try:
+                reset_serve_counters()
+                staged = wf.predict(t)
+                d_staged = dispatches()
+            finally:
+                os.environ.pop("OTPU_WORKFLOW_SERVE", None)
+        out[str(n)] = {"fused_equal_raw": bool(np.array_equal(fused, raw)),
+                       "stagewise_equal_raw": bool(np.array_equal(staged, raw)),
+                       "transform_equal_raw": _bits_equal(fused_tr.X, raw_tr.X),
+                       "dispatch_fused": d_fused, "dispatch_staged": d_staged}
+    return out
+
+
+def _pca_agreement(pca_g, pca_c, s_g, s_c) -> dict:
+    """The card's principal components against the CPU's, each column
+    sign-aligned. A component is held to ``TAXI_PCA_ATOL``, or, where its
+    eigenvalue lies close to another, to the Davis–Kahan bound of how far
+    an eigenvector may move: sqrt(2)·‖ΔC‖₂ / gap, with ΔC the difference of
+    the two covariances (float32 sums in two orders) plus each solver's
+    backward error (d·eps32·‖C‖₂). The taxi table standardizes five
+    independent columns to unit variance, so PC2-PC4 sit among eigenvalues
+    0.993-1.007: there no float32 solver fixes the eigenvector to 1e-5."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.parallel.collectives import distributed_gramian
+
+    def cov(t):
+        G, _, tot = distributed_gramian(t.X, t.W)
+        return (G / tot).double().cpu().numpy()
+
+    cg, cc = cov(s_g), cov(s_c)
+    lam = np.linalg.eigvalsh(cc)[::-1]
+    norm = float(np.linalg.norm(cc, 2))
+    eps32 = float(np.finfo(np.float32).eps)
+    delta = float(np.linalg.norm(cg - cc, 2)) + 2 * cc.shape[0] * eps32 * norm
+    comp_c = pca_c.components.double()
+    aligned = _sign_aligned(pca_g.components.cpu().double(), comp_c)
+    errs, tols, gaps = [], [], []
+    for i in range(comp_c.shape[1]):
+        gap = float(np.min(np.abs(np.delete(lam, i) - lam[i])))
+        errs.append(float((aligned[:, i] - comp_c[:, i]).abs().max()))
+        tols.append(max(TAXI_PCA_ATOL, float(np.sqrt(2.0) * delta / gap)))
+        gaps.append(gap)
+    return {"component_max_abs_err": errs, "component_tolerance": tols,
+            "eigengap": gaps, "eigenvalues": lam.tolist(), "cov_delta_2norm": delta,
+            "atol": TAXI_PCA_ATOL}
+
+
+def phase_taxi_check(sess):
+    """The feature pipeline on the card held to the port's CPU path at
+    200,000 x 8 rows of the taxi generator (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.datasets import make_taxi_proxy, taxi_domain
+    from orange3_spark_tpu_torch.io.streaming import StreamingKMeans, array_chunk_source
+    from orange3_spark_tpu_torch.models import kmeans as K
+    from orange3_spark_tpu_torch.models.pca import PCA
+    from orange3_spark_tpu_torch.models.preprocess import StandardScaler
+    from orange3_spark_tpu_torch.serve import ServedWorkflow
+    from orange3_spark_tpu_torch.workflow.staging import stage_graph
+
+    X = make_taxi_proxy(TAXI_CHECK_ROWS)
+    dom = taxi_domain()
+    cpu = TorchSession("cpu")
+    t_gpu = TorchTable.from_numpy(dom, X, session=sess)
+    t_cpu = TorchTable.from_numpy(dom, X, session=cpu)
+    failed = []
+
+    def check(name, ok):
+        if not ok:
+            failed.append(name)
+
+    # the scaler and PCA, fit on each device
+    sc_g, sc_c = (StandardScaler(with_mean=True).fit(t) for t in (t_gpu, t_cpu))
+    rel = lambda a, b: float(((a.cpu() - b).abs() / b.abs().clamp_min(1e-30)).max())  # noqa: E731
+    scaler_err = max(rel(sc_g.shift, sc_c.shift), rel(sc_g.scale, sc_c.scale))
+    check("scaler", scaler_err <= TAXI_SCALER_RTOL)
+    s_g, s_c = sc_g.transform(t_gpu), sc_c.transform(t_cpu)
+    pca_g, pca_c = PCA(k=4).fit(s_g), PCA(k=4).fit(s_c)
+    pca_line = _pca_agreement(pca_g, pca_c, s_g, s_c)
+    check("pca", all(e <= b for e, b in zip(pca_line["component_max_abs_err"],
+                                            pca_line["component_tolerance"])))
+    # KMeans on the same input on both devices: the CPU's projection
+    z_c = pca_c.transform(s_c)
+    z_g = TorchTable(z_c.domain, z_c.X.to(sess.device), None, z_c.W.to(sess.device),
+                     None, z_c.n_rows, sess)
+    est = K.KMeans(k=10, max_iter=10)
+    seeds_g, seeds_c = est._init_centers(z_g), est._init_centers(z_c)
+    check("seeded_centers_bitwise", _bits_equal(seeds_g.cpu(), seeds_c))
+    km_g, km_c = est.fit(z_g), est.fit(z_c)
+    centers_err = float((km_g.centers.cpu() - km_c.centers).abs().max())
+    check("centers", centers_err <= TAXI_CENTERS_ATOL)
+    ids_share = float(np.mean(km_g.predict(z_g) == km_c.predict(z_c)))
+    check("cluster_ids", ids_share >= TAXI_IDS_SHARE)
+    # Lloyd's fixed-trip form against the eager loop, on the card
+    eager = K._lloyd(z_g.X, z_g.W, seeds_g, 1e-4, k=10, max_iter=10)
+    fixed = K._lloyd_fixed(z_g.X, z_g.W, seeds_g, 1e-4, k=10, max_iter=10)
+    lloyd_bitwise = (all(_bits_equal(a, b) for a, b in zip(eager[:3], fixed[:3]))
+                     and int(fixed[3]) == eager[3])
+    check("lloyd_fixed_trip_bitwise", lloyd_bitwise)
+    # two fits of the whole graph on the card
+    runs = []
+    for _ in range(2):
+        g, src, sc, pca, km = _taxi_graph(t_gpu)
+        runs.append((g, g.run(), src, sc, pca, km))
+    (g, outs, src, sc, pca, km), (_, outs2, *_) = runs
+    two_fits = all(_bits_equal(outs[n]["model"].state_pytree[k], outs2[n]["model"].state_pytree[k])
+                   for n in (sc, pca, km) for k in outs[n]["model"].state_pytree)
+    check("two_fits_bitwise", two_fits and _table_bits_equal(outs[km]["data"], outs2[km]["data"]))
+    # the staged transform against the eager widget walk, and two replays
+    # of the staged refit
+    staged = stage_graph(g, km)
+    staged_out = staged()
+    check("staged_equal_eager", _table_bits_equal(staged_out, outs[km]["data"]))
+    refit = stage_graph(g, km, refit=True)
+    r1, r2 = refit(), refit()
+    check("refit_replays_bitwise", _table_bits_equal(r1, r2))
+    check("refit_fallbacks", refit.refit_fallbacks == [])
+    refit_ids = r1.X[: r1.n_rows, -1]
+    # the staged refit's KMeans (device init) against the eager run of the
+    # same init and fit on the card, inside staging(): same centers
+    from orange3_spark_tpu_torch.models.base import staging
+
+    with staging():
+        dev_km = K.KMeans(k=10, max_iter=10).fit(outs[pca]["data"])
+    dev_ids = dev_km.predict(outs[pca]["data"])
+    check("refit_kmeans_equals_staged_eager_fit", bool(np.array_equal(
+        refit_ids.cpu().numpy().astype(np.int32), dev_ids)))
+    # StreamingKMeans: the cached (captured) replay against the re-streamed
+    # per-chunk loop
+    Z = z_c.X[: z_c.n_rows].numpy()
+    skm = [StreamingKMeans(k=10, epochs=3, chunk_rows=TAXI_STREAM_CHUNK, seed=0).fit_stream(
+        array_chunk_source(Z, chunk_rows=TAXI_STREAM_CHUNK), n_features=4, session=sess,
+        cache_device=cache) for cache in (False, True)]
+    check("streaming_cache_bitwise", _bits_equal(skm[0].centers, skm[1].centers)
+          and skm[0].n_iter_ == skm[1].n_iter_)
+    # served fused = stage by stage = raw at every rung
+    models = [outs[n]["model"] for n in (sc, pca, km)]
+    wf = ServedWorkflow.from_stages(models, t_gpu, name="taxi-check")
+    served = _served_taxi(wf, models, X, dom, sess, TAXI_LADDER)
+    check("served_bitwise", all(v["fused_equal_raw"] and v["stagewise_equal_raw"]
+                                and v["transform_equal_raw"] for v in served.values()))
+    check("served_dispatches", all(v["dispatch_fused"] == 1 and v["dispatch_staged"] == 3
+                                   for v in served.values()))
+    line = {"rows": TAXI_CHECK_ROWS,
+            "scaler_max_rel_err": scaler_err, "scaler_rtol": TAXI_SCALER_RTOL,
+            "pca_components_sign_aligned": pca_line,
+            "seeded_centers_bitwise": "seeded_centers_bitwise" not in failed,
+            "centers_max_abs_err": centers_err, "centers_atol": TAXI_CENTERS_ATOL,
+            "cluster_ids_equal_share": ids_share, "cluster_ids_floor": TAXI_IDS_SHARE,
+            "kmeans_n_iter": [km_g.n_iter_, km_c.n_iter_],
+            "lloyd_fixed_trip_bitwise": lloyd_bitwise, "two_fits_bitwise": two_fits,
+            "staged_segments": staged.segments, "refit_segments": refit.segments,
+            "refit_graph_segments": refit.graph_segments,
+            "streaming_n_iter": skm[0].n_iter_, "served": served, "failed": failed}
+    if failed:
+        emit({"phase": "taxi_check", **line})
+        raise AssertionError(f"taxi_check failed: {failed}")
+    del t_cpu, runs, g, outs, outs2, staged, refit
+    torch.cuda.empty_cache()
+    return line
+
+
+def _profile_run(fn):
+    """(wall us, device events, busy us) of one ``fn()`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, by_name, busy = _device_profile(prof)
+    return wall_us, events, by_name, busy
+
+
+def phase_taxi_pipeline(sess, X):
+    """``bench_suite.py:193-238`` at scale 1.0 plus ``bench.py``'s streaming
+    and serving arms, on the card, with bench's key names."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.datasets import taxi_domain
+    from orange3_spark_tpu_torch.io.streaming import StreamingKMeans, array_chunk_source
+    from orange3_spark_tpu_torch.models.pca import PCA
+    from orange3_spark_tpu_torch.models.preprocess import StandardScaler
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServedWorkflow, ServingContext
+    from orange3_spark_tpu_torch.utils.profiling import reset_serve_counters, serve_counters
+    from orange3_spark_tpu_torch.workflow.staging import stage_graph
+
+    n_rows = X.shape[0]
+    dom = taxi_domain()
+    t0 = time.perf_counter()
+    table = TorchTable.from_numpy(dom, X, session=sess)
+    sess.synchronize()
+    data_s = time.perf_counter() - t0
+
+    def block(t):
+        torch.cuda.synchronize()
+        return t
+
+    g_warm, *_ = _taxi_graph(table)
+    block(g_warm.run())
+    g, src, sc, pca, km = _taxi_graph(table)
+    t0 = time.perf_counter()
+    out_eager = block(g.run()[km]["data"])
+    wall_fit_eager = time.perf_counter() - t0
+
+    staged = stage_graph(g, km)
+    block(staged())
+    t0 = time.perf_counter()
+    out_staged = block(staged())
+    wall_staged = time.perf_counter() - t0
+
+    refit_staged = stage_graph(g, km, refit=True)
+    block(refit_staged())
+    t0 = time.perf_counter()
+    out_refit = block(refit_staged())
+    wall_fit_staged = time.perf_counter() - t0
+
+    def eager_transform():
+        t = table
+        for nid in (sc, pca, km):
+            t = g.nodes[nid].outputs["model"].transform(t)
+        return t
+
+    block(eager_transform())
+    t0 = time.perf_counter()
+    out_e2 = block(eager_transform())
+    wall_eager_tr = time.perf_counter() - t0
+    staged_bitwise = _table_bits_equal(out_staged, out_e2) and _table_bits_equal(
+        out_staged, out_eager)
+    if not staged_bitwise:
+        raise AssertionError("the staged transform differs from the eager widget walk")
+    refit_ids = out_refit.X[:, -1]
+    refit_clusters = int(torch.unique(refit_ids).numel())
+    if not bool(torch.isfinite(out_refit.X).all()) or refit_clusters < 2:
+        raise AssertionError(f"the staged refit's output is not a clustering "
+                             f"({refit_clusters} clusters)")
+
+    # launches of one eager walk (a fresh graph: the three fits and
+    # transforms) and of one staged call, with the walk's device busy time
+    g_prof, *_ = _taxi_graph(table)
+    walk_us, walk_events, walk_by_name, walk_busy = _profile_run(lambda: g_prof.run())
+    st_us, st_events, _, st_busy = _profile_run(staged)
+    rf_us, rf_events, _, rf_busy = _profile_run(refit_staged)
+    top = sorted(walk_by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    del g_prof, g_warm
+
+    # ---- streaming-fit arm (bench.py:3317-3351): each stage out of core
+    # over a chunk stream, the stages chained chunk-wise on the host
+    cr = TAXI_STREAM_CHUNK
+    t0 = time.perf_counter()
+    scaler_s = StandardScaler(with_mean=True).fit_stream(
+        array_chunk_source(X, chunk_rows=cr), session=sess, chunk_rows=cr)
+    sh = scaler_s.shift.cpu().numpy()
+    scl = scaler_s.scale.cpu().numpy()
+
+    def scaled_source():
+        for c in array_chunk_source(X, chunk_rows=cr)():
+            yield (((c[0] - sh) * scl).astype(np.float32), None, None)
+
+    pca_s = PCA(k=4).fit_stream(scaled_source, session=sess, chunk_rows=cr)
+    comp = pca_s.components.cpu().numpy()
+    pmean = pca_s.mean.cpu().numpy()
+
+    def proj_source():
+        for Xc, _y, _w in scaled_source():
+            yield (((Xc - pmean) @ comp).astype(np.float32), None, None)
+
+    km_s = StreamingKMeans(k=10, epochs=2, chunk_rows=cr, seed=0).fit_stream(
+        proj_source, n_features=4, session=sess)
+    block(km_s.centers)
+    wall_fit_stream = time.perf_counter() - t0
+    scaler_b = g.nodes[sc].outputs["model"]
+    stream_scaler_diff = float(np.max(np.abs(scaler_b.shift.cpu().numpy() - sh)))
+
+    # ---- serving A/B (bench.py:3353-3411): fused vs stage by stage
+    models = [g.nodes[nid].outputs["model"] for nid in (sc, pca, km)]
+    wf = ServedWorkflow.from_stages(models, table, name="taxi-dag")
+    rng2 = np.random.default_rng(11)
+    reqs = [TorchTable.from_numpy(dom, X[int(o):int(o) + 256], session=sess)
+            for o in rng2.integers(0, n_rows - 256, 24)]
+    arms = (("fused", "1"), ("staged", "0"))
+    lat: dict = {name: [] for name, _ in arms}
+    disp: dict = {}
+    outs: dict = {}
+    try:
+        with ServingContext(BucketLadder(**TAXI_LADDER)):
+            for name, flag in arms:   # warm, pin the dispatch counts
+                os.environ["OTPU_WORKFLOW_SERVE"] = flag
+                wf.predict(reqs[0])
+                reset_serve_counters()
+                outs[name] = np.asarray(wf.predict(reqs[0]))
+                c = serve_counters()
+                disp[name] = c.get("bucket_hits", 0) + c.get("bucket_misses", 0)
+            parity = True
+            for t in reqs:                  # interleaved: drift hits both
+                got = {}
+                for name, flag in arms:
+                    os.environ["OTPU_WORKFLOW_SERVE"] = flag
+                    t1 = time.perf_counter()
+                    got[name] = wf.predict(t)
+                    lat[name].append((time.perf_counter() - t1) * 1e3)
+                parity = parity and bool(np.array_equal(got["fused"], got["staged"]))
+    finally:
+        os.environ.pop("OTPU_WORKFLOW_SERVE", None)
+    parity = parity and bool(np.array_equal(outs["fused"], outs["staged"]))
+    p50 = {n: float(np.percentile(np.asarray(v), 50)) for n, v in lat.items()}
+    if not parity:
+        raise AssertionError("served workflow: fused output differs from stage by stage")
+    if disp["fused"] != 1 or disp["staged"] != len(models):
+        raise AssertionError(f"served workflow dispatches {disp}: fused must be 1, "
+                             f"stage by stage {len(models)}")
+    del reqs, wf
+    line = {
+        "metric": "taxi_kmeans_pca_pipeline", "unit": "s", "value": wall_staged,
+        "rows": n_rows, "features": X.shape[1], "data_s": data_s,
+        "workflow_fit_s": wall_fit_eager, "workflow_fit_staged_s": wall_fit_staged,
+        "refit_fallbacks": len(refit_staged.refit_fallbacks),
+        "graph_segments": refit_staged.graph_segments,
+        "refit_segments": refit_staged.segments,
+        "transform_graph_segments": staged.graph_segments,
+        "transform_eager_s": wall_eager_tr, "transform_staged_s": wall_staged,
+        "staged_speedup": wall_eager_tr / wall_staged,
+        "staged_rows_per_sec_per_chip": n_rows / wall_staged / sess.n_devices,
+        "staged_equal_eager_bitwise": staged_bitwise,
+        "refit_clusters": refit_clusters,
+        "streaming_fit_s": wall_fit_stream,
+        "streaming_fit_rows_per_s_per_chip": n_rows / wall_fit_stream / sess.n_devices,
+        "streaming_scaler_max_abs_diff": stream_scaler_diff,
+        "streaming_kmeans_steps": km_s.n_iter_,
+        "serve_fused_p50_ms": p50["fused"], "serve_staged_p50_ms": p50["staged"],
+        "workflow_fused_speedup": p50["staged"] / p50["fused"],
+        "dispatch_fused": disp["fused"], "dispatch_staged": disp["staged"],
+        "workflow_parity": parity,
+        "eager_walk_kernel_launches": len(walk_events),
+        "eager_walk_wall_s": walk_us / 1e6, "eager_walk_device_busy_s": walk_busy / 1e6,
+        "eager_walk_device_idle_share": (1 - walk_busy / walk_us) if walk_events
+        else "not measured",
+        "eager_walk_top_ops": [{"name": n[:90], "ms": v[0] / 1e3, "launches": v[1]}
+                               for n, v in top],
+        "staged_transform_kernel_launches": len(st_events),
+        "staged_transform_device_busy_ms": st_busy / 1e3, "staged_transform_wall_ms": st_us / 1e3,
+        "staged_refit_kernel_launches": len(rf_events),
+        "staged_refit_device_busy_ms": rf_busy / 1e3, "staged_refit_wall_ms": rf_us / 1e3,
+        "config": {"scaler": "with_mean", "pca_k": 4, "kmeans_k": 10, "max_iter": 10,
+                   "seed": 2, "ladder": TAXI_LADDER, "requests": 24, "request_rows": 256,
+                   "stream_chunk_rows": TAXI_STREAM_CHUNK, "stream_epochs": 2},
+    }
+    del table, g, staged, refit_staged, out_eager, out_staged, out_refit, out_e2
+    torch.cuda.empty_cache()
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -2843,6 +3315,8 @@ def main(argv=None) -> int:
                     help="Criteo CSV rows (bench.py's 8M by default)")
     ap.add_argument("--criteo-epochs", type=int, default=CRITEO_EPOCHS,
                     help="Criteo fit epochs (bench.py's 100 by default)")
+    ap.add_argument("--taxi-rows", type=int, default=TAXI_ROWS,
+                    help="taxi pipeline rows (config 5's 10M by default)")
     ap.add_argument("--resume-epochs", type=int, default=RESUME_EPOCHS,
                     help="epochs of the criteo_resume and criteo_fault fits "
                          f"({RESUME_EPOCHS} by default)")
@@ -2955,6 +3429,21 @@ def main(argv=None) -> int:
         phase = "dense_logreg"
         emit({"phase": phase, "device": kind, "nvidia_smi": smi,
               **phase_dense_logreg(sess, mem_bw)})
+        torch.cuda.empty_cache()
+
+        # ---- the taxi feature pipeline (config 5; no kernel of the package)
+        phase = "taxi_check"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_taxi_check(sess)})
+        phase = "taxi_pipeline"
+        from orange3_spark_tpu_torch.datasets import make_taxi_proxy
+
+        t0 = time.perf_counter()
+        taxi_X = make_taxi_proxy(args.taxi_rows)
+        taxi_gen_s = time.perf_counter() - t0
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              "generate_s": taxi_gen_s, **phase_taxi_pipeline(sess, taxi_X)})
+        del taxi_X
         torch.cuda.empty_cache()
 
         # ---- the Criteo path (no kernel of the package: PyTorch ops)

@@ -75,6 +75,32 @@ def higgs_domain() -> Domain:
                   DiscreteVariable("signal", ("0", "1")))
 
 
+TAXI_COLUMNS = ("dist", "dur", "fare", "lon", "lat", "hour", "dow", "pax")
+
+
+def make_taxi_proxy(n_rows: int, seed: int = 2) -> np.ndarray:
+    """The NYC-Taxi proxy of BASELINE config 5 (``bench_suite.py``'s and
+    ``bench.py``'s ``bench_taxi_pipeline`` generator, draw for draw):
+    [n_rows, 8] f32 trip features, lognormal distances and durations, a
+    fare linear in both, pickup lon/lat uniform over the city, hour, day of
+    week and passenger count."""
+    rng = np.random.default_rng(seed)
+    dist = rng.lognormal(0.5, 1.0, n_rows).astype(np.float32)
+    dur = (dist * 3.2 + rng.lognormal(0, 0.4, n_rows)).astype(np.float32)
+    fare = (2.5 + 1.8 * dist + 0.4 * dur + rng.standard_normal(n_rows)).astype(np.float32)
+    return np.stack(
+        [dist, dur, fare,
+         rng.uniform(-74.05, -73.75, n_rows).astype(np.float32),
+         rng.uniform(40.6, 40.9, n_rows).astype(np.float32),
+         rng.integers(0, 24, n_rows).astype(np.float32),
+         rng.integers(0, 7, n_rows).astype(np.float32),
+         rng.integers(1, 7, n_rows).astype(np.float32)], axis=1)
+
+
+def taxi_domain() -> Domain:
+    return Domain([ContinuousVariable(c) for c in TAXI_COLUMNS])
+
+
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:
     """ROC AUC by the rank-sum formula (ties broken by sort order), as
     ``bench_suite.py`` computes it."""

@@ -7,7 +7,10 @@ and its params (``model.params.to_dict()``), and builds the PyTorch model
 that predicts what the JAX model predicts. ``hashed_fit_state`` and
 ``jax_hashed_fit_state`` convert the state a streaming hashed fit
 checkpoints (``utils/fault.StreamCheckpointer``) between the two packages'
-layouts. Nothing here imports JAX: the caller does the conversion to numpy.
+layouts. The feature pipeline's models (KMeans, PCA, the fitted
+preprocessors) carry the same way; a model whose state is host-side
+(OneHotEncoder, StringIndexer) takes its host attributes. Nothing here
+imports JAX: the caller does the conversion to numpy.
 """
 
 from __future__ import annotations
@@ -165,3 +168,90 @@ def jax_hashed_fit_state(state: Mapping, *, adam_state=None) -> dict:
             raise ValueError("an 'adam' fit state needs adam_state= to build optax's state")
         opt = adam_state(opt["count"], opt["mu"], opt["nu"])
     return {"theta": state["theta"], "opt_state": opt}
+
+
+# ------------------------------------------------- the feature pipeline
+def _tensor(a, dtype, device):
+    device = TorchSession.active().device if device is None else device
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def kmeans_model(state, params: Mapping, device=None):
+    """A ``KMeansModel`` from the JAX model's state (centers [k, d]) and
+    params."""
+    from orange3_spark_tpu_torch.models.kmeans import KMeansModel, KMeansParams
+
+    return KMeansModel(KMeansParams(**params), _tensor(state["centers"], torch.float32, device))
+
+
+def pca_model(state, params: Mapping, device=None):
+    """A ``PCAModel`` from the JAX model's state (components [d, k], mean,
+    explained_variance, total_variance) and params."""
+    from orange3_spark_tpu_torch.models.pca import PCAModel, PCAParams
+
+    return PCAModel(PCAParams(**params),
+                    *(_tensor(state[k], torch.float32, device)
+                      for k in ("components", "mean", "explained_variance",
+                                "total_variance")))
+
+
+def _scale_model(cls, params_cls, state, params, device):
+    return cls(params_cls(**params), _tensor(state["idxs"], torch.int64, device),
+               _tensor(state["shift"], torch.float32, device),
+               _tensor(state["scale"], torch.float32, device))
+
+
+def standard_scaler_model(state, params: Mapping, device=None):
+    """A ``StandardScalerModel`` from the JAX model's state (idxs, shift,
+    scale) and params."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return _scale_model(P.StandardScalerModel, P.StandardScalerParams, state, params, device)
+
+
+def min_max_scaler_model(state, params: Mapping, device=None):
+    """A ``MinMaxScalerModel`` from the JAX model's state and params."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return _scale_model(P.MinMaxScalerModel, P.MinMaxScalerParams, state, params, device)
+
+
+def max_abs_scaler_model(state, params: Mapping, device=None):
+    """A MaxAbsScaler's fitted model from the JAX model's state and params."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return _scale_model(P._ColumnScaleModel, P.MaxAbsScalerParams, state, params, device)
+
+
+def imputer_model(state, params: Mapping, device=None):
+    """An ``ImputerModel`` from the JAX model's state (idxs, fill) and params."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return P.ImputerModel(P.ImputerParams(**params), _tensor(state["idxs"], torch.int64, device),
+                          _tensor(state["fill"], torch.float32, device))
+
+
+def one_hot_encoder_model(params: Mapping, col_idx: Sequence[int], sizes: Sequence[int]):
+    """A ``OneHotEncoderModel`` (host state only: the columns and their
+    category counts, the JAX model's ``col_idx`` and ``sizes``)."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return P.OneHotEncoderModel(P.OneHotEncoderParams(**params), list(col_idx), list(sizes))
+
+
+def string_indexer_model(params: Mapping, labels: Sequence[str]):
+    """A ``StringIndexerModel`` (host state only: the JAX model's labels)."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    return P.StringIndexerModel(P.StringIndexerParams(**params), labels)
+
+
+def target_encoder_model(state, params: Mapping, col_idx: Sequence[int], prior: float,
+                         device=None):
+    """A ``TargetEncoderModel`` from the JAX model's state (``enc_<j>``
+    tables), its ``col_idx`` and ``prior``, and params."""
+    from orange3_spark_tpu_torch.models import preprocess as P
+
+    tables = [_tensor(state[f"enc_{j}"], torch.float32, device) for j in col_idx]
+    return P.TargetEncoderModel(P.TargetEncoderParams(**params), list(col_idx), tables,
+                                float(prior))

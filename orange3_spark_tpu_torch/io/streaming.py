@@ -12,11 +12,16 @@ the whole stream, and the host prepares chunk t+1 while the device runs
 step t. This module holds the host side of that pipeline: re-iterable
 sources, rechunking and padding, the prefetch thread, the budgeted cache
 that keeps epoch 1's device chunks for the replay epochs, and the disk
-spill that replays them when the cache overflows.
+spill that replays them when the cache overflows. It also holds the
+streaming half of the feature pipeline (BASELINE config 5): the one-pass
+feature statistics of the scalers', imputer's and PCA's ``fit_stream``
+(``stream_feature_stats``), streamed scoring to parquet (``score_stream``)
+and ``StreamingKMeans``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -31,6 +36,8 @@ import torch
 
 from orange3_spark_tpu_torch.exec.pipeline import PipelineStats, prefetch_iter
 from orange3_spark_tpu_torch.io.codec import SpillCorruptionError
+from orange3_spark_tpu_torch.models.base import Estimator, Params
+from orange3_spark_tpu_torch.obs.trace import span, span_iter, traced
 
 # (X [n, d], y [n] or None) or (X, y, w) — sources may carry row weights
 Chunk = tuple
@@ -533,3 +540,528 @@ def _pad_chunk(X_np, y_np, w_np, pad_rows: int, n_features: int):
         wp = np.zeros((pad_rows,), np.float32)
         wp[:n] = 1.0 if w_np is None else w_np
     return Xp, yp, wp
+
+
+# ------------------------------------------------- feature statistics pass
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _device_put(h2d, chunk_np: tuple):
+    """(device tensors of ``chunk_np``, the copies' event), on the
+    prefetch thread (``models/hashed_linear._HostToDevice``)."""
+    return tuple(h2d.put(a) for a in chunk_np), h2d.done()
+
+
+def _feature_stats_step(acc: dict, X, w, *, gramian: bool) -> None:
+    """Fold one padded chunk into the running per-column stats, in place
+    (and the weighted Gramian when asked: one product per chunk). Moments
+    accumulate on Z = X - shift (shift ≈ the data's column means, taken
+    from the first chunk): the single-pass identity var = E[z²] - E[z]² is
+    catastrophically cancellative in f32 when mean² ≫ var (epoch
+    timestamps: mean ~1.5e9, std ~1e5 keep ZERO variance bits unshifted),
+    and near-zero-mean Z restores them. min/max stay on the raw X."""
+    live = (w > 0)[:, None]
+    Z = X - acc["shift"][None, :]
+    wZ = Z * w[:, None]
+    acc["n"] += w.sum()
+    acc["s"] += wZ.sum(dim=0)
+    acc["ss"] += (wZ * Z).sum(dim=0)
+    torch.minimum(acc["mn"], torch.where(live, X, _F32_MAX).amin(dim=0), out=acc["mn"])
+    torch.maximum(acc["mx"], torch.where(live, X, -_F32_MAX).amax(dim=0), out=acc["mx"])
+    if gramian:
+        acc["g"] += Z.T @ wZ
+
+
+def _observed(X, w, mv: float):
+    miss = torch.isnan(X) if np.isnan(mv) else (X == mv)
+    return (~miss) & (w > 0)[:, None]
+
+
+def _feature_stats_step_missing(acc: dict, X, w, mv: float) -> None:
+    """The missing-aware fold (the streaming Imputer fit): per-CELL
+    observation masks, so a missing cell drops out of that column's
+    count/sum/min/max without killing the row for other columns. Same
+    shifted accumulation as ``_feature_stats_step``."""
+    obs = _observed(X, w, mv)
+    Z = torch.where(obs, X - acc["shift"][None, :], 0.0)
+    wobs = torch.where(obs, w[:, None], 0.0)
+    wZ = Z * wobs
+    acc["n"] += wobs.sum(dim=0)
+    acc["s"] += wZ.sum(dim=0)
+    acc["ss"] += (wZ * Z).sum(dim=0)
+    torch.minimum(acc["mn"], torch.where(obs, X, _F32_MAX).amin(dim=0), out=acc["mn"])
+    torch.maximum(acc["mx"], torch.where(obs, X, -_F32_MAX).amax(dim=0), out=acc["mx"])
+
+
+def _first_chunk_shift(X, w):
+    """Weighted column means of the first chunk, the accumulation shift
+    (any vector near the data's location works; an all-dead chunk -> 0)."""
+    tot = w.sum()
+    s = (X * w[:, None]).sum(dim=0)
+    return torch.where(tot > 0, s / torch.clamp_min(tot, 1e-12), 0.0)
+
+
+def _first_chunk_shift_missing(X, w, mv: float):
+    """Missing-aware shift: per-column observed means (a NaN missing value
+    would poison the plain shift, a sentinel like -999 drag it off)."""
+    obs = _observed(X, w, mv)
+    wobs = torch.where(obs, w[:, None], 0.0)
+    tot = wobs.sum(dim=0)
+    s = (torch.where(obs, X, 0.0) * wobs).sum(dim=0)
+    return torch.where(tot > 0, s / torch.clamp_min(tot, 1e-12), 0.0)
+
+
+def stream_feature_stats(source: Callable[[], Iterator[Chunk]], *, session=None,
+                         chunk_rows: int = 1 << 18, gramian: bool = False,
+                         missing_value: float | None = None,
+                         stage_times: dict | None = None) -> dict:
+    """Single-pass per-column statistics over a chunk stream: the
+    out-of-core fit of the feature transformers and PCA (BASELINE config 5,
+    the taxi pipeline).
+
+    One in-place fold per chunk into f32 accumulators on the device
+    (``gramian=True`` adds one [chunk, d]ᵀ @ [chunk, d] product per chunk);
+    the pad and host-to-device copy of chunk t+1 overlap the fold of chunk
+    t (``prefetch_map``); accumulation is shifted by the first chunk's
+    column means (see ``_feature_stats_step``). Returns host values:
+    ``count`` (total weight), ``mean``, ``var`` (population, as
+    ``ops.stats.weighted_moments``), ``min``/``max`` over live rows, and
+    with ``gramian=True`` the population ``cov`` (E[(x-μ)(x-μ)ᵀ]) and the
+    raw ``second_moment`` (E[x·xᵀ]).
+
+    ``missing_value`` (NaN or a sentinel float) switches to per-CELL
+    observation masks (the streaming Imputer fit); ``count`` is then a
+    per-column array. Incompatible with ``gramian``.
+
+    ``stage_times`` receives ``overlap_pct`` (the measured host-prep /
+    device-fold overlap) and ``dispatches`` (folds run)."""
+    if missing_value is not None and gramian:
+        raise ValueError("gramian=True and missing_value are incompatible")
+    from orange3_spark_tpu_torch.core.session import TorchSession
+    from orange3_spark_tpu_torch.models.hashed_linear import _HostToDevice
+    from orange3_spark_tpu_torch.resilience.retry import resilient_source
+    from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+
+    session = session or TorchSession.builder_get_or_create()
+    pad_rows = session.pad_rows(chunk_rows)
+    h2d = _HostToDevice(session.device)
+
+    def prep(chunk):
+        X_np, _, w_np = chunk
+        Xp, _, wp = _pad_chunk(X_np, None, w_np, pad_rows, X_np.shape[1])
+        return _device_put(h2d, (Xp, wp))
+
+    acc = None
+    pstats = PipelineStats()
+    # transient source-read faults: bounded retries on the prefetch thread
+    source = resilient_source(source, stats=pstats)
+    n_folds = 0
+    for step, (chunk, event) in enumerate(
+            prefetch_map(prep, _rechunk(source(), pad_rows), depth=2, stats_into=pstats)):
+        Xd, wd = _HostToDevice.ready(chunk, event)
+        if acc is None:
+            d = Xd.shape[1]
+            dev = Xd.device
+            shift = (_first_chunk_shift_missing(Xd, wd, missing_value)
+                     if missing_value is not None else _first_chunk_shift(Xd, wd))
+            acc = {
+                "shift": shift,
+                "n": torch.zeros((d,) if missing_value is not None else (),
+                                 dtype=torch.float32, device=dev),
+                "s": torch.zeros((d,), dtype=torch.float32, device=dev),
+                "ss": torch.zeros((d,), dtype=torch.float32, device=dev),
+                "mn": torch.full((d,), _F32_MAX, dtype=torch.float32, device=dev),
+                "mx": torch.full((d,), -_F32_MAX, dtype=torch.float32, device=dev),
+                **({"g": torch.zeros((d, d), dtype=torch.float32, device=dev)}
+                   if gramian else {}),
+            }
+        if missing_value is not None:
+            _feature_stats_step_missing(acc, Xd, wd, missing_value)
+        else:
+            _feature_stats_step(acc, Xd, wd, gramian=gramian)
+        n_folds = step + 1
+        bound_dispatch(n_folds, acc["n"], period=8)
+    if acc is None:
+        raise ValueError("stream produced no chunks")
+    if stage_times is not None:
+        stage_times["overlap_pct"] = round(pstats.overlap_pct, 1)
+        stage_times["dispatches"] = n_folds
+    host = {k: v.cpu().numpy() for k, v in acc.items()}
+    # a scalar total weight normally, a per-column observed weight under
+    # missing_value: the same formulas broadcast over both
+    n_raw = np.asarray(host["n"], np.float64)
+    n = np.maximum(n_raw, 1e-12)
+    shift = np.asarray(host["shift"], np.float64)
+    mean_z = np.asarray(host["s"], np.float64) / n
+    var = np.maximum(np.asarray(host["ss"], np.float64) / n - mean_z ** 2, 0.0)
+    mean = shift + mean_z
+    mn, mx = host["mn"], host["mx"]
+    if n.ndim:
+        # missing mode: an all-missing column has no mean, fill 0 (the
+        # in-memory Imputer's convention); min/max too, not the ±FLT_MAX
+        # accumulator sentinels
+        dead = n_raw <= 0
+        mean[dead] = 0.0
+        var[dead] = 0.0
+        mn, mx = mn.copy(), mx.copy()
+        mn[dead] = 0.0
+        mx[dead] = 0.0
+    out = {
+        # the UNCLAMPED weight: an all-missing column / empty stream reports 0
+        "count": float(n_raw) if n_raw.ndim == 0 else n_raw.astype(np.float32),
+        "mean": mean.astype(np.float32),
+        "var": var.astype(np.float32),
+        "min": mn,
+        "max": mx,
+    }
+    if gramian:
+        # Gz/n = E[z zᵀ]; the centered cov is shift-invariant:
+        #   cov = E[z zᵀ] - μz μzᵀ
+        # and the raw second moment restores the shift:
+        #   E[x xᵀ] = E[z zᵀ] + c μzᵀ + μz cᵀ + c cᵀ
+        Ezz = np.asarray(host["g"], np.float64) / n
+        out["cov"] = (Ezz - np.outer(mean_z, mean_z)).astype(np.float32)
+        out["second_moment"] = (Ezz + np.outer(shift, mean_z) + np.outer(mean_z, shift)
+                                + np.outer(shift, shift)).astype(np.float32)
+    return out
+
+
+def score_stream(score_fn, source: Callable[[], Iterator[Chunk]], out_path: str, *,
+                 session=None, chunk_rows: int = 1 << 18,
+                 feature_names: tuple | None = None,
+                 prediction_col: str = "prediction",
+                 include_features: bool = True,
+                 row_group_rows: int | None = None) -> int:
+    """Streaming ``model.transform(df).write.parquet(path)``: score a chunk
+    stream and write the results one parquet row group at a time, so host
+    memory stays bounded by the chunk size at any output scale.
+
+    ``score_fn(X_device) -> [n] or [n, k]`` per padded chunk (a fitted
+    model's prediction head); each chunk's scores are trimmed of padding
+    (and of rows whose weight is 0) and appended through one
+    ``pyarrow.ParquetWriter``; the copy of chunk t+1 to the device overlaps
+    the scoring of chunk t. Columns: the features (``feature_names`` or
+    ``f0..``; none with ``include_features=False``), the label when the
+    source carries one, and ``prediction_col`` (``_0.._k-1`` suffixes for
+    [n, k] scores). Returns the row count written; the file appears
+    atomically (tmp + rename)."""
+    import pyarrow as pa
+    from pyarrow import parquet as pq
+
+    from orange3_spark_tpu_torch.core.session import TorchSession
+    from orange3_spark_tpu_torch.models.hashed_linear import _HostToDevice
+    from orange3_spark_tpu_torch.resilience.retry import resilient_source
+    from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+
+    if feature_names and not include_features:
+        raise ValueError("feature_names conflicts with include_features=False")
+    session = session or TorchSession.builder_get_or_create()
+    source = resilient_source(source)
+    pad_rows = session.pad_rows(chunk_rows)
+    h2d = _HostToDevice(session.device)
+
+    def prep(chunk):
+        X_np, y_np, w_np = chunk
+        Xp, _, _ = _pad_chunk(X_np, None, None, pad_rows, X_np.shape[1])
+        (Xd,), event = _device_put(h2d, (Xp,))
+        return Xd, event, X_np, y_np, w_np, len(X_np)
+
+    writer = None
+    names: list = []
+    tmp = f"{out_path}.tmp{os.getpid()}"
+    total = 0
+    ok = False
+    label_in_schema = False
+    try:
+        for step, (Xd, event, X_np, y_np, w_np, n) in enumerate(prefetch_map(
+                prep, _rechunk(source(), pad_rows), depth=2)):
+            Xd = _HostToDevice.ready(Xd, event)
+            scores_d = score_fn(Xd)
+            bound_dispatch(step + 1, scores_d, period=8)
+            scores = scores_d.cpu().numpy()[:n]
+            if w_np is not None:          # masked rows stay out of the output
+                live = np.asarray(w_np) > 0
+                X_np, scores = X_np[live], scores[live]
+                y_np = None if y_np is None else y_np[live]
+                n = len(X_np)
+            if writer is not None and (y_np is None) == label_in_schema:
+                # the first chunk fixes the parquet schema
+                raise ValueError(
+                    f"chunk {step} is {'un' if y_np is None else ''}labeled "
+                    f"but the schema-defining first chunk was "
+                    f"{'' if label_in_schema else 'un'}labeled — a stream's "
+                    "label presence must be uniform across chunks")
+            if writer is None:
+                d = X_np.shape[1]
+                names = (list(feature_names) if feature_names
+                         else [f"f{j}" for j in range(d)] if include_features else [])
+                if include_features and len(names) != d:
+                    raise ValueError(f"{len(names)} feature_names for {d} columns")
+                label_in_schema = y_np is not None
+                if y_np is not None:
+                    names.append("label")
+                if scores.ndim == 2:
+                    names += [f"{prediction_col}_{j}" for j in range(scores.shape[1])]
+                else:
+                    names.append(prediction_col)
+                writer = pq.ParquetWriter(
+                    tmp, pa.schema([pa.field(c, pa.float32()) for c in names]))
+            if n == 0:
+                continue   # fully masked chunk: the schema exists, nothing to write
+            cols = [X_np[:, j] for j in range(X_np.shape[1])] if include_features else []
+            if y_np is not None:
+                cols.append(np.asarray(y_np, np.float32))
+            if scores.ndim == 2:
+                cols += [scores[:, j] for j in range(scores.shape[1])]
+            else:
+                cols.append(scores)
+            table = pa.table([pa.array(np.asarray(c, np.float32)) for c in cols],
+                             names=names)
+            writer.write_table(table, row_group_size=row_group_rows or n)
+            total += n
+        if writer is None:
+            raise ValueError("stream produced no chunks")
+        ok = True
+    finally:
+        if writer is not None:
+            writer.close()
+        if not ok:
+            try:
+                os.unlink(tmp)   # no orphans from a failed run
+            except OSError:
+                pass
+    os.replace(tmp, out_path)
+    return total
+
+
+# ------------------------------------------------------- streaming KMeans
+
+@dataclasses.dataclass(frozen=True)
+class StreamingKMeansParams(Params):
+    k: int = 8
+    epochs: int = 1
+    chunk_rows: int = 1 << 18
+    decay: float = 1.0           # MLlib StreamingKMeans decayFactor
+    seed: int = 0
+    # Defer epoch-1 updates into the replay: pass 0 seeds the centers and
+    # ingests into the cache/spill with no update, then the replay carries
+    # all ``epochs`` passes. Identical to the default schedule except for
+    # batches streamed BEFORE the first live chunk seeded the centers
+    # ("pre-seed" batches): the default's epoch 1 skips their update while
+    # its replay epochs step them (a no-op for centers, a decay tick for
+    # counts); under defer every pass is a replay pass, so pre-seed batches
+    # get ``epochs`` decay ticks instead of ``epochs - 1``.
+    defer_epoch1: bool = False
+    # 'all': every replay pass in one call (one captured epoch replayed
+    # ``epochs - 1`` times); 'epoch': ``epochs_per_dispatch`` epochs a call
+    # through ``run_epoch_replay``
+    replay_granularity: str = "all"   # 'all' | 'epoch'
+    epochs_per_dispatch: int = 1
+
+
+def _kmeans_stream_step(centers, counts, X, w, decay: float, k: int):
+    """One aggregated mini-batch update (Sculley 2010 / MLlib
+    StreamingKMeans), in place: per-center sums from this chunk fold into
+    the running counts with decay. Returns the chunk's cost (a device
+    scalar)."""
+    from orange3_spark_tpu_torch.models.kmeans import _assign
+
+    assign, cost = _assign(X, centers, w)
+    onehot = (assign[:, None] == torch.arange(k, dtype=torch.int32, device=X.device)
+              ).to(torch.float32) * w[:, None]
+    n_i = onehot.sum(dim=0)                       # [k]
+    sum_i = onehot.T @ X                          # [k, d]
+    new_counts = decay * counts + n_i
+    new_centers = torch.where(
+        n_i[:, None] > 0,
+        centers + (sum_i - n_i[:, None] * centers)
+        / torch.clamp_min(new_counts, 1e-12)[:, None],
+        centers)
+    centers.copy_(new_centers)
+    counts.copy_(new_counts)
+    return cost
+
+
+class _KMeansReplay:
+    """Replay epochs over the cached epoch-1 chunks: one step a chunk, in
+    order, on centers and counts updated in place. On CUDA ``capture()``
+    records one epoch as a CUDA graph (every step's kernels, reading the
+    chunks where they lie in the cache) and ``run(n)`` replays it n times
+    (the fit's ``models/hashed_linear._Replay`` recipe); uncaptured (the
+    CPU) ``run`` runs the same steps one by one. A failed capture raises."""
+
+    def __init__(self, centers, counts, chunks: list, decay: float, k: int):
+        self.centers, self.counts, self.chunks = centers, counts, chunks
+        self.decay, self.k = decay, k
+        self.graph = None
+
+    def _epoch(self) -> None:
+        for Xd, wd, _pre_seed in self.chunks:
+            _kmeans_stream_step(self.centers, self.counts, Xd, wd, self.decay, self.k)
+
+    def capture(self) -> None:
+        from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+        X0, w0, _ = self.chunks[0]
+        self.graph, _, _ = capture_graph(
+            self._epoch, self.centers.device,
+            warm=lambda: _kmeans_stream_step(self.centers.clone(), self.counts.clone(),
+                                             X0, w0, self.decay, self.k))
+
+    def run(self, n_epochs: int) -> None:
+        for _ in range(n_epochs):
+            if self.graph is None:
+                self._epoch()
+            else:
+                self.graph.replay()
+
+
+class StreamingKMeans(Estimator):
+    """Out-of-core KMeans over a chunk stream (the NYC-Taxi path), MLlib's
+    StreamingKMeans role: aggregated mini-batch center updates with a decay
+    factor, returning the standard KMeansModel.
+
+    Schedules (``fit_stream``): every epoch re-streams the source (the
+    default); ``cache_device`` keeps epoch 1's device chunks and replays
+    epochs 2+ from them (one captured CUDA graph an epoch on the card);
+    past ``cache_device_bytes`` with ``cache_spill_dir`` the replay reads
+    epoch 1's disk spill; ``defer_epoch1`` makes pass 0 ingest-only;
+    ``replay_granularity`` picks one call or one call per
+    ``epochs_per_dispatch`` epochs for the cached replay."""
+
+    ParamsCls = StreamingKMeansParams
+    params: StreamingKMeansParams
+
+    def _fit(self, table):
+        X, _, W = table.to_numpy()
+        return self.fit_stream(array_chunk_source(X, None, W, chunk_rows=self.params.chunk_rows),
+                               n_features=X.shape[1], session=table.session)
+
+    @traced("fit", model="streaming_kmeans")
+    def fit_stream(self, source: Callable[[], Iterator[Chunk]], *, n_features: int,
+                   session=None, cache_device: bool = False,
+                   cache_device_bytes: int = 8 << 30,
+                   cache_spill_dir: str | None = None):
+        from orange3_spark_tpu_torch.core.session import TorchSession
+        from orange3_spark_tpu_torch.models.kmeans import (
+            KMeansModel, KMeansParams, kmeanspp_seed,
+        )
+        from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
+        from orange3_spark_tpu_torch.resilience.retry import resilient_source
+        from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+        from orange3_spark_tpu_torch.utils.profiling import count_dispatch
+
+        p = self.params
+        if p.replay_granularity not in ("all", "epoch"):
+            raise ValueError(f"replay_granularity must be 'all' or 'epoch', "
+                             f"got {p.replay_granularity!r}")
+        source = resilient_source(source)
+        session = session or TorchSession.active()
+        dev = session.device
+        pad_rows = session.pad_rows(p.chunk_rows)
+        rng = np.random.default_rng(p.seed)
+        centers = None
+        counts = torch.zeros((p.k,), dtype=torch.float32, device=dev)
+        n_steps = 0
+        # defer: pass 0 seeds + ingests only; the loop runs one extra pass
+        # and the replay carries all p.epochs update passes
+        defer = p.defer_epoch1 and cache_device and p.epochs > 0
+        n_replay = p.epochs - 1 + (1 if defer else 0)
+        cache = _DeviceCache(cache_device and (p.epochs > 1 or defer), cache_device_bytes)
+        spill: DiskChunkCache | None = None
+        if cache_device and cache_spill_dir is not None and (p.epochs > 1 or defer):
+            spill = DiskChunkCache(cache_spill_dir, ((pad_rows, n_features), (pad_rows,)))
+        use_disk = False
+
+        def step(Xd, wd):
+            nonlocal n_steps
+            with span("chunk", n_steps):
+                cost = _kmeans_stream_step(centers, counts, Xd, wd, p.decay, p.k)
+                n_steps += 1
+                bound_dispatch(n_steps, cost)   # queue cap (utils/dispatch.py)
+
+        for epoch in span_iter("epoch", range(p.epochs + (1 if defer else 0))):
+            if epoch > 0 and use_disk:
+                # epochs 2+ from the disk spill: the read and copy of record
+                # t+1 overlap the device step on record t
+                def _rec(i):
+                    arrs, _n = spill.read(i)
+                    return (torch.from_numpy(np.array(arrs[0])).to(dev),
+                            torch.from_numpy(np.array(arrs[1])).to(dev))
+
+                for Xd, wd in prefetch_map(_rec, iter(range(spill.n_records)), depth=2):
+                    step(Xd, wd)
+                check_finite_training(None, centers, epoch=epoch, chunk=n_steps,
+                                      estimator="StreamingKMeans")
+                continue
+            for X_np, _, w_np in _rechunk(source(), pad_rows):
+                n = X_np.shape[0]
+                pre_seed = False
+                if centers is None:
+                    # kmeans++ seeding on (a capped sample of) the first live chunk
+                    live = (np.arange(n) if w_np is None
+                            else np.flatnonzero(np.asarray(w_np) > 0))
+                    if len(live) < 1:
+                        # no live rows to seed from: the batch is skipped THIS
+                        # epoch but still enters the cache/spill (streamed
+                        # epochs 2+ would step it)
+                        pre_seed = True
+                        if not cache.enabled and spill is None:
+                            continue
+                    else:
+                        if len(live) > 8192:
+                            live = rng.choice(live, 8192, replace=False)
+                        centers = torch.from_numpy(kmeanspp_seed(
+                            np.asarray(X_np, np.float32)[live], p.k, rng)).to(dev)
+                Xp, _, wp = _pad_chunk(X_np, None, w_np, pad_rows, n_features)
+                if epoch == 0 and spill is not None:
+                    spill.append((Xp, wp), n)
+                Xd = torch.from_numpy(Xp).to(dev)
+                wd = torch.from_numpy(wp).to(dev)
+                if epoch == 0:
+                    cache.offer((Xd, wd, pre_seed))
+                if pre_seed or (epoch == 0 and defer):
+                    continue        # defer: the ingest-only pass
+                step(Xd, wd)
+            if epoch > 0 and centers is not None:
+                check_finite_training(None, centers, epoch=epoch, chunk=n_steps,
+                                      estimator="StreamingKMeans")
+            if epoch == 0:
+                if centers is None:
+                    raise ValueError("stream produced no live rows")
+                if spill is not None:
+                    spill.finalize()
+                if cache.degraded and (p.epochs > 1 or defer):
+                    use_disk = spill is not None and spill.n_records > 0
+                    if not use_disk:
+                        warn_cache_overflow(cache_device_bytes, n_replay)
+            if epoch == 0 and n_replay > 0 and cache.enabled and cache.batches:
+                # the remaining passes replay the cache: one captured epoch
+                # on the card, read in place (no stacked copy)
+                spe = len(cache.batches)
+                replay = _KMeansReplay(centers, counts, cache.batches, p.decay, p.k)
+                if dev.type == "cuda":
+                    replay.capture()
+                if p.replay_granularity == "epoch":
+                    def dispatch_epochs(k):
+                        replay.run(k)
+                        return centers
+
+                    n_steps, _, _ = run_epoch_replay(
+                        n_replay, spe, n_steps, 0, None, dispatch_epochs, None, None,
+                        epochs_per_dispatch=p.epochs_per_dispatch)
+                else:
+                    replay.run(n_replay)
+                    count_dispatch()
+                    n_steps += n_replay * spe
+                break
+        if spill is not None:
+            spill.delete()
+        # one final non-finite guard (typed divergence, not NaN centers)
+        check_finite_training(None, centers, epoch=p.epochs - 1, chunk=n_steps, final=True,
+                              estimator="StreamingKMeans")
+        model = KMeansModel(KMeansParams(k=p.k), centers)
+        model.n_iter_ = n_steps
+        # training_cost_ stays None: a per-chunk cost is NOT the full-data
+        # trainingCost the attribute means (use model.compute_cost(table))
+        return model

@@ -124,6 +124,21 @@ def dense_logits(X: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
                       for Xb in X.split(LOGIT_BLOCK_ROWS)])
 
 
+def row_products(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``X @ M`` ([N, d] @ [d, k]) summed column by column in order: one
+    rounded product and one rounded add per column, as separate
+    elementwise ops (no fused multiply-add). A row's bits depend on that
+    row alone and are the same on the CPU and the card, at any row count
+    (a BLAS product may round a ragged tail block apart, and cuBLAS and
+    MKL sum in other orders). For the narrow products of the feature
+    pipeline (the PCA projection, KMeans' cross term), whose served
+    output is held bitwise to the raw transform."""
+    out = X[:, 0:1] * M[0]
+    for j in range(1, X.shape[1]):
+        out = out + X[:, j:j + 1] * M[j]
+    return out
+
+
 class LinearFitResult(NamedTuple):
     coef: torch.Tensor       # [d, k]
     intercept: torch.Tensor  # [k]

@@ -12,8 +12,10 @@ estimators and transformers (pyspark.ml.Pipeline).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 import time
 from typing import Any, Callable, Sequence
 
@@ -82,6 +84,39 @@ class HasParams:
         self.params = params
 
 
+_STAGING = threading.local()
+
+
+@contextlib.contextmanager
+def staging():
+    """Mark this thread's fits as running inside a staged refit
+    (workflow/staging.py ``refit=True``). A fit that can run without
+    reading the device from the host takes its device-pure branch here
+    (KMeans' device init and fixed-trip Lloyd loop), so that the staged
+    program can be captured as a CUDA graph. The flag, not whether a
+    capture is running, picks the branch: the CPU and the card take the
+    same one."""
+    _STAGING.depth = getattr(_STAGING, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _STAGING.depth -= 1
+
+
+def staging_active() -> bool:
+    return getattr(_STAGING, "depth", 0) > 0
+
+
+def concrete_or_none(x, cast=float):
+    """``cast(x)`` for a fit's diagnostic scalars (``n_iter_``,
+    ``training_cost_``), ``None`` inside a staged refit: reading them
+    would wait for the device, which a captured graph cannot do, and the
+    honest value there is "not available"."""
+    if staging_active():
+        return None
+    return cast(x)
+
+
 class _HostTensor:
     """A tensor's values in a pickle: numpy, off the device."""
 
@@ -122,6 +157,11 @@ class Transformer(HasParams):
             fn = cls.__dict__.get(kind)
             if fn is not None and callable(fn) and not hasattr(fn, "__serve_raw__"):
                 setattr(cls, kind, _serve_routed(kind, fn))
+
+    #: whether ``transform`` runs without reading the device from the host,
+    #: so that a staged program (workflow/staging.py) can capture it in a
+    #: CUDA graph; a transform that checks its input on the host says False
+    staged_capturable: bool = True
 
     def transform(self, table: TorchTable) -> TorchTable:
         raise NotImplementedError
@@ -184,7 +224,18 @@ class Estimator(HasParams):
         super().__init__(params, **kwargs)
         self.last_fit_metrics: dict[str, float] = {}
 
+    @property
+    def staged_fit_capturable(self) -> bool:
+        """Whether fit + transform run under ``staging()`` without reading
+        the device from the host, so a staged refit can capture them in a
+        CUDA graph. False (the default) runs the node eagerly on the
+        device between captured segments."""
+        return False
+
     def fit(self, table: TorchTable) -> Model:
+        if staging_active():
+            # inside a staged refit: no wall clock, no wait for the device
+            return self._fit(table)
         t0 = time.perf_counter()
         model = self._fit(table)
         # the device runs behind the host: time the work, not its enqueue

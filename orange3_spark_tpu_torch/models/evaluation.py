@@ -4,8 +4,9 @@ model's transform() appended.
 
 BinaryClassificationEvaluator (areaUnderROC/PR), MulticlassClassification-
 Evaluator (accuracy/f1/weightedPrecision/weightedRecall from one weighted
-confusion matrix) and RegressionEvaluator (rmse/mse/mae/r2). Zero-weight
-(padding and filtered) rows count for nothing.
+confusion matrix), RegressionEvaluator (rmse/mse/mae/r2) and
+ClusteringEvaluator (the centroid silhouette). Zero-weight (padding and
+filtered) rows count for nothing.
 """
 
 from __future__ import annotations
@@ -191,3 +192,38 @@ class RegressionEvaluator(_Evaluator):
             ss_tot = torch.clamp_min(((label - mean_y) ** 2 * w).sum(), EPS_TOTAL_WEIGHT)
             return 1.0 - ss_res / ss_tot
         raise ValueError(f"unknown metric {metric!r}")
+
+
+class ClusteringEvaluator(_Evaluator):
+    """Silhouette, Spark's simplified squared-Euclidean form: distances to
+    the cluster centroids instead of all pairs, O(N·k) on the device."""
+
+    default_metric = "silhouette"
+
+    def _compute(self, table: TorchTable, metric: str):
+        if metric != "silhouette":
+            raise ValueError(f"unknown metric {metric!r}")
+        col = (self.params.prediction_col if self.params.prediction_col != "prediction"
+               else "cluster")
+        pred = table.column(col)
+        feat_idx = [i for i, v in enumerate(table.domain.attributes)
+                    if v.name not in ("cluster", "prediction")]
+        X = table.X.index_select(1, torch.tensor(feat_idx, dtype=torch.int64,
+                                                 device=table.X.device))
+        k = int(pred.max()) + 1
+        return float(_silhouette_centroid(X, pred, table.W, k))
+
+
+def _silhouette_centroid(X, pred, w, k: int):
+    ids = pred.to(torch.int64)
+    member = ids[:, None] == torch.arange(k, device=X.device)
+    onehot = member.to(torch.float32) * w[:, None]
+    counts = torch.clamp_min(onehot.sum(dim=0), EPS_TOTAL_WEIGHT)
+    centroids = (onehot.T @ X) / counts[:, None]
+    d2 = ((X * X).sum(dim=1, keepdim=True) - 2.0 * X @ centroids.T
+          + (centroids * centroids).sum(dim=1))              # [N, k]
+    own = torch.gather(d2, 1, ids[:, None])[:, 0]
+    other = torch.where(member, torch.inf, d2).amin(dim=1)
+    s = (other - own) / torch.clamp_min(torch.maximum(own, other), EPS_TOTAL_WEIGHT)
+    tot = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
+    return (s * w).sum() / tot

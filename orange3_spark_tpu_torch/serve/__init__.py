@@ -11,7 +11,7 @@ Public surface::
         model.predict(batch)             # bucketed + cached + coalesced
 
 Counters: ``orange3_spark_tpu_torch.utils.profiling.serve_counters()``.
-Not ported yet: ``ServedWorkflow`` (fused workflow serving).
+``ServedWorkflow`` serves a fitted workflow DAG as one model.
 """
 
 from orange3_spark_tpu_torch.serve.bucketing import BucketLadder
@@ -19,10 +19,12 @@ from orange3_spark_tpu_torch.serve.cache import ExecutableCache
 from orange3_spark_tpu_torch.serve.context import (
     ServingContext, active_serving_context,
 )
+from orange3_spark_tpu_torch.serve.workflow import ServedWorkflow
 
 __all__ = [
     "BucketLadder",
     "ExecutableCache",
+    "ServedWorkflow",
     "ServingContext",
     "active_serving_context",
 ]

@@ -57,10 +57,11 @@ when a request deadline applies.
 The active context is PROCESS-wide (serving worker threads must see the
 context their pool installed); nesting is a stack, innermost wins.
 
-Not ported yet, from the JAX package's context: ``staged_executable``
-(workflow programs sharing this cache), the opt-in telemetry endpoint and
-its readiness flag, ``dump_flight``, and the donation switch in the
-staged keys.
+Staged workflow programs (workflow/staging.py) share this context's cache
+through ``staged_executable``. Not ported yet, from the JAX package's
+context: the opt-in telemetry endpoint and its readiness flag,
+``dump_flight``, and the donation switch in the staged keys (the port
+donates nothing).
 """
 
 from __future__ import annotations
@@ -167,13 +168,21 @@ def route(kind: str, raw_fn: Callable, model, *args, **kwargs):
     if (ctx is None or _reentrant() or kwargs or len(args) != 1
             or not isinstance(args[0], TorchTable)):
         return raw_fn(model, *args, **kwargs)
+    # a served workflow under its kill-switch (or past its stage ceiling)
+    # runs its raw stagewise walk HERE: each stage then re-enters route()
+    # and serves on its own, bitwise the per-model path
+    passthrough = getattr(model, "_serve_passthrough", None)
+    if passthrough is not None and passthrough(kind):
+        return raw_fn(model, *args, **kwargs)
     table = args[0]
+    dag = getattr(model, "_dag_name", None)
     beat()
     _M_INFLIGHT.inc()
     try:
         with _request_scope():
             tenant = current_tenant() if tenancy_enabled() else None
             with span("serve", kind=kind, rows=table.n_rows,
+                      **({"dag": dag} if dag else {}),
                       **({"tenant": tenant} if tenant else {})):
                 if kind == "transform":
                     return ctx.served_transform(model, table, raw_fn)
@@ -391,6 +400,8 @@ class ServingContext:
             max_batch = self.ladder.max_bucket
         self._max_batch = max_batch
         self._max_wait_ms = max_wait_ms
+        # staged programs cached here, pinned by identity (staged_executable)
+        self._staged_refs: dict[int, Any] = {}
         self._activations = 0
         self.micro_batcher = None
         self._run_report = None      # obs/report.py, per-activation window
@@ -809,6 +820,7 @@ class ServingContext:
         for b in buckets:
             for kind in kinds:
                 if kind == "array":
+                    n_cols = n_cols if n_cols is not None else getattr(model, "n_cols", None)
                     if n_cols is None:
                         raise ValueError(
                             "array warmup needs n_cols= (the model's serving "
@@ -869,6 +881,26 @@ class ServingContext:
 
             out["slow_traces"] = slowest_traces(5)
         return out
+
+    # ------------------------------------------------- staged-graph reuse
+    def staged_executable(self, staged, tables: dict):
+        """Staged workflow programs share this context's cache: a staged
+        graph's program (its captured segments) is keyed on (program
+        identity, input shapes) and built under ``_raw_calls`` (the build
+        runs each stage's raw transform; a stage re-entering the router
+        would serve a bucket in the middle of the staged program)."""
+        from orange3_spark_tpu_torch.workflow.staging import _shape_key
+
+        # pin the staged object: the key is identity-based, and a strong ref
+        # keeps a collected program from handing its id to another
+        self._staged_refs[id(staged)] = staged
+        key = ("staged", id(staged), _shape_key(tables, staged.input_keys))
+
+        def build():
+            with _raw_calls():
+                return staged._build_program(tables)
+
+        return self.cache.get_or_build(key, build)
 
 
 class _BuildFailed(Exception):

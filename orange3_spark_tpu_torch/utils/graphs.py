@@ -13,8 +13,10 @@ from __future__ import annotations
 
 import gc
 import threading
+from collections import OrderedDict
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.utils.profiling import count_graph_capture
@@ -52,3 +54,33 @@ def capture_graph(fn: Callable[[], Any], device: torch.device,
         pool_bytes = torch.cuda.memory_reserved(device) - pool0
         count_graph_capture()
     return graph, out, pool_bytes
+
+
+# device copies of small host constants (column indices, split points),
+# made once outside any capture and read in place by every later call
+_CONSTS: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_CONSTS_LOCK = threading.Lock()
+_CONSTS_MAX = 4096
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A device tensor of the host ``values`` (a sequence or numpy array),
+    made once per (values, dtype, device) and kept. Copying host data to
+    the card waits for the copy, which a CUDA graph capture cannot do; a
+    capture's warm-up run (``capture_graph``) makes the constant first,
+    and the captured run then reads it where it lies. Nothing may write to
+    the result."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), str(dtype), str(device))
+    with _CONSTS_LOCK:
+        t = _CONSTS.get(key)
+        if t is not None:
+            _CONSTS.move_to_end(key)
+            return t
+    t = torch.as_tensor(np.ascontiguousarray(arr)).to(dtype=dtype, device=device)
+    with _CONSTS_LOCK:
+        _CONSTS[key] = t
+        while len(_CONSTS) > _CONSTS_MAX:
+            _CONSTS.popitem(last=False)
+    return t

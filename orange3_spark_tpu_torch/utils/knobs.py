@@ -119,6 +119,13 @@ _ALL = [
     Knob("OTPU_TENANT_BURST", "int", 8, "serve",
          "Token-bucket capacity per weight unit (the burst a tenant may "
          "spend ahead of its refill rate when OTPU_TENANT_RATE > 0)."),
+    Knob("OTPU_WORKFLOW_SERVE", "flag", "1", "serve",
+         "Whole-workflow fused serving kill-switch; 0 = a ServedWorkflow "
+         "request walks its stages through the per-model serving path "
+         "(K dispatches), bitwise the pre-workflow behavior."),
+    Knob("OTPU_WORKFLOW_MAX_STAGES", "int", 64, "serve",
+         "Stage-count ceiling for fusing a workflow DAG into one bucket "
+         "program; a DAG past it serves stage-by-stage."),
     # ----------------------------------------------------------- online/
     Knob("OTPU_ONLINE", "flag", "1", "online",
          "Continuous train-while-serve kill-switch; 0 = the serving tap, "

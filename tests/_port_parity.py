@@ -63,6 +63,25 @@ def assert_port_equal(jax_val, torch_val, *, rtol: float = 0.0, atol: float = 0.
             f"rtol {rtol:g}·|ref| ({int((excess > 0).sum())} of {ref.size} elements)")
 
 
+def sign_aligned(ref, got) -> np.ndarray:
+    """``got`` with each column negated where that aligns it with ``ref``'s
+    column (the sign of an eigenvector is arbitrary: LAPACK, jaxlib and
+    cuSOLVER may each return a principal component negated)."""
+    ref, got = to_np(ref).astype(np.float64), to_np(got).astype(np.float64)
+    s = np.sign(np.sum(ref * got, axis=0))
+    return got * np.where(s == 0, 1.0, s)
+
+
+def assert_columns_equal_up_to_sign(jax_val, torch_val, *, rtol: float = 0.0,
+                                    atol: float = 0.0, what: str = "") -> None:
+    """``assert_port_equal`` after aligning each of the port's columns' sign
+    with the reference's: for principal components and projections on
+    them."""
+    ref = to_np(jax_val)
+    assert_port_equal(ref, sign_aligned(ref, torch_val).astype(ref.dtype), rtol=rtol,
+                      atol=atol, what=what)
+
+
 # ------------------------------------------------- the minimizers side by side
 DENSE_LOGREG_REG = 1e-6
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1006,7 +1006,8 @@ def test_segment_update_repeats_and_equals_the_chain_bitwise(cuda_device, kind, 
 
 
 def _smoke():
-    """``chip_smoke.py`` as a module: its ``segment_update`` checks."""
+    """``chip_smoke.py`` as a module: its ``segment_update`` checks and its
+    taxi pipeline helpers."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -1295,3 +1296,107 @@ def test_bf16_arm_within_its_tolerance_of_the_f32_arm(cuda_device):
     pf, pb = f32.predict(t), bf16.predict(t)
     assert np.mean(pf == pb) >= 0.995
     assert abs(np.mean(pf == y) - np.mean(pb == y)) <= 0.002
+
+
+# ------------------------------------------------ the taxi feature pipeline
+def _taxi_table(sess, n=50_000, seed=2):
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.datasets import make_taxi_proxy, taxi_domain
+
+    return TorchTable.from_numpy(taxi_domain(), make_taxi_proxy(n, seed), session=sess)
+
+
+def _same(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in ((a.X, b.X), (a.Y, b.Y), (a.W, b.W)))
+
+
+@pytest.mark.cuda
+def test_staged_transform_and_refit_are_captured_and_bitwise_on_cuda(cuda_device):
+    """The taxi graph's staged transform is one captured graph, bitwise the
+    eager widget walk (on the template and on new data); the staged refit
+    is two captured segments around PCA's eager eigh, its replays repeat
+    bitwise, and its KMeans equals the eager run of the same device init."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.models.base import staging
+    from orange3_spark_tpu_torch.models.kmeans import KMeans
+    from orange3_spark_tpu_torch.utils.profiling import graph_capture_count
+    from orange3_spark_tpu_torch.workflow.staging import stage_graph
+
+    sess = TorchSession(cuda_device)
+    table = _taxi_table(sess)
+    g, src, sc, pca, km = _smoke()._taxi_graph(table)
+    outs = g.run()
+    staged = stage_graph(g, km)
+    n0 = graph_capture_count()
+    assert _same(staged(), outs[km]["data"])
+    assert graph_capture_count() - n0 == 1 and staged.graph_segments == 1
+    fresh = _taxi_table(sess, n=50_000, seed=9)
+    t = fresh
+    for nid in (sc, pca, km):
+        t = outs[nid]["model"].transform(t)
+    assert _same(staged({src: fresh}), t)
+    refit = stage_graph(g, km, refit=True)
+    assert refit.refit_fallbacks == [] and refit.graph_segments == 2
+    r1, r2 = refit(), refit()
+    assert _same(r1, r2)
+    with staging():
+        ref = KMeans(k=10, max_iter=10).fit(outs[pca]["data"]).transform(outs[pca]["data"])
+    assert _same(r1, ref)
+
+
+@pytest.mark.cuda
+def test_lloyd_fixed_trip_form_is_bitwise_the_host_loop_on_cuda(cuda_device):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.models import kmeans as K
+
+    t = _taxi_table(TorchSession(cuda_device))
+    X = t.X[:, :4].contiguous()
+    c0 = K.KMeans(k=10)._init_centers(t.with_X(X))
+    for max_iter, tol in ((10, 1e-4), (40, 1e-3), (3, 0.0)):
+        eager = K._lloyd(X, t.W, c0, tol, k=10, max_iter=max_iter)
+        fixed = K._lloyd_fixed(X, t.W, c0, tol, k=10, max_iter=max_iter)
+        assert all(torch.equal(a, b) for a, b in zip(eager[:3], fixed[:3]))
+        assert int(fixed[3]) == eager[3]
+
+
+@pytest.mark.cuda
+def test_served_workflow_is_bitwise_at_every_rung_on_cuda(cuda_device):
+    """Fused = stage by stage = raw, bitwise, at a request size in every rung
+    of a 64..512 ladder (the PCA projection and KMeans' cross term are
+    per-row sums: cuBLAS rounds a small product's rows apart by row count,
+    probes/eigh_capture.py); one dispatch fused, three stage by stage."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_taxi_proxy, taxi_domain
+    from orange3_spark_tpu_torch.serve import ServedWorkflow
+
+    sess = TorchSession(cuda_device)
+    table = _taxi_table(sess)
+    g, src, sc, pca, km = _smoke()._taxi_graph(table)
+    outs = g.run()
+    models = [outs[n]["model"] for n in (sc, pca, km)]
+    wf = ServedWorkflow.from_stages(models, table, name="taxi-cuda")
+    served = _smoke()._served_taxi(wf, models, make_taxi_proxy(600, seed=3), taxi_domain(), sess,
+                                dict(min_bucket=64, max_bucket=512))
+    for n, v in served.items():
+        assert v["fused_equal_raw"] and v["stagewise_equal_raw"] and v["transform_equal_raw"], n
+        assert (v["dispatch_fused"], v["dispatch_staged"]) == (1, 3), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", ["all", "epoch"])
+def test_streaming_kmeans_captured_replay_equals_the_per_chunk_loop_on_cuda(cuda_device,
+                                                                            granularity):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_taxi_proxy
+    from orange3_spark_tpu_torch.io.streaming import StreamingKMeans, array_chunk_source
+
+    sess = TorchSession(cuda_device)
+    X = make_taxi_proxy(100_000)[:, :4]
+    X = (X - X.mean(0)) / X.std(0)
+    fits = [StreamingKMeans(k=10, epochs=4, chunk_rows=1 << 14, seed=0,
+                            replay_granularity=granularity, defer_epoch1=defer).fit_stream(
+        array_chunk_source(X, chunk_rows=1 << 14), n_features=4, session=sess,
+        cache_device=cache) for cache, defer in ((False, False), (True, False), (True, True))]
+    for f in fits[1:]:
+        assert torch.equal(f.centers, fits[0].centers) and f.n_iter_ == fits[0].n_iter_
