@@ -94,6 +94,38 @@ a widget graph; PyTorch ops, no kernel of the package: the products are
                   p50s, dispatches, parity, gated); launches, busy time and
                   idle share of one profiled eager walk and staged call
 
+then the ALS recommender (BASELINE config 4; one kernel of the package,
+``ops/csrc/normal_equations.cu``: ``normal_equations_sorted``, every
+entity's A, b and rating count of one half-step in one launch):
+
+  als_check       the kernel on the card against its plain version run on
+                  the CPU from the same inputs (``NE_CASES``: ranks 1, 16
+                  and 48, a 100,000-rating segment, empty entities, a tenth
+                  of the weights zero, several reference chunks, implicit
+                  weights): the sort equal, A, b and cnt bitwise, two
+                  launches bitwise; ``ALS(rank=16, max_iter=5)`` on 200,000
+                  ratings fitted on the card and on the CPU from the same
+                  initial factors (within ``ALS_FIT_ATOL``), two card fits
+                  bitwise; top-10 from the same factors on both (ids equal
+                  but for ties); every ranking and multilabel metric of the
+                  same id matrices on both within 1e-6
+  movielens_als   ``bench_suite.py:134-184`` at full width: 25,000,000
+                  ratings of ``make_movielens_proxy`` (162,541 users x
+                  59,047 items), the last 262,144 held out, ``ALS(rank=16,
+                  max_iter=10, reg_param=0.05, seed=2)`` with explicit dims:
+                  a warm-up fit, the timed fit (``fit_s``,
+                  ``ratings_per_sec_per_chip``; the kernel's launches, which
+                  must be 20), ``train_rmse`` and ``holdout_rmse`` (ceiling
+                  0.40), a profiled fit (device ms by stage: the kernel, the
+                  sort, the LU solve, the rest; the idle share),
+                  ``recommend_for_all_users(10)`` and ndcg@10 against each
+                  user's held-out items; then the kernel at the timed fit's
+                  inputs, each side: held to the plain version on the card
+                  within float32 summation's bound (``_ne_tolerance``), two
+                  launches bitwise, its time beside its bound, the plain
+                  version and the yardstick (materialised outer products +
+                  ``index_add_``)
+
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
 accelerator): PyTorch ops and two kernels of the package
 (``ops/csrc/segment_sum.cu``): ``segment_update_sorted``, the whole
@@ -199,13 +231,15 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   pad zeroing, the graph's device time, the copy back, the
                   Python around them; the launches in the graph
 
-then the ``kernels`` line of three kernels (``node_histograms``: launches
+then the ``kernels`` line of four kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``criteo`` phase's adam arm, the times of the ``segment_sum`` phase;
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
-its yardstick; each fails the run if it counted no launch),
+its yardstick; ``normal_equations_sorted``: launches counted over the
+``movielens_als`` phase's timed fit, the times of its user half-step; each
+fails the run if it counted no launch),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -3112,8 +3146,10 @@ def phase_taxi_check(sess):
     return line
 
 
-def _profile_run(fn):
-    """(wall us, device events, busy us) of one ``fn()`` under torch.profiler."""
+def _profile_run(fn, exclude=()):
+    """(wall us, device events, by name, busy us) of one ``fn()`` under
+    torch.profiler; device events named in ``exclude`` (a wrapper's own
+    profiler range) left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3123,7 +3159,7 @@ def _profile_run(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events, by_name, busy = _device_profile(prof)
+    events, by_name, busy = _device_profile(prof, exclude)
     return wall_us, events, by_name, busy
 
 
@@ -3307,6 +3343,368 @@ def phase_taxi_pipeline(sess, X):
     return line
 
 
+# ------------------------------------------------------- ALS (config 4)
+# bench_suite.py:134-184: the MovieLens-25M proxy, explicit rank-16 ALS
+MOVIELENS_RATINGS, MOVIELENS_HOLDOUT = 25_000_000, 1 << 18
+MOVIELENS_ALS = dict(rank=16, max_iter=10, reg_param=0.05, seed=2)
+MOVIELENS_RMSE_CEIL = 0.40      # the reference's CPU run: 0.3766 (BASELINE.md:148-152)
+# als_check's fit: the card against the port's CPU fit from the same initial
+# factors. The normal equations are bitwise; the LU solves may round apart
+# (cuBLAS's batched LU against LAPACK's), and ALS contracts. Measured 0.0 on
+# an NVIDIA H100 80GB HBM3 with torch 2.11 (the two solves agreed bit for
+# bit); the tolerance leaves room for a float32 rounding a solve.
+ALS_CHECK = dict(n_users=4000, n_items=3000, n_ratings=200_000, rank=16, max_iter=5,
+                 reg_param=0.05, seed=7)
+ALS_FIT_ATOL = 1e-5
+# normal_equations_sorted against its plain version with the CPU's sums:
+# (rank, entities with ratings, entities, other side, ratings, chunk,
+# ratings of one heavy entity, implicit)
+NE_CASES = [(1, 3000, 3500, 2000, 300_000, 1 << 14, 0, False),
+            (16, 3000, 3500, 2000, 300_000, 1 << 14, 100_000, False),
+            (16, 3000, 3500, 2000, 200_000, 1 << 16, 0, True),
+            (48, 1000, 1200, 700, 100_000, 1 << 14, 0, False)]
+
+
+def _ne_inputs(k, e_used, E, n_other, M, chunk, heavy, implicit, dev, seed=0):
+    """A side's ratings for the normal equations: ``e_used`` of ``E``
+    entities rated (the rest empty), a tenth of the weights zero, entity 0
+    with ``heavy`` more ratings spread over the whole order; sorted on
+    ``dev`` and on the CPU from the same numpy draws. Returns (factors,
+    plan on dev, plan on the CPU)."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.models import als as A
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, e_used, M + heavy).astype(np.int32)
+    u[rng.permutation(M + heavy)[:heavy]] = 0
+    i = rng.integers(0, n_other, M + heavy).astype(np.int32)
+    r = (rng.standard_normal(M + heavy) * 2).astype(np.float32)
+    w = (rng.random(M + heavy) >= 0.1).astype(np.float32)
+    V = rng.standard_normal((n_other, k)).astype(np.float32)
+    cols = [torch.from_numpy(x) for x in (u, i, r, w)]
+    plans = [A._side_plan(*(c.to(d) for c in cols), E, n_other, implicit, 1.5)
+             for d in (dev, "cpu")]
+    return torch.from_numpy(V).to(dev), plans[0], plans[1]
+
+
+def _ne_case(k, e_used, E, n_other, M, chunk, heavy, implicit, dev):
+    """The kernel on ``dev`` against its plain version with the CPU's
+    index-order sums, on the same sorted ratings: the sort on the card
+    equal to the CPU's, A, b and cnt bitwise, two launches bitwise, the
+    empty entities zero; the plain version on the card within float32
+    rounding (index_add_'s atomics)."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import normal_equations as NE
+
+    V, plan, cplan = _ne_inputs(k, e_used, E, n_other, M, chunk, heavy, implicit, dev)
+    got = NE.normal_equations_sorted(V, *plan, chunk)
+    again = NE.normal_equations_sorted(V, *plan, chunk)
+    want = NE.normal_equations_sorted_reference(V.cpu(), *cplan, chunk)
+    on_dev = NE.normal_equations_sorted_reference(V, *plan, chunk)
+    got = [x.cpu() for x in got]
+    line = {
+        "rank": k, "ratings": M + heavy, "entities": E, "chunk": chunk,
+        "heavy_segment": heavy, "implicit": implicit,
+        "sort_equal": all(torch.equal(a.cpu(), b) for a, b in zip(plan, cplan)),
+        "bitwise_cpu_order": all(torch.equal(a, b) for a, b in zip(got, want)),
+        "bitwise_repeat": all(torch.equal(a, b.cpu()) for a, b in zip(got, again)),
+        "empty_zero": all(not x[e_used:].any() for x in got),
+        "max_abs_err_vs_plain_on_device": max(float((a - b.cpu()).abs().max())
+                                              for a, b in zip(got, on_dev)),
+    }
+    line["ok"] = all(line[key] for key in ("sort_equal", "bitwise_cpu_order",
+                                           "bitwise_repeat", "empty_zero"))
+    return line
+
+
+def _table_pair(ratings, sess):
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.models.als import ratings_table
+
+    return ratings_table(ratings, sess), ratings_table(ratings, TorchSession("cpu"))
+
+
+def _recommend_agreement(U, V, n, dev):
+    """``recommend_for_all_users(n)`` from the same factors on ``dev`` and
+    on the CPU: rows whose ids differ, and whether every such row is a tie
+    (the two lists' float64 scores equal within 1e-5 relative)."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.models.als import ALSModel, ALSParams
+
+    p = ALSParams(rank=U.shape[1])
+    on_dev = ALSModel(p, U.to(dev), V.to(dev)).recommend_for_all_users(n)
+    on_cpu = ALSModel(p, U.cpu(), V.cpu()).recommend_for_all_users(n)
+    diff = np.flatnonzero((on_dev != on_cpu).any(axis=1))
+    S = U.cpu().double().numpy()[diff] @ V.cpu().double().numpy().T
+    a = np.take_along_axis(S, on_dev[diff].astype(np.int64), 1)
+    b = np.take_along_axis(S, on_cpu[diff].astype(np.int64), 1)
+    ties = bool(np.all(np.abs(a - b) <= 1e-5 * np.maximum(np.abs(b), 1.0)))
+    return on_dev, on_cpu, {"rows": len(on_dev), "rows_differ": int(len(diff)),
+                            "differing_rows_are_ties": ties}
+
+
+def _holdout_truth(users, items, n_users):
+    """Each user's held-out items as a -1-padded id matrix, and the users
+    that have any."""
+    import numpy as np
+
+    order = np.argsort(users, kind="stable")
+    u, it = users[order], items[order]
+    counts = np.bincount(u, minlength=n_users)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    truth = np.full((n_users, max(int(counts.max()), 1)), -1, np.int32)
+    truth[u, np.arange(len(u)) - starts[u]] = it
+    return truth, np.flatnonzero(counts > 0)
+
+
+def phase_als_check(sess):
+    """ALS on the card held to the port's CPU path: the kernel against its
+    plain version with CPU-order sums (NE_CASES: ranks 1, 16, 48, a
+    100,000-rating segment, empty entities, zero weights, several chunks,
+    implicit weights), a card fit against the CPU fit from the same initial
+    factors, two card fits bitwise, recommendations and ranking metrics
+    against the CPU's."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import make_ratings
+    from orange3_spark_tpu_torch.models.als import ALS
+    from orange3_spark_tpu_torch.models.evaluation import (
+        MultilabelClassificationEvaluator, RankingEvaluator,
+    )
+
+    dev = sess.device
+    cases = [_ne_case(*c, dev) for c in NE_CASES]
+    c = ALS_CHECK
+    ratings = make_ratings(c["n_users"], c["n_items"], c["n_ratings"], rank=8, seed=3,
+                           noise=0.1)
+    t_gpu, t_cpu = _table_pair(ratings, sess)
+    est = ALS(rank=c["rank"], max_iter=c["max_iter"], reg_param=c["reg_param"], seed=c["seed"])
+    m_gpu, m_again, m_cpu = est.fit(t_gpu), est.fit(t_gpu), est.fit(t_cpu)
+    fit_err = max(float((m_gpu.user_factors.cpu() - m_cpu.user_factors).abs().max()),
+                  float((m_gpu.item_factors.cpu() - m_cpu.item_factors).abs().max()))
+    repeat = (torch.equal(m_gpu.user_factors, m_again.user_factors)
+              and torch.equal(m_gpu.item_factors, m_again.item_factors))
+    # recommendations and metrics from the CPU fit's factors on both devices
+    recs_dev, recs_cpu, agree = _recommend_agreement(m_cpu.user_factors, m_cpu.item_factors,
+                                                     10, dev)
+    truth, _ = _holdout_truth(ratings[:, 0].astype(np.int64), ratings[:, 1].astype(np.int32),
+                              c["n_users"])
+    metrics = {}
+    for ev in ([RankingEvaluator(metric_name=m, k=10) for m in RankingEvaluator.METRICS]
+               + [MultilabelClassificationEvaluator(metric_name=m)
+                  for m in MultilabelClassificationEvaluator.METRICS]):
+        on_dev = ev.evaluate(torch.from_numpy(recs_cpu).to(dev), torch.from_numpy(truth).to(dev))
+        on_cpu = ev.evaluate(torch.from_numpy(recs_cpu), torch.from_numpy(truth))
+        metrics[ev.params.metric_name] = [on_dev, on_cpu]
+    metric_err = max(abs(a - b) for a, b in metrics.values())
+    line = {"normal_equations": cases, "fit": {**c, "max_abs_err_vs_cpu": fit_err,
+                                               "atol": ALS_FIT_ATOL,
+                                               "bitwise_repeat": repeat},
+            "recommend": agree, "metrics_card_cpu": metrics,
+            "metric_max_abs_err": metric_err}
+    failed = [f"normal_equations rank {x['rank']} heavy {x['heavy_segment']}"
+              for x in cases if not x["ok"]]
+    if not fit_err <= ALS_FIT_ATOL:
+        failed.append(f"card fit {fit_err} from the CPU fit (atol {ALS_FIT_ATOL})")
+    if not repeat:
+        failed.append("two card fits differ")
+    if not agree["differing_rows_are_ties"]:
+        failed.append("recommendations differ beyond ties")
+    if not metric_err <= 1e-6:
+        failed.append(f"ranking metrics {metric_err} apart")
+    if failed:
+        raise AssertionError(f"als_check: {failed}; {json.dumps(line)}")
+    return line
+
+
+def _ne_bound(M, E, k, n_other, mem_bw, fp32_peak):
+    """The least time of one half-step's normal equations: each input read
+    once (oid, pos i32; aw, bw, cw f32; the offsets; the other side's
+    factors), each output written once (A, b, cnt), against the float32
+    products and adds the function needs: (V_i V_j)·aw and its add on the
+    lower triangle, V_i·bw and its add, the count's add. Beside it, the
+    bound of a layout with only the bytes explicit feedback needs, 12 a
+    rating (oid with a chunk-change bit in place of pos; aw, which is also
+    the count's weight; bw)."""
+    fixed = (E + 1) * 8 + n_other * k * 4 + E * (k * k + k + 1) * 4
+    bytes_, needed = M * 20 + fixed, M * 12 + fixed
+    ops = M * (3 * k * (k + 1) // 2 + 2 * k + 1)
+    t_bytes, t_ops = bytes_ / mem_bw * 1e3, ops / fp32_peak * 1e3
+    return {"bytes": bytes_, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_12B_layout": needed,
+            "bound_ms_12B_layout": max(needed / mem_bw * 1e3, t_ops)}
+
+
+def _outer_index_add(factors, *plan, chunk):
+    """The yardstick: each reference chunk's terms materialised
+    (``chunk_terms``) and ``index_add_``ed straight into A, b and cnt
+    (float atomics on CUDA)."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.normal_equations import chunk_terms
+
+    k, E = factors.shape[1], plan[-1].shape[0] - 1
+    A = torch.zeros((E + 1, k * k), device=factors.device)
+    bc = torch.zeros((E + 1, k + 1), device=factors.device)
+    for ent, outer, rhs in chunk_terms(factors, *plan, chunk):
+        A.index_add_(0, ent, outer)
+        bc.index_add_(0, ent, rhs)
+    return A, bc
+
+
+def _ne_tolerance(factors, plan, chunk):
+    """How far the kernel's A, b and cnt may lie from the plain version's on
+    the card, per output (f64, shaped as they are). Both add the same
+    float32 terms, each product rounded on its own, in two orders: the
+    kernel's, and index_add_'s atomics. Any order of adding an entity's n
+    terms lies within g·Σ|terms| of the exact sum, g = n·u/(1 - n·u) and
+    u = 2^-24, so the two lie within 2g·Σ|terms| of each other. Σ|terms| is
+    the plain version's sum of |V_i|·|V_j|·|aw|, |V_i|·|bw| and |cw|, which
+    reads at most g of itself low: hence 2g/(1 - g) times it. One rating
+    dropped or summed twice in a segment of n shifts an output by about
+    Σ|terms|/n, past this for every n below ~2,900."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.normal_equations import (
+        normal_equations_sorted_reference,
+    )
+
+    oid, pos, aw, bw, cw, offsets = plan
+    S = normal_equations_sorted_reference(factors.abs(), oid, pos, aw.abs(), bw.abs(),
+                                          cw.abs(), offsets, chunk)
+    n = (offsets[1:] - offsets[:-1]).to(torch.float64) * 2.0 ** -24
+    g = n / (1 - n)
+    scale = 2 * g / (1 - g)
+    return [x.double() * scale.view(-1, *([1] * (x.ndim - 1))) for x in S]
+
+
+def _als_profile_split(by_name):
+    """Device ms of a profiled fit by stage: the kernel; the sort, once a
+    fit a side (the radix sort, the segment offsets, the gathers that lay
+    the ratings out in sorted order); the batched LU solve (cuBLAS's
+    getrf and triangular solves); the rest."""
+    stages = {"normal_equations": ("normal_eq_sorted",),
+              "sort": ("sort", "radix", "searchsorted", "scatter_gather", "index_select",
+                       "indexselect"),
+              "solve": ("getr", "trsm", "laswp", "lu_", "pivot", "potr", "magma", "batch")}
+    out = {s: 0.0 for s in (*stages, "rest")}
+    for name, (us, _n) in by_name.items():
+        low = name.lower()
+        stage = next((s for s, keys in stages.items() if any(k in low for k in keys)), "rest")
+        out[stage] += us / 1e3
+    return out
+
+
+def phase_movielens_als(sess, mem_bw, fp32_peak, ratings):
+    """BASELINE config 4 at full width (``bench_suite.py:134-184``): a
+    warm-up fit, the timed fit (the kernel's launches counted over it), a
+    profiled fit, RMSE on the training and holdout ratings, top-10 for
+    every user and ndcg@10 against each user's held-out items; then the
+    kernel at the timed fit's inputs, both sides, beside its bound, its
+    plain version and the yardstick."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import MOVIELENS_ITEMS, MOVIELENS_USERS
+    from orange3_spark_tpu_torch.models import als as A
+    from orange3_spark_tpu_torch.models.evaluation import RankingEvaluator, RegressionEvaluator
+    from orange3_spark_tpu_torch.ops import normal_equations as NE
+
+    holdout = MOVIELENS_HOLDOUT
+    t0 = time.perf_counter()
+    table = A.ratings_table(ratings[:-holdout], sess)
+    eval_table = A.ratings_table(ratings[-holdout:], sess)
+    sess.synchronize()
+    upload_s = time.perf_counter() - t0
+    est = A.ALS(**MOVIELENS_ALS, n_users=MOVIELENS_USERS, n_items=MOVIELENS_ITEMS)
+    t0 = time.perf_counter()
+    est.fit(table)
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: the kernel's launch count starts at 0 here
+    NE.normal_equations_sorted.launches = 0
+    model = est.fit(table)
+    launches = NE.normal_equations_sorted.launches
+    # ----
+    fit_s = est.last_fit_metrics["fit_seconds"]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if launches != 2 * MOVIELENS_ALS["max_iter"]:
+        raise AssertionError(f"the timed fit launched the kernel {launches} times, not "
+                             f"{2 * MOVIELENS_ALS['max_iter']}")
+    rmse = RegressionEvaluator(metric_name="rmse", label_col="rating")
+    train_rmse = rmse.evaluate(model.transform(table))
+    holdout_rmse = rmse.evaluate(model.transform(eval_table))
+    if not holdout_rmse <= MOVIELENS_RMSE_CEIL:
+        raise AssertionError(f"holdout_rmse {holdout_rmse} above {MOVIELENS_RMSE_CEIL}")
+    wall_us, events, by_name, busy = _profile_run(lambda: est.fit(table),
+                                                  exclude=("normal_equations_sorted",))
+    split = _als_profile_split(by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(10)
+    recommend_s = time.perf_counter() - t0
+    truth, users = _holdout_truth(ratings[-holdout:, 0].astype(np.int64),
+                                  ratings[-holdout:, 1].astype(np.int32), MOVIELENS_USERS)
+    ndcg = RankingEvaluator(metric_name="ndcgAtK", k=10).evaluate(
+        torch.from_numpy(recs[users]).to(sess.device), torch.from_numpy(truth[users]).to(sess.device))
+    line = {
+        "ratings": len(ratings), "train_ratings": table.n_rows, "holdout": holdout,
+        "users": MOVIELENS_USERS, "items": MOVIELENS_ITEMS, **MOVIELENS_ALS,
+        "upload_s": upload_s, "warmup_fit_s": warmup_s, "fit_s": fit_s,
+        "ratings_per_sec_per_chip": table.n_rows * MOVIELENS_ALS["max_iter"] * 2 / fit_s,
+        "train_rmse": train_rmse, "holdout_rmse": holdout_rmse,
+        "holdout_rmse_ceiling": MOVIELENS_RMSE_CEIL, "noise_floor": 0.3,
+        "kernel_launches": launches, "peak_device_bytes": peak_bytes,
+        "profiled_fit_wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
+        "device_idle_share": 1 - busy / wall_us, "device_ms_by_stage": split,
+        "top_kernels": [{"name": n[:90], "ms": v[0] / 1e3, "launches": v[1]}
+                        for n, v in top],
+        "recommend_for_all_users_s": recommend_s, "recommend_n": 10,
+        "ndcgAtK_10_holdout": ndcg, "users_with_holdout": int(len(users)),
+    }
+    # the kernel at the timed fit's own inputs, each side, held to its
+    # plain version on the card within float32 summation's bound
+    u = table.column("user").to(torch.int32)
+    it = table.column("item").to(torch.int32)
+    r = table.column("rating")
+    chunk = min(est.params.chunk_size, table.n_pad)
+    kern = {}
+    for side, idx, oth, E, factors in (("user", u, it, MOVIELENS_USERS, model.item_factors),
+                                       ("item", it, u, MOVIELENS_ITEMS, model.user_factors)):
+        plan = A._side_plan(idx, oth, r, table.W, E, factors.shape[0], False, 1.0)
+        def fn():
+            return NE.normal_equations_sorted(factors, *plan, chunk)
+        got, again = fn(), fn()
+        plain = NE.normal_equations_sorted_reference(factors, *plan, chunk)
+        tol = _ne_tolerance(factors, plan, chunk)
+        err = [(a.double() - b.double()).abs() for a, b in zip(got, plain)]
+        kern[side] = {"entities": E, "ms": cuda_ms(fn, 10, warmup=1),
+                      "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
+                      **_ne_bound(table.n_rows, E, factors.shape[1], factors.shape[0],
+                                  mem_bw, fp32_peak),
+                      "max_abs_err": max(float(e.max()) for e in err),
+                      "within_tolerance": all(bool((e <= t).all()) for e, t in zip(err, tol)),
+                      "max_err_over_tolerance": max(float((e / t.clamp_min(1e-300)).max())
+                                                    for e, t in zip(err, tol)),
+                      "plain_ms": cuda_ms(lambda: NE.normal_equations_sorted_reference(
+                          factors, *plan, chunk), 2, 1),
+                      "library_ms": cuda_ms(lambda: _outer_index_add(
+                          factors, *plan, chunk=chunk), 2, 1)}
+        del got, again, plain, tol, err, plan
+        torch.cuda.empty_cache()
+        if not (kern[side]["within_tolerance"] and kern[side]["deterministic"]):
+            raise AssertionError(f"normal_equations_sorted, {side} side at the timed fit's "
+                                 f"inputs: {json.dumps(kern[side])}")
+    line["kernel"] = kern
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -3446,6 +3844,22 @@ def main(argv=None) -> int:
         del taxi_X
         torch.cuda.empty_cache()
 
+        # ---- ALS (config 4): the normal equations' kernel
+        phase = "als_check"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_als_check(sess)})
+        phase = "movielens_als"
+        from orange3_spark_tpu_torch.datasets import make_movielens_proxy
+
+        t0 = time.perf_counter()
+        ml_ratings = make_movielens_proxy(MOVIELENS_RATINGS)
+        ml_gen_s = time.perf_counter() - t0
+        als_line = phase_movielens_als(sess, mem_bw, fp32_peak, ml_ratings)
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              "generate_s": ml_gen_s, **als_line})
+        del ml_ratings
+        torch.cuda.empty_cache()
+
         # ---- the Criteo path (no kernel of the package: PyTorch ops)
         from orange3_spark_tpu_torch.io.native import tune_malloc
 
@@ -3502,6 +3916,9 @@ def main(argv=None) -> int:
             raise AssertionError("the Criteo fit never launched segment_update_sorted")
         if criteo_line["segment_sum_launches"] == 0:
             raise AssertionError("the adam arm never launched segment_sum_sorted")
+        if als_line["kernel_launches"] == 0:
+            raise AssertionError("the ALS fit never launched normal_equations_sorted")
+        ne = als_line["kernel"]["user"]
         top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
@@ -3550,6 +3967,32 @@ def main(argv=None) -> int:
             "timed": "ms, plain_ms and chain_ms from captured launches; eager_ms beside",
             "eager_ms": upd_line["eager_ms"],
             "at": "one sparse_adagrad step of the criteo fit on its first cached chunk",
+        }, {
+            "name": "normal_equations_sorted",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/normal_equations.cu",
+            # no Pallas kernel: the XLA segment sums of _solve_side
+            "replaces": "orange3_spark_tpu/models/als.py:112-130",
+            "launches": als_line["kernel_launches"],
+            "launches_counted_over": "the movielens_als phase's timed fit",
+            "max_abs_err": ne["max_abs_err"],
+            "tolerance": ("per output 2g/(1-g) x the plain version's sum of |terms|, "
+                          "g = n*2^-24/(1 - n*2^-24), n the entity's ratings; both sides"),
+            "max_err_over_tolerance": max(als_line["kernel"][s]["max_err_over_tolerance"]
+                                          for s in ("user", "item")),
+            "deterministic": ne["deterministic"] and als_line["kernel"]["item"]["deterministic"],
+            "ms": ne["ms"], "plain_ms": ne["plain_ms"],
+            "bound_ms": ne["bound_ms"], "bound_by": ne["bound_by"],
+            "library_ms": ne["library_ms"],
+            "library": "outer products per 2^18-rating chunk, materialised, + index_add_",
+            "bound_ms_12B_layout": ne["bound_ms_12B_layout"],
+            "item_side": {k: als_line["kernel"]["item"][k]
+                          for k in ("ms", "bound_ms", "bound_by", "bound_ms_12B_layout",
+                                    "entities", "max_abs_err", "max_err_over_tolerance",
+                                    "plain_ms", "library_ms")},
+            "timed": "CUDA events over 10 launches (plain and library: 2), eager",
+            "at": (f"the user half-step of the timed fit: {als_line['train_ratings']} "
+                   f"ratings, {als_line['users']} users, rank {als_line['rank']}"),
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

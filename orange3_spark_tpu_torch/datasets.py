@@ -1,5 +1,6 @@
 """Datasets of the PyTorch package: the Iris table (BASELINE config 1) and
-generators that give the JAX package's draws from the same seed."""
+generators that give the JAX package's draws from the same seed (the
+HIGGS, taxi and MovieLens proxies, ``make_ratings``)."""
 
 from __future__ import annotations
 
@@ -99,6 +100,46 @@ def make_taxi_proxy(n_rows: int, seed: int = 2) -> np.ndarray:
 
 def taxi_domain() -> Domain:
     return Domain([ContinuousVariable(c) for c in TAXI_COLUMNS])
+
+
+def make_ratings(
+    n_users: int, n_items: int, n_ratings: int, rank: int = 8, seed: int = 0,
+    noise: float = 0.1,
+) -> np.ndarray:
+    """(user, item, rating) triples from a low-rank model (MovieLens stand-in),
+    the JAX package's draws from the same seed.
+
+    Returns a float32 [n_ratings, 3] array; duplicates possible like real logs.
+    """
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((n_users, rank)).astype(np.float32) / np.sqrt(rank)
+    V = rng.standard_normal((n_items, rank)).astype(np.float32) / np.sqrt(rank)
+    users = rng.integers(0, n_users, size=n_ratings)
+    items = rng.integers(0, n_items, size=n_ratings)
+    ratings = np.sum(U[users] * V[items], axis=1) + noise * rng.standard_normal(n_ratings).astype(np.float32)
+    return np.stack([users.astype(np.float32), items.astype(np.float32), ratings], axis=1)
+
+
+#: the MovieLens-25M proxy of BASELINE config 4: users, items, true rank
+MOVIELENS_USERS, MOVIELENS_ITEMS, MOVIELENS_TRUE_RANK = 162_541, 59_047, 12
+
+
+def make_movielens_proxy(n_ratings: int, seed: int = 1) -> np.ndarray:
+    """The MovieLens-25M proxy of BASELINE config 4 (``bench_suite.py``'s
+    ``bench_movielens_als`` generator, draw for draw): 162,541 users x
+    59,047 items, true rank 12, N(0, 0.6) factors, ratings their product +
+    3.5 + N(0, 0.3) noise. Returns float32 [n_ratings, 3] (user, item,
+    rating)."""
+    rng = np.random.default_rng(seed)
+    Ut = rng.normal(0, 0.6, (MOVIELENS_USERS, MOVIELENS_TRUE_RANK)).astype(np.float32)
+    Vt = rng.normal(0, 0.6, (MOVIELENS_ITEMS, MOVIELENS_TRUE_RANK)).astype(np.float32)
+    uu = rng.integers(0, MOVIELENS_USERS, n_ratings, dtype=np.int64)
+    ii = rng.integers(0, MOVIELENS_ITEMS, n_ratings, dtype=np.int64)
+    rr = (np.einsum("nk,nk->n", Ut[uu], Vt[ii]) + 3.5
+          + 0.3 * rng.standard_normal(n_ratings).astype(np.float32))
+    return np.stack(
+        [uu.astype(np.float32), ii.astype(np.float32), rr], axis=1
+    ).astype(np.float32)
 
 
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:

@@ -8,9 +8,9 @@ that predicts what the JAX model predicts. ``hashed_fit_state`` and
 ``jax_hashed_fit_state`` convert the state a streaming hashed fit
 checkpoints (``utils/fault.StreamCheckpointer``) between the two packages'
 layouts. The feature pipeline's models (KMeans, PCA, the fitted
-preprocessors) carry the same way; a model whose state is host-side
-(OneHotEncoder, StringIndexer) takes its host attributes. Nothing here
-imports JAX: the caller does the conversion to numpy.
+preprocessors) and ALS's factors carry the same way; a model whose state
+is host-side (OneHotEncoder, StringIndexer) takes its host attributes.
+Nothing here imports JAX: the caller does the conversion to numpy.
 """
 
 from __future__ import annotations
@@ -193,6 +193,17 @@ def pca_model(state, params: Mapping, device=None):
                     *(_tensor(state[k], torch.float32, device)
                       for k in ("components", "mean", "explained_variance",
                                 "total_variance")))
+
+
+def als_model(state, params: Mapping, device=None):
+    """An ``ALSModel`` from the JAX model's state (``user_factors``
+    [n_users, k], ``item_factors`` [n_items, k]) and params: its
+    predictions and recommendations are the reference's on the same
+    factors."""
+    from orange3_spark_tpu_torch.models.als import ALSModel, ALSParams
+
+    return ALSModel(ALSParams(**params), _tensor(state["user_factors"], torch.float32, device),
+                    _tensor(state["item_factors"], torch.float32, device))
 
 
 def _scale_model(cls, params_cls, state, params, device):

@@ -6,7 +6,9 @@ BinaryClassificationEvaluator (areaUnderROC/PR), MulticlassClassification-
 Evaluator (accuracy/f1/weightedPrecision/weightedRecall from one weighted
 confusion matrix), RegressionEvaluator (rmse/mse/mae/r2) and
 ClusteringEvaluator (the centroid silhouette). Zero-weight (padding and
-filtered) rows count for nothing.
+filtered) rows count for nothing. The set-valued RankingEvaluator and
+MultilabelClassificationEvaluator score padded id matrices (ALS's
+recommendations) instead of a table.
 """
 
 from __future__ import annotations
@@ -227,3 +229,170 @@ def _silhouette_centroid(X, pred, w, k: int):
     s = (other - own) / torch.clamp_min(torch.maximum(own, other), EPS_TOTAL_WEIGHT)
     tot = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
     return (s * w).sum() / tot
+
+
+# --------------------------------------------------------------------------
+# Set-valued evaluators (pyspark.ml.evaluation RankingEvaluator /
+# MultilabelClassificationEvaluator, Spark 3.0). Spark evaluates DataFrames
+# with ARRAY columns; this table model has no ragged arrays, so both take
+# fixed-width padded id matrices — pred [n, P] and truth [n, T] integer ids
+# with -1 padding — the same static-shape convention as the rest of the
+# framework (and exactly what ALSModel.recommend_for_all_users emits).
+# --------------------------------------------------------------------------
+
+def _ids(x) -> torch.Tensor:
+    """An id matrix as int32: a tensor stays on its device, anything else
+    goes to the active session's."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    from orange3_spark_tpu_torch.core.session import TorchSession
+
+    return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                           device=TorchSession.active().device)
+
+
+def _pair_hits(pred, truth):
+    """[n, P] bool: is pred slot j a member of the row's truth set.
+    -1 pads never match (-1 == -1 is masked explicitly)."""
+    eq = pred[:, :, None] == truth[:, None, :]
+    eq = eq & (truth[:, None, :] >= 0)
+    return eq.any(dim=2) & (pred >= 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankingEvaluatorParams(Params):
+    metric_name: str = "meanAveragePrecision"
+    k: int = 10
+
+
+class RankingEvaluator:
+    """pyspark.ml.evaluation.RankingEvaluator parity (RankingMetrics):
+    meanAveragePrecision, meanAveragePrecisionAtK, precisionAtK, recallAtK,
+    ndcgAtK — binary relevance, predictions ordered best-first.
+
+    evaluate(pred_ids [n, P], true_ids [n, T]) -> float; -1 pads ignored.
+    """
+
+    ParamsCls = RankingEvaluatorParams
+    METRICS = ("meanAveragePrecision", "meanAveragePrecisionAtK",
+               "precisionAtK", "recallAtK", "ndcgAtK")
+
+    def __init__(self, params: RankingEvaluatorParams | None = None, **kw):
+        self.params = params or RankingEvaluatorParams(**kw)
+
+    def evaluate(self, pred_ids, true_ids) -> float:
+        p = self.params
+        m = p.metric_name
+        if m not in self.METRICS:
+            raise ValueError(f"unknown metric {m!r}; one of {self.METRICS}")
+        pred = _ids(pred_ids)
+        return float(_ranking_metric(pred, _ids(true_ids).to(pred.device), metric=m, k=p.k))
+
+
+def _ranking_metric(pred, truth, *, metric: str, k: int):
+    P = pred.shape[1]
+    dev = pred.device
+    hits = _pair_hits(pred, truth).to(torch.float32)                 # [n, P]
+    n_rel = (truth >= 0).to(torch.float32).sum(dim=1)                # [n]
+    ranks = torch.arange(1, P + 1, dtype=torch.float32, device=dev)
+    topk = (ranks <= k).to(torch.float32)
+    safe_rel = torch.clamp_min(n_rel, 1.0)
+    if metric == "precisionAtK":
+        # MLlib divides by k even when fewer than k predictions exist
+        row = (hits * topk).sum(dim=1) / k
+    elif metric == "recallAtK":
+        row = (hits * topk).sum(dim=1) / safe_rel
+    elif metric == "meanAveragePrecision":
+        prec_at = torch.cumsum(hits, dim=1) / ranks
+        row = (prec_at * hits).sum(dim=1) / safe_rel
+    elif metric == "meanAveragePrecisionAtK":
+        prec_at = torch.cumsum(hits, dim=1) / ranks
+        row = ((prec_at * hits * topk).sum(dim=1)
+               / torch.clamp_min(torch.clamp_max(n_rel, float(k)), 1.0))
+    else:  # ndcgAtK, binary relevance
+        disc = 1.0 / torch.log2(ranks + 1.0)
+        dcg = (hits * disc * topk).sum(dim=1)
+        # ideal DCG sums min(|rel|, k) discount terms INDEPENDENT of the
+        # prediction width P (Spark ndcgAt) — a too-short prediction list
+        # must lower the score, not the ideal
+        ideal_n = torch.clamp_max(n_rel, float(k))
+        iranks = torch.arange(1, k + 1, dtype=torch.float32, device=dev)
+        idisc = torch.where(iranks[None, :] <= ideal_n[:, None],
+                            1.0 / torch.log2(iranks[None, :] + 1.0), 0.0)
+        idcg = torch.clamp_min(idisc.sum(dim=1), 1e-12)
+        row = dcg / idcg
+    # rows with an empty truth set contribute 0 (MLlib logs-and-zeros them)
+    row = torch.where(n_rel > 0, row, 0.0)
+    return row.mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilabelEvaluatorParams(Params):
+    metric_name: str = "f1Measure"
+
+
+class MultilabelClassificationEvaluator:
+    """pyspark.ml.evaluation.MultilabelClassificationEvaluator parity
+    (MultilabelMetrics): subsetAccuracy, accuracy, hammingLoss, precision,
+    recall, f1Measure, microPrecision, microRecall, microF1Measure.
+
+    evaluate(pred_ids [n, P], true_ids [n, T]) -> float; -1 pads ignored;
+    ids within a row are treated as SETS (duplicates undefined, like
+    Spark). hammingLoss normalizes by MLlib's numLabels = the distinct
+    count of TRUE labels only (predicted ids absent from every truth row
+    do not deflate it). Convention note: per-row 'accuracy' here returns
+    1.0 when BOTH the prediction and truth sets are empty; Spark's 0/0
+    yields NaN for such rows — an exactly-matched empty set counts as
+    correct rather than poisoning the mean.
+    """
+
+    ParamsCls = MultilabelEvaluatorParams
+    METRICS = ("subsetAccuracy", "accuracy", "hammingLoss", "precision",
+               "recall", "f1Measure", "microPrecision", "microRecall",
+               "microF1Measure")
+
+    def __init__(self, params: MultilabelEvaluatorParams | None = None, **kw):
+        self.params = params or MultilabelEvaluatorParams(**kw)
+
+    def evaluate(self, pred_ids, true_ids) -> float:
+        m = self.params.metric_name
+        if m not in self.METRICS:
+            raise ValueError(f"unknown metric {m!r}; one of {self.METRICS}")
+        pred = _ids(pred_ids)
+        truth = _ids(true_ids).to(pred.device)
+        if m == "hammingLoss":
+            # MLlib's numLabels = distinct count of TRUE labels only —
+            # predicted ids absent from every truth row must not deflate it
+            ids = truth.cpu().numpy().ravel()
+            n_labels = len(np.unique(ids[ids >= 0]))
+            return float(_multilabel_metric(pred, truth, metric=m) / max(n_labels, 1))
+        return float(_multilabel_metric(pred, truth, metric=m))
+
+
+def _multilabel_metric(pred, truth, *, metric: str):
+    hit_p = _pair_hits(pred, truth).to(torch.float32)   # pred slot in truth
+    np_ = (pred >= 0).to(torch.float32).sum(dim=1)
+    nt = (truth >= 0).to(torch.float32).sum(dim=1)
+    inter = hit_p.sum(dim=1)
+    union = np_ + nt - inter
+    if metric == "subsetAccuracy":
+        return ((inter == np_) & (inter == nt)).to(torch.float32).mean()
+    if metric == "accuracy":
+        return torch.where(union > 0, inter / torch.clamp_min(union, 1.0), 1.0).mean()
+    if metric == "hammingLoss":
+        # symmetric difference summed over rows; the caller divides by
+        # n * numLabels (numLabels needs a host-side distinct count)
+        return (union - inter).sum() / pred.shape[0]
+    if metric == "precision":
+        return torch.where(np_ > 0, inter / torch.clamp_min(np_, 1.0), 0.0).mean()
+    if metric == "recall":
+        return torch.where(nt > 0, inter / torch.clamp_min(nt, 1.0), 0.0).mean()
+    if metric == "f1Measure":
+        return torch.where(np_ + nt > 0, 2.0 * inter / torch.clamp_min(np_ + nt, 1.0),
+                           0.0).mean()
+    tot_i, tot_p, tot_t = inter.sum(), np_.sum(), nt.sum()
+    if metric == "microPrecision":
+        return tot_i / torch.clamp_min(tot_p, 1e-12)
+    if metric == "microRecall":
+        return tot_i / torch.clamp_min(tot_t, 1e-12)
+    return 2.0 * tot_i / torch.clamp_min(tot_p + tot_t, 1e-12)  # microF1Measure

@@ -289,6 +289,7 @@ def _build_catalog() -> None:
     from orange3_spark_tpu_torch.io.streaming import StreamingKMeans
     from orange3_spark_tpu_torch.models import evaluation as E
     from orange3_spark_tpu_torch.models import preprocess as P
+    from orange3_spark_tpu_torch.models.als import ALS
     from orange3_spark_tpu_torch.models.decision_tree import (
         DecisionTreeClassifier, DecisionTreeRegressor,
     )
@@ -311,7 +312,7 @@ def _build_catalog() -> None:
         RandomForestClassifier, RandomForestRegressor,
         GBTClassifier, GBTRegressor,
         DecisionTreeClassifier, DecisionTreeRegressor,
-        StreamingKMeans, StreamingHashedLinearEstimator,
+        StreamingKMeans, StreamingHashedLinearEstimator, ALS,
     ):
         widget_for_estimator(est)
     for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher):

@@ -1400,3 +1400,131 @@ def test_streaming_kmeans_captured_replay_equals_the_per_chunk_loop_on_cuda(cuda
         cache_device=cache) for cache, defer in ((False, False), (True, False), (True, True))]
     for f in fits[1:]:
         assert torch.equal(f.centers, fits[0].centers) and f.n_iter_ == fits[0].n_iter_
+
+
+# ------------------------------------------------ ALS: the normal equations
+# chip_smoke.NE_CASES, and a 100,000-rating segment at ranks 1 and 48 too
+_NE_CASES = [(1, 3000, 3500, 2000, 300_000, 1 << 14, 0, False),
+             (1, 3000, 3500, 2000, 200_000, 1 << 14, 100_000, False),
+             (16, 3000, 3500, 2000, 300_000, 1 << 14, 100_000, False),
+             (16, 3000, 3500, 2000, 200_000, 1 << 16, 0, True),
+             (48, 1000, 1200, 700, 100_000, 1 << 14, 0, False),
+             (48, 1000, 1200, 700, 100_000, 1 << 15, 100_000, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,e_used,E,n_other,M,chunk,heavy,implicit", _NE_CASES)
+def test_normal_equations_kernel_equals_cpu_plain_bitwise(cuda_device, k, e_used, E, n_other,
+                                                          M, chunk, heavy, implicit):
+    """``normal_equations_sorted`` on the card against its plain version run
+    on the CPU from the same inputs, bit for bit (A, b, cnt): zero-weight
+    ratings, entities with no rating, several reference chunks, a
+    100,000-rating segment; the sort on the card equal to the CPU's; two
+    launches the same bits (``chip_smoke._ne_case``)."""
+    from orange3_spark_tpu_torch.ops import normal_equations as NE
+
+    before = NE.normal_equations_sorted.launches
+    line = _smoke()._ne_case(k, e_used, E, n_other, M, chunk, heavy, implicit, cuda_device)
+    assert line["ok"], line
+    assert NE.normal_equations_sorted.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_normal_equations_by_hand_and_checks(cuda_device):
+    """A small case by hand (five ratings of weight 1 on one entity); the
+    wrapper refuses what the kernel does not take."""
+    from orange3_spark_tpu_torch.ops import normal_equations as NE
+
+    assert NE.max_rank() >= 4096
+    V = torch.ones((4, 3), device=cuda_device)
+    i32 = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    f32 = torch.ones(5, device=cuda_device)
+    off = torch.tensor([0, 5], dtype=torch.int64, device=cuda_device)
+    A, b, cnt = NE.normal_equations_sorted(V, i32, i32, f32, f32, f32, off, 2)
+    assert float(cnt[0]) == 5.0 and torch.equal(A[0], torch.full((3, 3), 5.0,
+                                                                 device=cuda_device))
+    with pytest.raises(ValueError, match="pos must be a contiguous int32"):
+        NE.normal_equations_sorted(V, i32, i32.long(), f32, f32, f32, off, 2)
+    with pytest.raises(ValueError, match="offsets"):
+        NE.normal_equations_sorted(V, i32, i32, f32, f32, f32, off.cpu(), 2)
+    big = torch.ones((4, NE.max_rank() + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="rank"):
+        NE.normal_equations_sorted(big, i32, i32, f32, f32, f32, off, 2)
+
+
+@pytest.mark.cuda
+def test_als_fit_on_cuda_matches_cpu_fit_and_repeats(cuda_device):
+    """A card fit against the port's CPU fit from the same initial factors
+    (the normal equations bitwise; cuBLAS's batched LU and LAPACK's round
+    apart) within ``chip_smoke.ALS_FIT_ATOL``; two card fits bitwise; the
+    kernel launched twice an iteration."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_ratings
+    from orange3_spark_tpu_torch.models.als import ALS
+    from orange3_spark_tpu_torch.ops import normal_equations as NE
+
+    smoke = _smoke()
+    ratings = make_ratings(1500, 1000, 60_000, rank=8, seed=3, noise=0.1)
+    t_gpu, t_cpu = smoke._table_pair(ratings, TorchSession(cuda_device))
+    est = ALS(rank=16, max_iter=5, reg_param=0.05, seed=7)
+    before = NE.normal_equations_sorted.launches
+    a = est.fit(t_gpu)
+    assert NE.normal_equations_sorted.launches == before + 10
+    b, c = est.fit(t_gpu), est.fit(t_cpu)
+    assert torch.equal(a.user_factors, b.user_factors)
+    assert torch.equal(a.item_factors, b.item_factors)
+    for x, y in ((a.user_factors, c.user_factors), (a.item_factors, c.item_factors)):
+        assert float((x.cpu() - y).abs().max()) <= smoke.ALS_FIT_ATOL
+
+
+@pytest.mark.cuda
+def test_recommendations_and_ranking_metrics_on_cuda_match_cpu(cuda_device, monkeypatch):
+    """Top-10 from the same factors on the card and the CPU: equal ids
+    except on tied scores; every ranking and multilabel metric of the same
+    id matrices within 1e-6; row blocks give the whole product's ids."""
+    from orange3_spark_tpu_torch.models import als as A
+    from orange3_spark_tpu_torch.models.als import ALSModel, ALSParams
+    from orange3_spark_tpu_torch.models.evaluation import (
+        MultilabelClassificationEvaluator, RankingEvaluator,
+    )
+
+    smoke = _smoke()
+    rng = np.random.default_rng(14)
+    U = torch.from_numpy(rng.standard_normal((3000, 16)).astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32))
+    on_dev, on_cpu, agree = smoke._recommend_agreement(U, V, 10, cuda_device)
+    assert agree["differing_rows_are_ties"], agree
+    model = ALSModel(ALSParams(rank=16), U.to(cuda_device), V.to(cuda_device))
+    monkeypatch.setattr(A, "RECOMMEND_BLOCK_BYTES", 257 * 5000 * 4)   # 257-row blocks
+    np.testing.assert_array_equal(model.recommend_for_all_users(10), on_dev)
+    truth = rng.integers(-1, 5000, (3000, 12)).astype(np.int32)
+    for ev in ([RankingEvaluator(metric_name=m, k=10) for m in RankingEvaluator.METRICS]
+               + [MultilabelClassificationEvaluator(metric_name=m)
+                  for m in MultilabelClassificationEvaluator.METRICS]):
+        got = ev.evaluate(torch.from_numpy(on_cpu).to(cuda_device),
+                          torch.from_numpy(truth).to(cuda_device))
+        assert got == pytest.approx(ev.evaluate(torch.from_numpy(on_cpu),
+                                                torch.from_numpy(truth)), abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_als_served_transform_equals_raw_on_cuda(cuda_device):
+    """ALSModel.transform through captured bucket graphs equals the raw
+    transform bit for bit at a size in several rungs (per-row sums in
+    column order; cold rows NaN)."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_ratings
+    from orange3_spark_tpu_torch.models.als import ALS, ratings_table
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    sess = TorchSession(cuda_device)
+    ratings = make_ratings(500, 300, 20_000, rank=4, seed=2)
+    model = ALS(rank=8, max_iter=4).fit(ratings_table(ratings, sess))
+    bad = ratings[:1500].copy()
+    bad[::7, 1] = 900
+    tables = {n: ratings_table(bad[:n], sess) for n in (5, 64, 100, 300, 1500)}
+    raw = {n: model.transform(t).X.cpu().numpy() for n, t in tables.items()}
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=2048)):
+        served = {n: model.transform(t).X.cpu().numpy() for n, t in tables.items()}
+    for n in tables:
+        np.testing.assert_array_equal(served[n], raw[n])

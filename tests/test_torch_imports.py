@@ -46,12 +46,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53   # every module was walked
+    assert int(out.stdout.split()[-1]) >= 73   # every module was walked
 
 
 @pytest.mark.parametrize("sub,n_modules", [("serve", 5), ("obs", 4), ("resilience", 5),
-                                           ("utils", 5), ("online", 1), ("ops", 5),
-                                           ("optim", 1), ("io", 3)])
+                                           ("utils", 6), ("online", 1), ("ops", 7),
+                                           ("optim", 1), ("io", 3), ("models", 15)])
 def test_serving_layers_import_without_jax(sub, n_modules):
     """The serving path, the fit's recovery layers (the checkpointer, the
     numerics guard, the watchdog), the kernels' wrappers and the host
@@ -65,6 +65,25 @@ def test_serving_layers_import_without_jax(sub, n_modules):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= n_modules
+
+
+@pytest.mark.parametrize("module", ["orange3_spark_tpu_torch.models.als",
+                                    "orange3_spark_tpu_torch.ops.normal_equations",
+                                    "orange3_spark_tpu_torch.utils.checkpoint",
+                                    "orange3_spark_tpu_torch.models.evaluation"])
+def test_recommender_modules_import_without_jax(module):
+    """The ALS slice's modules, each on its own behind the blocker: ALS,
+    its kernel's wrapper, model and workflow saving, the evaluators."""
+    code = _BLOCKED_IMPORT.split("import orange3_spark_tpu_torch as pkg")[0] + textwrap.dedent(f"""
+        importlib.import_module({module!r})
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "orange3_spark_tpu", "ml_dtypes", "optax")]
+        assert not leaked, leaked
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_imports_without_jax():
@@ -110,8 +129,8 @@ def test_kernel_library_name_follows_source_and_flags():
     assert path.parent == cuda_build.BUILD_DIR
     assert path.name.startswith("libhistogram-") and path.suffix == ".so"
     assert "-gencode=arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
-    assert sorted(p.stem for p in cuda_build.CSRC.glob("*.cu")) == ["histogram",
-                                                                     "segment_sum"]
+    assert sorted(p.stem for p in cuda_build.CSRC.glob("*.cu")) == [
+        "histogram", "normal_equations", "segment_sum"]
 
 
 def _port_sources(suffixes):
