@@ -99,16 +99,19 @@ then the ALS recommender (BASELINE config 4; one kernel of the package,
 entity's A, b and rating count of one half-step in one launch):
 
   als_check       the kernel on the card against its plain version run on
-                  the CPU from the same inputs (``NE_CASES``: ranks 1, 16
-                  and 48, a 100,000-rating segment, empty entities, a tenth
-                  of the weights zero, several reference chunks, implicit
-                  weights): the sort equal, A, b and cnt bitwise, two
-                  launches bitwise; ``ALS(rank=16, max_iter=5)`` on 200,000
+                  the CPU from the same inputs (``NE_CASES``: ranks 1, 8,
+                  16, 48, 64 and 128, a 100,000-rating segment whole and
+                  cut into ~100 pieces at its chunk changes, explicit and
+                  implicit, entity counts that are no multiple of a warp's,
+                  empty entities, a tenth of the weights zero, several
+                  reference chunks): the layout equal, A, b and cnt
+                  bitwise, two launches bitwise; ``ALS(rank=16, max_iter=5)`` on 200,000
                   ratings fitted on the card and on the CPU from the same
                   initial factors (within ``ALS_FIT_ATOL``), two card fits
-                  bitwise; top-10 from the same factors on both (ids equal
-                  but for ties); every ranking and multilabel metric of the
-                  same id matrices on both within 1e-6
+                  bitwise; top-10 from the same factors on both, one user's
+                  and one item's factors zeroed (ties): ids equal on every
+                  row, the zero user's 0..9; every ranking and multilabel
+                  metric of the same id matrices on both within 1e-6
   movielens_als   ``bench_suite.py:134-184`` at full width: 25,000,000
                   ratings of ``make_movielens_proxy`` (162,541 users x
                   59,047 items), the last 262,144 held out, ``ALS(rank=16,
@@ -120,11 +123,15 @@ entity's A, b and rating count of one half-step in one launch):
                   sort, the LU solve, the rest; the idle share),
                   ``recommend_for_all_users(10)`` and ndcg@10 against each
                   user's held-out items; then the kernel at the timed fit's
-                  inputs, each side: held to the plain version on the card
+                  inputs, each side, and at an item side drawn 1/rank^0.9
+                  from ``--seed`` (its longest segment, the segments cut,
+                  their pieces): held to the plain version on the card
                   within float32 summation's bound (``_ne_tolerance``), two
-                  launches bitwise, its time beside its bound, the plain
-                  version and the yardstick (materialised outer products +
-                  ``index_add_``)
+                  launches bitwise, its time beside its bounds (bytes of
+                  the 12-byte layout; operations at the float32 peak and,
+                  ``issue_bound_ms``, at half of it: products and adds that
+                  may not contract), the plain version and the yardstick
+                  (materialised outer products + ``index_add_``)
 
 then the Criteo path (BASELINE config 2, ``bench.py --config criteo`` on an
 accelerator): PyTorch ops and two kernels of the package
@@ -238,8 +245,9 @@ counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
 its yardstick; ``normal_equations_sorted``: launches counted over the
-``movielens_als`` phase's timed fit, the times of its user half-step; each
-fails the run if it counted no launch),
+``movielens_als`` phase's timed fit, the times of its user half-step, the
+item and skewed item half-steps beside; each fails the run if it counted
+no launch),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -3358,19 +3366,28 @@ ALS_CHECK = dict(n_users=4000, n_items=3000, n_ratings=200_000, rank=16, max_ite
 ALS_FIT_ATOL = 1e-5
 # normal_equations_sorted against its plain version with the CPU's sums:
 # (rank, entities with ratings, entities, other side, ratings, chunk,
-# ratings of one heavy entity, implicit)
+# ratings of one heavy entity, implicit). Rank 16 holds 3 entities a warp
+# (3500 and 1201 are not multiples), rank 8 ten; the 100,000-rating segment
+# at chunk 2^12 is cut into ~100 pieces (explicit and implicit); ranks 48,
+# 64 and 128 take 3, 5 and 17 warps an entity.
 NE_CASES = [(1, 3000, 3500, 2000, 300_000, 1 << 14, 0, False),
             (16, 3000, 3500, 2000, 300_000, 1 << 14, 100_000, False),
+            (16, 3000, 3500, 2000, 300_000, 1 << 12, 100_000, False),
+            (16, 3000, 3500, 2000, 200_000, 1 << 12, 100_000, True),
             (16, 3000, 3500, 2000, 200_000, 1 << 16, 0, True),
-            (48, 1000, 1200, 700, 100_000, 1 << 14, 0, False)]
+            (8, 1000, 1201, 900, 100_000, 1 << 13, 0, False),
+            (48, 1000, 1200, 700, 100_000, 1 << 14, 0, False),
+            (64, 1000, 1201, 700, 60_000, 1 << 14, 20_000, False),
+            (128, 300, 401, 500, 30_000, 1 << 13, 0, True)]
 
 
 def _ne_inputs(k, e_used, E, n_other, M, chunk, heavy, implicit, dev, seed=0):
     """A side's ratings for the normal equations: ``e_used`` of ``E``
     entities rated (the rest empty), a tenth of the weights zero, entity 0
-    with ``heavy`` more ratings spread over the whole order; sorted on
-    ``dev`` and on the CPU from the same numpy draws. Returns (factors,
-    plan on dev, plan on the CPU)."""
+    with ``heavy`` more ratings spread over the whole order; laid out
+    (``sort_side``, chunk ``chunk``) on ``dev`` and on the CPU from the
+    same numpy draws. Returns (factors, layout on dev, layout on the
+    CPU)."""
     import numpy as np
     import torch
 
@@ -3384,14 +3401,22 @@ def _ne_inputs(k, e_used, E, n_other, M, chunk, heavy, implicit, dev, seed=0):
     w = (rng.random(M + heavy) >= 0.1).astype(np.float32)
     V = rng.standard_normal((n_other, k)).astype(np.float32)
     cols = [torch.from_numpy(x) for x in (u, i, r, w)]
-    plans = [A._side_plan(*(c.to(d) for c in cols), E, n_other, implicit, 1.5)
+    plans = [A._side_plan(*(c.to(d) for c in cols), E, n_other, implicit, 1.5)(chunk)
              for d in (dev, "cpu")]
     return torch.from_numpy(V).to(dev), plans[0], plans[1]
 
 
+def _layouts_equal(a, b) -> bool:
+    import torch
+
+    return all((x is None and y is None) or (x is not None and y is not None and (
+        x == y if isinstance(x, tuple) else torch.equal(x.cpu(), y.cpu())))
+        for x, y in zip(a, b))
+
+
 def _ne_case(k, e_used, E, n_other, M, chunk, heavy, implicit, dev):
     """The kernel on ``dev`` against its plain version with the CPU's
-    index-order sums, on the same sorted ratings: the sort on the card
+    index-order sums, on the same sorted ratings: the layout on the card
     equal to the CPU's, A, b and cnt bitwise, two launches bitwise, the
     empty entities zero; the plain version on the card within float32
     rounding (index_add_'s atomics)."""
@@ -3400,15 +3425,17 @@ def _ne_case(k, e_used, E, n_other, M, chunk, heavy, implicit, dev):
     from orange3_spark_tpu_torch.ops import normal_equations as NE
 
     V, plan, cplan = _ne_inputs(k, e_used, E, n_other, M, chunk, heavy, implicit, dev)
-    got = NE.normal_equations_sorted(V, *plan, chunk)
-    again = NE.normal_equations_sorted(V, *plan, chunk)
-    want = NE.normal_equations_sorted_reference(V.cpu(), *cplan, chunk)
-    on_dev = NE.normal_equations_sorted_reference(V, *plan, chunk)
+    got = NE.normal_equations_sorted(V, plan)
+    again = NE.normal_equations_sorted(V, plan)
+    want = NE.normal_equations_sorted_reference(V.cpu(), cplan)
+    on_dev = NE.normal_equations_sorted_reference(V, plan)
     got = [x.cpu() for x in got]
     line = {
         "rank": k, "ratings": M + heavy, "entities": E, "chunk": chunk,
         "heavy_segment": heavy, "implicit": implicit,
-        "sort_equal": all(torch.equal(a.cpu(), b) for a, b in zip(plan, cplan)),
+        "cut_segments": len(plan.split_first_host) - 1,
+        "pieces": plan.split_first_host[-1],
+        "sort_equal": _layouts_equal(plan, cplan),
         "bitwise_cpu_order": all(torch.equal(a, b) for a, b in zip(got, want)),
         "bitwise_repeat": all(torch.equal(a, b.cpu()) for a, b in zip(got, again)),
         "empty_zero": all(not x[e_used:].any() for x in got),
@@ -3429,8 +3456,8 @@ def _table_pair(ratings, sess):
 
 def _recommend_agreement(U, V, n, dev):
     """``recommend_for_all_users(n)`` from the same factors on ``dev`` and
-    on the CPU: rows whose ids differ, and whether every such row is a tie
-    (the two lists' float64 scores equal within 1e-5 relative)."""
+    on the CPU, and the rows whose ids differ (ties come in one order on
+    both: the lower id first)."""
     import numpy as np
 
     from orange3_spark_tpu_torch.models.als import ALSModel, ALSParams
@@ -3438,13 +3465,8 @@ def _recommend_agreement(U, V, n, dev):
     p = ALSParams(rank=U.shape[1])
     on_dev = ALSModel(p, U.to(dev), V.to(dev)).recommend_for_all_users(n)
     on_cpu = ALSModel(p, U.cpu(), V.cpu()).recommend_for_all_users(n)
-    diff = np.flatnonzero((on_dev != on_cpu).any(axis=1))
-    S = U.cpu().double().numpy()[diff] @ V.cpu().double().numpy().T
-    a = np.take_along_axis(S, on_dev[diff].astype(np.int64), 1)
-    b = np.take_along_axis(S, on_cpu[diff].astype(np.int64), 1)
-    ties = bool(np.all(np.abs(a - b) <= 1e-5 * np.maximum(np.abs(b), 1.0)))
-    return on_dev, on_cpu, {"rows": len(on_dev), "rows_differ": int(len(diff)),
-                            "differing_rows_are_ties": ties}
+    diff = int((on_dev != on_cpu).any(axis=1).sum())
+    return on_dev, on_cpu, {"rows": len(on_dev), "rows_differ": diff}
 
 
 def _holdout_truth(users, items, n_users):
@@ -3463,11 +3485,10 @@ def _holdout_truth(users, items, n_users):
 
 def phase_als_check(sess):
     """ALS on the card held to the port's CPU path: the kernel against its
-    plain version with CPU-order sums (NE_CASES: ranks 1, 16, 48, a
-    100,000-rating segment, empty entities, zero weights, several chunks,
-    implicit weights), a card fit against the CPU fit from the same initial
-    factors, two card fits bitwise, recommendations and ranking metrics
-    against the CPU's."""
+    plain version with CPU-order sums (``NE_CASES``), a card fit against the
+    CPU fit from the same initial factors, two card fits bitwise,
+    recommendations (with tied scores) and ranking metrics against the
+    CPU's."""
     import numpy as np
     import torch
 
@@ -3489,9 +3510,13 @@ def phase_als_check(sess):
                   float((m_gpu.item_factors.cpu() - m_cpu.item_factors).abs().max()))
     repeat = (torch.equal(m_gpu.user_factors, m_again.user_factors)
               and torch.equal(m_gpu.item_factors, m_again.item_factors))
-    # recommendations and metrics from the CPU fit's factors on both devices
-    recs_dev, recs_cpu, agree = _recommend_agreement(m_cpu.user_factors, m_cpu.item_factors,
-                                                     10, dev)
+    # recommendations and metrics from the CPU fit's factors on both devices,
+    # with one user's and one item's factors zero (as for an entity no
+    # rating reaches), which ties that user's scores and every user's score
+    # of that item
+    U, V = m_cpu.user_factors.clone(), m_cpu.item_factors.clone()
+    U[1], V[2] = 0.0, 0.0
+    recs_dev, recs_cpu, agree = _recommend_agreement(U, V, 10, dev)
     truth, _ = _holdout_truth(ratings[:, 0].astype(np.int64), ratings[:, 1].astype(np.int32),
                               c["n_users"])
     metrics = {}
@@ -3513,8 +3538,10 @@ def phase_als_check(sess):
         failed.append(f"card fit {fit_err} from the CPU fit (atol {ALS_FIT_ATOL})")
     if not repeat:
         failed.append("two card fits differ")
-    if not agree["differing_rows_are_ties"]:
-        failed.append("recommendations differ beyond ties")
+    if agree["rows_differ"] != 0:
+        failed.append(f"recommendations differ on {agree['rows_differ']} rows")
+    if not (recs_cpu[1] == np.arange(10)).all():
+        failed.append(f"the zero user's ids {recs_cpu[1].tolist()} are not 0..9")
     if not metric_err <= 1e-6:
         failed.append(f"ranking metrics {metric_err} apart")
     if failed:
@@ -3522,43 +3549,45 @@ def phase_als_check(sess):
     return line
 
 
-def _ne_bound(M, E, k, n_other, mem_bw, fp32_peak):
-    """The least time of one half-step's normal equations: each input read
-    once (oid, pos i32; aw, bw, cw f32; the offsets; the other side's
-    factors), each output written once (A, b, cnt), against the float32
-    products and adds the function needs: (V_i V_j)·aw and its add on the
-    lower triangle, V_i·bw and its add, the count's add. Beside it, the
-    bound of a layout with only the bytes explicit feedback needs, 12 a
-    rating (oid with a chunk-change bit in place of pos; aw, which is also
-    the count's weight; bw)."""
-    fixed = (E + 1) * 8 + n_other * k * 4 + E * (k * k + k + 1) * 4
-    bytes_, needed = M * 20 + fixed, M * 12 + fixed
+def _ne_bound(M, E, k, n_other, mem_bw, fp32_peak, n_units, implicit=False):
+    """The least time of one half-step's normal equations. Bytes: each
+    input read once (the layout in use: key, aw, bw, and cw for implicit
+    feedback, 12 or 16 a rating; the offsets; the work list, 20 a unit;
+    the other side's factors), each output written once (A, b, cnt).
+    Operations: the float32 products and adds the function needs: (V_i
+    V_j)·aw and its add on the lower triangle, V_i·bw and its add, the
+    count's add. ``bound_ms`` counts them at the card's float32 peak;
+    ``issue_bound_ms`` at half of it, the rate of products and adds that
+    may not contract into FMAs, as the plain version's bits require."""
+    per = 16 if implicit else 12
+    bytes_ = (M * per + (E + 1) * 8 + n_units * 20 + n_other * k * 4
+              + E * (k * k + k + 1) * 4)
     ops = M * (3 * k * (k + 1) // 2 + 2 * k + 1)
     t_bytes, t_ops = bytes_ / mem_bw * 1e3, ops / fp32_peak * 1e3
-    return {"bytes": bytes_, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+    return {"bytes": bytes_, "bytes_per_rating": per, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_12B_layout": needed,
-            "bound_ms_12B_layout": max(needed / mem_bw * 1e3, t_ops)}
+            "issue_bound_ms": max(t_bytes, 2 * t_ops)}
 
 
-def _outer_index_add(factors, *plan, chunk):
-    """The yardstick: each reference chunk's terms materialised
+def _outer_index_add(factors, layout):
+    """The yardstick: the reference chunks' terms materialised
     (``chunk_terms``) and ``index_add_``ed straight into A, b and cnt
     (float atomics on CUDA)."""
     import torch
 
     from orange3_spark_tpu_torch.ops.normal_equations import chunk_terms
 
-    k, E = factors.shape[1], plan[-1].shape[0] - 1
+    k, E = factors.shape[1], layout.offsets.shape[0] - 1
     A = torch.zeros((E + 1, k * k), device=factors.device)
     bc = torch.zeros((E + 1, k + 1), device=factors.device)
-    for ent, outer, rhs in chunk_terms(factors, *plan, chunk):
+    for _j, ent, outer, rhs in chunk_terms(factors, layout, 1 << 18):
         A.index_add_(0, ent, outer)
         bc.index_add_(0, ent, rhs)
     return A, bc
 
 
-def _ne_tolerance(factors, plan, chunk):
+def _ne_tolerance(factors, layout):
     """How far the kernel's A, b and cnt may lie from the plain version's on
     the card, per output (f64, shaped as they are). Both add the same
     float32 terms, each product rounded on its own, in two orders: the
@@ -3575,10 +3604,11 @@ def _ne_tolerance(factors, plan, chunk):
         normal_equations_sorted_reference,
     )
 
-    oid, pos, aw, bw, cw, offsets = plan
-    S = normal_equations_sorted_reference(factors.abs(), oid, pos, aw.abs(), bw.abs(),
-                                          cw.abs(), offsets, chunk)
-    n = (offsets[1:] - offsets[:-1]).to(torch.float64) * 2.0 ** -24
+    absl = layout._replace(aw=layout.aw.abs(), bw=layout.bw.abs(),
+                           cw=None if layout.cw is None else layout.cw.abs())
+    S = normal_equations_sorted_reference(factors.abs(), absl)
+    off = layout.offsets
+    n = (off[1:] - off[:-1]).to(torch.float64) * 2.0 ** -24
     g = n / (1 - n)
     scale = 2 * g / (1 - g)
     return [x.double() * scale.view(-1, *([1] * (x.ndim - 1))) for x in S]
@@ -3601,7 +3631,7 @@ def _als_profile_split(by_name):
     return out
 
 
-def phase_movielens_als(sess, mem_bw, fp32_peak, ratings):
+def phase_movielens_als(sess, mem_bw, fp32_peak, ratings, seed=0):
     """BASELINE config 4 at full width (``bench_suite.py:134-184``): a
     warm-up fit, the timed fit (the kernel's launches counted over it), a
     profiled fit, RMSE on the training and holdout ratings, top-10 for
@@ -3668,34 +3698,43 @@ def phase_movielens_als(sess, mem_bw, fp32_peak, ratings):
         "recommend_for_all_users_s": recommend_s, "recommend_n": 10,
         "ndcgAtK_10_holdout": ndcg, "users_with_holdout": int(len(users)),
     }
-    # the kernel at the timed fit's own inputs, each side, held to its
-    # plain version on the card within float32 summation's bound
+    # the kernel at the timed fit's own inputs, each side, and at a skewed
+    # item side, held to its plain version on the card within float32
+    # summation's bound
     u = table.column("user").to(torch.int32)
     it = table.column("item").to(torch.int32)
     r = table.column("rating")
     chunk = min(est.params.chunk_size, table.n_pad)
+    skew = torch.from_numpy(_skewed_items(table.n_pad, MOVIELENS_ITEMS, seed)).to(it.device)
     kern = {}
     for side, idx, oth, E, factors in (("user", u, it, MOVIELENS_USERS, model.item_factors),
-                                       ("item", it, u, MOVIELENS_ITEMS, model.user_factors)):
-        plan = A._side_plan(idx, oth, r, table.W, E, factors.shape[0], False, 1.0)
+                                       ("item", it, u, MOVIELENS_ITEMS, model.user_factors),
+                                       ("item_skewed", skew, u, MOVIELENS_ITEMS,
+                                        model.user_factors)):
+        plan = A._side_plan(idx, oth, r, table.W, E, factors.shape[0], False, 1.0)(chunk)
         def fn():
-            return NE.normal_equations_sorted(factors, *plan, chunk)
+            return NE.normal_equations_sorted(factors, plan)
         got, again = fn(), fn()
-        plain = NE.normal_equations_sorted_reference(factors, *plan, chunk)
-        tol = _ne_tolerance(factors, plan, chunk)
+        plain = NE.normal_equations_sorted_reference(factors, plan)
+        tol = _ne_tolerance(factors, plan)
         err = [(a.double() - b.double()).abs() for a, b in zip(got, plain)]
+        lengths = plan.offsets[1:] - plan.offsets[:-1]
         kern[side] = {"entities": E, "ms": cuda_ms(fn, 10, warmup=1),
                       "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
                       **_ne_bound(table.n_rows, E, factors.shape[1], factors.shape[0],
-                                  mem_bw, fp32_peak),
+                                  mem_bw, fp32_peak, plan.units.shape[0],
+                                  implicit=plan.cw is not None),
+                      "longest_segment": int(lengths.max()),
+                      "blocks_per_sm": NE.blocks_per_sm(factors.shape[1]),
+                      "cut_segments": len(plan.split_first_host) - 1,
+                      "pieces": plan.split_first_host[-1],
                       "max_abs_err": max(float(e.max()) for e in err),
                       "within_tolerance": all(bool((e <= t).all()) for e, t in zip(err, tol)),
                       "max_err_over_tolerance": max(float((e / t.clamp_min(1e-300)).max())
                                                     for e, t in zip(err, tol)),
                       "plain_ms": cuda_ms(lambda: NE.normal_equations_sorted_reference(
-                          factors, *plan, chunk), 2, 1),
-                      "library_ms": cuda_ms(lambda: _outer_index_add(
-                          factors, *plan, chunk=chunk), 2, 1)}
+                          factors, plan), 2, 1),
+                      "library_ms": cuda_ms(lambda: _outer_index_add(factors, plan), 2, 1)}
         del got, again, plain, tol, err, plan
         torch.cuda.empty_cache()
         if not (kern[side]["within_tolerance"] and kern[side]["deterministic"]):
@@ -3703,6 +3742,19 @@ def phase_movielens_als(sess, mem_bw, fp32_peak, ratings):
                                  f"inputs: {json.dumps(kern[side])}")
     line["kernel"] = kern
     return line
+
+
+def _skewed_items(n, n_items, seed):
+    """``n`` item ids drawn with numpy (``default_rng(seed)``), item i with
+    chance proportional to 1 / (i + 1)^0.9: at 25M ratings the longest
+    segment holds about 1.2M of them, the 1,000th about 2,400; real
+    MovieLens-25M's most rated films have tens of thousands."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(1.0 / np.arange(1, n_items + 1) ** 0.9)
+    return np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1]), n_items - 1).astype(
+        np.int32)
 
 
 def main(argv=None) -> int:
@@ -3715,6 +3767,8 @@ def main(argv=None) -> int:
                     help="Criteo fit epochs (bench.py's 100 by default)")
     ap.add_argument("--taxi-rows", type=int, default=TAXI_ROWS,
                     help="taxi pipeline rows (config 5's 10M by default)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="numpy seed of the skewed item draw of movielens_als")
     ap.add_argument("--resume-epochs", type=int, default=RESUME_EPOCHS,
                     help="epochs of the criteo_resume and criteo_fault fits "
                          f"({RESUME_EPOCHS} by default)")
@@ -3854,7 +3908,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         ml_ratings = make_movielens_proxy(MOVIELENS_RATINGS)
         ml_gen_s = time.perf_counter() - t0
-        als_line = phase_movielens_als(sess, mem_bw, fp32_peak, ml_ratings)
+        als_line = phase_movielens_als(sess, mem_bw, fp32_peak, ml_ratings, args.seed)
         emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
               "generate_s": ml_gen_s, **als_line})
         del ml_ratings
@@ -3979,17 +4033,22 @@ def main(argv=None) -> int:
             "tolerance": ("per output 2g/(1-g) x the plain version's sum of |terms|, "
                           "g = n*2^-24/(1 - n*2^-24), n the entity's ratings; both sides"),
             "max_err_over_tolerance": max(als_line["kernel"][s]["max_err_over_tolerance"]
-                                          for s in ("user", "item")),
-            "deterministic": ne["deterministic"] and als_line["kernel"]["item"]["deterministic"],
+                                          for s in ("user", "item", "item_skewed")),
+            "deterministic": all(als_line["kernel"][s]["deterministic"]
+                                 for s in ("user", "item", "item_skewed")),
             "ms": ne["ms"], "plain_ms": ne["plain_ms"],
             "bound_ms": ne["bound_ms"], "bound_by": ne["bound_by"],
+            "issue_bound_ms": ne["issue_bound_ms"], "bytes": ne["bytes"],
+            "bytes_per_rating": ne["bytes_per_rating"], "blocks_per_sm": ne["blocks_per_sm"],
             "library_ms": ne["library_ms"],
             "library": "outer products per 2^18-rating chunk, materialised, + index_add_",
-            "bound_ms_12B_layout": ne["bound_ms_12B_layout"],
-            "item_side": {k: als_line["kernel"]["item"][k]
-                          for k in ("ms", "bound_ms", "bound_by", "bound_ms_12B_layout",
-                                    "entities", "max_abs_err", "max_err_over_tolerance",
-                                    "plain_ms", "library_ms")},
+            **{f"{side}_side": {k: als_line["kernel"][side][k]
+                                for k in ("ms", "bound_ms", "bound_by", "issue_bound_ms",
+                                          "bytes", "entities", "longest_segment",
+                                          "cut_segments", "pieces", "max_abs_err",
+                                          "max_err_over_tolerance", "plain_ms",
+                                          "library_ms")}
+               for side in ("item", "item_skewed")},
             "timed": "CUDA events over 10 launches (plain and library: 2), eager",
             "at": (f"the user half-step of the timed fit: {als_line['train_ratings']} "
                    f"ratings, {als_line['users']} users, rank {als_line['rank']}"),

@@ -15,8 +15,9 @@ plain version): no float atomics, nothing materialised, the reference's
 chunk order. The rest of a half-step is torch: the VᵀV base
 (``torch.mm``), the regulariser on the diagonal, one batched LU solve
 (``torch.linalg.solve_ex``, which reads nothing on the host) and the
-optional NNLS sweeps. A fit reads the device from the host once, for the
-index range, before its first half-step.
+optional NNLS sweeps. A fit reads the device from the host once for the
+index range, and once a side for the layout's work list (its long
+segments), all before its first half-step.
 
 The initial factors are |N(0, 1)|/√rank from a CPU ``torch.Generator``
 seeded with ``seed`` (``jax.random``'s bits cannot be made without JAX),
@@ -31,6 +32,7 @@ The session has one device and no mesh: ``factor_sharding`` 'auto' and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -91,11 +93,12 @@ def _nnls_cd(A, b, x0, sweeps: int):
 
 def _side_weights(rating, w, implicit: bool, alpha: float):
     """Each rating's weights for A, b and the count, by the reference's
-    expressions: explicit (w, r·w, w); implicit, with the confidence
-    c = 1 + α|r| (negative feedback raises it too) and the preference
-    p = [r > 0], ((c - 1)·w, c·p·w, w)."""
+    expressions: explicit (w, r·w, w), where the count's weight is A's and
+    is given as None; implicit, with the confidence c = 1 + α|r| (negative
+    feedback raises it too) and the preference p = [r > 0],
+    ((c - 1)·w, c·p·w, w)."""
     if not implicit:
-        return w, rating * w, w
+        return w, rating * w, None
     conf = 1.0 + alpha * torch.abs(rating)
     pref = (rating > 0).to(torch.float32)
     return (conf - 1.0) * w, conf * pref * w, w
@@ -103,17 +106,19 @@ def _side_weights(rating, w, implicit: bool, alpha: float):
 
 def _side_plan(idx, other_idx, rating, w, n_entities: int, n_other: int,
                implicit: bool, alpha: float):
-    """The sorted layout of one side's ratings (``sort_side``), made once a
-    fit."""
+    """One side's ratings for its half-steps: ``plan(chunk)`` is their
+    sorted layout (``sort_side``) for reference chunks of ``chunk``
+    ratings, made on first use and kept, so once a fit."""
     aw, bw, cw = _side_weights(rating, w, implicit, alpha)
-    return sort_side(idx, other_idx, aw, bw, cw, n_entities, n_other)
+    return functools.cache(
+        lambda chunk: sort_side(idx, other_idx, aw, bw, cw, n_entities, n_other, chunk))
 
 
 def _solve_side(plan, other_factors, reg: float, implicit: bool, chunk: int,
                 nonnegative: bool = False, nnls_sweeps: int = 48):
     """Normal-equation solve for one side given the other side's factors;
     ``plan``: the side's ``_side_plan``."""
-    A, b, cnt = normal_equations_sorted(other_factors, *plan, chunk)
+    A, b, cnt = normal_equations_sorted(other_factors, plan(chunk))
     if implicit:
         # global VᵀV base + per-entry corrections already in A; plain lambda
         A += (other_factors.T @ other_factors)[None, :, :]
@@ -147,8 +152,8 @@ def _als_fit(user_idx, item_idx, rating, w, U, V, *, n_users: int,
              factor_sharding=None):
     """``max_iter`` alternations from the initial factors ``U``, ``V``
     (tensors on the ratings' device): the user side, then the item side.
-    Each side's ratings are sorted once; no half-step reads the device
-    from the host. ``factor_sharding`` must be None (one device)."""
+    Each side's ratings are sorted once, on its first half-step; no
+    half-step after reads the device from the host. ``factor_sharding`` must be None (one device)."""
     if factor_sharding is not None:
         raise ValueError("_als_fit: the port runs on one device; factor_sharding "
                          "must be None")
@@ -173,19 +178,55 @@ def _predict_pairs(U, V, user_idx, item_idx):
     return out
 
 
+def _order_keys(scores, ids, m: int):
+    """int64 keys whose descending order is score descending, then the
+    lower id first. The score goes in the high half by the total order of
+    its bits (-NaN < -inf < ... < +inf < NaN, ``lax.top_k``'s); the caller
+    gives -0.0 as +0.0, so that equal scores tie."""
+    bits = scores.contiguous().view(torch.int32)
+    total = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return total.to(torch.int64) * (1 << 32) + (m - 1 - ids)
+
+
 def _top_n(Q, K, n: int) -> np.ndarray:
     """Per row of ``Q``, the ids of the ``n`` rows of ``K`` with the
-    highest ``Q @ Kᵀ`` score, best first, as int32 numpy. The product is
-    taken a block of rows of ``Q`` at a time, at most
-    ``RECOMMEND_BLOCK_BYTES`` of scores; each row's ids do not depend on
-    the block. Tied scores come in ``torch.topk``'s order, which is not
-    promised (``lax.top_k`` puts the lower id first)."""
+    highest ``Q @ Kᵀ`` score, as int32 numpy: score descending, and of
+    equal scores the lower id first, ties at the n-th place included
+    (``lax.top_k``'s order). The product is taken a block of rows of ``Q``
+    at a time, at most ``RECOMMEND_BLOCK_BYTES`` of scores; each row's ids
+    do not depend on the block.
+
+    ``torch.topk`` picks each row's n + 1 best (its order among equal
+    scores is not promised); the first n are sorted by ``_order_keys``. A
+    row with a NaN among them, or whose n-th score equals its (n + 1)-th
+    (a tie at the n-th place with a score left out), is picked again over
+    the whole row by those keys. A zero score
+    counts as +0.0: ``lax.top_k`` ranks -0.0 below +0.0, and which zeros
+    carry a -0.0 depends on how a product kernel starts its sums (XLA's
+    CPU GEMM from +0.0, as cuBLAS and the CPU BLAS; its rank-1 and
+    one-row products keep a product's -0.0), so only there do the two
+    packages' ids part."""
     rows, m = Q.shape[0], K.shape[0]
     block = max(1, RECOMMEND_BLOCK_BYTES // (4 * max(m, 1)))
     out = torch.empty((rows, n), dtype=torch.int32, device=Q.device)
     Kt = K.T
     for s in range(0, rows, block):
-        out[s:s + block] = torch.topk(Q[s:s + block] @ Kt, n, dim=1).indices
+        S = Q[s:s + block] @ Kt
+        vals, ids = torch.topk(S, min(n + 1, m), dim=1)
+        # torch.topk takes a NaN as the largest score
+        redo = torch.isnan(vals).any(dim=1)
+        if m > n > 0:
+            redo |= vals[:, n] == vals[:, n - 1]
+        vals, ids = vals[:, :n], ids[:, :n]
+        ids = ids.gather(1, torch.argsort(_order_keys(vals + 0.0, ids, m), dim=1,
+                                          descending=True))
+        if n > 0:
+            redo = torch.nonzero(redo).flatten()
+            if redo.numel():
+                every = torch.arange(m, device=Q.device).expand(redo.numel(), m)
+                keys = _order_keys(S.index_select(0, redo) + 0.0, every, m)
+                ids[redo] = torch.topk(keys, n, dim=1).indices
+        out[s:s + block] = ids
     return out.cpu().numpy()
 
 
@@ -227,7 +268,8 @@ class ALSModel(Model):
         return out.with_weights(W)
 
     def recommend_for_all_users(self, num_items: int) -> np.ndarray:
-        """Top-N items per user: U @ Vᵀ in row blocks + ``torch.topk``.
+        """Top-N items per user: U @ Vᵀ in row blocks, best first, the
+        lower id first among equal scores (``_top_n``).
 
         Returns int32 [n_users, num_items]. (MLlib recommendForAllUsers.)
         """

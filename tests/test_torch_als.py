@@ -109,7 +109,7 @@ def test_plain_normal_equations_follow_the_chunk_order(session, implicit, chunk)
     V = rng.standard_normal((30, 4)).astype(np.float32)
     E = 45                                    # entities 40..44 have no rating
     plan = TA._side_plan(*(torch.from_numpy(x) for x in (u, i, r, w)), E, 30, implicit, 1.0)
-    A, b, c = NE.normal_equations_sorted(torch.from_numpy(V), *plan, chunk)
+    A, b, c = NE.normal_equations_sorted(torch.from_numpy(V), plan(chunk))
     # a dropped rating still takes its place in a chunk; here it is given
     # to entity 0 with weight 0, which adds ±0.0 and leaves every sum's bits
     live = (u >= 0) & (u < E)
@@ -127,16 +127,184 @@ def test_plain_normal_equations_follow_the_chunk_order(session, implicit, chunk)
     np.testing.assert_allclose(A.numpy(), A64, rtol=1e-5, atol=1e-4)
 
 
-def test_sort_side_layout(session):
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 6])
+def test_sort_side_layout(session, implicit, chunk):
+    """The 12-byte layout: stable by user (user 5 out of range, dropped),
+    the item id clamped, bit 31 set exactly where ``pos // chunk`` changes
+    inside a segment, cw carried only for implicit feedback; the work list
+    one unit an entity, longest segment first."""
     u = torch.tensor([2, 0, 2, 5, 1, 0], dtype=torch.int32)
     i = torch.tensor([1, 3, 0, 2, 9, 4], dtype=torch.int32)
     f = torch.arange(6, dtype=torch.float32)
-    oid, pos, aw, bw, cw, off = NE.sort_side(u, i, f, f + 10, f + 20, 4, 5)
-    assert pos.tolist() == [1, 5, 4, 0, 2, 3]               # stable by user, 5 dropped
-    assert oid.tolist() == [3, 4, 4, 1, 0, 2]                # item 9 clamped to 4
-    assert off.tolist() == [0, 2, 3, 5, 5] and off.dtype == torch.int64
-    assert aw.tolist() == [1, 5, 4, 0, 2, 3] and bw[0] == 11 and cw[0] == 21
-    assert oid.dtype == pos.dtype == torch.int32
+    lay = NE.sort_side(u, i, f, f + 10, f + 20 if implicit else None, 4, 5, chunk)
+    pos = [1, 5, 4, 0, 2, 3]                                 # the stable order
+    seg = [0, 0, 1, 2, 2, 4]                                 # 4: past the entities
+    flag = [g > 0 and seg[g] == seg[g - 1] and pos[g] // chunk != pos[g - 1] // chunk
+            for g in range(6)]
+    oid = [3, 4, 4, 1, 0, 2]                                 # item 9 clamped to 4
+    assert lay.key.tolist() == [o - (1 << 31) if fl else o for o, fl in zip(oid, flag)]
+    assert (lay.key & 0x7FFFFFFF).tolist() == oid and lay.key.dtype == torch.int32
+    assert lay.offsets.tolist() == [0, 2, 3, 5, 5] and lay.offsets.dtype == torch.int64
+    assert lay.aw.tolist() == pos and lay.bw.tolist() == [p + 10 for p in pos]
+    assert (lay.cw is not None) == implicit
+    if implicit:
+        assert lay.cw.tolist() == [p + 20 for p in pos]
+    # the last column: every rating of the unit has aw == 1.0 (and cw ==
+    # 1.0 for implicit feedback); only the empty user's does
+    assert lay.units.tolist() == [[0, 2, 0, -1, -1, 0], [3, 2, 2, -1, -1, 0],
+                                  [2, 1, 1, -1, -1, 0], [5, 0, 3, -1, -1, 1]]
+    one = torch.ones(6)
+    ones = NE.sort_side(u, i, one, f, one if implicit else None, 4, 5, chunk).units[:, 5]
+    assert ones.tolist() == [1, 1, 1, 1]
+    if implicit:
+        assert NE.sort_side(u, i, one, f, f, 4, 5, chunk).units[:, 5].tolist() == [0, 0, 0, 1]
+    assert lay.split_first_host == (0,) and lay.split_first.tolist() == [0]
+    # explicit feedback: the count's weight is A's
+    assert TA._side_weights(f, f, False, 1.0)[2] is None
+
+
+def _position_layout(u, i, aw, bw, cw, E, n_other):
+    """The layout before the 12-byte one: (oid, pos, aw, bw, cw, offsets),
+    pos the original position of each sorted rating."""
+    key = torch.where((u >= 0) & (u < E), u, E)
+    s_key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(s_key, torch.arange(E + 1, dtype=torch.int32))
+    oid = i.clamp(0, n_other - 1).index_select(0, order)
+    return (oid, order, aw.index_select(0, order), bw.index_select(0, order),
+            cw.index_select(0, order), offsets)
+
+
+def _position_plain(V, oid, pos, aw, bw, cw, offsets, chunk):
+    """The plain normal equations on the layout before the 12-byte one:
+    the sorted ratings put back in their original order, each chunk of
+    ``chunk`` of them ``index_add_``ed into zeros and added to the sums."""
+    k, M, E = V.shape[1], oid.shape[0], offsets.shape[0] - 1
+    n_live = int(offsets[-1])
+    ent = torch.full((M,), E, dtype=torch.int64)
+    ent[:n_live] = torch.repeat_interleave(torch.arange(E), offsets[1:] - offsets[:-1])
+    where = pos.long()
+
+    def original(x):
+        out = torch.empty_like(x)
+        out[where] = x
+        return out
+
+    ent, oid, aw, bw, cw = (original(x) for x in (ent, oid.long(), aw, bw, cw))
+    A = torch.zeros((E + 1, k * k))
+    bc = torch.zeros((E + 1, k + 1))
+    for c0 in range(0, M, chunk):
+        sl = slice(c0, min(c0 + chunk, M))
+        Vc = V.index_select(0, oid[sl])
+        outer = ((Vc[:, :, None] * Vc[:, None, :]) * aw[sl, None, None]).reshape(-1, k * k)
+        rhs = torch.cat([Vc * bw[sl, None], cw[sl, None]], dim=1)
+        A = A + torch.zeros_like(A).index_add_(0, ent[sl], outer)
+        bc = bc + torch.zeros_like(bc).index_add_(0, ent[sl], rhs)
+    return A[:E].reshape(E, k, k), bc[:E, :k], bc[:E, k]
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("chunk", [1, 97, 1000, 4096, 1 << 18])
+def test_plain_on_the_12_byte_layout_equals_the_position_layout(session, implicit, chunk):
+    """The plain version on the 12-byte layout (chunk changes as bit 31 of
+    the key) gives the bits the layout before it gave (the original
+    positions, put back in order and cut into chunks), with dropped
+    ratings, zero weights, empty entities and one heavy entity."""
+    rng = np.random.default_rng(5)
+    M, E, n_other, k = 6000, 70, 40, 5
+    u = rng.integers(-1, E - 5, M).astype(np.int32)
+    u[rng.permutation(M)[:1500]] = 3                      # a heavy entity
+    i = rng.integers(0, n_other + 2, M).astype(np.int32)  # some clamped
+    r = (rng.standard_normal(M) * 2).astype(np.float32)
+    w = (rng.random(M) >= 0.1).astype(np.float32)
+    V = torch.from_numpy(rng.standard_normal((n_other, k)).astype(np.float32))
+    cols = [torch.from_numpy(x) for x in (u, i, r, w)]
+    aw, bw, cw = TA._side_weights(cols[2], cols[3], implicit, 1.5)
+    want = _position_plain(V, *_position_layout(cols[0], cols[1], aw, bw,
+                                        aw if cw is None else cw, E, n_other), chunk)
+    got = NE.normal_equations_sorted(V, TA._side_plan(*cols, E, n_other, implicit, 1.5)(chunk))
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def _kernel_order(V, lay, n_split):
+    """The kernel's order of the adds, in float32 numpy: each unit of the
+    work list (``lay.units``) a running total and a partial restarted at
+    bit 31; the first ``n_split`` cut segments by pieces, whose partials
+    are added in chunk order from +0.0 (the whole unit of a cut segment
+    runs only when its pieces do not)."""
+    f = np.float32
+    V, key = V.numpy(), lay.key.numpy()
+    aw, bw = lay.aw.numpy(), lay.bw.numpy()
+    cw = aw if lay.cw is None else lay.cw.numpy()
+    k, E = V.shape[1], lay.offsets.shape[0] - 1
+    out = np.zeros((E, k * k + k + 1), f)
+    partials = {}
+    for start, n, ent, sid, piece, _ in lay.units.tolist():
+        if (piece < 0 and 0 <= sid < n_split) or (piece >= 0 and sid >= n_split):
+            continue
+        tot, part = np.zeros(k * k + k + 1, f), np.zeros(k * k + k + 1, f)
+        for g in range(start, start + n):
+            if key[g] < 0:
+                tot, part = tot + part, np.zeros_like(part)
+            v = V[key[g] & 0x7FFFFFFF]
+            part = part + np.concatenate([(np.outer(v, v) * aw[g]).ravel(), v * bw[g],
+                                          [cw[g]]]).astype(f)
+        if piece < 0:
+            out[ent] = tot + part
+        else:
+            partials.setdefault(ent, {})[piece] = tot + part
+    for ent, ps in partials.items():
+        total = np.zeros(k * k + k + 1, f)
+        for j in range(len(ps)):
+            total = total + ps[j]
+        out[ent] = total
+    return out
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_work_list_cuts_long_segments_at_chunk_changes(session, monkeypatch, implicit):
+    """Segments past ``SPLIT_MIN`` (here 150) are cut where their chunk
+    changes, the longest first; the pieces and whole segments cover every
+    live rating once; summed unit by unit in the kernel's order (pieces'
+    partials added in chunk order) they give the plain version's bits, with
+    all cut segments by pieces, some, or none (the scratch budget)."""
+    monkeypatch.setattr(NE, "SPLIT_MIN", 150)
+    monkeypatch.setattr(NE, "SPLIT_MAX", 3)
+    rng = np.random.default_rng(11)
+    M, E, n_other, k, chunk = 4000, 25, 30, 3, 500
+    u = rng.integers(0, E - 2, M).astype(np.int32)
+    u[rng.permutation(M)[:900]] = 4
+    u[rng.permutation(M)[:700]] = 9
+    u[u == 17] = -1                            # dropped
+    u[:400] = 17                               # long, but in one chunk: never cut
+    cols = [torch.from_numpy(x) for x in (
+        u, rng.integers(0, n_other, M).astype(np.int32),
+        (rng.standard_normal(M) * 2).astype(np.float32),
+        (rng.random(M) >= 0.1).astype(np.float32))]
+    V = torch.from_numpy(rng.standard_normal((n_other, k)).astype(np.float32))
+    lay = TA._side_plan(*cols, E, n_other, implicit, 1.5)(chunk)
+    units = lay.units.numpy()
+    length = np.diff(lay.offsets.numpy())
+    cut = units[units[:, 4] >= 0]
+    assert sorted(set(cut[:, 2].tolist())) == [4, 9] and len(lay.split_first_host) == 3
+    assert cut[0, 2] == 4                      # the longest first
+    # every piece starts at a chunk change but the first, and they tile the segment
+    for e in (4, 9):
+        p = cut[cut[:, 2] == e]
+        assert (p[:, 4] == np.arange(len(p))).all()
+        assert p[0, 0] == lay.offsets[e] and p[-1, 0] + p[-1, 1] == lay.offsets[e + 1]
+        assert (p[1:, 0] == p[:-1, 0] + p[:-1, 1]).all()
+        assert (lay.key.numpy()[p[1:, 0]] < 0).all()
+    whole = units[units[:, 4] < 0]
+    assert sorted(whole[:, 2].tolist()) == list(range(E))
+    assert (np.diff(whole[:, 1]) <= 0).all() and (whole[:, 1] == length[whole[:, 2]]).all()
+    want = torch.cat([x.reshape(E, -1) for x in NE.normal_equations_sorted(V, lay)], dim=1)
+    for n_split in (0, 1, 2):
+        np.testing.assert_array_equal(_kernel_order(V, lay, n_split), want.numpy())
+    assert NE._split_used(lay, 4 * 10 ** 9) == 0
+    assert NE._split_used(lay, NE.SCRATCH_BYTES // lay.split_first_host[1]) == 1
+    assert NE._split_used(lay, 4) == 2
 
 
 @pytest.mark.parametrize("implicit,nonnegative,chunk", [
@@ -395,6 +563,34 @@ def test_interop_predictions_and_recommendations_match_reference(jsess, session,
     np.testing.assert_array_equal(want_items, tm.recommend_for_all_items(4))
 
 
+@pytest.mark.parametrize("rank", [2, 5, 16])
+def test_recommend_tie_order_matches_reference(jsess, session, monkeypatch, rank):
+    """Tied scores come in ``lax.top_k``'s order, the lower id first, ties
+    at the n-th place included: zero factor rows (an entity no training
+    rating reaches) tie every score of theirs, and duplicated rows tie
+    whole columns. The ids equal the JAX package's at every row block."""
+    rng = np.random.default_rng(20 + rank)
+    U = rng.standard_normal((41, rank)).astype(np.float32)
+    V = rng.standard_normal((29, rank)).astype(np.float32)
+    U[[3, 17, 40]] = 0.0                      # unrated users
+    V[[0, 6, 21]] = 0.0                       # unrated items
+    V[[9, 25]] = V[4]                         # three items tied for every user
+    U[[12, 30]] = U[5]                        # three users tied for every item
+    jm = JA.ALSModel(JA.ALSParams(rank=rank), jnp.asarray(U), jnp.asarray(V))
+    tm = TA.ALSModel(TA.ALSParams(rank=rank), torch.from_numpy(U), torch.from_numpy(V))
+    for n in (1, 4, 10, 29):
+        want = jm.recommend_for_all_users(n)
+        assert (want[3] == np.arange(n)).all()            # a zero row: ids in order
+        for block in (1, 7, 41):
+            monkeypatch.setattr(TA, "RECOMMEND_BLOCK_BYTES", block * 29 * 4)
+            np.testing.assert_array_equal(tm.recommend_for_all_users(n), want)
+    for n in (1, 6, 41):
+        want = jm.recommend_for_all_items(n)
+        for block in (1, 10, 29):
+            monkeypatch.setattr(TA, "RECOMMEND_BLOCK_BYTES", block * 41 * 4)
+            np.testing.assert_array_equal(tm.recommend_for_all_items(n), want)
+
+
 def test_recommend_blocks_bound_the_temporary(session, monkeypatch):
     """The score temporary holds at most ``RECOMMEND_BLOCK_BYTES``: with a
     budget of 3 rows the ids are those of the whole product."""
@@ -484,7 +680,7 @@ def test_chip_smoke_als_helpers_run_on_the_cpu(session):
     assert line["ok"] and line["ratings"] == 2500, line
     U, V = torch.randn(30, 4), torch.randn(20, 4)
     _, _, agree = smoke._recommend_agreement(U, V, 5, torch.device("cpu"))
-    assert agree == {"rows": 30, "rows_differ": 0, "differing_rows_are_ties": True}
+    assert agree == {"rows": 30, "rows_differ": 0}
     truth, users = smoke._holdout_truth(np.array([3, 0, 3, 3]), np.array([7, 1, 2, 9]), 5)
     assert users.tolist() == [0, 3]
     assert truth.tolist() == [[1, -1, -1], [-1] * 3, [-1] * 3, [7, 2, 9], [-1] * 3]
@@ -495,12 +691,14 @@ def test_chip_smoke_als_helpers_run_on_the_cpu(session):
         "void trsm_batch_left_upper_kernel<float>(...)": [2.0, 40],
         "void at::native::elementwise_kernel<128, 2>": [1.0, 20]})
     assert split == {"normal_equations": 0.05, "sort": 0.002, "solve": 0.008, "rest": 0.001}
-    b = smoke._ne_bound(24_737_856, 162_541, 16, 59_047, 3.35e12, 67e12)
-    assert b["bytes"] == 677_331_236 and b["ops"] == 10_909_394_496
-    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 0.20219) < 1e-4
-    # 12 B a rating: the bytes take 0.1431 ms, under the operations' 0.1628
-    assert b["bytes_12B_layout"] == 479_428_388
-    assert abs(b["bound_ms_12B_layout"] - 0.16283) < 1e-4
+    b = smoke._ne_bound(24_737_856, 162_541, 16, 59_047, 3.35e12, 67e12, 162_541)
+    # 12 B a rating, the offsets, 20 B a unit, the item factors, A, b, cnt
+    assert b["bytes"] == 482_679_208 and b["ops"] == 10_909_394_496
+    # the bytes take 0.1441 ms, under the operations' 0.1628 at the float32
+    # peak; products and adds that may not contract take twice that
+    assert b["bound_by"] == "operations" and abs(b["bound_ms"] - 0.16283) < 1e-4
+    assert abs(b["issue_bound_ms"] - 0.32565) < 1e-4
+    assert smoke._ne_bound(10, 2, 3, 4, 1.0, 1.0, 2, implicit=True)["bytes_per_rating"] == 16
 
 
 def test_chip_smoke_ne_tolerance_holds_and_catches_a_dropped_rating(session):
@@ -515,22 +713,22 @@ def test_chip_smoke_ne_tolerance_holds_and_catches_a_dropped_rating(session):
         (rng.standard_normal(M) * 2).astype(np.float32),
         (rng.random(M) >= 0.1).astype(np.float32)))
     V = torch.from_numpy(rng.standard_normal((n_other, k)).astype(np.float32))
-    plan = TA._side_plan(u, i, r, w, E, n_other, False, 1.0)
-    oid, pos, aw, bw, cw, off = plan
-    got = NE.normal_equations_sorted(V, *plan, chunk)
-    tol = smoke._ne_tolerance(V, plan, chunk)
+    plan = TA._side_plan(u, i, r, w, E, n_other, False, 1.0)(chunk)
+    oid, aw, off = plan.key & 0x7FFFFFFF, plan.aw, plan.offsets
+    got = NE.normal_equations_sorted(V, plan)
+    tol = smoke._ne_tolerance(V, plan)
     ent = torch.repeat_interleave(torch.arange(E), off[1:] - off[:-1])
     Vd = V.double()[oid.long()]
     exact = torch.zeros(E, k, k, dtype=torch.float64).index_add_(
         0, ent, (Vd[:, :, None] * Vd[:, None, :]) * aw.double()[:, None, None])
     assert ((got[0].double() - exact).abs() <= tol[0] / 2).all()
-    A_yard, bc_yard = smoke._outer_index_add(V, *plan, chunk=chunk)
+    A_yard, bc_yard = smoke._outer_index_add(V, plan)
     assert ((A_yard[:E].reshape(E, k, k).double() - got[0].double()).abs() <= tol[0]).all()
     assert ((bc_yard[:E, :k].double() - got[1].double()).abs() <= tol[1]).all()
     assert torch.equal(bc_yard[:E, k], got[2])            # 0/1 weights: exact counts
     aw2 = aw.clone()
     aw2[int(off[7])] = 1.0 - aw2[int(off[7])]               # one rating in or out
-    bad = NE.normal_equations_sorted(V, oid, pos, aw2, bw, cw, off, chunk)
+    bad = NE.normal_equations_sorted(V, plan._replace(aw=aw2))
     assert ((bad[0].double() - got[0].double()).abs() > tol[0]).any()
 
 

@@ -1403,13 +1403,23 @@ def test_streaming_kmeans_captured_replay_equals_the_per_chunk_loop_on_cuda(cuda
 
 
 # ------------------------------------------------ ALS: the normal equations
-# chip_smoke.NE_CASES, and a 100,000-rating segment at ranks 1 and 48 too
+# chip_smoke.NE_CASES, and a 100,000-rating segment at ranks 1, 4, 5 and
+# 48 too (ranks 1 and 5 take 4-byte copies, 4 a lane for the count alone,
+# 6 8-byte copies; 48 three warps an entity, whose pieces each combine)
 _NE_CASES = [(1, 3000, 3500, 2000, 300_000, 1 << 14, 0, False),
              (1, 3000, 3500, 2000, 200_000, 1 << 14, 100_000, False),
+             (4, 3000, 3500, 2000, 200_000, 1 << 12, 100_000, True),
+             (5, 1000, 1203, 900, 100_000, 1 << 12, 30_000, False),
+             (6, 1000, 1203, 900, 100_000, 1 << 14, 0, True),
              (16, 3000, 3500, 2000, 300_000, 1 << 14, 100_000, False),
+             (16, 3000, 3500, 2000, 300_000, 1 << 12, 100_000, False),
+             (16, 3000, 3500, 2000, 200_000, 1 << 12, 100_000, True),
              (16, 3000, 3500, 2000, 200_000, 1 << 16, 0, True),
+             (8, 1000, 1201, 900, 100_000, 1 << 13, 0, False),
              (48, 1000, 1200, 700, 100_000, 1 << 14, 0, False),
-             (48, 1000, 1200, 700, 100_000, 1 << 15, 100_000, True)]
+             (48, 1000, 1200, 700, 100_000, 1 << 15, 100_000, True),
+             (64, 1000, 1201, 700, 60_000, 1 << 14, 20_000, False),
+             (128, 300, 401, 500, 30_000, 1 << 13, 0, True)]
 
 
 @pytest.mark.cuda
@@ -1419,37 +1429,48 @@ def test_normal_equations_kernel_equals_cpu_plain_bitwise(cuda_device, k, e_used
     """``normal_equations_sorted`` on the card against its plain version run
     on the CPU from the same inputs, bit for bit (A, b, cnt): zero-weight
     ratings, entities with no rating, several reference chunks, a
-    100,000-rating segment; the sort on the card equal to the CPU's; two
-    launches the same bits (``chip_smoke._ne_case``)."""
+    100,000-rating segment (cut into pieces where the chunk is 2^12 or
+    2^15); the layout on the card equal to the CPU's; two launches the
+    same bits (``chip_smoke._ne_case``)."""
     from orange3_spark_tpu_torch.ops import normal_equations as NE
 
     before = NE.normal_equations_sorted.launches
     line = _smoke()._ne_case(k, e_used, E, n_other, M, chunk, heavy, implicit, cuda_device)
     assert line["ok"], line
+    assert (line["pieces"] > 0) == (heavy > NE.SPLIT_MIN and chunk < M + heavy), line
     assert NE.normal_equations_sorted.launches == before + 2
 
 
 @pytest.mark.cuda
-def test_normal_equations_by_hand_and_checks(cuda_device):
-    """A small case by hand (five ratings of weight 1 on one entity); the
-    wrapper refuses what the kernel does not take."""
+def test_normal_equations_by_hand_and_checks(cuda_device, monkeypatch):
+    """Small cases by hand (five ratings of weight 1 on one entity, whole
+    and cut into two pieces); pieces past the scratch budget summed whole;
+    the wrapper refuses what the kernel does not take."""
     from orange3_spark_tpu_torch.ops import normal_equations as NE
 
-    assert NE.max_rank() >= 4096
+    assert NE.max_rank() >= 12283                  # every rank the earlier kernel took
     V = torch.ones((4, 3), device=cuda_device)
     i32 = torch.zeros(5, dtype=torch.int32, device=cuda_device)
     f32 = torch.ones(5, device=cuda_device)
-    off = torch.tensor([0, 5], dtype=torch.int64, device=cuda_device)
-    A, b, cnt = NE.normal_equations_sorted(V, i32, i32, f32, f32, f32, off, 2)
+    lay = NE.sort_side(i32, i32, f32, f32, None, 1, 4, 2)
+    A, b, cnt = NE.normal_equations_sorted(V, lay)
     assert float(cnt[0]) == 5.0 and torch.equal(A[0], torch.full((3, 3), 5.0,
                                                                  device=cuda_device))
-    with pytest.raises(ValueError, match="pos must be a contiguous int32"):
-        NE.normal_equations_sorted(V, i32, i32.long(), f32, f32, f32, off, 2)
+    assert torch.equal(b[0], torch.full((3,), 5.0, device=cuda_device))
+    monkeypatch.setattr(NE, "SPLIT_MIN", 2)
+    cut = NE.sort_side(i32, i32, f32 * 2, f32, None, 1, 4, 2)
+    assert cut.split_first_host == (0, 3)                  # pieces of 2, 2 and 1
+    A, b, cnt = NE.normal_equations_sorted(V, cut)
+    assert float(cnt[0]) == 10.0 and float(A[0, 2, 1]) == 10.0 and float(b[0, 0]) == 5.0
+    monkeypatch.setattr(NE, "SCRATCH_BYTES", 0)            # no room: summed whole
+    assert torch.equal(NE.normal_equations_sorted(V, cut)[0], A)
+    with pytest.raises(ValueError, match="key must be a contiguous int32"):
+        NE.normal_equations_sorted(V, lay._replace(key=lay.key.long()))
     with pytest.raises(ValueError, match="offsets"):
-        NE.normal_equations_sorted(V, i32, i32, f32, f32, f32, off.cpu(), 2)
+        NE.normal_equations_sorted(V, lay._replace(offsets=lay.offsets.cpu()))
     big = torch.ones((4, NE.max_rank() + 1), device=cuda_device)
     with pytest.raises(ValueError, match="rank"):
-        NE.normal_equations_sorted(big, i32, i32, f32, f32, f32, off, 2)
+        NE.normal_equations_sorted(big, lay)
 
 
 @pytest.mark.cuda
@@ -1479,9 +1500,10 @@ def test_als_fit_on_cuda_matches_cpu_fit_and_repeats(cuda_device):
 
 @pytest.mark.cuda
 def test_recommendations_and_ranking_metrics_on_cuda_match_cpu(cuda_device, monkeypatch):
-    """Top-10 from the same factors on the card and the CPU: equal ids
-    except on tied scores; every ranking and multilabel metric of the same
-    id matrices within 1e-6; row blocks give the whole product's ids."""
+    """Top-10 from the same factors on the card and the CPU: equal ids on
+    every row, zero factor rows (tied scores) included; every ranking and
+    multilabel metric of the same id matrices within 1e-6; row blocks give
+    the whole product's ids."""
     from orange3_spark_tpu_torch.models import als as A
     from orange3_spark_tpu_torch.models.als import ALSModel, ALSParams
     from orange3_spark_tpu_torch.models.evaluation import (
@@ -1492,8 +1514,10 @@ def test_recommendations_and_ranking_metrics_on_cuda_match_cpu(cuda_device, monk
     rng = np.random.default_rng(14)
     U = torch.from_numpy(rng.standard_normal((3000, 16)).astype(np.float32))
     V = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32))
+    U[[7, 2999]], V[[0, 41]] = 0.0, 0.0
     on_dev, on_cpu, agree = smoke._recommend_agreement(U, V, 10, cuda_device)
-    assert agree["differing_rows_are_ties"], agree
+    assert agree["rows_differ"] == 0, agree
+    assert (on_cpu[7] == np.arange(10)).all() and not (on_cpu == 41).any()
     model = ALSModel(ALSParams(rank=16), U.to(cuda_device), V.to(cuda_device))
     monkeypatch.setattr(A, "RECOMMEND_BLOCK_BYTES", 257 * 5000 * 4)   # 257-row blocks
     np.testing.assert_array_equal(model.recommend_for_all_users(10), on_dev)
