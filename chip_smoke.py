@@ -195,7 +195,9 @@ gradient (the adam rule) and the 'plan' lowering:
                   plain version with one occurrence dropped or doubled;
                   untouched rows unchanged; captured equal to eager; the
                   same checks for sgd and ftrl at the same inputs and for
-                  one 2^20-row segment; the kernel's, the chain's and the
+                  one 2^20-row segment, and with per-pair values (drawn from
+                  a seed, a seventh zero) at the step and on the long
+                  segment; the kernel's, the chain's and the
                   plain version's times (captured, eager and the host's
                   time to issue a call), bytes, the bound and the ratio to
                   it (and the 32-byte-sector bytes)
@@ -238,13 +240,53 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   pad zeroing, the graph's device time, the copy back, the
                   Python around them; the launches in the graph
 
+then the dense streaming fit (``StreamingLinearEstimator``: PyTorch ops
+and captured CUDA graphs, no kernel of the package) and the value-weighted
+hashed fit (``segment_update_sorted`` given the pairs' values):
+
+  fault           ``bench.py --config fault`` (bench.py:1316-1419) at bench's
+                  sizes: 262,144 x 16 rows of ``default_rng(0)``, logistic,
+                  4 epochs, step 0.05, 2^14-row chunks, the device cache; a
+                  warm, a clean and a faulted fit (bench's spec, 0.02 s
+                  backoff): the coef bitwise the clean fit's, faults injected
+                  and retried; ``wedge:at=1,hold_s=30`` under a 0.25 s budget
+                  raises ``DispatchWedgedError`` within 2 s;
+                  ``recovery_overhead_pct``, the walls, rows/s
+  streaming_linear  bench.py's dense_logreg table (4,000,000 x 40) through
+                  ``array_chunk_source`` in 2^18-row chunks, logistic, 10
+                  epochs: the default schedule, ``defer_epoch1``, 'epoch'
+                  granularity with 3 epochs a call, ``cache_dtype='bf16'``
+                  (and deferred): bitwise the default of their dtype;
+                  ``evaluate_binary_stream`` on the last 2^18 rows within
+                  2/n_bins of the in-memory evaluator; at 2^14 rows the card
+                  against the CPU (1e-4 x max|theta|) and the captured replay
+                  bitwise the eager one; ``fit_s``, the replay's ms an
+                  epoch, a profiled fit's busy and idle share and events
+  libsvm_hashed   a 524,288-row libsvm file of 26 pairs a row written by
+                  numpy (Zipf-drawn indices below 2^24, values in (0, 2])
+                  into a temporary directory outside the checkout, read by
+                  ``libsvm_chunk_source(nnz_per_row=26)``, a value-weighted
+                  fit at 2^22 dims (sparse_adagrad, 'sort', the captured
+                  replay, 10 epochs, one 2^17-row holdout chunk): the parse,
+                  fit and evaluation walls, holdout AUC (floor 0.55), the
+                  kernel's launches over the fit; the kernel at one step
+                  of this fit (its first chunk, the pairs' own values and
+                  dead pads) bitwise the chain and the plain version,
+                  timed there; at 2^14 rows the card
+                  against the CPU for every emb_update x {adam,
+                  dense_adagrad, sparse_adagrad} and bf16 compute;
+                  ``missing='keep'`` with a NaN dense cell raises
+
 then the ``kernels`` line of four kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``criteo`` phase's adam arm, the times of the ``segment_sum`` phase;
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
-its yardstick; ``normal_equations_sorted``: launches counted over the
+its yardstick, and ``with_values``: one step of the ``libsvm_hashed`` fit
+at its own inputs (its time, its bound with the 4 B a value more, bitwise
+the chain; launches over that fit), the criteo step given per-pair values
+beside it as ``criteo_shape``); ``normal_equations_sorted``: launches counted over the
 ``movielens_als`` phase's timed fit, the times of its user half-step, the
 item and skewed item half-steps beside; each fails the run if it counted
 no launch),
@@ -825,6 +867,29 @@ def _theta_err(got, want) -> tuple[dict, bool]:
     return errs, ok
 
 
+def _bf16_grad_err(got, want, lr, n_steps) -> tuple[dict, bool]:
+    """``_theta_err`` for a fit whose gradients are rounded to bf16 ('adam'
+    and the dense twins at compute dtype bf16): a float32 ulp of the card's
+    logits gradient against the CPU's can flip the bf16 rounding of an
+    occurrence's gradient, moving that step's update of its row by a bf16
+    unit (2^-8 of at most ``lr``). So: every entry within THETA_ATOL +
+    n_steps·lr·2^-8, and at most 1 % of the touched entries (nonzero on
+    the CPU) past THETA_ATOL + THETA_RTOL·|want|; a fit that kept float32
+    gradients puts nearly every touched entry past it."""
+    errs, ok = {}, True
+    flip = THETA_ATOL + n_steps * lr * 2.0 ** -8
+    beyond = {}
+    for k, w in want.items():
+        w = w.cpu()
+        err = (got[k].cpu() - w).abs()
+        errs[k] = float(err.max())
+        touched = w != 0
+        far = (err > THETA_ATOL + THETA_RTOL * w.abs()) & touched
+        beyond[k] = float(far.sum()) / max(int(touched.sum()), 1)
+        ok &= bool((err <= flip).all()) and beyond[k] <= 0.01
+    return {"max_abs_err": errs, "share_past_f32_tolerance": beyond, "flip_bound": flip}, ok
+
+
 def _check_codec_on_card(rng, path):
     """Bit packing on the card at every width and at the Criteo width
     (22 bits × 26 columns), and a packed chunk decoded on the card against
@@ -864,7 +929,7 @@ def _check_codec_on_card(rng, path):
     Xd = torch.from_numpy(X).cuda()
     cats = Xd[:, 1 + p.n_dense:]
     want = hash_columns(torch.where(torch.isnan(cats), 0.0, cats), s_d, p.n_dims)
-    plan = build_plan_np(X[:, 1 + p.n_dense:], salts, p.n_dims, 4000, impute_missing=True)
+    plan = build_plan_np(X[:, 1 + p.n_dense:], salts, p.n_dims, 4000)
     got_plan = unpack_plan(h2d.ready(h2d.put(pack_plan_np(plan, 4096, p.n_cat, p.n_dims)),
                                      h2d.done()), 4096, p.n_cat, p.n_dims)
     return {"pack_mismatches_by_width": bad,
@@ -1584,7 +1649,8 @@ def _step_update_inputs(model, sess):
     """The arguments of ``segment_update_sorted`` in one ``sparse_adagrad``
     step of the fit (the sorted keys, the order, C, dl, and copies of the
     table, slots, last-seen steps and step counter as the call found
-    them), with the hyper-parameters and ``use_decay``."""
+    them), with the hyper-parameters; ``use_decay``; the pairs' values of
+    a value-weighted fit (else None)."""
     from orange3_spark_tpu_torch.optim import sparse
 
     def snapshot(args):
@@ -1595,7 +1661,7 @@ def _step_update_inputs(model, sess):
 
     args, kws = _record_call(sparse, "segment_update_sorted", model, sess,
                              model.params.optim_update, snapshot)
-    return args, kws["use_decay"]
+    return args, kws["use_decay"], kws.get("vals")
 
 
 def _time_deterministic_index_add(g, seg, n_slots):
@@ -1747,16 +1813,17 @@ def _cpu_sums(g, seg, n_slots, *, skip_last=None):
         skip_last=None if skip_last is None else skip_last.cpu()).to(g.device)
 
 
-def _plain_update(args, use_decay, segment_sum):
+def _plain_update(args, use_decay, segment_sum, vals=None):
     """The plain version of the update on fresh copies of ``args``' state,
     its segment sums by ``segment_sum``: ``segment_sum_sorted`` gives the
     chain the kernel replaced, ``_cpu_sums`` sums independent of the
     kernels' device code (the rule as torch ops on the card, whose library
-    functions the kernel calls)."""
+    functions the kernel calls). ``vals``: per-pair values."""
     from orange3_spark_tpu_torch.ops.segment_sum import segment_update_sorted_reference
 
     out = _update_copy(args)
-    segment_update_sorted_reference(*out, use_decay=use_decay, segment_sum=segment_sum)
+    segment_update_sorted_reference(*out, use_decay=use_decay, vals=vals,
+                                    segment_sum=segment_sum)
     return out
 
 
@@ -1798,7 +1865,7 @@ def _sum_probe(args):
     return ("sgd", s_idx, order, C, dl, torch.zeros_like(emb), {}, t, step, 1.0, 1.0, 0.0, 0.0)
 
 
-def _probe_check(kernel, args, use_decay, long_rows) -> dict:
+def _probe_check(kernel, args, use_decay, long_rows, vals=None) -> dict:
     """The kernel's sums through ``_sum_probe`` against the plain version's
     with the CPU's sums: bitwise on every row of a segment of at most
     ``walk_max()`` occurrences and on ``t``; on the other rows |Δsum| within
@@ -1809,46 +1876,99 @@ def _probe_check(kernel, args, use_decay, long_rows) -> dict:
 
     probe = _sum_probe(args)
     got = kernel(_update_copy(probe))
-    want = _plain_update(probe, use_decay, _cpu_sums)
-    line = {"mismatches": _plain_mismatches(got, want, long_rows), "long_rel_err": None}
+    want = _plain_update(probe, use_decay, _cpu_sums, vals)
+    line = {"mismatches": _plain_mismatches(got, want, long_rows), "long_rel_err": None,
+            "long_err_over_bound": None}
     _, s_idx, order, C, dl, emb, *_ = probe
     D = emb.shape[0]
     if bool(long_rows.any()):
-        abs_sum = -_plain_update(probe[:4] + (dl.abs(),) + probe[5:], use_decay, _cpu_sums)[5]
+        abs_sum = -_plain_update(probe[:4] + (dl.abs(),) + probe[5:], use_decay, _cpu_sums,
+                                 None if vals is None else vals.abs())[5]
         err = (got[5] - want[5]).abs()[long_rows]
         line["long_rel_err"] = float((err / abs_sum[long_rows]).max())
+        # float32 summation's bound for any two orders of a row's n terms:
+        # 2g/(1-g)·Σ|g|, g = n·2^-24/(1 - n·2^-24)
+        keys, counts = torch.unique_consecutive(s_idx, return_counts=True)
+        n = torch.zeros(D, dtype=torch.float64, device=s_idx.device)
+        live = keys < D
+        n[keys[live].long()] = counts[live].double()
+        gam = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+        bound = (2 * gam / (1 - gam))[long_rows, None] * abs_sum[long_rows].double()
+        line["long_err_over_bound"] = float((err.double() / bound).max())
     g = dl.index_select(0, order // C).abs().sum(1)
+    if vals is not None:
+        g = g * vals.index_select(0, order).abs()
     short = (s_idx < D) & ~long_rows[s_idx.clamp(max=D - 1).long()]
     i = int(torch.where(short, g, -1.0).argmax())
     mutated_order = order.clone()
     mutated_order[i] = dl.shape[0] * C                 # the appended row of dl
+    # the appended occurrence's value: the one it stands in for
+    mvals = None if vals is None else torch.cat([vals, vals[order[i]][None]])
     caught = {}
     for name, extra in (("dropped", torch.zeros_like(dl[:1])),
                         ("doubled", 2 * dl[order[i] // C][None])):
         mutated = probe[:2] + (mutated_order, C, torch.cat([dl, extra])) + probe[5:]
-        caught[name] = _plain_mismatches(got, _plain_update(mutated, use_decay, _cpu_sums),
-                                         long_rows) > 0
+        caught[name] = _plain_mismatches(
+            got, _plain_update(mutated, use_decay, _cpu_sums, mvals), long_rows) > 0
     line["mutation_caught"] = caught
     return line
 
 
-def _update_checks(kernel, chain, args, use_decay, long_rows) -> dict:
+def _update_checks(kernel, chain, args, use_decay, long_rows, vals=None) -> dict:
     """One case: two launches bitwise equal, equal to the chain bitwise and
     held to the plain version with the CPU's sums (``_plain_mismatches``;
-    ``_probe_check`` for the sums themselves)."""
+    ``_probe_check`` for the sums themselves). With ``vals`` the kernel and
+    the chain are given the per-pair values (``kernel(a)`` and
+    ``chain(a)`` take them from their closure), and so is the plain
+    version."""
     a, b = kernel(_update_copy(args)), kernel(_update_copy(args))
     return {"bitwise_repeat": _update_state_equal(a, b),
             "equal_chain": _update_state_equal(a, chain(_update_copy(args))),
-            "plain_mismatches": _plain_mismatches(a, _plain_update(args, use_decay, _cpu_sums),
-                                                  long_rows),
-            "sum_probe": _probe_check(kernel, args, use_decay, long_rows)}
+            "plain_mismatches": _plain_mismatches(
+                a, _plain_update(args, use_decay, _cpu_sums, vals), long_rows),
+            "sum_probe": _probe_check(kernel, args, use_decay, long_rows, vals)}
 
 
-def _update_case_ok(line) -> bool:
+def _draw_vals(M, dev, seed):
+    """f32[M] per-pair values: uniform on (0, 2], a seventh of them zero
+    (a value-weighted chunk's pads)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = 2.0 - 2.0 * torch.rand(M, generator=gen, device=dev)
+    return torch.where(torch.rand(M, generator=gen, device=dev) < 1 / 7, 0.0, v)
+
+
+def _vals_update_case(args, use_decay, vals):
+    """``_update_checks`` of the kernel and the chain given ``vals``."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    def kernel(a):
+        ss.segment_update_sorted(*a, use_decay=use_decay, vals=vals)
+        return a
+
+    def chain(a):
+        ss.segment_update_sorted_reference(*a, use_decay=use_decay, vals=vals,
+                                           segment_sum=ss.segment_sum_sorted)
+        return a
+
+    return _update_checks(kernel, chain, args, use_decay,
+                          _long_rows(args[1], args[5].shape[0]), vals), kernel
+
+
+def _update_case_ok(line, long_bound=False) -> bool:
+    """A case's checks all held. Long segments' sums: within 1e-6·Σ|g| of
+    the CPU's (random inputs), or with ``long_bound`` within float32
+    summation's bound for the row's length (a fit's own gradients, whose
+    partial sums drift one way, where the CPU's index-order sum itself
+    strays further than 1e-6)."""
     probe = line["sum_probe"]
+    long_ok = (probe["long_rel_err"] is None
+               or (probe["long_err_over_bound"] <= 1.0 if long_bound
+                   else probe["long_rel_err"] <= 1e-6))
     return (line["bitwise_repeat"] and line["equal_chain"] and line["plain_mismatches"] == 0
             and probe["mismatches"] == 0 and all(probe["mutation_caught"].values())
-            and (probe["long_rel_err"] is None or probe["long_rel_err"] <= 1e-6))
+            and long_ok)
 
 
 def _long_update_case(dev, n_long):
@@ -1872,6 +1992,26 @@ def _long_update_case(dev, n_long):
     return ("adagrad", keys, order, 1, dl, emb, slots, t, step, 0.04, 0.9999996, 1e-5, 0.0)
 
 
+def _update_bytes(args, use_decay, vals=None):
+    """(live rows, bytes, sector bytes) of one update: each input read once
+    (the keys, the order, dl, and with ``vals`` 4 B more an occurrence),
+    each live row's table, slot and t entries read and written once; the
+    sector bytes count instead the 32-byte sectors those rows fall in (what
+    the card moves at least)."""
+    _, s_idx, _, _, dl, emb, slots, *_ = args
+    D, k = emb.shape
+    M = s_idx.numel()
+    rows = s_idx.unique()
+    rows = rows[rows < D].long()
+    n_state = 1 + len(slots)
+    row_bytes = n_state * k * 4 + (4 if use_decay else 0)
+    inputs = M * 4 + M * 8 + dl.numel() * 4 + (0 if vals is None else M * 4)
+    sectors = (n_state * (rows * k * 4 // 32).unique().numel()
+               + ((rows * 4 // 32).unique().numel() if use_decay else 0))
+    return (rows.numel(), inputs + 2 * rows.numel() * row_bytes,
+            inputs + 2 * 32 * sectors)
+
+
 def phase_segment_update(inputs, mem_bw):
     """``segment_update_sorted`` on the card at one ``sparse_adagrad``
     step's own inputs (the fit's first cached chunk, fresh optimizer state,
@@ -1891,7 +2031,7 @@ def phase_segment_update(inputs, mem_bw):
     from orange3_spark_tpu_torch.ops import segment_sum as ss
     from orange3_spark_tpu_torch.utils.graphs import capture_graph
 
-    args, use_decay = inputs
+    args, use_decay, _ = inputs
     s_idx, emb0, slots0, t0 = args[1], args[5], args[6], args[7]
     D, k = emb0.shape
     dev = emb0.device
@@ -1945,36 +2085,46 @@ def phase_segment_update(inputs, mem_bw):
     long_line = {"rows": SEG_LONG_ROWS,
                  **_update_checks(kernel, chain, long_args, use_decay,
                                   _long_rows(long_args[1], long_args[5].shape[0]))}
-    del long_args
+    # per-pair values (a value-weighted fit): at the step's inputs and on
+    # the long segment, the same checks against the chain and the plain
+    # version given the same values
+    vals = _draw_vals(s_idx.numel(), dev, seed=3)
+    vals_step, kernel_v = _vals_update_case(args, use_decay, vals)
+    long_vals = _draw_vals(long_args[1].numel(), dev, seed=4)
+    vals_long = {"rows": SEG_LONG_ROWS,
+                 **_vals_update_case(long_args, use_decay, long_vals)[0]}
+    del long_args, long_vals
 
-    work = [_update_copy(args) for _ in range(3)]
+    work = [_update_copy(args) for _ in range(4)]
     timed = (("kernel", lambda: kernel(work[0])), ("chain", lambda: chain(work[1])),
              ("plain", lambda: ss.segment_update_sorted_reference(*work[2],
-                                                                  use_decay=use_decay)))
+                                                                  use_decay=use_decay)),
+             ("kernel_vals", lambda: kernel_v(work[3])))
     # device times from captured launches (the fit runs it in a captured
     # graph); beside them the eager calls' times, host included, and the
     # host's own time to issue one call
-    ms, chain_ms, plain_ms = (graph_ms(f, 20) for _, f in timed)
+    ms, chain_ms, plain_ms, vals_ms = (graph_ms(f, 20) for _, f in timed)
     eager_ms = {name: cuda_ms(f, 20, warmup=1) for name, f in timed}
     issue_ms = {name: host_ms(f, 20) for name, f in timed}
     del work
-    # each input read once (the keys, the order, dl), each live row's
-    # table, slot and t entries read and written once; beside it the
-    # 32-byte sectors those rows fall in (what the card moves at least)
-    M, dl = s_idx.numel(), args[4]
-    rows = s_idx.unique()
-    rows = rows[rows < D].long()
-    n_state = 1 + len(slots0)
-    row_bytes = n_state * k * 4 + (4 if use_decay else 0)
-    n_bytes = M * 4 + M * 8 + dl.numel() * 4 + 2 * rows.numel() * row_bytes
-    sectors = (n_state * (rows * k * 4 // 32).unique().numel()
-               + ((rows * 4 // 32).unique().numel() if use_decay else 0))
-    sector_bytes = M * 4 + M * 8 + dl.numel() * 4 + 2 * 32 * sectors
+    M = s_idx.numel()
+    n_live, n_bytes, sector_bytes = _update_bytes(args, use_decay)
     bound_ms = n_bytes / mem_bw * 1e3
+    vals_bytes, vals_sectors = _update_bytes(args, use_decay, vals)[1:]
+    vals_line = {"step": vals_step, "long_segment": vals_long, "ms": vals_ms,
+                 "eager_ms": eager_ms["kernel_vals"], "bytes": vals_bytes,
+                 "bound_ms": vals_bytes / mem_bw * 1e3,
+                 "x_bound": vals_ms / (vals_bytes / mem_bw * 1e3),
+                 "sector_bound_ms": vals_sectors / mem_bw * 1e3,
+                 "zero_values": int((vals == 0).sum()),
+                 "tolerance": "as without values: bitwise against the chain given the "
+                              "same values, bitwise against the plain version with the "
+                              "CPU's sums on short segments"}
     line = {"M": M, "k": k, "D": D, "rule": args[0], "use_decay": use_decay,
-            "live_rows": rows.numel(), "long_rows": int(long_rows.sum()),
+            "live_rows": n_live, "long_rows": int(long_rows.sum()),
             **step_case, "untouched_rows_equal": untouched_equal,
-            "graph_equal_eager": graph_equal, "rules": rules, "long_segment": long_line, "max_abs_err": max_abs_err,
+            "graph_equal_eager": graph_equal, "rules": rules, "long_segment": long_line,
+            "vals": vals_line, "max_abs_err": max_abs_err,
             "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms, "library_ms": None,
             "eager_ms": eager_ms, "host_issue_ms": issue_ms,
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
@@ -1987,8 +2137,66 @@ def phase_segment_update(inputs, mem_bw):
                          "table) bitwise there and within 1e-6*sum|g| on longer segments, "
                          "a tolerance shown to fail a dropped or doubled occurrence"}
     if not (untouched_equal and graph_equal
-            and all(map(_update_case_ok, (step_case, *rules.values(), long_line)))):
+            and all(map(_update_case_ok, (step_case, *rules.values(), long_line,
+                                          vals_step, vals_long)))):
         raise AssertionError(f"segment_update_sorted failed its checks: {line}")
+    return line
+
+
+def phase_values_update(model, sess, mem_bw):
+    """``segment_update_sorted`` given per-pair values at the inputs of one
+    step of a value-weighted fit (``_step_update_inputs``: its first cached
+    chunk, the pairs' own values, the dead pads' sentinel keys, fresh
+    optimizer state, the fitted theta): ``_update_checks`` against the
+    chain and the plain version given the same values (long segments'
+    sums within float32 summation's bound, ``_update_case_ok``); the
+    kernel's, the chain's and the plain version's device times from
+    captured launches, beside the bound with the 4 B a value counted."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    args, use_decay, vals = _step_update_inputs(model, sess)
+    if vals is None:
+        raise AssertionError("the value-weighted step passed no values to the update")
+    case, kernel = _vals_update_case(args, use_decay, vals)
+    s_idx, D = args[1], args[5].shape[0]
+
+    def chain(a):
+        ss.segment_update_sorted_reference(*a, use_decay=use_decay, vals=vals,
+                                           segment_sum=ss.segment_sum_sorted)
+
+    work = [_update_copy(args) for _ in range(3)]
+    timed = (("kernel", lambda: kernel(work[0])), ("chain", lambda: chain(work[1])),
+             ("plain", lambda: ss.segment_update_sorted_reference(
+                 *work[2], use_decay=use_decay, vals=vals)))
+    ms, chain_ms, plain_ms = (graph_ms(f, 5) for _, f in timed)
+    eager_ms = {name: cuda_ms(f, 3, warmup=1) for name, f in timed}
+    del work
+    n_live, n_bytes, sector_bytes = _update_bytes(args, use_decay, vals)
+    keys, counts = torch.unique_consecutive(s_idx, return_counts=True)
+    live = keys < D
+    long_counts = counts[live & (counts > ss.walk_max())]
+    bound_ms = n_bytes / mem_bw * 1e3
+    line = {"M": s_idx.numel(), "k": args[5].shape[1], "D": D, "rule": args[0],
+            "use_decay": use_decay, "live_rows": n_live,
+            "dead_pairs": int(counts[~live].sum()),
+            "zero_values": int((vals == 0).sum()),
+            "long_segments": long_counts.numel(),
+            "long_occurrences": int(long_counts.sum()),
+            "longest_segment": int(counts[live].max()),
+            **case, "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+            "eager_ms": eager_ms, "bytes": n_bytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "x_bound": ms / bound_ms, "sector_bytes": sector_bytes,
+            "sector_bound_ms": sector_bytes / mem_bw * 1e3,
+            "tolerance": "bitwise against the chain given the same values on every row; "
+                         "bitwise against the plain version with the CPU's index-order "
+                         "sums on t and on every row of a segment of at most walk_max() "
+                         "occurrences; the sums of longer segments within float32 "
+                         "summation's bound for two orders, 2g/(1-g) x sum|g|, "
+                         "g = n*2^-24/(1 - n*2^-24)"}
+    if not _update_case_ok(case, long_bound=True):
+        raise AssertionError(f"segment_update_sorted with values failed its checks: {line}")
     return line
 
 
@@ -3757,6 +3965,473 @@ def _skewed_items(n, n_items, seed):
         np.int32)
 
 
+# ------------------------------------------------ the dense streaming fit
+# StreamingLinearEstimator (io/streaming.py): adam over epochs of chunks;
+# PyTorch ops (torch.mm) and captured CUDA graphs, no kernel of the package.
+# bench.py --config fault (bench.py:1316-1419): its sizes and protocol
+FAULT_CFG = dict(rows=262_144, features=16, chunk_rows=1 << 14, epochs=4, step_size=0.05)
+# the dense out-of-core fit on bench.py's dense_logreg table (bench.py:1268-1312)
+STREAM_LINEAR = dict(rows=4_000_000, features=40, chunk_rows=1 << 18, epochs=10,
+                     step_size=0.01, holdout_rows=1 << 18, n_bins=4096)
+STREAM_CHECK = dict(rows=1 << 14, chunk_rows=1 << 12, epochs=3)
+# the card against the port's CPU path: cuBLAS and MKL sum X^T G in other
+# orders; adam's normalised steps carry that float32 rounding along
+STREAM_REL_TOL = 1e-4
+
+
+def _dense_logreg_data(n, d, seed=0):
+    """bench.py's dense_logreg rows: X ~ N(0, 1) f32, labels of a noisy
+    linear score (``default_rng(seed)``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d), dtype=np.float32)
+    true_w = rng.standard_normal((d,)).astype(np.float32)
+    y = (X @ true_w + 0.5 * rng.standard_normal(n).astype(np.float32) > 0).astype(np.float32)
+    return X, y
+
+
+def _stream_fit(sess, X, y, *, chunk_rows, stage_times=None, fit_kw=None, **params):
+    """A ``StreamingLinearEstimator`` fit over ``array_chunk_source`` with
+    the device cache: (model, wall seconds, the device synchronised)."""
+    from orange3_spark_tpu_torch.io.streaming import (
+        StreamingLinearEstimator, array_chunk_source,
+    )
+
+    est = StreamingLinearEstimator(chunk_rows=chunk_rows, **params)
+    t0 = time.perf_counter()
+    model = est.fit_stream(array_chunk_source(X, y, chunk_rows=chunk_rows),
+                           n_features=X.shape[1], session=sess, cache_device=True,
+                           stage_times=stage_times, **(fit_kw or {}))
+    sess.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _coef_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.coef.cpu(), b.coef.cpu())
+                and torch.equal(a.intercept.cpu(), b.intercept.cpu()))
+
+
+def streaming_linear_check(sess) -> dict:
+    """At 2^14 rows of the dense_logreg draw (2^12-row chunks, 3 epochs):
+    the card's fit (its replay one captured graph) against the port's CPU
+    fit within ``STREAM_REL_TOL`` of max|θ|; the captured replay bitwise
+    the eager one (the cache held, the half-budget gate failed: the same
+    steps one by one); a 3-class fit the same way."""
+    from orange3_spark_tpu_torch import TorchSession
+
+    cfg = STREAM_CHECK
+    X, y3 = _dense_logreg_data(cfg["rows"], 40, seed=1)
+    rng = __import__("numpy").random.default_rng(1)
+    y3 = (y3 + (rng.random(cfg["rows"]) < 0.3)).astype("float32")    # 3 classes
+    cpu = TorchSession("cpu")
+    out, ok = {}, True
+    for name, y, k in (("k2", (y3 > 0).astype("float32"), 2), ("k3", y3, 3)):
+        kw = dict(chunk_rows=cfg["chunk_rows"], epochs=cfg["epochs"], n_classes=k,
+                  step_size=0.05, reg_param=1e-4)
+        st_graph, st_eager = {}, {}
+        card, _ = _stream_fit(sess, X, y, stage_times=st_graph, **kw)
+        cache_bytes = st_graph["cache_bytes"]
+        eager, _ = _stream_fit(sess, X, y, stage_times=st_eager,
+                               fit_kw=dict(cache_device_bytes=int(1.5 * cache_bytes)), **kw)
+        host, _ = _stream_fit(cpu, X, y, **kw)
+        scale = float(host.coef.abs().max())
+        err = max(float((card.coef.cpu() - host.coef).abs().max()),
+                  float((card.intercept.cpu() - host.intercept).abs().max()))
+        line = {"replay": [st_graph["replay_source"], st_eager["replay_source"]],
+                "captured_equals_eager": _coef_equal(card, eager),
+                "card_vs_cpu_max_abs_err": err, "max_abs_theta": scale,
+                "rel_err": err / scale}
+        ok &= (line["replay"] == ["fused", "hbm"] and line["captured_equals_eager"]
+               and line["rel_err"] <= STREAM_REL_TOL)
+        out[name] = line
+    out["tolerance"] = (f"card vs CPU theta within {STREAM_REL_TOL} x max|theta| (cuBLAS "
+                        "vs MKL sums); captured replay bitwise the eager replay")
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_fault(sess) -> dict:
+    """``bench.py --config fault`` (bench.py:1316-1419) at bench's sizes:
+    262,144 x 16 rows of ``default_rng(0)``, logistic, 4 epochs, step 0.05,
+    2^14-row chunks, the device cache. A warm fit, a clean fit, then a fit
+    under bench's fault spec (every 7th chunk read fails twice, every 8th
+    waits 5 ms; ``OTPU_RETRY_BASE_S=0.02``): its coef must be bitwise the
+    clean fit's, with faults injected and retried. Then ``wedge:at=1,
+    hold_s=30`` under a 0.25 s budget must raise ``DispatchWedgedError``
+    within 2 s."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.resilience import DispatchWedgedError, inject_faults
+    from orange3_spark_tpu_torch.resilience.overload import reset_wedge_breaker
+    from orange3_spark_tpu_torch.utils.profiling import (
+        reset_resilience_counters, resilience_counters,
+    )
+
+    cfg = FAULT_CFG
+    rows, d = cfg["rows"], cfg["features"]
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((rows, d)).astype(np.float32)
+    w_true = rng.standard_normal(d).astype(np.float32)
+    y = (X @ w_true > 0).astype(np.float32)
+    kw = dict(chunk_rows=cfg["chunk_rows"], loss="logistic", epochs=cfg["epochs"],
+              step_size=cfg["step_size"])
+    _stream_fit(sess, X, y, **kw)                        # warm-up
+    clean, wall_clean = _stream_fit(sess, X, y, **kw)
+    reset_resilience_counters()
+    old = os.environ.get("OTPU_RETRY_BASE_S")
+    os.environ["OTPU_RETRY_BASE_S"] = "0.02"
+    st: dict = {}
+    try:
+        with inject_faults(FAULT_SPEC):
+            faulted, wall_fault = _stream_fit(sess, X, y, stage_times=st, **kw)
+    finally:
+        if old is None:
+            os.environ.pop("OTPU_RETRY_BASE_S", None)
+        else:
+            os.environ["OTPU_RETRY_BASE_S"] = old
+    res = resilience_counters()
+    parity = _coef_equal(clean, faulted)
+    # the watchdog: >= 20 steps whatever the sizes, so the period-16 guarded
+    # wait runs; no cache (every step eager)
+    from orange3_spark_tpu_torch.io.streaming import (
+        StreamingLinearEstimator, array_chunk_source,
+    )
+
+    wedge_rows = max(256, rows * cfg["epochs"] // 20)
+    old = os.environ.get("OTPU_DISPATCH_BUDGET_S")
+    os.environ["OTPU_DISPATCH_BUDGET_S"] = "0.25"
+    reset_wedge_breaker()
+    wedge = {"raised": False}
+    try:
+        with inject_faults("wedge:at=1,hold_s=30"):
+            t0 = time.perf_counter()
+            try:
+                StreamingLinearEstimator(**dict(kw, chunk_rows=wedge_rows)).fit_stream(
+                    array_chunk_source(X, y, chunk_rows=wedge_rows), n_features=d,
+                    session=sess)
+            except DispatchWedgedError as e:
+                wedge.update(raised=True, step=e.step, waited_s=e.waited_s)
+            wedge["seconds"] = time.perf_counter() - t0
+    finally:
+        reset_wedge_breaker()
+        if old is None:
+            os.environ.pop("OTPU_DISPATCH_BUDGET_S", None)
+        else:
+            os.environ["OTPU_DISPATCH_BUDGET_S"] = old
+    line = {"spec": FAULT_SPEC, **cfg, "wall_clean_s": wall_clean, "wall_fault_s": wall_fault,
+            "recovery_overhead_pct": 100.0 * (wall_fault - wall_clean) / wall_clean,
+            "rows_per_s": rows * cfg["epochs"] / wall_fault,
+            "rows_per_s_clean": rows * cfg["epochs"] / wall_clean,
+            "faults_injected": res["faults_injected"], "retries": res["retries"],
+            "fit_retries": st["retries"], "retry_wait_s": res["retry_wait_s"],
+            "parity_bitwise": parity, "replay_source": st["replay_source"],
+            "watchdog": wedge, "cuts": None}
+    if not (parity and res["faults_injected"] > 0 and res["retries"] > 0 and wedge["raised"]
+            and wedge["seconds"] < 2.0):
+        raise AssertionError(f"fault: the recovery failed its checks: {line}")
+    return line
+
+
+def phase_streaming_linear(sess) -> dict:
+    """The dense out-of-core fit at full width: bench.py's dense_logreg table
+    (4,000,000 x 40 of ``default_rng(0)``) through ``array_chunk_source`` in
+    2^18-row chunks (16 chunks, the device cache), logistic, 10 epochs. Four
+    arms after a warm-up: the default schedule, ``defer_epoch1``,
+    ``replay_granularity='epoch'`` with 3 epochs a call, and ``cache_dtype=
+    'bf16'`` (with its own deferred arm): within a dtype every arm's coef
+    bitwise the default's. ``evaluate_binary_stream`` on the last 2^18 rows
+    against the in-memory ``BinaryClassificationEvaluator`` within 2/n_bins.
+    Then ``streaming_linear_check`` at 2^14 rows, and one profiled fit (the
+    device's busy and idle share, launches)."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.core.domain import (
+        ContinuousVariable, DiscreteVariable, Domain,
+    )
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.evaluation import (
+        BinaryClassificationEvaluator, evaluate_binary_stream,
+    )
+
+    cfg = STREAM_LINEAR
+    t0 = time.perf_counter()
+    X, y = _dense_logreg_data(cfg["rows"], cfg["features"], seed=0)
+    data_s = time.perf_counter() - t0
+    kw = dict(chunk_rows=cfg["chunk_rows"], epochs=cfg["epochs"], step_size=cfg["step_size"])
+    _stream_fit(sess, X, y, **dict(kw, epochs=2))        # warm-up
+    arms_kw = {"default": {}, "defer": dict(defer_epoch1=True),
+               "epoch_k3": dict(replay_granularity="epoch", epochs_per_dispatch=3),
+               "bf16": dict(cache_dtype="bf16"),
+               "bf16_defer": dict(cache_dtype="bf16", defer_epoch1=True)}
+    arms, models = {}, {}
+    for name, extra in arms_kw.items():
+        st: dict = {}
+        model, wall = _stream_fit(sess, X, y, stage_times=st, **kw, **extra)
+        models[name] = model
+        # the replay's wall includes its capture (one epoch's steps recorded
+        # and instantiated as a graph): the epoch's time is the rest
+        rep = st["epoch_s"][1] if len(st["epoch_s"]) > 1 else None
+        n_rep = cfg["epochs"] - (0 if extra.get("defer_epoch1") else 1)
+        arms[name] = {"fit_s": wall, "replay_source": st["replay_source"],
+                      "epoch1_s": st["epoch_s"][0], "replay_s": rep,
+                      "replay_ms_per_epoch": (None if rep is None else
+                                              1e3 * (rep - st["graph_capture_s"]) / n_rep),
+                      "graph_capture_s": st["graph_capture_s"], "n_steps": model.n_steps_,
+                      "cache_bytes": st["cache_bytes"], "final_loss": model.final_loss_,
+                      "rows_per_s": cfg["rows"] * cfg["epochs"] / wall}
+    bitwise = {"defer": _coef_equal(models["defer"], models["default"]),
+               "epoch_k3": _coef_equal(models["epoch_k3"], models["default"]),
+               "bf16_defer": _coef_equal(models["bf16_defer"], models["bf16"])}
+    bf16_differs = not _coef_equal(models["bf16"], models["default"])
+    # the holdout: the last 2^18 rows, streamed and in memory
+    model = models["default"]
+    H = cfg["holdout_rows"]
+    coef, b = model.coef, model.intercept
+
+    def score(Xd):
+        return torch.softmax(Xd @ coef + b, dim=-1)[:, 1]
+
+    t0 = time.perf_counter()
+    ev = evaluate_binary_stream(score, array_chunk_source(X[-H:], y[-H:], chunk_rows=1 << 16),
+                                session=sess, chunk_rows=1 << 16, n_bins=cfg["n_bins"])
+    eval_s = time.perf_counter() - t0
+    s_all = score(torch.from_numpy(X[-H:]).to(sess.device)).cpu().numpy()
+    table = TorchTable.from_numpy(
+        Domain([ContinuousVariable("probability_1")], DiscreteVariable("y", ("0", "1"))),
+        s_all[:, None], y[-H:], session=sess)
+    exact = BinaryClassificationEvaluator().evaluate(table)
+    auc_ok = abs(ev["auc"] - exact) <= 2.0 / cfg["n_bins"]
+    check = streaming_linear_check(sess)
+    # one profiled default fit: the device's share of its wall
+    # the fit's own profiler ranges (spans) are not device work
+    wall_us, events, by_name, busy = _profile_run(lambda: _stream_fit(sess, X, y, **kw),
+                                                  exclude=("epoch", "chunk", "fit"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    prof = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "device_events": len(events),
+            "events_per_step": len(events) / model.n_steps_,
+            "top": [{"name": n[:90], "ms": us / 1e3, "count": c} for n, (us, c) in top]}
+    line = {**cfg, "data_s": data_s, "fit_s": arms["default"]["fit_s"],
+            "replay_ms_per_epoch": arms["default"]["replay_ms_per_epoch"], "arms": arms,
+            "bitwise_equal_default": bitwise, "bf16_differs_from_f32": bf16_differs,
+            "holdout": {"stream": ev, "eval_s": eval_s, "in_memory_auc": exact,
+                        "auc_abs_diff": abs(ev["auc"] - exact),
+                        "bound": 2.0 / cfg["n_bins"]},
+            "check": check, "profile": prof, "kernels": "none of the package (torch.mm)",
+            "cuts": None}
+    if not (all(bitwise.values()) and bf16_differs and auc_ok and check["ok"]
+            and arms["default"]["replay_source"] == "fused"
+            and arms["epoch_k3"]["replay_source"] == "fused_epoch"):
+        raise AssertionError(f"streaming_linear failed its checks: {line}")
+    return line
+
+
+# ------------------------------------------ libsvm -> value-weighted fit
+LIBSVM = dict(rows=1 << 19, nnz=26, n_dims=1 << 22, chunk_rows=1 << 17, epochs=10,
+              step_size=0.04, reg_param=1e-5, holdout_chunks=1)
+LIBSVM_CHECK_ROWS = 1 << 14
+
+
+def _libsvm_draw(rows, nnz, seed=0):
+    """(1-based indices i64 [rows, nnz] drawn from a Zipf law of exponent
+    1.2 below 2^24 (the discretised power law floor(u^(-1/0.2))), sorted in
+    a row; a repeat of the index before it marks a dropped slot; values in
+    (0, 2] at four decimals; labels of a noisy sum of per-index effects)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = 1.0 - rng.random((rows, nnz))                  # (0, 1]
+    zipf = np.minimum(np.floor(u ** -5.0), (1 << 24) - 1).astype(np.int64)
+    idx = np.sort(zipf, axis=1)
+    dup = np.zeros((rows, nnz), bool)
+    dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+    v_int = np.clip(np.ceil((2.0 - 2.0 * rng.random((rows, nnz))) * 1e4), 1, 20000)
+    vals = (v_int / 1e4).astype(np.float32)
+    eff = ((idx.astype(np.uint64) * np.uint64(2654435761)) % np.uint64(1 << 32)
+           ).astype(np.float64) / 2.0**31 - 1.0
+    logit = np.where(dup, 0.0, eff * vals).sum(1)
+    y = (logit - np.median(logit) + 0.5 * rng.standard_normal(rows) > 0).astype(np.int64)
+    return idx, dup, v_int.astype(np.int64), vals, y
+
+
+def _write_libsvm_file(path, idx, dup, v_int, y):
+    """The draw as a libsvm file, formatted by numpy: each line the label,
+    then ' iiiiiiii:d.dddd' a pair (the index zero-padded to 8 digits), a
+    dropped slot blank."""
+    import numpy as np
+
+    rows, nnz = idx.shape
+    i32, v32 = idx.astype(np.int32), v_int.astype(np.int32)
+    tok = np.empty((rows, nnz, 16), np.uint8)
+    tok[..., 0] = ord(" ")
+    digits = 10 ** np.arange(7, -1, -1, dtype=np.int32)
+    tok[..., 1:9] = ord("0") + (i32[..., None] // digits) % 10
+    tok[..., 9] = ord(":")
+    tok[..., 10] = ord("0") + v32 // 10000
+    tok[..., 11] = ord(".")
+    tok[..., 12:16] = ord("0") + (v32[..., None] // digits[4:]) % 10
+    tok[dup] = ord(" ")
+    buf = np.empty((rows, 2 + 16 * nnz), np.uint8)
+    buf[:, 0] = ord("0") + y
+    buf[:, 1:-1] = tok.reshape(rows, 16 * nnz)
+    buf[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+
+
+def _pair_rows(idx, dup, vals):
+    """The draw as value-weighted chunk rows [idx - 1..., val...] with a
+    dropped slot as a pad (-1, 0)."""
+    import numpy as np
+
+    i = np.where(dup, -1, idx - 1).astype(np.float32)
+    return np.concatenate([i, np.where(dup, 0.0, vals).astype(np.float32)], axis=1)
+
+
+def libsvm_hashed_check(sess, tmp) -> dict:
+    """At 2^14 rows of the draw (2^12-row chunks, 3 epochs, 2^18 dims): the
+    value-weighted fit on the card (sparse rules: the 'sort' lowering with
+    ``segment_update_sorted`` given the values) against the port's CPU path
+    ('plan') for each ``emb_update`` x {'adam', 'dense_adagrad',
+    'sparse_adagrad'}, and ``compute_dtype='bfloat16'`` (sparse_adagrad, and
+    the dense rules' bf16 gradients on each emb_update), within
+    THETA_ATOL + THETA_RTOL·|θ|; ``missing='keep'`` on a CSV with one NaN
+    dense cell raises ``NumericalDivergenceError``."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source, csv_raw_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.resilience.numerics import NumericalDivergenceError
+
+    idx, dup, _, vals, y = _libsvm_draw(LIBSVM_CHECK_ROWS, LIBSVM["nnz"], seed=1)
+    Xp, yf = _pair_rows(idx, dup, vals), y.astype(np.float32)
+    cpu = TorchSession("cpu")
+    base = dict(value_weighted=True, n_dense=0, n_cat=LIBSVM["nnz"], n_dims=1 << 18,
+                chunk_rows=1 << 12, epochs=3, step_size=0.04, reg_param=1e-5)
+
+    def fit(session, **kw):
+        return StreamingHashedLinearEstimator(**{**base, **kw}).fit_stream(
+            array_chunk_source(Xp, yf, chunk_rows=1 << 12), session=session, cache_device=True)
+
+    cases, ok = {}, True
+    arms = [(emb, rule, "float32") for emb in ("fused", "per_column", "sorted")
+            for rule in ("adam", "dense_adagrad", "sparse_adagrad")]
+    # bf16 compute: the sparse rule's gradients float32; the dense rules'
+    # rounded to bf16, the table's summed in bf16 (segment_sum_sorted's
+    # rounded sums on the card)
+    arms += [("fused", "sparse_adagrad", "bfloat16"), ("fused", "adam", "bfloat16"),
+             ("per_column", "dense_adagrad", "bfloat16"), ("sorted", "adam", "bfloat16")]
+    for emb, rule, dtype in arms:
+        kw = dict(emb_update=emb, optim_update=rule, compute_dtype=dtype)
+        card, host = fit(sess, **kw), fit(cpu, **kw)
+        want = {k: v for k, v in host.theta.items() if v.numel()}     # no dense block
+        if dtype == "bfloat16" and rule != "sparse_adagrad":
+            line, good = _bf16_grad_err(card.theta, want, base["step_size"], host.n_steps_)
+        else:
+            errs, good = _theta_err(card.theta, want)
+            line = {"max_abs_err": errs}
+        cases[f"{emb}/{rule}/{dtype}"] = {**line, "ok": good}
+        ok &= good
+    # missing='keep': one NaN dense cell in a small CSV
+    path = os.path.join(tmp, "keep.csv")
+    rng = np.random.default_rng(4)
+    n = 2048
+    with open(path, "w") as f:
+        f.write("label,d0,d1,d2,c0,c1,c2,c3\n")
+        for r in range(n):
+            dense = ["" if r == 700 and j == 1 else f"{rng.standard_normal():.6g}"
+                     for j in range(3)]
+            f.write(",".join([str(int(rng.random() < 0.4))] + dense
+                             + [str(int(c)) for c in rng.integers(0, 50, 4)]) + "\n")
+    raised = False
+    try:
+        StreamingHashedLinearEstimator(
+            n_dims=1 << 12, n_dense=3, n_cat=4, chunk_rows=1024, epochs=2,
+            label_in_chunk=True, missing="keep", optim_update="sparse_adagrad").fit_stream(
+            csv_raw_chunk_source(path, chunk_rows=1024), session=sess)
+    except NumericalDivergenceError:
+        raised = True
+    ok &= raised
+    return {"cases": cases, "keep_nan_raised": raised, "ok": bool(ok),
+            "tolerance": f"theta within {THETA_ATOL} + {THETA_RTOL} x |theta| of the CPU "
+                         "path (float32 rounding of the card's products and sums); the "
+                         "dense rules at bf16: _bf16_grad_err (every entry within "
+                         "n_steps x lr x 2^-8, at most 1% of touched entries past the "
+                         "float32 tolerance)"}
+
+
+def phase_libsvm_hashed(sess, tmp, mem_bw) -> dict:
+    """A value-weighted Criteo-width fit from a libsvm file: 524,288 rows x
+    26 pairs written by numpy (indices Zipf-drawn below 2^24, values in
+    (0, 2]), read through ``libsvm_chunk_source(nnz_per_row=26)`` in 2^17-row
+    chunks (the last one held out), ``StreamingHashedLinearEstimator(
+    value_weighted=True, n_dense=0, n_cat=26, n_dims=2^22, label_in_chunk=
+    True, optim_update='sparse_adagrad')`` with the 'sort' lowering (one
+    ``segment_update_sorted`` launch a step, given the pairs' values) and
+    the captured replay, 10 epochs, then ``evaluate_device`` on the holdout.
+    The parse, fit and evaluation walls and the kernel's launches over the
+    fit (reset to 0 before it). Then ``phase_values_update`` at one step of
+    this fit, and ``libsvm_hashed_check``."""
+    from orange3_spark_tpu_torch.io.libsvm import libsvm_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    cfg = LIBSVM
+    t0 = time.perf_counter()
+    idx, dup, v_int, _, y = _libsvm_draw(cfg["rows"], cfg["nnz"], seed=0)
+    path = os.path.join(tmp, "pairs.svm")
+    _write_libsvm_file(path, idx, dup, v_int, y)
+    write_s = time.perf_counter() - t0
+    pads = int(dup.sum())
+    del idx, dup, v_int
+    est = StreamingHashedLinearEstimator(
+        value_weighted=True, n_dense=0, n_cat=cfg["nnz"], n_dims=cfg["n_dims"],
+        label_in_chunk=True, optim_update="sparse_adagrad", sparse_lowering="sort",
+        chunk_rows=cfg["chunk_rows"], epochs=cfg["epochs"], step_size=cfg["step_size"],
+        reg_param=cfg["reg_param"])
+    n_chunks = -(-cfg["rows"] // cfg["chunk_rows"])
+    est.warm_replay(n_chunks - cfg["holdout_chunks"], session=sess)
+    src = libsvm_chunk_source(path, nnz_per_row=cfg["nnz"], chunk_rows=cfg["chunk_rows"])
+    st: dict = {}
+    ss.segment_update_sorted.launches = 0
+    t0 = time.perf_counter()
+    model = est.fit_stream(src, session=sess, cache_device=True,
+                           holdout_chunks=cfg["holdout_chunks"], stage_times=st)
+    sess.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = ss.segment_update_sorted.launches
+    t0 = time.perf_counter()
+    ev = model.evaluate_device(model.holdout_chunks_)
+    eval_s = time.perf_counter() - t0
+    update = phase_values_update(model, sess, mem_bw)
+    check = libsvm_hashed_check(sess, tmp)
+    os.unlink(path)
+    n_train = n_chunks - cfg["holdout_chunks"]
+    line = {**cfg, "write_s": write_s, "pads": pads, "parse_s": st["parse_s"],
+            "fit_s": fit_s, "epoch_s": st["epoch_s"], "replay_source": st["replay_source"],
+            "graph_capture_s": st["graph_capture_s"],
+            "replay_ms_per_epoch": 1e3 * (st["replay_fused_s"] - st["graph_capture_s"])
+            / (cfg["epochs"] - 1),
+            "eval_s": eval_s, "holdout": ev, "n_steps": model.n_steps_,
+            "segment_update_sorted_launches": launches,
+            # the wrapper counts its own calls: epoch 1's eager steps, the
+            # capture's warm step and the captured epoch; each replay of the
+            # graph then launches the captured kernels without a call
+            "launches_expected": n_train + 1 + n_train,
+            "graph_replays": cfg["epochs"] - 1, "segment_update": update, "check": check,
+            "cuts": None}
+    if not (launches == n_train + 1 + n_train and model.n_steps_ == cfg["epochs"] * n_train
+            and st["replay_source"] == "fused" and check["ok"] and ev["auc"] > 0.55):
+        raise AssertionError(f"libsvm_hashed failed its checks: {line}")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -3962,6 +4637,26 @@ def main(argv=None) -> int:
             del serve_model, pool
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # ---- the dense streaming fit (PyTorch ops) and the value-weighted
+        # hashed fit (segment_update_sorted given the pairs' values)
+        phase = "fault"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_fault(sess)})
+        phase = "streaming_linear"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_streaming_linear(sess)})
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+        try:
+            phase = "libsvm_hashed"
+            libsvm_line = phase_libsvm_hashed(sess, tmp, mem_bw)
+            emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+                  **libsvm_line})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
         phase = "kernels"
         if main_launches == 0:
@@ -3972,7 +4667,10 @@ def main(argv=None) -> int:
             raise AssertionError("the adam arm never launched segment_sum_sorted")
         if als_line["kernel_launches"] == 0:
             raise AssertionError("the ALS fit never launched normal_equations_sorted")
+        if libsvm_line["segment_update_sorted_launches"] == 0:
+            raise AssertionError("the value-weighted fit never launched segment_update_sorted")
         ne = als_line["kernel"]["user"]
+        vw_upd = libsvm_line["segment_update"]
         top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
@@ -4021,6 +4719,28 @@ def main(argv=None) -> int:
             "timed": "ms, plain_ms and chain_ms from captured launches; eager_ms beside",
             "eager_ms": upd_line["eager_ms"],
             "at": "one sparse_adagrad step of the criteo fit on its first cached chunk",
+            "with_values": {
+                "ms": vw_upd["ms"], "chain_ms": vw_upd["chain_ms"],
+                "plain_ms": vw_upd["plain_ms"], "bound_ms": vw_upd["bound_ms"],
+                "bound_by": "bytes", "bytes": vw_upd["bytes"], "x_bound": vw_upd["x_bound"],
+                "sector_bound_ms": vw_upd["sector_bound_ms"],
+                "bitwise_chain": vw_upd["equal_chain"],
+                "plain_mismatches": vw_upd["plain_mismatches"],
+                "long_err_over_bound": vw_upd["sum_probe"]["long_err_over_bound"],
+                "launches": libsvm_line["segment_update_sorted_launches"],
+                "launches_counted_over": "the libsvm_hashed phase's value-weighted fit",
+                "timed": "captured launches (5 in a graph)",
+                "at": (f"one sparse_adagrad step of the libsvm_hashed fit on its first "
+                       f"cached chunk: M {vw_upd['M']}, {vw_upd['dead_pairs']} dead pads, "
+                       f"longest segment {vw_upd['longest_segment']}"),
+                "criteo_shape": {
+                    "ms": upd_line["vals"]["ms"], "bound_ms": upd_line["vals"]["bound_ms"],
+                    "bytes": upd_line["vals"]["bytes"], "x_bound": upd_line["vals"]["x_bound"],
+                    "bitwise_chain": (upd_line["vals"]["step"]["equal_chain"]
+                                      and upd_line["vals"]["long_segment"]["equal_chain"]),
+                    "plain_mismatches": upd_line["vals"]["step"]["plain_mismatches"],
+                    "at": "the criteo step's inputs with per-pair values drawn from a "
+                          "seed, a seventh zero"}},
         }, {
             "name": "normal_equations_sorted",
             "route": "cuda",

@@ -7,9 +7,13 @@ and its params (``model.params.to_dict()``), and builds the PyTorch model
 that predicts what the JAX model predicts. ``hashed_fit_state`` and
 ``jax_hashed_fit_state`` convert the state a streaming hashed fit
 checkpoints (``utils/fault.StreamCheckpointer``) between the two packages'
-layouts. The feature pipeline's models (KMeans, PCA, the fitted
-preprocessors) and ALS's factors carry the same way; a model whose state
-is host-side (OneHotEncoder, StringIndexer) takes its host attributes.
+layouts; ``streaming_linear_fit_state`` and
+``jax_streaming_linear_fit_state`` do the same for a
+``StreamingLinearEstimator`` fit (theta and the adam state), whose models
+the three linear converters take. The feature pipeline's models (KMeans,
+PCA, the fitted preprocessors) and ALS's factors carry the same way; a
+model whose state is host-side (OneHotEncoder, StringIndexer) takes its
+host attributes.
 Nothing here imports JAX: the caller does the conversion to numpy.
 """
 
@@ -29,7 +33,7 @@ from orange3_spark_tpu_torch.models.gbt import (
     GBTClassifierModel, GBTParams, GBTRegressorModel,
 )
 from orange3_spark_tpu_torch.models.hashed_linear import (
-    HashedLinearModel, HashedLinearParams,
+    HashedLinearModel, HashedLinearParams, hashed_salts,
 )
 from orange3_spark_tpu_torch.models.linear_regression import (
     LinearRegressionModel, LinearRegressionParams,
@@ -41,7 +45,6 @@ from orange3_spark_tpu_torch.models.logistic_regression import (
 from orange3_spark_tpu_torch.models.random_forest import (
     RandomForestClassifierModel, RandomForestParams, RandomForestRegressorModel,
 )
-from orange3_spark_tpu_torch.ops.hashing import column_salts
 
 _DTYPES = {"feature": torch.int32, "split_bin": torch.int32,
            "threshold": torch.float32, "leaf_value": torch.float32}
@@ -95,14 +98,14 @@ def hashed_linear_model(state, params: Mapping, class_values: Sequence[str] | No
                         device=None) -> HashedLinearModel:
     """A ``HashedLinearModel`` from the JAX model's ``state_pytree`` (emb,
     coef, intercept as numpy arrays) and params. The salts are not in the
-    state: both packages derive them from ``seed`` and ``n_cat``."""
+    state: both packages derive them from ``seed`` and ``n_cat`` (one per
+    column, or one per model repeated over the slots of a value-weighted
+    model, ``hashed_linear.hashed_salts``)."""
     device = TorchSession.active().device if device is None else device
     p = HashedLinearParams(**params)
-    if p.value_weighted:   # its salts are one per model, not one per column
-        raise NotImplementedError("value_weighted models are not ported yet")
     theta = {k: torch.tensor(np.asarray(state[k], np.float32), device=device)
              for k in ("emb", "coef", "intercept")}
-    return HashedLinearModel(p, theta, column_salts(p.n_cat, p.seed), class_values)
+    return HashedLinearModel(p, theta, hashed_salts(p), class_values)
 
 
 def _linear_state(state, device):
@@ -168,6 +171,21 @@ def jax_hashed_fit_state(state: Mapping, *, adam_state=None) -> dict:
             raise ValueError("an 'adam' fit state needs adam_state= to build optax's state")
         opt = adam_state(opt["count"], opt["mu"], opt["nu"])
     return {"theta": state["theta"], "opt_state": opt}
+
+
+def streaming_linear_fit_state(saved: Mapping) -> dict:
+    """A ``StreamingLinearEstimator`` snapshot's state (theta ``{"coef" [d,
+    k], "intercept" [k]}`` and its adam state, numpy leaves) in this
+    package's layout, from either package's snapshot: optax's adam tuple
+    becomes ``{"count", "mu", "nu"}`` (the conversion of ``hashed_fit_state``)."""
+    return hashed_fit_state(saved)
+
+
+def jax_streaming_linear_fit_state(state: Mapping, *, adam_state) -> dict:
+    """The inverse of ``streaming_linear_fit_state``: this package's
+    snapshot state in the JAX package's layout; ``adam_state(count, mu,
+    nu)`` builds optax's state (as for ``jax_hashed_fit_state``)."""
+    return jax_hashed_fit_state(state, adam_state=adam_state)
 
 
 # ------------------------------------------------- the feature pipeline

@@ -10,11 +10,15 @@ The chunk pipeline of a streaming fit:
 Every chunk is padded to the same row count, so the step sees one shape for
 the whole stream, and the host prepares chunk t+1 while the device runs
 step t. This module holds the host side of that pipeline: re-iterable
-sources, rechunking and padding, the prefetch thread, the budgeted cache
-that keeps epoch 1's device chunks for the replay epochs, and the disk
-spill that replays them when the cache overflows. It also holds the
-streaming half of the feature pipeline (BASELINE config 5): the one-pass
-feature statistics of the scalers', imputer's and PCA's ``fit_stream``
+sources (CSV through the native parser, parquet a row group at a time,
+in-memory arrays), rechunking and padding, the prefetch thread, the
+budgeted cache that keeps epoch 1's device chunks for the replay epochs,
+and the disk spill that replays them when the cache overflows. It also
+holds ``StreamingLinearEstimator`` (MLlib's out-of-core linear learner:
+logistic, squared or squared-hinge loss, adam over epochs of chunks,
+returning the in-memory estimators' model classes) and the streaming half
+of the feature pipeline (BASELINE config 5): the one-pass feature
+statistics of the scalers', imputer's and PCA's ``fit_stream``
 (``stream_feature_stats``), streamed scoring to parquet (``score_stream``)
 and ``StreamingKMeans``.
 """
@@ -25,6 +29,7 @@ import dataclasses
 import json
 import os
 import struct
+import time
 import uuid
 import warnings
 import weakref
@@ -41,6 +46,107 @@ from orange3_spark_tpu_torch.obs.trace import span, span_iter, traced
 
 # (X [n, d], y [n] or None) or (X, y, w) — sources may carry row weights
 Chunk = tuple
+
+
+def csv_chunk_source(
+    path: str, class_col: str = "", *, chunk_rows: int = 1 << 20,
+    delimiter: str = ",", header: bool = True, n_threads: int = 0,
+) -> Callable[[], Iterator[Chunk]]:
+    """Re-iterable source of ``(X [n, d] f32, y [n] f32 | None)`` chunks over a
+    CSV file through the native parser, the ``class_col`` column split off as
+    the label (a name the header does not hold raises). Returns a
+    zero-argument callable: every epoch restarts the stream."""
+    from orange3_spark_tpu_torch.io.native import NativeCsvReader
+
+    def open_stream() -> Iterator[Chunk]:
+        with NativeCsvReader(path, delimiter=delimiter, header=header,
+                             n_threads=n_threads) as r:
+            if class_col:
+                if class_col not in r.colnames:
+                    raise ValueError(f"class_col {class_col!r} not in {r.colnames}")
+                ci = r.colnames.index(class_col)
+                keep = [j for j in range(r.ncols) if j != ci]
+                for c in r.chunks(chunk_rows):
+                    yield np.ascontiguousarray(c[:, keep]), c[:, ci]
+            else:
+                for c in r.chunks(chunk_rows):
+                    yield c, None
+
+    return open_stream
+
+
+def _parquet_groups(row_groups, shard: bool):
+    """The row groups a parquet source reads: ``row_groups`` as given (None:
+    all). ``shard=True`` would pick this process's share of a multi-host
+    ingest, which is not ported (ROADMAP queue 1 item 6): it raises."""
+    if shard and row_groups is None:
+        raise NotImplementedError(
+            "parquet shard=True needs io/multihost, not ported to orange3_spark_tpu_torch "
+            "yet (ROADMAP queue 1 item 6); pass row_groups= for a subset of the groups")
+    return None if row_groups is None else list(row_groups)
+
+
+def parquet_chunk_source(
+    path: str, class_col: str = "", *, chunk_rows: int = 1 << 20,
+    columns: tuple | None = None, row_groups: tuple | None = None,
+    shard: bool = False,
+) -> Callable[[], Iterator[Chunk]]:
+    """Re-iterable source of ``(X [n, d] f32, y [n] f32 | None)`` chunks over a
+    parquet file, read a row group at a time (``pyarrow.ParquetFile.
+    iter_batches``), so host memory stays bounded by the row group however
+    large the file is. ``class_col`` is split off as the label; ``columns``
+    picks and orders the columns; ``row_groups`` restricts the stream to
+    those group indices. pyarrow is imported when the stream opens."""
+    groups = _parquet_groups(row_groups, shard)
+
+    def open_stream() -> Iterator[Chunk]:
+        import pyarrow.parquet as pq
+
+        pf = pq.ParquetFile(path)
+        try:
+            names = list(columns) if columns else [f.name for f in pf.schema_arrow]
+            ci = -1
+            if class_col:
+                if class_col not in names:
+                    raise ValueError(f"class_col {class_col!r} not in {names}")
+                ci = names.index(class_col)
+            for batch in pf.iter_batches(batch_size=chunk_rows, columns=names,
+                                         row_groups=groups):
+                cols = [batch.column(j).to_numpy(zero_copy_only=False)
+                        .astype(np.float32, copy=False)
+                        for j in range(batch.num_columns)]
+                y = cols.pop(ci) if ci >= 0 else None
+                yield np.column_stack(cols), y
+        finally:
+            pf.close()
+
+    return open_stream
+
+
+def parquet_raw_chunk_source(
+    path: str, *, chunk_rows: int = 1 << 20, columns: tuple | None = None,
+    row_groups: tuple | None = None, shard: bool = False,
+) -> Callable[[], Iterator[np.ndarray]]:
+    """Parquet twin of ``csv_raw_chunk_source``: RAW [n, ncols] f32 chunks,
+    no host-side label split, for an estimator's ``label_in_chunk`` mode;
+    a row group at a time, like ``parquet_chunk_source``."""
+    groups = _parquet_groups(row_groups, shard)
+
+    def open_stream() -> Iterator[np.ndarray]:
+        import pyarrow.parquet as pq
+
+        pf = pq.ParquetFile(path)
+        try:
+            for batch in pf.iter_batches(batch_size=chunk_rows,
+                                         columns=list(columns) if columns else None,
+                                         row_groups=groups):
+                yield np.column_stack([batch.column(j).to_numpy(zero_copy_only=False)
+                                       .astype(np.float32, copy=False)
+                                       for j in range(batch.num_columns)])
+        finally:
+            pf.close()
+
+    return open_stream
 
 
 def csv_raw_chunk_source(
@@ -476,6 +582,41 @@ def run_epoch_replay(n_replay: int, spe: int, n_steps: int, resume_from: int,
     return n_steps, last, n_disp
 
 
+def replay_epochs(replay, last: Callable, n_replay: int, spe: int, n_steps: int, *,
+                  capture: bool, granularity: str, epochs_per_dispatch: int = 1,
+                  resume_from: int = 0, checkpointer=None, snapshot=None, ckpt_meta=None,
+                  every_epochs: int = 0):
+    """The epochs after the first over the cached chunks (``spe`` of them),
+    as one replay: ``replay`` (the hashed fit's ``_Replay``, which the
+    dense fit shares, or ``_KMeansReplay``) captured when ``capture`` (on
+    CUDA), then run whole ('all': one call) or by ``run_epoch_replay``
+    ('epoch': groups of ``epochs_per_dispatch``, snapshots at epoch
+    boundaries). ``last()`` gives what the last epoch leaves to wait on
+    (its loss). Returns ``(n_steps, last, capture_s)``; when a snapshot
+    already holds every replay epoch nothing runs and ``last`` and
+    ``capture_s`` are None."""
+    from orange3_spark_tpu_torch.utils.profiling import count_dispatch
+
+    if n_steps + n_replay * spe <= resume_from:
+        return n_steps + n_replay * spe, None, None     # the snapshot covers them
+    t0 = time.perf_counter()
+    if capture:
+        replay.capture()
+    capture_s = time.perf_counter() - t0
+    if granularity == "epoch":
+        def dispatch_epochs(k):
+            replay.run(k)
+            return last()
+
+        n_steps, out, _ = run_epoch_replay(
+            n_replay, spe, n_steps, resume_from, checkpointer, dispatch_epochs, snapshot,
+            ckpt_meta, epochs_per_dispatch=epochs_per_dispatch, every_epochs=every_epochs)
+        return n_steps, out, capture_s
+    replay.run(n_replay)
+    count_dispatch()          # one call: no loop to bound
+    return n_steps + n_replay * spe, last(), capture_s
+
+
 def _rechunk(stream: Iterator[Chunk], rows: int) -> Iterator[tuple]:
     """Normalize a stream of (X, y[, w]) chunks of any sizes into batches of
     EXACTLY ``rows`` rows (the final one may be short). Row weights must be
@@ -540,6 +681,405 @@ def _pad_chunk(X_np, y_np, w_np, pad_rows: int, n_features: int):
         wp = np.zeros((pad_rows,), np.float32)
         wp[:n] = 1.0 if w_np is None else w_np
     return Xp, yp, wp
+
+
+# ------------------------------------------------- the dense streaming fit
+
+@dataclasses.dataclass(frozen=True)
+class StreamingLinearParams(Params):
+    """The JAX package's ``StreamingLinearParams``, field for field (a
+    checkpoint's params round-trip between the two packages)."""
+
+    loss: str = "logistic"       # 'logistic' | 'squared' | 'squared_hinge'
+    n_classes: int = 2           # k for logistic
+    epochs: int = 1
+    step_size: float = 0.01
+    reg_param: float = 0.0       # L2
+    chunk_rows: int = 1 << 18    # padded device batch per step
+    seed: int = 0
+    # epoch 1 only ingests (pad, encode, cache, spill) and the replay
+    # carries all ``epochs`` passes: the same step sequence, the same bits.
+    # Needs cache_device; with a checkpointer only under
+    # replay_granularity='epoch'
+    defer_epoch1: bool = False
+    # 'all': every replay epoch in one call (one captured epoch replayed
+    # back to back); 'epoch': ``epochs_per_dispatch`` epochs a call, with
+    # epoch-boundary snapshots between calls (``run_epoch_replay``)
+    replay_granularity: str = "all"   # 'all' | 'epoch'
+    epochs_per_dispatch: int = 1
+    # with a checkpointer, K > 0 snapshots every K trained epochs instead
+    # of every ``checkpointer.every_steps`` steps (inert under
+    # OTPU_RESILIENCE=0)
+    checkpoint_every_epochs: int = 0
+    # cache / spill precision (io/codec.py, resolved once at fit entry):
+    # 'f32', or 'bf16' (the features as bfloat16: half the device, disk and
+    # copy bytes, widened to float32 in the step); 'packed' and 'auto'
+    # resolve to bf16 here (the dense fit has no integer columns to pack)
+    cache_dtype: str = "f32"     # 'f32' | 'bf16' | 'packed' | 'auto'
+
+
+def check_replay_granularity(value: str) -> None:
+    """Reject a misspelt granularity at fit entry: every comparison is an
+    exact string match, so 'epochs' would silently behave as 'all' and
+    silently drop the defer + checkpointer composition asked for."""
+    if value not in ("all", "epoch"):
+        raise ValueError(f"replay_granularity must be 'all' or 'epoch', got {value!r}")
+
+
+def _stream_step(theta: dict, opt_state: dict, X, y, w, reg: float, lr: float, *,
+                 loss_kind: str):
+    """One adam step of the streaming fit on one padded chunk: (theta,
+    opt_state, loss), new tensors.
+
+    The reference differentiates ``_linear._make_objective(loss_kind,
+    fit_intercept=True)`` with the column scale all ones:
+    ``(1/Σw)·Σ wᵢ·lossᵢ + ½·reg·Σcoef²`` with ``Σw`` floored at
+    ``EPS_TOTAL_WEIGHT`` and the intercept unregularized. Its gradient,
+    written out: G = ∂lossᵢ/∂z · (wᵢ·(1/Σw)) (``per_row_loss_grad``, the
+    reference's autodiff at z = 0 included), ``Xᵀ G + reg·coef`` and
+    ``Σ G``. The update is optax's ``adam(1.0)`` scaled by ``lr``
+    (``optim/sparse.adam_update``). A bf16-cached X (a bfloat16 tensor) is
+    widened to float32 here, exactly. Nothing waits for the device."""
+    from orange3_spark_tpu_torch.models._linear import per_row_loss, per_row_loss_grad
+    from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
+    from orange3_spark_tpu_torch.optim.sparse import adam_update
+
+    Xc = X if X.dtype == torch.float32 else X.to(torch.float32)
+    coef, intercept = theta["coef"], theta["intercept"]
+    sum_w = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
+    logits = Xc @ coef + intercept
+    loss = ((per_row_loss(loss_kind, logits, y) * w).sum() / sum_w
+            + 0.5 * reg * (coef * coef).sum())
+    G = per_row_loss_grad(loss_kind, logits, y) * (w * (1.0 / sum_w))[:, None]
+    grads = {"coef": Xc.T @ G + reg * coef, "intercept": G.sum(dim=0)}
+    theta, opt_state = adam_update(theta, grads, opt_state, lr)
+    return theta, opt_state, loss
+
+
+def _stream_step_into(theta: dict, opt_state: dict, chunk: tuple, reg: float, lr: float,
+                      loss_kind: str) -> torch.Tensor:
+    """``_stream_step`` on a device chunk ``(X, y, w)``, written back into
+    ``theta`` and ``opt_state`` in place (a captured replay reads and writes
+    them at fixed addresses). Returns the loss (a device scalar)."""
+    from orange3_spark_tpu_torch.models.hashed_linear import _write_back
+
+    new_theta, new_opt, loss = _stream_step(theta, opt_state, *chunk, reg, lr,
+                                            loss_kind=loss_kind)
+    _write_back(theta, new_theta)
+    _write_back(opt_state, new_opt)
+    return loss
+
+
+class StreamingLinearEstimator(Estimator):
+    """Minibatch-over-chunks trainer producing the standard model classes:
+    ``fit_stream(source, n_features=...)`` returns a LogisticRegressionModel,
+    LinearRegressionModel or LinearSVCModel as ``loss`` says.
+
+    Schedules (``fit_stream``): every epoch re-streams the source (the
+    default); ``cache_device`` keeps epoch 1's device chunks and replays the
+    later epochs from them, on CUDA one epoch captured as a CUDA graph and
+    replayed (when the cache holds at most half of ``cache_device_bytes``,
+    the reference's gate for its stacked copy; else chunk by chunk from the
+    cache); past ``cache_device_bytes`` with ``cache_spill_dir`` the later
+    epochs read epoch 1's disk spill, and without it re-run the source
+    with a warning; ``defer_epoch1`` makes epoch 1 ingest only. Every
+    schedule runs the same steps in the same order, so their results are
+    equal bit for bit. A ``checkpointer`` snapshots (per step, or at epoch
+    boundaries with ``checkpoint_every_epochs``) and a restarted fit
+    resumes from the snapshot to the same bits."""
+
+    ParamsCls = StreamingLinearParams
+    params: StreamingLinearParams
+
+    def _fit(self, table):
+        """Estimator protocol: an in-memory table streamed in chunks."""
+        from orange3_spark_tpu_torch.models.base import infer_class_values
+
+        X, Y, W = table.to_numpy()
+        y = Y[:, 0] if Y is not None else None
+        class_values = infer_class_values(table) if self.params.loss == "logistic" else None
+        return self.fit_stream(array_chunk_source(X, y, W, chunk_rows=self.params.chunk_rows),
+                               n_features=X.shape[1], session=table.session,
+                               class_values=class_values)
+
+    @traced("fit", model="streaming_linear")
+    def fit_stream(self, source: Callable[[], Iterator[Chunk]], *, n_features: int,
+                   session=None, class_values: tuple | None = None, checkpointer=None,
+                   cache_device: bool = False, cache_device_bytes: int = 8 << 30,
+                   cache_spill_dir: str | None = None, stage_times: dict | None = None):
+        """Fit over a re-iterable source of ``(X, y[, w])`` chunks.
+
+        checkpointer: a ``utils/fault.StreamCheckpointer``. The fit resumes
+          from its snapshot (this package's or the JAX package's, for the
+          same params), skipping the steps it holds, snapshots every
+          ``every_steps`` steps or every ``checkpoint_every_epochs`` trained
+          epochs (never NaN state: ``check_finite_training`` runs first),
+          and deletes the snapshot when it returns.
+        cache_device: keep epoch 1's device chunks (as ``cache_dtype`` says)
+          and replay them; ``cache_device_bytes`` bounds them and
+          ``cache_spill_dir`` gives the overflow its disk spill
+          (``DiskChunkCache``, released when the fit returns).
+        stage_times: receives 'epoch_s' (one wall an epoch; the fused replay
+          one wall), 'n_steps', 'replay_source' ('fused', 'fused_epoch',
+          'hbm', 'disk', 'stream' or None), 'retries' (transient reads
+          retried), 'cache_bytes' and 'graph_capture_s'.
+        """
+        from orange3_spark_tpu_torch.core.session import TorchSession
+        from orange3_spark_tpu_torch.interop import streaming_linear_fit_state
+        from orange3_spark_tpu_torch.io.codec import bf16_bits_np, resolve_cache_dtype
+        from orange3_spark_tpu_torch.models.hashed_linear import (
+            _HostToDevice, _load_into, _Replay,
+        )
+        from orange3_spark_tpu_torch.optim.sparse import init_adam_state
+        from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
+        from orange3_spark_tpu_torch.resilience.retry import resilient_source
+        from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+
+        p = self.params
+        check_replay_granularity(p.replay_granularity)
+        pipe_stats = PipelineStats()
+        # the source chokepoint: fault injection and bounded retries of
+        # transient reads (on the prefetch thread)
+        source = resilient_source(source, stats=pipe_stats)
+        session = session or TorchSession.active()
+        dev = session.device
+        if p.loss == "logistic":
+            if class_values is not None:
+                k = max(2, len(class_values))
+                # one probability column a class value: pad the list to k
+                if len(class_values) < k:
+                    class_values = tuple(class_values) + tuple(
+                        f"__class_{i}__" for i in range(len(class_values), k))
+            else:
+                k = p.n_classes
+        else:
+            k = 1
+        theta = {"coef": torch.zeros((n_features, k), dtype=torch.float32, device=dev),
+                 "intercept": torch.zeros((k,), dtype=torch.float32, device=dev)}
+        opt_state = init_adam_state(theta)
+        resume_from = 0
+        ckpt_meta = {"params": p.to_dict(), "n_features": n_features, "k": k}
+        ckpt_epochs = resolve_epoch_checkpointing(p, checkpointer)
+        if checkpointer is not None:
+            step0, saved = checkpointer.load(expect_meta=ckpt_meta)
+            if saved is not None:
+                saved = streaming_linear_fit_state(saved)
+                _load_into(theta, saved["theta"])
+                _load_into(opt_state, saved["opt_state"])
+                resume_from = step0
+        pad_rows = session.pad_rows(p.chunk_rows)
+        reg = float(np.float32(p.reg_param))
+        lr = float(np.float32(p.step_size))
+        n_steps = 0
+        last_loss = None
+        # defer: epoch 1 is ingest only and the loop runs one more pass, so
+        # the replay carries all p.epochs passes. With a checkpointer only
+        # at epoch granularity (snapshots between replay calls)
+        ckpt_epoch_ok = p.replay_granularity == "epoch"
+        defer = (p.defer_epoch1 and cache_device and p.epochs > 0
+                 and (checkpointer is None or ckpt_epoch_ok)
+                 and (resume_from == 0 or ckpt_epoch_ok))
+        n_replay = p.epochs - 1 + (1 if defer else 0)
+        cache = _DeviceCache(cache_device and (p.epochs > 1 or defer), cache_device_bytes)
+        # bf16 halves the cached, spilled and copied X; the step widens it
+        cache_bf16 = resolve_cache_dtype(p.cache_dtype, session) != "f32"
+        spill: DiskChunkCache | None = None
+        if cache_device and cache_spill_dir is not None and (p.epochs > 1 or defer):
+            spill = DiskChunkCache(
+                cache_spill_dir, ((pad_rows, n_features), (pad_rows,), (pad_rows,)),
+                ("bfloat16" if cache_bf16 else np.float32, np.float32, np.float32))
+        spill_active = [False]      # read by the prefetch thread
+        use_disk = False
+        h2d = _HostToDevice(dev)
+
+        def put(Xp, yp, wp):
+            """(X, y, w) on the device (a bf16 X as a bfloat16 tensor), and
+            the copies' event."""
+            out = [h2d.put(Xp), h2d.put(yp), h2d.put(wp)]
+            event = h2d.done()
+            if cache_bf16:
+                out[0] = out[0].view(torch.bfloat16)
+            return tuple(out), event
+
+        def to_device(chunk):
+            """Prefetch-thread side: pad, encode, spill, copy; the chunk's
+            largest label rides along for the range check."""
+            X_np, y_np, w_np = chunk
+            Xp, yp, wp = _pad_chunk(X_np, y_np, w_np, pad_rows, n_features)
+            if cache_bf16:
+                Xp = bf16_bits_np(Xp)      # encoded once: spill, cache and copy
+            if spill_active[0]:
+                spill.append((Xp, yp, wp), X_np.shape[0])
+            y_max = (int(np.max(y_np)) if p.loss == "logistic" and y_np is not None
+                     and len(y_np) else None)
+            dev_chunk, event = put(Xp, yp, wp)
+            return (dev_chunk, y_max), event
+
+        def staged(fn, items):
+            for out, event in prefetch_map(fn, items, depth=2, stats_into=pipe_stats):
+                yield h2d.ready(out, event)
+
+        def read_record(i):
+            arrs, _n = spill.read(i)
+            return put(*arrs)
+
+        def snapshot():
+            return {"theta": theta, "opt_state": opt_state}
+
+        def step(th, op, chunk):
+            return _stream_step_into(th, op, chunk, reg, lr, p.loss)
+
+        def run_step(chunk):
+            nonlocal n_steps, last_loss
+            with span("chunk", n_steps):
+                last_loss = step(theta, opt_state, chunk)
+                n_steps += 1
+                bound_dispatch(n_steps, last_loss)   # the dispatch queue's cap
+            if checkpointer is not None and not ckpt_epochs:
+                checkpointer.maybe_save(n_steps, snapshot(), meta=ckpt_meta)
+
+        def epoch_snapshot(epoch):
+            # the non-finite guard BEFORE the save: a divergent epoch raises
+            # typed and never checkpoints NaN state
+            check_finite_training(last_loss, theta, epoch=epoch, chunk=n_steps,
+                                  estimator="StreamingLinearEstimator")
+            epoch_boundary_snapshot(checkpointer, ckpt_epochs, epoch, defer, n_steps,
+                                    resume_from, snapshot, ckpt_meta)
+
+        epoch_walls: list = []
+        replay_source = None
+        graph_capture_s = None
+        try:
+            for epoch in span_iter("epoch", range(p.epochs + (1 if defer else 0))):
+                t_epoch = time.perf_counter()
+                if epoch > 0 and cache.enabled:
+                    replay_source = "hbm"
+                    for chunk in cache.batches:          # no host work at all
+                        if n_steps < resume_from:
+                            n_steps += 1
+                            continue
+                        run_step(chunk)
+                    epoch_snapshot(epoch)
+                    epoch_walls.append(time.perf_counter() - t_epoch)
+                    continue
+                if epoch > 0 and use_disk:
+                    # off the disk spill: read + copy, no parse; checkpointed
+                    # records are skipped unread
+                    replay_source = "disk"
+                    skip = min(max(resume_from - n_steps, 0), spill.n_records)
+                    n_steps += skip
+                    for chunk in staged(read_record, iter(range(skip, spill.n_records))):
+                        run_step(chunk)
+                    epoch_snapshot(epoch)
+                    epoch_walls.append(time.perf_counter() - t_epoch)
+                    continue
+                if epoch > 0:
+                    replay_source = "stream"
+                spill_active[0] = epoch == 0 and spill is not None
+                for chunk, y_max in staged(to_device, _rechunk(source(), pad_rows)):
+                    if n_steps < resume_from and not (
+                            epoch == 0 and (cache.enabled or spill is not None or defer)):
+                        # checkpointed: fast-forward. Not while the cache or
+                        # the spill is built (their chunks are kept even when
+                        # the step is skipped), nor in a deferred ingest
+                        # pass, which runs no step to count
+                        n_steps += 1
+                        continue
+                    if y_max is not None and y_max >= k:
+                        raise ValueError(
+                            f"label {y_max} out of range for k={k} classes; set "
+                            "n_classes= (or pass class_values=) to the true class count")
+                    if epoch == 0:
+                        cache.offer(chunk)
+                    if epoch == 0 and defer:
+                        continue            # ingest only: no step
+                    if n_steps < resume_from:
+                        n_steps += 1        # fast-forward past checkpointed steps
+                        continue
+                    run_step(chunk)
+                spill_active[0] = False
+                epoch_snapshot(epoch)
+                if epoch == 0:
+                    if spill is not None:
+                        spill.finalize()
+                    # no excludable tail here: an over-budget offer latched
+                    # the overflow where it happened
+                    cache.settle()
+                    if cache.degraded and (p.epochs > 1 or defer):
+                        use_disk = spill is not None and spill.n_records > 0
+                        if not use_disk:
+                            warn_cache_overflow(cache_device_bytes, n_replay)
+                if stage_times is not None:
+                    session.synchronize()
+                epoch_walls.append(time.perf_counter() - t_epoch)
+                if (epoch == 0 and n_replay > 0 and cache.enabled and cache.batches
+                        and ((checkpointer is None and resume_from == 0) or ckpt_epoch_ok)
+                        # the reference's gate for its stacked copy of the cache
+                        and 2 * cache.nbytes <= cache_device_bytes
+                        # whole epochs are the fused replay's resume grain; a
+                        # snapshot off an epoch boundary replays chunk by chunk
+                        and resume_from % len(cache.batches) == 0):
+                    t_rep = time.perf_counter()
+                    replay = _Replay(theta, opt_state, cache.batches, step)
+                    n_steps, last, graph_capture_s = replay_epochs(
+                        replay, lambda: replay.losses[-1], n_replay, len(cache.batches),
+                        n_steps, capture=dev.type == "cuda",
+                        granularity=p.replay_granularity,
+                        epochs_per_dispatch=p.epochs_per_dispatch, resume_from=resume_from,
+                        checkpointer=checkpointer, snapshot=snapshot, ckpt_meta=ckpt_meta,
+                        every_epochs=ckpt_epochs)
+                    if last is not None:
+                        last_loss = last
+                    if graph_capture_s is not None:
+                        replay_source = ("fused_epoch" if p.replay_granularity == "epoch"
+                                         else "fused")
+                        if stage_times is not None:
+                            session.synchronize()
+                        epoch_walls.append(time.perf_counter() - t_rep)
+                    del replay
+                    break
+        finally:
+            if spill is not None:
+                spill.delete()
+        # the fused replay leaves the loop before another guard: a final
+        # check, of theta too (a last-step divergence shows only there)
+        check_finite_training(last_loss, theta, epoch=p.epochs - 1, chunk=n_steps,
+                              final=True, estimator="StreamingLinearEstimator")
+        model = self._wrap_model(theta, k, class_values)
+        model.n_steps_ = n_steps
+        model.final_loss_ = float(last_loss) if last_loss is not None else None
+        if stage_times is not None:
+            stage_times.update(epoch_s=epoch_walls, n_steps=n_steps,
+                               replay_source=replay_source, retries=pipe_stats.retries,
+                               cache_bytes=cache.nbytes, cache_chunks=len(cache.batches),
+                               cache_dtype="bf16" if cache_bf16 else "f32",
+                               graph_capture_s=graph_capture_s)
+        if checkpointer is not None:
+            # a finished fit's snapshot must not fast-forward a later fit
+            checkpointer.delete()
+        return model
+
+    def _wrap_model(self, theta: dict, k: int, class_values=None):
+        p = self.params
+        if p.loss == "logistic":
+            from orange3_spark_tpu_torch.models.logistic_regression import (
+                LogisticRegressionModel, LogisticRegressionParams,
+            )
+
+            return LogisticRegressionModel(
+                LogisticRegressionParams(), theta["coef"], theta["intercept"],
+                class_values or tuple(str(i) for i in range(k)))
+        if p.loss == "squared":
+            from orange3_spark_tpu_torch.models.linear_regression import (
+                LinearRegressionModel, LinearRegressionParams,
+            )
+
+            return LinearRegressionModel(LinearRegressionParams(), theta["coef"][:, 0],
+                                         theta["intercept"][0])
+        from orange3_spark_tpu_torch.models.linear_svc import LinearSVCModel, LinearSVCParams
+
+        return LinearSVCModel(LinearSVCParams(), theta["coef"], theta["intercept"],
+                              class_values or ("0", "1"))
 
 
 # ------------------------------------------------- feature statistics pass
@@ -949,7 +1489,6 @@ class StreamingKMeans(Estimator):
         from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
         from orange3_spark_tpu_torch.resilience.retry import resilient_source
         from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
-        from orange3_spark_tpu_torch.utils.profiling import count_dispatch
 
         p = self.params
         if p.replay_granularity not in ("all", "epoch"):
@@ -1038,22 +1577,11 @@ class StreamingKMeans(Estimator):
             if epoch == 0 and n_replay > 0 and cache.enabled and cache.batches:
                 # the remaining passes replay the cache: one captured epoch
                 # on the card, read in place (no stacked copy)
-                spe = len(cache.batches)
                 replay = _KMeansReplay(centers, counts, cache.batches, p.decay, p.k)
-                if dev.type == "cuda":
-                    replay.capture()
-                if p.replay_granularity == "epoch":
-                    def dispatch_epochs(k):
-                        replay.run(k)
-                        return centers
-
-                    n_steps, _, _ = run_epoch_replay(
-                        n_replay, spe, n_steps, 0, None, dispatch_epochs, None, None,
-                        epochs_per_dispatch=p.epochs_per_dispatch)
-                else:
-                    replay.run(n_replay)
-                    count_dispatch()
-                    n_steps += n_replay * spe
+                n_steps, _, _ = replay_epochs(
+                    replay, lambda: centers, n_replay, len(cache.batches), n_steps,
+                    capture=dev.type == "cuda", granularity=p.replay_granularity,
+                    epochs_per_dispatch=p.epochs_per_dispatch)
                 break
         if spill is not None:
             spill.delete()

@@ -135,9 +135,18 @@ class BinaryClassificationEvaluator(_Evaluator):
 
 
 def _confusion_weighted(pred, label, w, n_classes: int) -> torch.Tensor:
-    """[true, pred] weighted counts: one-hot(label)ᵀ @ (one-hot(pred)·w)."""
-    eye = torch.eye(n_classes, dtype=torch.float32, device=w.device)
-    return eye[label.to(torch.int64)].T @ (eye[pred.to(torch.int64)] * w[:, None])
+    """[true, pred] weighted counts: one-hot(label)ᵀ @ (one-hot(pred)·w). A
+    row whose (truncated) class id lies outside [0, n_classes) counts for
+    nothing, as the reference's one-hot makes it (its one-hot row is zero),
+    instead of indexing out of range."""
+    eye = torch.cat([torch.eye(n_classes, dtype=torch.float32, device=w.device),
+                     torch.zeros((1, n_classes), dtype=torch.float32, device=w.device)])
+
+    def ids(x):
+        i = x.to(torch.int64)
+        return torch.where((i < 0) | (i >= n_classes), n_classes, i)
+
+    return eye[ids(label)].T @ (eye[ids(pred)] * w[:, None])
 
 
 class MulticlassClassificationEvaluator(_Evaluator):
@@ -396,3 +405,170 @@ def _multilabel_metric(pred, truth, *, metric: str):
     if metric == "microRecall":
         return tot_i / torch.clamp_min(tot_t, 1e-12)
     return 2.0 * tot_i / torch.clamp_min(tot_p + tot_t, 1e-12)  # microF1Measure
+
+
+# ------------------------------------------------- streaming evaluation
+# A holdout too large to hold: one fold a chunk on the device, per-chunk
+# sums kept on the device and totalled in float64 on the host, one read at
+# the end (a single float32 running sum drifts ~1e-4 relative by 1e9 rows).
+
+def _labeled_chunk_stream(source, session, chunk_rows: int):
+    """A labeled ``(X, y[, w])`` source rechunked into padded device triples,
+    the pad and copy of chunk t+1 overlapping the fold of chunk t (the
+    streaming fits' prefetch thread)."""
+    from orange3_spark_tpu_torch.core.session import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import (
+        _device_put, _pad_chunk, _rechunk, prefetch_map,
+    )
+    from orange3_spark_tpu_torch.models.hashed_linear import _HostToDevice
+
+    session = session or TorchSession.builder_get_or_create()
+    pad_rows = session.pad_rows(chunk_rows)
+    h2d = _HostToDevice(session.device)
+
+    def prep(chunk):
+        X_np, y_np, w_np = chunk
+        if y_np is None:
+            raise ValueError("streaming evaluation needs labeled chunks")
+        return _device_put(h2d, _pad_chunk(X_np, y_np, w_np, pad_rows, X_np.shape[1]))
+
+    for out, event in prefetch_map(prep, _rechunk(source(), pad_rows), depth=2):
+        yield _HostToDevice.ready(out, event)
+
+
+def _bound(steps: int, token) -> None:
+    """The loop's only wait: at most 8 folds queued ahead of the device."""
+    from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
+
+    bound_dispatch(steps, token, period=8)
+
+
+def _host_sums(parts: list) -> np.ndarray:
+    """The per-chunk device sums ([n_chunks, ...]) in one host read, as
+    float64."""
+    return torch.stack(parts).cpu().numpy().astype(np.float64)
+
+
+def _binary_stream_fold(acc: dict, s, y, w, *, n_bins: int) -> torch.Tensor:
+    """Fold one scored chunk into the per-class score histograms, in place
+    (binned AUC, error O(1/n_bins)), and return the chunk's weighted
+    logloss, correct and weight sums ([3], summed in float64 on the
+    host)."""
+    s = torch.clamp(s, 1e-7, 1.0 - 1e-7)
+    b = torch.clamp((s * n_bins).to(torch.int32), 0, n_bins - 1)
+    y = (y > 0.5).to(torch.float32)
+    acc["hp"].index_add_(0, b, w * y)
+    acc["hn"].index_add_(0, b, w * (1.0 - y))
+    ll = -(w * (y * torch.log(s) + (1.0 - y) * torch.log1p(-s))).sum()
+    ok = (w * ((s > 0.5) == (y > 0.5)).to(torch.float32)).sum()
+    return torch.stack([ll, ok, w.sum()])
+
+
+def evaluate_binary_stream(score_fn, source, *, session=None, chunk_rows: int = 1 << 18,
+                           n_bins: int = 4096) -> dict:
+    """Binary metrics over a chunk stream, without holding the holdout (the
+    in-memory evaluator's exact AUC needs every score resident; Spark's
+    BinaryClassificationMetrics bins the same way).
+
+    ``score_fn(X_device) -> P(y=1)`` per padded chunk (e.g. a fitted model's
+    probability head); ``source`` yields ``(X, y[, w])`` chunks. Per-class
+    score histograms give the AUC to O(1/n_bins); logloss, accuracy and the
+    count are per-chunk device sums totalled in float64 on the host.
+    Returns {'auc', 'logloss', 'accuracy', 'count'} ('auc' NaN when one
+    class is absent)."""
+    acc = None
+    parts = []
+    for steps, (Xd, yd, wd) in enumerate(_labeled_chunk_stream(source, session, chunk_rows),
+                                         start=1):
+        if acc is None:
+            acc = {h: torch.zeros((n_bins,), dtype=torch.float32, device=Xd.device)
+                   for h in ("hp", "hn")}
+        parts.append(_binary_stream_fold(acc, score_fn(Xd), yd, wd, n_bins=n_bins))
+        _bound(steps, parts[-1])
+    if not parts:
+        # a misconfigured source fails loudly, not with plausible zeros
+        raise ValueError("stream produced no chunks")
+    # one host read: the histograms, then the chunks' sums
+    host = torch.cat([acc["hp"], acc["hn"], torch.stack(parts).reshape(-1)]).cpu().numpy()
+    host = host.astype(np.float64)
+    hp, hn = host[:n_bins], host[n_bins:2 * n_bins]
+    sums = host[2 * n_bins:].reshape(-1, 3)
+    ll_tot, ok_tot, n_tot = (float(sums[:, j].sum()) for j in range(3))
+    P, N = hp.sum(), hn.sum()
+    cum_neg_below = np.concatenate([[0.0], np.cumsum(hn)[:-1]])
+    auc = (float(np.sum(hp * (cum_neg_below + 0.5 * hn)) / (P * N))
+           if P > 0 and N > 0 else float("nan"))
+    n = max(n_tot, 1e-12)
+    return {"auc": auc, "logloss": ll_tot / n, "accuracy": ok_tot / n, "count": n_tot}
+
+
+def _oor_weight(p, y, w, n_classes: int) -> torch.Tensor:
+    """Weight of the rows a one-hot would silently drop (a class id outside
+    [0, n_classes)), surfaced instead of vanishing."""
+    bad = (p < 0) | (p >= n_classes) | (y < 0) | (y >= n_classes)
+    return torch.where(bad, w, 0.0).sum()
+
+
+def evaluate_multiclass_stream(predict_fn, source, *, n_classes: int, session=None,
+                               chunk_rows: int = 1 << 18) -> dict:
+    """Multiclass metrics over a chunk stream (MulticlassMetrics at holdout
+    scale): per-chunk [k, k] weighted confusion matrices, totalled in
+    float64 on the host, every metric from the total. ``predict_fn(
+    X_device) -> class ids``. Returns accuracy / f1 / weightedPrecision /
+    weightedRecall / count, the confusion matrix and ``dropped_weight``
+    (rows whose label or prediction lies outside [0, n_classes) leave every
+    metric; a nonzero value means n_classes is wrong)."""
+    parts = []
+    for steps, (Xd, yd, wd) in enumerate(_labeled_chunk_stream(source, session, chunk_rows),
+                                         start=1):
+        p = predict_fn(Xd)
+        parts.append(torch.cat([_confusion_weighted(p, yd, wd, n_classes).reshape(-1),
+                                _oor_weight(p, yd, wd, n_classes)[None]]))
+        _bound(steps, parts[-1])
+    if not parts:
+        raise ValueError("stream produced no chunks")
+    host = _host_sums(parts).sum(axis=0)
+    Ch = host[:-1].reshape(n_classes, n_classes)
+    out = {m: MulticlassClassificationEvaluator.from_confusion(Ch, m)
+           for m in ("accuracy", "f1", "weightedPrecision", "weightedRecall")}
+    out["count"] = float(Ch.sum())
+    out["confusion"] = Ch
+    out["dropped_weight"] = float(host[-1])
+    return out
+
+
+def _regression_stream_sums(s, y, w, shift) -> torch.Tensor:
+    """One chunk's weighted sums for the regression metrics: [Σw, Σw·err²,
+    Σw·|err|, Σw·z, Σw·z²] with z = y - shift (r2's total sum of squares
+    does not move with the shift, and the raw identity loses float32 bits
+    on labels with a large mean)."""
+    err = s - y
+    z = y - shift
+    return torch.stack([w.sum(), (w * err * err).sum(), (w * err.abs()).sum(),
+                        (w * z).sum(), (w * z * z).sum()])
+
+
+def evaluate_regression_stream(predict_fn, source, *, session=None,
+                               chunk_rows: int = 1 << 18) -> dict:
+    """Regression metrics over a chunk stream (RegressionMetrics at any
+    scale): weighted rmse / mse / mae / r2 from per-chunk device sums
+    totalled in float64 on the host. ``predict_fn(X_device) ->
+    predictions``. The label moments are taken about the first chunk's
+    weighted label mean."""
+    parts = []
+    shift = None
+    for steps, (Xd, yd, wd) in enumerate(_labeled_chunk_stream(source, session, chunk_rows),
+                                         start=1):
+        if shift is None:
+            shift = (yd * wd).sum() / torch.clamp_min(wd.sum(), EPS_TOTAL_WEIGHT)
+        parts.append(_regression_stream_sums(predict_fn(Xd), yd, wd, shift))
+        _bound(steps, parts[-1])
+    if not parts:
+        raise ValueError("stream produced no chunks")
+    S = _host_sums(parts).sum(axis=0)
+    n_raw, ss_err, abs_err, sz, szz = S
+    n = max(n_raw, 1e-12)
+    mse = ss_err / n
+    ss_tot = max(szz - sz * sz / n, 1e-12)
+    return {"rmse": float(np.sqrt(mse)), "mse": float(mse), "mae": float(abs_err / n),
+            "r2": float(1.0 - ss_err / ss_tot), "count": float(n_raw)}

@@ -41,11 +41,34 @@ logistic regression over a CSV stream.
   snapshot (its own or the JAX package's) to the same bits as an
   uninterrupted one.
 
+* Value-weighted rows (``value_weighted``, MLlib's SparseVector): a chunk
+  carries ``n_cat`` (index, value) pairs, ``[label?, idx..., val...]``
+  (``io/libsvm.libsvm_chunk_source``), the forward is ``sum(emb[hash(idx)]
+  * val)`` and every slot hashes with one salt (a feature lands in one
+  bucket whatever slot it sits in); pairs of index -1 (padding, value 0)
+  are dead.
+* ``emb_update`` picks the forward and the table gradient of 'adam' and
+  the dense twins: 'fused' (one gather; the gradient row by row), 'per_column'
+  (C gathers added in column order; the gradient column by column) or
+  'sorted' (the fused forward; the gradient by a stable sort of the pairs
+  and the deterministic segment sum). The sparse rules take the fused
+  forward and their own update, whatever ``emb_update`` says.
+* ``missing='keep'`` leaves NaN cells as they are, so a NaN dense cell
+  reaches the loss and ``check_finite_training`` raises; a NaN categorical
+  code hashes as code 0 (``ops/hashing.hash_columns`` converts as XLA
+  does on the reference's device), the bucket 'zero' gives it.
+* ``compute_dtype`` 'bfloat16' (or 'float16') rounds the gathered
+  embedding rows, the dense block and its coefficients to that type and
+  then multiplies and adds in float32 (a product of two bf16 values is
+  exact in float32: the reference's ``preferred_element_type=float32``).
+  'adam' and the dense twins differentiate through those rounded copies,
+  as the reference does: the coefficients' gradient is rounded to the
+  type, and the table's is summed in it (``optim/sparse.dense_table_grad``
+  with ``round_to``). The sparse rules' gradients stay float32, as the
+  reference's.
+
 The update rules are optim/sparse.py's ``adam`` and ``{dense,sparse}_
-{sgd,adagrad,ftrl}``. Not in this package yet (each raises
-``NotImplementedError`` where a parameter asks for it): the 'per_column'
-and 'sorted' ``emb_update`` lowerings, value-weighted rows,
-``missing='keep'`` and a compute dtype other than float32.
+{sgd,adagrad,ftrl}``.
 """
 
 from __future__ import annotations
@@ -73,7 +96,7 @@ from orange3_spark_tpu_torch.ops.hashing import (
     column_salts, hash_columns, hash_columns_np, salts_tensor,
 )
 from orange3_spark_tpu_torch.optim.sparse import (
-    adam_update, build_plan_np, dense_table_grad, dense_update, finalize_lazy_decay,
+    EMB_UPDATES, adam_update, build_plan_np, dense_table_grad, dense_update, finalize_lazy_decay,
     init_optim_state, is_sparse_update, optim_kind, pack_plan_np, plan_field_shapes,
     plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
     sparse_embedding_update, unpack_plan,
@@ -81,7 +104,6 @@ from orange3_spark_tpu_torch.optim.sparse import (
 from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
 from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
 from orange3_spark_tpu_torch.utils.graphs import capture_graph
-from orange3_spark_tpu_torch.utils.profiling import count_dispatch
 
 AUC_BINS = 4096
 #: the profiler ranges of ``_step_core``, in step order ('split_hash' is
@@ -93,8 +115,8 @@ STEP_STAGES = ("split_hash", "forward", "loss_grad", "embedding_update", "dense_
 @dataclasses.dataclass(frozen=True)
 class HashedLinearParams(Params):
     """The JAX package's ``HashedLinearParams``, field for field, so a
-    model's params round-trip between the two packages (see the module
-    docstring for the values this package does not run yet)."""
+    model's params round-trip between the two packages (the module
+    docstring says what the options do)."""
 
     n_dims: int = 1 << 20        # hashed feature space (power of two)
     n_dense: int = 13            # leading numeric columns (Criteo I1-I13)
@@ -110,7 +132,7 @@ class HashedLinearParams(Params):
     compute_dtype: str = "float32"
     label_in_chunk: bool = False  # chunks carry the label as column 0
     prefetch_depth: int = 2       # host->device pipeline depth (0 disables)
-    emb_update: str = "auto"     # 'auto' | 'fused' (| 'per_column' | 'sorted')
+    emb_update: str = "auto"     # 'auto' | 'fused' | 'per_column' | 'sorted'
     optim_update: str = "adam"   # 'adam' | '{dense,sparse}_{sgd,adagrad,ftrl}'
     sparse_lowering: str = "auto"   # 'auto' | 'plan' | 'sort'
     l1_param: float = 0.0        # FTRL-proximal l1 (ftrl rules only)
@@ -128,7 +150,7 @@ class HashedLinearParams(Params):
     value_weighted: bool = False
     # 'zero': NaN dense cells -> 0 and NaN categorical cells -> the reserved
     # code 0, on the device (or in the host hash under 'packed')
-    missing: str = "zero"        # 'zero' (| 'keep')
+    missing: str = "zero"        # 'zero' | 'keep'
     cache_dtype: str = "f32"     # 'f32' | 'bf16' | 'packed' | 'auto'
 
 
@@ -158,32 +180,61 @@ def _row_loss_kind(p: HashedLinearParams) -> str:
     return p.loss
 
 
+#: the compute dtypes of the step's products (the reference's jnp.dtype names)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+
+
 def _check_ported(p: HashedLinearParams) -> None:
-    """Raise on a parameter value whose path this package does not run yet."""
-    missing = [
-        (resolve_emb_update(p) != "fused", f"emb_update={p.emb_update!r}"),
-        (p.value_weighted, "value_weighted=True"),
-        (not _impute_flag(p), f"missing={p.missing!r}"),
-        (p.compute_dtype != "float32", f"compute_dtype={p.compute_dtype!r}"),
-    ]
-    names = [name for hit, name in missing if hit]
-    if names:
-        raise NotImplementedError(
-            "not ported to orange3_spark_tpu_torch yet: " + ", ".join(names))
+    """Raise on a parameter value the fit does not take."""
+    if resolve_emb_update(p) not in EMB_UPDATES:
+        raise ValueError(f"emb_update must be 'auto' or one of {EMB_UPDATES}, "
+                         f"got {p.emb_update!r}")
+    _impute_flag(p)
+    if p.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                         f"got {p.compute_dtype!r}")
+    if p.value_weighted and p.n_dense:
+        raise ValueError("value_weighted mode carries (index, value) pairs only — "
+                         f"n_dense must be 0, got {p.n_dense}")
     if p.replay_granularity not in ("all", "epoch"):
         raise ValueError(
             f"replay_granularity must be 'all' or 'epoch', got {p.replay_granularity!r}")
 
 
-def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[N, k] logits: the 'fused' form, one gather of the [N, C] embedding
-    rows summed over the columns, plus the dense block's term."""
+def _rounded(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` and widened back to float32 (exact),
+    so the products that follow run in float32 on rounded operands."""
+    return x if compute_dtype == torch.float32 else x.to(compute_dtype).to(torch.float32)
+
+
+def _hashed_logits(theta: dict, dense: torch.Tensor, idx: torch.Tensor, vals=None, *,
+                   emb_update: str = "fused",
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[N, k] logits: the [N, C] embedding rows (each times its pair's value
+    with ``vals``) summed over the columns, plus the dense block's term.
+    'fused' and 'sorted' gather all rows at once and sum them; 'per_column'
+    adds the C gathered columns to zeros in column order. Under a narrower
+    ``compute_dtype`` the rows, the dense block and its coefficients are
+    rounded to it and the products and sums run in float32."""
     emb = theta["emb"]
     N, C = idx.shape
-    rows = emb.index_select(0, idx.reshape(-1)).view(N, C, emb.shape[1])
-    logits = rows.sum(dim=1)
+    k = emb.shape[1]
+    if emb_update == "per_column":
+        logits = torch.zeros((N, k), dtype=torch.float32, device=emb.device)
+        for c in range(C):
+            col = _rounded(emb.index_select(0, idx[:, c]), compute_dtype)
+            if vals is not None:
+                col = col * vals[:, c, None]
+            logits = logits + col
+    else:
+        rows = _rounded(emb.index_select(0, idx.reshape(-1)).view(N, C, k), compute_dtype)
+        if vals is not None:
+            rows = rows * vals[:, :, None]
+        logits = rows.sum(dim=1)
     if theta["coef"].shape[0]:
-        logits = logits + dense_logits(dense, theta["coef"])
+        logits = logits + dense_logits(_rounded(dense, compute_dtype),
+                                       _rounded(theta["coef"], compute_dtype))
     return logits + theta["intercept"]
 
 
@@ -194,29 +245,36 @@ def _row_mask(n_rows: int, n_valid, device) -> torch.Tensor:
 
 
 def _split_chunk(Xall, n_valid, y, w, *, label_in_chunk: bool, n_dense: int,
-                 impute_missing: bool = False):
+                 value_weighted: bool = False, impute_missing: bool = False):
     """Chunk anatomy, on the device. label_in_chunk: column 0 is the label
     and the row mask is ``arange < n_valid`` (no y/w vectors shipped).
-    impute_missing: NaN dense cells -> 0, NaN categorical cells -> the
-    reserved code 0 (crc32 of the empty string, what fastcsv gives an empty
-    categorical cell). Returns (y, dense, cats, w)."""
+    value_weighted: the features are C (index, value) pairs, ``[idx...,
+    val...]``, and there is no dense block. impute_missing: NaN dense cells
+    -> 0, NaN categorical cells -> the reserved code 0 (crc32 of the empty
+    string, what fastcsv gives an empty categorical cell; the hash takes a
+    NaN code kept by 'keep' as 0 too, ``ops/hashing.hash_columns``). Returns
+    (y, dense, cats, w, vals), ``vals`` None unless value-weighted; ``cats``
+    keeps a value-weighted chunk's raw -1 pads (its dead pairs)."""
     if label_in_chunk:
         yv = Xall[:, 0]
         feat = Xall[:, 1:]
         wv = _row_mask(Xall.shape[0], n_valid, Xall.device)
     else:
         yv, feat, wv = y, Xall, w
+    if value_weighted:
+        C = feat.shape[1] // 2
+        return yv, feat[:, :0], feat[:, :C], wv, feat[:, C:]
     dense, cats = feat[:, :n_dense], feat[:, n_dense:]
     if impute_missing:
         dense = torch.where(torch.isnan(dense), 0.0, dense)
         cats = torch.where(torch.isnan(cats), 0.0, cats)
-    return yv, dense, cats, wv
+    return yv, dense, cats, wv, None
 
 
 # ------------------------------------------------------------ the chunk codec
 
 #: spill order of the touched-row plan's arrays, raw and packed
-_PLAN_ORDER = ("row", "seg", "uniq", "inv")
+_PLAN_ORDER = ("row", "seg", "uniq", "inv", "val")
 _PLAN_PACKED_ORDER = ("rowp", "segb", "uniqp", "invp")
 
 
@@ -369,12 +427,14 @@ def _chunk_field_specs(p: HashedLinearParams, codec, pad_rows: int) -> tuple:
 
 def _plan_store_specs(p: HashedLinearParams, codec, pad_rows: int) -> tuple:
     """Ordered (name, shape, dtype) of the plan's spill fields: packed u32
-    words under the 'packed' codec, int32 arrays else."""
+    words under the 'packed' codec, int32 arrays (and the value-weighted
+    plan's f32 'val') else."""
     if codec is not None and codec.mode == "packed":
         d = plan_packed_field_shapes(pad_rows, p.n_cat, p.n_dims)
         return tuple((k, d[k][0], np.dtype(d[k][1])) for k in _PLAN_PACKED_ORDER)
-    shapes = plan_field_shapes(pad_rows, p.n_cat, p.n_dims)
-    return tuple((k, shapes[k], np.dtype(np.int32)) for k in _PLAN_ORDER)
+    shapes = plan_field_shapes(pad_rows, p.n_cat, p.n_dims, p.value_weighted)
+    return tuple((k, shapes[k], np.dtype(np.float32 if k == "val" else np.int32))
+                 for k in _PLAN_ORDER if k in shapes)
 
 
 def _plan_device_form(codec, plan_np: dict, pad_rows: int, p: HashedLinearParams) -> dict:
@@ -392,7 +452,8 @@ def _raw_chunk_bytes(p: HashedLinearParams, pad_rows: int, sparse_plan: bool) ->
         n += 2 * pad_rows * 4
     if sparse_plan:
         n += 4 * sum(int(np.prod(s)) for s in
-                     plan_field_shapes(pad_rows, p.n_cat, p.n_dims).values())
+                     plan_field_shapes(pad_rows, p.n_cat, p.n_dims,
+                                       p.value_weighted).values())
     return n
 
 
@@ -433,7 +494,9 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
                lr: float, plan=None, l1: float = 0.0, *, loss_kind: str, n_dims: int,
                n_dense: int, label_in_chunk: bool = False, impute_missing: bool = False,
                optim_update: str, sparse_lowering: str = "none",
-               use_decay: bool = False, codec: _ChunkCodec | None = None):
+               use_decay: bool = False, codec: _ChunkCodec | None = None,
+               emb_update: str = "fused", value_weighted: bool = False,
+               compute_dtype: torch.dtype = torch.float32):
     """One optimizer step on one chunk. Returns (theta, opt_state, loss).
 
     'adam' is the reference's dense optax path: the loss includes the L2
@@ -447,40 +510,51 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
 
     ``codec``: None for float32 chunks; else ``Xall`` is the encoded block
     dict, decoded here (and a packed plan unpacked), so the cache holds the
-    compressed bytes. Nothing here waits for the device, so the step can be
+    compressed bytes. ``emb_update`` (the forward and table gradient of
+    'adam' and the dense twins), ``value_weighted`` (pair chunks) and
+    ``compute_dtype`` (the products' operands rounded to it) as the module
+    docstring says. Nothing here waits for the device, so the step can be
     captured. Its stages run in profiler ranges named by ``STEP_STAGES``."""
     kind = optim_kind(optim_update)
+    sparse = is_sparse_update(optim_update)
     with record_function("split_hash"):
+        vals = cats = None
         if codec is None:
-            yv, dense, cats, wv = _split_chunk(
+            yv, dense, cats, wv, vals = _split_chunk(
                 Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
-                impute_missing=impute_missing)
+                value_weighted=value_weighted, impute_missing=impute_missing)
             idx = hash_columns(cats, salts, n_dims)
         else:
             yv, dense, idx, wv = _decode_chunk(codec, Xall, n_valid, y, w, salts)
             if plan is not None and codec.mode == "packed":
                 plan = unpack_plan(plan, idx.shape[0], codec.n_cat, n_dims)
     with record_function("forward"):
-        logits = _hashed_logits(theta, dense, idx)
+        logits = _hashed_logits(theta, dense, idx, vals,
+                                emb_update="fused" if sparse else emb_update,
+                                compute_dtype=compute_dtype)
     with record_function("loss_grad"):
         sw = torch.clamp_min(wv.sum(), EPS_TOTAL_WEIGHT)
         loss = (per_row_loss(loss_kind, logits, yv) * wv).sum() / sw
         dl = per_row_loss_grad(loss_kind, logits, yv) * (wv / sw)[:, None]   # [N, k]
-        g_coef = dense.T @ dl
+        g_coef = _rounded(dense, compute_dtype).T @ dl
+        if not sparse:          # differentiated through the rounded coef
+            g_coef = _rounded(g_coef, compute_dtype)
         g_int = dl.sum(dim=0)
         if kind == "adam":
             loss = loss + 0.5 * reg * ((theta["emb"] ** 2).sum()
                                        + (theta["coef"] ** 2).sum())
             g_coef = g_coef + reg * theta["coef"]
     with record_function("embedding_update"):
-        if is_sparse_update(optim_update):
+        if sparse:
             decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
             emb, t, eslots = sparse_embedding_update(
                 kind, theta["emb"], opt_state["t"], opt_state["slots"]["emb"], dl, idx,
                 lr, decay, reg, l1, opt_state["step"], lowering=sparse_lowering,
-                use_decay=use_decay, plan=plan, n_valid=n_valid)
+                use_decay=use_decay, plan=plan, n_valid=n_valid,
+                raw_cats=cats if value_weighted else None, vals=vals)
         else:
-            g_emb = dense_table_grad(idx, dl, theta["emb"].shape[0])
+            g_emb = dense_table_grad(idx, dl, theta["emb"].shape[0], vals=vals,
+                                     emb_update=emb_update, round_to=compute_dtype)
             if kind == "adam":
                 return (*adam_update(
                     theta, {"emb": g_emb + reg * theta["emb"], "coef": g_coef,
@@ -554,12 +628,13 @@ class _Replay:
     stacked copy), the losses into the fixed ``losses`` buffer — and
     ``run(n)`` replays it ``n`` times. Uncaptured (the CPU), ``run`` runs
     the same steps one by one. A failed capture raises; nothing falls
-    back to the eager steps."""
+    back to the eager steps. The dense streaming fit
+    (``io/streaming.StreamingLinearEstimator``) replays through it too."""
 
     def __init__(self, theta: dict, opt_state: dict, chunks: list, step: Callable):
         self.theta, self.opt_state, self.chunks, self.step = theta, opt_state, chunks, step
-        self.losses = torch.zeros(len(chunks), dtype=torch.float32,
-                                  device=theta["emb"].device)
+        self.device = next(iter(theta.values())).device
+        self.losses = torch.zeros(len(chunks), dtype=torch.float32, device=self.device)
         self.graph = None
 
     def _epoch(self) -> None:
@@ -572,7 +647,7 @@ class _Replay:
         capture mode lets the prefetch thread keep copying meanwhile."""
         theta, opt_state = self.theta, self.opt_state
         self.graph, _, _ = capture_graph(
-            self._epoch, theta["emb"].device,
+            self._epoch, self.device,
             warm=lambda: self.step(_clone_tree(theta), _clone_tree(opt_state), self.chunks[0]))
 
     def run(self, n_epochs: int) -> None:
@@ -586,27 +661,31 @@ class _Replay:
 # ------------------------------------------------------------- predict, eval
 
 def _hashed_predict(theta, Xall, salts, *, n_dims: int, n_dense: int,
+                    value_weighted: bool = False,
                     impute_missing: bool = False) -> torch.Tensor:
-    _, dense, cats, _ = _split_chunk(Xall, 0, None, None, label_in_chunk=False,
-                                     n_dense=n_dense, impute_missing=impute_missing)
-    return _hashed_logits(theta, dense, hash_columns(cats, salts, n_dims))
+    _, dense, cats, _, vals = _split_chunk(
+        Xall, 0, None, None, label_in_chunk=False, n_dense=n_dense,
+        value_weighted=value_weighted, impute_missing=impute_missing)
+    return _hashed_logits(theta, dense, hash_columns(cats, salts, n_dims), vals)
 
 
 def _hashed_eval_chunk(theta, Xall, n_valid, y, w, salts, *, loss_kind: str,
                        n_dims: int, n_dense: int, label_in_chunk: bool,
-                       impute_missing: bool = False, codec: _ChunkCodec | None = None):
+                       value_weighted: bool = False, impute_missing: bool = False,
+                       codec: _ChunkCodec | None = None):
     """Device-side eval accumulators of one chunk: (weighted logloss sum,
     weighted correct sum, weight sum, pos/neg score histograms for AUC).
     Only these small tensors ever go back to the host. ``codec``: the fit's
     codec for encoded cached chunks."""
+    vals = None
     if codec is None:
-        yv, dense, cats, wv = _split_chunk(
+        yv, dense, cats, wv, vals = _split_chunk(
             Xall, n_valid, y, w, label_in_chunk=label_in_chunk, n_dense=n_dense,
-            impute_missing=impute_missing)
+            value_weighted=value_weighted, impute_missing=impute_missing)
         idx = hash_columns(cats, salts, n_dims)
     else:
         yv, dense, idx, wv = _decode_chunk(codec, Xall, n_valid, y, w, salts)
-    logits = _hashed_logits(theta, dense, idx)
+    logits = _hashed_logits(theta, dense, idx, vals)
     loss_sum = (per_row_loss(loss_kind, logits, yv) * wv).sum()
     if loss_kind == "binary_logistic":
         score = torch.sigmoid(logits[:, 0])
@@ -686,7 +765,8 @@ class HashedLinearModel(Model):
         another row count; the card's cuBLAS did not)."""
         p = self.params
         return _hashed_predict(state["theta"], Xp, state["salts"], n_dims=p.n_dims,
-                               n_dense=p.n_dense, impute_missing=_impute_flag(p))
+                               n_dense=p.n_dense, value_weighted=p.value_weighted,
+                               impute_missing=_impute_flag(p))
 
     def _logits(self, Xall: np.ndarray) -> np.ndarray:
         from orange3_spark_tpu_torch.serve.context import (
@@ -702,6 +782,7 @@ class HashedLinearModel(Model):
         X = torch.as_tensor(np.asarray(Xall, np.float32), device=self.device)
         out = _hashed_predict(self.theta, X, salts_tensor(self.salts, self.device),
                               n_dims=p.n_dims, n_dense=p.n_dense,
+                              value_weighted=p.value_weighted,
                               impute_missing=_impute_flag(p))
         return out.cpu().numpy()
 
@@ -772,7 +853,7 @@ class HashedLinearModel(Model):
             out = _hashed_eval_chunk(
                 self.theta, Xd, n_valid, yd, wd, salts, loss_kind=_row_loss_kind(p),
                 n_dims=p.n_dims, n_dense=p.n_dense, label_in_chunk=p.label_in_chunk,
-                impute_missing=_impute_flag(p), codec=codec)
+                value_weighted=p.value_weighted, impute_missing=_impute_flag(p), codec=codec)
             tot = out if tot is None else tuple(a + b for a, b in zip(tot, out))
         if tot is None:
             raise ValueError("no chunks to evaluate")
@@ -797,8 +878,18 @@ class HashedLinearModel(Model):
 
 
 def _chunk_cols(p: HashedLinearParams) -> int:
-    """Expected chunk width: [label?] + dense + categorical columns."""
-    return p.n_cat + p.n_dense + (1 if p.label_in_chunk else 0)
+    """Expected chunk width: [label?] + (idx..., val...) pairs in the
+    value-weighted layout, or [label?] + dense + categorical columns."""
+    return (2 if p.value_weighted else 1) * p.n_cat + p.n_dense + (1 if p.label_in_chunk else 0)
+
+
+def hashed_salts(p: HashedLinearParams) -> np.ndarray:
+    """The uint32 salts of a fit: one per column, or under value-weighted
+    rows ONE salt repeated over the slots (libsvm packs pairs by position,
+    so a feature must hash alike in every slot)."""
+    if p.value_weighted:
+        return np.repeat(column_salts(1, p.seed), p.n_cat)
+    return column_salts(p.n_cat, p.seed)
 
 
 def _init_fit_state(p: HashedLinearParams, session: TorchSession):
@@ -816,10 +907,12 @@ def _init_fit_state(p: HashedLinearParams, session: TorchSession):
         "intercept": torch.zeros((k,), dtype=torch.float32, device=dev),
     }
     opt_state = init_optim_state(optim, theta)
-    salts_np = column_salts(p.n_cat, p.seed)
+    salts_np = hashed_salts(p)
     static_kw = dict(
         loss_kind=_row_loss_kind(p), n_dims=p.n_dims, n_dense=p.n_dense,
         label_in_chunk=p.label_in_chunk, impute_missing=_impute_flag(p),
+        emb_update=resolve_emb_update(p), value_weighted=p.value_weighted,
+        compute_dtype=COMPUTE_DTYPES[p.compute_dtype],
         optim_update=optim,
         sparse_lowering=(resolve_sparse_lowering(p.sparse_lowering, dev)
                          if is_sparse_update(optim) else "none"),
@@ -946,6 +1039,12 @@ class StreamingHashedLinearEstimator(Estimator):
         from orange3_spark_tpu_torch.io.streaming import array_chunk_source
         from orange3_spark_tpu_torch.models.base import infer_class_values
 
+        if self.params.value_weighted:
+            # a table's features are dense columns, never the (idx..., val...)
+            # pair layout: hashing feature values as indices trains nonsense
+            raise ValueError("value_weighted fits consume (index, value) pair chunks "
+                             "(io.libsvm.libsvm_chunk_source) via fit_stream, not "
+                             "dense tables")
         X, Y, W = table.to_numpy()
         y = Y[:, 0] if Y is not None else None
         class_values = (infer_class_values(table) if self.params.loss == "logistic"
@@ -979,8 +1078,9 @@ class StreamingHashedLinearEstimator(Estimator):
             zw = h2d.put(np.ones((pad_rows,), np.float32))
         chunk = (z, pad_rows, zy, zw)
         if kw["sparse_lowering"] == "plan":
-            plan_np = build_plan_np(np.zeros((pad_rows, p.n_cat), np.float32), salts_np,
-                                    p.n_dims, pad_rows, impute_missing=kw["impute_missing"])
+            zeros = np.zeros((pad_rows, p.n_cat), np.float32)
+            plan_np = build_plan_np(zeros, salts_np, p.n_dims, pad_rows,
+                                    vals=zeros if p.value_weighted else None)
             chunk = chunk + (h2d.put(_plan_device_form(codec, plan_np, pad_rows, p)),)
         chunk = h2d.ready(chunk, h2d.done())
         hyper = tuple(float(np.float32(v)) for v in (p.reg_param, p.step_size, p.l1_param))
@@ -1048,8 +1148,7 @@ class StreamingHashedLinearEstimator(Estimator):
         """
         from orange3_spark_tpu_torch.io.streaming import (
             DiskChunkCache, _DeviceCache, _pad_chunk, _rechunk, epoch_boundary_snapshot,
-            prefetch_map, resolve_epoch_checkpointing, run_epoch_replay,
-            warn_cache_overflow,
+            prefetch_map, replay_epochs, resolve_epoch_checkpointing, warn_cache_overflow,
         )
         from orange3_spark_tpu_torch.resilience.retry import resilient_source
 
@@ -1182,10 +1281,10 @@ class StreamingHashedLinearEstimator(Estimator):
                 # the host-sorted touched-row plan, built once here,
                 # overlapping device steps, and replayed every epoch
                 t_pl = time.perf_counter()
-                plan_np = build_plan_np(Xp[:, cats_off:cats_off + p.n_cat], salts_np,
-                                        p.n_dims, n,
-                                        impute_missing=static_kw["impute_missing"],
-                                        idx=idx_np)
+                plan_np = build_plan_np(
+                    Xp[:, cats_off:cats_off + p.n_cat], salts_np, p.n_dims, n,
+                    vals=(Xp[:, cats_off + p.n_cat:] if p.value_weighted else None),
+                    idx=idx_np)
                 if times is not None:
                     times["plan_s"] = times.get("plan_s", 0.0) + time.perf_counter() - t_pl
             plan_store = (None if plan_np is None
@@ -1392,39 +1491,24 @@ class StreamingHashedLinearEstimator(Estimator):
                         # replay, which skips at step grain
                         and resume_from % len(cache.batches) == 0):
                     # the remaining epochs: one captured epoch, replayed
-                    n_rep = p.epochs - 1 + (1 if defer else 0)
-                    spe = len(cache.batches)
-                    if n_steps + n_rep * spe <= resume_from:
-                        # the snapshot covers every replay epoch: nothing to
-                        # run (final_loss_ stays None)
-                        n_steps += n_rep * spe
-                        break
+                    # (when a snapshot covers them all, nothing runs and
+                    # final_loss_ stays None)
                     t_rep = time.perf_counter()
                     replay = _Replay(theta, opt_state, cache.batches, step)
-                    if is_cuda:
-                        replay.capture()
-                    graph_capture_s = time.perf_counter() - t_rep
-                    if p.replay_granularity == "epoch":
-                        def dispatch_epochs(k):
-                            replay.run(k)
-                            return replay.losses[-1]
-
-                        n_steps, last, _ = run_epoch_replay(
-                            n_rep, spe, n_steps, resume_from, checkpointer,
-                            dispatch_epochs, snapshot, ckpt_meta,
-                            epochs_per_dispatch=p.epochs_per_dispatch,
-                            every_epochs=ckpt_epochs)
-                        if last is not None:
-                            last_loss = last
-                    else:
-                        replay.run(n_rep)
-                        count_dispatch()   # one call: no loop to bound
-                        last_loss = replay.losses[-1]
-                        n_steps += n_rep * spe
-                    session.synchronize()
-                    replay_fused_s = time.perf_counter() - t_rep
-                    if times is not None:
-                        epoch_walls.append(replay_fused_s)
+                    n_steps, last, graph_capture_s = replay_epochs(
+                        replay, lambda: replay.losses[-1], p.epochs - 1 + (1 if defer else 0),
+                        len(cache.batches), n_steps, capture=is_cuda,
+                        granularity=p.replay_granularity,
+                        epochs_per_dispatch=p.epochs_per_dispatch, resume_from=resume_from,
+                        checkpointer=checkpointer, snapshot=snapshot, ckpt_meta=ckpt_meta,
+                        every_epochs=ckpt_epochs)
+                    if last is not None:
+                        last_loss = last
+                    if graph_capture_s is not None:
+                        session.synchronize()
+                        replay_fused_s = time.perf_counter() - t_rep
+                        if times is not None:
+                            epoch_walls.append(replay_fused_s)
                     del replay
                     break
         finally:

@@ -19,12 +19,22 @@
 //                        slot holds +0.0 (nothing reads it)
 //   out   f32[n_slots, k]; a slot with no row holds +0.0; segments at or
 //         past n_slots are dropped
+//   round_to   0, or 1 (bf16) / 2 (f16): each add's float32 result is
+//         rounded to that type (to nearest even) before the next add, as a
+//         sum held in that type adds (the table gradient of a fit whose
+//         compute dtype is bf16 or f16); every segment, long ones too, is
+//         then added by one thread in sorted order, so each sum is bitwise
+//         the plain version's
 //
 // seg_update_tiles (segment_update_sorted): for each segment of the sorted
 // keys whose key r is a live table row (r < D; the dead sentinel D sorts
 // last), its gradient sum G = sum of dl[order[i] / C] over its rows, then
 // in place p = emb[r] * decay^(step + 1 - t[r]) (with use_decay), the rule
-// (sgd, adagrad on acc, ftrl on z and n) and t[r] = step + 1. Each table
+// (sgd, adagrad on acc, ftrl on z and n) and t[r] = step + 1. With
+// per-pair values (a value-weighted fit: vals f32[M] in the original
+// occurrence order) each occurrence's gradient is dl[order[i] / C] *
+// vals[order[i]], rounded once (__fmul_rn, as the plain version's multiply)
+// before it joins the sum; the sum order is unchanged. Each table
 // row belongs to one segment, so each row is read and written by one
 // thread and no two threads write one address. Untouched rows are not read.
 //
@@ -73,8 +83,12 @@
 // slots), reads g (27.3 MB) and the ids (27.3 MB) and writes out (16.8 MB):
 // 71.3 MB, 0.021 ms at 3.35 TB/s. seg_update_tiles reads the i32 keys
 // (27.3 MB), the i64 order (54.5 MB) and dl (1.05 MB), and reads and writes
-// emb, acc and t of the ~2.5M live rows (60 MB): ~143 MB, 0.043 ms.
+// emb, acc and t of the ~2.5M live rows (60 MB): ~143 MB, 0.043 ms. With
+// per-pair values it also reads one 4-byte value an occurrence, gathered
+// through the order (27.3 MB more at that M).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -286,17 +300,29 @@ __device__ __forceinline__ float block_sum(const IdT* ids, long long M, long lon
   return total;
 }
 
-// In-order sum from +0.0 of n (<= kWalkMax) values val(0..n-1), loads
-// issued four at a time ahead of their adds.
-template <class Val>
-__device__ __forceinline__ float walk_sum(int n, Val val) {
+// a + b in float32, then rounded to the sum's type: kRound 0 float32, 1
+// bf16, 2 f16 (to nearest even; widening back is exact)
+template <int kRound>
+__device__ __forceinline__ float add_round(float a, float b) {
+  const float s = __fadd_rn(a, b);
+  if constexpr (kRound == 1) return __bfloat162float(__float2bfloat16_rn(s));
+  if constexpr (kRound == 2) return __half2float(__float2half_rn(s));
+  return s;
+}
+
+// In-order sum from +0.0 of n values val(0..n-1) (n <= kWalkMax in the
+// tiles; an int there, a long long for a long segment's rounded sum),
+// loads issued four at a time ahead of their adds.
+template <int kRound = 0, class N, class Val>
+__device__ __forceinline__ float walk_sum(N n, Val val) {
   float acc = 0.0f;
-  int i = 0;
+  N i = 0;
   for (; i + 4 <= n; i += 4) {
     const float v0 = val(i), v1 = val(i + 1), v2 = val(i + 2), v3 = val(i + 3);
-    acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, v0), v1), v2), v3);
+    acc = add_round<kRound>(add_round<kRound>(add_round<kRound>(add_round<kRound>(acc, v0),
+                                                                v1), v2), v3);
   }
-  for (; i < n; ++i) acc = __fadd_rn(acc, val(i));
+  for (; i < n; ++i) acc = add_round<kRound>(acc, val(i));
   return acc;
 }
 
@@ -312,8 +338,8 @@ struct SumArgs {
   int* counters;                   // [entries of long_starts, blocks done, tiles taken]
 };
 
-// kK: the columns when 1, else 0 (a.k columns)
-template <class IdT, int kK>
+// kK: the columns when 1, else 0 (a.k columns); kRound: add_round's
+template <class IdT, int kK, int kRound>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_sum_tiles(SumArgs<IdT> a) {
   extern __shared__ __align__(16) char smem[];
   __shared__ float part[kThreads];
@@ -353,13 +379,26 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_sum_tiles(SumArgs<
             continue;
           }
           for (int c = 0; c < k; ++c)
-            a.out[o + c] = walk_sum(len, [&](int i) { return gs[(j + i) * k + c]; });
+            a.out[o + c] = walk_sum<kRound>(len, [&](int i) { return gs[(j + i) * k + c]; });
         }
       });
 
   if (!last_block_done(a.counters + 1)) return;
   const float* g = static_cast<const float*>(tl.pay);
   const int n_long = __ldcg(a.counters);
+  if constexpr (kRound != 0) {
+    // rounded sums: a thread a long segment, its rows in sorted order
+    for (int e = threadIdx.x; e < n_long; e += kThreads) {
+      const long long start = __ldcg(a.long_starts + e);
+      const IdT s = tl.ids[start];
+      long long end = start + kWalkMax;
+      while (end < tl.M && tl.ids[end] == s) ++end;
+      for (int c = 0; c < k; ++c)
+        a.out[static_cast<long long>(s) * k + c] =
+            walk_sum<kRound>(end - start, [&](long long i) { return g[(start + i) * k + c]; });
+    }
+    return;
+  }
   for (int e = 0; e < n_long; ++e) {
     const long long start = __ldcg(a.long_starts + e);
     const IdT s = tl.ids[start];
@@ -380,6 +419,7 @@ struct UpdateArgs {
   unsigned div_m;
   int div_shift;
   const float* dl;                 // f32[N, k]
+  const float* vals;               // f32[M] per-pair values, or null
   int k;
   long long D;                     // table rows; the dead sentinel's key
   float* emb;                      // f32[D, k]
@@ -448,11 +488,20 @@ __device__ __forceinline__ long long dl_row(const UpdateArgs& a, long long order
       static_cast<unsigned long long>(static_cast<unsigned>(order)) * a.div_m >> a.div_shift);
 }
 
-// Column c's gradient sum of a short segment: dl[order[i] / C] over its
-// len rows (their sort order in shared memory), in order from +0.0.
+// The gradient of occurrence `order` (its index in the original order) in
+// column c: dl[order / C], times vals[order] with per-pair values.
+template <bool kVals>
+__device__ __forceinline__ float occurrence_grad(const UpdateArgs& a, long long order, int c) {
+  const float g = __ldg(a.dl + dl_row(a, order) * a.k + c);
+  return kVals ? __fmul_rn(g, __ldg(a.vals + order)) : g;
+}
+
+// Column c's gradient sum of a short segment: the gradients of its len
+// rows (their sort order in shared memory), in order from +0.0.
+template <bool kVals>
 __device__ __forceinline__ float column_sum(const UpdateArgs& a, const long long* order, int len,
                                             int c) {
-  return walk_sum(len, [&](int i) { return __ldg(a.dl + dl_row(a, order[i]) * a.k + c); });
+  return walk_sum(len, [&](int i) { return occurrence_grad<kVals>(a, order[i], c); });
 }
 
 // Updates row r, whose column c has the gradient sum sums[c] (a long
@@ -469,7 +518,7 @@ __device__ __forceinline__ void update_row(const UpdateArgs& a, long long r, int
   if (kDecay) a.t[r] = step1;
 }
 
-template <int kKind, bool kDecay>
+template <int kKind, bool kDecay, bool kVals>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_update_tiles(UpdateArgs a) {
   extern __shared__ __align__(16) char smem[];
   __shared__ float part[kThreads];
@@ -505,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_update_tiles(Updat
       float g0[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b)
-        if (live[b]) g0[b] = column_sum(a, order + j[b], len[b], 0);
+        if (live[b]) g0[b] = column_sum<kVals>(a, order + j[b], len[b], 0);
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
         if (!live[b]) continue;
@@ -514,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_update_tiles(Updat
         row[b].apply(a, r * a.k, fac, g0[b]);
         for (int c = 1; c < a.k; ++c) {
           row[b].load(a, r * a.k + c);
-          row[b].apply(a, r * a.k + c, fac, column_sum(a, order + j[b], len[b], c));
+          row[b].apply(a, r * a.k + c, fac, column_sum<kVals>(a, order + j[b], len[b], c));
         }
         if (kDecay) a.t[r] = step1;
       }
@@ -530,7 +579,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) seg_update_tiles(Updat
     const int s = tl.ids[start];
     for (int c = 0; c < a.k; ++c) {
       const float total = block_sum(tl.ids, tl.M, start, s, [&](long long i) {
-        return a.dl[dl_row(a, order[i]) * a.k + c];
+        return occurrence_grad<kVals>(a, order[i], c);
       }, part);
       if (threadIdx.x == 0) sums[c] = total;
     }
@@ -608,13 +657,16 @@ int launch(void (*kernel)(Args), const Args& a, int id_bytes, int sms, int* coun
 
 template <class IdT>
 int launch_sum(const float* g, const void* seg, const unsigned char* skip_last, long long M,
-               int k, long long n_slots, float* out, long long* long_starts, int* counters,
-               int sms, cudaStream_t cs) {
+               int k, long long n_slots, int round_to, float* out, long long* long_starts,
+               int* counters, int sms, cudaStream_t cs) {
   const int T = tile_rows(sizeof(IdT), 4 * k);
   const SumArgs<IdT> a{{static_cast<const IdT*>(seg), g, 4 * k, M, T}, skip_last, k,
                        n_slots, out, long_starts, counters};
-  return launch(k == 1 ? seg_sum_tiles<IdT, 1> : seg_sum_tiles<IdT, 0>, a, sizeof(IdT), sms,
-                counters, cs);
+  void (*kernels[3][2])(SumArgs<IdT>) = {
+      {seg_sum_tiles<IdT, 0, 0>, seg_sum_tiles<IdT, 1, 0>},
+      {seg_sum_tiles<IdT, 0, 1>, seg_sum_tiles<IdT, 1, 1>},
+      {seg_sum_tiles<IdT, 0, 2>, seg_sum_tiles<IdT, 1, 2>}};
+  return launch(kernels[round_to][k == 1], a, sizeof(IdT), sms, counters, cs);
 }
 
 }  // namespace
@@ -625,31 +677,35 @@ int launch_sum(const float* g, const void* seg, const unsigned char* skip_last, 
 extern "C" int segment_sum_walk_max() { return kWalkMax; }
 
 // Launches seg_sum_tiles on `stream` (after zeroing the three counters);
-// returns a cudaError_t (0 on success). long_starts holds at least
-// M / (kWalkMax + 1) entries, counters three ints. out is written whole.
-// Allocates nothing and does not synchronise.
+// returns a cudaError_t (0 on success). round_to: 0 float32 sums, 1 bf16,
+// 2 f16 (each add rounded). long_starts holds at least M / (kWalkMax + 1)
+// entries, counters three ints. out is written whole. Allocates nothing
+// and does not synchronise.
 extern "C" int segment_sum_sorted_launch(const float* g, const void* seg, int seg_bytes,
                                          const unsigned char* skip_last,
-                                         long long M, int k, long long n_slots, float* out,
-                                         long long* long_starts, int* counters, int sms,
-                                         void* stream) {
-  if (M < 1 || k < 1 || n_slots < 1 || (seg_bytes != 4 && seg_bytes != 8) || sms < 1)
+                                         long long M, int k, long long n_slots, int round_to,
+                                         float* out, long long* long_starts, int* counters,
+                                         int sms, void* stream) {
+  if (M < 1 || k < 1 || n_slots < 1 || (seg_bytes != 4 && seg_bytes != 8) || sms < 1 ||
+      round_to < 0 || round_to > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return seg_bytes == 8
-             ? launch_sum<long long>(g, seg, skip_last, M, k, n_slots, out, long_starts,
-                                     counters, sms, cs)
-             : launch_sum<int>(g, seg, skip_last, M, k, n_slots, out, long_starts, counters,
-                               sms, cs);
+             ? launch_sum<long long>(g, seg, skip_last, M, k, n_slots, round_to, out,
+                                     long_starts, counters, sms, cs)
+             : launch_sum<int>(g, seg, skip_last, M, k, n_slots, round_to, out, long_starts,
+                               counters, sms, cs);
 }
 
 // Launches seg_update_tiles on `stream`: the touched-row update of the
 // sorted keys (i32[M], the dead sentinel D sorting last) and their sort
 // order (i64[M]), in place on emb, the rule's slots and t. kind: 0 sgd, 1
-// adagrad (s0 = acc), 2 ftrl (s0 = z, s1 = n). Allocates nothing and does
-// not synchronise.
+// adagrad (s0 = acc), 2 ftrl (s0 = z, s1 = n). vals: f32[M] per-pair values
+// in the original occurrence order, or null (the kernel without them).
+// Allocates nothing and does not synchronise.
 extern "C" int segment_update_sorted_launch(
-    const int* keys, const long long* order, long long M, int C, const float* dl, int k,
+    const int* keys, const long long* order, long long M, int C, const float* dl,
+    const float* vals, int k,
     long long D, float* emb, float* s0, float* s1, int* t, const int* step, int kind,
     int use_decay, float lr, float inv_lr, float decay, float eps, float beta, float l1,
     float two_reg, long long* long_starts, int* counters, int sms, void* stream) {
@@ -660,13 +716,16 @@ extern "C" int segment_update_sorted_launch(
   int l = 0;
   while ((1LL << l) < C) ++l;
   const unsigned div_m = static_cast<unsigned>((1ULL << (31 + l)) / C + 1);   // < 2^32
-  const UpdateArgs a{{keys, order, 8, M, T}, div_m, 31 + l, dl, k, D, emb, s0, s1, t, step, lr,
-                     inv_lr, decay, eps, beta, l1, two_reg, long_starts, counters};
-  void (*kernels[3][2])(UpdateArgs) = {
-      {seg_update_tiles<kSgd, false>, seg_update_tiles<kSgd, true>},
-      {seg_update_tiles<kAdagrad, false>, seg_update_tiles<kAdagrad, true>},
-      {seg_update_tiles<kFtrl, false>, seg_update_tiles<kFtrl, true>}};
-  return launch(kernels[kind][use_decay != 0], a, 4, sms, counters,
+  const UpdateArgs a{{keys, order, 8, M, T}, div_m, 31 + l, dl, vals, k, D, emb, s0, s1, t, step,
+                     lr, inv_lr, decay, eps, beta, l1, two_reg, long_starts, counters};
+  void (*kernels[3][2][2])(UpdateArgs) = {
+      {{seg_update_tiles<kSgd, false, false>, seg_update_tiles<kSgd, false, true>},
+       {seg_update_tiles<kSgd, true, false>, seg_update_tiles<kSgd, true, true>}},
+      {{seg_update_tiles<kAdagrad, false, false>, seg_update_tiles<kAdagrad, false, true>},
+       {seg_update_tiles<kAdagrad, true, false>, seg_update_tiles<kAdagrad, true, true>}},
+      {{seg_update_tiles<kFtrl, false, false>, seg_update_tiles<kFtrl, false, true>},
+       {seg_update_tiles<kFtrl, true, false>, seg_update_tiles<kFtrl, true, true>}}};
+  return launch(kernels[kind][use_decay != 0][vals != nullptr], a, 4, sms, counters,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -51,11 +51,19 @@ def hash_columns(cats: torch.Tensor, salts, n_dims: int) -> torch.Tensor:
     """[N, C] integer categorical codes -> [N, C] int32 bucket indices in
     [0, n_dims). ``cats`` may be any integer dtype or float32 holding exact
     integers (the CSV parser yields float32; ints < 2^24 are exact).
-    ``salts``: [C] uint32 (numpy) or the int64 tensor of ``salts_tensor``."""
+    ``salts``: [C] uint32 (numpy) or the int64 tensor of ``salts_tensor``.
+
+    A float code converts to int32 as XLA converts it in the reference's
+    device hash, and as CUDA does: toward zero, NaN to 0, saturating at the
+    int32 range (the CPU's plain conversion gives INT_MIN for all three)."""
     _check_dims(n_dims)
     if not isinstance(salts, torch.Tensor):
         salts = salts_tensor(salts, cats.device)
-    h = cats.to(torch.int32).to(torch.int64) & _U32   # negatives wrap to uint32
+    if cats.is_floating_point():
+        c = torch.nan_to_num(cats, nan=0.0).clamp(-2.0**31, 2.0**31).to(torch.int64)
+        h = c.clamp(-(2**31), 2**31 - 1) & _U32   # negatives wrap to uint32
+    else:
+        h = cats.to(torch.int32).to(torch.int64) & _U32
     h = h ^ salts[None, :]
     h = h ^ (h >> 16)
     h = _mul32(h, _M1)

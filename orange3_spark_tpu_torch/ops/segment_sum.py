@@ -20,8 +20,9 @@ the device of the tensors decides, and a failed build or launch raises.
 * ``segment_update_sorted`` (plain version
   ``segment_update_sorted_reference``): the whole touched-row update of the
   'sort' lowering after its sort, in place, in one launch: each segment's
-  gradient sum (gathered through the sort order), the lazy decay, the rule,
-  and the write-back of the live rows only.
+  gradient sum (gathered through the sort order, each occurrence's
+  gradient times its pair's value in a value-weighted fit), the lazy
+  decay, the rule, and the write-back of the live rows only.
 
 Which sums equal the CPU's bit for bit: a segment of at most ``walk_max()``
 rows (the kernel's ``kWalkMax``, 32) is added by one thread in sorted order
@@ -49,14 +50,48 @@ from orange3_spark_tpu_torch.ops import cuda_build
 RULE_SLOTS = {"sgd": (), "adagrad": ("acc",), "ftrl": ("z", "n")}
 
 
-def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *,
-                                 skip_last=None) -> torch.Tensor:
+#: the sums' types of ``round_to`` by the kernel's index (0: float32)
+ROUND_TO = {None: 0, torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _rounded_sums(g_sorted, seg, n_slots: int, round_to) -> torch.Tensor:
+    """Each segment's rows added in index order from +0.0, each add's
+    float32 result rounded to ``round_to``: one pass a row position, the
+    p-th rows of all segments at once (each segment once a pass)."""
+    M = seg.shape[0]
+    out = torch.zeros((n_slots,) + tuple(g_sorted.shape[1:]), dtype=torch.float32,
+                      device=g_sorted.device)
+    if M == 0:
+        return out
+    seg = seg.to(torch.int64)
+    rows = torch.arange(M, device=seg.device)
+    head = torch.ones(M, dtype=torch.bool, device=seg.device)
+    head[1:] = seg[1:] != seg[:-1]
+    pos = rows - torch.cummax(torch.where(head, rows, 0), 0).values
+    by_pos = torch.argsort(pos, stable=True)
+    ends = torch.cumsum(torch.bincount(pos), 0).tolist()
+    start = 0
+    for end in ends:
+        take = by_pos[start:end]
+        s = seg.index_select(0, take)
+        out.index_copy_(0, s, (out.index_select(0, s) + g_sorted.index_select(0, take))
+                        .to(round_to).to(torch.float32))
+        start = end
+    return out
+
+
+def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *, skip_last=None,
+                                 round_to=None) -> torch.Tensor:
     """Plain PyTorch version: ``index_add_`` into zeros, which on the CPU
     adds a segment's rows in index order. Where ``skip_last`` is true the
-    last segment's slot holds +0.0, as the kernel leaves it."""
-    out = torch.zeros((n_slots,) + tuple(g_sorted.shape[1:]), dtype=g_sorted.dtype,
-                      device=g_sorted.device)
-    out.index_add_(0, seg, g_sorted)
+    last segment's slot holds +0.0, as the kernel leaves it. ``round_to``
+    (bf16 or f16): each add's result rounded to it, in index order."""
+    if ROUND_TO[round_to]:
+        out = _rounded_sums(g_sorted, seg, n_slots, round_to)
+    else:
+        out = torch.zeros((n_slots,) + tuple(g_sorted.shape[1:]), dtype=g_sorted.dtype,
+                          device=g_sorted.device)
+        out.index_add_(0, seg, g_sorted)
     if skip_last is not None:
         last = seg[-1:].to(torch.int64)
         flag = skip_last.reshape((1,) * out.ndim)
@@ -66,11 +101,13 @@ def segment_sum_sorted_reference(g_sorted, seg, n_slots: int, *,
 
 def segment_update_sorted_reference(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
                                     t, step, lr: float, decay: float, reg: float,
-                                    l1: float, *, use_decay: bool,
+                                    l1: float, *, use_decay: bool, vals=None,
                                     segment_sum=segment_sum_sorted_reference):
     """Plain PyTorch version of ``segment_update_sorted``: the 'sort'
     lowering's chain after the sort. The segments by a cumsum of the key
-    boundaries; each occurrence's gradient ``dl[order // C]``; the sums
+    boundaries; each occurrence's gradient ``dl[order // C]`` (times
+    ``vals[order]`` with per-pair values: ``vals`` f32[M] in the original
+    occurrence order); the sums
     (the dead sentinel's last segment skipped) by ``segment_sum``; the row
     of each segment by a scatter; slots past the live segments repeat the
     last live one (the same row and value written twice: no host sync);
@@ -89,6 +126,8 @@ def segment_update_sorted_reference(kind: str, s_idx, order, C: int, dl, emb, sl
     torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
     seg = torch.cumsum(start, 0) - 1
     g = dl.index_select(0, order // C)
+    if vals is not None:
+        g = g * vals.index_select(0, order)[:, None]
     sums = segment_sum(g, seg, U, skip_last=s_idx[-1:] >= D)
     # the row of each segment: every occurrence of a segment writes the
     # same value, so the scatter is deterministic with duplicates
@@ -111,10 +150,10 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("segment_sum")
     if lib.segment_sum_sorted_launch.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.segment_sum_sorted_launch.argtypes = [p, p, i, p, ll, i, ll, p, p, p, i, p]
+        lib.segment_sum_sorted_launch.argtypes = [p, p, i, p, ll, i, ll, i, p, p, p, i, p]
         lib.segment_sum_sorted_launch.restype = i
         lib.segment_update_sorted_launch.argtypes = (
-            [p, p, ll, i, p, i, ll, p, p, p, p, p, i, i] + [f] * 7 + [p, p, i, p])
+            [p, p, ll, i, p, p, i, ll, p, p, p, p, p, i, i] + [f] * 7 + [p, p, i, p])
         lib.segment_update_sorted_launch.restype = i
         lib.segment_sum_error_string.argtypes = [i]
         lib.segment_sum_error_string.restype = ctypes.c_char_p
@@ -174,7 +213,7 @@ def _check(name: str, what: str, x, dev, dtypes, shape) -> None:
                          f"on {dev}, got {x.dtype} {list(x.shape)} on {x.device}")
 
 
-def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last):
+def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last, round_to):
     dev = g_sorted.device
     if g_sorted.dtype != torch.float32 or g_sorted.ndim != 2 or not g_sorted.is_contiguous():
         raise ValueError(f"segment_sum_sorted: g_sorted must be a contiguous float32 "
@@ -190,25 +229,33 @@ def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last):
     _buf, long_starts, counters = _scratch(M, dev)
     _launch("segment_sum_sorted", g_sorted.data_ptr(), seg.data_ptr(), seg.element_size(),
             None if skip_last is None else skip_last.data_ptr(), M, k, n_slots,
-            out.data_ptr(), long_starts, counters, dev=dev)
+            ROUND_TO[round_to], out.data_ptr(), long_starts, counters, dev=dev)
     segment_sum_sorted.launches += 1
     return out
 
 
-def segment_sum_sorted(g_sorted, seg, n_slots: int, *, skip_last=None) -> torch.Tensor:
+def segment_sum_sorted(g_sorted, seg, n_slots: int, *, skip_last=None,
+                       round_to=None) -> torch.Tensor:
     """Per-segment sums of sorted rows: f32[n_slots, k], slot ``j`` the sum
     of the rows of ``g_sorted`` (f32[M, k], in stable-sorted order) whose
     ``seg`` (i32 or i64[M], non-decreasing from 0; i32 moves half the
     bytes) is ``j``; a slot with no row holds +0.0. ``skip_last``: one bool
     on the tensors' device, read there; when true the last segment (the
     dead sentinel's, which sorts last) is not summed and its slot holds
-    +0.0. Runs on the tensors' device, without waiting for it, so a
-    captured graph can hold the launch."""
+    +0.0. ``round_to`` (torch.bfloat16 or torch.float16; None or float32
+    for none): each add's result is rounded to that type, as a sum held in
+    it adds, every segment in index order (bitwise the plain version's,
+    long segments too). Runs on the tensors' device, without waiting for
+    it, so a captured graph can hold the launch."""
+    if round_to not in ROUND_TO:
+        raise ValueError(f"segment_sum_sorted: round_to must be one of {tuple(ROUND_TO)}, "
+                         f"got {round_to!r}")
     if g_sorted.device.type == "cpu":
-        return segment_sum_sorted_reference(g_sorted, seg, n_slots, skip_last=skip_last)
+        return segment_sum_sorted_reference(g_sorted, seg, n_slots, skip_last=skip_last,
+                                            round_to=round_to)
     if g_sorted.device.type == "cuda":
         with _range("segment_sum_sorted"):
-            return _segment_sum_cuda(g_sorted, seg, n_slots, skip_last)
+            return _segment_sum_cuda(g_sorted, seg, n_slots, skip_last, round_to)
     raise ValueError(f"segment_sum_sorted: no kernel for device {g_sorted.device}")
 
 
@@ -217,7 +264,7 @@ def segment_sum_sorted(g_sorted, seg, n_slots: int, *, skip_last=None) -> torch.
 segment_sum_sorted.launches = 0
 
 
-def _check_update(kind, s_idx, order, C, dl, emb, slots, t, step, dev):
+def _check_update(kind, s_idx, order, C, dl, emb, slots, t, step, vals, dev):
     name = "segment_update_sorted"
     if kind not in RULE_SLOTS:
         raise ValueError(f"{name}: kind must be one of {tuple(RULE_SLOTS)}, got {kind!r}")
@@ -237,19 +284,23 @@ def _check_update(kind, s_idx, order, C, dl, emb, slots, t, step, dev):
         _check(name, f"slots[{n!r}]", slots[n], dev, (torch.float32,), (D, k))
     _check(name, "t", t, dev, (torch.int32,), (D,))
     _check(name, "step", step, dev, (torch.int32,), ())
+    if vals is not None:
+        _check(name, "vals", vals, dev, (torch.float32,), (M,))
     if M >= 1 << 31:
         raise ValueError(f"{name}: at most 2^31 - 1 occurrences, got {M}")
 
 
 def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict, t, step,
                           lr: float, decay: float, reg: float, l1: float, *,
-                          use_decay: bool):
+                          use_decay: bool, vals=None):
     """The touched-row update of the 'sort' lowering after its sort, in
     place: for each segment of the stably sorted keys ``s_idx`` (i32[M];
     dead occurrences hold the sentinel ``D = emb.shape[0]`` and sort last)
     whose key ``r`` is a live row, the sum of ``dl[order[i] // C]``
     (``order`` the sort order, i64[M]; ``dl`` f32[N, k] with N·C = M) over
-    its occurrences, then ``emb[r] * decay^(step + 1 - t[r])`` (with
+    its occurrences, each times ``vals[order[i]]`` when per-pair values are
+    given (``vals`` f32[M] in the original occurrence order; the product
+    rounded once, before the sum), then ``emb[r] * decay^(step + 1 - t[r])`` (with
     ``use_decay``), the rule ``kind`` on ``emb[r]`` and ``slots`` (adagrad
     ``acc``, ftrl ``z`` and ``n``: f32[D, k]) and ``t[r] = step + 1``.
     ``step`` is the device int32 step counter. Rows no occurrence touches
@@ -259,10 +310,11 @@ def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
     dev = emb.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_update_sorted: no kernel for device {dev}")
-    _check_update(kind, s_idx, order, C, dl, emb, slots, t, step, dev)
+    _check_update(kind, s_idx, order, C, dl, emb, slots, t, step, vals, dev)
     if dev.type == "cpu":
         return segment_update_sorted_reference(kind, s_idx, order, C, dl, emb, slots, t, step,
-                                               lr, decay, reg, l1, use_decay=use_decay)
+                                               lr, decay, reg, l1, use_decay=use_decay,
+                                               vals=vals)
     from orange3_spark_tpu_torch.optim.sparse import ADAGRAD_EPS, FTRL_BETA
 
     M = s_idx.shape[0]
@@ -276,7 +328,8 @@ def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
     with _range("segment_update_sorted"):
         _buf, long_starts, counters = _scratch(M, dev)
         _launch("segment_update_sorted", s_idx.data_ptr(), order.data_ptr(), M, C,
-                dl.data_ptr(), emb.shape[1], emb.shape[0], emb.data_ptr(), s0, s1,
+                dl.data_ptr(), None if vals is None else vals.data_ptr(), emb.shape[1],
+                emb.shape[0], emb.data_ptr(), s0, s1,
                 t.data_ptr(), step.data_ptr(), list(RULE_SLOTS).index(kind), int(use_decay), lr,
                 inv_lr, decay, ADAGRAD_EPS, FTRL_BETA, l1, 2.0 * reg, long_starts, counters,
                 dev=dev)

@@ -25,6 +25,8 @@ in large-scale click-through training):
     segment ids, unique rows, inverse map) rides the chunk cache and the
     step becomes gather -> segment sum -> rule -> gather-based writeback.
     The CPU default. Its ``inv`` map is an [n_dims] array per chunk.
+    Under value-weighted rows the plan also carries each sorted
+    occurrence's value (``val``).
   - ``'sort'`` — the dedup runs in the step: a stable ``torch.sort`` of
     the occurrence keys, then ``segment_update_sorted`` does the rest in
     place (on CUDA one kernel: the sums, the decay, the rule and the
@@ -34,6 +36,10 @@ in large-scale click-through training):
     (``pack_plan_np``) and unpacked in the step (``unpack_plan``),
     exactly.
 
+* **value-weighted rows** (libsvm's (index, value) pairs): an
+  occurrence's gradient is ``dl[row] * val``; a pair whose raw index is
+  below 0 (the -1 padding of ``io/libsvm``) is dead in both lowerings, as
+  a padding row is.
 * **kill-switch** — ``OTPU_SPARSE_UPDATE=0`` resolves every ``sparse_*``
   rule to its ``dense_*`` twin, once, at fit entry.
 
@@ -78,7 +84,7 @@ import torch
 
 from orange3_spark_tpu_torch.io.codec import bit_width, flat_words, pack_flat_np, unpack_flat
 from orange3_spark_tpu_torch.ops.segment_sum import (
-    RULE_SLOTS, segment_sum_sorted, segment_update_sorted,
+    ROUND_TO, RULE_SLOTS, segment_sum_sorted, segment_update_sorted,
 )
 
 __all__ = [
@@ -88,7 +94,7 @@ __all__ = [
     "dense_update", "ADAM_B1", "ADAM_B2", "ADAM_EPS", "init_adam_state",
     "adam_update", "plan_slots", "plan_field_shapes", "build_plan_np",
     "plan_pack_widths", "plan_packed_field_shapes", "pack_plan_np", "unpack_plan",
-    "occurrence_dead", "sparse_embedding_update", "dense_table_grad",
+    "occurrence_dead", "sparse_embedding_update", "dense_table_grad", "EMB_UPDATES",
     "finalize_lazy_decay",
 ]
 
@@ -203,7 +209,7 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 def init_adam_state(theta: dict) -> dict:
     """Zero moments and an int32 count on the device, as optax's
     ``ScaleByAdamState``."""
-    dev = theta["emb"].device
+    dev = next(iter(theta.values())).device
     return {"count": torch.zeros((), dtype=torch.int32, device=dev),
             "mu": {k: torch.zeros_like(v) for k, v in theta.items()},
             "nu": {k: torch.zeros_like(v) for k, v in theta.items()}}
@@ -238,41 +244,48 @@ def plan_slots(pad_rows: int, n_cat: int, n_dims: int) -> int:
     return min(pad_rows * n_cat, n_dims) + 1
 
 
-def plan_field_shapes(pad_rows: int, n_cat: int, n_dims: int) -> dict:
-    """Shapes of the per-chunk plan arrays (all int32)."""
+def plan_field_shapes(pad_rows: int, n_cat: int, n_dims: int,
+                      value_weighted: bool = False) -> dict:
+    """Shapes of the per-chunk plan arrays (all int32 but the value-weighted
+    plan's f32 'val')."""
     M = pad_rows * n_cat
-    return {"row": (M,), "seg": (M,), "uniq": (plan_slots(pad_rows, n_cat, n_dims),),
-            "inv": (n_dims,)}
+    shapes = {"row": (M,), "seg": (M,), "uniq": (plan_slots(pad_rows, n_cat, n_dims),),
+              "inv": (n_dims,)}
+    if value_weighted:
+        shapes["val"] = (M,)
+    return shapes
 
 
 def build_plan_np(cats: np.ndarray, salts: np.ndarray, n_dims: int, n_valid: int, *,
-                  impute_missing: bool = False, idx: np.ndarray | None = None) -> dict:
+                  vals: np.ndarray | None = None, idx: np.ndarray | None = None) -> dict:
     """Host-side touched-row plan of one padded chunk, built once on the
     prefetch thread and replayed every epoch.
 
-    ``cats``: [N, C] raw categorical codes (before the hash; NaN allowed
-    with ``impute_missing``). Dead occurrences (rows >= ``n_valid``) sort
-    behind an ``n_dims`` sentinel into the spare slot; their gradients are
-    zero (w == 0 rows), so nothing masks them in the step.
+    ``cats``: [N, C] raw categorical codes (before the hash; a NaN code
+    hashes as code 0, as the step's hash takes it). ``vals``: the per-pair
+    values of a value-weighted chunk. Dead occurrences (rows >= ``n_valid``,
+    and with ``vals`` the pairs whose raw index is below 0) sort behind an
+    ``n_dims`` sentinel into the spare slot; their gradients are zero
+    (w == 0 rows, value-0 pairs), so nothing masks them in the step.
 
     Returns {'row': i32[M] source row of each SORTED occurrence, 'seg':
     i32[M] its segment id, 'uniq': i32[U] the touched table row of each
     segment (-1 on dead/pad slots), 'inv': i32[D] table row -> segment id
-    (-1 untouched)}. The argsort is STABLE, so a row's occurrences keep
-    their original order."""
+    (-1 untouched)[, 'val': f32[M] the sorted occurrences' values]}. The
+    argsort is STABLE, so a row's occurrences keep their original order."""
     from orange3_spark_tpu_torch.ops.hashing import hash_columns_np
 
+    cats = np.asarray(cats)
     if idx is None:
-        cats = np.asarray(cats)
-        if impute_missing:
-            cats = np.where(np.isnan(cats), 0.0, cats)
-        idx = hash_columns_np(cats, salts, n_dims)
+        idx = hash_columns_np(np.where(np.isnan(cats), np.float32(0.0), cats), salts, n_dims)
     N, C = idx.shape
     M = N * C
     U = plan_slots(N, C, n_dims)
     dead = np.zeros((N, C), np.bool_)
     if n_valid < N:
         dead[n_valid:] = True
+    if vals is not None:
+        dead |= cats < 0
     flat = np.where(dead, np.int32(n_dims), idx).reshape(-1)
     order = np.argsort(flat, kind="stable").astype(np.int32)
     s = flat[order]
@@ -285,7 +298,10 @@ def build_plan_np(cats: np.ndarray, salts: np.ndarray, n_dims: int, n_valid: int
     uniq[seg[live_start]] = s[live_start]
     inv = np.full(n_dims, -1, np.int32)
     inv[s[live_start]] = seg[live_start]
-    return {"row": (order // C).astype(np.int32), "seg": seg, "uniq": uniq, "inv": inv}
+    plan = {"row": (order // C).astype(np.int32), "seg": seg, "uniq": uniq, "inv": inv}
+    if vals is not None:
+        plan["val"] = np.ascontiguousarray(np.asarray(vals, np.float32).reshape(-1)[order])
+    return plan
 
 
 def plan_pack_widths(pad_rows: int, n_cat: int, n_dims: int) -> dict:
@@ -365,12 +381,16 @@ def unpack_plan(enc: dict, pad_rows: int, n_cat: int, n_dims: int) -> dict:
     }
 
 
-def occurrence_dead(n_rows: int, n_cat: int, n_valid, device) -> torch.Tensor:
+def occurrence_dead(n_rows: int, n_cat: int, n_valid, device, raw_cats=None) -> torch.Tensor:
     """[N, C] dead-occurrence mask of the 'sort' lowering — the device twin
-    of ``build_plan_np``'s rule: every occurrence of a padding row.
-    ``n_valid`` is an int or a device int scalar."""
+    of ``build_plan_np``'s rule: every occurrence of a padding row and, with
+    ``raw_cats`` (a value-weighted chunk's raw indices), every pair whose
+    index is below 0. ``n_valid`` is an int or a device int scalar."""
     rows = torch.arange(n_rows, dtype=torch.int32, device=device)
-    return (rows[:, None] >= n_valid).expand(n_rows, n_cat)
+    dead = (rows[:, None] >= n_valid).expand(n_rows, n_cat)
+    if raw_cats is not None:
+        dead = dead | (raw_cats < 0)
+    return dead
 
 
 # ------------------------------------------------- the touched-row engines
@@ -405,30 +425,90 @@ def _sort_segments(flat: torch.Tensor):
     return s_idx, order, start, torch.cumsum(start, 0, dtype=torch.int32) - 1
 
 
-def dense_table_grad(idx: torch.Tensor, dl: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """The table's [n_rows, k] gradient: each row of ``dl`` [N, k] added
-    into the table rows of its ``idx`` [N, C] occurrences. The CPU adds by
-    ``index_add_`` in occurrence order (the reference's order). CUDA sorts
-    the occurrences stably, sums them by segment with the deterministic
+#: the embedding's gather/scatter lowerings ('auto' resolves to 'fused')
+EMB_UPDATES = ("fused", "per_column", "sorted")
+
+
+def _occurrences(idx: torch.Tensor, vals, emb_update: str):
+    """The table gradient's occurrences in the order its sums take them:
+    (flat keys [M], the row of ``dl`` of each, the flat values or None).
+    'fused' and 'sorted' take the [N, C] occurrences row by row (the
+    reference's one scatter over the flattened gather), 'per_column'
+    column by column (its C gathers, one a column)."""
+    N, C = idx.shape
+    if emb_update == "per_column":
+        rows = torch.arange(N, device=idx.device).repeat(C)
+        return (idx.T.reshape(-1), rows,
+                None if vals is None else vals.T.reshape(-1))
+    return idx.reshape(-1), None, None if vals is None else vals.reshape(-1)
+
+
+def dense_table_grad(idx: torch.Tensor, dl: torch.Tensor, n_rows: int, *, vals=None,
+                     emb_update: str = "fused", round_to=None) -> torch.Tensor:
+    """The table's [n_rows, k] gradient: each row of ``dl`` [N, k] (times
+    the pair's value with ``vals`` [N, C]) added into the table rows of its
+    ``idx`` [N, C] occurrences. 'fused' and 'per_column' on the CPU add by
+    ``index_add_`` in their occurrence order (row by row, or column by
+    column). 'sorted' (the reference's custom backward: a stable sort of
+    the pairs, then a conflict-free scatter), and every lowering on CUDA,
+    sort the occurrences stably, sum them by segment with the deterministic
     kernel (the same order for segments of up to ``walk_max()`` rows) and
-    writes each touched row once; slots past the live segments repeat the
-    last live one, the same row and value written twice (no host sync)."""
+    write each touched row once; slots past the live segments repeat the
+    last live one, the same row and value written twice (no host sync).
+
+    ``round_to`` (torch.bfloat16 or torch.float16: the fit's compute dtype)
+    gives the gradient the reference takes through its table rows rounded
+    to that type: each occurrence's gradient rounded to it, and each table
+    row's sum held in it (an add rounded at a time, in occurrence order,
+    by ``segment_sum_sorted(round_to=)`` on every device); under
+    'per_column' a sum a column, the C columns' sums then added from the
+    last column to the first, each add rounded but the last one (the
+    reference's compiled backward pass: XLA keeps the last add of the
+    columns' cotangents in float32)."""
+    if emb_update not in EMB_UPDATES:
+        raise ValueError(f"emb_update must be one of {EMB_UPDATES}, got {emb_update!r}")
     N, C = idx.shape
     k = dl.shape[1]
-    if idx.device.type != "cuda":
-        return torch.zeros((n_rows, k), dtype=dl.dtype, device=dl.device).index_add_(
-            0, idx.reshape(-1), dl[:, None, :].expand(N, C, k).reshape(N * C, k))
-    return _dense_table_grad_sorted(idx, dl, n_rows)
+    if ROUND_TO[round_to] and emb_update == "per_column":
+        total = None
+        for c in reversed(range(C)):
+            col = _dense_table_grad_sorted(
+                idx[:, c:c + 1], dl, n_rows, vals=None if vals is None else vals[:, c:c + 1],
+                round_to=round_to)
+            if total is None:
+                total = col
+            elif c:
+                total = (total + col).to(round_to).to(torch.float32)
+            else:
+                total = total + col
+        return total
+    if idx.device.type != "cuda" and emb_update != "sorted" and not ROUND_TO[round_to]:
+        out = torch.zeros((n_rows, k), dtype=dl.dtype, device=dl.device)
+        flat, rows, vflat = _occurrences(idx, vals, emb_update)
+        g = dl[:, None, :].expand(N, C, k).reshape(N * C, k) if rows is None \
+            else dl.index_select(0, rows)
+        if vflat is not None:
+            g = g * vflat[:, None]
+        return out.index_add_(0, flat, g)
+    return _dense_table_grad_sorted(idx, dl, n_rows, vals=vals, emb_update=emb_update,
+                                    round_to=round_to)
 
 
-def _dense_table_grad_sorted(idx: torch.Tensor, dl: torch.Tensor, n_rows: int):
-    """``dense_table_grad``'s CUDA form (also runs on the CPU, where the
-    tests hold it to the ``index_add_`` form bitwise)."""
+def _dense_table_grad_sorted(idx: torch.Tensor, dl: torch.Tensor, n_rows: int, *,
+                             vals=None, emb_update: str = "fused", round_to=None):
+    """``dense_table_grad``'s sorted form (CUDA's, and 'sorted' everywhere;
+    on the CPU the tests hold it to the ``index_add_`` form bitwise)."""
     N, C = idx.shape
     k = dl.shape[1]
-    s_idx, order, start, seg = _sort_segments(idx.reshape(-1))
+    flat, rows, vflat = _occurrences(idx, vals, emb_update)
+    s_idx, order, start, seg = _sort_segments(flat)
     U = min(N * C, n_rows)
-    sums = segment_sum_sorted(dl.index_select(0, order // C), seg, U)
+    g = dl.index_select(0, order // C if rows is None else rows.index_select(0, order))
+    if vflat is not None:
+        g = g * vflat.index_select(0, order)[:, None]
+    if ROUND_TO[round_to]:
+        g = g.to(round_to).to(torch.float32)
+    sums = segment_sum_sorted(g, seg, U, round_to=round_to)
     uniq = torch.zeros(U, dtype=s_idx.dtype, device=idx.device).scatter_(0, seg, s_idx)
     src = torch.minimum(torch.arange(U, device=idx.device), start.sum() - 1)
     out = torch.zeros((n_rows, k), dtype=dl.dtype, device=dl.device)
@@ -437,10 +517,13 @@ def _dense_table_grad_sorted(idx: torch.Tensor, dl: torch.Tensor, n_rows: int):
 
 
 def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, step, *,
-                            lowering: str, use_decay: bool, plan=None, n_valid=None):
+                            lowering: str, use_decay: bool, plan=None, n_valid=None,
+                            raw_cats=None, vals=None):
     """One touched-row-only table update. ``dl`` is the [N, k] gradient of
     the loss with respect to the logits; an occurrence's gradient is
-    ``dl[row]``. Returns (emb, t, slots).
+    ``dl[row]``, times its pair's value in a value-weighted chunk (``vals``
+    [N, C]; its ``raw_cats`` [N, C], the indices before the hash, mark the
+    dead pairs, index < 0). Returns (emb, t, slots).
 
     'plan': the host-built plan gives the sort order, segments, unique rows
     and inverse map; the writeback is a gather
@@ -453,6 +536,8 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     D = emb.shape[0]
     if lowering == "plan":
         g = dl.index_select(0, plan["row"])
+        if "val" in plan:
+            g = g * plan["val"][:, None]
         sums = segment_sum_sorted(g, plan["seg"], plan["uniq"].shape[0])
         p_rows, slot_rows = _touched_rows_update(
             kind, emb, t, slots, sums, plan["uniq"], lr, decay, reg, l1, step,
@@ -472,11 +557,13 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
     if isinstance(n_valid, int) and n_valid == 0:
         return emb, t, slots          # every occurrence dead: no row moves
     N, C = idx.shape
-    dead = occurrence_dead(N, C, n_valid, idx.device)
-    # dead occurrences (padding rows) take the sentinel D and sort last
+    dead = occurrence_dead(N, C, n_valid, idx.device, raw_cats)
+    # dead occurrences (padding rows, value-weighted pads) take the
+    # sentinel D and sort last
     s_idx, order = torch.sort(idx.masked_fill(dead, D).reshape(-1), stable=True)
     return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, lr, decay,
-                                 reg, l1, use_decay=use_decay)
+                                 reg, l1, use_decay=use_decay,
+                                 vals=None if vals is None else vals.reshape(-1).contiguous())
 
 
 def finalize_lazy_decay(theta: dict, state: dict, lr: float, reg: float,

@@ -741,6 +741,37 @@ def test_segment_sum_long_segment_within_tolerance(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("round_to", ["bfloat16", "float16"])
+@pytest.mark.parametrize("M,n_dims,dead,heavy", [(1_000_003, 1 << 16, 26_000, 0),
+                                                 (500_000, 1 << 18, 1000, 70_000),
+                                                 (31, 1 << 10, 0, 0)])
+def test_segment_sum_rounded_equals_the_cpu_bitwise(cuda_device, round_to, M, n_dims, dead,
+                                                    heavy):
+    """``round_to``: each add rounded to bf16 / f16, every segment (a heavy
+    hitter too) in index order: bitwise the plain version on the CPU, the
+    same bits twice and from a captured graph."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    rt = getattr(torch, round_to)
+    g, seg, keys = _sorted_segments(cuda_device, M, n_dims, dead=dead, heavy=heavy, seed=5)
+    g = g.to(rt).to(torch.float32)            # the occurrences' gradients, rounded
+    n_slots = min(M, n_dims) + 1
+    skip = keys[-1:] >= n_dims
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip, round_to=rt)
+    a, b = run(), run()
+    assert torch.equal(a, b)
+    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, skip_last=skip.cpu(),
+                                          round_to=rt)
+    assert torch.equal(a.cpu(), cpu)
+    graph, static, _ = capture_graph(run, cuda_device)
+    static.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, a)
+
+
+@pytest.mark.cuda
 def test_segment_sum_in_a_captured_graph_equals_eager(cuda_device):
     """Launched inside a CUDA graph (no host sync in the wrapper), the
     kernel's replayed output equals its eager launch, twice."""
@@ -1552,3 +1583,61 @@ def test_als_served_transform_equals_raw_on_cuda(cuda_device):
         served = {n: model.transform(t).X.cpu().numpy() for n, t in tables.items()}
     for n in tables:
         np.testing.assert_array_equal(served[n], raw[n])
+
+
+# ------------------- per-pair values, the dense streaming fit, libsvm fits
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,use_decay,k,dead,heavy", [
+    ("adagrad", True, 1, 700, 0), ("adagrad", True, 1, 300, 100_000),
+    ("sgd", False, 2, 0, 5000), ("ftrl", True, 3, 900, 40)])
+def test_segment_update_with_values_equals_the_chain_bitwise(cuda_device, kind, use_decay, k,
+                                                             dead, heavy):
+    """``segment_update_sorted`` given per-pair values (a seventh of them
+    zero, as a value-weighted chunk's pads): two launches bitwise equal,
+    bitwise the chain given the same values, held to the plain version
+    with the CPU's sums as without values (short segments bitwise, a long
+    one within 1e-6·Σ|g·v|). Values of one give the kernel without them,
+    bit for bit."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    cs = _smoke()
+    _, _, s_idx, order, C, dl, emb, slots, t, step = _update_inputs(
+        cuda_device, kind, k=k, dead=dead, heavy=heavy)
+    args = (kind, s_idx, order, C, dl, emb, slots, t, step, _LR, _decay(), _REG, _L1)
+    vals = cs._draw_vals(s_idx.numel(), cuda_device, seed=5)
+    line, _ = cs._vals_update_case(args, use_decay, vals)
+    assert cs._update_case_ok(line), line
+    before = ss.segment_update_sorted.launches
+    a, b = cs._update_copy(args), cs._update_copy(args)
+    ss.segment_update_sorted(*a, use_decay=use_decay)
+    ss.segment_update_sorted(*b, use_decay=use_decay, vals=torch.ones_like(vals))
+    assert ss.segment_update_sorted.launches == before + 2
+    assert cs._update_state_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_streaming_linear_fit_on_cuda_matches_cpu_and_replays_bitwise(cuda_device):
+    """``StreamingLinearEstimator`` on the card (the replay one captured
+    graph) against the port's CPU fit within 1e-4 x max|θ|, and bitwise the
+    same fit replayed step by step, for k = 2 and 3 (``chip_smoke.
+    streaming_linear_check``)."""
+    from orange3_spark_tpu_torch import TorchSession
+
+    line = _smoke().streaming_linear_check(TorchSession("cuda"))
+    assert line["ok"], line
+
+
+@pytest.mark.cuda
+def test_value_weighted_sort_fit_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """Value-weighted fits on the card ('sort': the kernel given the pairs'
+    values) against the CPU path for every emb_update x {adam,
+    dense_adagrad, sparse_adagrad} and bf16 compute (the dense rules' bf16
+    gradients held by ``chip_smoke._bf16_grad_err``); ``missing='keep'``
+    with a NaN dense cell raises (``chip_smoke.libsvm_hashed_check``)."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    before = ss.segment_update_sorted.launches
+    line = _smoke().libsvm_hashed_check(TorchSession("cuda"), str(tmp_path))
+    assert line["ok"], line
+    assert ss.segment_update_sorted.launches > before

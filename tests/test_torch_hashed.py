@@ -128,7 +128,7 @@ def test_build_plan_bitwise(n_dims, n_valid):
     salts = thash.column_salts(C, seed=1)
     cats = rng.integers(0, 500, (N, C)).astype(np.float32)
     cats[rng.random((N, C)) < 0.1] = np.nan
-    ours = tsparse.build_plan_np(cats, salts, n_dims, n_valid, impute_missing=True)
+    ours = tsparse.build_plan_np(cats, salts, n_dims, n_valid)
     ref = jsparse.build_plan_np(cats, salts, n_dims, n_valid, impute_missing=True)
     assert sorted(ours) == sorted(ref)
     for k in ours:
@@ -298,13 +298,22 @@ def test_fit_protocol_and_auc_helper(cpu, data):
 
 
 @pytest.mark.parametrize("override", [
-    dict(emb_update="per_column"), dict(value_weighted=True, n_dense=0),
+    dict(emb_update="per_column"), dict(value_weighted=True, n_dense=0, n_cat=5),
     dict(missing="keep"), dict(missing="keep", cache_dtype="packed"),
     dict(emb_update="sorted"), dict(compute_dtype="float16"),
     dict(compute_dtype="bfloat16")])
 def test_unported_options_raise(cpu, data, override):
+    """The options the port once refused with ``NotImplementedError`` now
+    fit (tests/test_torch_libsvm.py holds them to the reference); a value
+    no package takes still raises, as a ValueError."""
     X, y = data
     kw = {**BASE, "optim_update": "sparse_sgd", **override}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StreamingHashedLinearEstimator(**kw).fit_stream(
-            array_chunk_source(X, y), session=cpu)
+    model = StreamingHashedLinearEstimator(**kw).fit_stream(
+        array_chunk_source(X, y), session=cpu)
+    assert all(bool(torch.isfinite(v).all()) for v in model.theta.values())
+    assert model.n_steps_ == 16
+    name, value = next(iter(override.items()))
+    if isinstance(value, str):
+        with pytest.raises(ValueError):
+            StreamingHashedLinearEstimator(**{**kw, name: value + "_x"}).fit_stream(
+                array_chunk_source(X, y), session=cpu)

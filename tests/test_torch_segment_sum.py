@@ -133,3 +133,66 @@ def test_tree_bucket_sums_histogram_form_equals_index_add(T, N, s, n_buckets, in
     got = _tree._bucket_sums_histogram(S, pos, n_buckets)
     assert got.shape == (T, n_buckets, s)
     assert torch.equal(got, want)
+
+
+def _rounded_loop(g, seg, n_slots, round_to):
+    """Each segment's rows added one at a time in index order, each sum
+    rounded to ``round_to``: a sum held in that type."""
+    out = torch.zeros((n_slots, g.shape[1]))
+    for i in range(g.shape[0]):
+        out[seg[i]] = (out[seg[i]] + g[i]).to(round_to).to(torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("round_to", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dead,long_rows,k", [(0, 0, 1), (40, 300, 2)])
+def test_rounded_sums_add_in_index_order(round_to, dead, long_rows, k):
+    """``round_to``: each add's result rounded to the type, every segment
+    (long ones too) in index order, as an add-at-a-time loop gives it; the
+    dead segment skipped; float32 (or None) is the plain sum's bits."""
+    rng = np.random.default_rng(k + dead)
+    _, seg, g = _sorted_inputs(rng, 1500, 1 << 8, k, dead=dead, long_rows=long_rows)
+    g, seg = torch.from_numpy(g), torch.from_numpy(seg)
+    n_slots = int(seg[-1]) + 3
+    want = _rounded_loop(g, seg, n_slots, round_to)
+    skip = torch.tensor([dead > 0])
+    if dead:
+        want[int(seg[-1])] = 0.0
+    got = ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip, round_to=round_to)
+    assert torch.equal(got, want)
+    plain = ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip)
+    assert torch.equal(ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip,
+                                             round_to=torch.float32), plain)
+    assert not torch.equal(got, plain)
+    with pytest.raises(ValueError, match="round_to"):
+        ss.segment_sum_sorted(g, seg, n_slots, round_to=torch.float64)
+
+
+@pytest.mark.parametrize("emb_update", ["fused", "per_column", "sorted"])
+def test_dense_table_grad_rounded_matches_the_reference_backward(emb_update):
+    """The table gradient with ``round_to=bfloat16`` equals the reference's
+    gradient through bf16 table rows (jax.grad of its jitted
+    ``_hashed_logits`` at compute dtype bf16) bitwise, pairs' values
+    included."""
+    import jax
+
+    from orange3_spark_tpu.models.hashed_linear import _hashed_logits
+
+    rng = np.random.default_rng(9)
+    N, C, D = 400, 4, 1 << 10
+    idx = rng.integers(0, 90, (N, C)).astype(np.int32)
+    vals = rng.uniform(0.0, 2.0, (N, C)).astype(np.float32)
+    ct = (rng.standard_normal((N, 1)) * 0.01).astype(np.float32)
+    theta = {"emb": np.zeros((D, 1), np.float32), "coef": np.zeros((0, 1), np.float32),
+             "intercept": np.zeros(1, np.float32)}
+
+    def loss(th):
+        z = _hashed_logits(th, jnp.zeros((N, 0)), jnp.asarray(idx), jnp.bfloat16, emb_update,
+                           jnp.asarray(vals))
+        return jnp.sum(z * ct)
+
+    want = np.asarray(jax.jit(jax.grad(loss))(theta)["emb"])
+    got = tsparse.dense_table_grad(torch.from_numpy(idx), torch.from_numpy(ct), D,
+                                   vals=torch.from_numpy(vals), emb_update=emb_update,
+                                   round_to=torch.bfloat16)
+    assert np.array_equal(got.numpy(), want)

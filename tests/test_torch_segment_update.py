@@ -321,3 +321,44 @@ def test_smoke_update_checks_pass_the_plain_version_and_fail_a_lost_occurrence(
     bad = cs._update_checks(update(_lossy_sums), chain, args, True, long)
     assert not cs._update_case_ok(bad)
     assert bad["sum_probe"]["mismatches"] > 0 and not bad["equal_chain"]
+
+
+@pytest.mark.parametrize("long_rows", [0, 60])
+def test_smoke_values_checks_pass_the_plain_version_and_fail_a_lost_occurrence(
+        monkeypatch, long_rows):
+    """The checks ``phase_values_update`` runs at a value-weighted step:
+    the plain version given the pairs' values passes them (long segments
+    within float32 summation's bound, ``long_bound=True``), one that loses
+    an occurrence fails; the bound counts the values' 4 B an occurrence."""
+    monkeypatch.setattr(ss, "walk_max", lambda: 32)
+    cs = _smoke()
+    emb, slots, t, dl, idx, n_valid, step = _inputs(
+        _seed("values", long_rows, "smoke"), "adagrad", 1, dead=9, long_rows=long_rows)
+    s_idx, order = _port_sorted(idx, n_valid)
+    vals = np.random.default_rng(_seed("values", long_rows)).uniform(0.0, 2.0, s_idx.numel())
+    vals = torch.from_numpy(np.where(np.arange(vals.size) % 7 == 0, 0.0, vals).astype(np.float32))
+    args = ("adagrad", s_idx, order, C, torch.from_numpy(dl), torch.from_numpy(emb),
+            {n: torch.from_numpy(v) for n, v in slots.items()}, torch.from_numpy(t),
+            torch.tensor(step, dtype=torch.int32), LR, _decay(True), REG, L1)
+
+    def update(segment_sum):
+        def run(a):
+            ss.segment_update_sorted_reference(*a, use_decay=True, vals=vals,
+                                               segment_sum=segment_sum)
+            return a
+        return run
+
+    chain = update(ss.segment_sum_sorted)
+    long = cs._long_rows(s_idx, D)
+    line = cs._update_checks(update(ss.segment_sum_sorted_reference), chain, args, True, long,
+                             vals)
+    assert cs._update_case_ok(line, long_bound=True), line
+    assert line["sum_probe"]["mutation_caught"] == {"dropped": True, "doubled": True}
+    if long_rows:
+        assert line["sum_probe"]["long_err_over_bound"] == 0.0
+    bad = cs._update_checks(update(_lossy_sums), chain, args, True, long, vals)
+    assert not cs._update_case_ok(bad, long_bound=True)
+    live, plain_bytes, plain_sectors = cs._update_bytes(args, True)
+    assert live == int((s_idx[s_idx < D]).unique().numel())
+    assert cs._update_bytes(args, True, vals) == (live, plain_bytes + 4 * s_idx.numel(),
+                                                   plain_sectors + 4 * s_idx.numel())
