@@ -1701,9 +1701,11 @@ def phase_segment_sum(inputs, mem_bw):
     (``index_add_`` with float atomics: max |err|) and on a CPU copy (the
     index order: bitwise on every segment of at most ``walk_max()`` rows);
     a captured launch against the eager one; one segment of 2^20 rows
-    (summed by a block) within 1e-6·Σ|g| of the float64 sum. Times of the
-    kernel, the plain version, the library call (``index_add_`` alone)
-    and ``index_add_`` under deterministic mode, beside the bound."""
+    (spread over the card) within 1e-6·Σ|g| of the float64 sum; the
+    rounded mode (``round_to=torch.bfloat16``) bitwise the CPU's. Times of
+    the kernel, its rounded mode, the plain version, the library call
+    (``index_add_`` alone) and ``index_add_`` under deterministic mode,
+    beside the bound."""
     import torch
 
     from orange3_spark_tpu_torch.ops import segment_sum as ss
@@ -1728,7 +1730,7 @@ def phase_segment_sum(inputs, mem_bw):
     graph_equal = bool(torch.equal(static, got))
     del graph, static, outs
 
-    # one long segment between short ones, summed by a block
+    # one long segment between short ones, spread over the card
     gen = torch.Generator(device=g.device).manual_seed(5)
     n_long = SEG_LONG_ROWS
     lens = torch.cat([torch.full((1000,), 3, device=g.device),
@@ -1744,6 +1746,19 @@ def phase_segment_sum(inputs, mem_bw):
     long_ok = bool(((lgot.double() - lref).abs() <= 1e-6 * labs).all())
     long_repeat = bool(torch.equal(lgot, ss.segment_sum_sorted(lg, lseg, len(lens))))
     del lens, lseg, lg, lgot, lref, labs
+
+    # the rounded mode (round_to=bfloat16, the bf16 dense rules' table
+    # gradient) on the occurrences' gradients rounded to bf16: bitwise the
+    # plain version on a CPU copy, and its time
+    gb = g.to(torch.bfloat16).to(torch.float32)
+    run_bf16 = lambda: ss.segment_sum_sorted(gb, seg, n_slots, skip_last=skip,
+                                             round_to=torch.bfloat16)
+    bf16_cpu = ss.segment_sum_sorted_reference(
+        gb.cpu(), seg.cpu(), n_slots, skip_last=None if skip is None else skip.cpu(),
+        round_to=torch.bfloat16)
+    bf16_equal = bool(torch.equal(run_bf16().cpu(), bf16_cpu))
+    bf16_ms = graph_ms(run_bf16, 20)
+    del bf16_cpu, run_bf16, gb
 
     plain = lambda: ss.segment_sum_sorted_reference(g, seg, n_slots, skip_last=skip)
     library = lambda: torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(0, seg, g)
@@ -1769,11 +1784,14 @@ def phase_segment_sum(inputs, mem_bw):
             "host_issue_ms": issue_ms,
             "deterministic_index_add": _time_deterministic_index_add(g, seg, n_slots),
             "bytes": n_bytes, "bound_ms": bytes_ms, "bound_by": "bytes",
+            "round_to_bf16": {"ms": bf16_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+                              "x_bound": bf16_ms / bytes_ms, "bitwise_cpu": bf16_equal,
+                              "timed": "captured launches (20 in a graph)"},
             "tolerance": "max_abs_err against the card's atomic index_add_ is float32 "
                          "rounding of its run-dependent order; bitwise against the CPU's "
                          "index order on segments of at most walk_max() rows"}
     if not (deterministic and graph_equal and cpu_mismatch == 0 and long_ok
-            and long_repeat):
+            and long_repeat and bf16_equal):
         raise AssertionError(f"segment_sum_sorted failed its checks: {line}")
     return line
 
@@ -1992,6 +2010,70 @@ def _long_update_case(dev, n_long):
     return ("adagrad", keys, order, 1, dl, emb, slots, t, step, 0.04, 0.9999996, 1e-5, 0.0)
 
 
+def _warp_tree(v):
+    """The kernels' ``warp_sum`` over dim -2 (32 lanes): five xor-shuffle
+    levels, lane l adding lane l ^ o; lane 0's result."""
+    import torch
+
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o, :]
+    return v[..., 0, :]
+
+
+def _long_order_sums(g, seg, n_slots):
+    """The kernels' float32 sums of every segment of more than
+    ``walk_max()`` rows, in plain PyTorch (f32[n_slots, k]; +0.0 on the
+    other slots): the rows cut into 32-row chunks at multiples of 32, a
+    chunk's rows of the segment added by ``_warp_tree`` (+0.0 off the
+    segment): partial A for the segment through the chunk's first row, B
+    for one that starts past it; then lane l adds the segment's chunk
+    partials c0 + l, c0 + l + 32, ... from +0.0 in order (B for its first
+    chunk when it starts past that chunk's first row), and the tree adds
+    the lanes. ``seg`` non-decreasing; slots past ``n_slots`` dropped."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.segment_sum import walk_max
+
+    M, k = g.shape
+    dev = g.device
+    keys, counts = torch.unique_consecutive(seg.long(), return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    long = counts > walk_max()
+    n_chunks = -(-M // 32)
+    pad = n_chunks * 32 - M
+    gl = torch.where(torch.repeat_interleave(long, counts)[:, None], g, 0.0)
+    gp = torch.cat([gl, g.new_zeros((pad, k))]).view(n_chunks, 32, k)
+    sp = torch.cat([seg.long(), seg.new_full((pad,), -1).long()]).view(n_chunks, 32)
+    first = (sp == sp[:, :1])[..., None]
+    part_a = _warp_tree(torch.where(first, gp, 0.0))
+    part_b = _warp_tree(torch.where(first, 0.0, gp))
+    out = g.new_zeros((n_slots, k))
+    live = long & (keys < n_slots)
+    if not bool(live.any()):
+        return out
+    s, e = starts[live], (starts + counts)[live]
+    c0, c1 = s // 32, (e - 1) // 32
+    lane = torch.arange(32, device=dev)
+    acc = g.new_zeros((s.numel(), 32, k))
+    for i in range(int(((c1 - c0) // 32).max()) + 1):
+        c = c0[:, None] + lane + 32 * i
+        use_b = ((c == c0[:, None]) & (s % 32 != 0)[:, None])[..., None]
+        cc = c.clamp(max=n_chunks - 1)
+        acc = torch.where((c <= c1[:, None])[..., None],
+                          acc + torch.where(use_b, part_b[cc], part_a[cc]), acc)
+    out[keys[live]] = _warp_tree(acc)
+    return out
+
+
+def _long_order_equal(got, g, seg, n_slots, long_slots) -> bool:
+    """``got`` (a segment sum's slots) bitwise ``_long_order_sums`` on
+    ``long_slots``."""
+    import torch
+
+    return bool(torch.equal(got[long_slots], _long_order_sums(g, seg, n_slots)[long_slots]))
+
+
 def _update_bytes(args, use_decay, vals=None):
     """(live rows, bytes, sector bytes) of one update: each input read once
     (the keys, the order, dl, and with ``vals`` 4 B more an occurrence),
@@ -2012,7 +2094,163 @@ def _update_bytes(args, use_decay, vals=None):
             inputs + 2 * 32 * sectors)
 
 
-def phase_segment_update(inputs, mem_bw):
+# the criteo_zipf case: the Criteo step's shape with each column's codes
+# Zipf-law distributed (numpy zipf(1.2), a fixed seed), folded into
+# gen_criteo_csv's 200,000 codes a column
+ZIPF_A, ZIPF_SEED, CRITEO_CODES = 1.2, 13, 200_000
+
+
+def _criteo_zipf_keys(N, C, n_dims, salts, dev, seed=ZIPF_SEED):
+    """The stably sorted keys and sort order of N x C occurrences whose
+    codes are heavy-tailed as a real click log's: each column's codes
+    drawn with numpy ``zipf(ZIPF_A)`` from ``seed``, minus 1, folded into
+    ``CRITEO_CODES``, hashed by ``ops/hashing.hash_columns`` with the fit's
+    ``salts`` into ``n_dims`` rows."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.ops.hashing import hash_columns
+
+    rng = np.random.default_rng(seed)
+    codes = ((rng.zipf(ZIPF_A, size=(N, C)) - 1) % CRITEO_CODES).astype(np.int32)
+    idx = hash_columns(torch.from_numpy(codes).to(dev), salts, n_dims)
+    return torch.sort(idx.reshape(-1), stable=True)
+
+
+def _long_stats(s_idx, D) -> dict:
+    """The live segments of more than ``walk_max()`` occurrences: how many,
+    their occurrences, the longest live segment."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops.segment_sum import walk_max
+
+    keys, counts = torch.unique_consecutive(s_idx, return_counts=True)
+    live = keys < D
+    long_counts = counts[live & (counts > walk_max())]
+    return {"long_segments": long_counts.numel(), "long_occurrences": int(long_counts.sum()),
+            "longest_segment": int(counts[live].max())}
+
+
+def _criteo_zipf_case(args, use_decay, mem_bw, salts) -> dict:
+    """``phase_segment_update``'s ``criteo_zipf`` case: the Criteo step's own
+    state, dl and rule (``args``) on ``_criteo_zipf_keys`` (all rows live),
+    without values and with values drawn from a seed: ``_update_checks``
+    (long sums within float32 summation's bound, ``long_bound``), a
+    captured launch bitwise the eager one, and the long segments' sums
+    bitwise the kernels' order (``_long_order_sums``) through
+    ``segment_sum_sorted`` at the chain's inputs. The kernel's, the chain's
+    and the plain version's captured times beside the byte and sector
+    bounds; ``segment_sum_sorted`` at the dense table gradient's inputs on
+    these keys (i32 ids), float32 and rounded to bf16, beside its bound."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    kind, _, _, C, dl, emb0, slots0, t0, step, *hyper = args
+    N, (D, k), dev = dl.shape[0], emb0.shape, emb0.device
+    s_idx, order = _criteo_zipf_keys(N, C, D, salts, dev)
+    M = s_idx.numel()
+    zargs = (kind, s_idx, order, C, dl, emb0, slots0, t0, step, *hyper)
+    vals = _draw_vals(M, dev, seed=5)
+
+    def kernel(a, v=None):
+        ss.segment_update_sorted(*a, use_decay=use_decay, vals=v)
+        return a
+
+    def chain(a, v=None):
+        ss.segment_update_sorted_reference(*a, use_decay=use_decay, vals=v,
+                                           segment_sum=ss.segment_sum_sorted)
+        return a
+
+    long_rows = _long_rows(s_idx, D)
+    case = _update_checks(kernel, chain, zargs, use_decay, long_rows)
+    vals_case, kernel_v = _vals_update_case(zargs, use_decay, vals)
+    eager = kernel(_update_copy(zargs))
+    cap = _update_copy(zargs)
+
+    def captured():
+        cap[5].copy_(emb0)
+        cap[7].copy_(t0)
+        for n, v in slots0.items():
+            cap[6][n].copy_(v)
+        return kernel(cap)
+
+    graph, _, _ = capture_graph(captured, dev)
+    cap[5].fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_equal = _update_state_equal(cap, eager)
+    del graph, eager, cap
+
+    # the chain's sums: the kernels' long order on every long live segment
+    start = torch.ones_like(s_idx, dtype=torch.bool)
+    torch.ne(s_idx[1:], s_idx[:-1], out=start[1:])
+    seg = torch.cumsum(start, 0) - 1
+    U = min(M, D) + 1
+    seg_rows = torch.bincount(seg, minlength=U)
+    long_slots = seg_rows > ss.walk_max()
+    g = dl.index_select(0, order // C)
+    gv = g * vals.index_select(0, order)[:, None]
+    long_order = {name: _long_order_equal(ss.segment_sum_sorted(x, seg, U), x, seg, U,
+                                          long_slots)
+                  for name, x in (("no_values", g), ("values", gv))}
+    del seg, seg_rows, long_slots, gv
+
+    work = [_update_copy(zargs) for _ in range(6)]
+    timed = (("kernel", lambda: kernel(work[0])), ("chain", lambda: chain(work[1])),
+             ("plain", lambda: ss.segment_update_sorted_reference(*work[2],
+                                                                  use_decay=use_decay)),
+             ("kernel_vals", lambda: kernel_v(work[3])),
+             ("chain_vals", lambda: chain(work[4], vals)),
+             ("plain_vals", lambda: ss.segment_update_sorted_reference(
+                 *work[5], use_decay=use_decay, vals=vals)))
+    ms = {name: graph_ms(f, 20) for name, f in timed}
+    del work
+    n_live, n_bytes, sector_bytes = _update_bytes(zargs, use_decay)
+    v_bytes, v_sectors = _update_bytes(zargs, use_decay, vals)[1:]
+
+    # segment_sum_sorted at the dense table gradient's inputs on these keys
+    # (optim/sparse._dense_table_grad_sorted: the same stable sort, i32 ids,
+    # a slot a table row)
+    dg, dseg = g, torch.cumsum(start, 0, dtype=torch.int32) - 1
+    sum_bytes = dg.numel() * 4 + dseg.numel() * 4 + D * k * 4
+    run_sum = lambda: ss.segment_sum_sorted(dg, dseg, D)
+    gb = dg.to(torch.bfloat16).to(torch.float32)
+    run_bf16 = lambda: ss.segment_sum_sorted(gb, dseg, D, round_to=torch.bfloat16)
+    seg_sum = {"ms": graph_ms(run_sum, 20), "bf16_ms": graph_ms(run_bf16, 5),
+               "bitwise_repeat": bool(torch.equal(run_sum(), run_sum())),
+               "bytes": sum_bytes, "bound_ms": sum_bytes / mem_bw * 1e3, "bound_by": "bytes",
+               "at": "the dense table gradient's inputs on these keys: i32 ids, "
+                     f"{D} slots; bf16_ms: round_to=bfloat16 (long segments one "
+                     "thread each, in order)"}
+    del g, dg, dseg, gb, start
+    bound_ms, v_bound_ms = n_bytes / mem_bw * 1e3, v_bytes / mem_bw * 1e3
+    line = {"M": M, "N": N, "C": C, "D": D, "k": k, "rule": kind, "use_decay": use_decay,
+            "zipf_a": ZIPF_A, "zipf_seed": ZIPF_SEED, "codes_per_column": CRITEO_CODES,
+            "live_rows": n_live, **_long_stats(s_idx, D), "long_rows": int(long_rows.sum()),
+            **case, "graph_equal_eager": graph_equal, "long_order_bitwise": long_order,
+            "ms": ms["kernel"], "chain_ms": ms["chain"], "plain_ms": ms["plain"],
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "x_bound": ms["kernel"] / bound_ms, "sector_bytes": sector_bytes,
+            "sector_bound_ms": sector_bytes / mem_bw * 1e3,
+            "values": {**vals_case, "ms": ms["kernel_vals"], "chain_ms": ms["chain_vals"],
+                       "plain_ms": ms["plain_vals"], "bytes": v_bytes, "bound_ms": v_bound_ms,
+                       "bound_by": "bytes", "x_bound": ms["kernel_vals"] / v_bound_ms,
+                       "sector_bound_ms": v_sectors / mem_bw * 1e3},
+            "segment_sum": seg_sum,
+            "timed": "captured launches (20 in a graph; bf16_ms 5)",
+            "tolerance": "as the step's case; long segments' sums within float32 "
+                         "summation's bound for two orders (the step's own gradients), "
+                         "and bitwise the kernels' documented order"}
+    line["ok"] = (_update_case_ok(case, long_bound=True)
+                  and _update_case_ok(vals_case, long_bound=True) and graph_equal
+                  and all(long_order.values()) and seg_sum["bitwise_repeat"]
+                  and line["long_segments"] > 0)
+    return line
+
+
+def phase_segment_update(inputs, mem_bw, salts=None):
     """``segment_update_sorted`` on the card at one ``sparse_adagrad``
     step's own inputs (the fit's first cached chunk, fresh optimizer state,
     the fitted theta): five launches from copies of the same state bitwise
@@ -2025,7 +2263,9 @@ def phase_segment_update(inputs, mem_bw):
     unchanged; a captured launch equal to the eager one. The same checks
     for sgd and ftrl (fresh slots) at the same inputs and for one
     2^20-occurrence segment (its sum within 1e-6·Σ|g| of the CPU's). Times
-    of the kernel, the chain and the plain version, beside the bound."""
+    of the kernel, the chain and the plain version, beside the bound. Then
+    ``_criteo_zipf_case`` on Zipf-law keys hashed with ``salts`` (the fit's;
+    by default the estimator's, seed 0)."""
     import torch
 
     from orange3_spark_tpu_torch.ops import segment_sum as ss
@@ -2136,7 +2376,12 @@ def phase_segment_update(inputs, mem_bw):
                          "(max_abs_err over all rows); the sums alone (sgd, lr 1, zero "
                          "table) bitwise there and within 1e-6*sum|g| on longer segments, "
                          "a tolerance shown to fail a dropped or doubled occurrence"}
-    if not (untouched_equal and graph_equal
+    if salts is None:
+        from orange3_spark_tpu_torch.ops.hashing import column_salts
+
+        salts = column_salts(CRITEO["n_cat"], 0)
+    line["criteo_zipf"] = _criteo_zipf_case(args, use_decay, mem_bw, salts)
+    if not (untouched_equal and graph_equal and line["criteo_zipf"]["ok"]
             and all(map(_update_case_ok, (step_case, *rules.values(), long_line,
                                           vals_step, vals_long)))):
         raise AssertionError(f"segment_update_sorted failed its checks: {line}")
@@ -4612,7 +4857,10 @@ def main(argv=None) -> int:
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **seg_line})
             torch.cuda.empty_cache()
             phase = "segment_update"
-            upd_line = phase_segment_update(_step_update_inputs(model, sess), mem_bw)
+            from orange3_spark_tpu_torch.models.hashed_linear import hashed_salts
+
+            upd_line = phase_segment_update(_step_update_inputs(model, sess), mem_bw,
+                                            hashed_salts(model.params))
             emit({"phase": phase, "device": kind, "nvidia_smi": smi, **upd_line})
             torch.cuda.empty_cache()
             phase = "criteo_resume"
@@ -4671,6 +4919,9 @@ def main(argv=None) -> int:
             raise AssertionError("the value-weighted fit never launched segment_update_sorted")
         ne = als_line["kernel"]["user"]
         vw_upd = libsvm_line["segment_update"]
+        zipf = upd_line["criteo_zipf"]
+        tail_keys = ("ms", "chain_ms", "plain_ms", "bound_ms", "bound_by", "sector_bound_ms")
+        long_keys = ("long_segments", "long_occurrences", "longest_segment")
         top = shapes["gbt_level4_u8"]
         emit({"kernels": [{
             "name": "node_histograms",
@@ -4702,6 +4953,11 @@ def main(argv=None) -> int:
             "eager_ms": seg_line["eager_ms"],
             "deterministic_index_add": seg_line["deterministic_index_add"],
             "at": "the dense table gradient of one adam step on the fit's first cached chunk",
+            "round_to_bf16": seg_line["round_to_bf16"],
+            "criteo_zipf": {**{k: zipf["segment_sum"][k]
+                               for k in ("ms", "bf16_ms", "bound_ms", "bound_by", "bytes")},
+                            "long_segments": zipf["long_segments"],
+                            "at": "the dense table gradient's inputs on the criteo_zipf keys"},
         }, {
             "name": "segment_update_sorted",
             "route": "cuda",
@@ -4741,6 +4997,19 @@ def main(argv=None) -> int:
                     "plain_mismatches": upd_line["vals"]["step"]["plain_mismatches"],
                     "at": "the criteo step's inputs with per-pair values drawn from a "
                           "seed, a seventh zero"}},
+            # the segments of more than walk_max() occurrences, spread over the card
+            "long_tail": {
+                "criteo_zipf": {**{k: zipf[k] for k in tail_keys + long_keys},
+                                "bitwise_chain": zipf["equal_chain"],
+                                "at": "the criteo step's state on Zipf(1.2) codes, hashed"},
+                "criteo_zipf_values": {**{k: zipf["values"][k] for k in tail_keys},
+                                       **{k: zipf[k] for k in long_keys},
+                                       "bitwise_chain": zipf["values"]["equal_chain"],
+                                       "at": "the same with per-pair values from a seed"},
+                "value_weighted_step": {**{k: vw_upd[k] for k in tail_keys + long_keys},
+                                        "bitwise_chain": vw_upd["equal_chain"],
+                                        "at": "one step of the libsvm_hashed fit"},
+                "timed": "captured launches (criteo_zipf 20 in a graph, the step 5)"},
         }, {
             "name": "normal_equations_sorted",
             "route": "cuda",

@@ -26,11 +26,18 @@ the device of the tensors decides, and a failed build or launch raises.
 
 Which sums equal the CPU's bit for bit: a segment of at most ``walk_max()``
 rows (the kernel's ``kWalkMax``, 32) is added by one thread in sorted order
-from +0.0, the order of the CPU's ``index_add_``. A longer one is added by
-one block (strided partials, then a fixed tree), the same in both kernels,
-deterministic but within float32 rounding of the CPU's sum. Segment ids
-past ``n_slots`` are dropped by the kernel (the plain version raises on
-them).
+from +0.0, the order of the CPU's ``index_add_``. A longer one is spread
+over the whole card: the tile holding each 32-row chunk (cut at multiples
+of 32 of the row index) sums the segment's rows there in a fixed warp
+tree, and one warp adds the segment's chunk partials in a fixed order (its
+lanes' strided partials, then the same tree): in the sum, in the tile that
+holds the segment's last row, once the earlier tiles have published
+theirs; in the update, in a second launch over the segments the first
+listed. That order depends on the segment's rows alone: the same in both
+kernels and in every launch, deterministic but within float32 rounding of
+the CPU's sum. The rounded sums (``round_to``) add every segment in index
+order, long ones by one thread. Segment ids past ``n_slots`` are dropped
+by the kernel (the plain version raises on them).
 """
 
 from __future__ import annotations
@@ -150,13 +157,19 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("segment_sum")
     if lib.segment_sum_sorted_launch.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.segment_sum_sorted_launch.argtypes = [p, p, i, p, ll, i, ll, i, p, p, p, i, p]
+        lib.segment_sum_sorted_launch.argtypes = [p, p, i, p, ll, i, ll, i, p, p, i, p]
         lib.segment_sum_sorted_launch.restype = i
         lib.segment_update_sorted_launch.argtypes = (
-            [p, p, ll, i, p, p, i, ll, p, p, p, p, p, i, i] + [f] * 7 + [p, p, i, p])
+            [p, p, ll, i, p, p, i, ll, p, p, p, p, p, i, i] + [f] * 7 + [p, i, p])
         lib.segment_update_sorted_launch.restype = i
+        lib.segment_sum_scratch_bytes.argtypes = [ll, i, i, i]
+        lib.segment_sum_scratch_bytes.restype = ll
+        lib.segment_update_scratch_bytes.argtypes = [ll, i]
+        lib.segment_update_scratch_bytes.restype = ll
         lib.segment_sum_error_string.argtypes = [i]
         lib.segment_sum_error_string.restype = ctypes.c_char_p
+        lib.segment_tile_rows.argtypes = [i, i]
+        lib.segment_tile_rows.restype = i
         lib.segment_sum_walk_max.argtypes = []
         lib.segment_sum_walk_max.restype = i
     return lib
@@ -169,13 +182,13 @@ def walk_max() -> int:
     return _lib().segment_sum_walk_max()
 
 
-def _scratch(M: int, dev):
-    """One int64 buffer for the kernel's scratch: the three int32 counters
-    (list entries, blocks done, tiles taken; the launch zeroes them) in its
-    first 16 bytes, then the long-segment list (at most M / (walk_max() +
-    1) entries). Returns the buffer and the two pointers."""
-    buf = torch.empty(2 + M // (walk_max() + 1) + 1, dtype=torch.int64, device=dev)
-    return buf, buf.data_ptr() + 16, buf.data_ptr()
+def _scratch(nbytes: int, dev) -> torch.Tensor:
+    """The kernels' scratch, ``nbytes`` as the library sizes it: the
+    counters and a word a tile (the launch zeroes them), then two partials
+    a 32-row chunk and column and, for the update, the list of its long
+    segments (the float sums); or the counters and the long-segment list
+    (the rounded sums)."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 @functools.cache
@@ -226,10 +239,11 @@ def _segment_sum_cuda(g_sorted, seg, n_slots: int, skip_last, round_to):
     out = torch.empty((n_slots, k), dtype=torch.float32, device=dev)
     if M == 0 or k == 0 or n_slots == 0:
         return out.zero_()
-    _buf, long_starts, counters = _scratch(M, dev)
+    rt = ROUND_TO[round_to]
+    scratch = _scratch(_lib().segment_sum_scratch_bytes(M, k, seg.element_size(), rt), dev)
     _launch("segment_sum_sorted", g_sorted.data_ptr(), seg.data_ptr(), seg.element_size(),
-            None if skip_last is None else skip_last.data_ptr(), M, k, n_slots,
-            ROUND_TO[round_to], out.data_ptr(), long_starts, counters, dev=dev)
+            None if skip_last is None else skip_last.data_ptr(), M, k, n_slots, rt,
+            out.data_ptr(), scratch.data_ptr(), dev=dev)
     segment_sum_sorted.launches += 1
     return out
 
@@ -304,9 +318,10 @@ def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
     ``use_decay``), the rule ``kind`` on ``emb[r]`` and ``slots`` (adagrad
     ``acc``, ftrl ``z`` and ``n``: f32[D, k]) and ``t[r] = step + 1``.
     ``step`` is the device int32 step counter. Rows no occurrence touches
-    are neither read nor written. Returns (emb, t, slots). On CUDA one
-    launch that never waits for the device, so a captured graph can hold
-    it; on the CPU the plain version."""
+    are neither read nor written. Returns (emb, t, slots). On CUDA two
+    launches (the tiles, then the long segments' sums) that never wait for
+    the device, so a captured graph can hold them; on the CPU the plain
+    version."""
     dev = emb.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_update_sorted: no kernel for device {dev}")
@@ -326,12 +341,12 @@ def segment_update_sorted(kind: str, s_idx, order, C: int, dl, emb, slots: dict,
     f32 = np.float32
     inv_lr = float(f32(1.0) / f32(lr))
     with _range("segment_update_sorted"):
-        _buf, long_starts, counters = _scratch(M, dev)
+        scratch = _scratch(_lib().segment_update_scratch_bytes(M, emb.shape[1]), dev)
         _launch("segment_update_sorted", s_idx.data_ptr(), order.data_ptr(), M, C,
                 dl.data_ptr(), None if vals is None else vals.data_ptr(), emb.shape[1],
                 emb.shape[0], emb.data_ptr(), s0, s1,
                 t.data_ptr(), step.data_ptr(), list(RULE_SLOTS).index(kind), int(use_decay), lr,
-                inv_lr, decay, ADAGRAD_EPS, FTRL_BETA, l1, 2.0 * reg, long_starts, counters,
+                inv_lr, decay, ADAGRAD_EPS, FTRL_BETA, l1, 2.0 * reg, scratch.data_ptr(),
                 dev=dev)
     segment_update_sorted.launches += 1
     return emb, t, slots

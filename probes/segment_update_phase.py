@@ -9,7 +9,8 @@ The inputs: ``rows`` x 26 occurrences with keys uniform over 2^22 table
 rows, the last ``dead-rows`` rows padding (the dead sentinel 2^22), stably
 sorted as the step's 'sort' lowering sorts them; dl, the table and the
 adagrad slots from a seeded generator, the last-seen steps 0 and the step
-counter 5 (a row's first touch catches up five steps of decay). The
+counter 5 (a row's first touch catches up five steps of decay); the
+update's phase then runs its ``criteo_zipf`` case on that state. The
 segment sum gets the chain's inputs (the gathered gradients, i32 segment
 ids, the skip flag). Prints the build report (ptxas) and one JSON line per
 phase. Needs one CUDA device; exits non-zero on a machine without one.
@@ -61,7 +62,7 @@ def main(argv=None) -> int:
     lr, reg = 0.04, 1e-5
     decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
     update = (("adagrad", s_idx, order, C, dl, emb, slots, t, step, lr, decay, reg, 0.0),
-              True)
+              True, None)
     cs.emit({"phase": "segment_update_synthetic", "nvidia_smi": cs.nvidia_smi_line(),
              **cs.phase_segment_update(update, mem_bw)})
     inputs = (dl.index_select(0, order // C), seg, plan_slots(args.rows, C, n_dims),

@@ -1200,6 +1200,224 @@ def test_segment_sum_mixed_widths_in_one_process(cuda_device):
         assert torch.equal(got[rows <= ss.walk_max()], want[rows <= ss.walk_max()]), k
 
 
+# ----------------------------- long segments spread over the card (both kernels)
+_LONG_LAYOUTS = ["zipf", "edges_live_end", "edges_dead_end", "below_a_tile"]
+
+
+def _tile_rows(id_bytes, pay_bytes):
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    return ss._lib().segment_tile_rows(id_bytes, pay_bytes)
+
+
+def _runs_keys(M, runs, dead_tail, rng):
+    """Sorted keys of M rows: the long segments ``runs`` ((first row, one
+    past the last) each, ascending, disjoint), every other row in short
+    segments of 1-6 rows, keys 3 apart (gaps in the table); with
+    ``dead_tail`` the last run takes the dead sentinel. Returns the keys
+    (numpy int32) and the table rows D."""
+    lens, row = [], 0
+    for s, e in list(runs) + [(M, M)]:
+        while row < s:
+            n = int(min(rng.integers(1, 7), s - row))
+            lens.append(n)
+            row += n
+        if e > s:
+            lens.append(e - s)
+            row = e
+    keys = np.repeat(np.arange(len(lens), dtype=np.int64) * 3, lens)
+    D = 3 * len(lens) + 1
+    if dead_tail:
+        keys[runs[-1][0]:] = D
+    return keys.astype(np.int32), D
+
+
+def _long_layout(layout, T, rng):
+    """(sorted keys, D, C) of a layout, its tile edges at multiples of T:
+    ``zipf``: 40,000 rows x 26 Zipf(1.2) codes (5,000 a column) hashed into
+    2^18 rows, thousands of segments over 32 occurrences; ``edges_*``: long
+    segments that start and end exactly at tile edges and a row either
+    side, the shortest long one (33 rows) ending at an edge, one spanning
+    70 tiles, M = 82·T + 555 (not a multiple of the tile), the last run
+    ending the array (live, or the dead sentinel's); ``below_a_tile``: M =
+    1000, long runs of 40, 33 and 400 rows."""
+    if layout == "zipf":
+        import orange3_spark_tpu_torch.ops.hashing as hashing
+
+        codes = ((rng.zipf(1.2, (40_000, 26)) - 1) % 5000).astype(np.int32)
+        keys = hashing.hash_columns(torch.from_numpy(codes), hashing.column_salts(26, 1),
+                                    1 << 18)
+        return np.sort(keys.numpy().reshape(-1), kind="stable"), 1 << 18, 26
+    if layout == "below_a_tile":
+        return (*_runs_keys(1000, [(0, 40), (100, 133), (500, 900)], False, rng), 1)
+    M = 82 * T + 555
+    runs = [(T, 2 * T), (3 * T - 1, 4 * T + 1), (5 * T + 1, 6 * T - 1), (7 * T - 33, 7 * T),
+            (8 * T, 8 * T + 33), (9 * T - 1, 9 * T + 40), (11 * T + 17, 81 * T + 17),
+            (82 * T - 100, M)]
+    return (*_runs_keys(M, runs, layout == "edges_dead_end", rng), 1)
+
+
+def _f64_within_float32_bound(got, g, seg, n_slots, slots):
+    """``got`` on ``slots`` within float32 summation's bound of the float64
+    sums, (γ32 + γ64)(n)·Σ|g| with γ(n) = n·u/(1 - n·u), n the slot's rows."""
+    f64 = torch.zeros((n_slots, g.shape[1]), dtype=torch.float64, device=g.device)
+    f64.index_add_(0, seg, g.double())
+    sum_abs = torch.zeros_like(f64).index_add_(0, seg, g.double().abs())
+    n = torch.bincount(seg, minlength=n_slots)[:n_slots].double()[:, None]
+    gam = sum(n * u / (1 - n * u) for u in (2.0 ** -24, 2.0 ** -53))
+    return bool(((got.double() - f64).abs() <= gam * sum_abs)[slots].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("layout", _LONG_LAYOUTS)
+def test_segment_sum_spread_long_segments(cuda_device, layout, k, seg_dtype):
+    """``segment_sum_sorted`` on long segments laid across its own tile
+    edges: two launches bitwise equal, a captured launch bitwise the eager
+    one, short segments bitwise the CPU, long ones within float32's bound
+    of the float64 sums and bitwise the kernels' documented order
+    (``chip_smoke._long_order_sums``); the dead sentinel's slot +0.0."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    cs = _smoke()
+    rng = np.random.default_rng(k * 10 + seg_dtype.itemsize)
+    keys, D, _ = _long_layout(layout, _tile_rows(seg_dtype.itemsize, 4 * k), rng)
+    kt = torch.from_numpy(keys).to(cuda_device)
+    start = torch.ones_like(kt, dtype=torch.bool)
+    start[1:] = kt[1:] != kt[:-1]
+    seg = (torch.cumsum(start, 0) - 1).to(seg_dtype)
+    n_slots = int(seg[-1]) + 2
+    g = torch.from_numpy(rng.standard_normal((keys.size, k)).astype(np.float32)).to(cuda_device)
+    skip = kt[-1:] >= D
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip)
+    a, b = run(), run()
+    assert torch.equal(a, b)
+    graph, static, _ = capture_graph(run, cuda_device)
+    static.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, a)
+    rows = torch.bincount(seg.long(), minlength=n_slots)
+    dead = torch.zeros(n_slots, dtype=torch.bool, device=cuda_device)
+    dead[int(seg[-1])] = bool(skip)
+    long_slots = (rows > ss.walk_max()) & ~dead
+    assert int(long_slots.sum()) >= (1000 if layout == "zipf" else 3)
+    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, skip_last=skip.cpu())
+    assert torch.equal(a.cpu()[~long_slots.cpu()], cpu[~long_slots.cpu()])
+    assert _f64_within_float32_bound(a, g, seg.long(), n_slots, long_slots)
+    assert cs._long_order_equal(a, g, seg, n_slots, long_slots)
+    if bool(skip):
+        assert not bool(a[int(seg[-1])].any()) and not bool(torch.signbit(a[int(seg[-1])]).any())
+
+
+_SPREAD_RULES = [("sgd", False), ("sgd", True), ("adagrad", False), ("adagrad", True),
+                 ("ftrl", False), ("ftrl", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_SPREAD_RULES)))
+@pytest.mark.parametrize("layout", _LONG_LAYOUTS)
+def test_segment_update_spread_long_segments(cuda_device, layout, case):
+    """``segment_update_sorted`` on long segments laid across its tile
+    edges, every rule with and without decay, k = 1 and 3, with and without
+    per-pair values (a layout's six cases cover each pair): bitwise the
+    chain (whose sums come from ``segment_sum_sorted``, with its own tiles),
+    two launches bitwise equal, a captured launch bitwise the eager one;
+    the sums alone (``chip_smoke._sum_probe``) of the long segments within
+    float32's bound of the float64 sums and bitwise the kernels' order;
+    rows no live occurrence touches unchanged."""
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.utils.graphs import capture_graph
+
+    cs = _smoke()
+    kind, use_decay = _SPREAD_RULES[case]
+    k, with_vals = (1, 3)[case % 2], case in (1, 2, 5)
+    rng = np.random.default_rng(case)
+    keys, D, C = _long_layout(layout, _tile_rows(4, 8), rng)
+    M = keys.size
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(case)
+    s_idx = torch.from_numpy(keys).to(dev)
+    order = torch.from_numpy(rng.permutation(M)).to(dev)
+    dl = torch.randn((M // C, k), generator=gen, device=dev) * 0.01
+    emb = torch.randn((D, k), generator=gen, device=dev)
+    slots = {n: torch.rand((D, k), generator=gen, device=dev) for n in _RULE_SLOTS[kind]}
+    if kind == "ftrl":
+        slots["z"] = torch.randn((D, k), generator=gen, device=dev)
+    t = torch.randint(0, 10, (D,), generator=gen, device=dev, dtype=torch.int32)
+    step = torch.tensor(9, dtype=torch.int32, device=dev)
+    vals = cs._draw_vals(M, dev, seed=case) if with_vals else None
+    args = (kind, s_idx, order, C, dl, emb, slots, t, step, _LR, _decay(), _REG, _L1)
+
+    def kernel(a):
+        ss.segment_update_sorted(*a, use_decay=use_decay, vals=vals)
+        return a
+
+    def chain(a):
+        ss.segment_update_sorted_reference(*a, use_decay=use_decay, vals=vals,
+                                           segment_sum=ss.segment_sum_sorted)
+        return a
+
+    got = kernel(cs._update_copy(args))
+    assert cs._update_state_equal(got, kernel(cs._update_copy(args)))
+    assert cs._update_state_equal(got, chain(cs._update_copy(args)))
+    cap = cs._update_copy(args)
+
+    def captured():
+        cap[5].copy_(emb)
+        cap[7].copy_(t)
+        for n, v in slots.items():
+            cap[6][n].copy_(v)
+        return kernel(cap)
+
+    graph, _, _ = capture_graph(captured, dev)
+    cap[5].fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert cs._update_state_equal(cap, got)
+    live = s_idx < D
+    touched = torch.zeros(D, dtype=torch.bool, device=dev)
+    touched[s_idx[live].long()] = True
+    assert torch.equal(got[5][~touched], emb[~touched]) and torch.equal(got[7][~touched],
+                                                                        t[~touched])
+    # the sums alone: sgd with lr 1 on a zero table leaves -(the sum) in a row
+    probe = kernel(cs._update_copy(cs._sum_probe(args)))
+    sums = -probe[5]
+    g = dl.index_select(0, order // C)
+    if vals is not None:
+        g = g * vals.index_select(0, order)[:, None]
+    row = torch.where(live, s_idx, 0).long()
+    long_rows = cs._long_rows(s_idx, D)
+    assert int(long_rows.sum()) >= (1000 if layout == "zipf" else 3)
+    g_live = torch.where(live[:, None], g, 0.0)
+    assert _f64_within_float32_bound(sums, g_live, row, D, long_rows)
+    start = torch.ones_like(s_idx, dtype=torch.bool)
+    start[1:] = s_idx[1:] != s_idx[:-1]
+    seg = torch.cumsum(start, 0) - 1
+    want = cs._long_order_sums(g, seg, int(seg[-1]) + 1)
+    want_rows = torch.zeros_like(sums)
+    want_rows[s_idx[start & live].long()] = want[seg[start & live]]
+    assert torch.equal(sums[long_rows], want_rows[long_rows])
+
+
+@pytest.mark.cuda
+def test_update_kernel_has_no_float_atomics_and_no_last_block(cuda_device):
+    """The SASS of every ``seg_update_tiles`` instance holds no float
+    atomic (no ATOM/RED of an F32 kind), and its only global atomic is the
+    tile counter's integer add."""
+    from orange3_spark_tpu_torch.ops import cuda_build
+
+    cuda_build.build(["segment_sum"])
+    found = _smoke().sass_atomics(cuda_build.library_path("segment_sum"))
+    update = {name: ops for name, ops in found.items() if "seg_update_tiles" in name}
+    assert update, found
+    for name, ops in update.items():
+        assert not [op for op in ops if "F32" in op or "F16" in op or "BF16" in op], (name, ops)
+        assert all(op.startswith(("ATOMG.E.ADD", "ATOM.E.ADD")) for op in ops), (name, ops)
+
+
 # ------------------------------------------------------ the dense linear family
 def _linear_tables(cuda_device, n=2048, d=12, k=3, seed=1):
     from orange3_spark_tpu_torch import TorchSession

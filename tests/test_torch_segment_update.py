@@ -5,7 +5,8 @@ version ``segment_update_sorted_reference``:
 * against the JAX package's ``sparse_embedding_update(lowering='sort')`` on
   the same numpy inputs, for the rules sgd, adagrad and ftrl, with and
   without the lazy decay, with and without dead (padding) rows, with a
-  segment longer than 32 occurrences, for k = 1 and 3;
+  segment longer than 32 occurrences and with Zipf-law keys (dozens of
+  them), for k = 1 and 3;
 * against the op-by-op chain the 'sort' lowering ran before the kernel (a
   frozen copy below), called through the port's
   ``sparse_embedding_update``: bitwise;
@@ -14,7 +15,10 @@ version ``segment_update_sorted_reference``:
 * ``chip_smoke.py``'s checks of the kernel against the plain version, with
   the plain version in the kernel's place: they pass it, fail it once an
   occurrence's gradient is lost from the sums, and their sum probe fails a
-  plain version with one occurrence dropped or doubled.
+  plain version with one occurrence dropped or doubled; so do the checks of
+  its ``criteo_zipf`` case on its own (smaller) Zipf-law keys, and its
+  emulation of the kernels' order of adds on long segments
+  (``_long_order_sums``) equals that order written out loop by loop.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``'s ``segment_update`` phase).
@@ -55,24 +59,34 @@ RTOL, ATOL = 1e-6, 1e-7
 SLOTS = {"sgd": (), "adagrad": ("acc",), "ftrl": ("z", "n")}
 
 
+#: rows of the Zipf-keyed case: each column's codes drawn from a Zipf law
+#: (exponent 1.2), folded into the table: some 30 rows with over 32
+#: occurrences
+N_ZIPF = 2048
+
+
 def _inputs(seed, kind, k, *, dead, long_rows, step=7):
     """A step's inputs from a numpy seed: the table, the rule's slots and
     the last-seen steps (with history, so the decay and the rule see
     nonzero state), the [N, k] logits gradient, the [N, C] occurrence rows
-    (``long_rows`` of them on one row), ``n_valid`` (the last ``dead`` rows
-    are padding) and the step."""
+    (``long_rows`` of them on one row; ``"zipf"``: N_ZIPF rows of Zipf-law
+    codes), ``n_valid`` (the last ``dead`` rows are padding) and the step."""
     rng = np.random.default_rng(seed)
+    n = N_ZIPF if long_rows == "zipf" else N
     emb = rng.standard_normal((D, k)).astype(np.float32)
     slots = {n: rng.uniform(0.0, 2.0, (D, k)).astype(np.float32) for n in SLOTS[kind]}
     if kind == "ftrl":
         slots["z"] = rng.standard_normal((D, k)).astype(np.float32)
     t = rng.integers(0, step + 1, D).astype(np.int32)
-    dl = (rng.standard_normal((N, k)) * 0.1).astype(np.float32)
-    idx = rng.integers(0, D, (N, C)).astype(np.int32)
-    if long_rows:
+    dl = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    if long_rows == "zipf":
+        idx = ((rng.zipf(1.2, (n, C)) - 1) % D).astype(np.int32)
+    else:
+        idx = rng.integers(0, D, (n, C)).astype(np.int32)
+    if long_rows and long_rows != "zipf":
         flat = idx.reshape(-1)
-        flat[rng.choice((N - dead) * C, long_rows, replace=False)] = D // 3
-    return emb, slots, t, dl, idx, N - dead, step
+        flat[rng.choice((n - dead) * C, long_rows, replace=False)] = D // 3
+    return emb, slots, t, dl, idx, n - dead, step
 
 
 def _seed(*case) -> int:
@@ -85,7 +99,7 @@ def _decay(use_decay):
 
 def _port_sorted(idx, n_valid):
     """The 'sort' lowering's own sort: dead occurrences take the sentinel D."""
-    dead = tsparse.occurrence_dead(N, C, n_valid, "cpu")
+    dead = tsparse.occurrence_dead(*idx.shape, n_valid, "cpu")
     return torch.sort(torch.from_numpy(idx).masked_fill(dead, D).reshape(-1), stable=True)
 
 
@@ -101,7 +115,7 @@ def _port(kind, emb, slots, t, dl, idx, n_valid, step, use_decay):
     return e.numpy(), tt.numpy(), {n: v.numpy() for n, v in sl.items()}
 
 
-CASES = [(dead, long_rows) for dead in (0, 13) for long_rows in (0, 60)]
+CASES = [(dead, long_rows) for dead in (0, 13) for long_rows in (0, 60)] + [(13, "zipf")]
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -122,7 +136,8 @@ def test_plain_version_matches_the_reference_sort_update(kind, use_decay, dead, 
     touched = np.zeros(D, bool)
     touched[idx[:n_valid].reshape(-1)] = True
     if long_rows:
-        assert np.bincount(idx[:n_valid].reshape(-1), minlength=D).max() > 32
+        counts = np.bincount(idx[:n_valid].reshape(-1), minlength=D)
+        assert (counts > 32).sum() >= (20 if long_rows == "zipf" else 1)
     np.testing.assert_array_equal(got[1], want[1])
     atol = dict.fromkeys(("emb",) + SLOTS[kind], ATOL)
     if kind == "ftrl":
@@ -362,3 +377,108 @@ def test_smoke_values_checks_pass_the_plain_version_and_fail_a_lost_occurrence(
     assert live == int((s_idx[s_idx < D]).unique().numel())
     assert cs._update_bytes(args, True, vals) == (live, plain_bytes + 4 * s_idx.numel(),
                                                    plain_sectors + 4 * s_idx.numel())
+
+
+def _order_by_loops(g, seg, n_slots):
+    """The kernels' order of adds on each segment of more than 32 rows,
+    written out loop by loop in float32 (numpy): each 32-row chunk (at
+    multiples of 32) summed by the warp's xor tree over its lanes (+0.0 off
+    the segment), then lane l adds chunks l, l + 32, ... of the segment in
+    order from +0.0, and the same tree adds the lanes."""
+    def tree(v):
+        for o in (16, 8, 4, 2, 1):
+            v = [np.float32(v[lane] + v[lane ^ o]) for lane in range(32)]
+        return v[0]
+
+    g, seg = g.numpy(), seg.numpy()
+    out = np.zeros((n_slots, g.shape[1]), np.float32)
+    keys, first, counts = np.unique(seg, return_index=True, return_counts=True)
+    for key, s, n in zip(keys, first, counts):
+        if n <= 32 or key >= n_slots:
+            continue
+        for c in range(g.shape[1]):
+            parts = [tree([g[r, c] if s <= r < s + n else np.float32(0.0)
+                           for r in range(32 * q, 32 * q + 32)])
+                     for q in range(s // 32, (s + n - 1) // 32 + 1)]
+            lanes = []
+            for lane in range(32):
+                acc = np.float32(0.0)
+                for p in parts[lane::32]:
+                    acc = np.float32(acc + p)
+                lanes.append(acc)
+            out[key, c] = tree(lanes)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_smoke_long_order_sums_follow_the_kernels_order(monkeypatch, k):
+    """``chip_smoke._long_order_sums``, which the card's checks hold the
+    kernels' long segments to bitwise, is the order the kernels document
+    (``csrc/segment_sum.cu``), written out loop by loop: equal on every
+    slot, with segments that start on and off chunk edges and slots past
+    ``n_slots`` dropped; ``_long_order_equal`` fails a sum that lost an
+    occurrence."""
+    monkeypatch.setattr(ss, "walk_max", lambda: 32)
+    cs = _smoke()
+    rng = np.random.default_rng(k)
+    lens = rng.integers(1, 40, 1500)
+    lens[::40] = rng.integers(33, 2500, lens[::40].shape)
+    lens[7], lens[8] = 32 * 5 - int(lens[:7].sum()) % 32 + 32, 33   # one starts on an edge
+    seg = torch.from_numpy(np.repeat(np.arange(lens.size), lens))
+    g = torch.from_numpy(rng.standard_normal((seg.numel(), k)).astype(np.float32))
+    n_slots = lens.size - 2
+    got = cs._long_order_sums(g, seg, n_slots)
+    assert torch.equal(got, _order_by_loops(g, seg, n_slots))
+    long_slots = torch.zeros(n_slots, dtype=torch.bool)
+    long_slots[:] = torch.from_numpy(lens[:n_slots] > 32)
+    assert int(long_slots.sum()) > 30 and (np.cumsum(lens)[6:8] % 32 == 0).any()
+    assert cs._long_order_equal(got, g, seg, n_slots, long_slots)
+    lossy = got.clone()
+    lossy[int(np.argmax(lens[:n_slots]))] -= g[int(np.cumsum(lens)[np.argmax(lens[:n_slots])]) - 1]
+    assert not cs._long_order_equal(lossy, g, seg, n_slots, long_slots)
+
+
+@pytest.mark.parametrize("vals_seed", [None, 5])
+def test_smoke_criteo_zipf_checks_pass_the_plain_version_and_fail_a_lost_occurrence(
+        monkeypatch, vals_seed):
+    """``phase_segment_update``'s ``criteo_zipf`` case at a small size: its
+    keys (``_criteo_zipf_keys``: Zipf-law codes a column, hashed with the
+    fit's salts) hold long segments; its checks (``_update_checks`` with
+    float32's bound on long sums) pass the plain version, with and without
+    values, and fail one that loses an occurrence; ``_long_stats`` counts
+    the long segments."""
+    from orange3_spark_tpu_torch.ops.hashing import column_salts
+
+    monkeypatch.setattr(ss, "walk_max", lambda: 32)
+    cs = _smoke()
+    n, c, d = 3000, 26, 1 << 14
+    s_idx, order = cs._criteo_zipf_keys(n, c, d, column_salts(c, 0), "cpu")
+    assert s_idx.dtype == torch.int32 and s_idx.numel() == n * c
+    assert torch.equal(torch.sort(s_idx, stable=True).values, s_idx)
+    stats = cs._long_stats(s_idx, d)
+    assert stats["long_segments"] > 100 and stats["longest_segment"] > 500
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(rng.standard_normal((d, 1)).astype(np.float32))
+    slots = {"acc": torch.from_numpy(rng.uniform(0.0, 2.0, (d, 1)).astype(np.float32))}
+    t = torch.from_numpy(rng.integers(0, 8, d).astype(np.int32))
+    dl = torch.from_numpy((rng.standard_normal((n, 1)) * 0.1).astype(np.float32))
+    args = ("adagrad", s_idx, order, c, dl, emb, slots, t, torch.tensor(7, dtype=torch.int32),
+            LR, _decay(True), REG, L1)
+    vals = None if vals_seed is None else cs._draw_vals(s_idx.numel(), "cpu", vals_seed)
+
+    def update(segment_sum):
+        def run(a):
+            ss.segment_update_sorted_reference(*a, use_decay=True, vals=vals,
+                                               segment_sum=segment_sum)
+            return a
+        return run
+
+    long = cs._long_rows(s_idx, d)
+    assert int(long.sum()) == stats["long_segments"]
+    chain = update(ss.segment_sum_sorted)
+    line = cs._update_checks(update(ss.segment_sum_sorted_reference), chain, args, True, long,
+                             vals)
+    assert cs._update_case_ok(line, long_bound=True), line
+    assert line["sum_probe"]["long_err_over_bound"] == 0.0
+    bad = cs._update_checks(update(_lossy_sums), chain, args, True, long, vals)
+    assert not cs._update_case_ok(bad, long_bound=True)
