@@ -166,7 +166,14 @@ gradient (the adam rule) and the 'plan' lowering:
                   CUDA events) and its A/B arms pure_step_ms_dense (adam)
                   and pure_step_ms_f32cache (the head re-cached at f32),
                   holdout AUC (floor 0.73); the update kernel's launches
-                  over the timed fit, the segment sum's over the adam arm
+                  over the timed fit, the segment sum's over the adam arm;
+                  the timed fit's goodput (obs/prof.py: five fractions
+                  summing to 1 within 0.02, each epoch window's
+                  bottleneck, the replay's not framework-bound) and its
+                  device-memory ledger (a ``model_state`` entry the
+                  table's bytes, ``cache_chunks`` = ``cache_bytes``, the
+                  peak at least table + slots + cache, the CUDA allocator
+                  at least the ledger)
   criteo_profile  eager steps under torch.profiler: device time by kernel,
                   ATen op and stage, the idle share, launches and
                   ``nonzero`` calls per step; then the captured replay:
@@ -277,10 +284,30 @@ hashed fit (``segment_update_sorted`` given the pairs' values):
                   dense_adagrad, sparse_adagrad} and bf16 compute;
                   ``missing='keep'`` with a NaN dense cell raises
 
+then bench.py's overload config (admission control, breakers, the brownout
+ladder, the flight recorder and the telemetry endpoint; the CTR model's
+adam fit through ``segment_sum_sorted``):
+
+  overload        ``bench.py --config overload`` at bench's sizes: a 2^14-dim
+                  CTR model fit on 16,384 rows, 64 open-loop requests
+                  (64-256 rows, 2 ms apart) under a 25 ms injected service
+                  delay, raw (``OTPU_RESILIENCE=0``) and admitted (0.1 s
+                  deadline) with the endpoint bound (``OTPU_OBS_PORT=0``):
+                  bench's fields (p50/p99 of both arms, sheds all typed,
+                  no hung or lost future, goodput rows/s), the first
+                  shed's ``overload_shed`` bundle, /readyz 503 then 200
+                  across the warm-up, /healthz, /metrics, /debug/flight,
+                  a ~200 ms ``POST /debug/profile`` over served requests
+                  whose trace holds CUDA kernels; the breaker re-admitted
+                  half-open; the brownout drill at rung 3 (coefficients
+                  bitwise the unpressured fit's, the cache's ledger entry
+                  0, ``memory_allocated`` falling by the dropped bytes)
+
 then the ``kernels`` line of four kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
-``criteo`` phase's adam arm, the times of the ``segment_sum`` phase;
+``criteo`` phase's adam arm (the ``overload`` fit's beside them), the
+times of the ``segment_sum`` phase;
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
 its yardstick, and ``with_values``: one step of the ``libsvm_hashed`` fit
@@ -1195,6 +1222,7 @@ def phase_criteo(path, rows, epochs, sess):
     fit_s = time.perf_counter() - t0
     update_launches = segment_update_sorted.launches
     # ----
+    plane = _criteo_plane(model, est.params, st, sess)
     t0 = time.perf_counter()
     ev = model.evaluate_device(model.holdout_chunks_)
     eval_s = time.perf_counter() - t0
@@ -1256,6 +1284,7 @@ def phase_criteo(path, rows, epochs, sess):
             "auc": ev.get("auc"), "logloss": ev["logloss"], "accuracy": ev["accuracy"],
             "final_loss": model.final_loss_, "peak_mem_GiB": peak / 2**30,
             "warmup_s": warm_s, "auc_floor": CRITEO_AUC_FLOOR,
+            **plane,
             "cuts": {"epochs": f"{CRITEO_EPOCHS} -> {epochs}" if epochs != CRITEO_EPOCHS
                      else None,
                      "rows": f"{CRITEO_ROWS} -> {rows}" if rows != CRITEO_ROWS else None}}
@@ -1267,7 +1296,65 @@ def phase_criteo(path, rows, epochs, sess):
     if ev["auc"] < CRITEO_AUC_FLOOR:
         raise AssertionError(f"criteo: holdout AUC {ev['auc']:.4f} below "
                              f"{CRITEO_AUC_FLOOR}: {line}")
+    if plane["plane_failed"]:
+        raise AssertionError(f"criteo: the goodput and memory plane failed "
+                             f"{plane['plane_failed']}: {line}")
     return model, line
+
+
+def _criteo_plane(model, params, st, sess) -> dict:
+    """The timed fit's goodput and device-memory plane (obs/prof.py), read
+    from its ``run_report_``: the five fractions (summing to 1 within
+    0.02) and each epoch window's bottleneck (the replay's not
+    ``framework_bound``: at full size the device's seconds in the replays,
+    read from their CUDA events, outweigh the capture and the host's
+    launches); a ``model_state``
+    ledger entry equal to the table's bytes (the slots die with the fit),
+    the fit's peak at least the table, the slots and the cache; the
+    ``cache_chunks`` entry equal to ``stage_times['cache_bytes']``; the
+    CUDA allocator's allocated bytes at least the ledger's total."""
+    import gc
+
+    from orange3_spark_tpu_torch.models.hashed_linear import _init_fit_state
+    from orange3_spark_tpu_torch.obs import prof
+
+    rep = model.run_report_.to_dict()
+    gp, dm = rep["goodput"], rep["device_memory"]
+    rec = dm["reconciliation"]
+    table_bytes = prof.tree_device_bytes(model.theta)
+    theta0, opt0 = _init_fit_state(params, sess)[:2]
+    state_bytes = prof.tree_device_bytes((theta0, opt0))
+    del theta0, opt0
+    gc.collect()
+    live = prof.LEDGER.reconcile()
+    frac_sum = sum(gp["fractions"].values())
+    epochs = [(e["epoch"], e["bottleneck"], e["wall_s"], e["fractions"])
+              for e in gp["epochs"]]
+    # every live entry (the report keeps the 64 largest of the process)
+    model_state = [e["bytes"] for e in prof.LEDGER.snapshot(max_entries=1 << 20)["entries"]
+                   if e["owner"] == "model_state"]
+    failed = [name for name, ok in (
+        ("fractions_sum_to_1", abs(frac_sum - 1.0) <= 0.02),
+        ("replay_not_framework_bound", len(epochs) >= 2
+         and epochs[-1][1] != "framework_bound"),
+        ("model_state_is_the_table", table_bytes in model_state),
+        ("peak_holds_table_slots_cache",
+         dm["peak_bytes_fit"] >= state_bytes + st["cache_bytes"]),
+        ("cache_entry_is_cache_bytes", dm.get("cache_entry_bytes") == st["cache_bytes"]),
+        ("allocator_at_least_ledger", rec["allocator"] is not None
+         and rec["allocated_bytes"] >= rec["ledger_bytes"]),
+    ) if not ok]
+    return {"goodput": {"fractions": gp["fractions"], "fraction_sum": frac_sum,
+                        "seconds": gp["seconds"], "bottleneck": gp["bottleneck"],
+                        "epochs": epochs},
+            "ledger": {"owners_at_fit_end": dm["owners"], "table_bytes": table_bytes,
+                       "table_and_slots_bytes": state_bytes,
+                       "model_state_entries": model_state,
+                       "cache_entry_bytes": dm.get("cache_entry_bytes"),
+                       "peak_bytes_fit": dm["peak_bytes_fit"],
+                       "reconciliation_at_fit_end": rec,
+                       "reconciliation_after": live},
+            "plane_failed": failed}
 
 
 def _device_profile(prof, exclude=()):
@@ -1358,12 +1445,12 @@ def phase_criteo_profile(model, sess, epochs=3):
     t0 = time.perf_counter()
     replay.capture()
     capture_s = time.perf_counter() - t0
-    replay.run(1)
+    replay.run(1, timed=False)
     sess.synchronize()
-    epoch_ms = cuda_ms(lambda: replay.run(1), epochs)
+    epoch_ms = cuda_ms(lambda: replay.run(1, timed=False), epochs)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        replay.run(epochs)
+        replay.run(epochs, timed=False)
         sess.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events, by_name, busy = _device_profile(prof)
@@ -2335,15 +2422,17 @@ def phase_segment_update(inputs, mem_bw, salts=None):
                  **_vals_update_case(long_args, use_decay, long_vals)[0]}
     del long_args, long_vals
 
-    work = [_update_copy(args) for _ in range(4)]
+    work = [_update_copy(args) for _ in range(5)]
     timed = (("kernel", lambda: kernel(work[0])), ("chain", lambda: chain(work[1])),
              ("plain", lambda: ss.segment_update_sorted_reference(*work[2],
                                                                   use_decay=use_decay)),
-             ("kernel_vals", lambda: kernel_v(work[3])))
+             ("kernel_vals", lambda: kernel_v(work[3])),
+             ("plain_vals", lambda: ss.segment_update_sorted_reference(
+                 *work[4], use_decay=use_decay, vals=vals)))
     # device times from captured launches (the fit runs it in a captured
     # graph); beside them the eager calls' times, host included, and the
     # host's own time to issue one call
-    ms, chain_ms, plain_ms, vals_ms = (graph_ms(f, 20) for _, f in timed)
+    ms, chain_ms, plain_ms, vals_ms, vals_plain_ms = (graph_ms(f, 20) for _, f in timed)
     eager_ms = {name: cuda_ms(f, 20, warmup=1) for name, f in timed}
     issue_ms = {name: host_ms(f, 20) for name, f in timed}
     del work
@@ -2352,7 +2441,8 @@ def phase_segment_update(inputs, mem_bw, salts=None):
     bound_ms = n_bytes / mem_bw * 1e3
     vals_bytes, vals_sectors = _update_bytes(args, use_decay, vals)[1:]
     vals_line = {"step": vals_step, "long_segment": vals_long, "ms": vals_ms,
-                 "eager_ms": eager_ms["kernel_vals"], "bytes": vals_bytes,
+                 "eager_ms": eager_ms["kernel_vals"], "plain_ms": vals_plain_ms,
+                 "plain_eager_ms": eager_ms["plain_vals"], "bytes": vals_bytes,
                  "bound_ms": vals_bytes / mem_bw * 1e3,
                  "x_bound": vals_ms / (vals_bytes / mem_bw * 1e3),
                  "sector_bound_ms": vals_sectors / mem_bw * 1e3,
@@ -4677,6 +4767,450 @@ def phase_libsvm_hashed(sess, tmp, mem_bw) -> dict:
     return line
 
 
+# bench.py's overload config (bench.py:1422-1631), at bench's sizes
+OVERLOAD = dict(requests=64, service_ms=25.0, rows_fit=1 << 14, n_dense=4, n_cat=4,
+                n_dims=1 << 14, chunk_rows=4096, seed=7, stagger_s=0.002,
+                deadline_s=0.1, min_req=64, max_req=256)
+# the brownout drill's fit: 8192 x 8, logistic, 2 epochs, 1024-row chunks
+BROWNOUT = dict(rows=8192, d=8, chunk_rows=1024, epochs=2,
+                spec="mem_pressure:frac=0.97,after=2")
+PROFILE_MS = 200.0
+
+
+def _http(url, method="GET"):
+    """(status, body bytes) of one loopback request to the telemetry
+    endpoint; an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _trace_kernel_events(path) -> dict:
+    """Events of a capture's Chrome trace (``torch_trace/trace.json`` under
+    the capture's directory): all of them, and the CUDA kernels among them
+    (category ``kernel``)."""
+    with open(os.path.join(path, "torch_trace", "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    return {"events": len(events), "kernel_events": len(kernels),
+            "kernel_names": sorted({e.get("name", "")[:60] for e in kernels})[:8]}
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` set in os.environ, restored afterwards."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _overload_fit_check(model, X, y, est_kw, sess) -> dict:
+    """The overload phase's CTR fit held on the card: its theta against
+    the same fit on the CPU (``_check_adam``'s tolerance: final losses
+    within 1e-5 relative; θ within THETA_ATOL + THETA_RTOL·|θ| on all but
+    1e-4 of each parameter's entries and within 2·lr·steps everywhere),
+    and ``segment_sum_sorted`` at one 'adam' step's inputs of this model
+    (2^14 slots; the first cached chunk of the same fit with the device
+    cache) against its plain version on a CPU copy: bitwise on every
+    segment of at most ``walk_max()`` rows, within 1e-6·Σ|g| of the
+    float64 sum on longer ones."""
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    def fit(session, **kw):
+        return StreamingHashedLinearEstimator(**est_kw).fit_stream(
+            array_chunk_source(X, y, chunk_rows=est_kw["chunk_rows"]), session=session, **kw)
+
+    cpu = fit(TorchSession("cpu"))
+    lr, steps = est_kw["step_size"], model.n_steps_
+    off, worst = {}, {}
+    for k, want in cpu.theta.items():
+        err = (model.theta[k].cpu() - want).abs()
+        off[k] = int((err > THETA_ATOL + THETA_RTOL * want.abs()).sum())
+        worst[k] = float(err.max())
+    loss_rel = (abs(model.final_loss_ - cpu.final_loss_) / abs(cpu.final_loss_)
+                if cpu.final_loss_ else None)
+    fit_ok = (steps == cpu.n_steps_ and steps > 0
+              and (loss_rel is None or loss_rel <= 1e-5)
+              and all(off[k] <= 1e-4 * cpu.theta[k].numel() for k in off)
+              and all(w <= 2 * lr * steps for w in worst.values()))
+
+    g, seg, n_slots, skip = _step_segment_inputs(fit(sess, cache_device=True), sess)
+    got = ss.segment_sum_sorted(g, seg, n_slots, skip_last=skip).cpu()
+    skip_cpu = None if skip is None else skip.cpu()
+    want = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots, skip_last=skip_cpu)
+    rows = torch.bincount(seg.cpu(), minlength=n_slots)[:n_slots]
+    short = rows <= ss.walk_max()
+    f64 = ss.segment_sum_sorted_reference(g.cpu().double(), seg.cpu(), n_slots,
+                                          skip_last=skip_cpu)
+    abs64 = ss.segment_sum_sorted_reference(g.cpu().double().abs(), seg.cpu(), n_slots,
+                                            skip_last=skip_cpu)
+    long_ok = bool(((got.double() - f64).abs() <= 1e-6 * abs64)[~short].all())
+    mismatches = int((got != want)[short].sum())
+    return {"fit_vs_cpu": {"steps": steps, "loss_rel_err": loss_rel,
+                           "theta_max_abs_err": worst, "entries_past_tolerance": off,
+                           "ok": fit_ok},
+            "segment_sum_at_step": {"M": g.shape[0], "k": g.shape[1], "n_slots": n_slots,
+                                    "max_segment_rows": int(rows.max()),
+                                    "long_segments": int((~short).sum()),
+                                    "max_abs_err": float((got - want).abs().max()),
+                                    "cpu_order_mismatches": mismatches,
+                                    "long_within_1e-6_sum_abs": long_ok,
+                                    "ok": mismatches == 0 and long_ok},
+            "tolerance": "theta: _check_adam's; kernel: bitwise the CPU's index order on "
+                         "segments of at most walk_max() rows, 1e-6·Σ|g| of f64 beyond"}
+
+
+def _rung3_drop(chunks, dev) -> dict:
+    """The brownout ladder's rung 3 on the fit's own device cache
+    (``io/streaming._DeviceCache``) at the drill's chunk shapes, with no
+    other thread allocating: the first two offers are cached, the third
+    lands on rung 3 and drops the cache. ``memory_allocated`` read just
+    before and just after that offer must fall by at least the dropped
+    bytes, and the cache's ledger entry must read 0."""
+    import torch
+
+    from orange3_spark_tpu_torch.io.streaming import _DeviceCache, _pad_chunk
+    from orange3_spark_tpu_torch.obs import prof
+    from orange3_spark_tpu_torch.resilience import inject_faults
+
+    cache = _DeviceCache(True, 8 << 30)
+    out = {}
+    with inject_faults(BROWNOUT["spec"]):
+        for i, (X, y) in enumerate(chunks[:3]):
+            Xp, yp, wp = _pad_chunk(X, y, None, BROWNOUT["chunk_rows"], BROWNOUT["d"])
+            batch = tuple(torch.from_numpy(a).to(dev) for a in (Xp, yp, wp))
+            if i == 2:
+                torch.cuda.synchronize()
+                held = cache.nbytes
+                before = torch.cuda.memory_allocated()
+                cache.offer(batch)
+                torch.cuda.synchronize()
+                after = torch.cuda.memory_allocated()
+                out = {"cached_bytes": held, "allocated_before": before,
+                       "allocated_after": after, "freed_bytes": before - after,
+                       "ledger_bytes": prof.LEDGER.get("cache_chunks", cache.ledger_key),
+                       "cache_enabled": cache.enabled}
+            else:
+                cache.offer(batch)
+            del batch
+    out["ok"] = (out["cached_bytes"] > 0 and out["freed_bytes"] >= out["cached_bytes"]
+                 and out["ledger_bytes"] == 0 and not out["cache_enabled"])
+    return out
+
+
+def phase_overload(sess, kind, smi) -> dict:
+    """``bench.py --config overload`` (bench.py:1422-1631) at bench's own
+    sizes: a ``StreamingHashedLinearEstimator(n_dims=2^14, n_dense=4,
+    n_cat=4, epochs=1, step_size=0.05, chunk_rows=4096)`` fit on 16,384 rows
+    of ``default_rng(7)`` (adam: its table gradient through
+    ``segment_sum_sorted``, counted over the fit; the fit and the kernel
+    at its inputs held by ``_overload_fit_check``), then 64 open-loop
+    requests, log-uniform on 64-256 rows, 2 ms apart, under
+    ``overload:delay_ms=25``, through ``BucketLadder(64, 4096)`` with the
+    micro-batcher (max_batch 256, max_wait 1 ms): a raw arm under
+    ``OTPU_RESILIENCE=0`` and an admitted arm (0.1 s deadline, 25 ms
+    service seed) with the telemetry endpoint bound (``OTPU_OBS_PORT=0``:
+    /readyz 503 before the warm-up and 200 after it, /healthz, /metrics,
+    /debug/flight, and a ~200 ms ``POST /debug/profile`` over served
+    requests whose trace must hold CUDA kernel events); the breaker drill
+    (``aot_build:fails=4,key=array`` under a fake clock, then 30 s past);
+    the brownout drill (a ``StreamingLinearEstimator`` fit, 8192 x 8, two
+    epochs, 1024-row chunks, the device cache, under
+    ``mem_pressure:frac=0.97,after=2``: rung 3, coefficients bitwise the
+    same fit's without pressure, the cache's ledger entry 0; ``_rung3_drop``
+    on the cache at the drill's chunks). Bench's fields, then
+    ``telemetry``, ``brownout`` and the checks."""
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.io.streaming import (
+        StreamingLinearEstimator, array_chunk_source,
+    )
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.obs import flight
+    from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from orange3_spark_tpu_torch.resilience import OverloadShedError, inject_faults
+    from orange3_spark_tpu_torch.resilience.overload import current_brownout_level, shed_total
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    cfg = OVERLOAD
+    n_dense, n_cat, requests = cfg["n_dense"], cfg["n_cat"], cfg["requests"]
+    rng = np.random.default_rng(cfg["seed"])
+    rows_fit = cfg["rows_fit"]
+    X = np.concatenate([
+        rng.standard_normal((rows_fit, n_dense)).astype(np.float32),
+        rng.integers(0, 1000, (rows_fit, n_cat)).astype(np.float32)], axis=1)
+    y = (rng.random(rows_fit) < 0.3).astype(np.float32)
+    # ---- the main path: segment_sum_sorted's count starts at 0 here
+    segment_sum_sorted.launches = 0
+    t0 = time.perf_counter()
+    est_kw = dict(n_dims=cfg["n_dims"], n_dense=n_dense, n_cat=n_cat, epochs=1,
+                  step_size=0.05, chunk_rows=cfg["chunk_rows"])
+    model = StreamingHashedLinearEstimator(**est_kw).fit_stream(
+        array_chunk_source(X, y, chunk_rows=cfg["chunk_rows"]), session=sess)
+    sess.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = segment_sum_sorted.launches
+    # ----
+    fit_check = _overload_fit_check(model, X, y, est_kw, sess)
+    sizes = np.exp(rng.uniform(np.log(cfg["min_req"]), np.log(cfg["max_req"]),
+                               requests)).astype(np.int64)
+    offs = rng.integers(0, rows_fit - int(sizes.max()), requests)
+    ladder = BucketLadder(min_bucket=64, max_bucket=1 << 12)
+    telemetry: dict = {}
+
+    def get(ctx, route, method="GET"):
+        code, body = _http(ctx._telemetry.url + route, method)
+        return code, body
+
+    def run_arm(label: str, probe: bool) -> dict:
+        lat_ok, lat_shed, lost = [], [], 0
+        with ServingContext(ladder, micro_batch=True, max_batch=256,
+                            max_wait_ms=1.0) as ctx:
+            if probe:
+                if ctx._telemetry is None:
+                    raise AssertionError("overload: OTPU_OBS_PORT=0 bound no endpoint")
+                telemetry["url_port"] = ctx._telemetry.port
+                telemetry["readyz_before_warmup"] = get(ctx, "/readyz")[0]
+            ctx.warmup(model, n_cols=n_dense + n_cat, kinds=("array",))
+            if probe:
+                telemetry["readyz_after_warmup"] = get(ctx, "/readyz")[0]
+
+            def one(i: int):
+                time.sleep(i * cfg["stagger_s"])    # the arrival schedule
+                o, sz = int(offs[i]), int(sizes[i])
+                t1 = time.perf_counter()
+                try:
+                    out = model.predict(X[o:o + sz])
+                    if out.shape[0] != sz:
+                        raise AssertionError(f"{out.shape[0]} rows served for {sz}")
+                    return "ok", (time.perf_counter() - t1) * 1e3
+                except OverloadShedError:
+                    return "shed", (time.perf_counter() - t1) * 1e3
+
+            t1 = time.perf_counter()
+            with inject_faults(f"overload:delay_ms={cfg['service_ms']}"):
+                # shutdown(wait=False): a hung future is REPORTED as
+                # hung_futures, not joined forever
+                ex = concurrent.futures.ThreadPoolExecutor(requests)
+                try:
+                    futs = [ex.submit(one, i) for i in range(requests)]
+                    done, pending = concurrent.futures.wait(futs, timeout=120.0)
+                    lost = len(pending)
+                    for f in done:
+                        what, ms = f.result()
+                        (lat_ok if what == "ok" else lat_shed).append(ms)
+                finally:
+                    ex.shutdown(wait=False)
+            wall = time.perf_counter() - t1
+            # bench's counts cover the burst alone, not the probes below
+            counts = {"typed_sheds": shed_total(), "traced": _traced_requests_total()}
+            if probe:
+                code, body = get(ctx, "/healthz")
+                hz = json.loads(body)
+                telemetry["healthz"] = {"status": code, "sheds": hz.get("sheds"),
+                                        "brownout_level": hz.get("brownout_level"),
+                                        "in_flight": hz.get("in_flight")}
+                code, body = get(ctx, "/readyz")
+                telemetry["readyz_serving"] = code
+                code, body = get(ctx, "/metrics")
+                text = body.decode()
+                telemetry["metrics"] = {"status": code, "bytes": len(body),
+                                        "has_shed_total": "otpu_shed_total" in text,
+                                        "has_device_bytes": "otpu_device_bytes" in text}
+                code, body = get(ctx, "/debug/flight")
+                fb = json.loads(body)
+                telemetry["debug_flight"] = {
+                    "status": code, "flight_schema": fb.get("flight_schema"),
+                    "reason": fb.get("reason"), "sheds": fb.get("sheds"),
+                    "has_device_memory": "device_memory" in fb,
+                    "allocator": (fb.get("device_memory") or {}).get(
+                        "reconciliation", {}).get("allocator")}
+                # the deep capture: a ~200 ms profile while this thread
+                # serves requests (no injected delay: the card's own work)
+                res: dict = {}
+                th = threading.Thread(target=lambda: res.update(zip(
+                    ("code", "body"),
+                    get(ctx, f"/debug/profile?duration_ms={PROFILE_MS}", "POST"))))
+                th.start()
+                served = 0
+                t2 = time.perf_counter()
+                while th.is_alive() and time.perf_counter() - t2 < 30.0:
+                    o, sz = int(offs[served % requests]), int(sizes[served % requests])
+                    model.predict(X[o:o + sz])
+                    served += 1
+                th.join(60.0)
+                body = json.loads(res.get("body") or b"{}")
+                cap = {"status": res.get("code"), "served_during": served,
+                       "duration_ms": body.get("duration_ms")}
+                if res.get("code") == 200:
+                    cap.update(_trace_kernel_events(body["path"]))
+                telemetry["profile"] = cap
+        return {"lat_ok": lat_ok, "sheds": len(lat_shed), "lost": lost, "wall_s": wall,
+                "completed": len(lat_ok), "rows_total": int(sizes.sum()), **counts}
+
+    def pctl(lat, q):
+        return float(np.percentile(np.asarray(lat), q))
+
+    # a phase of its own, as bench's overload is a process of its own: an
+    # earlier phase's automatic bundle (the wedge demo's) must not hold the
+    # rate slot the first shed's bundle needs
+    flight.reset_rate_limit()
+    flight0 = flight.bundles_written()
+    raw = _with_env({"OTPU_RESILIENCE": "0"}, lambda: run_arm("raw", False))
+    shed0 = shed_total()
+    traced0 = _traced_requests_total()
+    adm = _with_env({"OTPU_RESILIENCE": "1", "OTPU_OBS_PORT": "0",
+                     "OTPU_ADMISSION_DEADLINE_S": str(cfg["deadline_s"]),
+                     "OTPU_ADMISSION_SERVICE_MS": str(cfg["service_ms"])},
+                    lambda: run_arm("admitted", True))
+    typed_sheds = adm["typed_sheds"] - shed0
+    traced_requests = adm["traced"] - traced0
+
+    # ---- the circuit-breaker drill: a flaky build re-admitted half-open
+    def breaker_drill():
+        clk = [0.0]
+        with ServingContext(ladder, breaker_clock=lambda: clk[0]) as ctx2:
+            with inject_faults("aot_build:fails=4,key=array"):
+                model.predict(X[:64])         # the build exhausts its retries: open
+            was_open = ctx2.breaker_states().get("HashedLinearModel:array") == "open"
+            clk[0] += 30.0                    # past the seeded cooldown
+            model.predict(X[:64])             # the half-open probe build succeeds
+            return was_open and (ctx2.breaker_states().get("HashedLinearModel:array")
+                                 == "closed")
+
+    breaker_readmitted = _with_env({"OTPU_RETRY_BASE_S": "0.02"}, breaker_drill)
+
+    # ---- the brownout drill: injected memory pressure degrades, not dies
+    Xs = rng.standard_normal((BROWNOUT["rows"], BROWNOUT["d"])).astype(np.float32)
+    ys = (Xs @ rng.standard_normal(BROWNOUT["d"]).astype(np.float32) > 0).astype(np.float32)
+
+    def brownout_fit(st):
+        return StreamingLinearEstimator(
+            loss="logistic", epochs=BROWNOUT["epochs"], step_size=0.05,
+            chunk_rows=BROWNOUT["chunk_rows"],
+        ).fit_stream(array_chunk_source(Xs, ys, chunk_rows=BROWNOUT["chunk_rows"]),
+                     n_features=BROWNOUT["d"], session=sess, cache_device=True,
+                     stage_times=st)
+
+    st_p, st_c = {}, {}
+    with inject_faults(BROWNOUT["spec"]):
+        m_p = brownout_fit(st_p)
+        sess.synchronize()
+    brownout_reached = current_brownout_level()
+    dm = m_p.run_report_.to_dict().get("device_memory", {})
+    m_c = brownout_fit(st_c)
+    sess.synchronize()
+    coef_bitwise = (torch.equal(m_p.coef, m_c.coef)
+                    and torch.equal(m_p.intercept, m_c.intercept))
+    chunks = [(Xs[i:i + BROWNOUT["chunk_rows"]], ys[i:i + BROWNOUT["chunk_rows"]])
+              for i in range(0, BROWNOUT["rows"], BROWNOUT["chunk_rows"])]
+    drop = _rung3_drop(chunks, sess.device)
+    brownout = {"level_reached": brownout_reached,
+                "replay_source": st_p.get("replay_source"),
+                "replay_source_without_pressure": st_c.get("replay_source"),
+                "coef_bitwise": coef_bitwise,
+                "cache_entry_bytes_at_fit_end": dm.get("cache_entry_bytes"),
+                "rung3_drop": drop}
+
+    bundles = []
+    fdir = os.environ.get("OTPU_FLIGHT_DIR", "")
+    for name in sorted(os.listdir(fdir)) if fdir and os.path.isdir(fdir) else ():
+        if name.startswith("flight-") and name.endswith("-overload_shed.json"):
+            with open(os.path.join(fdir, name)) as f:
+                b = json.load(f)
+            bundles.append({"file": name, "reason": b.get("reason"),
+                            "flight_schema": b.get("flight_schema"),
+                            "error": (b.get("error") or {}).get("type")})
+
+    p99_raw = pctl(raw["lat_ok"], 99) if raw["lat_ok"] else None
+    p99_adm = pctl(adm["lat_ok"], 99) if adm["lat_ok"] else None
+    line = {
+        "config": "bench.py --config overload (bench.py:1422-1631), bench's sizes",
+        "device": kind, "nvidia_smi": smi,
+        "requests": requests, "service_ms_injected": cfg["service_ms"],
+        "fit_s": fit_s, "segment_sum_launches": fit_launches, "fit_check": fit_check,
+        "p50_ms_raw": pctl(raw["lat_ok"], 50) if raw["lat_ok"] else None,
+        "p99_ms_raw": p99_raw,
+        "p50_ms_admitted": pctl(adm["lat_ok"], 50) if adm["lat_ok"] else None,
+        "p99_ms_admitted": p99_adm,
+        "p99_bound_factor": (p99_raw / p99_adm if p99_raw and p99_adm else None),
+        "sheds": adm["sheds"], "typed_sheds": typed_sheds,
+        "shed_fraction": adm["sheds"] / requests,
+        "completed": adm["completed"], "hung_futures": adm["lost"],
+        "lost_futures": requests - adm["completed"] - adm["sheds"] - adm["lost"],
+        "goodput_rows_per_s_per_chip": ((adm["rows_total"] / requests) * adm["completed"]
+                                        / adm["wall_s"] / 1),
+        "legacy_unbounded": (raw["sheds"] == 0 and raw["lost"] == 0
+                             and raw["completed"] == requests),
+        "raw_wall_s": raw["wall_s"], "admitted_wall_s": adm["wall_s"],
+        "breaker_readmitted": breaker_readmitted,
+        "brownout_level_reached": brownout_reached,
+        "traced_requests": traced_requests, "trace_coverage": traced_requests / requests,
+        "flight_bundles_written": flight.bundles_written() - flight0,
+        "overload_shed_bundles": bundles,
+        "telemetry": telemetry, "brownout": brownout,
+    }
+    prof_line = telemetry.get("profile", {})
+    failed = [name for name, ok in (
+        ("legacy_unbounded", line["legacy_unbounded"]),
+        ("hung_or_lost_futures", line["hung_futures"] == line["lost_futures"] == 0),
+        ("typed_sheds", typed_sheds == adm["sheds"]),
+        ("p99_admitted_below_raw", p99_adm is not None and p99_raw is not None
+         and p99_adm < p99_raw),
+        ("breaker_readmitted", breaker_readmitted),
+        ("brownout_level_3", brownout_reached == 3),
+        ("overload_shed_bundle", any(b["reason"] == "overload_shed"
+                                     and b["flight_schema"] == 1 for b in bundles)),
+        ("segment_sum_launched", fit_launches > 0),
+        ("fit_matches_cpu", fit_check["fit_vs_cpu"]["ok"]),
+        ("segment_sum_matches_plain", fit_check["segment_sum_at_step"]["ok"]),
+        ("brownout_coef_bitwise", coef_bitwise),
+        ("brownout_restreamed", st_p.get("replay_source") == "stream"),
+        ("rung3_memory_freed", drop["ok"]),
+        ("cache_ledger_zero", dm.get("cache_entry_bytes") == 0),
+        ("readyz_503_before_warmup", telemetry.get("readyz_before_warmup") == 503),
+        ("readyz_200_after_warmup", telemetry.get("readyz_after_warmup") == 200),
+        ("healthz", telemetry.get("healthz", {}).get("status") == 200
+         and telemetry["healthz"].get("sheds") is not None
+         and telemetry["healthz"].get("brownout_level") is not None),
+        ("metrics", telemetry.get("metrics", {}).get("status") == 200
+         and telemetry["metrics"]["has_shed_total"]),
+        ("debug_flight", telemetry.get("debug_flight", {}).get("status") == 200
+         and telemetry["debug_flight"]["flight_schema"] == 1),
+        # a CPU-only trace is no capture of the card
+        ("profile_cuda_kernels", prof_line.get("status") == 200
+         and prof_line.get("kernel_events", 0) > 0),
+    ) if not ok]
+    line["failed"] = failed
+    if failed:
+        if "profile_cuda_kernels" in failed:
+            print("chip_smoke: the profiler recorded no CUDA kernel event on this "
+                  f"machine: {prof_line}", file=sys.stderr)
+        raise AssertionError(f"overload failed {failed}: {line}")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -4711,6 +5245,20 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the orange3_spark_tpu_torch package is missing "
               f"next to this script: {e}", file=sys.stderr)
         return 3
+
+    # flight bundles and deep captures of this run go to a directory of its
+    # own (removed at the end), never to the knobs' shared defaults
+    obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    os.environ["OTPU_FLIGHT_DIR"] = os.path.join(obs_dir, "flight")
+    os.environ["OTPU_PROF_DIR"] = os.path.join(obs_dir, "prof")
+    try:
+        return _run(args)
+    finally:
+        shutil.rmtree(obs_dir, ignore_errors=True)
+
+
+def _run(args) -> int:
+    import torch
 
     phase = "env"
     try:
@@ -4906,6 +5454,14 @@ def main(argv=None) -> int:
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ---- bench's overload config: admission, breaker, brownout, the
+        # flight recorder, the telemetry endpoint (segment_sum_sorted in
+        # the CTR model's adam fit)
+        phase = "overload"
+        overload_line = phase_overload(sess, kind, nvidia_smi_line())
+        emit({"phase": phase, **overload_line})
+        torch.cuda.empty_cache()
+
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
@@ -4917,6 +5473,8 @@ def main(argv=None) -> int:
             raise AssertionError("the ALS fit never launched normal_equations_sorted")
         if libsvm_line["segment_update_sorted_launches"] == 0:
             raise AssertionError("the value-weighted fit never launched segment_update_sorted")
+        if overload_line["segment_sum_launches"] == 0:
+            raise AssertionError("the overload phase's fit never launched segment_sum_sorted")
         ne = als_line["kernel"]["user"]
         vw_upd = libsvm_line["segment_update"]
         zipf = upd_line["criteo_zipf"]
@@ -4944,6 +5502,7 @@ def main(argv=None) -> int:
             "replaces": "orange3_spark_tpu/optim/sparse.py:435",
             "launches": criteo_line["segment_sum_launches"],
             "launches_counted_over": "the criteo phase's adam arm (pure_step_ms_dense)",
+            "overload_fit_launches": overload_line["segment_sum_launches"],
             "max_abs_err": seg_line["max_abs_err"],
             "deterministic": seg_line["deterministic"],
             "ms": seg_line["ms"], "plain_ms": seg_line["plain_ms"],
@@ -4991,6 +5550,7 @@ def main(argv=None) -> int:
                        f"longest segment {vw_upd['longest_segment']}"),
                 "criteo_shape": {
                     "ms": upd_line["vals"]["ms"], "bound_ms": upd_line["vals"]["bound_ms"],
+                    "plain_ms": upd_line["vals"]["plain_ms"],
                     "bytes": upd_line["vals"]["bytes"], "x_bound": upd_line["vals"]["x_bound"],
                     "bitwise_chain": (upd_line["vals"]["step"]["equal_chain"]
                                       and upd_line["vals"]["long_segment"]["equal_chain"]),

@@ -30,6 +30,8 @@ import threading
 import time
 from typing import Callable, Iterator
 
+from orange3_spark_tpu_torch.obs import prof
+
 _EOF = object()
 
 
@@ -41,6 +43,9 @@ class PipelineStats:
     prep_s: float = 0.0   # producer time pulling items and inside prep
     wait_s: float = 0.0   # consumer time blocked waiting on the queue
     wall_s: float = 0.0   # consumer wall from first wait to stream end
+    # producer time spent encoding chunks for the compressed cache
+    # (io/codec.py): a subset of prep_s, attributed by the prep callback
+    encode_s: float = 0.0
     retries: int = 0      # transient source-read retries (resilience/retry.py)
     done: bool = False
 
@@ -58,6 +63,7 @@ class PipelineStats:
         self.prep_s += other.prep_s
         self.wait_s += other.wait_s
         self.wall_s += other.wall_s
+        self.encode_s += other.encode_s
         self.retries += other.retries
         return self
 
@@ -91,7 +97,12 @@ class PipelinedExecutor:
             while True:
                 t0 = time.perf_counter()
                 got = q.get()
-                stats.wait_s += time.perf_counter() - t0
+                dt_wait = time.perf_counter() - t0
+                stats.wait_s += dt_wait
+                # goodput (obs/prof.py): the consumer is the fit's thread
+                # of control, so this wait is input_wait, fed live so the
+                # per-epoch bottleneck sees intra-epoch waits
+                prof.note_input_wait(dt_wait)
                 if (isinstance(got, tuple) and len(got) == 2
                         and got[0] is _EOF):
                     if got[1] is not None:

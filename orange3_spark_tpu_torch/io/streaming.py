@@ -26,6 +26,7 @@ and ``StreamingKMeans``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import struct
@@ -42,7 +43,11 @@ import torch
 from orange3_spark_tpu_torch.exec.pipeline import PipelineStats, prefetch_iter
 from orange3_spark_tpu_torch.io.codec import SpillCorruptionError
 from orange3_spark_tpu_torch.models.base import Estimator, Params
+from orange3_spark_tpu_torch.obs import prof
+from orange3_spark_tpu_torch.obs.report import RunReport
+from orange3_spark_tpu_torch.obs.trace import refreshed_enabled as obs_enabled
 from orange3_spark_tpu_torch.obs.trace import span, span_iter, traced
+from orange3_spark_tpu_torch.utils.graphs import EpochReplay, capture_graph
 
 # (X [n, d], y [n] or None) or (X, y, w) — sources may carry row weights
 Chunk = tuple
@@ -195,6 +200,10 @@ def array_chunk_source(X: np.ndarray, y: np.ndarray | None = None,
     return open_stream
 
 
+#: per-process ledger-entry numbering for _DeviceCache instances
+_CACHE_LEDGER_SEQ = itertools.count()
+
+
 class _DeviceCache:
     """Epoch-1 device batch cache with one budget/degrade rule: batches
     accumulate until ``budget`` bytes. With ``may_exclude_tail > 0`` (an
@@ -209,7 +218,16 @@ class _DeviceCache:
     exclusion are done, drops the whole cache if a miss survives: a partial
     replay would reorder or double-count batches. A miss older than the
     excludable tail can never be forgiven, so the cache drops the moment
-    that is known, freeing the device memory for the rest of the ingest."""
+    that is known, freeing the device memory for the rest of the ingest.
+
+    The memory-pressure brownout ladder (resilience/overload.py; level 0,
+    inert, unless a pressure source is configured) reads its level at
+    every offer: 1 admits only to half the budget, 2 admits nothing more
+    (the miss machinery then routes the replay to the spill or the
+    re-streamed source), 3 drops the cache at once, freeing the device
+    memory it holds. The cache's bytes are the ledger entry
+    ``cache_chunks`` (obs/prof.py), kept current at every change and
+    released when the cache dies."""
 
     def __init__(self, enabled: bool, budget: int, *, may_exclude_tail: int = 0):
         self.enabled = enabled
@@ -220,21 +238,38 @@ class _DeviceCache:
         self.degraded = False
         self.offered = 0
         self.first_miss: int | None = None
+        # the GC-safe deferred release: a finalizer must not take the
+        # ledger lock
+        self.ledger_key = f"chunk_cache-{next(_CACHE_LEDGER_SEQ)}"
+        weakref.finalize(self, prof.ledger_release_on_gc, "cache_chunks", self.ledger_key)
+
+    def _ledger_sync(self) -> None:
+        prof.ledger_set("cache_chunks", self.ledger_key, self.nbytes)
 
     def _drop(self) -> None:
         self.enabled = False
         self.batches = []
         self.nbytes = 0
         self.first_miss = None
+        self._ledger_sync()
 
     def offer(self, batch: tuple) -> None:
         if not self.enabled:
             return
         self.offered += 1
+        from orange3_spark_tpu_torch.resilience.overload import brownout_level
+
+        lvl = brownout_level()
+        if lvl >= 3:
+            self.degraded = True
+            self._drop()
+            return
+        budget = self.budget // 2 if lvl == 1 else self.budget
         sz = self._size(batch)
-        if self.first_miss is None and self.nbytes + sz <= self.budget:
+        if lvl < 2 and self.first_miss is None and self.nbytes + sz <= budget:
             self.batches.append(batch)
             self.nbytes += sz
+            self._ledger_sync()
             return
         if self.first_miss is None:
             self.first_miss = self.offered - 1
@@ -271,6 +306,7 @@ class _DeviceCache:
             else:
                 kept.append(b)
         self.batches = kept
+        self._ledger_sync()
 
     def settle(self) -> None:
         """End of ingest: a cache still missing batches cannot replay, so it
@@ -437,6 +473,14 @@ class DiskChunkCache:
             written = ofs + nb
         if self.record_bytes > written:
             crc = zlib.crc32(b"\0" * (self.record_bytes - written), crc)
+        # write-side fault injection (resilience/faults.py spill_corrupt):
+        # the CRC above covers the TRUE bytes, so a flipped byte trips the
+        # read-side check exactly like real silent corruption would
+        from orange3_spark_tpu_torch.resilience.faults import active_fault_spec
+
+        spec = active_fault_spec()
+        action = spec.take_spill_corrupt(len(self.n_valid)) if spec is not None else None
+        rec_start = self._f.tell()
         self._f.write(struct.pack("<II", int(n_valid), crc & 0xFFFFFFFF))
         written = 8
         for a, ofs, nb in zip(arrs, self._offsets, self._field_bytes):
@@ -446,6 +490,20 @@ class DiskChunkCache:
             written = ofs + nb
         if self.record_bytes > written:
             self._f.write(b"\0" * (self.record_bytes - written))
+        if action == "flip":
+            end = self._f.tell()
+            pos = rec_start + self._offsets[0]
+            self._f.seek(pos)
+            b = self._f.read(1)
+            self._f.seek(pos)
+            self._f.write(bytes([b[0] ^ 0x01]))
+            self._f.seek(end)
+        elif action == "truncate":
+            # a crash mid-write: only half the record reaches disk (the
+            # bookkeeping below still counts it, as the dead writer's
+            # in-memory state did) — caught by finalize/attach
+            self._f.truncate(rec_start + self.record_bytes // 2)
+            self._f.seek(rec_start + self.record_bytes // 2)
         self.n_valid.append(int(n_valid))
 
     @property
@@ -477,11 +535,20 @@ class DiskChunkCache:
             stored = int(np.asarray(rec[4:8]).copy().view("<u4")[0])
             computed = zlib.crc32(rec[8:]) & 0xFFFFFFFF
             if stored != computed:
-                raise SpillCorruptionError(
+                from orange3_spark_tpu_torch.obs.flight import auto_dump
+                from orange3_spark_tpu_torch.utils.profiling import record_crc_failure
+
+                record_crc_failure()
+                err = SpillCorruptionError(
                     f"spill record {i} of {self.n_records} in {self.path!r} failed "
                     f"CRC verification (stored 0x{stored:08x} != computed "
                     f"0x{computed:08x}): the record was corrupted on disk. Delete the "
                     "spill and re-run the fit (OTPU_RESILIENCE=0 skips verification).")
+                # black box (obs/flight.py): the replay's spans, registry,
+                # knobs and stacks at the corruption, before the raise
+                # unwinds the fit
+                auto_dump("spill_corruption", err)
+                raise err
             self._crc_ok.add(i)
         out = tuple(rec[ofs:ofs + nb].view(dt).reshape(shape)
                     for shape, dt, ofs, nb in zip(self.shapes, self.dtypes,
@@ -592,9 +659,10 @@ def replay_epochs(replay, last: Callable, n_replay: int, spe: int, n_steps: int,
     CUDA), then run whole ('all': one call) or by ``run_epoch_replay``
     ('epoch': groups of ``epochs_per_dispatch``, snapshots at epoch
     boundaries). ``last()`` gives what the last epoch leaves to wait on
-    (its loss). Returns ``(n_steps, last, capture_s)``; when a snapshot
-    already holds every replay epoch nothing runs and ``last`` and
-    ``capture_s`` are None."""
+    (its loss). The replays' device seconds feed the live fit's goodput
+    as device compute. Returns ``(n_steps, last, capture_s)``; when a
+    snapshot already holds every replay epoch nothing runs and ``last``
+    and ``capture_s`` are None."""
     from orange3_spark_tpu_torch.utils.profiling import count_dispatch
 
     if n_steps + n_replay * spe <= resume_from:
@@ -611,10 +679,15 @@ def replay_epochs(replay, last: Callable, n_replay: int, spe: int, n_steps: int,
         n_steps, out, _ = run_epoch_replay(
             n_replay, spe, n_steps, resume_from, checkpointer, dispatch_epochs, snapshot,
             ckpt_meta, epochs_per_dispatch=epochs_per_dispatch, every_epochs=every_epochs)
-        return n_steps, out, capture_s
-    replay.run(n_replay)
-    count_dispatch()          # one call: no loop to bound
-    return n_steps + n_replay * spe, last(), capture_s
+    else:
+        replay.run(n_replay)
+        count_dispatch()          # one call: no loop to bound
+        n_steps, out = n_steps + n_replay * spe, last()
+    # the captured replays' device seconds (their events', read once they
+    # end) are the live fit's device compute; the rest of the window,
+    # the host's launches included, is framework
+    prof.note_sync(replay.device_seconds())
+    return n_steps, out, capture_s
 
 
 def _rechunk(stream: Iterator[Chunk], rows: int) -> Iterator[tuple]:
@@ -837,6 +910,12 @@ class StreamingLinearEstimator(Estimator):
 
         p = self.params
         check_replay_granularity(p.replay_granularity)
+        # the run report rides the OTPU_OBS kill-switch; the goodput
+        # accountant (obs/prof.py) is None under OTPU_PROF=0
+        report = (RunReport("fit_stream", estimator=type(self).__name__,
+                            loss=p.loss, epochs=p.epochs)
+                  if obs_enabled() else None)
+        acc = prof.begin_fit()
         pipe_stats = PipelineStats()
         # the source chokepoint: fault injection and bounded retries of
         # transient reads (on the prefetch thread)
@@ -1048,6 +1127,10 @@ class StreamingLinearEstimator(Estimator):
         model = self._wrap_model(theta, k, class_values)
         model.n_steps_ = n_steps
         model.final_loss_ = float(last_loss) if last_loss is not None else None
+        prof.attach_fit_report(report, acc, cache_key=cache.ledger_key)
+        if report is not None:
+            report.stage_times.update(n_steps=n_steps, replay_source=replay_source)
+            model.run_report_ = report.finish()
         if stage_times is not None:
             stage_times.update(epoch_s=epoch_walls, n_steps=n_steps,
                                replay_source=replay_source, retries=pipe_stats.retries,
@@ -1422,7 +1505,7 @@ def _kmeans_stream_step(centers, counts, X, w, decay: float, k: int):
     return cost
 
 
-class _KMeansReplay:
+class _KMeansReplay(EpochReplay):
     """Replay epochs over the cached epoch-1 chunks: one step a chunk, in
     order, on centers and counts updated in place. On CUDA ``capture()``
     records one epoch as a CUDA graph (every step's kernels, reading the
@@ -1431,29 +1514,20 @@ class _KMeansReplay:
     CPU) ``run`` runs the same steps one by one. A failed capture raises."""
 
     def __init__(self, centers, counts, chunks: list, decay: float, k: int):
+        super().__init__()
         self.centers, self.counts, self.chunks = centers, counts, chunks
         self.decay, self.k = decay, k
-        self.graph = None
 
     def _epoch(self) -> None:
         for Xd, wd, _pre_seed in self.chunks:
             _kmeans_stream_step(self.centers, self.counts, Xd, wd, self.decay, self.k)
 
     def capture(self) -> None:
-        from orange3_spark_tpu_torch.utils.graphs import capture_graph
-
         X0, w0, _ = self.chunks[0]
         self.graph, _, _ = capture_graph(
             self._epoch, self.centers.device,
             warm=lambda: _kmeans_stream_step(self.centers.clone(), self.counts.clone(),
                                              X0, w0, self.decay, self.k))
-
-    def run(self, n_epochs: int) -> None:
-        for _ in range(n_epochs):
-            if self.graph is None:
-                self._epoch()
-            else:
-                self.graph.replay()
 
 
 class StreamingKMeans(Estimator):
@@ -1494,6 +1568,12 @@ class StreamingKMeans(Estimator):
         if p.replay_granularity not in ("all", "epoch"):
             raise ValueError(f"replay_granularity must be 'all' or 'epoch', "
                              f"got {p.replay_granularity!r}")
+        report = (RunReport("fit_stream", estimator=type(self).__name__,
+                            k=p.k, epochs=p.epochs)
+                  if obs_enabled() else None)
+        # goodput accountant (obs/prof.py), fed by the dispatch and
+        # prefetch chokepoints; None under OTPU_PROF=0
+        acc = prof.begin_fit()
         source = resilient_source(source)
         session = session or TorchSession.active()
         dev = session.device
@@ -1590,6 +1670,10 @@ class StreamingKMeans(Estimator):
                               estimator="StreamingKMeans")
         model = KMeansModel(KMeansParams(k=p.k), centers)
         model.n_iter_ = n_steps
+        prof.attach_fit_report(report, acc, cache_key=cache.ledger_key)
+        if report is not None:
+            report.stage_times["n_steps"] = n_steps
+            model.run_report_ = report.finish()
         # training_cost_ stays None: a per-chunk cost is NOT the full-data
         # trainingCost the attribute means (use model.compute_cost(table))
         return model

@@ -236,15 +236,39 @@ class Estimator(HasParams):
         if staging_active():
             # inside a staged refit: no wall clock, no wait for the device
             return self._fit(table)
+        from orange3_spark_tpu_torch.obs.context import trace_scope
+        from orange3_spark_tpu_torch.obs.trace import refreshed_enabled as obs_enabled
+        from orange3_spark_tpu_torch.obs.trace import span
+
+        # the outer obs bracket rides the OTPU_OBS kill-switch (its
+        # counter snapshots are its only cost). unique=True: a streaming
+        # _fit's fit_stream opens its own richer "fit" span — only the
+        # outermost is recorded, so traces never show fit ⊃ fit
+        report = None
+        if obs_enabled():
+            from orange3_spark_tpu_torch.obs.report import RunReport
+
+            report = RunReport("fit", estimator=type(self).__name__, n_rows=table.n_rows)
         t0 = time.perf_counter()
-        model = self._fit(table)
-        # the device runs behind the host: time the work, not its enqueue
-        table.session.synchronize()
+        # the fit's run id is minted here (reused, not shadowed, by a
+        # streaming _fit's own @traced("fit") entry), so every span and
+        # typed anomaly under this fit carries one identity
+        with trace_scope("fit", reuse=True):
+            with span("fit", unique=True, estimator=type(self).__name__):
+                model = self._fit(table)
+                # the device runs behind the host: time the work, not its
+                # enqueue
+                table.session.synchronize()
         dt = time.perf_counter() - t0
         self.last_fit_metrics = {
             "fit_seconds": dt,
             "rows_per_sec_per_chip": table.n_rows / dt / table.session.n_devices,
         }
+        # a streaming _fit already attached its richer fit_stream report:
+        # the outer bracket must not clobber it
+        if (report is not None and isinstance(model, Model)
+                and getattr(model, "run_report_", None) is None):
+            model.run_report_ = report.finish()
         return model
 
     def _fit(self, table: TorchTable) -> Model:

@@ -74,8 +74,10 @@ The update rules are optim/sparse.py's ``adam`` and ``{dense,sparse}_
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
 
@@ -92,6 +94,10 @@ from orange3_spark_tpu_torch.models._linear import (
     EPS_TOTAL_WEIGHT, dense_logits, per_row_loss, per_row_loss_grad,
 )
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params
+from orange3_spark_tpu_torch.obs import prof
+from orange3_spark_tpu_torch.obs.report import RunReport
+from orange3_spark_tpu_torch.obs.trace import refreshed_enabled as obs_enabled
+from orange3_spark_tpu_torch.obs.trace import traced
 from orange3_spark_tpu_torch.ops.hashing import (
     column_salts, hash_columns, hash_columns_np, salts_tensor,
 )
@@ -103,7 +109,7 @@ from orange3_spark_tpu_torch.optim.sparse import (
 )
 from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
 from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
-from orange3_spark_tpu_torch.utils.graphs import capture_graph
+from orange3_spark_tpu_torch.utils.graphs import EpochReplay, capture_graph
 
 AUC_BINS = 4096
 #: the profiler ranges of ``_step_core``, in step order ('split_hash' is
@@ -621,21 +627,33 @@ def _clone_tree(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-class _Replay:
+#: per-process ledger-entry numbering for hashed fits and replays (obs/prof.py)
+_FIT_LEDGER_SEQ = itertools.count()
+_REPLAY_LEDGER_SEQ = itertools.count()
+
+
+class _Replay(EpochReplay):
     """Replay epochs: one step per chunk, in order, on a state updated in
     place. ``capture()`` (CUDA) records one epoch as a CUDA graph — every
     step's kernels, reading the chunks where they lie (the cache itself, no
     stacked copy), the losses into the fixed ``losses`` buffer — and
-    ``run(n)`` replays it ``n`` times. Uncaptured (the CPU), ``run`` runs
-    the same steps one by one. A failed capture raises; nothing falls
+    ``run(n)`` replays it ``n`` times (``utils.graphs.EpochReplay``).
+    Uncaptured (the CPU), ``run`` runs the same steps one by one. A failed
+    capture raises; nothing falls
     back to the eager steps. The dense streaming fit
     (``io/streaming.StreamingLinearEstimator``) replays through it too."""
 
     def __init__(self, theta: dict, opt_state: dict, chunks: list, step: Callable):
+        super().__init__()
         self.theta, self.opt_state, self.chunks, self.step = theta, opt_state, chunks, step
         self.device = next(iter(theta.values())).device
         self.losses = torch.zeros(len(chunks), dtype=torch.float32, device=self.device)
-        self.graph = None
+        # the replay's own device memory (the losses, the captured graph's
+        # pool; it reads the cache in place) is the ledger entry
+        # ``replay_plans`` while it lives (released GC-safely when it dies)
+        self.ledger_key = f"replay_graph-{next(_REPLAY_LEDGER_SEQ)}"
+        weakref.finalize(self, prof.ledger_release_on_gc, "replay_plans", self.ledger_key)
+        prof.ledger_set("replay_plans", self.ledger_key, prof.tree_device_bytes(self.losses))
 
     def _epoch(self) -> None:
         for i, c in enumerate(self.chunks):
@@ -646,16 +664,11 @@ class _Replay:
         handles and workspaces), then capture one epoch. Thread-local
         capture mode lets the prefetch thread keep copying meanwhile."""
         theta, opt_state = self.theta, self.opt_state
-        self.graph, _, _ = capture_graph(
+        self.graph, _, pool_bytes = capture_graph(
             self._epoch, self.device,
             warm=lambda: self.step(_clone_tree(theta), _clone_tree(opt_state), self.chunks[0]))
-
-    def run(self, n_epochs: int) -> None:
-        for _ in range(n_epochs):
-            if self.graph is None:
-                self._epoch()
-            else:
-                self.graph.replay()
+        prof.ledger_set("replay_plans", self.ledger_key,
+                        pool_bytes + prof.tree_device_bytes(self.losses))
 
 
 # ------------------------------------------------------------- predict, eval
@@ -1097,6 +1110,7 @@ class StreamingHashedLinearEstimator(Estimator):
         session.synchronize()
         return theta, salts_np
 
+    @traced("fit", model="hashed_linear")
     def fit_stream(self, source: Callable[[], Iterator], *,
                    session: TorchSession | None = None,
                    class_values: tuple | None = None, cache_device: bool = False,
@@ -1153,8 +1167,22 @@ class StreamingHashedLinearEstimator(Estimator):
         from orange3_spark_tpu_torch.resilience.retry import resilient_source
 
         p = self.params
+        # the run report rides the OTPU_OBS kill-switch; the goodput
+        # accountant (obs/prof.py) is None under OTPU_PROF=0, and every
+        # downstream hook then no-ops on a contextvar read
+        report = (RunReport("fit_stream", estimator=type(self).__name__,
+                            n_dims=p.n_dims, epochs=p.epochs)
+                  if obs_enabled() else None)
+        acc = prof.begin_fit()
         session = session or TorchSession.active()
         theta, opt_state, salts_np, salts, static_kw = _init_fit_state(p, session)
+        # device-memory ledger: the table and the optimizer slots, the
+        # other big tenant beside the chunk cache. Re-set to the table at
+        # fit end (the slots die with the fit); released when the fitted
+        # model dies, or by the guard when the fit aborts
+        state_key = f"hashed-{next(_FIT_LEDGER_SEQ)}"
+        prof.ledger_set("model_state", state_key, prof.tree_device_bytes((theta, opt_state)))
+        _state_guard = prof.ledger_guard("model_state", state_key)
         resume_from = 0
         ckpt_meta = {"params": p.to_dict(), "k": _effective_k(p)}
         ckpt_epochs = resolve_epoch_checkpointing(p, checkpointer)
@@ -1182,8 +1210,8 @@ class StreamingHashedLinearEstimator(Estimator):
         chunk_specs = _chunk_field_specs(p, codec, pad_rows)
         plan_specs = _plan_store_specs(p, codec, pad_rows) if sparse_plan else ()
         cats_off = (1 if p.label_in_chunk else 0) + p.n_dense
-        times = ({"parse_s": 0.0, "h2d_s": 0.0, "encode_s": 0.0}
-                 if stage_times is not None else None)
+        # host stage seconds, for stage_times= and the run report
+        times = {"parse_s": 0.0, "h2d_s": 0.0}
         pipe_stats = PipelineStats()
         # the source chokepoint: fault injection and bounded retries of
         # transient reads, on the prefetch thread; retries count into
@@ -1201,8 +1229,7 @@ class StreamingHashedLinearEstimator(Estimator):
             if plan_store is not None:
                 out = out + (h2d.put(plan_store),)
             event = h2d.done()
-            if times is not None:
-                times["h2d_s"] += time.perf_counter() - t0
+            times["h2d_s"] += time.perf_counter() - t0
             return out, event
 
         def record_arrays(payload, yp, wp, plan_store):
@@ -1274,8 +1301,7 @@ class StreamingHashedLinearEstimator(Estimator):
                 payload = {k: np.concatenate([e[k] for e, _ in parts]) for k in parts[0][0]}
                 if codec.mode == "packed":
                     idx_np = np.concatenate([i for _, i in parts])
-                if times is not None:
-                    times["encode_s"] += time.perf_counter() - t_en
+                pipe_stats.encode_s += time.perf_counter() - t_en
             plan_np = None
             if sparse_plan:
                 # the host-sorted touched-row plan, built once here,
@@ -1285,15 +1311,13 @@ class StreamingHashedLinearEstimator(Estimator):
                     Xp[:, cats_off:cats_off + p.n_cat], salts_np, p.n_dims, n,
                     vals=(Xp[:, cats_off + p.n_cat:] if p.value_weighted else None),
                     idx=idx_np)
-                if times is not None:
-                    times["plan_s"] = times.get("plan_s", 0.0) + time.perf_counter() - t_pl
+                times["plan_s"] = times.get("plan_s", 0.0) + time.perf_counter() - t_pl
             plan_store = (None if plan_np is None
                           else _plan_device_form(codec, plan_np, pad_rows, p))
             if spill_active[0]:
                 t_sp = time.perf_counter()
                 spill.append(record_arrays(payload, yp, wp, plan_store), n)
-                if times is not None:
-                    times["spill_s"] = times.get("spill_s", 0.0) + time.perf_counter() - t_sp
+                times["spill_s"] = times.get("spill_s", 0.0) + time.perf_counter() - t_sp
             return put_chunk(payload, n, yp, wp, plan_store)
 
         def host_chunks():
@@ -1308,8 +1332,7 @@ class StreamingHashedLinearEstimator(Estimator):
                     item = next(it)
                 except StopIteration:
                     return
-                if times is not None:
-                    times["parse_s"] += time.perf_counter() - t0
+                times["parse_s"] += time.perf_counter() - t0
                 yield item[0] if p.label_in_chunk else item
 
         def staged(fn, items, depth):
@@ -1373,6 +1396,10 @@ class StreamingHashedLinearEstimator(Estimator):
         holdout: list = []
         n_steps = 0
         last_loss = None
+
+        def _encode_s():
+            """Host encode seconds so far, for the goodput accountant."""
+            return pipe_stats.encode_s + times.get("plan_s", 0.0)
 
         def step(th, op, chunk):
             return _step_into(th, op, chunk, salts, hyper, static_kw)
@@ -1454,8 +1481,7 @@ class StreamingHashedLinearEstimator(Estimator):
                     n_full = (n_train // group) * group if grouped else 0
                     if n_full:
                         n_groups = 0
-                        if times is not None:
-                            times["disk_replay_group"] = group
+                        times["disk_replay_group"] = group
                         for chunks in disk_group_iter(group, n_full):
                             if disk_replay is None:
                                 disk_replay = _Replay(theta, opt_state,
@@ -1464,7 +1490,9 @@ class StreamingHashedLinearEstimator(Estimator):
                                 _fill_slot(slot, c)
                             if is_cuda and disk_replay.graph is None:
                                 disk_replay.capture()   # once a fit, on filled slots
-                            disk_replay.run(1)
+                            # bound_dispatch's waits and the epoch barrier
+                            # feed the goodput here, as for the eager steps
+                            disk_replay.run(1, timed=False)
                             last_loss = disk_replay.losses[-1]
                             n_steps += group
                             n_groups += 1
@@ -1482,9 +1510,19 @@ class StreamingHashedLinearEstimator(Estimator):
                                       estimator="StreamingHashedLinearEstimator")
                 epoch_boundary_snapshot(checkpointer, ckpt_epochs, epoch, defer, n_steps,
                                         resume_from, snapshot, ckpt_meta)
-                if times is not None:
-                    session.synchronize()   # an honest epoch wall
-                    epoch_walls.append(time.perf_counter() - t_epoch)
+                if stage_times is not None:
+                    # only an explicit stage_times= caller pays a device
+                    # synchronize an epoch for honest epoch walls
+                    t_bar = time.perf_counter()
+                    session.synchronize()
+                    # an explicit barrier is synchronization, not device
+                    # pace (the periodic wait charged that)
+                    prof.note_sync(time.perf_counter() - t_bar, barrier=True)
+                epoch_walls.append(time.perf_counter() - t_epoch)
+                if acc is not None:
+                    # close the epoch's goodput window: its stage deltas
+                    # and the bottleneck, classified with hysteresis
+                    acc.epoch_boundary(epoch, encode_s=_encode_s())
                 if (epoch == 0 and fuse_replay and cache.enabled and cache.batches
                         # whole epochs are the replay's resume grain: a
                         # snapshot off an epoch boundary takes the per-chunk
@@ -1505,10 +1543,13 @@ class StreamingHashedLinearEstimator(Estimator):
                     if last is not None:
                         last_loss = last
                     if graph_capture_s is not None:
+                        # replay_epochs charged the replays' device seconds
+                        # and waited for the last; nothing is left queued
                         session.synchronize()
                         replay_fused_s = time.perf_counter() - t_rep
-                        if times is not None:
-                            epoch_walls.append(replay_fused_s)
+                        epoch_walls.append(replay_fused_s)
+                    if acc is not None and last is not None:
+                        acc.epoch_boundary(p.epochs - 1, encode_s=_encode_s())
                     del replay
                     break
         finally:
@@ -1525,9 +1566,10 @@ class StreamingHashedLinearEstimator(Estimator):
         # settle the decay the table still owes, so the returned model
         # equals the dense schedule's
         theta = finalize_lazy_decay(theta, opt_state, hyper[1], hyper[0], optim_resolved)
-        if stage_times is not None:
-            stage_times.update(times)
-            stage_times.update(
+        if stage_times is not None or report is not None:
+            # one stage dict feeds the caller's stage_times= and the report
+            st = dict(times, encode_s=pipe_stats.encode_s)
+            st.update(
                 optim_update=optim_resolved, sparse_lowering=static_kw["sparse_lowering"],
                 cache_dtype=codec.mode if codec else "f32", epoch_s=epoch_walls,
                 cache_overflow=cache.degraded, retries=pipe_stats.retries,
@@ -1538,17 +1580,20 @@ class StreamingHashedLinearEstimator(Estimator):
                                else "hbm" if cache.enabled
                                else "stream"))
             if replay_fused_s is not None:
-                stage_times.update(replay_fused_s=replay_fused_s,
-                                   graph_capture_s=graph_capture_s)
+                st.update(replay_fused_s=replay_fused_s, graph_capture_s=graph_capture_s)
             if cache_device:
-                stage_times.update(
+                st.update(
                     cache_bytes=cache.nbytes, cache_chunks=len(cache.batches),
                     cache_raw_bytes=len(cache.batches) * _raw_chunk_bytes(
                         p, pad_rows, sparse_plan))
             if pipe_stats.items:
-                stage_times.update(overlap_pct=pipe_stats.overlap_pct,
-                                   prefetch_prep_s=pipe_stats.prep_s,
-                                   prefetch_wait_s=pipe_stats.wait_s)
+                st.update(overlap_pct=pipe_stats.overlap_pct,
+                          prefetch_prep_s=pipe_stats.prep_s,
+                          prefetch_wait_s=pipe_stats.wait_s)
+            if report is not None:
+                report.stage_times.update(st)
+            if stage_times is not None:
+                stage_times.update(st)
         model = HashedLinearModel(
             p, theta, salts_np,
             class_values or (tuple(str(i) for i in range(p.n_classes))
@@ -1558,6 +1603,18 @@ class StreamingHashedLinearEstimator(Estimator):
         model.device_chunks_ = cache.batches if cache_device else None
         model.holdout_chunks_ = holdout if holdout_chunks > 0 else None
         model.cache_codec_ = codec
+        # ledger: the optimizer slots die with the fit — the entry shrinks
+        # to the table and lives as long as the model (the abort guard
+        # hands ownership to the model's finalizer)
+        _state_guard.finalizer.detach()
+        prof.ledger_set("model_state", state_key, prof.tree_device_bytes(theta))
+        weakref.finalize(model, prof.ledger_release_on_gc, "model_state", state_key)
+        # freeze the goodput decomposition and the ledger view into the
+        # report; cache_key names this fit's cache entry
+        prof.attach_fit_report(report, acc, encode_s=_encode_s(),
+                               cache_key=cache.ledger_key)
+        if report is not None:
+            model.run_report_ = report.add(n_steps=n_steps).finish()
         if checkpointer is not None:
             checkpointer.delete()
         return model

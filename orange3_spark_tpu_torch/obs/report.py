@@ -28,9 +28,9 @@ import time
 
 __all__ = ["REPORT_SCHEMA_VERSION", "RunReport", "counter_families"]
 
-#: the JAX package's report schema. Its version 2 adds the goodput and
-#: device_memory sections of obs/prof.py, which this package has not
-#: ported: they are absent, as in a JAX process under OTPU_PROF=0.
+#: the JAX package's report schema. 2 = the goodput (wall decomposition)
+#: and device_memory (ledger) sections of obs/prof.py — both ABSENT (not
+#: null) under OTPU_PROF=0 and in reports that are not a fit's.
 REPORT_SCHEMA_VERSION = 2
 
 #: derived ratio fields recomputed by the shims — meaningless to delta
@@ -86,6 +86,10 @@ class RunReport:
         self.wall_s: float | None = None
         self.counters: dict | None = None
         self.slow_traces: list | None = None
+        # obs/prof.py sections (attach_fit_report): the wall-time
+        # decomposition and the device-memory ledger view at fit end
+        self.goodput: dict | None = None
+        self.device_memory: dict | None = None
 
     def _slow_traces(self) -> list:
         """Top-k slowest trace trees among spans recorded since this run
@@ -131,6 +135,10 @@ class RunReport:
             "counters": counters,
             "slow_traces": slow,
         }
+        if self.goodput is not None:
+            out["goodput"] = self.goodput
+        if self.device_memory is not None:
+            out["device_memory"] = self.device_memory
         return out
 
     def to_json(self, path: str | None = None, **dump_kw) -> str:

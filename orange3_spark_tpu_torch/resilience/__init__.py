@@ -1,13 +1,16 @@
-"""resilience/ — fault injection, bounded retries and overload protection.
+"""resilience/ — fault injection, bounded retries, overload protection,
+the dispatch watchdog and the numerics guard.
 
 Copies of the JAX package's ``faults``, ``retry``, ``overload``,
 ``numerics`` and ``watchdog`` modules. The serving path stands on the
 first three (``serve/cache.py`` retries a failed build;
 ``serve/context.py`` admits, sheds and opens breakers); the streaming fit
 on all five (``resilient_source`` wraps its source, ``check_finite_training``
-guards each epoch, the watchdog bounds its periodic sync). The fit's
-checkpointer is ``utils/fault.StreamCheckpointer``. ``OTPU_RESILIENCE=0``
-restores fail-fast behaviour, as there.
+guards each epoch, the watchdog bounds its periodic sync, the
+memory-pressure brownout ladder degrades its device cache). Every typed
+anomaly writes a flight bundle (obs/flight.py). The fit's checkpointer is
+``utils/fault.StreamCheckpointer``. ``OTPU_RESILIENCE=0`` restores
+fail-fast behaviour, as there; fault injection stays live under it.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from orange3_spark_tpu_torch.resilience.overload import (
     AdmissionController,
     CircuitBreaker,
     OverloadShedError,
+    brownout_level,
     request_deadline,
 )
 from orange3_spark_tpu_torch.resilience.retry import (
@@ -40,7 +44,9 @@ from orange3_spark_tpu_torch.resilience.retry import (
 from orange3_spark_tpu_torch.resilience.watchdog import (
     DispatchWedgedError,
     dispatch_budget_s,
+    guarded_block_until_ready,
 )
+from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer
 
 __all__ = [
     "AdaptiveCoalescer",
@@ -51,11 +57,14 @@ __all__ = [
     "NumericalDivergenceError",
     "OverloadShedError",
     "RetryPolicy",
+    "StreamCheckpointer",
     "TransientBuildError",
     "TransientSourceError",
     "active_fault_spec",
+    "brownout_level",
     "check_finite_training",
     "dispatch_budget_s",
+    "guarded_block_until_ready",
     "inject_faults",
     "is_transient",
     "request_deadline",

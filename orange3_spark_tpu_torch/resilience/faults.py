@@ -17,6 +17,10 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   ``fails=-1`` = always fails (the retry-exhaustion pattern).
 * ``slow_source``   straggler chunks: sleep ``delay_ms`` before serving
   targeted ordinals (``every=K`` / ``chunk=N``; every read, no budget).
+* ``spill_corrupt`` corrupt spill record ``record=N`` at WRITE time:
+  ``mode=flip`` XORs one payload byte after the CRC was computed (so the
+  v2 read-side check trips), ``mode=truncate`` writes only half the
+  record (a crash-mid-write; caught by the finalize/attach size check).
 * ``wedge``         the ``at=N``-th guarded dispatch sync (1-based) holds
   for ``hold_s`` seconds (default 3600) before syncing
   (resilience/watchdog.py): under ``OTPU_DISPATCH_BUDGET_S`` the watchdog
@@ -33,11 +37,14 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   it logs by ``shift=S`` (default 3.0) from tapped-chunk ordinal
   ``after=K`` (default 0) on — the deterministic distribution-shift the
   promotion drift gate must reject before any replica flips.
+* ``mem_pressure``  report a synthetic memory-pressure fraction
+  ``frac=F`` to the brownout watermarks (after the first ``after=K``
+  queries, default 0) — drives the shrink-admission/force-spill/degrade
+  ladder without actually exhausting host RAM.
 
-The JAX package's ``spill_corrupt``, ``mem_pressure``, ``label_skew`` and
-``trainer_crash`` kinds are not kept: what consumes them (the spill's CRC
-check, the brownout ladder, the label joiner, the online trainer) is not
-ported, so a spec naming them raises here instead of injecting nothing.
+The JAX package's ``label_skew`` and ``trainer_crash`` kinds are not kept:
+what consumes them (the label joiner, the online trainer) is not ported,
+so a spec naming them raises here instead of injecting nothing.
 
 State (per-ordinal fail budgets, sync counters) lives on the ``FaultSpec``
 instance, so a retried read observes the budget already consumed — that is
@@ -83,7 +90,8 @@ class TransientBuildError(RuntimeError):
     """Injected transient AOT-build failure (retryable by contract)."""
 
 
-_KINDS = ("source_io", "slow_source", "wedge", "aot_build", "overload", "drift")
+_KINDS = ("source_io", "slow_source", "spill_corrupt", "wedge", "aot_build",
+          "overload", "mem_pressure", "drift")
 
 
 def _record_fault(kind: str) -> None:
@@ -99,9 +107,10 @@ class _Clause:
         self.kind = kind
         self.args = args
         self.fail_left: dict[int, int] = {}   # ordinal -> remaining fails
-        self.sync_seen = 0                    # wedge/overload: syncs seen
+        self.sync_seen = 0                    # wedge/overload/mem_pressure:
+        #                                       consuming queries seen
         self.build_fails_done = 0             # aot_build: raises so far
-        self.fired = False                    # drift: counter ticked
+        self.fired = False                    # drift/mem_pressure: ticked
 
     def _arg(self, key, default=None, cast=float):
         v = self.args.get(key)
@@ -196,6 +205,20 @@ class FaultSpec:
                     f" ({'always' if fails < 0 else f'{left} left'})"
                 )
 
+    # ----------------------------------------------------- storage hooks
+    def take_spill_corrupt(self, record: int) -> str | None:
+        """'flip' / 'truncate' when record ``record`` should be corrupted
+        at write time (consumed: each clause fires once)."""
+        for c in self._of("spill_corrupt"):
+            with self._lock:
+                if c.fail_left.get(record, 1) == 0:
+                    continue
+                if record == int(c._arg("record", 0, cast=int)):
+                    c.fail_left[record] = 0
+                    _record_fault("spill_corrupt")
+                    return str(c.args.get("mode", "flip"))
+        return None
+
     # ---------------------------------------------------- dispatch hooks
     def take_wedge(self) -> float | None:
         """hold-seconds when THIS guarded dispatch sync should wedge
@@ -220,6 +243,29 @@ class FaultSpec:
                     continue
             _record_fault("overload")
             return c._arg("delay_ms", 10.0) / 1e3
+        return None
+
+    def mem_pressure_frac(self, consume: bool = True) -> float | None:
+        """Synthetic memory-pressure fraction for the brownout
+        watermarks, else None. ``after=K`` keeps the first K CONSUMING
+        queries (chunk offers) pressure-free so a ladder test can cache
+        a prefix before the squeeze; side observers (/healthz scrapes)
+        pass ``consume=False`` and never advance the budget — a load
+        balancer polling health must not shift deterministic targeting.
+        The fault counter ticks once per clause, at first activation."""
+        for c in self._of("mem_pressure"):
+            fire = False
+            with self._lock:
+                if consume:
+                    c.sync_seen += 1
+                if c.sync_seen <= int(c._arg("after", 0, cast=int)):
+                    continue
+                if consume and not c.fired:
+                    c.fired = True
+                    fire = True
+            if fire:
+                _record_fault("mem_pressure")
+            return c._arg("frac", 1.0)
         return None
 
     # ------------------------------------------------------ online hooks

@@ -9,8 +9,7 @@ is no loss (a deferred ingest pass) and on the fit's final check, one sum
 over theta. A non-finite value raises :class:`NumericalDivergenceError`
 naming the epoch and chunk ordinal, ticks ``otpu_divergence_total`` and
 lands an instant on the span timeline. Inert under ``OTPU_RESILIENCE=0``
-(read per call). The JAX package's flight-recorder dump is not ported
-(obs/flight.py is not).
+(read per call). A divergence writes a flight bundle (obs/flight.py).
 """
 
 from __future__ import annotations
@@ -92,5 +91,12 @@ def check_finite_training(loss=None, theta=None, *, epoch: int, chunk: int,
 
     _trace.instant("divergence", what=what, epoch=epoch, chunk=chunk)
     flag_current_trace()
-    raise NumericalDivergenceError(what=what, epoch=epoch, chunk=chunk,
+    err = NumericalDivergenceError(what=what, epoch=epoch, chunk=chunk,
                                    estimator=estimator, trace_id=current_trace_id())
+    # black box (obs/flight.py): the fit's spans, registry state and knob
+    # table at the moment of divergence, before any checkpoint or caller
+    # cleanup can disturb them
+    from orange3_spark_tpu_torch.obs.flight import auto_dump
+
+    auto_dump("divergence", err)
+    raise err

@@ -1,21 +1,17 @@
 """Overload protection & graceful degradation.
 
-A copy of the JAX package's ``resilience/overload.py``, without two parts
-that wait for what consumes them: the flight-recorder dump of the first
-shed (``obs/flight.auto_dump``, for ``obs/flight.py``: a shed here raises,
-counts and flags its trace, and writes no bundle) and the memory-pressure
-brownout ladder (``brownout_level``, ``memory_pressure_fraction`` and their
-``OTPU_MEM_BUDGET_MB`` / ``OTPU_MEM_WATERMARKS`` knobs, for the fit's
-device cache). The process-wide dispatch breaker (``wedge_breaker``) is
-kept: the dispatch watchdog (resilience/watchdog.py) consumes it.
+A copy of the JAX package's ``resilience/overload.py``. The process-wide
+dispatch breaker (``wedge_breaker``) guards the dispatch watchdog
+(resilience/watchdog.py); the first shed of an overload spell writes a
+flight bundle (obs/flight.py).
 
 The paper's Spark substrate survives overload by elastic cluster
 scheduling — a swamped executor just makes the stage slower. A
 single-process accelerator runtime has no scheduler to lean on: unbounded queues
 turn a traffic spike into unbounded p99, a process-lifetime blacklist is
-the only serving failure ladder.
+the only serving failure ladder, and an over-budget fit dies on OOM.
 
-This module is the missing control plane, three pieces:
+This module is the missing control plane, four pieces:
 
 * **AdmissionController** — bounded in-flight serving work with optional
   per-request deadline budgets. A request whose PROJECTED queue wait
@@ -34,14 +30,22 @@ This module is the missing control plane, three pieces:
   queue depth grows ``max_wait_ms`` and the merge target (never past the
   bucket ladder's top rung / ``OTPU_MB_MAX_WAIT_MS``), an idle queue
   shrinks both back to their configured base.
+* **BrownoutMonitor** (:func:`brownout_level`) — memory-pressure
+  watermarks over host RSS (``OTPU_MEM_BUDGET_MB``) and the injected
+  ``mem_pressure`` fault fraction. The level feeds the ``_DeviceCache``
+  brownout ladder during fits: 1 = shrink chunk admission (half the HBM
+  budget), 2 = stop admitting (force the disk spill / re-stream path),
+  3 = degrade the HBM replay cache entirely — a typed, measured degrade
+  instead of an opaque OOM.
 
-Everything is deterministic-testable through the ``overload`` fault
-injector (resilience/faults.py) and inert under the
-``OTPU_RESILIENCE=0`` kill-switch (legacy unbounded queues, the
-first-failure latch, fixed micro-batch wait). Breaker state, queue
-depth and shed counts export through the obs registry
-(``otpu_shed_total{reason=}``, ``otpu_breaker_state{name=}``,
-``otpu_admission_inflight``).
+Everything is deterministic-testable through the ``overload`` and
+``mem_pressure`` fault injectors (resilience/faults.py) and inert under
+the ``OTPU_RESILIENCE=0`` kill-switch (legacy unbounded queues, the
+first-failure latch, fixed micro-batch wait, no brownout). Breaker
+state, queue depth, shed counts and the brownout level all export
+through the obs registry (``otpu_shed_total{reason=}``,
+``otpu_breaker_state{name=}``, ``otpu_admission_inflight``,
+``otpu_brownout_level``) and ``/healthz`` reports the brownout level.
 """
 
 from __future__ import annotations
@@ -64,7 +68,11 @@ __all__ = [
     "AdmissionController",
     "CircuitBreaker",
     "OverloadShedError",
+    "brownout_level",
+    "current_brownout_level",
+    "host_rss_bytes",
     "maybe_injected_service_delay",
+    "memory_pressure_fraction",
     "request_deadline",
     "reset_wedge_breaker",
     "shed_total",
@@ -88,6 +96,10 @@ _M_BREAKER_STATE = REGISTRY.gauge(
 _M_MB_ADAPT = REGISTRY.gauge(
     "otpu_mb_adapt_factor",
     "adaptive micro-batch wait/merge growth factor (1.0 = base)")
+_M_BROWNOUT = REGISTRY.gauge(
+    "otpu_brownout_level",
+    "memory-pressure brownout level (0=normal, 1=shrink chunk admission, "
+    "2=force spill, 3=degrade HBM replay cache)")
 
 
 # --------------------------------------------------------------- shedding
@@ -257,7 +269,12 @@ class AdmissionController:
         )
 
         _record_shed(reason)
-        # tail retention keeps the shed trace whole in the ring
+        # tail retention keeps the shed trace whole in the ring. The
+        # flight-recorder dump happens at the PUBLIC entry points
+        # (_dump_shed), outside the admission condition variable —
+        # slot() sheds from inside `with self._cv:`, and a bundle write
+        # (stacks + registry + disk IO) under that lock would stall
+        # every other caller at exactly the moment of peak overload.
         flag_current_trace()
         raise OverloadShedError(
             reason=reason, queue_depth=queue_depth, inflight=self._inflight,
@@ -266,7 +283,8 @@ class AdmissionController:
 
     def _shed_tenant(self, tenant: str, reason: str, usage: float,
                      quota: float, d: float | None):
-        """Typed per-tenant quota shed (cv held, as in ``_shed``)."""
+        """Typed per-tenant quota shed (cv held — same discipline as
+        ``_shed``: the flight dump happens outside, in ``slot``)."""
         from orange3_spark_tpu_torch.obs.context import (
             current_trace_id, flag_current_trace,
         )
@@ -305,6 +323,15 @@ class AdmissionController:
         fair = self._fair_share
         return fair.snapshot() if fair is not None else {}
 
+    @staticmethod
+    def _dump_shed(err: "OverloadShedError") -> None:
+        """Black box (obs/flight.py): the first shed of an overload spell
+        freezes queue depths/breakers/stacks; the rate limit keeps a shed
+        storm from becoming an IO storm. Called with NO locks held."""
+        from orange3_spark_tpu_torch.obs.flight import auto_dump
+
+        auto_dump("overload_shed", err)
+
     # ------------------------------------------------------- entrypoints
     def check_queue(self, queue_depth: int,
                     deadline_s: float | None = None,
@@ -321,12 +348,16 @@ class AdmissionController:
         d = deadline_s if deadline_s is not None else _ambient_deadline_s()
         if d is None or math.isinf(d):
             return
-        if queue_depth >= self.max_queue:
-            self._shed("queue_full", queue_depth,
-                       self.estimate_wait_s(queue_depth, parallelism), d)
-        est = self.estimate_wait_s(queue_depth, parallelism)
-        if est > d:
-            self._shed("projected_wait", queue_depth, est, d)
+        try:
+            if queue_depth >= self.max_queue:
+                self._shed("queue_full", queue_depth,
+                           self.estimate_wait_s(queue_depth, parallelism), d)
+            est = self.estimate_wait_s(queue_depth, parallelism)
+            if est > d:
+                self._shed("projected_wait", queue_depth, est, d)
+        except OverloadShedError as e:
+            self._dump_shed(e)
+            raise
 
     @contextmanager
     def slot(self, deadline_s: float | None = None):
@@ -351,7 +382,13 @@ class AdmissionController:
         if d is not None and math.isinf(d):
             d = None    # request_deadline(inf): admitted work (the mb
             #             worker) waits for a slot but is never shed
-        self._acquire(d, tenant=tenant, fair=fair)
+        try:
+            self._acquire(d, tenant=tenant, fair=fair)
+        except OverloadShedError as e:
+            # the raise already released self._cv — the flight dump's
+            # stack/registry/disk work must never run under it
+            self._dump_shed(e)
+            raise
         t0 = time.perf_counter()
         try:
             yield
@@ -666,3 +703,107 @@ def maybe_injected_service_delay() -> None:
     d = spec.take_overload_delay()
     if d:
         time.sleep(d)
+
+
+# ------------------------------------------------- memory-pressure brownout
+def host_rss_bytes() -> int:
+    """This process's resident set size. /proc on linux; the ru_maxrss
+    high-water mark elsewhere (conservative: brownout then considers the
+    worst the process has been, which is the safe direction)."""
+    try:
+        with open("/proc/self/status", encoding="ascii") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    try:
+        import resource
+
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    except Exception:  # noqa: BLE001 - no RSS source on this platform
+        return 0
+
+
+def _watermarks() -> tuple[float, float, float]:
+    from orange3_spark_tpu_torch.utils import knobs
+
+    raw = knobs.get_str("OTPU_MEM_WATERMARKS")
+    try:
+        parts = [float(p) for p in raw.split(",")]
+        if len(parts) == 3 and 0 < parts[0] <= parts[1] <= parts[2]:
+            return parts[0], parts[1], parts[2]
+    except ValueError:
+        pass
+    return 0.75, 0.88, 0.96
+
+
+_BROWNOUT_ACTIONS = {
+    1: "shrinking HBM chunk admission to half budget",
+    2: "forcing new chunks to the spill/stream path",
+    3: "degrading the HBM replay cache",
+}
+_last_brownout_level = 0
+_brownout_lock = threading.Lock()
+
+
+def memory_pressure_fraction(consume: bool = True) -> float | None:
+    """Current memory-pressure fraction: the injected ``mem_pressure``
+    fault fraction when one is active, else host RSS over the
+    ``OTPU_MEM_BUDGET_MB`` budget. None = no pressure source configured
+    (watermarks inert — the common case costs two cheap checks).
+    ``consume=False`` = a side observer (/healthz): never advances the
+    injector's ``after=`` budget."""
+    spec = active_fault_spec()
+    if spec is not None:
+        frac = spec.mem_pressure_frac(consume=consume)
+        if frac is not None:
+            return frac
+    from orange3_spark_tpu_torch.utils import knobs
+
+    budget_mb = float(knobs.get_float("OTPU_MEM_BUDGET_MB"))
+    if budget_mb <= 0:
+        return None
+    return host_rss_bytes() / (budget_mb * 1024 * 1024)
+
+
+def brownout_level(consume: bool = True) -> int:
+    """The brownout ladder rung the current memory pressure lands on:
+    0 normal, 1 shrink chunk admission, 2 force spill, 3 degrade the
+    HBM replay cache. 0 whenever no pressure source is configured or
+    the kill-switch is on (legacy: fits die on OOM instead). Level
+    transitions land on the obs timeline and the
+    ``otpu_brownout_level`` gauge, and warn once per escalation.
+    ``consume=False`` (health scrapes) never advances an injected
+    spec's ``after=`` budget."""
+    global _last_brownout_level
+    frac = memory_pressure_fraction(consume=consume)
+    if frac is None or not resilience_enabled():
+        level = 0
+    else:
+        w1, w2, w3 = _watermarks()
+        level = 3 if frac >= w3 else 2 if frac >= w2 else \
+            1 if frac >= w1 else 0
+    if level != _last_brownout_level:
+        with _brownout_lock:
+            prev, _last_brownout_level = _last_brownout_level, level
+        if level != prev:
+            _M_BROWNOUT.set(level)
+            from orange3_spark_tpu_torch.obs import trace as _trace
+
+            _trace.instant("brownout", level=level,
+                           frac=round(frac or 0.0, 4))
+            if level > prev:
+                log.warning(
+                    "memory pressure %.0f%%: brownout level %d (%s); "
+                    "OTPU_MEM_WATERMARKS tunes the ladder, "
+                    "OTPU_RESILIENCE=0 disables it",
+                    100.0 * (frac or 0.0), level,
+                    _BROWNOUT_ACTIONS.get(level, "recovering"))
+    return level
+
+
+def current_brownout_level() -> int:
+    """The last level :func:`brownout_level` computed (no re-read) —
+    the /healthz report field."""
+    return _last_brownout_level

@@ -19,8 +19,8 @@ returns, there is nothing to wait for. ``utils.dispatch.bound_dispatch``
 routes every step loop's periodic sync through ``maybe_guarded_block``. The
 ``wedge`` fault kind (resilience/faults.py) injects the never-returning
 sync here: the monitor thread holds for ``hold_s`` before syncing, so the
-budget really races it; without a budget the hold is a finite stall. The
-JAX package's flight-recorder dump on a wedge is not ported.
+budget really races it; without a budget the hold is a finite stall. A
+wedge writes a flight bundle (obs/flight.py) before it raises.
 """
 
 from __future__ import annotations
@@ -160,9 +160,16 @@ def guarded_block_until_ready(token, *, step: int | None = None, stage: str = "s
         breaker.record_failure()
         flag_current_trace()
         # a distinct name: `err` is the waiter's result list
-        raise DispatchWedgedError(
+        wedge_err = DispatchWedgedError(
             stage=stage, step=step, budget_s=budget, waited_s=time.perf_counter() - t0,
             diagnostics=_diagnostics(), trace_id=current_trace_id())
+        # black box (obs/flight.py): the waiter thread is still parked in
+        # the wait right now, so the bundle's stacks catch it, and the
+        # wedged dispatch span is still open on this thread
+        from orange3_spark_tpu_torch.obs.flight import auto_dump
+
+        auto_dump("dispatch_wedged", wedge_err)
+        raise wedge_err
     if err:
         raise err[0]
     breaker.record_success()

@@ -17,26 +17,35 @@ the built program a first-class entry:
 * counted: hits/misses/evictions/build-seconds tick the process-wide
   ``utils.profiling`` serve aggregate, the source of the serving bench's
   ``bucket_hits``/``aot_hits`` fields; ``device_bytes()`` reports what the
-  cached entries hold on the device.
-
-Not ported: the JAX package names every entry in the device-memory ledger
-of ``obs/prof.py``; this cache keeps its entries' bytes itself.
+  cached entries hold on the device;
+* named in the device-memory ledger (obs/prof.py): every cached program
+  is a ``serve_executables`` entry of those bytes, released when it leaves
+  the cache (eviction, a marker's forced eviction, or ``clear``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import zlib
 from collections import OrderedDict
 from concurrent.futures import Future
 from typing import Any, Callable
 
+from orange3_spark_tpu_torch.obs import prof
 from orange3_spark_tpu_torch.utils.profiling import record_serve
 
 _MISSING = object()
 #: countless LRU placeholder for keys that own no executable (pad-path
 #: buckets, failed builds); never returned as a build product
 _PAD_MARKER = "pad-marker"
+
+
+def _ledger_name(key) -> str:
+    """Stable short ledger-entry name for one cache key (keys are long
+    tuples carrying fingerprints and devices — the crc names the entry,
+    the bytes are what a post-mortem reads)."""
+    return f"exe-{zlib.crc32(repr(key).encode()) & 0xFFFFFFFF:08x}"
 
 
 def _entry_device_bytes(entry) -> int:
@@ -115,8 +124,12 @@ class ExecutableCache:
             return sum(self._bytes.values())
 
     def _drop_locked(self, keys) -> None:
+        # ledger releases inside the cache lock: they serialize with a
+        # concurrent build's set of the same key (lock order cache ->
+        # ledger), so a late set never re-creates an evicted entry
         for k in keys:
             self._bytes.pop(k, None)
+            prof.ledger_release("serve_executables", _ledger_name(k))
 
     def get_or_build(self, key, build: Callable[[], Any]):
         with self._lock:
@@ -152,10 +165,12 @@ class ExecutableCache:
             raise
         dt = time.perf_counter() - t0
         evicted = []
+        nbytes = _entry_device_bytes(entry)
         with self._lock:
             record_serve(aot_misses=1, aot_compile_s=dt)
             self._entries[key] = entry
-            self._bytes[key] = _entry_device_bytes(entry)
+            self._bytes[key] = nbytes
+            prof.ledger_set("serve_executables", _ledger_name(key), nbytes)
             del self._building[key]
             while len(self._entries) > self.max_entries:
                 evicted.append(self._entries.popitem(last=False)[0])
@@ -193,7 +208,7 @@ class ExecutableCache:
         with self._lock:
             dropped = list(self._entries)
             self._entries.clear()
-            self._bytes.clear()
+            self._drop_locked(dropped)
         if self.on_evict is not None:
             # same contract as LRU eviction: every dropped key fires, so
             # the owning context releases its per-model/per-graph pins

@@ -58,10 +58,13 @@ The active context is PROCESS-wide (serving worker threads must see the
 context their pool installed); nesting is a stack, innermost wins.
 
 Staged workflow programs (workflow/staging.py) share this context's cache
-through ``staged_executable``. Not ported yet, from the JAX package's
-context: the opt-in telemetry endpoint and its readiness flag,
-``dump_flight``, and the donation switch in the staged keys (the port
-donates nothing).
+through ``staged_executable``. The first activation of a serving window
+resets the process's readiness (obs/server.py ``/readyz`` answers 503
+until ``warmup`` completes) and, with ``OTPU_OBS_PORT`` set, binds the
+telemetry endpoint for the window's lifetime; ``dump_flight`` writes a
+flight bundle now (obs/flight.py). Not ported from the JAX package's
+context: the donation switch in the staged keys (the port donates
+nothing).
 """
 
 from __future__ import annotations
@@ -404,6 +407,7 @@ class ServingContext:
         self._staged_refs: dict[int, Any] = {}
         self._activations = 0
         self.micro_batcher = None
+        self._telemetry = None       # obs/server.py, OTPU_OBS_PORT opt-in
         self._run_report = None      # obs/report.py, per-activation window
 
     # ------------------------------------------------------ context stack
@@ -423,12 +427,22 @@ class ServingContext:
                     batch_cap=self.ladder.max_bucket,
                 )
             self._activations += 1
+            if not _ACTIVE:
+                # a FRESH serving window for the process (no context was
+                # active): not /readyz-ready until warmed (obs/server.py;
+                # overlapping activations inherit the window's state)
+                from orange3_spark_tpu_torch.obs.server import reset_readiness
+
+                reset_readiness()
             if self._activations == 1:
+                from orange3_spark_tpu_torch.obs.server import maybe_start_from_env
                 from orange3_spark_tpu_torch.obs.trace import refreshed_enabled
 
-                # a fresh run report brackets the serve counters of the
-                # activation window (OTPU_OBS kill-switch: report() then
-                # degrades to the process-absolute view)
+                # per-window observability: a fresh run report brackets
+                # the serve counters, and the opt-in telemetry endpoint
+                # (OTPU_OBS_PORT) binds for the window's lifetime. Both
+                # ride the OTPU_OBS kill-switch (report() then degrades to
+                # the process-absolute view)
                 if refreshed_enabled():
                     from orange3_spark_tpu_torch.obs.report import RunReport
 
@@ -437,6 +451,7 @@ class ServingContext:
                         micro_batch=self._micro_batch)
                 else:
                     self._run_report = None
+                self._telemetry = maybe_start_from_env(self)
             _ACTIVE.append(self)
         return self
 
@@ -450,15 +465,23 @@ class ServingContext:
             mb = self.micro_batcher if self._activations == 0 else None
             if mb is not None:
                 self.micro_batcher = None
+            srv = self._telemetry if self._activations == 0 else None
+            if srv is not None:
+                self._telemetry = None
             rep = self._run_report if self._activations == 0 else None
-        # outside the lock (close joins the worker); the window's report
-        # freezes even when close() raises
+        # all outside the lock (close/stop join threads), and chained so a
+        # close() that raises neither leaks the bound listener nor leaves
+        # the window's report unfrozen
         try:
             if mb is not None:
                 mb.close()
         finally:
-            if rep is not None:
-                rep.finish()
+            try:
+                if srv is not None:
+                    srv.stop()
+            finally:
+                if rep is not None:
+                    rep.finish()
 
     # ------------------------------------------------------------ records
     def _record_for(self, model) -> _ModelRecord:
@@ -846,6 +869,11 @@ class ServingContext:
                     y_dtype=(template.Y.dtype if template.Y is not None else None),
                     n_pad=n_pad, device=template.X.device)
                 built += 0 if hit else 1
+        # readiness (obs/server.py /readyz): the ladder is built, so a
+        # router may send traffic without a request paying a capture
+        from orange3_spark_tpu_torch.obs.server import note_warmup_complete
+
+        note_warmup_complete()
         return {"compiled": built, "buckets": buckets}
 
     # ------------------------------------------------------------- report
@@ -876,11 +904,21 @@ class ServingContext:
         out["unservable"] = sum(1 for br in brs if br.state() != "closed")
         out["sheds"] = shed_total()
         out["micro_batcher_active"] = self.micro_batcher is not None
+        out["telemetry_url"] = (self._telemetry.url
+                                if self._telemetry is not None else None)
         if "slow_traces" not in out:
             from orange3_spark_tpu_torch.obs.trace import slowest_traces
 
             out["slow_traces"] = slowest_traces(5)
         return out
+
+    def dump_flight(self, reason: str = "manual") -> str | None:
+        """Write an anomaly flight bundle NOW (obs/flight.py) — the manual
+        black-box pull of a live serving process. Returns the bundle path
+        (None under the OTPU_OBS/OTPU_FLIGHT kill-switches)."""
+        from orange3_spark_tpu_torch.obs import flight
+
+        return flight.dump(reason, context=self)
 
     # ------------------------------------------------- staged-graph reuse
     def staged_executable(self, staged, tables: dict):

@@ -7,8 +7,8 @@ chunk can run far ahead of the card. Every sequential step loop calls
 one wait per ``period`` dispatches caps the queue, and that wait is the
 one place a loop can block forever on a wedged device, so it goes through
 the resilience watchdog (resilience/watchdog.py ``maybe_guarded_block``).
-The reference's goodput accountant (``obs/prof.note_sync``) is not ported,
-so the wait's seconds are recorded only by its ``dispatch`` span.
+Its seconds feed the live fit's goodput accountant as device compute
+(``obs/prof.note_sync``): the host sees the device's pace only there.
 """
 
 from __future__ import annotations
@@ -46,9 +46,16 @@ def bound_dispatch(step: int, token, period: int = DISPATCH_SYNC_PERIOD) -> None
     beat()
     count_dispatch()
     if step % period == 0:
+        from orange3_spark_tpu_torch.obs.prof import note_sync
         from orange3_spark_tpu_torch.obs.trace import span
         from orange3_spark_tpu_torch.resilience.watchdog import maybe_guarded_block
 
+        # the one place a step loop blocks on the device: a "dispatch"
+        # span puts the wait on the timeline, and the same blocked seconds
+        # feed the goodput accountant as device_compute (a bare contextvar
+        # read when no fit is live)
         with span("dispatch", step):
+            t0 = time.perf_counter()
             maybe_guarded_block(token, step=step)
+            note_sync(time.perf_counter() - t0)
         beat()

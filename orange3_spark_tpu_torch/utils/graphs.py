@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import gc
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable
 
@@ -54,6 +55,54 @@ def capture_graph(fn: Callable[[], Any], device: torch.device,
         pool_bytes = torch.cuda.memory_reserved(device) - pool0
         count_graph_capture()
     return graph, out, pool_bytes
+
+
+class EpochReplay:
+    """A fit's replay of whole epochs: ``graph`` (one captured epoch, or
+    None) and ``_epoch()`` (the same steps, run eagerly) are the
+    subclass's. ``run(n)`` replays the graph ``n`` times, or runs the
+    steps ``n`` times where nothing was captured (the CPU: the host does
+    the device's work, so its seconds feed the live fit's goodput as
+    device compute). Each timed replay lies between a pair of CUDA events;
+    ``device_seconds()`` reads the device's own time in them, so the
+    host's time inside ``graph.replay()`` (waiting for room in the launch
+    queue) and the device's idle gaps between replays stay out of it."""
+
+    def __init__(self):
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._events: list = []
+
+    def _epoch(self) -> None:
+        raise NotImplementedError
+
+    def run(self, n_epochs: int, *, timed: bool = True) -> None:
+        """Run ``n_epochs`` epochs; ``timed=False`` records no events (a
+        caller whose own waits feed the goodput)."""
+        from orange3_spark_tpu_torch.obs import prof
+
+        if self.graph is None:
+            t0 = time.perf_counter()
+            for _ in range(n_epochs):
+                self._epoch()
+            prof.note_sync(time.perf_counter() - t0)
+            return
+        for _ in range(n_epochs):
+            if timed:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            self.graph.replay()
+            if timed:
+                end.record()
+                self._events.append((start, end))
+
+    def device_seconds(self) -> float:
+        """The device's seconds in the timed replays since the last call
+        (it waits for the last of them to end), then forgets them."""
+        events, self._events = self._events, []
+        if not events:
+            return 0.0
+        events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / 1e3
 
 
 # device copies of small host constants (column indices, split points),

@@ -3,7 +3,8 @@
 A copy of the JAX package's knob table, cut to the knobs the ported
 modules read (the serving path, the resilience and observability layers it
 stands on, the chunk cache and the sparse optimizer), with the same names,
-types and defaults. Every knob declares its name, type, default, owning
+types, defaults and help text (``knob_table_md`` renders each row as the
+JAX package does). Every knob declares its name, type, default, owning
 subsystem and a one-line doc; call sites resolve through the typed getters
 below.
 
@@ -26,6 +27,8 @@ __all__ = [
     "get_int",
     "get_raw",
     "get_str",
+    "knob_table_md",
+    "resolved",
 ]
 
 
@@ -99,6 +102,12 @@ _ALL = [
     Knob("OTPU_MB_MAX_WAIT_MS", "float", 20.0, "resilience",
          "Ceiling the adaptive coalescer may grow max_wait_ms to under "
          "sustained queue depth."),
+    Knob("OTPU_MEM_BUDGET_MB", "float", 0.0, "resilience",
+         "Host-RSS budget the brownout watermarks read against "
+         "(0 = brownout inert unless a mem_pressure fault is injected)."),
+    Knob("OTPU_MEM_WATERMARKS", "str", "0.75,0.88,0.96", "resilience",
+         "Brownout ladder fractions: shrink chunk admission / force "
+         "spill / degrade the HBM replay cache."),
     # ----------------------------------------------------------- serve/
     Knob("OTPU_TENANCY", "flag", "1", "serve",
          "Multi-tenant weighted-fair serving kill-switch; 0 = no tenant "
@@ -124,8 +133,9 @@ _ALL = [
          "request walks its stages through the per-model serving path "
          "(K dispatches), bitwise the pre-workflow behavior."),
     Knob("OTPU_WORKFLOW_MAX_STAGES", "int", 64, "serve",
-         "Stage-count ceiling for fusing a workflow DAG into one bucket "
-         "program; a DAG past it serves stage-by-stage."),
+         "Stage-count ceiling for fusing a workflow DAG into one AOT "
+         "executable; a DAG past it serves stage-by-stage (an XLA program "
+         "over hundreds of stages compiles pathologically)."),
     # ----------------------------------------------------------- online/
     Knob("OTPU_ONLINE", "flag", "1", "online",
          "Continuous train-while-serve kill-switch; 0 = the serving tap, "
@@ -136,6 +146,13 @@ _ALL = [
          "Observability master switch; 0 = spans no-op, the telemetry "
          "endpoint never binds, the registry still serves the legacy "
          "counter shims."),
+    Knob("OTPU_OBS_PORT", "int", None, "obs",
+         "Bind the /metrics + /healthz telemetry server on this port when "
+         "a ServingContext activates (0 = ephemeral port); unset = no "
+         "server."),
+    Knob("OTPU_OBS_STALE_S", "float", 60.0, "obs",
+         "/healthz degrades to 503 when the liveness heartbeat is older "
+         "than this many seconds."),
     Knob("OTPU_OBS_TRACE_CAP", "int", 65536, "obs",
          "Span ring-buffer capacity (oldest events overwrite past it)."),
     Knob("OTPU_TRACE_SAMPLE", "float", 1.0, "obs",
@@ -145,6 +162,34 @@ _ALL = [
     Knob("OTPU_TRACE_SLOW_MS", "float", 250.0, "obs",
          "Latency above which an unsampled serve trace is retained "
          "anyway (the tail the ring exists to explain)."),
+    Knob("OTPU_PROF", "flag", "1", "obs",
+         "Goodput & memory-attribution plane kill-switch; 0 restores the "
+         "pre-prof behavior bitwise: no goodput accounting, no device-"
+         "memory ledger ticks, deep capture refused (503)."),
+    Knob("OTPU_PROF_DIR", "str", "/tmp/otpu_prof", "obs",
+         "Directory on-demand deep-profile capture artifacts "
+         "(capture-<ns>-<reason>/ dirs) are written to, atomically."),
+    Knob("OTPU_PROF_RATE_S", "float", 60.0, "obs",
+         "Min seconds between deep-profile captures (the /debug/profile "
+         "endpoint answers 429 inside the window; captures are also "
+         "serialized — one at a time, 409 while one runs)."),
+    Knob("OTPU_PROF_MAX_MS", "float", 10000.0, "obs",
+         "Ceiling on the duration_ms a /debug/profile capture may hold "
+         "the jax profiler open (longer requests are clamped)."),
+    Knob("OTPU_PROF_HYST", "float", 0.1, "obs",
+         "Bottleneck-classifier hysteresis: a challenger stage must beat "
+         "the incumbent's wall fraction by this margin before an epoch's "
+         "classification flips (no flapping at the boundary)."),
+    Knob("OTPU_FLIGHT", "flag", "1", "obs",
+         "Anomaly flight-recorder kill-switch; 0 = typed anomalies write "
+         "no bundles (OTPU_OBS=0 disables it too)."),
+    Knob("OTPU_FLIGHT_DIR", "str", "/tmp/otpu_flight", "obs",
+         "Directory automatic and manual flight bundles are written to."),
+    Knob("OTPU_FLIGHT_MAX", "int", 16, "obs",
+         "Max flight bundles kept in OTPU_FLIGHT_DIR (oldest deleted)."),
+    Knob("OTPU_FLIGHT_RATE_S", "float", 60.0, "obs",
+         "Min seconds between AUTOMATIC flight bundles (an anomaly storm "
+         "must not become an IO storm); manual dumps are unlimited."),
 ]
 
 KNOBS: dict[str, Knob] = {k.name: k for k in _ALL}
@@ -188,3 +233,27 @@ def get_int(name: str) -> int | None:
 
 def get_float(name: str) -> float | None:
     return _num(name, float)
+
+
+def resolved() -> dict:
+    """Every knob's current resolved value (typed getters, so malformed
+    env values show as their declared defaults — what the code acts on).
+    The flight recorder embeds this table in every bundle."""
+    getters = {"flag": get_bool, "int": get_int, "float": get_float,
+               "str": get_str}
+    return {k.name: getters[k.type](k.name) for k in KNOBS.values()}
+
+
+def knob_table_md() -> str:
+    """The markdown knob-reference table, in the JAX package's rendering
+    (one row a knob, sorted by subsystem then name)."""
+    lines = [
+        "| knob | type | default | subsystem | effect |",
+        "|---|---|---|---|---|",
+    ]
+    for k in sorted(KNOBS.values(), key=lambda k: (k.subsystem, k.name)):
+        default = "–" if k.default is None else str(k.default)
+        lines.append(
+            f"| `{k.name}` | {k.type} | `{default}` | {k.subsystem} "
+            f"| {k.doc} |")
+    return "\n".join(lines) + "\n"

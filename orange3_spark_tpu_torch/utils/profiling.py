@@ -1,26 +1,40 @@
-"""Counters of the serving and resilience layers.
+"""Counters of the serving and resilience layers, and profiling hooks.
 
-A copy of the JAX package's ``utils/profiling.py`` cut to what the ported
-layers tick:
+A copy of the JAX package's ``utils/profiling.py``:
 
+* ``profile_trace(dir)`` — a ``torch.profiler`` trace (CPU and CUDA
+  activities) of the body into ``dir`` as a Chrome trace, through the deep
+  capture path of obs/prof.py (serialized, rate-limited, written
+  atomically, with a ``snapshot.json`` beside it). Spans of obs/trace.py
+  open ``record_function`` ranges while it records, so the fit/epoch/
+  chunk/dispatch structure lines up against the CUDA kernels.
+* ``timed`` — structured per-call wall-clock logging: a
+  ``timed:<label>`` span, the ``otpu_timed_seconds`` histogram and the
+  JAX package's log line, byte for byte.
 * counter shims — ``exec_counters()`` / ``serve_counters()`` /
   ``resilience_counters()``, field-compatible with the JAX package's
   dicts, as views over the typed ``obs.registry`` metrics;
 * the CUDA-graph capture count (``count_graph_capture`` /
   ``graph_capture_count``) in place of the JAX package's XLA compile
-  count: a captured graph is this package's counterpart of a compiled XLA
-  executable. The serving builds and the fit's replay (``_Replay``) tick it.
+  count (its ``jax.monitoring`` listener): a captured graph is this
+  package's counterpart of a compiled XLA executable. The serving builds
+  and the fit's replay (``_Replay``) tick it.
 
-The spill-CRC counter keeps its place in ``resilience_counters()`` (the
-JAX package's field); nothing in this package ticks it until the spill's
-CRC failures report here (ROADMAP queue 1 item 12). The wedge counter is
-ticked by the dispatch watchdog (``record_wedge``).
+The spill's CRC check ticks ``record_crc_failure``; the dispatch watchdog
+ticks ``record_wedge``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import time
+from functools import wraps
+
 from orange3_spark_tpu_torch.obs import trace as _trace
 from orange3_spark_tpu_torch.obs.registry import REGISTRY
+
+log = logging.getLogger("orange3_spark_tpu_torch")
 
 # ------------------------------------------------------- exec/ metrics
 # one registry metric per legacy field; the shim dicts below are views
@@ -212,6 +226,11 @@ def record_fault(kind: str) -> None:
     _trace.instant("fault", kind=kind)
 
 
+def record_crc_failure() -> None:
+    _M_CRC_FAILURES.inc()
+    _trace.instant("crc_failure")
+
+
 def resilience_counters() -> dict:
     """Snapshot: the flat counters plus per-cause/per-kind breakdowns."""
     return {
@@ -249,3 +268,55 @@ def count_graph_capture(n: int = 1) -> None:
 def graph_capture_count() -> int:
     """CUDA graphs captured in this process so far."""
     return int(_M_GRAPH_CAPTURES.total())
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Device+host profile of the body into ``log_dir`` (a Chrome trace,
+    ``trace.json``: chrome://tracing or Perfetto). Routes through the
+    deep-capture path (obs/prof.py): serialized with every other capture
+    (a second concurrent profile raises ``CaptureBusyError``), rate-limited
+    by ``OTPU_PROF_RATE_S``, written ATOMICALLY (the trace lands in a tmp
+    sibling, renamed complete) with a ``snapshot.json`` (goodput + ledger
+    + registry + knobs) beside it. ``OTPU_PROF=0`` leaves a bare profiler
+    around the body."""
+    from orange3_spark_tpu_torch.obs.prof import trace_capture
+
+    with trace_capture(log_dir):
+        yield
+
+
+_M_TIMED_S = REGISTRY.histogram(
+    "otpu_timed_seconds", "wall seconds of @timed-decorated calls")
+
+
+def timed(fn=None, *, name: str | None = None):
+    """Decorator: log wall-clock (+ rows/sec when an argument is a table).
+
+    Also spans the call (``timed:<label>`` in obs trace dumps) and
+    observes ``otpu_timed_seconds{label=...}``; the log line is the JAX
+    package's, byte for byte. The wall is the host's: a caller that wants
+    the device's time synchronizes inside the call."""
+
+    def deco(f):
+        label = name or f.__qualname__
+
+        @wraps(f)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            with _trace.span(f"timed:{label}"):
+                out = f(*args, **kwargs)
+            dt = time.perf_counter() - t0
+            _M_TIMED_S.observe(dt, label=label)
+            extra = ""
+            for a in args:
+                n = getattr(a, "n_rows", None)
+                if isinstance(n, int):
+                    extra = f" ({n / max(dt, 1e-9):,.0f} rows/s)"
+                    break
+            log.info("%s: %.3fs%s", label, dt, extra)
+            return out
+
+        return wrapper
+
+    return deco(fn) if fn is not None else deco

@@ -90,9 +90,9 @@ def main(argv=None) -> int:
         replay = _Replay(theta, opt, chunks,
                          lambda th, op, c: _step_into(th, op, c, salts, hyper, kw))
         replay.capture()
-        replay.run(1)
+        replay.run(1, timed=False)
         sess.synchronize()
-        return cs.cuda_ms(lambda: replay.run(1), 5)
+        return cs.cuda_ms(lambda: replay.run(1, timed=False), 5)
 
     out = {name: {"pure_step_ms": [], "pure_step_ms_dense": [], "replay_epoch_ms": []}
            for name in variants}

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.models import als as JA
 from orange3_spark_tpu_torch import interop

@@ -26,6 +26,7 @@ import optax
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.io.streaming import array_chunk_source as j_array_source
 from orange3_spark_tpu.models.hashed_linear import (

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu_torch.datasets import make_higgs_proxy
 from orange3_spark_tpu_torch.models import _tree
 from orange3_spark_tpu_torch.models.random_forest import grow_forest
@@ -1859,3 +1860,102 @@ def test_value_weighted_sort_fit_on_cuda_matches_cpu(cuda_device, tmp_path):
     line = _smoke().libsvm_hashed_check(TorchSession("cuda"), str(tmp_path))
     assert line["ok"], line
     assert ss.segment_update_sorted.launches > before
+
+
+# ------------------------------------- the goodput and device-memory plane
+@pytest.mark.cuda
+def test_reconcile_reads_the_cuda_allocator(cuda_device):
+    """``DeviceMemoryLedger.reconcile`` on CUDA: the caching allocator's
+    allocated and reserved bytes of the current device, at least what the
+    ledger names, the delta reported."""
+    from orange3_spark_tpu_torch.obs import prof
+
+    x = torch.ones(1 << 20, device=cuda_device)
+    prof.ledger_set("model_state", "cuda-reconcile-test", prof.tree_device_bytes(x))
+    try:
+        rec = prof.LEDGER.reconcile()
+    finally:
+        prof.ledger_release("model_state", "cuda-reconcile-test")
+    assert rec["allocator"] == f"cuda:{torch.cuda.current_device()}"
+    assert rec["allocated_bytes"] >= x.numel() * 4
+    assert rec["allocated_bytes"] >= rec["ledger_bytes"]
+    assert rec["reserved_bytes"] >= rec["allocated_bytes"]
+    assert rec["delta_vs_allocated_bytes"] == rec["allocated_bytes"] - rec["ledger_bytes"]
+
+
+@pytest.mark.cuda
+def test_rung3_drop_lowers_memory_allocated(cuda_device):
+    """The brownout ladder's rung 3 drops the device cache at once:
+    ``memory_allocated`` falls by at least the cached bytes and the
+    ``cache_chunks`` ledger entry reads 0 (``chip_smoke._rung3_drop`` at the
+    overload phase's drill shapes)."""
+    cs = _smoke()
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((4096, 8)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    chunks = [(X[i:i + 1024], y[i:i + 1024]) for i in range(0, 4096, 1024)]
+    drop = cs._rung3_drop(chunks, cuda_device)
+    assert drop["ok"], drop
+    assert drop["freed_bytes"] >= drop["cached_bytes"] == 2 * 1024 * 10 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("from_thread", [False, True])
+def test_capture_trace_holds_cuda_kernel_events(cuda_device, from_thread):
+    """A deep capture's Chrome trace holds the card's kernels, also when the
+    capture runs on another thread than the one launching them (the
+    telemetry endpoint's shape)."""
+    import threading
+
+    from orange3_spark_tpu_torch.obs import prof
+
+    prof.reset_rate_limit()
+    x = torch.randn(1 << 20, device=cuda_device)
+
+    def work():
+        for _ in range(20):
+            (x * 2.0).sum()
+        torch.cuda.synchronize()
+
+    try:
+        if from_thread:
+            out: dict = {}
+            t = threading.Thread(target=lambda: out.update(prof.capture(200.0, reason="t")))
+            t.start()
+            while t.is_alive():
+                work()
+            t.join(60)
+        else:
+            out = prof.capture(reason="t", body=work)
+    finally:
+        prof.reset_rate_limit()
+    events = _smoke()._trace_kernel_events(out["path"])
+    assert events["kernel_events"] > 0, events
+
+
+@pytest.mark.cuda
+def test_criteo_shaped_fit_ledger_equals_its_tensors(cuda_device, tmp_path):
+    """A Criteo-shaped fit in bench's accelerator configuration (packed
+    cache, epoch 1 deferred, the captured replay) at 2^14 dims: its goodput
+    fractions sum to 1 with an epoch-1 window and a replay window, the
+    ledger's ``model_state`` is the table's bytes, ``cache_chunks`` the
+    cache's, the peak holds table, slots and cache, and the allocator
+    holds at least the ledger (``chip_smoke._criteo_plane``; its replay
+    window may read framework-bound at this size: the full-size ``criteo``
+    phase requires it not to)."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+
+    cs = _smoke()
+    path = str(tmp_path / "c.csv")
+    gen_criteo_csv(path, 8192, seed=2)
+    sess = TorchSession("cuda")
+    st: dict = {}
+    est = cs._criteo_estimator(n_dims=1 << 14, chunk_rows=1024, epochs=4)
+    model = est.fit_stream(csv_raw_chunk_source(path, chunk_rows=1024), session=sess,
+                           cache_device=True, holdout_chunks=1, stage_times=st)
+    assert st["replay_source"] == "fused"
+    plane = cs._criteo_plane(model, est.params, st, sess)
+    # at this size the replay's capture outweighs its device work
+    assert set(plane["plane_failed"]) <= {"replay_not_framework_bound"}, plane

@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core import domain as jdom
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.core.table import TpuTable

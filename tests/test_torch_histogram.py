@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.ops.histogram import _hist_pallas, _hist_xla
 from orange3_spark_tpu_torch.ops import histogram as th
 

@@ -13,6 +13,7 @@ import textwrap
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.ops import cuda_build
 
@@ -49,7 +50,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert int(out.stdout.split()[-1]) >= 73   # every module was walked
 
 
-@pytest.mark.parametrize("sub,n_modules", [("serve", 5), ("obs", 4), ("resilience", 5),
+@pytest.mark.parametrize("sub,n_modules", [("serve", 5), ("obs", 7), ("resilience", 5),
                                            ("utils", 6), ("online", 1), ("ops", 7),
                                            ("optim", 1), ("io", 3), ("models", 15)])
 def test_serving_layers_import_without_jax(sub, n_modules):
@@ -70,10 +71,16 @@ def test_serving_layers_import_without_jax(sub, n_modules):
 @pytest.mark.parametrize("module", ["orange3_spark_tpu_torch.models.als",
                                     "orange3_spark_tpu_torch.ops.normal_equations",
                                     "orange3_spark_tpu_torch.utils.checkpoint",
-                                    "orange3_spark_tpu_torch.models.evaluation"])
+                                    "orange3_spark_tpu_torch.models.evaluation",
+                                    "orange3_spark_tpu_torch.obs.flight",
+                                    "orange3_spark_tpu_torch.obs.prof",
+                                    "orange3_spark_tpu_torch.obs.server"])
 def test_recommender_modules_import_without_jax(module):
-    """The ALS slice's modules, each on its own behind the blocker: ALS,
-    its kernel's wrapper, model and workflow saving, the evaluators."""
+    """Modules of later slices, each on its own behind the blocker: ALS,
+    its kernel's wrapper, model and workflow saving, the evaluators; the
+    flight recorder, the goodput and memory plane, the telemetry endpoint
+    (copies of stdlib-only modules of the JAX package: the port keeps its
+    own)."""
     code = _BLOCKED_IMPORT.split("import orange3_spark_tpu_torch as pkg")[0] + textwrap.dedent(f"""
         importlib.import_module({module!r})
         leaked = [m for m in sys.modules

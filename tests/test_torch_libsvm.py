@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core.domain import ContinuousVariable as JVar
 from orange3_spark_tpu.core.domain import Domain as JDomain
 from orange3_spark_tpu.core.session import TpuSession

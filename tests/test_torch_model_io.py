@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.datasets import load_iris, make_classification, make_ratings
 from orange3_spark_tpu_torch.models.als import ALS, ALSModel, ratings_table

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core import domain as jdom
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.core.table import TpuTable

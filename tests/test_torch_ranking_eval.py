@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.models import evaluation as JE
 from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.models.evaluation import (

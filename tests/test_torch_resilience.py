@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 import orange3_spark_tpu.online.tap as j_tap
 import orange3_spark_tpu.resilience.faults as j_faults
 import orange3_spark_tpu.resilience.overload as j_overload
@@ -36,6 +37,8 @@ import orange3_spark_tpu_torch.serve.cache as t_cache
 import orange3_spark_tpu_torch.serve.tenancy as t_tenancy
 import orange3_spark_tpu_torch.utils.knobs as t_knobs
 import orange3_spark_tpu_torch.utils.profiling as t_prof
+from orange3_spark_tpu_torch.obs import flight as t_flight
+from orange3_spark_tpu_torch.obs import prof as t_obs_prof
 from orange3_spark_tpu_torch.obs import trace as t_trace
 from orange3_spark_tpu_torch.obs.registry import MetricsRegistry
 
@@ -51,8 +54,11 @@ def _default_knobs(monkeypatch):
               "OTPU_RESILIENCE", "OTPU_FAULT_SPEC",
               "OTPU_MB_ADAPT", "OTPU_BREAKER_COOLDOWN_S", "OTPU_TENANCY",
               "OTPU_TENANT_SPEC", "OTPU_TENANT_DEFAULT_WEIGHT", "OTPU_TENANT_RATE",
-              "OTPU_TENANT_BURST", "OTPU_ONLINE", "OTPU_DISPATCH_BUDGET_S"):
+              "OTPU_TENANT_BURST", "OTPU_ONLINE", "OTPU_DISPATCH_BUDGET_S",
+              "OTPU_MEM_BUDGET_MB", "OTPU_MEM_WATERMARKS", "OTPU_FLIGHT", "OTPU_OBS",
+              "OTPU_PROF"):
         monkeypatch.delenv(k, raising=False)
+    t_flight.reset_rate_limit()
 
 
 def test_knobs_keep_the_reference_names_and_defaults():
@@ -267,15 +273,41 @@ def test_fault_spec_grammar_equals_reference():
         t_faults.FaultSpec.parse("no_such_kind:fails=1")
 
 
-@pytest.mark.parametrize("kind", ["spill_corrupt:record=1", "mem_pressure:frac=0.9",
-                                  "label_skew:flip=0.5", "trainer_crash:at=1"])
+@pytest.mark.parametrize("kind", ["label_skew:flip=0.5", "trainer_crash:at=1"])
 def test_fault_kinds_without_a_consumer_raise(kind):
-    """Kinds whose consumer is not ported (the spill's CRC check, the
-    brownout ladder, the label joiner, the online trainer) raise instead of
-    injecting nothing; the JAX package parses them."""
+    """Kinds whose consumer is not ported (the label joiner, the online
+    trainer) raise instead of injecting nothing; the JAX package parses
+    them."""
     j_faults.FaultSpec.parse(kind)
     with pytest.raises(ValueError, match="unknown fault kind"):
         t_faults.FaultSpec.parse(kind)
+
+
+@pytest.mark.parametrize("spec", [
+    "spill_corrupt:record=1", "spill_corrupt:record=2,mode=truncate;spill_corrupt:record=0",
+    "mem_pressure:frac=0.9", "mem_pressure:frac=0.97,after=2",
+    "mem_pressure:frac=0.5,after=1;spill_corrupt:record=3,mode=flip"])
+def test_spill_corrupt_and_mem_pressure_parse_and_are_consumed_like_the_reference(spec):
+    """``spill_corrupt`` and ``mem_pressure`` have their consumers now (the
+    spill's write path, the brownout ladder): they parse as the reference
+    does, ``take_spill_corrupt`` fires once a clause on its record with its
+    mode, ``mem_pressure_frac`` keeps the first ``after`` consuming queries
+    free, never advances on a side observer's query, and ticks the fault
+    counter once a clause."""
+    j, t = j_faults.FaultSpec.parse(spec), t_faults.FaultSpec.parse(spec)
+    assert [(c.kind, c.args) for c in t.clauses] == [(c.kind, c.args) for c in j.clauses]
+
+    def trace(fs, prof):
+        before = dict(prof.resilience_counters()["faults_by_kind"])
+        out = [fs.take_spill_corrupt(r) for r in (0, 1, 2, 3, 1, 0)]
+        out += [fs.mem_pressure_frac(consume=False) for _ in range(2)]
+        out += [fs.mem_pressure_frac() for _ in range(4)]
+        out += [fs.mem_pressure_frac(consume=False)]
+        after = prof.resilience_counters()["faults_by_kind"]
+        return out, {k: after.get(k, 0) - before.get(k, 0)
+                     for k in ("spill_corrupt", "mem_pressure")}
+
+    assert trace(t, t_prof) == trace(j, j_prof)
 
 
 @pytest.mark.parametrize("spec", ["wedge:at=2,hold_s=0.5", "wedge", "wedge:at=1;overload"])
@@ -616,3 +648,230 @@ def test_wedged_sync_raises_typed_within_its_budget(monkeypatch):
         assert t_prof.resilience_counters()["wedges"] == before + 1
     finally:
         reset_wedge_breaker()
+
+
+# ------------------------------------------------- the brownout ladder
+def _bundles(tmp_path, reason):
+    d = tmp_path / "flight"
+    return sorted(p for p in d.glob(f"flight-*-{reason}.json")) if d.exists() else []
+
+
+def _brownout_trace(overload, faults, monkeypatch, watermarks):
+    """Levels of ``brownout_level`` (and its side-observer form) over a
+    sweep of injected fractions, an RSS budget far above and far below the
+    process, and the kill-switch."""
+    if watermarks is None:
+        monkeypatch.delenv("OTPU_MEM_WATERMARKS", raising=False)
+    else:
+        monkeypatch.setenv("OTPU_MEM_WATERMARKS", watermarks)
+    out = []
+    for frac in (0.0, 0.5, 0.74, 0.75, 0.8, 0.88, 0.9, 0.95, 0.96, 0.97, 1.5):
+        with faults.inject_faults(f"mem_pressure:frac={frac}"):
+            out.append((overload.brownout_level(consume=False), overload.brownout_level(),
+                        overload.current_brownout_level()))
+    with faults.inject_faults("mem_pressure:frac=0.97,after=2"):
+        out.append([overload.brownout_level() for _ in range(4)])
+    for budget_mb in ("1000000000", "1"):
+        monkeypatch.setenv("OTPU_MEM_BUDGET_MB", budget_mb)
+        out.append(overload.brownout_level())
+    monkeypatch.delenv("OTPU_MEM_BUDGET_MB")
+    monkeypatch.setenv("OTPU_RESILIENCE", "0")
+    with faults.inject_faults("mem_pressure:frac=0.99"):
+        out.append(overload.brownout_level())
+    monkeypatch.delenv("OTPU_RESILIENCE")
+    out.append(overload.brownout_level())     # no pressure source: 0
+    return out
+
+
+@pytest.mark.parametrize("watermarks", [None, "0.5,0.6,0.7", "0.9,0.8,0.95", "abc"])
+def test_brownout_level_equals_reference(monkeypatch, watermarks):
+    """The ladder's rung for the same fractions and watermarks (malformed
+    or unordered ones fall back to the defaults), the injector's ``after``
+    budget, the RSS budget and the kill-switch, as in the reference."""
+    ref = _brownout_trace(j_overload, j_faults, monkeypatch, watermarks)
+    got = _brownout_trace(t_overload, t_faults, monkeypatch, watermarks)
+    assert got == ref
+    if watermarks is None:      # the sweep crosses every default rung
+        assert {lvl for _, lvl, _ in ref[:11]} == {0, 1, 2, 3}
+
+
+def test_device_cache_brownout_ladder(monkeypatch):
+    """The reference's four rungs (``tests/test_overload.py``) on the port's
+    ``_DeviceCache`` with tensors: 1 admits to half the budget, 2 admits
+    nothing, 3 drops a cached prefix, the kill-switch ignores pressure; the
+    ``cache_chunks`` ledger entry follows the cache's bytes."""
+    from orange3_spark_tpu_torch.io.streaming import _DeviceCache
+
+    def batch(kb=64):
+        return (torch.zeros(kb * 256, dtype=torch.float32),)   # kb KiB
+
+    def ledger(c):
+        return t_obs_prof.LEDGER.get("cache_chunks", c.ledger_key)
+
+    with t_faults.inject_faults("mem_pressure:frac=0.80"):
+        c = _DeviceCache(True, budget=4 * 64 * 1024)
+        c.offer(batch())
+        c.offer(batch())
+        assert len(c.batches) == 2 and not c.degraded
+        assert ledger(c) == 2 * 64 * 1024
+        c.offer(batch())            # past half the budget (fits the whole)
+        assert not c.batches and c.degraded and ledger(c) == 0
+    with t_faults.inject_faults("mem_pressure:frac=0.90"):
+        c = _DeviceCache(True, budget=4 * 64 * 1024)
+        c.offer(batch())
+        assert not c.batches and c.degraded and not c.enabled
+    with t_faults.inject_faults("mem_pressure:frac=0.97,after=2"):
+        c = _DeviceCache(True, budget=4 * 64 * 1024)
+        c.offer(batch())
+        c.offer(batch())
+        assert len(c.batches) == 2 and ledger(c) == 2 * 64 * 1024
+        c.offer(batch())
+        assert not c.batches and c.nbytes == 0 and not c.enabled
+        assert c.degraded and ledger(c) == 0
+        key = c.ledger_key
+        del c
+        import gc
+
+        gc.collect()
+        assert t_obs_prof.LEDGER.get("cache_chunks", key) is None   # released
+    monkeypatch.setenv("OTPU_RESILIENCE", "0")
+    with t_faults.inject_faults("mem_pressure:frac=0.97"):
+        c = _DeviceCache(True, budget=4 * 64 * 1024)
+        for _ in range(4):
+            c.offer(batch())
+        assert len(c.batches) == 4 and not c.degraded
+
+
+@pytest.fixture(scope="module")
+def jax_one_device():
+    import jax
+
+    from orange3_spark_tpu.core.session import TpuSession
+
+    return TpuSession(TpuSession.default_mesh(jax.devices()[:1]))
+
+
+def _dense_data(n=4096, d=8, seed=11):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (X @ rng.standard_normal(d).astype(np.float32) > 0).astype(np.float32)
+    return X, y
+
+
+def test_mem_pressure_fit_equals_reference(jax_one_device):
+    """bench's brownout drill at a small size: a dense streaming fit with
+    the device cache under ``mem_pressure:frac=0.97,after=2`` lands on rung
+    3 at its third chunk, drops the cache (its ledger entry 0 at fit end)
+    and re-streams epoch 2 — coefficients bitwise the unpressured fit's,
+    and within the usual 1e-5 of max|θ| of the reference's pressured fit."""
+    from orange3_spark_tpu.io import streaming as jstream
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io import streaming as tstream
+
+    X, y = _dense_data()
+    kw = dict(loss="logistic", epochs=2, step_size=0.05, chunk_rows=1024)
+    st: dict = {}
+    with t_faults.inject_faults("mem_pressure:frac=0.97,after=2"):
+        got = tstream.StreamingLinearEstimator(**kw).fit_stream(
+            tstream.array_chunk_source(X, y, chunk_rows=1024), n_features=8,
+            session=TorchSession("cpu"), cache_device=True, stage_times=st)
+    assert t_overload.current_brownout_level() == 3
+    assert st["replay_source"] == "stream"
+    assert got.run_report_.to_dict()["device_memory"]["cache_entry_bytes"] == 0
+    clean = tstream.StreamingLinearEstimator(**kw).fit_stream(
+        tstream.array_chunk_source(X, y, chunk_rows=1024), n_features=8,
+        session=TorchSession("cpu"), cache_device=True)
+    assert torch.equal(got.coef, clean.coef) and torch.equal(got.intercept, clean.intercept)
+    with j_faults.inject_faults("mem_pressure:frac=0.97,after=2"):
+        ref = jstream.StreamingLinearEstimator(**kw).fit_stream(
+            jstream.array_chunk_source(X, y, chunk_rows=1024), n_features=8,
+            session=jax_one_device, cache_device=True)
+    assert j_overload.current_brownout_level() == 3
+    want = np.asarray(ref.coef)
+    np.testing.assert_allclose(got.coef.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode,match", [("flip", "record 1"), ("truncate", "truncated")])
+def test_spill_corruption_raises_typed_and_writes_a_bundle(tmp_path, mode, match):
+    """A spill record corrupted at write time (``spill_corrupt``, after the
+    CRC was computed) raises ``SpillCorruptionError`` at replay (a flipped
+    byte: the CRC check, which ticks ``crc_failures`` and writes a
+    ``spill_corruption`` flight bundle) or at finalize (a half-written
+    record), as in the reference."""
+    import json
+    import warnings
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.codec import SpillCorruptionError
+    from orange3_spark_tpu_torch.io import streaming as tstream
+
+    X, y = _dense_data(n=2048)
+    crc0 = t_prof.resilience_counters()["crc_failures"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with t_faults.inject_faults(f"spill_corrupt:record={1 if mode == 'flip' else 2},"
+                                    f"mode={mode}"):
+            with pytest.raises(SpillCorruptionError, match=match):
+                tstream.StreamingLinearEstimator(
+                    loss="logistic", epochs=2, chunk_rows=512).fit_stream(
+                    tstream.array_chunk_source(X, y, chunk_rows=512), n_features=8,
+                    session=TorchSession("cpu"), cache_device=True, cache_device_bytes=1,
+                    cache_spill_dir=str(tmp_path / "spill"))
+    bundles = _bundles(tmp_path, "spill_corruption")
+    if mode == "truncate":
+        assert not bundles       # caught by the size check, not the CRC
+        return
+    assert t_prof.resilience_counters()["crc_failures"] == crc0 + 1
+    assert len(bundles) == 1
+    b = json.loads(bundles[0].read_text())
+    assert (b["flight_schema"], b["reason"]) == (1, "spill_corruption")
+    assert b["error"]["type"] == "SpillCorruptionError" and "record 1" in b["error"]["message"]
+
+
+def test_first_shed_writes_one_overload_shed_bundle(tmp_path, monkeypatch):
+    """``AdmissionController._dump_shed``: the first shed of a spell writes
+    a flight bundle (outside the admission lock) carrying the typed error
+    and the shed count; sheds inside ``OTPU_FLIGHT_RATE_S`` write none."""
+    import json
+
+    ac = t_overload.AdmissionController(max_inflight=1, max_queue=2)
+    for _ in range(3):
+        with pytest.raises(t_overload.OverloadShedError):
+            ac.check_queue(queue_depth=5, deadline_s=0.01)
+    bundles = _bundles(tmp_path, "overload_shed")
+    assert len(bundles) == 1
+    b = json.loads(bundles[0].read_text())
+    assert b["error"]["type"] == "OverloadShedError"
+    assert b["sheds"] >= 1 and b["brownout_level"] is not None
+
+
+def test_divergence_and_wedge_write_flight_bundles(tmp_path, monkeypatch):
+    """The numerics guard and the dispatch watchdog dump the black box at
+    their raise sites: a ``divergence`` bundle naming the typed error, and
+    a ``dispatch_wedged`` bundle whose stacks hold the parked waiter."""
+    import json
+
+    from orange3_spark_tpu_torch.resilience import (
+        DispatchWedgedError, NumericalDivergenceError, check_finite_training,
+        guarded_block_until_ready,
+    )
+    from orange3_spark_tpu_torch.resilience.overload import reset_wedge_breaker
+
+    with pytest.raises(NumericalDivergenceError):
+        check_finite_training(torch.tensor(float("nan")), epoch=2, chunk=7)
+    (b,) = [json.loads(p.read_text()) for p in _bundles(tmp_path, "divergence")]
+    assert b["error"]["type"] == "NumericalDivergenceError"
+    t_flight.reset_rate_limit()
+    monkeypatch.setenv("OTPU_DISPATCH_BUDGET_S", "0.2")
+    reset_wedge_breaker()
+    try:
+        with t_faults.inject_faults("wedge:at=1,hold_s=3"):
+            with pytest.raises(DispatchWedgedError):
+                guarded_block_until_ready(torch.zeros(1), step=1)
+    finally:
+        reset_wedge_breaker()
+    (b,) = [json.loads(p.read_text()) for p in _bundles(tmp_path, "dispatch_wedged")]
+    assert b["error"]["type"] == "DispatchWedgedError"
+    assert any("otpu-dispatch-waiter" in k for k in b["stacks"])
+

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.optim import sparse as jsparse
 from orange3_spark_tpu_torch.models import _tree
 from orange3_spark_tpu_torch.ops import segment_sum as ss

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 import orange3_spark_tpu.online.tap as j_tap
 import orange3_spark_tpu_torch.online.tap as t_tap
 from orange3_spark_tpu.core.session import TpuSession

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 import orange3_spark_tpu.utils  # noqa: F401 - the JAX package's import order
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.io import streaming as JS

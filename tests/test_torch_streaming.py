@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import bench
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.io import native as jnative
 from orange3_spark_tpu.io import streaming as jstream

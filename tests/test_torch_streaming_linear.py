@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.core.session import TpuSession
 from orange3_spark_tpu.io import streaming as jstream
 from orange3_spark_tpu.utils.fault import StreamCheckpointer as JCheckpointer

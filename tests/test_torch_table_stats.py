@@ -20,6 +20,7 @@ import pytest
 import scipy.stats
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu import datasets as jdatasets
 from orange3_spark_tpu.core import domain as jdom
 from orange3_spark_tpu.core.session import TpuSession

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu.models import _tree as jt
 from orange3_spark_tpu.ops.stats import weighted_quantiles as jax_quantiles
 from orange3_spark_tpu_torch.models import _tree as tt
