@@ -303,11 +303,39 @@ adam fit through ``segment_sum_sorted``):
                   bitwise the unpressured fit's, the cache's ledger entry
                   0, ``memory_allocated`` falling by the dropped bytes)
 
+then data wrangling and the canvas (``ops/relational``, ``ops/window``,
+the readers, ``workflow/ows``; the grouped passes through
+``segment_sum_sorted``):
+
+  wrangle         10,000,000 TLC-shaped yellow-taxi trips
+                  (``datasets.make_tlc_trips``, 400 MB on the card) and the
+                  265-zone lookup: ``join``, ``group_by`` by pickup zone and
+                  by (Borough, payment_type), ``pivot``, ``cube``,
+                  ``rollup``, ``crosstab``, ``value_counts``,
+                  ``freq_items``, ``sort``, a ``Window`` (row number, lag,
+                  lead, the running fare), ``sample``, ``sample_by``,
+                  ``random_split``, ``train_test_split``, ``with_column``,
+                  ``drop``; on the first 2,000,000 rows (host-bound)
+                  ``join_expand`` (fan-out 2), ``join_host``, ``union``,
+                  ``distinct`` and ``write_csv`` -> ``read_csv_native``
+                  (bitwise the written numbers); each call's wall on the
+                  card after a warm-up pass, held against the same call on
+                  the CPU (sums and means within 2^-12, running sums within
+                  64·2^-24 of the global prefix, the rest bitwise); then
+                  the segment-sum kernel at ``group_by``'s own inputs
+  ows             an Orange canvas scheme (``canvas_ows``: SQL Table ->
+                  Select Rows -> Aggregate Columns -> Merge Data with the
+                  zone lookup a borough -> Save Data; Pivot Table -> Save
+                  Data) over a SQLite database of 1,000,000 trips, loaded by
+                  ``workflow/ows.read_ows`` and run on the card, then on the
+                  CPU: every node's output held card against CPU
+
 then the ``kernels`` line of four kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``criteo`` phase's adam arm (the ``overload`` fit's beside them), the
-times of the ``segment_sum`` phase;
+times of the ``segment_sum`` phase, and ``group_by``: its launches over the
+``wrangle`` phase, its times at ``group_by``'s inputs;
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
 its yardstick, and ``with_values``: one step of the ``libsvm_hashed`` fit
@@ -5211,6 +5239,513 @@ def phase_overload(sess, kind, smi) -> dict:
     return line
 
 
+# ------------------------------------------- data wrangling and the canvas
+# the wrangle phase: a month of TLC-shaped yellow-taxi trips
+# (datasets.make_tlc_trips), 10 columns, 400 MB on the card
+WRANGLE_ROWS, WRANGLE_CUT, WRANGLE_SEED = 10_000_000, 2_000_000, 0
+WRANGLE_WARM_ROWS = 100_000
+# the calls profiled by kernel on the card (the wall's breakdown)
+WRANGLE_PROFILED = ("group_by_pu", "group_by_borough_payment", "window", "sample")
+# group sums and means, card against CPU: within 2^-12 of the group's sum
+# of |terms| (all terms here are >= 0, so of the sum itself). The CPU adds a
+# 1.6M-row group one row after another in float32 (~1.1e-5 measured on the
+# generator's data); the kernel's order is within (10 + n/1024)·2^-24.
+WRANGLE_SUM_RTOL = 2.0**-12
+# running sums: within 64·2^-24 of the global prefix of |v| (each value a
+# prefix less a base, each from a scan of depth <= log2(n) < 32)
+WRANGLE_SCAN_RTOL = 64 * 2.0**-24
+# the ows phase: the canvas file over a SQLite database of 1M trips (the
+# SQL reader converts cell by cell in Python, as the reference's does)
+OWS_TRIPS, OWS_SEED = 1_000_000, 1
+
+
+def _as_discrete(table, name, values):
+    """``table`` with attribute ``name`` re-declared discrete over
+    ``values`` (Orange's Edit Domain; metadata only). A join brings the
+    right side's columns in continuous, holding the category codes."""
+    from orange3_spark_tpu_torch.core.domain import DiscreteVariable, Domain
+
+    attrs = [DiscreteVariable(name, values) if v.name == name else v
+             for v in table.domain.attributes]
+    return table.with_X(table.X, Domain(attrs, table.domain.class_vars, table.domain.metas))
+
+
+def _wrangle_tables(X, zdom, Z, sess):
+    """(trips, zone lookup, fan-out table) on ``sess``'s device. The
+    fan-out table holds each zone twice (a peak and an off-peak surcharge):
+    the right side of ``join_expand`` with fan-out 2 and of ``join_host``."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
+    from orange3_spark_tpu_torch.datasets import tlc_domain
+
+    zones = np.arange(Z.shape[0], dtype=np.float32)
+    fan = np.stack([np.repeat(zones, 2), np.tile(np.float32([2.5, 1.0]), Z.shape[0])], 1)
+    fan_dom = Domain([zdom["PULocationID"], ContinuousVariable("surcharge")])
+    return (TorchTable.from_numpy(tlc_domain(), X, session=sess),
+            TorchTable.from_numpy(zdom, Z, session=sess),
+            TorchTable.from_numpy(fan_dom, fan, session=sess))
+
+
+def _wrangle_calls():
+    """The phase's calls: (name, on the cut?, fn(trips, zones, fan) ->
+    result, columns compared within WRANGLE_SUM_RTOL: a predicate on the
+    output column's name, None for none)."""
+    from orange3_spark_tpu_torch.datasets import TLC_BOROUGHS
+    from orange3_spark_tpu_torch.ops import relational as R
+    from orange3_spark_tpu_torch.ops import window as Wn
+
+    boroughs = tuple(b for b, _ in TLC_BOROUGHS)
+    pu_aggs = [(c, f) for c in ("fare_amount", "tip_amount", "total_amount") for f in R.AGG_FNS]
+    bp_aggs = [(c, f) for c in ("fare_amount", "passenger_count", "tip_amount")
+               for f in R.AGG_FNS]
+    sums = lambda name: name.startswith(("sum_", "mean_"))
+
+    def by_borough(t, z, _):
+        joined = _as_discrete(R.join(t, z, "PULocationID"), "Borough", boroughs)
+        return R.group_by(joined, ["Borough", "payment_type"], bp_aggs)
+
+    def window(t, *_):
+        w = Wn.Window(t, "VendorID", "pickup_s")
+        return {"row_number": w.row_number(), "lag": w.lag("fare_amount"),
+                "lead": w.lead("fare_amount"), "running_fare": w.running_sum("fare_amount")}
+
+    return [
+        ("join", False, lambda t, z, _: R.join(t, z, "PULocationID"), None),
+        ("group_by_pu", False, lambda t, *_: R.group_by(t, "PULocationID", pu_aggs), sums),
+        ("group_by_borough_payment", False, by_borough, sums),
+        ("pivot", False, lambda t, *_: R.pivot(t, "PULocationID", "payment_type",
+                                               {"tip_amount": "mean"}),
+         lambda name: name not in ("PULocationID",)),
+        ("cube", False, lambda t, *_: R.cube(t, ["VendorID", "payment_type"],
+                                             [("fare_amount", "sum"), ("tip_amount", "mean"),
+                                              ("fare_amount", "count")]), sums),
+        ("rollup", False, lambda t, *_: R.rollup(t, ["VendorID", "payment_type"],
+                                                 [("total_amount", "max"),
+                                                  ("total_amount", "mean")]), sums),
+        ("crosstab", False, lambda t, *_: R.crosstab(t, "PULocationID", "DOLocationID"), None),
+        ("value_counts", False, lambda t, *_: R.value_counts(t, "payment_type"), None),
+        ("freq_items", False, lambda t, *_: R.freq_items(t, ["PULocationID", "payment_type"],
+                                                         0.01), None),
+        ("sort", False, lambda t, *_: R.sort(t, "fare_amount", ascending=False), None),
+        ("window", False, window, None),
+        ("sample", False, lambda t, *_: R.sample(t, 0.1, seed=3), None),
+        ("sample_by", False, lambda t, *_: R.sample_by(t, "payment_type",
+                                                       {"1": 0.05, "2": 0.2, "4": 1.0},
+                                                       seed=3), None),
+        ("random_split", False, lambda t, *_: R.random_split(t, [0.7, 0.2, 0.1], seed=5), None),
+        ("train_test_split", False, lambda t, *_: R.train_test_split(t, 0.25, seed=5), None),
+        ("with_column", False, lambda t, *_: R.with_column(t, "fare_per_mile",
+                                                           "fare_amount / trip_distance"), None),
+        ("drop", False, lambda t, *_: R.drop(t, ["tip_amount", "pickup_s"]), None),
+        ("join_expand", True, lambda t, _, f: R.join_expand(t, f, "PULocationID",
+                                                            max_matches=2), None),
+        ("join_host", True, lambda t, _, f: R.join_host(t, f, "PULocationID"), None),
+        ("union", True, lambda t, *_: R.union(t, t), None),
+        ("distinct", True, lambda t, *_: R.distinct(t, ["PULocationID", "DOLocationID"]), None),
+    ]
+
+
+def _cells_rel_err(got, want):
+    """max |got - want| / |want| over the finite entries (0 where equal)."""
+    import numpy as np
+
+    ok = np.isfinite(want) & np.isfinite(got) & (want != got)
+    return float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]))) if ok.any() else 0.0
+
+
+def _wrangle_compare(card, host, close=None) -> dict:
+    """The card's result against the CPU's: bitwise (NaN in the same
+    places), or within WRANGLE_SUM_RTOL on the columns ``close`` names.
+    Returns {"equal": bool, "max_rel_err": x} (the error over the close
+    columns)."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchTable
+
+    if isinstance(card, (list, tuple)) and card and isinstance(card[0], TorchTable):
+        parts = [_wrangle_compare(a, b) for a, b in zip(card, host)]
+        return {"equal": all(p["equal"] for p in parts) and len(card) == len(host),
+                "max_rel_err": 0.0}
+    if not isinstance(card, TorchTable):
+        if isinstance(card, np.ndarray):
+            return {"equal": bool(np.array_equal(card, host, equal_nan=True)), "max_rel_err": 0.0}
+        return {"equal": card == host, "max_rel_err": 0.0}
+    (cX, cY, cW), (hX, hY, hW) = card.to_numpy(), host.to_numpy()
+    if card.domain != host.domain or cX.shape != hX.shape:
+        return {"equal": False, "max_rel_err": None}
+    names = [v.name for v in card.domain.attributes]
+    loose = np.asarray([bool(close and close(n)) for n in names], bool)
+    exact = (np.array_equal(cX[:, ~loose], hX[:, ~loose], equal_nan=True)
+             and np.array_equal(cW, hW) and (cY is None) == (hY is None)
+             and (cY is None or np.array_equal(cY, hY, equal_nan=True))
+             and ((card.metas is None and host.metas is None)
+                  or np.array_equal(card.metas, host.metas)))
+    err = _cells_rel_err(cX[:, loose], hX[:, loose]) if loose.any() else 0.0
+    nan_same = np.array_equal(np.isnan(cX), np.isnan(hX))
+    return {"equal": bool(exact and nan_same and err <= WRANGLE_SUM_RTOL),
+            "max_rel_err": err}
+
+
+def _wrangle_kernel(args, mem_bw) -> dict:
+    """``segment_sum_sorted`` at the inputs ``group_by(PULocationID)``
+    gave it (``args``: the sorted [W, W·v] rows, their slots, the slot
+    count): two launches bitwise; bitwise the kernels' order written out
+    (``_long_order_sums``) on the segments of more than ``walk_max()``
+    rows and the CPU's index order on the shorter; within (10 +
+    ceil(n/1024))·2^-24·Σ|g| of the float64 sums; its max |err| against
+    the plain version on the card; its time (captured) beside the byte
+    bound, the plain version and ``index_add_``, and its time on the first
+    column alone."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    g, seg, n_slots = args
+    run = lambda: ss.segment_sum_sorted(g, seg, n_slots)
+    got = run()
+    repeat = bool(torch.equal(got, run()))
+    rows = torch.bincount(seg.long(), minlength=n_slots)[:n_slots]
+    long_slots = rows > ss.walk_max()
+    order_equal = _long_order_equal(got, g, seg, n_slots, long_slots)
+    cpu = ss.segment_sum_sorted_reference(g.cpu(), seg.cpu(), n_slots)
+    short_equal = bool(torch.equal(got.cpu()[~long_slots.cpu()], cpu[~long_slots.cpu()]))
+    f64 = torch.zeros((n_slots, g.shape[1]), dtype=torch.float64, device=g.device
+                      ).index_add_(0, seg, g.double())
+    a64 = torch.zeros_like(f64).index_add_(0, seg, g.double().abs())
+    depth = (10 + torch.ceil(rows.double() / 1024))[:, None]
+    f64_ok = bool(((got.double() - f64).abs() <= depth * 2.0**-24 * a64).all())
+    plain = lambda: ss.segment_sum_sorted_reference(g, seg, n_slots)
+    library = lambda: torch.zeros((n_slots, g.shape[1]), device=g.device).index_add_(0, seg, g)
+    max_abs_err = float((got - plain()).abs().max())
+    ms, plain_ms, library_ms = (graph_ms(f, 20) for f in (run, plain, library))
+    # one column of the same rows: whether the time follows the columns
+    # (each long segment's last combine walks its chunk partials a column
+    # at a time in one warp) or the rows
+    g1 = g[:, :1].contiguous()
+    ms_k1 = graph_ms(lambda: ss.segment_sum_sorted(g1, seg, n_slots), 20)
+    del g1
+    n_bytes = g.numel() * 4 + seg.numel() * seg.element_size() + n_slots * g.shape[1] * 4
+    line = {"M": g.shape[0], "k": g.shape[1], "n_slots": n_slots,
+            "segments": int((rows > 0).sum()), "long_segments": int(long_slots.sum()),
+            "longest_segment": int(rows.max()), "bitwise_repeat": repeat,
+            "long_order_equal": order_equal, "short_cpu_equal": short_equal,
+            "within_f64_bound": f64_ok, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "ms_one_column": ms_k1,
+            "bytes": n_bytes, "bound_ms": n_bytes / mem_bw * 1e3, "bound_by": "bytes",
+            "timed": "captured launches (20 in a graph)",
+            "tolerance": "max_abs_err against the plain version (index_add_ with float "
+                         "atomics) on the card; bitwise the kernels' order written out on "
+                         "long segments and the CPU's on short ones; within (10 + "
+                         "ceil(n/1024))·2^-24·Σ|g| of the float64 sum"}
+    if not (repeat and order_equal and short_equal and f64_ok):
+        raise AssertionError(f"segment_sum_sorted failed at group_by's inputs: {line}")
+    return line
+
+
+def phase_wrangle(sess, mem_bw, tmp) -> dict:
+    """``ops/relational``, ``ops/window`` and the CSV round trip on a
+    10M-row TLC-shaped trip table on the card, each call timed (wall,
+    synchronized, after a warm-up pass of every call at 100,000 rows) and
+    held against the same call on the CPU; the host-bound calls
+    (``join_expand``, ``join_host``, ``union``, ``distinct``) and the CSV
+    round trip on the first 2,000,000 rows on both sides. A few calls
+    profiled by kernel (``WRANGLE_PROFILED``: wall, device busy time, idle
+    share, the top kernels). Then the segment-sum kernel at
+    ``group_by(PULocationID)``'s own inputs."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import make_tlc_trips, tlc_zone_lookup
+    from orange3_spark_tpu_torch.io.native import read_csv_native
+    from orange3_spark_tpu_torch.io.readers import write_csv
+    from orange3_spark_tpu_torch.ops import relational as R
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    t0 = time.perf_counter()
+    X = make_tlc_trips(WRANGLE_ROWS, WRANGLE_SEED)
+    zdom, Z = tlc_zone_lookup()
+    gen_s = time.perf_counter() - t0
+    cpu = TorchSession("cpu")
+    t0 = time.perf_counter()
+    card = _wrangle_tables(X, zdom, Z, sess)
+    sess.synchronize()
+    to_card_s = time.perf_counter() - t0
+    card_cut = _wrangle_tables(X[:WRANGLE_CUT], zdom, Z, sess)
+    warm = _wrangle_tables(X[:WRANGLE_WARM_ROWS], zdom, Z, sess)
+    calls = _wrangle_calls()
+    for _, _, fn, _ in calls:            # warm-up: first-call costs out of the times
+        fn(*warm)
+    sess.synchronize()
+
+    # ---- the main path: the launch count starts at 0 here
+    ss.segment_sum_sorted.launches = 0
+    card_out, ms = {}, {}
+    for name, cut, fn, _ in calls:
+        t0 = time.perf_counter()
+        card_out[name] = fn(*(card_cut if cut else card))
+        sess.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    launches = ss.segment_sum_sorted.launches
+    # ----
+
+    host = _wrangle_tables(X, zdom, Z, cpu)
+    host_cut = _wrangle_tables(X[:WRANGLE_CUT], zdom, Z, cpu)
+    checks, cpu_ms = {}, {}
+    for name, cut, fn, close in calls:
+        t0 = time.perf_counter()
+        want = fn(*(host_cut if cut else host))
+        cpu_ms[name] = (time.perf_counter() - t0) * 1e3
+        if name == "window":
+            checks[name] = _window_compare(card_out[name], want, X[:, 6])
+        else:
+            checks[name] = _wrangle_compare(card_out[name], want, close)
+        del want
+    del host, host_cut
+
+    # the CSV round trip: the native writer's shortest round-trip floats
+    path = os.path.join(tmp, "trips.csv")
+    t0 = time.perf_counter()
+    write_csv(card_cut[0], path)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = read_csv_native(path, session=sess)
+    sess.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    csv_equal = bool(np.array_equal(back.to_numpy()[0].view(np.uint32),
+                                    X[:WRANGLE_CUT].view(np.uint32)))
+    ms["write_csv"], ms["read_csv_native"] = write_ms, read_ms
+    checks["csv_round_trip"] = {"equal": csv_equal, "bytes": os.path.getsize(path)}
+    os.remove(path)
+    del back
+
+    # where the time goes: a few calls under torch.profiler on the card
+    profiled = {}
+    if sess.device.type == "cuda":
+        for name, cut, fn, _ in calls:
+            if name in WRANGLE_PROFILED:
+                wall_us, events, by_name, busy = _profile_run(lambda: fn(*card))
+                top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+                profiled[name] = {"wall_us": wall_us, "busy_us": busy,
+                                  "idle_share": 1.0 - busy / wall_us, "launches": len(events),
+                                  "top_device_us": {k[:90]: v[0] for k, v in top}}
+
+    # the kernel at group_by(PULocationID)'s inputs, recorded from the call
+    seen = []
+    real = R.segment_sum_sorted
+
+    def record(g, seg, n_slots, **kw):
+        seen.append((g, seg, n_slots))
+        return real(g, seg, n_slots, **kw)
+
+    R.segment_sum_sorted = record
+    try:
+        R.group_by(card[0], "PULocationID", [("fare_amount", "sum"), ("tip_amount", "sum"),
+                                              ("total_amount", "sum")])
+    finally:
+        R.segment_sum_sorted = real
+    kernel = _wrangle_kernel(seen[0], mem_bw)
+    del seen, card_out
+
+    failed = sorted(n for n, c in checks.items() if not _all_equal(c))
+    line = {"rows": WRANGLE_ROWS, "cut_rows": WRANGLE_CUT, "seed": WRANGLE_SEED,
+            "table_bytes": int(card[0].X.numel() * 4 + card[0].W.numel() * 4),
+            "generate_s": gen_s, "to_card_s": to_card_s,
+            "cuts": {**{n: f"first {WRANGLE_CUT} rows on both sides (host-bound: numpy "
+                           "on the host in both packages)" for n, cut, _, _ in calls if cut},
+                     "csv_round_trip": f"first {WRANGLE_CUT} rows (the text writer and "
+                                       "parser run on the host)"},
+            "card_ms": ms, "cpu_ms": cpu_ms, "checks": checks, "profile": profiled,
+            "segment_sum_launches": launches,
+            "tolerance": {"sums_means": f"rel {WRANGLE_SUM_RTOL} of the group's Σ|terms|",
+                          "running_sum": f"{WRANGLE_SCAN_RTOL} x the global prefix of |v|",
+                          "else": "bitwise"},
+            "kernel": kernel}
+    if failed:
+        raise AssertionError(f"wrangle: the card disagrees with the CPU on {failed}: {line}")
+    if launches == 0 and sess.device.type == "cuda":
+        raise AssertionError("wrangle never launched segment_sum_sorted")
+    return line
+
+
+def _window_compare(card, host, v) -> dict:
+    """The window's results, card against CPU: row numbers, lag and lead
+    bitwise; the running sum within WRANGLE_SCAN_RTOL of the global prefix
+    of |v| (NaN in the same places)."""
+    import numpy as np
+
+    out = {k: {"equal": bool(np.array_equal(card[k].cpu().numpy(), host[k].numpy(),
+                                            equal_nan=True))}
+           for k in ("row_number", "lag", "lead")}
+    a, b = card["running_fare"].cpu().numpy(), host["running_fare"].numpy()
+    tol = WRANGLE_SCAN_RTOL * float(np.nansum(np.abs(v).astype(np.float64)))
+    err = float(np.nanmax(np.abs(a - b)))
+    out["running_fare"] = {"equal": bool(np.array_equal(np.isnan(a), np.isnan(b)) and err <= tol),
+                           "bitwise": bool(np.array_equal(a, b, equal_nan=True)),
+                           "max_abs_err": err, "tolerance": tol}
+    return out
+
+
+def _all_equal(c) -> bool:
+    if "equal" in c:
+        return bool(c["equal"])
+    return all(_all_equal(v) for v in c.values())
+
+
+# the canvas file's queries: the trips with their pickup borough, and the
+# zone lookup summarized a borough (the Merge Data node's right side)
+OWS_TRIPS_QUERY = (
+    "SELECT t.VendorID, t.payment_type, z.Borough, t.passenger_count, t.trip_distance, "
+    "t.fare_amount, t.tip_amount, t.total_amount FROM trips t "
+    "JOIN zones z ON t.PULocationID = z.LocationID")
+OWS_ZONES_QUERY = (
+    "SELECT Borough, COUNT(*) AS zones, SUM(service_zone = 'Yellow Zone') AS yellow_zones, "
+    "SUM(service_zone = 'Airports') AS airports FROM zones GROUP BY Borough")
+
+
+def canvas_ows(db: str, out_dir: str) -> str:
+    """An Orange canvas scheme, as the canvas saves one (nodes with Orange's
+    qualified names and positions, links by channel, ``literal`` node
+    properties beside the canvas's own GUI keys, an annotation), over the
+    SQLite database ``db`` (``datasets.write_tlc_sqlite``): SQL Table
+    (the trips) -> Select Rows (fare and distance > 0) -> Aggregate Columns
+    (by Borough and payment_type) -> Merge Data (left, with a second SQL
+    Table: the zone lookup a borough) -> Save Data (CSV); Select Rows ->
+    Pivot Table (Borough x payment_type, mean tip) -> Save Data (SQLite).
+    Merge Data's sinks are named by their port ('Left', 'Right'): the
+    reference's channel table maps no other name onto a two-input widget."""
+    aggs = tuple((c, f) for c in ("fare_amount", "tip_amount", "passenger_count")
+                 for f in ("sum", "mean", "count", "min", "max"))
+    gui = {"savedWidgetGeometry": None, "controlAreaVisible": True, "__version__": 2}
+    nodes = [
+        ("SQL Table", "Orange.widgets.data.owsqltable.OWSqlTable",
+         {"query": OWS_TRIPS_QUERY, "database": db, "class_col": "", **gui}),
+        ("Select Rows", "Orange.widgets.data.owselectrows.OWSelectRows",
+         {"conditions": (("fare_amount", ">", 0.0), ("trip_distance", ">", 0.0)), **gui}),
+        ("Aggregate Columns", "Orange.widgets.data.owaggregatecolumns.OWAggregateColumns",
+         {"keys": ("Borough", "payment_type"), "aggs": aggs, **gui}),
+        ("SQL Table", "Orange.widgets.data.owsqltable.OWSqlTable",
+         {"query": OWS_ZONES_QUERY, "database": db, **gui}),
+        ("Merge Data", "Orange.widgets.data.owmergedata.OWMergeData",
+         {"on": "Borough", "how": "left", "max_matches": 0, **gui}),
+        ("Save Data", "Orange.widgets.data.owsave.OWSave",
+         {"path": os.path.join(out_dir, "borough_payment.csv"), **gui}),
+        ("Pivot Table", "Orange.widgets.data.owpivot.OWPivot",
+         {"keys": ("Borough",), "pivot_col": "payment_type",
+          "aggs": (("tip_amount", "mean"),), **gui}),
+        ("Save Data", "Orange.widgets.data.owsave.OWSave",
+         {"path": os.path.join(out_dir, "tip_pivot.db"), "sql_table": "tip_pivot", **gui}),
+    ]
+    links = [(0, 1, "Data", "Data"), (1, 2, "Data", "Data"), (2, 4, "Data", "Left"),
+             (3, 4, "Data", "Right"), (4, 5, "Data", "Data"), (1, 6, "Data", "Data"),
+             (6, 7, "Data", "Data")]
+    import html
+
+    out = ["<?xml version='1.0' encoding='utf-8'?>",
+           '<scheme version="2.0" title="TLC trips by borough" description="wrangling">',
+           "  <nodes>"]
+    for i, (name, qual, _) in enumerate(nodes):
+        out.append(f'    <node id="{i}" name="{name}" qualified_name="{qual}" '
+                   f'project_name="Orange3" version="" title="{name}" '
+                   f'position="({100 + 150 * i}, {150 + 40 * (i % 2)})" />')
+    out.append("  </nodes>\n  <links>")
+    for i, (s, d, sc, dc) in enumerate(links):
+        out.append(f'    <link id="{i}" source_node_id="{s}" sink_node_id="{d}" '
+                   f'source_channel="{sc}" sink_channel="{dc}" enabled="true" />')
+    out.append('  </links>\n  <annotations>\n    <text id="0" type="text/plain" '
+               'rect="(40.0, 30.0, 200.0, 40.0)" font-family="Sans" font-size="16">'
+               'trips by borough</text>\n  </annotations>\n  <thumbnail />\n'
+               "  <node_properties>")
+    for i, (_, _, props) in enumerate(nodes):
+        out.append(f'    <properties node_id="{i}" format="literal">'
+                   f"{html.escape(repr(props), quote=False)}</properties>")
+    out.append("  </node_properties>\n  <session_state>\n    <window_groups />\n"
+               "  </session_state>\n</scheme>\n")
+    return "\n".join(out)
+
+
+def _ows_outputs(graph, outs) -> dict:
+    """{node: its output table} of a run graph, the Save Data nodes' files
+    read back (CSV by the native reader, SQLite by ``read_sql``) on the
+    CPU."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.native import read_csv_native
+    from orange3_spark_tpu_torch.io.readers import read_sql
+
+    cpu = TorchSession("cpu")
+    tables = {}
+    for nid, node in graph.nodes.items():
+        o = outs[nid]
+        if "data" in o:
+            tables[nid] = o["data"]
+        elif o["path"].endswith(".csv"):
+            tables[nid] = read_csv_native(o["path"], session=cpu)
+        else:
+            tables[nid] = read_sql(f"SELECT * FROM {node.widget.params.sql_table}", o["path"],
+                                   session=cpu)
+    return tables
+
+
+def phase_ows(tmp, card_device: str = "cuda") -> dict:
+    """The canvas's entry point: ``canvas_ows`` over a SQLite database of
+    1,000,000 trips, loaded by ``workflow/ows.read_ows`` (strict) and run
+    with the card as the session's device, then with the CPU (the Save
+    Data nodes writing to files of their own); every node's output held
+    card against CPU (the aggregated sums and means within
+    WRANGLE_SUM_RTOL, the rest bitwise), the card's tables on the card.
+    ``card_device`` is for a rehearsal on a machine without one."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.datasets import write_tlc_sqlite
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.workflow.ows import read_ows
+
+    db = os.path.join(tmp, "tlc.db")
+    t0 = time.perf_counter()
+    write_tlc_sqlite(db, OWS_TRIPS, OWS_SEED)
+    db_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "tlc.ows")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(canvas_ows(db, tmp))
+    runs, walls, launches = {}, {}, {}
+    try:
+        for dev in (card_device, "cpu"):
+            sess = TorchSession.builder_get_or_create(dev)
+            g = read_ows(path)
+            for nid, node in g.nodes.items():
+                if node.widget.name == "OWSaveData":
+                    base = os.path.basename(node.widget.params.path)
+                    g.set_params(nid, path=os.path.join(tmp, f"{dev}_{base}"))
+            before = ss.segment_sum_sorted.launches
+            t0 = time.perf_counter()
+            outs = g.run()
+            sess.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            launches[dev] = ss.segment_sum_sorted.launches - before
+            runs[dev] = (g, _ows_outputs(g, outs))
+    finally:
+        TorchSession.builder_get_or_create(card_device)
+    (g, card), (_, host) = runs[card_device], runs["cpu"]
+    sums = lambda name: name.startswith(("sum_", "mean_")) or name in ("1", "2", "3", "4", "5",
+                                                                       "6")
+    checks = {f"{nid}:{g.nodes[nid].widget.name}": _wrangle_compare(card[nid], host[nid], sums)
+              for nid in card}
+    on_card = all(card[nid].X.device.type == card_device for nid, n in g.nodes.items()
+                  if n.widget.name != "OWSaveData")
+    failed = sorted(k for k, c in checks.items() if not c["equal"])
+    line = {"trips": OWS_TRIPS, "seed": OWS_SEED, "sqlite_s": db_s,
+            "nodes": [n.widget.name for _, n in sorted(g.nodes.items())],
+            "edges": len(g.edges), "import_report": g.import_report,
+            "wall_s": walls, "segment_sum_launches": launches, "tables_on_card": on_card,
+            "rows": {k: card[int(k.split(":")[0])].n_rows for k in checks},
+            "checks": checks,
+            "cut": f"{OWS_TRIPS} trips: the SQL reader converts cell by cell in Python"}
+    if failed or not on_card or g.import_report or (card_device == "cuda"
+                                                     and launches["cuda"] == 0):
+        raise AssertionError(f"ows: the canvas run failed its checks ({failed}): {line}")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -5462,6 +5997,23 @@ def _run(args) -> int:
         emit({"phase": phase, **overload_line})
         torch.cuda.empty_cache()
 
+        # ---- data wrangling (ops/relational, ops/window, the readers; the
+        # grouped passes through segment_sum_sorted) and the canvas's entry
+        # point (workflow/ows)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_wrangle_")
+        try:
+            phase = "wrangle"
+            wrangle_line = phase_wrangle(sess, mem_bw, tmp)
+            emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+                  **wrangle_line})
+            torch.cuda.empty_cache()
+            phase = "ows"
+            emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+                  **phase_ows(tmp)})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
         phase = "kernels"
         if main_launches == 0:
             raise AssertionError("the main path never launched node_histograms")
@@ -5475,6 +6027,9 @@ def _run(args) -> int:
             raise AssertionError("the value-weighted fit never launched segment_update_sorted")
         if overload_line["segment_sum_launches"] == 0:
             raise AssertionError("the overload phase's fit never launched segment_sum_sorted")
+        if wrangle_line["segment_sum_launches"] == 0:
+            raise AssertionError("the wrangle phase never launched segment_sum_sorted")
+        gbk = wrangle_line["kernel"]
         ne = als_line["kernel"]["user"]
         vw_upd = libsvm_line["segment_update"]
         zipf = upd_line["criteo_zipf"]
@@ -5517,6 +6072,15 @@ def _run(args) -> int:
                                for k in ("ms", "bf16_ms", "bound_ms", "bound_by", "bytes")},
                             "long_segments": zipf["long_segments"],
                             "at": "the dense table gradient's inputs on the criteo_zipf keys"},
+            "group_by": {**{k: gbk[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "bytes", "max_abs_err", "M", "k",
+                                                 "n_slots", "long_segments",
+                                                 "longest_segment", "timed")},
+                         "launches": wrangle_line["segment_sum_launches"],
+                         "launches_counted_over": "the wrangle phase's calls on the card",
+                         "bitwise_kernel_order": gbk["long_order_equal"],
+                         "at": "group_by(PULocationID)'s grouped pass on the 10M-row TLC "
+                               "table: [W, W*fare, W*tip, W*total] in slot order"},
         }, {
             "name": "segment_update_sorted",
             "route": "cuda",

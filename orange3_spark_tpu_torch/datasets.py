@@ -1,6 +1,6 @@
 """Datasets of the PyTorch package: the Iris table (BASELINE config 1) and
 generators that give the JAX package's draws from the same seed (the
-HIGGS, taxi and MovieLens proxies, ``make_ratings``)."""
+HIGGS, taxi and MovieLens proxies, ``make_blobs``, ``make_ratings``)."""
 
 from __future__ import annotations
 
@@ -53,6 +53,20 @@ def make_classification(n_rows: int, n_features: int, n_classes: int = 2, seed: 
                     DiscreteVariable("label", tuple(str(c) for c in range(n_classes))))
     return TorchTable.from_numpy(domain, X, y, session=session)
 
+def make_blobs(n_rows: int, n_features: int, n_centers: int, seed: int = 0,
+               spread: float = 0.5, session=None) -> tuple[TorchTable, np.ndarray]:
+    """Gaussian blobs for KMeans testing (the NYC-Taxi stand-in), the JAX
+    package's ``make_blobs`` draws: centers uniform on [-5, 5], each row's
+    center drawn, then ``spread`` times a standard normal added. Returns
+    (table, each row's center)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-5, 5, size=(n_centers, n_features)).astype(np.float32)
+    assign = rng.integers(0, n_centers, size=n_rows)
+    X = centers[assign] + spread * rng.standard_normal((n_rows, n_features)).astype(np.float32)
+    domain = Domain([ContinuousVariable(f"f{i}") for i in range(n_features)])
+    return TorchTable.from_numpy(domain, X, session=session), assign
+
+
 HIGGS_FEATURES = 28
 
 
@@ -100,6 +114,121 @@ def make_taxi_proxy(n_rows: int, seed: int = 2) -> np.ndarray:
 
 def taxi_domain() -> Domain:
     return Domain([ContinuousVariable(c) for c in TAXI_COLUMNS])
+
+
+#: the NYC TLC "Yellow Taxi Trip Records" columns of ``make_tlc_trips``
+#: (names after the TLC data dictionary; the pickup as seconds into the month)
+TLC_COLUMNS = ("VendorID", "PULocationID", "DOLocationID", "payment_type",
+               "passenger_count", "trip_distance", "fare_amount", "tip_amount",
+               "total_amount", "pickup_s")
+#: the data dictionary's codes: VendorID 1-2 (Creative Mobile, VeriFone);
+#: payment_type 1-6 (credit card, cash, no charge, dispute, unknown,
+#: voided); LocationID 1-265 (the taxi zones)
+TLC_VENDORS = ("1", "2")
+TLC_PAYMENT_TYPES = ("1", "2", "3", "4", "5", "6")
+TLC_ZONES = tuple(str(i) for i in range(1, 266))
+#: the zone lookup's boroughs and their zone counts (taxi_zone_lookup.csv)
+TLC_BOROUGHS = (("Bronx", 43), ("Brooklyn", 61), ("EWR", 1), ("Manhattan", 69),
+                ("Queens", 69), ("Staten Island", 20), ("Unknown", 2))
+TLC_SERVICE_ZONES = ("Airports", "Boro Zone", "EWR", "Yellow Zone")
+
+
+def tlc_domain() -> Domain:
+    d = {"VendorID": TLC_VENDORS, "PULocationID": TLC_ZONES, "DOLocationID": TLC_ZONES,
+         "payment_type": TLC_PAYMENT_TYPES}
+    return Domain([DiscreteVariable(c, d[c]) if c in d else ContinuousVariable(c)
+                   for c in TLC_COLUMNS])
+
+
+def make_tlc_trips(n_rows: int, seed: int = 0) -> np.ndarray:
+    """A month of NYC yellow-taxi trips shaped after the TLC trip records:
+    f32 [n_rows, 10] in ``TLC_COLUMNS`` order (``tlc_domain()``). Pickup and
+    drop-off zones are drawn Zipf(1.0) over the zones' ranks (a seeded
+    order of the 265 zones; the busiest takes about 16 % of the trips), the
+    vendor 1 or 2, payment types 1-6 weighted as in the records (0.1 % of
+    them missing, NaN), passenger counts 1-6 (1 % missing), lognormal
+    distances, fares metered on distance, tips on card payments only, the
+    pickup's second into a 31-day month (integral, so there are ties)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, len(TLC_ZONES) + 1)
+    zipf = (1.0 / ranks) / np.sum(1.0 / ranks)
+    zone_of_rank = rng.permutation(len(TLC_ZONES))
+    pu = zone_of_rank[rng.choice(len(ranks), size=n_rows, p=zipf)]
+    do = zone_of_rank[rng.choice(len(ranks), size=n_rows, p=zipf)]
+    vendor = rng.integers(0, 2, n_rows)
+    pay = rng.choice(6, size=n_rows, p=[0.70, 0.25, 0.02, 0.015, 0.01, 0.005]).astype(np.float32)
+    pay[rng.random(n_rows) < 0.001] = np.nan
+    pax = rng.integers(1, 7, n_rows).astype(np.float32)
+    pax[rng.random(n_rows) < 0.01] = np.nan
+    dist = rng.lognormal(0.6, 0.8, n_rows).astype(np.float32)
+    fare = (3.0 + 2.5 * dist + rng.gamma(2.0, 0.5, n_rows)).astype(np.float32)
+    tip = np.where(pay == 0, fare * rng.uniform(0.1, 0.3, n_rows), 0.0).astype(np.float32)
+    total = (fare + tip + 3.3).astype(np.float32)
+    pickup = rng.integers(0, 31 * 86400, n_rows).astype(np.float32)
+    return np.stack([vendor, pu, do, pay, pax, dist, fare, tip, total, pickup],
+                    axis=1).astype(np.float32)
+
+
+def tlc_zone_lookup(seed: int = 0) -> tuple[Domain, np.ndarray]:
+    """The 265-row taxi zone lookup: ``PULocationID`` (the LocationID,
+    discrete over the 265 zones, named for the trips' join key),
+    ``Borough`` (7 values, the real counts a borough, in a
+    seeded order of the zones) and ``service_zone`` (4 values: EWR's zone
+    'EWR', two Queens zones 'Airports', Manhattan 'Yellow Zone', the rest
+    'Boro Zone'). Returns (domain, f32 [265, 3])."""
+    rng = np.random.default_rng(seed)
+    names = [b for b, _ in TLC_BOROUGHS]
+    borough = rng.permutation(np.repeat(np.arange(len(names)), [c for _, c in TLC_BOROUGHS]))
+    service = np.full(len(borough), TLC_SERVICE_ZONES.index("Boro Zone"))
+    service[borough == names.index("EWR")] = TLC_SERVICE_ZONES.index("EWR")
+    service[borough == names.index("Manhattan")] = TLC_SERVICE_ZONES.index("Yellow Zone")
+    service[np.flatnonzero(borough == names.index("Queens"))[:2]] = \
+        TLC_SERVICE_ZONES.index("Airports")
+    domain = Domain([DiscreteVariable("PULocationID", TLC_ZONES),
+                     DiscreteVariable("Borough", names),
+                     DiscreteVariable("service_zone", TLC_SERVICE_ZONES)])
+    X = np.stack([np.arange(len(borough)), borough, service], 1).astype(np.float32)
+    return domain, X
+
+
+def write_tlc_sqlite(path: str, n_rows: int, seed: int = 0) -> None:
+    """``make_tlc_trips(n_rows, seed)`` and its zone lookup as a SQLite
+    database at ``path``: a ``trips`` table (VendorID and payment_type as
+    TEXT, so a SQL reader infers them discrete; the location ids INTEGER;
+    missing cells NULL) and a ``zones`` table (LocationID INTEGER, Borough
+    and service_zone TEXT), as the TLC publishes its lookup."""
+    import sqlite3
+
+    X = make_tlc_trips(n_rows, seed)
+    zdom, Z = tlc_zone_lookup(seed=seed)
+    text = {"VendorID": TLC_VENDORS, "payment_type": TLC_PAYMENT_TYPES}
+    integral = ("PULocationID", "DOLocationID", "pickup_s")
+    cols = []
+    for j, c in enumerate(TLC_COLUMNS):
+        v = X[:, j]
+        if c in text:
+            cells = np.asarray(text[c], dtype=object)[np.nan_to_num(v).astype(np.int64)]
+            cols.append(np.where(np.isnan(v), None, cells))
+        elif c in integral:
+            cols.append((v.astype(np.int64) + (1 if "Location" in c else 0)).tolist())
+        else:
+            cols.append(np.where(np.isnan(v), None, v.astype(object)))
+    rows = list(zip(*cols))
+    kinds = ["TEXT" if c in text else "INTEGER" if c in integral else "REAL"
+             for c in TLC_COLUMNS]
+    boroughs, services = zdom["Borough"].values, zdom["service_zone"].values
+    zones = [(int(r[0]) + 1, boroughs[int(r[1])], services[int(r[2])]) for r in Z]
+    with sqlite3.connect(path) as conn:
+        conn.execute("DROP TABLE IF EXISTS trips")
+        conn.execute("DROP TABLE IF EXISTS zones")
+        conn.execute("CREATE TABLE trips (" + ", ".join(
+            f"{c} {k}" for c, k in zip(TLC_COLUMNS, kinds)) + ")")
+        conn.executemany(f"INSERT INTO trips VALUES ({', '.join('?' * len(TLC_COLUMNS))})",
+                         rows)
+        conn.execute("CREATE TABLE zones (LocationID INTEGER PRIMARY KEY, Borough TEXT, "
+                     "service_zone TEXT)")
+        conn.executemany("INSERT INTO zones VALUES (?, ?, ?)", zones)
+    conn.close()
 
 
 def make_ratings(

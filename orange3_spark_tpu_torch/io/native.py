@@ -245,3 +245,30 @@ def write_csv_native(path: str, data: np.ndarray, names=None, *,
         data.shape[0], data.shape[1], header, delimiter.encode()[0:1] or b",")
     if rc != 0:
         raise OSError(f"fcsv_write failed for {path!r}")
+
+
+def read_csv_native(path: str, class_col: str = "", *, delimiter: str = ",",
+                    header: bool = True, session=None, n_threads: int = 0):
+    """A whole CSV file through the native reader -> TorchTable, every
+    column continuous (a string cell reads as NaN; ``io/readers.read_csv``
+    infers a mixed schema). ``class_col`` names the target column. Raises
+    ``NativeUnavailable`` where the engine cannot be built: a fallback
+    reader would infer another schema (string columns discrete, not NaN)."""
+    from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
+    from orange3_spark_tpu_torch.core.table import TorchTable
+
+    with NativeCsvReader(path, delimiter=delimiter, header=header,
+                         n_threads=n_threads) as r:
+        data = r.read_all()
+        names = list(r.colnames)
+    if class_col:
+        if class_col not in names:
+            raise ValueError(f"class_col {class_col!r} not in {names}")
+        ci = names.index(class_col)
+        keep = [j for j in range(len(names)) if j != ci]
+        domain = Domain([ContinuousVariable(names[j]) for j in keep],
+                        ContinuousVariable(class_col))
+        return TorchTable.from_numpy(domain, np.ascontiguousarray(data[:, keep]),
+                                     data[:, ci], session=session)
+    domain = Domain([ContinuousVariable(n) for n in names])
+    return TorchTable.from_numpy(domain, data, session=session)

@@ -17,11 +17,13 @@ two must agree bitwise, or a step would update the wrong table rows.
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
 
-__all__ = ["column_salts", "counter_uniform", "hash_columns", "hash_columns_np",
-           "salts_tensor", "split_key"]
+__all__ = ["STRING_CODE_MASK", "column_salts", "counter_uniform", "hash_columns",
+           "hash_columns_np", "salts_tensor", "split_key", "strings_to_u32", "to_index"]
 
 _U32 = 0xFFFFFFFF
 _M1, _M2 = 0x85EBCA6B, 0xC2B2AE35
@@ -47,6 +49,17 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
+def to_index(x: torch.Tensor) -> torch.Tensor:
+    """A float tensor as int32 the way XLA converts it (the JAX package's
+    ``.astype(jnp.int32)`` of a float column): toward zero, NaN to 0,
+    saturating at the int32 limits (+-inf too). PyTorch's own conversion
+    gives INT_MIN for NaN and out-of-range values on the CPU and is
+    undefined for them on CUDA, so every float key or code of the port
+    becomes an index through this."""
+    x = torch.nan_to_num(x, nan=0.0).clamp(-2.0**31, 2.0**31).to(torch.int64)
+    return x.clamp(-(2**31), 2**31 - 1).to(torch.int32)
+
+
 def hash_columns(cats: torch.Tensor, salts, n_dims: int) -> torch.Tensor:
     """[N, C] integer categorical codes -> [N, C] int32 bucket indices in
     [0, n_dims). ``cats`` may be any integer dtype or float32 holding exact
@@ -59,11 +72,8 @@ def hash_columns(cats: torch.Tensor, salts, n_dims: int) -> torch.Tensor:
     _check_dims(n_dims)
     if not isinstance(salts, torch.Tensor):
         salts = salts_tensor(salts, cats.device)
-    if cats.is_floating_point():
-        c = torch.nan_to_num(cats, nan=0.0).clamp(-2.0**31, 2.0**31).to(torch.int64)
-        h = c.clamp(-(2**31), 2**31 - 1) & _U32   # negatives wrap to uint32
-    else:
-        h = cats.to(torch.int32).to(torch.int64) & _U32
+    c = to_index(cats) if cats.is_floating_point() else cats.to(torch.int32)
+    h = c.to(torch.int64) & _U32   # negatives wrap to uint32
     h = h ^ salts[None, :]
     h = h ^ (h >> 16)
     h = _mul32(h, _M1)
@@ -93,6 +103,26 @@ def hash_columns_np(cats: np.ndarray, salts: np.ndarray, n_dims: int) -> np.ndar
     h ^= h >> np.uint32(16)
     h &= np.uint32(n_dims - 1)
     return h.view(np.int32)
+
+
+#: String codes are masked to 24 bits, so they survive a float32 round trip
+#: exactly (float32 has a 24-bit mantissa): the chunk pipeline carries
+#: categorical codes in one f32 array. The native parser's categorical mode
+#: (``native/fastcsv.cpp``, ``fcsv_set_categorical``) applies the same crc32
+#: and mask, so the host and native on-ramps give the same codes.
+STRING_CODE_MASK = 0x00FFFFFF
+
+
+def strings_to_u32(arr) -> np.ndarray:
+    """Stable uint32 codes for string categories (real Criteo's hex
+    strings): ``crc32 & STRING_CODE_MASK`` of each value's UTF-8 bytes
+    (Python's ``hash()`` is salted per process, useless for checkpoints).
+    One crc32 a distinct value, so the cost follows the cardinality."""
+    arr = np.asarray(arr)
+    uniq, inv = np.unique(arr, return_inverse=True)
+    codes = np.fromiter((zlib.crc32(str(u).encode()) & STRING_CODE_MASK for u in uniq),
+                        dtype=np.uint32, count=len(uniq))
+    return codes[inv].reshape(arr.shape)
 
 
 # ---------------------------------------------------- a counter-based stream

@@ -8,12 +8,7 @@ estimator's params rather than written per estimator.
 through its frozen params dataclass, so an estimator of ``models/`` gets
 its widget (and its place in saved workflows) by being listed in
 ``_build_catalog``. Registry names are the JAX package's, so a workflow
-JSON written there loads here.
-
-Not ported yet (ROADMAP queue 1): the reader widgets (``OWCsvReader``,
-``OWParquetReader``, ``OWLibsvmReader``, ``OWSqlReader``), ``OWJoin``,
-``OWGroupBy``, ``OWPivot`` and ``OWSaveData``, which need the port's
-``io/`` readers and ``ops/relational``; they are not registered.
+JSON (or an ``.ows`` file, ``workflow/ows.py``) written there loads here.
 """
 
 from __future__ import annotations
@@ -25,6 +20,7 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.core.table import TorchTable
+from orange3_spark_tpu_torch.io import readers
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params, Transformer
 from orange3_spark_tpu_torch.widgets.base import Input, Output, Widget
 
@@ -135,6 +131,88 @@ class OWTable(Widget):
 
 
 @register
+class OWCsvReader(Widget):
+    """File source widget (spark.read.csv): ``io/readers.read_csv``."""
+
+    name = "OWCsvReader"
+    inputs = ()
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = readers.CsvReaderParams
+
+    def process(self) -> dict[str, Any]:
+        return {"data": readers.read_csv(params=self.params)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParquetReaderParams(Params):
+    path: str = ""
+    class_col: str = ""
+
+
+@register
+class OWParquetReader(Widget):
+    """Parquet source widget (spark.read.parquet): a whole-file load by
+    ``io/readers.read_parquet``; the out-of-core regime streams row groups
+    through ``io/streaming.parquet_raw_chunk_source`` instead."""
+
+    name = "OWParquetReader"
+    inputs = ()
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = ParquetReaderParams
+
+    def process(self) -> dict[str, Any]:
+        p = self.params
+        return {"data": readers.read_parquet(p.path, p.class_col)}
+
+
+@dataclasses.dataclass(frozen=True)
+class LibsvmReaderParams(Params):
+    path: str = ""
+    n_features: int = 0          # 0 = inferred from the file's largest index
+    zero_based: bool = False
+
+
+@register
+class OWLibsvmReader(Widget):
+    """libsvm/svmlight source widget (spark.read.format('libsvm')):
+    ``io/libsvm.read_libsvm``."""
+
+    name = "OWLibsvmReader"
+    inputs = ()
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = LibsvmReaderParams
+
+    def process(self) -> dict[str, Any]:
+        from orange3_spark_tpu_torch.io.libsvm import read_libsvm
+
+        p = self.params
+        return {"data": read_libsvm(p.path, n_features=p.n_features or None,
+                                    zero_based=p.zero_based)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SqlReaderParams(Params):
+    query: str = ""
+    database: str = ""           # SQLite file path (the spark.read.jdbc role)
+    class_col: str = ""
+
+
+@register
+class OWSqlReader(Widget):
+    """SQL source widget (spark.read.jdbc over the standard library's
+    sqlite3): ``io/readers.read_sql``."""
+
+    name = "OWSqlReader"
+    inputs = ()
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = SqlReaderParams
+
+    def process(self) -> dict[str, Any]:
+        p = self.params
+        return {"data": readers.read_sql(p.query, p.database, p.class_col)}
+
+
+@register
 class OWApplyModel(Widget):
     """Apply a fitted model to (new) data: the model.transform(df) widget."""
 
@@ -160,6 +238,44 @@ class OWMergeColumns(Widget):
         from orange3_spark_tpu_torch.ops.relational import merge_columns
 
         return {"data": merge_columns(left, right)}
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinParams(Params):
+    on: str = ""
+    how: str = "left"        # 'left' | 'inner' | 'outer' (outer => host)
+    # 0: unique-key dimension join (device gather, left shape kept);
+    # >0: bounded fan-out join_expand (static max_matches slots a row);
+    # -1: fully general host sort-merge (join_host, unbounded cardinality)
+    max_matches: int = 0
+
+
+@register
+class OWJoin(Widget):
+    """Equi-join on a discrete key in the three regimes of
+    ``ops/relational``: the dimension gather, the bounded fan-out expand
+    and the general host sort-merge, chosen by ``max_matches`` (and sent
+    to the host by ``how='outer'``). The right side's key scan runs on the
+    host, so staging stops here and reports it."""
+
+    name = "OWJoin"
+    inputs = (Input("left", TorchTable), Input("right", TorchTable))
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = JoinParams
+
+    def process(self, left: TorchTable, right: TorchTable) -> dict[str, Any]:
+        from orange3_spark_tpu_torch.ops.relational import join, join_expand, join_host
+
+        p = self.params
+        if p.max_matches < -1:
+            raise ValueError(f"max_matches={p.max_matches}: use -1 (host join), 0 "
+                             "(dimension join) or a positive fan-out bound")
+        if p.max_matches == -1 or p.how == "outer":
+            return {"data": join_host(left, right, p.on, p.how)}
+        if p.max_matches > 0:
+            return {"data": join_expand(left, right, p.on, max_matches=p.max_matches,
+                                        how=p.how)}
+        return {"data": join(left, right, p.on, p.how)}
 
 
 _ROW_OPS = {
@@ -233,6 +349,54 @@ widget_for_transformer(SelectColumns, "OWSelectColumns")
 widget_for_transformer(SelectRows, "OWSelectRows")
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupByParams(Params):
+    keys: tuple = ()        # discrete key column names; () = global agg
+    aggs: tuple = ()        # ((col, fn), ...) with fn in relational.AGG_FNS
+
+
+@register
+class OWGroupBy(Widget):
+    """df.groupBy(keys).agg(...) widget (``ops/relational.group_by``): a
+    fixed ∏kᵢ-row output from one grouped pass."""
+
+    name = "OWGroupBy"
+    inputs = (Input("data", TorchTable),)
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = GroupByParams
+
+    def process(self, data: TorchTable) -> dict[str, Any]:
+        from orange3_spark_tpu_torch.ops.relational import group_by
+
+        p = self.params
+        return {"data": group_by(data, list(p.keys) or None, p.aggs)}
+
+
+@dataclasses.dataclass(frozen=True)
+class PivotParams(Params):
+    keys: tuple = ()        # group key column names
+    pivot_col: str = ""
+    aggs: tuple = ()        # ((col, fn), ...)
+    values: tuple = ()      # a subset of the pivot values; () = all categories
+
+
+@register
+class OWPivot(Widget):
+    """df.groupBy(keys).pivot(col).agg(...) widget (``ops/relational.pivot``)."""
+
+    name = "OWPivot"
+    inputs = (Input("data", TorchTable),)
+    outputs = (Output("data", TorchTable),)
+    ParamsCls = PivotParams
+
+    def process(self, data: TorchTable) -> dict[str, Any]:
+        from orange3_spark_tpu_torch.ops.relational import pivot
+
+        p = self.params
+        return {"data": pivot(data, list(p.keys), p.pivot_col, p.aggs,
+                              values=(list(p.values) or None))}
+
+
 @register
 class OWDataInfo(Widget):
     """DataFrame-info viewer: row/col counts + describe stats (host dict)."""
@@ -250,6 +414,46 @@ class OWDataInfo(Widget):
             "class_vars": [v.name for v in data.domain.class_vars],
             "stats": data.describe(),
         }}
+
+
+@dataclasses.dataclass(frozen=True)
+class SaveDataParams(Params):
+    path: str = ""
+    # '' = chosen by the path's extension (.csv / .parquet / .db);
+    # 'csv' | 'parquet' | 'sql' forces a writer
+    format: str = ""
+    sql_table: str = "data"      # the table name for the sql writer
+    drop_filtered: bool = True
+
+
+@register
+class OWSaveData(Widget):
+    """Save Data sink (Orange canvas 'Save Data', the df.write role):
+    writes the incoming table with the matching ``io/readers`` writer."""
+
+    name = "OWSaveData"
+    inputs = (Input("data", TorchTable),)
+    outputs = (Output("path", str),)
+    ParamsCls = SaveDataParams
+
+    def process(self, data: TorchTable) -> dict[str, Any]:
+        p = self.params
+        if not p.path:
+            raise ValueError("OWSaveData needs a path")
+        fmt = p.format or {
+            ".csv": "csv", ".parquet": "parquet", ".pq": "parquet",
+            ".db": "sql", ".sqlite": "sql",
+        }.get("." + p.path.rsplit(".", 1)[-1].lower(), "")
+        if fmt == "csv":
+            readers.write_csv(data, p.path, drop_filtered=p.drop_filtered)
+        elif fmt == "parquet":
+            readers.write_parquet(data, p.path, drop_filtered=p.drop_filtered)
+        elif fmt == "sql":
+            readers.write_sql(data, p.path, p.sql_table, drop_filtered=p.drop_filtered)
+        else:
+            raise ValueError(f"cannot infer a writer for {p.path!r}; set format="
+                             "'csv'|'parquet'|'sql'")
+        return {"path": p.path}
 
 
 @register
@@ -290,6 +494,7 @@ def _build_catalog() -> None:
     from orange3_spark_tpu_torch.models import evaluation as E
     from orange3_spark_tpu_torch.models import preprocess as P
     from orange3_spark_tpu_torch.models.als import ALS
+    from orange3_spark_tpu_torch.models.feature_extra import SQLTransformer
     from orange3_spark_tpu_torch.models.decision_tree import (
         DecisionTreeClassifier, DecisionTreeRegressor,
     )
@@ -315,7 +520,7 @@ def _build_catalog() -> None:
         StreamingKMeans, StreamingHashedLinearEstimator, ALS,
     ):
         widget_for_estimator(est)
-    for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher):
+    for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher, SQLTransformer):
         widget_for_transformer(tr)
     _evaluation_widget(E.BinaryClassificationEvaluator, "OWBinaryEvaluator")
     _evaluation_widget(E.MulticlassClassificationEvaluator, "OWMulticlassEvaluator")

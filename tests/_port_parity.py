@@ -51,10 +51,14 @@ def assert_port_equal(jax_val, torch_val, *, rtol: float = 0.0, atol: float = 0.
     ref, got = to_np(jax_val), to_np(torch_val)
     assert ref.shape == got.shape, f"{what} shape {got.shape} != reference {ref.shape}"
     ref64, got64 = ref.astype(np.float64), got.astype(np.float64)
-    both_nan = np.isnan(ref64) & np.isnan(got64)
-    err = np.where(both_nan, 0.0, np.abs(got64 - ref64))
+    same = (ref64 == got64) | (np.isnan(ref64) & np.isnan(got64))
+    err = np.where(same, 0.0, np.abs(got64 - ref64))
     err = np.where(np.isnan(err), np.inf, err)
-    excess = err - (atol + rtol * np.abs(ref64))
+    # an element equal to the reference (NaN to NaN, inf to inf) passes; any
+    # other NaN, inf or difference past the tolerance fails, so that one NaN
+    # in the reference cannot turn the maximum below into NaN
+    excess = np.where(same, -np.inf, err - (atol + rtol * np.abs(ref64)))
+    excess = np.where(np.isnan(excess), np.inf, excess)
     if ref.size and excess.max() > 0:
         i = np.unravel_index(int(np.argmax(excess)), ref.shape)
         raise AssertionError(

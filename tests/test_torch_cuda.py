@@ -1959,3 +1959,94 @@ def test_criteo_shaped_fit_ledger_equals_its_tensors(cuda_device, tmp_path):
     plane = cs._criteo_plane(model, est.params, st, sess)
     # at this size the replay's capture outweighs its device work
     assert set(plane["plane_failed"]) <= {"replay_not_framework_bound"}, plane
+
+
+# ---------------------------------------- data wrangling (ops/relational)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [3, 40])
+def test_grouped_pass_through_segment_sum_on_cuda(cuda_device, n_groups):
+    """The grouped pass of ``ops/relational`` on the card: a few long
+    segments over 100,000 rows through ``segment_sum_sorted``'s kernel
+    (launched once a pass), bitwise the kernels' order written out
+    (``chip_smoke._long_order_sums``) and within (10 + ceil(n/1024))·2^-24
+    of the float64 sums; the counts exact."""
+    from orange3_spark_tpu_torch.ops import relational as R
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 100_000
+    slot = torch.randint(0, n_groups + 1, (n,), generator=gen, device=cuda_device
+                         ).to(torch.int32)            # slot n_groups is dropped
+    cols = torch.cat([torch.ones((n, 1), device=cuda_device),
+                      torch.rand((n, 3), generator=gen, device=cuda_device) * 50], 1)
+    before = ss.segment_sum_sorted.launches
+    got = R.grouped_sums(slot, cols, n_groups)
+    assert ss.segment_sum_sorted.launches == before + 1
+    s, order = torch.sort(slot, stable=True)
+    g = cols.index_select(0, order).contiguous()
+    want = _smoke()._long_order_sums(g, s, n_groups + 1)[:n_groups]
+    assert torch.equal(got, want)
+    f64 = torch.zeros((n_groups + 1, 4), dtype=torch.float64, device=cuda_device
+                      ).index_add_(0, s.long(), g.double())[:n_groups]
+    rows = torch.bincount(s.long(), minlength=n_groups + 1)[:n_groups]
+    assert torch.equal(got[:, 0], rows.float())
+    bound = (10 + torch.ceil(rows.double() / 1024))[:, None] * 2.0**-24 * f64.abs()
+    assert bool(((got.double() - f64).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_scatter_reduce_min_max_nan_on_cuda_equals_the_cpu(cuda_device):
+    """``ops/relational._group_kernel``'s mins and maxs on the card against
+    the CPU, with live NaNs, dead rows, infs, empty groups and dropped rows:
+    bitwise (NaN where a live NaN is, +-inf for empty groups, +-big for
+    groups of dead rows)."""
+    from orange3_spark_tpu_torch.ops import relational as R
+
+    rng = np.random.default_rng(2)
+    n, k = 5000, 7
+    V = rng.normal(size=(n, 3)).astype(np.float32)
+    V[rng.random((n, 3)) < 0.002] = np.nan
+    V[rng.random((n, 3)) < 0.002] = np.inf
+    key = rng.integers(-1, k + 1, n)
+    key[key == 4] = 5                                  # group 4 empty
+    W = (rng.random(n) > 0.1).astype(np.float32)
+    W[key == 6] = 0.0                                  # group 6 all dead
+    args = [torch.from_numpy(key), torch.from_numpy(W), torch.from_numpy(V)]
+    cpu = R._group_kernel(*args, k)
+    card = R._group_kernel(*(a.to(cuda_device) for a in args), k)
+    for a, b in zip(cpu[:1] + cpu[2:], card[:1] + card[2:]):    # counts, mins, maxs
+        assert np.array_equal(a, b, equal_nan=True)
+    assert np.array_equal(np.isnan(cpu[1]), np.isnan(card[1]))  # the NaN spread
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1, 2**40])
+def test_threefry_on_cuda_bitwise_the_cpu(cuda_device, seed):
+    from orange3_spark_tpu_torch.ops import prng
+
+    key = prng.PRNGKey(seed)
+    for n in (1, 13, 4099, 1 << 20):
+        assert torch.equal(prng.uniform(key, n, cuda_device).cpu(), prng.uniform(key, n, "cpu"))
+        assert torch.equal(prng.bernoulli(key, 0.3, n, cuda_device).cpu(),
+                           prng.bernoulli(key, 0.3, n, "cpu"))
+
+
+@pytest.mark.cuda
+def test_small_wrangle_on_cuda_against_the_cpu(cuda_device, tmp_path):
+    """``chip_smoke.py``'s ``wrangle`` phase at 200,000 rows (cut 40,000),
+    its kernel check included: every call on the card held against the
+    CPU; then the ``ows`` phase at 20,000 trips."""
+    from orange3_spark_tpu_torch import TorchSession
+
+    cs = _smoke()
+    saved = (cs.WRANGLE_ROWS, cs.WRANGLE_CUT, cs.WRANGLE_WARM_ROWS, cs.OWS_TRIPS)
+    cs.WRANGLE_ROWS, cs.WRANGLE_CUT, cs.WRANGLE_WARM_ROWS, cs.OWS_TRIPS = (
+        200_000, 40_000, 1000, 20_000)
+    try:
+        line = cs.phase_wrangle(TorchSession("cuda"), 3.35e12, str(tmp_path))
+        assert line["segment_sum_launches"] > 0
+        assert line["kernel"]["long_order_equal"] and line["kernel"]["within_f64_bound"]
+        ows = cs.phase_ows(str(tmp_path))
+        assert ows["tables_on_card"] and ows["segment_sum_launches"]["cuda"] > 0
+    finally:
+        cs.WRANGLE_ROWS, cs.WRANGLE_CUT, cs.WRANGLE_WARM_ROWS, cs.OWS_TRIPS = saved

@@ -51,8 +51,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("sub,n_modules", [("serve", 5), ("obs", 7), ("resilience", 5),
-                                           ("utils", 6), ("online", 1), ("ops", 7),
-                                           ("optim", 1), ("io", 3), ("models", 15)])
+                                           ("utils", 6), ("online", 1), ("ops", 9),
+                                           ("optim", 1), ("io", 5), ("models", 16),
+                                           ("workflow", 4), ("widgets", 2)])
 def test_serving_layers_import_without_jax(sub, n_modules):
     """The serving path, the fit's recovery layers (the checkpointer, the
     numerics guard, the watchdog), the kernels' wrappers and the host
@@ -74,13 +75,21 @@ def test_serving_layers_import_without_jax(sub, n_modules):
                                     "orange3_spark_tpu_torch.models.evaluation",
                                     "orange3_spark_tpu_torch.obs.flight",
                                     "orange3_spark_tpu_torch.obs.prof",
-                                    "orange3_spark_tpu_torch.obs.server"])
+                                    "orange3_spark_tpu_torch.obs.server",
+                                    "orange3_spark_tpu_torch.ops.relational",
+                                    "orange3_spark_tpu_torch.ops.window",
+                                    "orange3_spark_tpu_torch.ops.prng",
+                                    "orange3_spark_tpu_torch.io.readers",
+                                    "orange3_spark_tpu_torch.models.feature_extra",
+                                    "orange3_spark_tpu_torch.workflow.ows",
+                                    "orange3_spark_tpu_torch.workflow.render"])
 def test_recommender_modules_import_without_jax(module):
     """Modules of later slices, each on its own behind the blocker: ALS,
     its kernel's wrapper, model and workflow saving, the evaluators; the
     flight recorder, the goodput and memory plane, the telemetry endpoint
     (copies of stdlib-only modules of the JAX package: the port keeps its
-    own)."""
+    own); the relational and window ops, the threefry stream, the readers,
+    SQLTransformer, the ``.ows`` loader and the renderer."""
     code = _BLOCKED_IMPORT.split("import orange3_spark_tpu_torch as pkg")[0] + textwrap.dedent(f"""
         importlib.import_module({module!r})
         leaked = [m for m in sys.modules
@@ -91,6 +100,21 @@ def test_recommender_modules_import_without_jax(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_every_module_imports_without_pyarrow():
+    """pyarrow is absent on the GPU machine: every module of the port (the
+    readers too, which import it inside the functions that need it)
+    imports with pyarrow blocked as well as jax."""
+    code = _BLOCKED_IMPORT.replace('("jax", "jaxlib", "orange3_spark_tpu", "ml_dtypes", "optax")',
+                                   '("jax", "jaxlib", "orange3_spark_tpu", "ml_dtypes", "optax", '
+                                   '"pyarrow")')
+    assert code != _BLOCKED_IMPORT
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 80
 
 
 def test_chip_smoke_imports_without_jax():
@@ -195,3 +219,18 @@ def test_no_source_of_the_port_imports_jax_companions():
             else:
                 continue
             assert not {n.split(".")[0] for n in names} & banned, (path, names)
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A phase's helper that reuses another phase's name replaces it for the
+    whole script (a later ``def`` wins), which only a run on the card would
+    show: every top-level function and constant of chip_smoke.py is
+    defined once."""
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name)]
+    names += [e.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Tuple) for e in t.elts if isinstance(e, ast.Name)]
+    dup = sorted({n for n in names if names.count(n) > 1})
+    assert not dup, dup

@@ -166,8 +166,10 @@ def test_widget_registry_covers_the_ported_estimators():
     w = WIDGET_REGISTRY["OWKMeans"](k=5)
     assert w.params.k == 5
     assert ("k", "int", 2) in [(n, t, d) for n, t, d in type(w.params).describe()]
-    for name in ("OWCsvReader", "OWJoin", "OWGroupBy", "OWPivot", "OWSaveData"):
-        assert name not in WIDGET_REGISTRY            # not ported (ROADMAP queue 1)
+    for name in ("OWCsvReader", "OWParquetReader", "OWLibsvmReader", "OWSqlReader", "OWJoin",
+                 "OWGroupBy", "OWPivot", "OWSaveData", "OWSQLTransformer"):
+        assert name in WIDGET_REGISTRY and name in jcat.WIDGET_REGISTRY, name
+    assert "OWNaiveBayes" not in WIDGET_REGISTRY      # not ported (ROADMAP queue 1)
 
 
 def test_set_params_affects_transformer_widget(session):
@@ -235,7 +237,7 @@ def test_a_workflow_saved_by_the_jax_package_loads_and_runs(jsess, session, tmp_
     assert_port_equal(ref, outs[lr2]["model"].coef, atol=1e-4 * np.abs(ref).max(),
                       what="coef")
     with pytest.raises(ValueError, match="unknown widget"):
-        WorkflowGraph.from_json('{"version": 1, "nodes": [{"id": 0, "widget": "OWJoin"}],'
+        WorkflowGraph.from_json('{"version": 1, "nodes": [{"id": 0, "widget": "OWNaiveBayes"}],'
                                 ' "edges": []}')
 
 
