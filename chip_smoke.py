@@ -25,7 +25,11 @@ prints one JSON line per phase:
            call at level 4; an estimate of the histogram time of one fit
            (launch-weighted level times)
   parity   the fits on the card against the port's CPU path on a small
-           table (same random draws for the forest)
+           table (same random draws for the forest); then the seeded fits
+           with no injected draws (JAX's stream, ``ops/prng``): a 4-tree
+           forest field by field, GBT with subsampling 0.8 (same-split
+           fraction, AUC within 0.005), and the Poisson counts of the
+           card against the CPU's (a share of the lanes, at most 1e-6)
   gbt, rf  the HIGGS proxy (BASELINE config 3) at full width:
            GBTClassifier(max_iter=20) and RandomForestClassifier(
            num_trees=20), max_depth=5, max_bins=32, 28 features, 11M rows
@@ -35,6 +39,15 @@ prints one JSON line per phase:
            kernel, the device's idle share of the fit, and the histogram's
            device time in the fit: its kernel and finalize pass, and the
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
+  rf_draws the forest's draws at its fit's shapes (``draw_forest``: one
+           ``poisson_knuth`` launch, a Bernoulli mask a tree), eager, beside
+           the timed fit's wall and its wall before the draws moved
+  prng     ``threefry_bits`` (at a 10M draw and a tree's row count) and
+           ``poisson_knuth`` (the forest's 20 trees x 10,737,856 rows)
+           bitwise their plain versions, timed captured and eager beside
+           the plain versions and each bound (4 B written a lane; 73
+           integer operations a hash at SMs x 128 issue lanes x the max
+           SM clock)
 
 then the dense linear family (BASELINE config 1 and ``bench.py --config
 dense_logreg``; PyTorch ops, no kernel of the package: the products are
@@ -330,7 +343,32 @@ the readers, ``workflow/ows``; the grouped passes through
                   ``workflow/ows.read_ows`` and run on the card, then on the
                   CPU: every node's output held card against CPU
 
-then the ``kernels`` line of four kernels (``node_histograms``: launches
+then MLlib's supervised estimators (PyTorch ops; their seeded draws
+through ``threefry_bits``):
+
+  supervised      at full width, each fit timed after a warm-up (its cut
+                  fit on the card) with its held-out metric: on the HIGGS
+                  proxy (10,737,856 rows, 262,144 held out) NaiveBayes
+                  (gaussian), GLM binomial, the MLP (28, 64, 64, 2) and
+                  FMClassifier (factor 8), AUC; on the dense_logreg X
+                  (4,000,000 x 40) GLM poisson, gamma and tweedie
+                  (vp 1.5) on seeded log-linear targets (mean deviance) and
+                  AFT on seeded Weibull times, 30 % right-censored (mean
+                  negative log-likelihood); OneVsRest(LogisticRegression)
+                  on make_classification at UCI Covertype's shape (581,012
+                  x 54, 7 classes; accuracy); RFormula over the 10M TLC
+                  trips then a gaussian GLM (RMSE); CrossValidator of
+                  LogisticRegression over 2 reg_params x 3 folds on the
+                  first 1M HIGGS rows (7 fits; AUC); IsotonicRegression on
+                  1M rows (cut: the PAV is a host loop; RMSE). Each is also
+                  fitted on the CPU path on a 200,000-row cut: the card's
+                  cut fit within the CPU tests' tolerance of it (the MLP
+                  after 5 iterations and FM after 60 steps, where their
+                  paths still follow float32 order noise), the full fit's
+                  held-out metric no worse than the cut's by 0.005, a served
+                  request bitwise raw, CV's fold ids bitwise the CPU's
+
+then the ``kernels`` line of six kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``criteo`` phase's adam arm (the ``overload`` fit's beside them), the
@@ -343,8 +381,10 @@ at its own inputs (its time, its bound with the 4 B a value more, bitwise
 the chain; launches over that fit), the criteo step given per-pair values
 beside it as ``criteo_shape``); ``normal_equations_sorted``: launches counted over the
 ``movielens_als`` phase's timed fit, the times of its user half-step, the
-item and skewed item half-steps beside; each fails the run if it counted
-no launch),
+item and skewed item half-steps beside; ``threefry_bits`` and
+``poisson_knuth``: launches over the gbt and rf phases (and, for the
+words, the ``wrangle`` phase), the times of the ``prng`` phase; each fails
+the run if it counted no launch),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -799,6 +839,7 @@ def phase_parity():
         raise AssertionError(f"forest on the card differs from the CPU path: {line}")
     if not (np.isfinite(p_gpu).all() and abs(auc_cpu - auc_gpu) < 0.005):
         raise AssertionError(f"GBT on the card disagrees with the CPU path: {line}")
+    line["seeded"] = _parity_draws(tables)
     return line
 
 
@@ -807,6 +848,7 @@ def phase_fit(name, est, table, eval_table, y_eval, floor):
     import torch
 
     from orange3_spark_tpu_torch.datasets import auc
+    from orange3_spark_tpu_torch.ops import prng
     from orange3_spark_tpu_torch.ops.histogram import node_histograms
 
     torch.cuda.reset_peak_memory_stats()
@@ -814,11 +856,14 @@ def phase_fit(name, est, table, eval_table, y_eval, floor):
     est.fit(table)                               # warm-up: first-use costs
     warm_s = time.perf_counter() - t0
     before = node_histograms.launches
+    draws_before = (prng.threefry_bits.launches, prng.poisson_knuth.launches)
     t0 = time.perf_counter()
     model = est.fit(table)
     table.session.synchronize()
     fit_s = time.perf_counter() - t0
     launches = node_histograms.launches - before
+    draw_launches = {"threefry_bits": prng.threefry_bits.launches - draws_before[0],
+                     "poisson_knuth": prng.poisson_knuth.launches - draws_before[1]}
     proba = model.predict_proba(eval_table)
     if proba.shape != (len(y_eval), 2) or not np.isfinite(proba).all():
         raise AssertionError(f"{name}: bad probabilities, shape {proba.shape}")
@@ -827,11 +872,30 @@ def phase_fit(name, est, table, eval_table, y_eval, floor):
     a = auc(proba[:, 1], y_eval)
     line = {"fit_s": fit_s, "warmup_fit_s": warm_s,
             "rows_per_s": table.n_rows / fit_s, "holdout_auc": a,
-            "hist_launches": launches,
+            "hist_launches": launches, "draw_launches": draw_launches,
             "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2**30}
     if a < floor:
         raise AssertionError(f"{name}: holdout AUC {a:.4f} below {floor}: {line}")
     return line
+
+
+def _rf_draw_line(est, table) -> dict:
+    """The forest's draws inside its fit: ``draw_forest`` at the fit's
+    shapes (all trees' Poisson bootstrap in one ``poisson_knuth`` launch, a
+    Bernoulli mask a tree), eager by CUDA events, beside the fit's wall
+    before the draws moved to JAX's stream."""
+    from orange3_spark_tpu_torch.models.random_forest import _subset_fraction, draw_forest
+
+    p = est.params
+    keep_p = _subset_fraction(p.feature_subset_strategy, table.n_attrs, True)
+
+    def draw():
+        return draw_forest(table.n_pad, table.n_attrs, num_trees=p.num_trees,
+                           depth=p.max_depth, keep_p=keep_p, subsample=p.subsampling_rate,
+                           seed=p.seed, device=table.X.device)
+
+    return {"draw_ms": cuda_ms(draw, 3, warmup=1), "fit_s_before_the_draws_moved":
+            RF_FIT_S_BEFORE, "draw_shape": [p.num_trees, table.n_pad]}
 
 
 def phase_profile(est, table):
@@ -5746,6 +5810,602 @@ def phase_ows(tmp, card_device: str = "cuda") -> dict:
     return line
 
 
+# ------------------------------------------------ JAX's stream: the kernels
+# the forest's draw at config 3: 20 trees over the HIGGS fit's rows
+PRNG_TREES, PRNG_ROWS, PRNG_UNIFORM_ROWS = 20, 11_000_000 - (1 << 18), 10_000_000
+# 32-bit integer operations of one threefry2x32 hash (ops/csrc/prng.cu): 2
+# initial key adds; 20 rounds of add, funnel shift and xor; 5 key
+# injections of two adds; the xor of the two words
+HASH_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1
+# 32-bit integer operations one Hopper SM can issue a clock: 4 warp
+# schedulers, each one warp instruction (32 lanes) a clock (NVIDIA H100
+# Tensor Core GPU Architecture whitepaper); its 64 INT32 units take adds,
+# logic and shifts, and integer adds also run as IMAD on the FP32 pipe, so
+# the issue width, not the INT32 units, is the ceiling (a first bound at 64
+# a clock was beaten by the kernel itself). Times the SMs and the max SM
+# clock nvidia-smi reports: the card's integer rate
+INT_ISSUE_LANES_PER_SM = 128
+# the parity phase's extra Poisson draw, card against CPU: 2 keys x 500,000
+PRNG_PARITY_KEYS, PRNG_PARITY_ROWS = 2, 500_000
+PRNG_MISMATCH_SHARE = 1e-6
+# the RF fit's wall on the card while its draws came from a torch.Generator
+# (PERF.md, section 5), printed beside the fit's wall now
+RF_FIT_S_BEFORE = 0.1453
+
+
+def int32_rate() -> float:
+    """The card's 32-bit integer operations a second: SMs x 128 issue lanes x
+    the max SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT_ISSUE_LANES_PER_SM * mhz * 1e6
+
+
+def _prng_bound(bytes_, ops, mem_bw, int_rate) -> dict:
+    by_bytes, by_ops = bytes_ / mem_bw * 1e3, ops / int_rate * 1e3
+    return {"bytes": bytes_, "int_ops": ops, "bytes_ms": by_bytes, "issue_ms": by_ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def _forest_keys(seed: int, n_trees: int):
+    """The bootstrap keys of a seeded forest (``draw_forest``'s kb)."""
+    from orange3_spark_tpu_torch.ops import prng
+
+    return [prng.split(t)[0] for t in prng.split(prng.PRNGKey(seed), n_trees)]
+
+
+def phase_prng(mem_bw, int_rate) -> dict:
+    """``threefry_bits`` at a 10M uniform and at one tree's row count of
+    the forest's draw, ``poisson_knuth`` at the forest's (20 trees x
+    10,737,856 rows, lam 1): bitwise their plain versions on the card, the
+    kernels timed captured (20 launches in a graph; ``poisson_knuth``'s
+    launch on a table uploaded once), the wrappers eager, the plain
+    versions, and each bound (4 B written a lane; 73 integer operations a
+    hash at the card's integer rate)."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import prng
+
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(0)
+    bits = {}
+    for name, n in (("uniform_10M", PRNG_UNIFORM_ROWS), ("forest_rows", PRNG_ROWS)):
+        equal = torch.equal(prng.threefry_bits(key, n, dev),
+                            prng.threefry_bits_reference(key, n, dev))
+        bits[name] = {
+            "n": n, "bitwise_plain": equal,
+            "ms": graph_ms(lambda n=n: prng.threefry_bits(key, n, dev), 20),
+            "eager_ms": cuda_ms(lambda n=n: prng.threefry_bits(key, n, dev), 20, warmup=2),
+            "uniform_ms": graph_ms(lambda n=n: prng.uniform(key, n, dev), 20),
+            "plain_ms": graph_ms(lambda n=n: prng.threefry_bits_reference(key, n, dev), 3),
+            **_prng_bound(4 * n, HASH_INT_OPS * n, mem_bw, int_rate)}
+        torch.cuda.empty_cache()
+    keys = _forest_keys(0, PRNG_TREES)
+    got = prng.poisson_knuth(keys, 1.0, PRNG_ROWS, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = prng.poisson_reference(keys, 1.0, PRNG_ROWS, dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = torch.equal(got, want)
+    del want
+    torch.cuda.empty_cache()
+    # the launch alone, on the wrapper's table uploaded once
+    packed = prng._knuth_table(keys, dev)
+    out = torch.empty((PRNG_TREES, PRNG_ROWS), dtype=torch.int32, device=dev)
+    kernel_ms = graph_ms(lambda: prng._launch_knuth(packed, 1.0, out), 10)
+    eager_ms = cuda_ms(lambda: prng.poisson_knuth(keys, 1.0, PRNG_ROWS, dev), 5, warmup=1)
+    counts = got.to(torch.int64)
+    # this run's work: each lane hashes one uniform an iteration (count + 1
+    # iterations) and splits twice an iteration past the table
+    iters = int(counts.sum()) + counts.numel()
+    past = int(torch.clamp_min(counts + 1 - prng.CHAIN_TABLE, 0).sum())
+    poisson = {"trees": PRNG_TREES, "rows": PRNG_ROWS, "lam": 1.0,
+               "bitwise_plain": equal, "ms": kernel_ms, "eager_ms": eager_ms,
+               "plain_ms": plain_s * 1e3, "max_count": int(counts.max()),
+               "lanes_past_table": int((counts + 1 > prng.CHAIN_TABLE).sum()),
+               "hashes": iters + 2 * past,
+               **_prng_bound(4 * counts.numel(), HASH_INT_OPS * (iters + 2 * past),
+                             mem_bw, int_rate)}
+    del got, counts, out
+    torch.cuda.empty_cache()
+    line = {"threefry_bits": bits, "poisson_knuth": poisson, "int32_ops_per_s": int_rate}
+    bad = [n for n, b in bits.items() if not b["bitwise_plain"]]
+    if bad or not equal:
+        raise AssertionError(f"prng kernels differ from their plain versions "
+                             f"({bad}, poisson {equal}): {line}")
+    return line
+
+
+def _parity_draws(tables) -> dict:
+    """The seeded fits with no injected draws, card against CPU: a 4-tree
+    forest field by field, GBT with subsampling 0.8 (the same-split
+    fraction, AUC within 0.005), and the Poisson counts of the forest's
+    draw and of ``PRNG_PARITY_KEYS`` x ``PRNG_PARITY_ROWS`` lanes."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import auc
+    from orange3_spark_tpu_torch.models.gbt import GBTClassifier
+    from orange3_spark_tpu_torch.models.random_forest import RandomForestClassifier
+    from orange3_spark_tpu_torch.ops import prng
+
+    rf = {n: RandomForestClassifier(num_trees=4, max_depth=5, seed=3).fit(t)
+          for n, t in tables.items()}
+    forest_equal = all(torch.equal(a.cpu(), b) for a, b in zip(rf["cuda"].forest,
+                                                               rf["cpu"].forest))
+    gbt = {n: GBTClassifier(max_iter=5, subsampling_rate=0.8, seed=1).fit(t)
+           for n, t in tables.items()}
+    same = float(np.mean(
+        (gbt["cpu"].forest.feature.numpy() == gbt["cuda"].forest.feature.cpu().numpy())
+        & (gbt["cpu"].forest.split_bin.numpy() == gbt["cuda"].forest.split_bin.cpu().numpy())))
+    y = tables["cpu"].y.numpy()
+    aucs = {n: auc(m.predict_proba(tables[n])[:, 1], y) for n, m in gbt.items()}
+    n = tables["cpu"].n_pad
+    keys = _forest_keys(3, 4)
+    lanes = [(keys, n), (_forest_keys(11, PRNG_PARITY_KEYS), PRNG_PARITY_ROWS)]
+    differ = total = 0
+    for ks, rows in lanes:
+        card = prng.poisson_knuth(ks, 1.0, rows, "cuda").cpu()
+        host = prng.poisson_knuth(ks, 1.0, rows, "cpu")
+        differ += int((card != host).sum())
+        total += card.numel()
+    line = {"seeded_forest_bitwise_equal": forest_equal,
+            "gbt_subsample_same_split_fraction": same,
+            "gbt_subsample_auc_cpu": aucs["cpu"], "gbt_subsample_auc_cuda": aucs["cuda"],
+            "poisson_lanes": total, "poisson_lanes_differ": differ,
+            "poisson_differ_share": differ / total}
+    if not forest_equal:
+        raise AssertionError(f"the seeded forest on the card differs from the CPU's: {line}")
+    if not abs(aucs["cpu"] - aucs["cuda"]) < 0.005:
+        raise AssertionError(f"the subsampled GBT on the card disagrees with the CPU: {line}")
+    if differ / total > PRNG_MISMATCH_SHARE:
+        raise AssertionError(f"Poisson counts differ card against CPU: {line}")
+    return line
+
+
+# ------------------------------------------------- the supervised estimators
+SUP_CUT = 200_000           # the CPU path's rows of each supervised fit
+SUP_METRIC_SLACK = 0.005    # the full fit's held-out metric against the cut's
+SUP_REQUEST_ROWS = 1000     # a served request (ladder 256..4096)
+SUP_DENSE_ROWS = 4_000_000  # the dense_logreg X (bench.py:1268-1312)
+SUP_COVTYPE = dict(rows=581_012, features=54, classes=7)  # UCI Covertype's shape
+SUP_CV_ROWS = 1_000_000
+SUP_ISOTONIC_ROWS = 1_000_000   # cut: the reference's PAV is a Python loop
+SUP_FORMULA = "tip_amount ~ fare_amount + trip_distance + VendorID + VendorID:trip_distance"
+# the CPU tests' tolerances (tests/test_torch_supervised.py, test_torch_tuning.py)
+SUP_TOL = {"nb": 1e-5, "glm": 2e-4, "aft": 1e-4, "mlp": 2e-4, "fm": 5e-5, "ovr": 1e-4,
+           "cv": 1e-4}
+# the MLP's and FM's paths amplify float32 order noise on these rows (the
+# CPU against itself on row-permuted rows, probes/mlp_card_cpu.py: the
+# MLP 1.4e-5 after 6 l-bfgs iterations, 7.4e-4 after 11, 7.2e-2 after 15;
+# FM 1.5e-5 after 60 adam steps, 8.4e-5 after its 93), so card and CPU are
+# held to the CPU tests' tolerances after the MLP's first 5 iterations and
+# FM's first 60 steps (the CPU test's count); the full fits' gap is reported
+SUP_CHECK_ITERS = {"mlp": 5, "fm": 60}
+
+
+def _sup_rel(a, b) -> float:
+    import numpy as np
+    a = np.asarray(a.detach().cpu() if hasattr(a, "detach") else a, np.float64)
+    b = np.asarray(b.detach().cpu() if hasattr(b, "detach") else b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(a)), initial=0.0))
+
+
+def _sup_state_rel(card, host) -> float:
+    """The largest relative difference of two models' state leaves."""
+    def leaves(s):
+        if isinstance(s, dict):
+            return [x for k in sorted(s) for x in leaves(s[k])]
+        if isinstance(s, (list, tuple)):
+            return [x for v in s for x in leaves(v)]
+        return [s]
+    return max(_sup_rel(h, c) for c, h in zip(leaves(card.state_pytree),
+                                             leaves(host.state_pytree)))
+
+
+def _sup_proba1(model, table):
+    for name in ("predict_proba", "predict_probability"):
+        fn = getattr(model, name, None)
+        if fn is not None:
+            return fn(table)[:, 1]
+    return model.predict(table)
+
+
+def _sup_auc(model, table, y) -> float:
+    from orange3_spark_tpu_torch.datasets import auc
+
+    return auc(_sup_proba1(model, table), y)
+
+
+def _sup_served(model, table) -> bool:
+    """The served predictions (``predict``, else ``transform``) of a
+    request of the first ``SUP_REQUEST_ROWS`` rows of ``table`` bitwise its
+    raw ones."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    X, Y, _ = table.to_numpy()
+    req = TorchTable.from_numpy(table.domain, X[:SUP_REQUEST_ROWS],
+                                None if Y is None else Y[:SUP_REQUEST_ROWS],
+                                session=table.session)
+
+    def out(m):
+        if hasattr(m, "predict"):
+            return np.asarray(m.predict(req))
+        return m.transform(req).X[: req.n_rows].cpu().numpy()
+
+    raw = out(model)
+    with ServingContext(BucketLadder(min_bucket=256, max_bucket=4096)):
+        served = out(model)
+    torch.cuda.synchronize()
+    return raw.shape == served.shape and raw.tobytes() == served.tobytes()
+
+
+def _sup_case(name, est, card_train, card_cut, cpu_cut, card_hold, cpu_hold, metric,
+              larger_better, compare, smi, serve_on=None) -> dict:
+    """One estimator at full width on the card: the cut fit on the card (the
+    warm-up) and on the CPU, held to each other by ``compare(card model,
+    CPU model, card cut, CPU cut)`` (an (error, tolerance[, what]) tuple);
+    then the timed full fit, its held-out metric against the CPU cut's,
+    and a served request bitwise raw (of ``serve_on(model, held-out)``'s
+    rows when given)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    card_small = est.fit(card_cut)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_model = est.fit(cpu_cut)
+    cpu_s = time.perf_counter() - t0
+    err, tol, *what = compare(card_small, cpu_model, card_cut, cpu_cut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(card_train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    m_full, m_cut = metric(model, card_hold), metric(cpu_model, cpu_hold)
+    served = _sup_served(model, card_hold if serve_on is None else serve_on(model, card_hold))
+    ok_metric = (m_full >= m_cut - SUP_METRIC_SLACK if larger_better
+                 else m_full <= m_cut + SUP_METRIC_SLACK)
+    line = {"rows": card_train.n_rows, "fit_s": fit_s, "warmup_cut_fit_s": warm_s,
+            "cpu_cut_fit_s": cpu_s, "holdout_metric": m_full, "cpu_cut_metric": m_cut,
+            "larger_is_better": larger_better, "card_vs_cpu_cut": err, "tolerance": tol,
+            "served_bitwise_raw": served, "n_iter": getattr(model, "n_iter_", None),
+            "nvidia_smi": smi, **({"compared": what[0]} if what else {})}
+    failed = []
+    if not err <= tol:
+        failed.append(f"card cut fit {err} from the CPU's (tolerance {tol})")
+    if not ok_metric:
+        failed.append(f"held-out metric {m_full} against the cut's {m_cut}")
+    if not served:
+        failed.append("served predictions differ from raw")
+    if not np.isfinite(m_full):
+        failed.append("non-finite metric")
+    if failed:
+        raise AssertionError(f"supervised {name}: {failed}; {json.dumps(line)}")
+    return line
+
+
+def _sup_tables(domain, X, Y, n_hold, sess, cpu, cut=SUP_CUT):
+    """(card train, card cut, CPU cut, card held-out, CPU held-out)."""
+    from orange3_spark_tpu_torch import TorchTable
+
+    def mk(s, a, b):
+        return TorchTable.from_numpy(domain, X[a:b], None if Y is None else Y[a:b], session=s)
+
+    n = X.shape[0] - n_hold
+    return (mk(sess, 0, n), mk(sess, 0, cut), mk(cpu, 0, cut), mk(sess, n, None),
+            mk(cpu, n, None))
+
+
+def _sup_deviance(family, vp):
+    """Held-out mean unit deviance of a GLM (lower is better)."""
+    import numpy as np
+    from orange3_spark_tpu_torch.models.glm import _deviance_fn
+
+    dev_f = _deviance_fn(family, vp)
+
+    def metric(model, table):
+        import torch
+
+        mu = torch.from_numpy(model.predict(table).astype(np.float64))
+        y = table.y[: table.n_rows].cpu().to(torch.float64)
+        return float(dev_f(y, mu).mean())
+    return metric
+
+
+def _sup_aft_nll(model, table) -> float:
+    """Held-out mean negative Weibull log-likelihood of an AFT model."""
+    import numpy as np
+    X = table.X[: table.n_rows].cpu().numpy().astype(np.float64)
+    t = table.y[: table.n_rows].cpu().numpy().astype(np.float64)
+    ci = [i for i in range(X.shape[1]) if i not in model.feature_indices][0]
+    eta = np.log(model.predict(table).astype(np.float64))
+    sigma = float(model.scale)
+    eps = (np.log(t) - eta) / sigma
+    return float(np.mean(-(X[:, ci] * (eps - np.log(sigma)) - np.exp(eps))))
+
+
+def _sup_rmse(model, table) -> float:
+    import numpy as np
+    p = np.asarray(model.predict(table), np.float64)
+    y = table.y[: table.n_rows].cpu().numpy().astype(np.float64)
+    return float(np.sqrt(np.mean((p - y) ** 2)))
+
+
+def _sup_accuracy(model, table) -> float:
+    import numpy as np
+    y = table.y[: table.n_rows].cpu().numpy()
+    return float(np.mean(np.asarray(model.predict(table)) == y))
+
+
+def _sup_cmp_state(tol):
+    return lambda c, h, *_: (_sup_state_rel(c, h), tol)
+
+
+def _sup_first_flip(card, host, signature) -> int | None:
+    """The first iteration at which two fits' signatures (each iteration's
+    objective evaluations, or the iteration count) differ, None if never."""
+    a, b = signature(card), signature(host)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _sup_path_cmp(tol, refit, signature, rel=_sup_state_rel):
+    """Card against CPU for an iterative fit whose steps take decisions on
+    float32 values (a linesearch's conditions, IRLS's stop): while both
+    take the same decisions, their iterates differ by the order of float32
+    sums and are held to ``tol``; where one flips (another evaluation
+    count in an iteration, another iteration count), the two fits go on
+    along other paths, so both are refitted to the iterations before the
+    flip (``refit(k, table)``) and held to ``tol`` there. Returns (error,
+    tol, what was compared)."""
+    def compare(card, host, card_tab, cpu_tab):
+        k = _sup_first_flip(card, host, signature)
+        info = {"first_flip_iteration": k, "full_fit_rel": rel(card, host)}
+        if k is None:
+            return info["full_fit_rel"], tol, info
+        info["compared_at_iterations"] = k
+        return rel(refit(k, card_tab), refit(k, cpu_tab)), tol, info
+    return compare
+
+
+def _sup_dense_glm_data(X, seed=0):
+    """Log-linear means on the dense_logreg X (``default_rng(seed)``):
+    poisson, gamma and tweedie (vp 1.5: a fifth zeros, else gamma) targets."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    beta = rng.standard_normal(X.shape[1]) * (0.3 / np.sqrt(X.shape[1]))
+    mu = np.exp(X.astype(np.float64) @ beta + 0.5)
+    n = X.shape[0]
+    return {"poisson": rng.poisson(mu).astype(np.float32),
+            "gamma": rng.gamma(2.0, mu / 2.0).astype(np.float32),
+            "tweedie": np.where(rng.random(n) < 0.2, 0.0,
+                                rng.gamma(2.0, mu / 2.0)).astype(np.float32)}
+
+
+def _sup_weibull(X, seed=1):
+    """Weibull survival times log t = x·b + 1 + 0.7·log Exp(1), 30 %
+    right-censored (observed at a uniform fraction of the event time),
+    the censor flag (1 = event) appended as the last column."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    beta = rng.standard_normal(X.shape[1]) * (0.5 / np.sqrt(X.shape[1]))
+    t = np.exp(X.astype(np.float64) @ beta + 1.0 + 0.7 * np.log(rng.exponential(1.0, len(X))))
+    event = rng.random(len(X)) >= 0.3
+    t = np.where(event, t, t * rng.uniform(0.05, 1.0, len(X)))
+    return (np.concatenate([X, event[:, None].astype(np.float32)], 1),
+            t.astype(np.float32))
+
+
+def phase_supervised(sess, higgs, smi) -> dict:
+    """The supervised estimators at full width on the card,
+    each fit timed after a warm-up (its cut fit on the card) with its
+    held-out metric, held to the CPU path's fit of a 200,000-row cut."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.core.domain import ContinuousVariable, DiscreteVariable, Domain
+    from orange3_spark_tpu_torch.datasets import (
+        higgs_domain, make_classification, make_tlc_trips, tlc_domain,
+    )
+    from orange3_spark_tpu_torch.models.aft import AFTSurvivalRegression
+    from orange3_spark_tpu_torch.models.base import Pipeline
+    from orange3_spark_tpu_torch.models.evaluation import BinaryClassificationEvaluator
+    from orange3_spark_tpu_torch.models.fm import FMClassifier
+    from orange3_spark_tpu_torch.models.glm import GeneralizedLinearRegression as GLM
+    from orange3_spark_tpu_torch.models.isotonic import IsotonicRegression
+    from orange3_spark_tpu_torch.models.logistic_regression import LogisticRegression
+    from orange3_spark_tpu_torch.models.mlp import MultilayerPerceptronClassifier
+    from orange3_spark_tpu_torch.models.naive_bayes import NaiveBayes
+    from orange3_spark_tpu_torch.models.one_vs_rest import OneVsRest
+    from orange3_spark_tpu_torch.models.rformula import RFormula
+    from orange3_spark_tpu_torch.models.tuning import CrossValidator
+
+    cpu = TorchSession("cpu")
+    t_start = time.perf_counter()
+    out = {}
+    X, y = higgs
+    tabs = _sup_tables(higgs_domain(), X, y, HOLDOUT, sess, cpu)
+    y_hold = y[-HOLDOUT:]
+
+    def auc_metric(m, t):
+        return _sup_auc(m, t, y_hold)
+
+    def evals_of(m):
+        return list(m.iter_evals_)
+
+    def fm(it=100):
+        return FMClassifier(factor_size=8, max_iter=it, seed=0)
+
+    def early_cmp(name, make):
+        def compare(card, host, card_tab, cpu_tab):
+            k = SUP_CHECK_ITERS[name]
+            err = _sup_state_rel(make(k).fit(card_tab), make(k).fit(cpu_tab))
+            return err, SUP_TOL[name], {"compared_at_iterations": k,
+                                        "full_fit_rel": _sup_state_rel(card, host),
+                                        "full_fit_iterations": [card.n_iter_, host.n_iter_]}
+        return compare
+
+    def glm_cmp(family, kw):
+        return _sup_path_cmp(SUP_TOL["glm"],
+                             lambda k, t: GLM(family=family, max_iter=k, **kw).fit(t),
+                             lambda m: [1] * m.n_iter_)
+
+    def mlp(it=100):
+        return MultilayerPerceptronClassifier(layers=(28, 64, 64, 2), max_iter=it, seed=0)
+
+    higgs_cases = [
+        ("naive_bayes_gaussian", NaiveBayes(model_type="gaussian"),
+         _sup_cmp_state(SUP_TOL["nb"])),
+        ("glm_binomial", GLM(family="binomial"), glm_cmp("binomial", {})),
+        ("mlp", mlp(), early_cmp("mlp", mlp)),
+        ("fm_classifier", fm(), early_cmp("fm", fm)),
+    ]
+    for name, est, cmp in higgs_cases:
+        out[name] = _sup_case(name, est, *tabs, auc_metric, True, cmp, smi)
+    del tabs
+    torch.cuda.empty_cache()
+
+    # the dense_logreg X: the log-linear GLMs and AFT
+    Xd, _ = _dense_logreg_data(SUP_DENSE_ROWS, 40)
+    targets = _sup_dense_glm_data(Xd)
+    ddom = Domain([ContinuousVariable(f"f{i}") for i in range(40)], ContinuousVariable("y"))
+    for fam, kw in (("poisson", {"link": "log"}), ("gamma", {"link": "log"}),
+                    ("tweedie", {"variance_power": 1.5})):
+        tabs = _sup_tables(ddom, Xd, targets[fam], HOLDOUT, sess, cpu)
+        out[f"glm_{fam}"] = _sup_case(f"glm_{fam}", GLM(family=fam, **kw), *tabs,
+                                      _sup_deviance(fam, kw.get("variance_power", 0.0)),
+                                      False, glm_cmp(fam, kw), smi)
+        del tabs
+    Xa, ta = _sup_weibull(Xd)
+    adom = Domain([ContinuousVariable(f"f{i}") for i in range(40)]
+                  + [ContinuousVariable("censor")], ContinuousVariable("time"))
+    tabs = _sup_tables(adom, Xa, ta, HOLDOUT, sess, cpu)
+    out["aft"] = _sup_case("aft", AFTSurvivalRegression(), *tabs, _sup_aft_nll, False,
+                           _sup_path_cmp(SUP_TOL["aft"],
+                                         lambda k, t: AFTSurvivalRegression(max_iter=k).fit(t),
+                                         evals_of), smi)
+    del tabs, Xd, Xa, targets
+    torch.cuda.empty_cache()
+
+    # OneVsRest on UCI Covertype's shape, the last tenth held out
+    c = SUP_COVTYPE
+    ctab = make_classification(c["rows"], c["features"], n_classes=c["classes"], session=cpu)
+    Xc, Yc, _ = ctab.to_numpy()
+    tabs = _sup_tables(ctab.domain, Xc, Yc, c["rows"] // 10, sess, cpu)
+
+    def ovr_rel(card, host):
+        return max(_sup_rel(h.coef, m.coef) for m, h in zip(card.models, host.models))
+
+    def ovr_evals(m):   # the class fits' iterations side by side
+        import itertools
+
+        return list(itertools.zip_longest(*(b.iter_evals_ for b in m.models)))
+
+    ovr_cmp = _sup_path_cmp(
+        SUP_TOL["ovr"], lambda k, t: OneVsRest(LogisticRegression(max_iter=k)).fit(t),
+        ovr_evals, ovr_rel)
+    out["one_vs_rest"] = _sup_case("one_vs_rest", OneVsRest(LogisticRegression(max_iter=100)),
+                                   *tabs, _sup_accuracy, True, ovr_cmp, smi)
+    del tabs, ctab, Xc, Yc
+
+    # RFormula over the TLC trips, a gaussian GLM on its output
+    Xt = make_tlc_trips(WRANGLE_ROWS, WRANGLE_SEED)
+    tabs = _sup_tables(tlc_domain(), Xt, None, HOLDOUT, sess, cpu)
+    formula = RFormula(formula=SUP_FORMULA)
+
+    class _FormulaGLM:
+        """RFormula then a gaussian GLM, the GLM the model (its predict
+        takes the formula's output)."""
+
+        def fit(self, table):
+            rf = formula.fit(table)
+            glm = GLM(family="gaussian").fit(rf.transform(table))
+            glm.formula_ = rf
+            return glm
+
+    def rf_rmse(model, table):
+        return _sup_rmse(model, model.formula_.transform(table))
+
+    def rf_cmp(card, host, *_):
+        return _sup_state_rel(card, host), SUP_TOL["glm"]
+
+    fcase = _sup_case("rformula_glm", _FormulaGLM(), *tabs, rf_rmse, False, rf_cmp, smi,
+                      serve_on=lambda m, t: m.formula_.transform(t))
+    card_f = formula.fit(tabs[1]).transform(tabs[1])
+    cpu_f = formula.fit(tabs[2]).transform(tabs[2])
+    fcase["formula"] = SUP_FORMULA
+    fcase["columns"] = [v.name for v in card_f.domain.attributes]
+    fcase["columns_bitwise_cpu"] = bool(torch.equal(card_f.X.cpu(), cpu_f.X))
+    fcase["served_checked_on"] = "the GLM's predict on the formula's output"
+    out["rformula_glm"] = fcase
+    if not fcase["columns_bitwise_cpu"]:
+        raise AssertionError(f"RFormula's columns differ card against CPU: {fcase}")
+    del tabs, Xt, card_f, cpu_f
+    torch.cuda.empty_cache()
+
+    # CrossValidator on the first 1M HIGGS rows, scored on the held-out rows
+    Xcv = np.concatenate([X[:SUP_CV_ROWS], X[-HOLDOUT:]])
+    ycv = np.concatenate([y[:SUP_CV_ROWS], y[-HOLDOUT:]])
+    tabs = _sup_tables(higgs_domain(), Xcv, ycv, HOLDOUT, sess, cpu)
+    cv = CrossValidator(LogisticRegression(), [{"reg_param": 1e-4}, {"reg_param": 1e-2}],
+                        BinaryClassificationEvaluator(), num_folds=3, seed=0)
+
+    def cv_cmp(card, host, *_):
+        return (float(np.max(np.abs(np.subtract(card.avg_metrics, host.avg_metrics))))
+                if card.best_params == host.best_params else float("inf")), SUP_TOL["cv"]
+
+    def cv_auc(model, table):
+        return _sup_auc(model.best_model, table, y_hold)
+
+    cvcase = _sup_case("cross_validator", cv, *tabs, cv_auc, True, cv_cmp, smi)
+    from orange3_spark_tpu_torch import TorchTable
+
+    cpu_full = TorchTable.from_numpy(higgs_domain(), Xcv[:SUP_CV_ROWS], ycv[:SUP_CV_ROWS],
+                                     session=cpu)
+    folds_equal = bool(torch.equal(cv._fold_masks(tabs[0]).cpu(), cv._fold_masks(cpu_full)))
+    cvcase.update({"fits": 7, "fold_ids_bitwise_cpu": folds_equal,
+                   "grid": [{"reg_param": 1e-4}, {"reg_param": 1e-2}], "num_folds": 3})
+    out["cross_validator"] = cvcase
+    if not folds_equal:
+        raise AssertionError(f"CV fold ids differ card against CPU: {cvcase}")
+    del tabs, cpu_full, Xcv, ycv
+
+    # IsotonicRegression on 1M rows (cut: the PAV is a host loop), y on the
+    # first feature, held out on the last rows
+    Xi = np.concatenate([X[:SUP_ISOTONIC_ROWS], X[-HOLDOUT:]])
+    yi = np.concatenate([y[:SUP_ISOTONIC_ROWS], y[-HOLDOUT:]])
+    tabs = _sup_tables(higgs_domain(), Xi, yi, HOLDOUT, sess, cpu)
+
+    def iso_cmp(card, host, *_):
+        same = (torch.equal(card.boundaries.cpu(), host.boundaries)
+                and torch.equal(card.predictions.cpu(), host.predictions))
+        return (0.0 if same else float("inf")), 0.0
+
+    out["isotonic"] = _sup_case("isotonic", IsotonicRegression(feature_index=0), *tabs,
+                                _sup_rmse, False, iso_cmp, smi)
+    out["isotonic"]["cut"] = f"{SUP_ISOTONIC_ROWS} rows (the PAV is a host loop, ~1 us a row)"
+    del tabs, Xi, yi
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_start
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -5802,6 +6462,7 @@ def _run(args) -> int:
         from orange3_spark_tpu_torch.models.gbt import GBTClassifier
         from orange3_spark_tpu_torch.models.random_forest import RandomForestClassifier
         from orange3_spark_tpu_torch.ops import histogram as th
+        from orange3_spark_tpu_torch.ops import prng
 
         sess = TorchSession()
         dev = sess.device
@@ -5838,6 +6499,7 @@ def _run(args) -> int:
         eval_table = TorchTable.from_numpy(higgs_domain(), X[-holdout:], y[-holdout:],
                                            session=sess)
         y_eval = y[-holdout:]
+        higgs = (X, y)      # the supervised phase's table, made once
         del X, y
         emit({"phase": phase, "rows": args.rows, "train_rows": table.n_rows,
               "holdout_rows": eval_table.n_rows, "features": table.n_attrs,
@@ -5845,6 +6507,7 @@ def _run(args) -> int:
 
         # ---- the main path: every launch count starts at 0 here
         th.node_histograms.launches = 0
+        prng.threefry_bits.launches = prng.poisson_knuth.launches = 0
         # (name, estimator of the config, AUC floor, launches per fit)
         # launches a fit: one a level, plus the importances and the leaf sums
         # of each grow (the fixed-point sums of models/_tree._bucket_sums):
@@ -5853,16 +6516,21 @@ def _run(args) -> int:
                  GBT_AUC_FLOOR, 140),
                 ("rf", RandomForestClassifier(num_trees=20, max_depth=5, max_bins=32),
                  RF_AUC_FLOOR, 7)]
-        fit_launches = {}
+        fit_launches, fit_walls = {}, {}
         for phase, est, floor, per_fit in fits:
             line = phase_fit(phase, est, table, eval_table, y_eval, floor)
+            fit_walls[phase] = line["fit_s"]
             emit({"phase": phase, **line})
             if line["hist_launches"] != per_fit:
                 raise AssertionError(f"{phase} fit launched the histogram kernel "
                                      f"{line['hist_launches']} times, not {per_fit}")
             fit_launches[phase] = line["hist_launches"]
         main_launches = th.node_histograms.launches
+        main_draws = {"threefry_bits": prng.threefry_bits.launches,
+                      "poisson_knuth": prng.poisson_knuth.launches}
         # ----
+        phase = "rf_draws"
+        emit({"phase": phase, "rf_fit_s": fit_walls["rf"], **_rf_draw_line(fits[1][1], table)})
         phase = "profile"
         profiles = {name: phase_profile(est, table) for name, est, _, _ in fits}
         emit({"phase": phase, **profiles})
@@ -5874,6 +6542,12 @@ def _run(args) -> int:
                               "hist_torch_ops_ms", "hist_ms")}}
                    for name in fit_launches}
         del table, eval_table
+        torch.cuda.empty_cache()
+
+        # ---- JAX's stream on the card: threefry_bits and poisson_knuth
+        phase = "prng"
+        prng_line = phase_prng(mem_bw, int32_rate())
+        emit({"phase": phase, "device": kind, "nvidia_smi": smi, **prng_line})
         torch.cuda.empty_cache()
 
         # ---- the dense linear family (no kernel of the package: PyTorch ops)
@@ -6003,7 +6677,9 @@ def _run(args) -> int:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_wrangle_")
         try:
             phase = "wrangle"
+            before = prng.threefry_bits.launches
             wrangle_line = phase_wrangle(sess, mem_bw, tmp)
+            wrangle_draws = prng.threefry_bits.launches - before
             emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
                   **wrangle_line})
             torch.cuda.empty_cache()
@@ -6012,6 +6688,14 @@ def _run(args) -> int:
                   **phase_ows(tmp)})
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # ---- MLlib's supervised estimators at full width (PyTorch ops; the
+        # seeded draws through threefry_bits)
+        phase = "supervised"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_supervised(sess, higgs, nvidia_smi_line())})
+        del higgs
         torch.cuda.empty_cache()
 
         phase = "kernels"
@@ -6029,6 +6713,10 @@ def _run(args) -> int:
             raise AssertionError("the overload phase's fit never launched segment_sum_sorted")
         if wrangle_line["segment_sum_launches"] == 0:
             raise AssertionError("the wrangle phase never launched segment_sum_sorted")
+        for name, n in main_draws.items():
+            if n == 0:
+                raise AssertionError(f"the main path's forest fit never launched {name}")
+        pk, tb = prng_line["poisson_knuth"], prng_line["threefry_bits"]
         gbk = wrangle_line["kernel"]
         ne = als_line["kernel"]["user"]
         vw_upd = libsvm_line["segment_update"]
@@ -6165,6 +6853,38 @@ def _run(args) -> int:
             "timed": "CUDA events over 10 launches (plain and library: 2), eager",
             "at": (f"the user half-step of the timed fit: {als_line['train_ratings']} "
                    f"ratings, {als_line['users']} users, rank {als_line['rank']}"),
+        }, {
+            "name": "threefry_bits",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/prng.cu",
+            # no Pallas kernel: XLA fuses jax.random's threefry rounds
+            "replaces": "none",
+            "launches": main_draws["threefry_bits"],
+            "launches_counted_over": "the gbt and rf phases (the forest's Bernoulli masks)",
+            "wrangle_launches": wrangle_draws,
+            "max_abs_err": 0, "bitwise_plain": tb["forest_rows"]["bitwise_plain"],
+            **{k: tb["forest_rows"][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "bytes", "int_ops")},
+            "library_ms": None, "library": "no PyTorch call computes JAX's stream",
+            "timed": "captured (20 launches in a graph); the plain version 3 in a graph",
+            "at": f"{tb['forest_rows']['n']} words under one key (a tree's row count)",
+            "uniform_10M": tb["uniform_10M"],
+        }, {
+            "name": "poisson_knuth",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/prng.cu",
+            # no Pallas kernel: jax.random.poisson's Knuth while_loop in XLA
+            "replaces": "none",
+            "launches": main_draws["poisson_knuth"],
+            "launches_counted_over": "the gbt and rf phases (the forest's bootstrap)",
+            "max_abs_err": 0, "bitwise_plain": pk["bitwise_plain"],
+            **{k: pk[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bytes", "int_ops", "hashes", "max_count",
+                                  "lanes_past_table")},
+            "library_ms": None, "library": "no PyTorch call computes JAX's stream",
+            "timed": "the launch captured (10 in a graph, its table uploaded once); "
+                     "eager_ms the wrapper; plain_ms one plain run (a host read an iteration)",
+            "at": f"the forest's draw: {pk['trees']} trees x {pk['rows']} rows, lam 1",
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

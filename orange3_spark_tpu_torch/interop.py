@@ -284,3 +284,109 @@ def target_encoder_model(state, params: Mapping, col_idx: Sequence[int], prior: 
     tables = [_tensor(state[f"enc_{j}"], torch.float32, device) for j in col_idx]
     return P.TargetEncoderModel(P.TargetEncoderParams(**params), list(col_idx), tables,
                                 float(prior))
+
+
+# ------------------------------------------------- the supervised estimators
+def _f32(state, keys, device):
+    return [_tensor(np.asarray(state[k], np.float32), torch.float32, device) for k in keys]
+
+
+def naive_bayes_model(state, params: Mapping, class_values: Sequence[str], device=None):
+    """A ``NaiveBayesModel`` from the JAX model's state (``pi`` [k] and its
+    model type's log factors, [k, d] each) and params."""
+    from orange3_spark_tpu_torch.models.naive_bayes import NaiveBayesModel, NaiveBayesParams
+
+    factors = {k: _tensor(np.asarray(v, np.float32), torch.float32, device)
+               for k, v in state.items() if k != "pi"}
+    return NaiveBayesModel(NaiveBayesParams(**params), *_f32(state, ["pi"], device),
+                           factors, class_values)
+
+
+def isotonic_model(state, params: Mapping, device=None):
+    """An ``IsotonicRegressionModel`` from the JAX model's state
+    (``boundaries``, ``predictions``) and params."""
+    from orange3_spark_tpu_torch.models.isotonic import (
+        IsotonicRegressionModel, IsotonicRegressionParams,
+    )
+
+    return IsotonicRegressionModel(IsotonicRegressionParams(**params),
+                                   *_f32(state, ("boundaries", "predictions"), device))
+
+
+def glm_model(state, params: Mapping, link: str, link_power: float, device=None):
+    """A ``GeneralizedLinearRegressionModel`` from the JAX model's state
+    (coef [d], intercept []), params and resolved link (``model.link``,
+    ``model.link_power``)."""
+    from orange3_spark_tpu_torch.models.glm import (
+        GeneralizedLinearRegressionModel, GeneralizedLinearRegressionParams,
+    )
+
+    return GeneralizedLinearRegressionModel(
+        GeneralizedLinearRegressionParams(**params),
+        *_f32(state, ("coef", "intercept"), device), link, link_power)
+
+
+def aft_model(state, params: Mapping, feature_indices: Sequence[int], device=None):
+    """An ``AFTSurvivalRegressionModel`` from the JAX model's state (coef,
+    intercept, scale), params and ``feature_indices`` (the columns but the
+    censor column)."""
+    from orange3_spark_tpu_torch.models.aft import (
+        AFTSurvivalRegressionModel, AFTSurvivalRegressionParams,
+    )
+
+    return AFTSurvivalRegressionModel(AFTSurvivalRegressionParams(**params),
+                                      *_f32(state, ("coef", "intercept", "scale"), device),
+                                      feature_indices=list(feature_indices))
+
+
+def mlp_model(state, params: Mapping, class_values: Sequence[str], device=None):
+    """A ``MultilayerPerceptronClassifierModel`` from the JAX model's state
+    (``net``: a list of {W [fan_in, fan_out], b [fan_out]}) and params."""
+    from orange3_spark_tpu_torch.models.mlp import (
+        MLPParams, MultilayerPerceptronClassifierModel,
+    )
+
+    net = [dict(zip(("W", "b"), _f32(layer, ("W", "b"), device))) for layer in state["net"]]
+    return MultilayerPerceptronClassifierModel(MLPParams(**params), net, class_values)
+
+
+def fm_model(state, params: Mapping, class_values: Sequence[str] | None = None, device=None):
+    """An ``FMClassifierModel`` (with ``class_values``) or ``FMRegressorModel``
+    from the JAX model's state (w0 [], w [d], V [d, k]) and params."""
+    from orange3_spark_tpu_torch.models.fm import FMClassifierModel, FMParams, FMRegressorModel
+
+    theta = dict(zip(("w0", "w", "V"), _f32(state, ("w0", "w", "V"), device)))
+    if class_values is None:
+        return FMRegressorModel(FMParams(**params), theta)
+    return FMClassifierModel(FMParams(**params), theta, class_values)
+
+
+def one_vs_rest_model(models: Sequence, params: Mapping, class_values: Sequence[str]):
+    """A ``OneVsRestModel`` of already-converted binary models (one a
+    class, in class order) and the JAX model's params."""
+    from orange3_spark_tpu_torch.models.one_vs_rest import OneVsRestModel, OneVsRestParams
+
+    return OneVsRestModel(OneVsRestParams(**params), models, class_values)
+
+
+def rformula_model(params: Mapping, domain):
+    """An ``RFormulaModel`` of the JAX model's formula over a port Domain:
+    the model has no tensors, its plan follows from the formula and the
+    domain (names, categorical levels), so it equals the reference's."""
+    from orange3_spark_tpu_torch.models.rformula import RFormulaParams, compile_formula
+
+    return compile_formula(RFormulaParams(**params), domain)
+
+
+def cross_validator_model(best_model, params: Mapping, best_params: Mapping,
+                          avg_metrics: Sequence[float]):
+    """A ``CrossValidatorModel`` around an already-converted best model, with
+    the JAX model's params (a CrossValidator's, or a TrainValidationSplit's:
+    told apart by their fields), best point and metrics."""
+    from orange3_spark_tpu_torch.models.tuning import (
+        CrossValidatorModel, CrossValidatorParams, TrainValidationSplitParams,
+    )
+
+    cls = TrainValidationSplitParams if "train_ratio" in params else CrossValidatorParams
+    return CrossValidatorModel(cls(**params), best_model, dict(best_params),
+                               [float(m) for m in avg_metrics])

@@ -45,7 +45,7 @@ import torch
 from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
 from orange3_spark_tpu_torch.ops.stats import inv_std_scale as column_inv_std
 
-__all__ = ["EPS_TOTAL_WEIGHT", "LOGIT_BLOCK_ROWS", "LOSS_KINDS", "LinearFitResult",
+__all__ = ["AutogradObjective", "EPS_TOTAL_WEIGHT", "LOGIT_BLOCK_ROWS", "LOSS_KINDS", "LinearFitResult",
            "LinearObjective", "column_inv_std",
            "dense_logits", "fit_linear", "lbfgs_minimize", "owlqn_minimize",
            "penalties", "per_row_loss", "per_row_loss_grad", "record_fit_counts"]
@@ -242,6 +242,34 @@ class LinearObjective:
         g_coef = gB * self.col_scale + self.reg_l2 * coef
         g_int = G.sum(dim=0) if self.fit_intercept else torch.zeros_like(intercept)
         return self._value(coef, logits), torch.cat([g_coef.reshape(-1), g_int])
+
+
+class AutogradObjective:
+    """An objective of ``lbfgs_minimize`` from ``fn``, a scalar function of
+    the flat theta (the reference's ``ravel_pytree`` order of its params),
+    its gradient by autograd: what the reference's ``jax.value_and_grad``
+    of the same function gives, up to the order of float32 sums."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.n_evals = 0
+        self.iter_evals: list[int] = []
+
+    def end_iteration(self) -> None:
+        self.iter_evals.append(self.n_evals - sum(self.iter_evals))
+
+    def value(self, theta: torch.Tensor) -> torch.Tensor:
+        self.n_evals += 1
+        with torch.no_grad():
+            return self.fn(theta)
+
+    def value_and_grad(self, theta: torch.Tensor):
+        self.n_evals += 1
+        with torch.enable_grad():
+            t = theta.detach().requires_grad_(True)
+            v = self.fn(t)
+            (g,) = torch.autograd.grad(v, t)
+        return v.detach(), g
 
 
 # ------------------------------------------------------------- L-BFGS

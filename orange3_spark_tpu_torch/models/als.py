@@ -19,11 +19,11 @@ optional NNLS sweeps. A fit reads the device from the host once for the
 index range, and once a side for the layout's work list (its long
 segments), all before its first half-step.
 
-The initial factors are |N(0, 1)|/√rank from a CPU ``torch.Generator``
-seeded with ``seed`` (``jax.random``'s bits cannot be made without JAX),
-then moved to the device, so a CPU fit and a card fit start from the same
-bits. Parity with the reference goes through ``_als_fit``, fed with the
-reference's initial factors.
+The initial factors are |N(0, 1)|/√rank drawn as the reference draws
+them, from JAX's threefry stream (``ops/prng.py``; on the card its
+``threefry_bits`` kernel), on the fit's device: the bits are the
+reference's, and the normals within a few ulp of its (``prng.normal``), so
+a seeded fit is the reference's fit.
 
 The session has one device and no mesh: ``factor_sharding`` 'auto' and
 'replicated' keep the factors replicated, and 'model' raises.
@@ -41,6 +41,7 @@ import torch
 from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params, append_columns
+from orange3_spark_tpu_torch.ops import prng
 from orange3_spark_tpu_torch.ops.normal_equations import normal_equations_sorted, sort_side
 
 #: the most bytes of scores ``recommend_for_all_*`` holds at once (a row
@@ -134,14 +135,14 @@ def _solve_side(plan, other_factors, reg: float, implicit: bool, chunk: int,
     return x
 
 
-def _als_init(seed: int, n_users: int, n_items: int, rank: int):
-    """MLlib's init, |N(0, 1)|/√rank (initial predictions positive), from a
-    CPU generator seeded with ``seed``: U's draws, then V's. CPU tensors;
-    the caller moves them to its device."""
-    gen = torch.Generator().manual_seed(seed)
+def _als_init(seed: int, n_users: int, n_items: int, rank: int, device="cpu"):
+    """MLlib's init, |N(0, 1)|/√rank (initial predictions positive), as the
+    reference draws it (``ops/prng.py``): ``key_u, key_v =
+    split(PRNGKey(seed))``, U from key_u, V from key_v."""
+    key_u, key_v = prng.split(prng.PRNGKey(seed))
     scale = math.sqrt(rank)
-    U = torch.randn((n_users, rank), generator=gen).abs_() / scale
-    V = torch.randn((n_items, rank), generator=gen).abs_() / scale
+    U = prng.normal(key_u, (n_users, rank), device).abs_() / scale
+    V = prng.normal(key_v, (n_items, rank), device).abs_() / scale
     return U, V
 
 
@@ -320,9 +321,9 @@ class ALS(Estimator):
                 "axis wider than 1; the port's session is one device with no "
                 "mesh")
         dev = table.session.device
-        U0, V0 = _als_init(p.seed, n_users, n_items, p.rank)
+        U0, V0 = _als_init(p.seed, n_users, n_items, p.rank, dev)
         U, V = _als_fit(
-            u, i, r, table.W, U0.to(dev), V0.to(dev),
+            u, i, r, table.W, U0, V0,
             n_users=n_users, n_items=n_items, rank=p.rank, max_iter=p.max_iter,
             reg=p.reg_param, implicit=p.implicit_prefs, alpha=p.alpha,
             chunk=min(p.chunk_size, table.n_pad),

@@ -359,6 +359,16 @@ def classification_columns(probs, class_values):
     return [probs, pred[:, None]], new_vars
 
 
+def class_score_columns(scores, class_values):
+    """Softmax probability columns of per-class scores plus the argmax of
+    the scores (not of the rounded probabilities) as the prediction, and
+    their variables."""
+    pred = torch.argmax(scores, dim=1).to(torch.float32)
+    new_vars = [ContinuousVariable(f"probability_{c}") for c in class_values]
+    new_vars.append(DiscreteVariable("prediction", tuple(class_values)))
+    return [torch.softmax(scores, dim=-1), pred[:, None]], new_vars
+
+
 def predictions_to_numpy(table: TorchTable, column: str = "prediction") -> np.ndarray:
     """One prediction column on the host, padding stripped.
 

@@ -34,6 +34,7 @@ from orange3_spark_tpu_torch.models._tree import (
 from orange3_spark_tpu_torch.models.base import (
     Estimator, Model, Params, append_columns, to_host,
 )
+from orange3_spark_tpu_torch.ops import prng
 
 EPS = 1e-12
 
@@ -77,12 +78,14 @@ def _gbt_round(F, B, edges, W, y, boot, *, p: GBTParams, loss: str,
 
 
 def _boost(B, edges, W, y, depth, n_bins, p: GBTParams, loss: str):
-    """Sequential boosting loop. Bootstrap weights are drawn (from a
-    generator on the device) only when ``subsampling_rate != 1``, so a
-    default fit is deterministic."""
+    """Sequential boosting loop. Each round takes the next key of the
+    reference's chain (``key, sub = split(key)`` from ``PRNGKey(seed)``)
+    and, only when ``subsampling_rate != 1``, draws its bootstrap weights
+    ``poisson(sub, rate, (N,))`` from it (``ops/prng.py``: JAX's stream,
+    the ``poisson_knuth`` kernel on the card)."""
     N = B.shape[0]
     dev = B.device
-    gen = torch.Generator(device=dev).manual_seed(p.seed)
+    key = prng.PRNGKey(p.seed)
     if loss == "logistic":
         pos_w = torch.where(y > 0, W, 0.0).sum()
         tot_w = torch.clamp_min(W.sum(), EPS)
@@ -91,11 +94,11 @@ def _boost(B, edges, W, y, depth, n_bins, p: GBTParams, loss: str):
     else:
         f0 = (y * W).sum() / torch.clamp_min(W.sum(), EPS)
     F = f0.expand(N).clone()
-    rate = (torch.full((N,), p.subsampling_rate, device=dev)
-            if p.subsampling_rate != 1.0 else None)
     trees, imps = [], []
     for _ in range(p.max_iter):
-        boot = None if rate is None else torch.poisson(rate, generator=gen)
+        key, sub = prng.split(key)
+        boot = (None if p.subsampling_rate == 1.0
+                else prng.poisson(sub, p.subsampling_rate, N, dev).to(torch.float32))
         F, tree, imp = _gbt_round(F, B, edges, W, y, boot, p=p, loss=loss,
                                   depth=depth, n_bins=n_bins)
         trees.append(tree)

@@ -20,11 +20,12 @@ the live rows' indices, then kmeans++ (``kmeanspp_seed``) in float64 on
 that sample. Given the same indices it seeds the same centers bitwise.
 Under a staged refit the init runs on the device (``_device_init_centers``):
 a gumbel-max top-k sample of live rows and categorical D² sampling as
-argmax(logits + gumbel), on the stateless counter-based stream of
-``ops/hashing.counter_uniform`` keyed by ``params.seed``. Every call, and
-every replay of a captured refit, draws the same numbers (as the
-reference's fixed key does); the stream is not JAX's threefry, so the
-device init seeds other centers than the reference's device init.
+argmax(logits + gumbel), every draw the reference's (``ops/prng.py``:
+JAX's threefry stream from ``PRNGKey(params.seed)``, its keys split on the
+host, its draws on the device with no host read). Every call, and every
+replay of a captured refit, draws the same numbers, and they seed the
+reference's device-init centers (its gumbels and normals within a few
+ulp).
 
 ``n_init > 1``: one fit per seed in a loop (a ``vmap`` in the reference);
 the lowest cost wins, the first on a tie (``argmin``).
@@ -44,7 +45,7 @@ from orange3_spark_tpu_torch.models._linear import row_products
 from orange3_spark_tpu_torch.models.base import (
     Estimator, Model, Params, concrete_or_none, staging_active,
 )
-from orange3_spark_tpu_torch.ops.hashing import counter_uniform, split_key
+from orange3_spark_tpu_torch.ops import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,54 +218,43 @@ def _row(X: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return X.index_select(0, i.reshape(1))[0]
 
 
-def _gumbel(key: int, shape, device) -> torch.Tensor:
-    return -torch.log(-torch.log(counter_uniform(key, shape, device)))
-
-
-def _normal(key: int, shape, device) -> torch.Tensor:
-    """Standard normals by Box-Muller from two counter-based uniforms."""
-    k1, k2 = split_key(key, 2)
-    u1, u2 = counter_uniform(k1, shape, device), counter_uniform(k2, shape, device)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
-
-
-def device_sample_live(X, W, cap: int, key: int):
+def device_sample_live(X, W, cap: int, key):
     """A uniform subsample of up to ``cap`` LIVE rows (gumbel-max top-k over
     the live mask), on the device with no host read: the device twin of
     the eager init's host sampling. Returns (Xs [cap, d], Ws [cap]) where
     picks past the live count carry Ws = 0."""
     N = X.shape[0]
-    g = torch.where(W > 0, _gumbel(key, (N,), X.device), -math.inf)
+    g = torch.where(W > 0, prng.gumbel(key, (N,), X.device), -math.inf)
     gv, idx = torch.topk(g, min(cap, N))
     return X[idx], torch.isfinite(gv).to(torch.float32)
 
 
-def device_d2_seed(X, W, k: int, k0: int, k1: int) -> torch.Tensor:
+def device_d2_seed(X, W, k: int, k0, k1) -> torch.Tensor:
     """Categorical D² sampling (kmeans++) on the device with no host read:
-    each draw is argmax(log D² + gumbel), the gumbel-max form of
-    ``jax.random.categorical``."""
+    each draw is ``prng.categorical`` of log D² (argmax of logits + gumbel),
+    the chain of keys the reference's ``fori_loop`` splits."""
     N, d = X.shape
     dev = X.device
     live = W > 0
-    i0 = torch.argmax(torch.where(live, _gumbel(k0, (N,), dev), -math.inf))
+    i0 = torch.argmax(torch.where(live, prng.gumbel(k0, (N,), dev), -math.inf))
     x0 = _row(X, i0)
     centers = [x0]
     d2 = torch.where(live, ((X - x0) ** 2).sum(dim=1), 0.0)
     key = k1
     for _ in range(1, k):
-        key, kc, ku = split_key(key, 3)
+        key, kc, ku = prng.split(key, 3)
         mask = live & (d2 > 0)
         any_mask = mask.any()
         logits = torch.where(mask, torch.log(torch.clamp_min(d2, 1e-30)), -math.inf)
-        cat = torch.argmax(logits + _gumbel(kc, (N,), dev))
+        cat = prng.categorical(kc, logits)
         # every remaining live point coincides with a seed: uniform pick
-        uni = torch.argmax(torch.where(live, _gumbel(ku, (N,), dev), -math.inf))
+        uni = torch.argmax(torch.where(live, prng.gumbel(ku, (N,), dev), -math.inf))
         idx = torch.where(any_mask, cat, uni)
         xi = _row(X, idx)
         # a duplicate center gets jitter scaled to its magnitude (the
         # dead-center guard of kmeanspp_seed)
         newc = xi + torch.where(any_mask, 0.0,
-                                1e-3 * (1.0 + xi.abs()) * _normal(ku, (d,), dev))
+                                1e-3 * (1.0 + xi.abs()) * prng.normal(ku, (d,), dev))
         centers.append(newc)
         d2 = torch.where(live, torch.minimum(d2, ((X - newc) ** 2).sum(dim=1)), 0.0)
     return torch.stack(centers)
@@ -283,15 +273,15 @@ class KMeans(Estimator):
         sampling on a uniform live subsample of ``init_sample_size`` rows
         (k passes over the sample, not over N)."""
         p = self.params
-        k0, k1 = split_key(p.seed, 2)
+        k0, k1 = prng.split(prng.PRNGKey(p.seed))
         if p.init_mode == "random":
             centers, ws = device_sample_live(X, W, p.k, k0)
             base = centers[0]
-            jit = 1e-3 * (1.0 + base.abs()) * _normal(k1, centers.shape, X.device)
+            jit = 1e-3 * (1.0 + base.abs()) * prng.normal(k1, centers.shape, X.device)
             return torch.where((ws == 0)[:, None], base[None, :] + jit, centers)
         if p.init_mode != "k-means||":
             raise ValueError(f"unknown init_mode {p.init_mode!r}")
-        ks, k0b = split_key(k0, 2)
+        ks, k0b = prng.split(k0)
         Xs, Ws = device_sample_live(X, W, p.init_sample_size, ks)
         return device_d2_seed(Xs, Ws, p.k, k0b, k1)
 

@@ -6,9 +6,12 @@ the tree grower over a tree axis; here the tree axis is explicit, so the T
 trees of a forest share one histogram launch per level. Per-tree Poisson
 bootstrap weights (the with-replacement resample in expectation) and
 per-(tree, level) Bernoulli feature masks (MLlib's featureSubsetStrategy,
-applied per level) come from a ``torch.Generator`` on the device.
-``grow_forest`` takes those draws as tensors, so tests can feed the same
-draws to both packages.
+applied per level) are the reference's ``jax.random`` draws
+(``ops/prng.py``): ``split(PRNGKey(seed), num_trees)``, then per tree
+``kb, kf = split(tkey)``, ``poisson(kb, subsample, (N,))`` (all trees in
+one ``poisson_knuth`` launch on the card) and ``bernoulli(kf, keep_p,
+(depth, d))``. ``grow_forest`` takes those draws as tensors, so tests can
+also feed given draws to both packages.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from orange3_spark_tpu_torch.models.base import (
     infer_class_values,
     to_host,
 )
+from orange3_spark_tpu_torch.ops import prng
 
 
 def _subset_fraction(strategy: str, d: int, is_classification: bool) -> float:
@@ -70,13 +74,13 @@ class RandomForestParams(Params):
 def draw_forest(N: int, d: int, *, num_trees: int, depth: int, keep_p: float,
                 subsample: float, seed: int, device):
     """Bootstrap weights f32[T, N] ~ Poisson(subsample) and feature masks
-    f32[T, depth, d] ~ Bernoulli(keep_p), from one seeded generator."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    boot = torch.poisson(
-        torch.full((num_trees, N), subsample, device=device), generator=gen)
-    keep = torch.bernoulli(
-        torch.full((num_trees, depth, d), keep_p, device=device), generator=gen)
-    return boot, keep
+    f32[T, depth, d] ~ Bernoulli(keep_p): the reference's draws of
+    ``PRNGKey(seed)``, tree t from the t-th key of ``split(key,
+    num_trees)``."""
+    pairs = [prng.split(t) for t in prng.split(prng.PRNGKey(seed), num_trees)]
+    boot = prng.poisson_knuth([kb for kb, _ in pairs], subsample, N, device)
+    keep = torch.stack([prng.bernoulli(kf, keep_p, (depth, d), device) for _, kf in pairs])
+    return boot.to(torch.float32), keep.to(torch.float32)
 
 
 def grow_forest(B, edges, Ystats, W, boot, keep, min_gain, *, depth: int,

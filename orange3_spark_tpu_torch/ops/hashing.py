@@ -22,8 +22,8 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ["STRING_CODE_MASK", "column_salts", "counter_uniform", "hash_columns",
-           "hash_columns_np", "salts_tensor", "split_key", "strings_to_u32", "to_index"]
+__all__ = ["STRING_CODE_MASK", "column_salts", "hash_columns",
+           "hash_columns_np", "salts_tensor", "strings_to_u32", "to_index"]
 
 _U32 = 0xFFFFFFFF
 _M1, _M2 = 0x85EBCA6B, 0xC2B2AE35
@@ -123,47 +123,3 @@ def strings_to_u32(arr) -> np.ndarray:
     codes = np.fromiter((zlib.crc32(str(u).encode()) & STRING_CODE_MASK for u in uniq),
                         dtype=np.uint32, count=len(uniq))
     return codes[inv].reshape(arr.shape)
-
-
-# ---------------------------------------------------- a counter-based stream
-_U64 = (1 << 64) - 1
-
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _U64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
-    return x ^ (x >> 31)
-
-
-def split_key(key: int, n: int = 2) -> list[int]:
-    """``n`` independent 64-bit keys derived from ``key`` (host integers:
-    a key never lives on the device, so deriving one waits for nothing)."""
-    return [_splitmix64(_splitmix64(key) ^ _splitmix64(i + 1)) for i in range(n)]
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
-    h = _mul32(h, _M1)
-    h = h ^ (h >> 13)
-    h = _mul32(h, _M2)
-    return h ^ (h >> 16)
-
-
-def counter_uniform(key: int, shape, device) -> torch.Tensor:
-    """f32 uniforms in (0, 1), element i a hash of (``key``, i): the
-    murmur3 finalizer over the element's index, keyed by the two halves
-    of the key, and its top 24 bits as (b + 0.5) / 2^24 (exact in f32).
-
-    A stream with no state: the same key gives the same numbers on every
-    call, on the CPU and the card bit for bit, and inside a captured CUDA
-    graph on every replay (a ``torch.Generator``'s offset advances on
-    each replay). It is not JAX's threefry stream."""
-    shape = tuple(shape) if isinstance(shape, (tuple, list)) else (int(shape),)
-    n = 1
-    for s in shape:
-        n *= int(s)
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    h = _fmix32(i ^ (key & _U32))
-    h = _fmix32(h ^ ((key >> 32) & _U32))
-    return (((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))).reshape(shape)

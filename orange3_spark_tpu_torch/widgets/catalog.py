@@ -493,8 +493,15 @@ def _build_catalog() -> None:
     from orange3_spark_tpu_torch.io.streaming import StreamingKMeans
     from orange3_spark_tpu_torch.models import evaluation as E
     from orange3_spark_tpu_torch.models import preprocess as P
+    from orange3_spark_tpu_torch.models.aft import AFTSurvivalRegression
     from orange3_spark_tpu_torch.models.als import ALS
     from orange3_spark_tpu_torch.models.feature_extra import SQLTransformer
+    from orange3_spark_tpu_torch.models.fm import FMClassifier, FMRegressor
+    from orange3_spark_tpu_torch.models.glm import GeneralizedLinearRegression
+    from orange3_spark_tpu_torch.models.isotonic import IsotonicRegression
+    from orange3_spark_tpu_torch.models.mlp import MultilayerPerceptronClassifier
+    from orange3_spark_tpu_torch.models.naive_bayes import NaiveBayes
+    from orange3_spark_tpu_torch.models.rformula import RFormula
     from orange3_spark_tpu_torch.models.decision_tree import (
         DecisionTreeClassifier, DecisionTreeRegressor,
     )
@@ -518,6 +525,12 @@ def _build_catalog() -> None:
         GBTClassifier, GBTRegressor,
         DecisionTreeClassifier, DecisionTreeRegressor,
         StreamingKMeans, StreamingHashedLinearEstimator, ALS,
+        # the supervised estimators of MLlib (the reference's catalog:
+        # NaiveBayes, the GLM family, RFormula; GaussianMixture,
+        # BisectingKMeans and LDA are still to be ported)
+        NaiveBayes, GeneralizedLinearRegression, IsotonicRegression,
+        AFTSurvivalRegression, FMClassifier, FMRegressor,
+        MultilayerPerceptronClassifier, RFormula,
     ):
         widget_for_estimator(est)
     for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher, SQLTransformer):

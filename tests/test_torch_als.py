@@ -345,6 +345,30 @@ def test_als_fit_from_reference_init_matches_reference(session):
     assert_port_equal(pj, pt, atol=4e-6, what="predictions")
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_als_init_draws_the_reference_init(seed):
+    """``_als_init`` draws the reference's |normal|/sqrt(rank) from JAX's
+    stream (``ops/prng.normal``): within 2 ulp of it."""
+    U0, V0 = TA._als_init(seed, 70, 45, 5)
+    Uj, Vj = (np.asarray(x) for x in JA._als_init(seed, 70, 45, 5))
+    for got, want in ((U0.numpy(), Uj), (V0.numpy(), Vj)):
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 2, ulps.max()
+
+
+def test_seeded_als_fit_matches_reference(jsess, session):
+    """``ALS(seed=...).fit`` of both packages with no injected factors: the
+    port's init is the reference's draw (within 2 ulp), so the factors agree
+    within the tolerance of the fits from one init above (3e-6) plus the
+    init's few ulp carried through 6 iterations: 1e-5."""
+    ratings = make_ratings(120, 80, 6000, rank=4, seed=2, noise=0.05)
+    kw = dict(rank=4, max_iter=6, reg_param=0.02, seed=11)
+    jm = JA.ALS(**kw).fit(JA.ratings_table(ratings, jsess))
+    tm = ALS(**kw).fit(ratings_table(ratings, session))
+    assert_port_equal(jm.user_factors, tm.user_factors, atol=1e-5, what="user factors")
+    assert_port_equal(jm.item_factors, tm.item_factors, atol=1e-5, what="item factors")
+
+
 def test_als_fit_implicit_from_reference_init(session):
     obs = make_ratings(60, 50, 4000, rank=4, seed=3, noise=0.0)
     obs[:, 2] = np.abs(obs[:, 2]) * 3 + 0.5

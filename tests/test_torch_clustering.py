@@ -12,10 +12,10 @@ PCA's components are compared after aligning each column's sign (an
 eigenvector's sign is arbitrary in every solver), within 1e-5; explained
 and total variance within 1e-5 relative; projections up to sign within
 1e-5 of their largest entry. The silhouette within 1e-5, the Gramian
-within 1e-6 relative. The device init (a different random stream than the
-reference's) is held to its own rules: repeatable, live rows only, and in
-the staged refit equal to the port's eager run of the same init
-(tests/test_torch_workflow.py).
+within 1e-6 relative. The device init draws the reference's stream
+(``ops/prng``): its centers within 1e-5 of the reference's device init;
+it is also repeatable, picks live rows only, and in the staged refit
+equals the port's eager run of the same init (tests/test_torch_workflow.py).
 """
 
 import jax
@@ -173,6 +173,21 @@ def test_device_init_repeats_and_seeds_live_rows(blobs, init_mode):
     assert float(a.abs().max()) < 100.0           # no dead outlier row
     other = TK.KMeans(k=5, init_mode=init_mode, init_sample_size=512, seed=5)
     assert not torch.equal(a, other._device_init_centers(tt.X, tt.W))
+
+
+@pytest.mark.parametrize("init_mode", ["k-means||", "random"])
+@pytest.mark.parametrize("seed", [0, 4])
+def test_device_init_draws_the_reference_centers(blobs, init_mode, seed):
+    """The device init (staged refit) draws the reference's gumbels,
+    categoricals and normals from JAX's stream (``ops/prng``): the same rows
+    are picked, so the centers equal the reference's ``_device_init_centers``
+    within 1e-5 (the random mode's jitter is 1e-3 x a normal within a few
+    ulp of the reference's)."""
+    jt, tt = blobs
+    kw = dict(k=5, init_mode=init_mode, init_sample_size=512, seed=seed)
+    ref = np.asarray(JK.KMeans(**kw)._device_init_centers(jt.X, jt.W))
+    got = TK.KMeans(**kw)._device_init_centers(tt.X, tt.W)
+    assert_port_equal(ref, got, atol=1e-5, what="device-init centers")
 
 
 def test_device_random_init_pads_past_the_live_rows(tsess):

@@ -2032,6 +2032,76 @@ def test_threefry_on_cuda_bitwise_the_cpu(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_threefry_bits_kernel_bitwise_its_plain_version(cuda_device, seed):
+    """``threefry_bits`` against ``threefry_bits_reference`` on the card,
+    past 2^24 elements and at a ragged size, and every draw built on it
+    (bounded uniform, randint, normal, gumbel) bitwise its CPU draw, the
+    count moving a launch a draw."""
+    from orange3_spark_tpu_torch.ops import prng
+
+    key = prng.PRNGKey(seed)
+    before = prng.threefry_bits.launches
+    for n in (1, 255, 4099, (1 << 24) + 5):
+        got = prng.threefry_bits(key, n, cuda_device)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, prng.threefry_bits_reference(key, n, cuda_device))
+    assert prng.threefry_bits.launches == before + 4
+    for draw in (lambda d: prng.uniform(key, (28, 64), d, -0.3, 0.3),
+                 lambda d: prng.randint(key, 5001, 0, 3, d),
+                 lambda d: prng.random_bits(key, 999, d)):
+        assert torch.equal(draw(cuda_device).cpu(), draw("cpu"))
+    n = 1 << 16
+    for draw in (prng.normal, prng.gumbel):   # XLA's log, log1p and erf_inv, written out
+        assert torch.equal(draw(key, n, cuda_device).cpu(), draw(key, n, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", [0.5, 1.0, 0.8, 9.5])
+def test_poisson_knuth_kernel_bitwise_its_plain_version(cuda_device, lam):
+    """``poisson_knuth`` (one lane a thread, the chain's first subkeys from
+    the wrapper's table, then split in the thread) against the plain
+    whole-batch loop on the card: every count, for a batch of 20 keys as
+    the forest draws them, the count moving one launch a call; a lane run
+    past the table (lam 9.5 needs ~25 iterations) included."""
+    from orange3_spark_tpu_torch.ops import prng
+
+    keys = [prng.split(k)[0] for k in prng.split(prng.PRNGKey(3), 20)]
+    n = 100_003
+    before = prng.poisson_knuth.launches
+    got = prng.poisson_knuth(keys, lam, n, cuda_device)
+    assert prng.poisson_knuth.launches == before + 1
+    want = prng.poisson_reference(keys, lam, n, cuda_device)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if lam == 9.5:
+        assert int(got.max()) > prng.CHAIN_TABLE
+    assert torch.equal(prng.poisson(keys[0], lam, 777, cuda_device),
+                       want[0, :777])
+
+
+@pytest.mark.cuda
+def test_seeded_forest_on_cuda_equals_cpu(cuda_device):
+    """A seeded RandomForestClassifier with no injected draws on the card
+    and on the CPU: the same Poisson and Bernoulli draws (the kernels), so
+    the same forest, field by field; the fit launches ``poisson_knuth``
+    once."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.models.random_forest import RandomForestClassifier
+    from orange3_spark_tpu_torch.ops import prng
+
+    X, y = make_higgs_proxy(20_000, seed=5)
+    est = RandomForestClassifier(num_trees=4, max_depth=5, seed=2)
+    before = prng.poisson_knuth.launches
+    card = est.fit(TorchTable.from_arrays(X, y, class_values=("0", "1"),
+                                          session=TorchSession(cuda_device)))
+    assert prng.poisson_knuth.launches == before + 1
+    cpu = est.fit(TorchTable.from_arrays(X, y, class_values=("0", "1"),
+                                         session=TorchSession("cpu")))
+    for f in ("feature", "split_bin", "threshold", "leaf_value"):
+        assert torch.equal(getattr(card.forest, f).cpu(), getattr(cpu.forest, f)), f
+
+
+@pytest.mark.cuda
 def test_small_wrangle_on_cuda_against_the_cpu(cuda_device, tmp_path):
     """``chip_smoke.py``'s ``wrangle`` phase at 200,000 rows (cut 40,000),
     its kernel check included: every call on the card held against the

@@ -193,8 +193,9 @@ def test_gbt_regressor_matches_reference(jsess, tsess):
 
 
 def test_gbt_subsampling_draws_on_the_generator(tsess):
-    """With subsampling_rate != 1 each round draws Poisson weights from the
-    seeded generator: the same seed gives the same forest."""
+    """With subsampling_rate != 1 each round draws Poisson weights from JAX's
+    threefry stream of the seed (``ops/prng.poisson``, a key a round): the
+    same seed gives the same forest."""
     X, y = make_higgs_proxy(1024, seed=3)
     ttab = TorchTable.from_arrays(X, y, class_values=("0", "1"), session=tsess)
     a = GBTClassifier(max_iter=3, subsampling_rate=0.5, seed=4).fit(ttab)
@@ -203,6 +204,25 @@ def test_gbt_subsampling_draws_on_the_generator(tsess):
     for x, z in zip(a.forest, b.forest):
         assert torch.equal(x, z)
     assert not torch.equal(a.forest.leaf_value, c.forest.leaf_value)
+
+
+def test_gbt_seeded_subsampling_matches_reference(jsess, tsess):
+    """subsampling_rate=0.8 with no injected draws: each round's Poisson
+    weights are the reference's (``key, sub = split(key)``, then
+    ``poisson(sub, 0.8, (N,))``), so the trees, f0 and probabilities agree
+    to the tolerances of the unsampled test above, on its data. (On
+    ``make_higgs_proxy(4096, seed=4)`` round 1 meets exact gain ties,
+    top-two gap 0.0 at four level-4 nodes, where either package's pick is
+    float32 chance; the draws there are equal all the same.)"""
+    X, y, jtab, ttab = _higgs(jsess, tsess, 4096)
+    jm = JGBTC(max_iter=4, subsampling_rate=0.8, seed=3).fit(jtab)
+    tm = GBTClassifier(max_iter=4, subsampling_rate=0.8, seed=3).fit(ttab)
+    np.testing.assert_allclose(tm.f0, jm.f0, rtol=1e-6)
+    _assert_same_structure(jm.forest, tm.forest)
+    np.testing.assert_allclose(tm.forest.leaf_value.numpy(),
+                               np.asarray(jm.forest.leaf_value), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tm.predict_proba(ttab), jm.predict_proba(jtab), atol=1e-5)
+    np.testing.assert_array_equal(tm.predict(ttab), jm.predict(jtab))
 
 
 def test_gbt_transform_appends_probabilities(tsess):
@@ -250,12 +270,31 @@ def test_forest_from_given_draws_equals_reference_tree_by_tree(jsess, tsess):
             imps[t].numpy(), np.asarray(jt.normalize_importances(imp)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("strategy,subsample", [("auto", 1.0), ("onethird", 0.7)])
+def test_seeded_forest_equals_reference_field_by_field(jsess, tsess, strategy, subsample):
+    """A seeded RandomForestClassifier with no injected draws: the port's
+    ``draw_forest`` gives the reference's Poisson bootstrap and Bernoulli
+    masks (``split(PRNGKey(seed), T)``, per tree ``kb, kf = split(tkey)``),
+    so every tree equals the reference's field by field (gini on integer
+    counts: bitwise), and the importances within 1e-5."""
+    X, y, jtab, ttab = _higgs(jsess, tsess, 3000, seed=2)
+    kw = dict(num_trees=4, max_depth=5, seed=9, feature_subset_strategy=strategy,
+              subsampling_rate=subsample)
+    jm, tm = JRFC(**kw).fit(jtab), RandomForestClassifier(**kw).fit(ttab)
+    for f in ("feature", "split_bin", "threshold", "leaf_value"):
+        np.testing.assert_array_equal(getattr(tm.forest, f).numpy(),
+                                      np.asarray(getattr(jm.forest, f)), err_msg=f)
+    np.testing.assert_allclose(tm.feature_importances_.numpy(),
+                               np.asarray(jm.feature_importances_), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(tm.predict_proba(ttab), jm.predict_proba(jtab), atol=1e-6)
+
+
 def test_random_forest_holdout_auc_close_to_reference(jsess, tsess):
-    """The port draws its own bootstrap (a torch.Generator, not jax.random),
-    so the forests differ; their holdout quality must not. Without feature
-    subsetting the AUC of one seeded fit spreads by about 0.01 across seeds
-    at this size (per-level feature masks spread it by 0.05), so the means
-    of three seeded fits are compared."""
+    """The port draws the reference's bootstrap (``ops/prng``: JAX's threefry
+    stream), so the forests are the reference's and so is their holdout
+    quality. Without feature subsetting the AUC of one seeded fit spreads by
+    about 0.01 across seeds at this size (per-level feature masks spread it
+    by 0.05), so the means of three seeded fits are compared."""
     X, y = make_higgs_proxy(2 * 16384, seed=1)
     tr, ho = slice(0, 16384), slice(16384, None)
     jtab, ttab = _tables(jsess, tsess, X[tr], y[tr], ("0", "1"))

@@ -68,6 +68,32 @@ def test_knob_table_rows_equal_the_reference():
 
 
 # ---------------------------------------------------- the flight recorder
+def _forget_tenant_sheds():
+    """Both packages' process-wide tenant shed ledgers emptied: the bundle
+    and the readiness body carry a ``tenants`` key once a tenant was shed,
+    and an earlier test file in this process may have shed one in one
+    package only."""
+    from orange3_spark_tpu.serve import tenancy as j_tenancy
+    from orange3_spark_tpu_torch.serve import tenancy as t_tenancy
+
+    for tenancy in (j_tenancy, t_tenancy):
+        tenancy.reset_tenant_sheds()
+
+
+def _forget_ledger_entries():
+    """Both packages' process-wide device-memory ledgers emptied (as
+    tests/test_torch_prof.py does around each of its tests): a snapshot
+    past 64 entries adds ``entries_truncated``, and earlier test files in
+    this process may have left entries in one package only."""
+    import gc
+
+    import orange3_spark_tpu.obs.prof as j_prof
+
+    gc.collect()
+    for mod in (t_prof, j_prof):
+        mod.LEDGER.clear()
+
+
 def test_bundle_keys_equal_the_reference():
     """Schema 1: the top-level keys of a bundle (no serving context), and
     of its device-memory section, equal the reference's; the events are
@@ -75,6 +101,8 @@ def test_bundle_keys_equal_the_reference():
     from orange3_spark_tpu.obs import trace as j_trace
     from orange3_spark_tpu_torch.obs import trace as t_trace
 
+    _forget_tenant_sheds()
+    _forget_ledger_entries()
     with t_trace.span("flight_keys_t"):
         t = t_flight.collect_bundle("keys", RuntimeError("x"), note=1)
     with j_trace.span("flight_keys_j"):
@@ -245,6 +273,7 @@ def test_never_binds_under_the_obs_kill_switch(monkeypatch):
 def test_readiness_and_health_bodies_equal_the_reference():
     """With no serving context in either package, ``ready_body`` gives the
     same body in each readiness state, and ``health()`` the same keys."""
+    _forget_tenant_sheds()
     for mod in (t_server, j_server):
         mod.reset_readiness()
     states = []

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_artifacts import artifact_dirs  # noqa: F401
 from orange3_spark_tpu_torch.ops import prng
@@ -51,3 +52,138 @@ def test_two_dimensional_shape():
     ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(9), (3, 5)))
     got = prng.uniform(prng.PRNGKey(9), (3, 5), "cpu").numpy()
     assert got.shape == (3, 5) and np.array_equal(ref, got)
+
+
+# --------------------------------------------- split and the other draws
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 20])
+def test_split_bitwise(seed, num):
+    ref = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    got = prng.split(prng.PRNGKey(seed), num)
+    assert [tuple(int(w) for w in k) for k in ref] == got
+    # a chain of splits, as GBT's rounds and Knuth's loop take it
+    key, tkey = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for _ in range(5):
+        key, sub = jax.random.split(key)
+        tkey, tsub = prng.split(tkey)
+    assert tuple(int(w) for w in np.asarray(sub)) == tsub
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1])
+@pytest.mark.parametrize("shape", [(7,), (28, 64), (1000,)])
+@pytest.mark.parametrize("bounds", [(-0.3, 0.3), (-1.7, 2.5), (1e-3, 7.0), (-5.0, -4.0)])
+def test_bounded_uniform_bitwise(seed, shape, bounds):
+    """The fused multiply-add of JAX's bounded uniform, taken in float64
+    and rounded once, gives its bits (an f32 multiply then add misses some
+    by an ulp)."""
+    ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape, jnp.float32, *bounds))
+    got = prng.uniform(prng.PRNGKey(seed), shape, "cpu", *bounds).numpy()
+    assert got.shape == shape and np.array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**40])
+@pytest.mark.parametrize("bounds", [(0, 3), (0, 7), (-5, 1000), (0, 2**31 - 1), (3, 3),
+                                    (0, 100_003), (-2**31, 2**31 - 1)])
+def test_randint_bitwise(seed, bounds):
+    ref = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (4099,), *bounds))
+    got = prng.randint(prng.PRNGKey(seed), (4099,), *bounds, "cpu").numpy()
+    assert got.dtype == np.int32 and np.array_equal(ref, got)
+
+
+def test_randint_prefix_of_a_padded_draw():
+    """CrossValidator draws its fold ids over the reference's padded rows:
+    the first n of a padded draw are the draw of n."""
+    ref = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (1024,), 0, 3))
+    assert np.array_equal(ref[:1001], prng.randint(prng.PRNGKey(0), 1001, 0, 3, "cpu").numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 9, 2**31 - 1])
+def test_normal_within_two_ulp(seed):
+    """``normal`` writes out XLA's float32 erf_inv (FMA steps) over XLA's
+    log1p and log (Cephes' forms, written out): within 2 ulp of JAX's, and
+    about 2 draws in 100,000 differ at all."""
+    n = 200_000
+    key, tkey = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    ref = np.asarray(jax.random.normal(key, (n,)))
+    got = prng.normal(tkey, (n,), "cpu").numpy()
+    ulps = _ulps(ref, got)
+    assert ulps.max() <= 2 and (ulps > 0).mean() < 1e-4, (ulps.max(), (ulps > 0).mean())
+    # the ends: erf_inv(+-1) is +-inf
+    ends = prng._erf_inv(torch.tensor([-1.0, 1.0])).numpy()
+    assert np.array_equal(ends, [-np.inf, np.inf])
+
+
+def test_xla_log_and_log1p_bitwise():
+    """The written-out XLA float32 ``log`` and ``log1p`` (the draws' own)
+    against ``jnp.log`` / ``jnp.log1p`` over (0, 100] and (-1, 1], bitwise,
+    and their ends: 0 and denormals -inf, inf, negative and NaN."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(1e-6, 1.0, 100_000), rng.uniform(1.0, 100.0, 20_000),
+                        np.exp(rng.uniform(-80.0, 4.0, 20_000))]).astype(np.float32)
+    assert np.array_equal(np.asarray(jnp.log(x)), prng._xla_log(torch.from_numpy(x)).numpy())
+    z = rng.uniform(-1.0, 1.0, 100_000).astype(np.float32)
+    assert np.array_equal(np.asarray(jnp.log1p(z)), prng._xla_log1p(torch.from_numpy(z)).numpy())
+    ends = np.array([0.0, -0.0, 1e-40, np.inf, -1.0, np.nan], np.float32)
+    np.testing.assert_array_equal(prng._xla_log(torch.from_numpy(ends)).numpy(),
+                                  np.asarray(jnp.log(ends)))
+
+
+@pytest.mark.parametrize("seed", [0, 9])
+def test_gumbel_and_categorical(seed):
+    """gumbel: -log(-log u) through XLA's log, written out: bitwise;
+    categorical: the argmax of gumbel + logits, bitwise."""
+    n = 100_000
+    key, tkey = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    ref = np.asarray(jax.random.gumbel(key, (n,)))
+    got = prng.gumbel(tkey, (n,), "cpu").numpy()
+    assert np.array_equal(ref.view(np.uint32), got.view(np.uint32))
+    logits = np.random.default_rng(seed).standard_normal((300, 9)).astype(np.float32)
+    logits[:, 4] = -np.inf                       # a masked category is never drawn
+    for axis in (-1, 0):
+        r = np.asarray(jax.random.categorical(key, jnp.asarray(logits), axis=axis))
+        g = prng.categorical(tkey, torch.from_numpy(logits), axis=axis).numpy()
+        assert np.array_equal(r, g)
+    assert not (prng.categorical(tkey, torch.from_numpy(logits)).numpy() == 4).any()
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.5, 1.0, 9.5])
+def test_poisson_bitwise(lam):
+    """Knuth's loop (lam < 10) on JAX's uniforms with torch.log: every
+    count of 200k lanes equals ``jax.random.poisson``; lam == 0 gives 0."""
+    n = 200_000
+    ref = np.asarray(jax.random.poisson(jax.random.PRNGKey(1), lam, (n,)))
+    got = prng.poisson(prng.PRNGKey(1), lam, n, "cpu").numpy()
+    assert got.dtype == np.int32 and np.array_equal(ref, got)
+
+
+def test_poisson_batch_of_keys_as_the_forest_vmaps_it():
+    """The forest's draw: ``vmap(poisson)`` over a batch of 4 keys (a chain
+    each) is ``poisson_knuth`` of the 4 keys, lane by lane; the first n
+    lanes of a padded draw are the draw of n."""
+    keys = jax.random.split(jax.random.PRNGKey(6), 4)
+    ref = np.asarray(jax.vmap(lambda k: jax.random.poisson(k, 0.8, (5003,)))(keys))
+    got = prng.poisson_knuth([tuple(int(w) for w in k) for k in np.asarray(keys)], 0.8,
+                             5000, "cpu").numpy()
+    assert got.shape == (4, 5000) and np.array_equal(ref[:, :5000], got)
+
+
+def test_poisson_rejection_branch_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prng.poisson(prng.PRNGKey(0), 10.0, 8, "cpu")
+
+
+def test_split_chain_table_continues_the_chain():
+    """The wrapper's table of ``poisson_knuth``: row j is the j-th subkey
+    of ``rng, sub = split(rng)``, and the state after it the chain's key,
+    which the kernel splits on for a lane past the table."""
+    keys = [prng.PRNGKey(3), prng.PRNGKey(4)]
+    table, rng = prng._split_chains(keys, 5)
+    for t, key in enumerate(keys):
+        for j in range(5):
+            key, sub = prng.split(key)
+            assert (int(table[t, j, 0]), int(table[t, j, 1])) == sub
+        assert (int(rng[t, 0]), int(rng[t, 1])) == key

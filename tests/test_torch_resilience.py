@@ -444,9 +444,15 @@ def test_tenant_admission_sheds_equal_reference(monkeypatch):
     evidence, as the JAX package's ``AdmissionController``
     (``test_tenant_max_inflight_hard_cap_sheds_typed``,
     ``test_tenancy_kill_switch_no_fair_state``)."""
-    ref = _tenant_admission_trace(j_overload, j_tenancy, monkeypatch)
-    monkeypatch.delenv("OTPU_TENANCY")
-    got = _tenant_admission_trace(t_overload, t_tenancy, monkeypatch)
+    try:
+        ref = _tenant_admission_trace(j_overload, j_tenancy, monkeypatch)
+        monkeypatch.delenv("OTPU_TENANCY")
+        got = _tenant_admission_trace(t_overload, t_tenancy, monkeypatch)
+    finally:
+        # the shed ledgers are process-wide: leave them empty for the next
+        # file's tenant-less bodies (tests/test_torch_obs.py)
+        for tenancy in (j_tenancy, t_tenancy):
+            tenancy.reset_tenant_sheds()
     assert got == ref
     assert ref[0] == ("OverloadShedError", "heavy", "tenant_inflight", 1.0, 1.0)
     assert ref[-1] == (False, None, {})

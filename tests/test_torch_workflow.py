@@ -169,7 +169,8 @@ def test_widget_registry_covers_the_ported_estimators():
     for name in ("OWCsvReader", "OWParquetReader", "OWLibsvmReader", "OWSqlReader", "OWJoin",
                  "OWGroupBy", "OWPivot", "OWSaveData", "OWSQLTransformer"):
         assert name in WIDGET_REGISTRY and name in jcat.WIDGET_REGISTRY, name
-    assert "OWNaiveBayes" not in WIDGET_REGISTRY      # not ported (ROADMAP queue 1)
+    assert "OWGaussianMixture" not in WIDGET_REGISTRY  # not ported (ROADMAP queue 1 item 4b)
+    assert "OWNaiveBayes" in WIDGET_REGISTRY and "OWNaiveBayes" in jcat.WIDGET_REGISTRY
 
 
 def test_set_params_affects_transformer_widget(session):
@@ -237,7 +238,7 @@ def test_a_workflow_saved_by_the_jax_package_loads_and_runs(jsess, session, tmp_
     assert_port_equal(ref, outs[lr2]["model"].coef, atol=1e-4 * np.abs(ref).max(),
                       what="coef")
     with pytest.raises(ValueError, match="unknown widget"):
-        WorkflowGraph.from_json('{"version": 1, "nodes": [{"id": 0, "widget": "OWNaiveBayes"}],'
+        WorkflowGraph.from_json('{"version": 1, "nodes": [{"id": 0, "widget": "OWGaussianMixture"}],'
                                 ' "edges": []}')
 
 
