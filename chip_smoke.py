@@ -41,13 +41,18 @@ prints one JSON line per phase:
            PyTorch ops under the wrapper's ``node_histograms`` profiler range
   rf_draws the forest's draws at its fit's shapes (``draw_forest``: one
            ``poisson_knuth`` launch, a Bernoulli mask a tree), eager, beside
-           the timed fit's wall and its wall before the draws moved
+           the timed fit's wall, its wall before the draws moved and its
+           wall on the one-lane-a-thread ``poisson_knuth``
   prng     ``threefry_bits`` (at a 10M draw and a tree's row count) and
-           ``poisson_knuth`` (the forest's 20 trees x 10,737,856 rows)
+           ``poisson_knuth`` (the forest's 20 trees x 10,737,856 rows at
+           lam 1, and GBT's subsampled round: one key at lam 0.8)
            bitwise their plain versions, timed captured and eager beside
            the plain versions and each bound (4 B written a lane; 73
            integer operations a hash at SMs x 128 issue lanes x the max
-           SM clock)
+           SM clock; for ``poisson_knuth`` also the instructions its
+           function needs, counted in the SASS of
+           ``probes/knuth_work.cu``), the share of its issued lane-slots
+           that did an iteration, and the one-lane-a-thread kernel's time
 
 then the dense linear family (BASELINE config 1 and ``bench.py --config
 dense_logreg``; PyTorch ops, no kernel of the package: the products are
@@ -489,12 +494,17 @@ def graph_ms(fn, reps: int) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def sass_atomics(lib_path) -> dict[str, list[str]]:
-    """{kernel: its atomic SASS opcodes}, from ``cuobjdump -sass``."""
+def sass_text(lib_path) -> str:
+    """The SASS of a built library, from ``cuobjdump -sass``."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+    return subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+
+
+def sass_atomics(lib_path) -> dict[str, list[str]]:
+    """{kernel: its atomic SASS opcodes}, from ``cuobjdump -sass``."""
+    text = sass_text(lib_path)
     found: dict[str, set[str]] = {}
     fn = None
     for line in text.splitlines():
@@ -506,6 +516,108 @@ def sass_atomics(lib_path) -> dict[str, list[str]]:
                                  line):
                 found.setdefault(fn, set()).add(op)
     return {k: sorted(v) for k, v in found.items()}
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
+
+
+def sass_functions(text: str) -> dict[str, list[tuple[int, str, str]]]:
+    """{function: [(address, opcode, instruction)]} of a ``cuobjdump -sass``
+    listing; a label (``.L_x_N:``) becomes the address of the instruction
+    after it, in the instructions' branch targets."""
+    funcs: dict[str, list[tuple[int, str, str]]] = {}
+    labels: dict[str, int] = {}
+    pending: list[str] = []
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSN.search(line)
+        if fn is None or not m or line.lstrip().startswith("/* 0x"):
+            continue
+        addr, insn = int(m.group(1), 16), m.group(2).strip()
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        op = re.sub(r"^@!?U?P[T0-9]+\s+", "", insn).split()[0]
+        funcs[fn].append((addr, op, insn))
+    for name, insns in funcs.items():
+        funcs[name] = [(a, op, re.sub(r"`\((\.L_x_\d+)\)",
+                                      lambda m: hex(labels.get(m.group(1), -1)), insn))
+                       for a, op, insn in insns]
+    return funcs
+
+
+def _branch_target(op: str, insn: str) -> int | None:
+    if not op.startswith("BRA"):
+        return None
+    hits = [m.group(2) for m in _SASS_TARGET.finditer(insn) if m.group(2)]
+    return int(hits[-1], 16) if hits else None
+
+
+def sass_loop(insns: list[tuple[int, str, str]], innermost: bool = False) -> dict:
+    """The instructions a pass of a function's main loop issues: the span
+    of its longest backward branch (``innermost``: its shortest), split into
+    basic blocks at branch targets and after branches, less every block
+    that holds a ``CALL`` (a call out of line, off the common path) and the
+    ``NOP`` padding; with the span's opcodes (less their modifiers) by
+    count."""
+    targets = {t for a, op, insn in insns if (t := _branch_target(op, insn)) is not None}
+    back = [(a - t, t, a) for a, op, insn in insns
+            if (t := _branch_target(op, insn)) is not None and t < a]
+    if not back:
+        raise ValueError("no loop in the function's SASS")
+    _, lo, hi = min(back) if innermost else max(back)
+    blocks: list[list[tuple[int, str, str]]] = [[]]
+    for a, op, insn in insns:
+        if not lo <= a <= hi:
+            continue
+        if a in targets and blocks[-1]:
+            blocks.append([])
+        blocks[-1].append((a, op, insn))
+        if op.startswith(("BRA", "EXIT", "RET")):
+            blocks.append([])
+    kept = [b for b in blocks if b and not any(op.startswith("CALL") for _, op, _ in b)]
+    calls = [insn for b in blocks for _, op, insn in b if op.startswith("CALL")]
+    ops: dict[str, int] = {}
+    for b in kept:
+        for _, op, _ in b:
+            if op != "NOP":
+                base = op.split(".")[0]
+                ops[base] = ops.get(base, 0) + 1
+    return {"instructions": sum(ops.values()), "span": [hex(lo), hex(hi)],
+            "blocks": len(kept), "call_blocks_left_out": len(blocks) - len(kept)
+            - sum(1 for b in blocks if not b), "calls": calls,
+            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+def sass_callee(funcs: dict, insns: list[tuple[int, str, str]], call: str) -> int:
+    """The instructions one ``call`` (a ``CALL`` of ``insns``) runs: its
+    target's function in ``funcs``, or, where the callee sits in the
+    caller's own listing, from the target address to the first ``RET``."""
+    m = re.search(r"`\(([^)]+)\)", call)
+    name = m.group(1) if m else None
+    if name in funcs:
+        return sum(op != "NOP" for _, op, _ in funcs[name])
+    hits = re.findall(r"\b0x[0-9a-f]+\b", call)
+    if not hits:
+        raise ValueError(f"no target in {call!r}")
+    start, n = int(hits[-1], 16), 0
+    for a, op, _ in insns:
+        if a < start or op == "NOP":
+            continue
+        n += 1
+        if op.startswith("RET"):
+            return n
+    raise ValueError(f"no RET after the call target {hits[-1]}")
 
 
 def phase_build():
@@ -883,7 +995,8 @@ def _rf_draw_line(est, table) -> dict:
     """The forest's draws inside its fit: ``draw_forest`` at the fit's
     shapes (all trees' Poisson bootstrap in one ``poisson_knuth`` launch, a
     Bernoulli mask a tree), eager by CUDA events, beside the fit's wall
-    before the draws moved to JAX's stream."""
+    before the draws moved to JAX's stream and on the one-lane-a-thread
+    ``poisson_knuth``."""
     from orange3_spark_tpu_torch.models.random_forest import _subset_fraction, draw_forest
 
     p = est.params
@@ -895,7 +1008,8 @@ def _rf_draw_line(est, table) -> dict:
                            seed=p.seed, device=table.X.device)
 
     return {"draw_ms": cuda_ms(draw, 3, warmup=1), "fit_s_before_the_draws_moved":
-            RF_FIT_S_BEFORE, "draw_shape": [p.num_trees, table.n_pad]}
+            RF_FIT_S_BEFORE, "fit_s_one_lane_a_thread": RF_FIT_S_ONE_LANE,
+            "draw_shape": [p.num_trees, table.n_pad]}
 
 
 def phase_profile(est, table):
@@ -5831,6 +5945,15 @@ PRNG_MISMATCH_SHARE = 1e-6
 # the RF fit's wall on the card while its draws came from a torch.Generator
 # (PERF.md, section 5), printed beside the fit's wall now
 RF_FIT_S_BEFORE = 0.1453
+# the RF fit's wall on the card with the draws of the one-lane-a-thread
+# poisson_knuth that ran one lane a thread to its end (PERF.md, section 5)
+RF_FIT_S_ONE_LANE = 0.1475
+# poisson_knuth's captured time at the forest's draw while it ran one lane a
+# thread to its end (PERF.md, section 6: NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside the redesigned kernel's
+POISSON_MS_ONE_LANE = 5.1337
+# GBT's subsampled round: one key, the HIGGS fit's rows, lam 0.8
+PRNG_GBT_LAM = 0.8
 
 
 def int32_rate() -> float:
@@ -5860,14 +5983,148 @@ def _forest_keys(seed: int, n_trees: int):
     return [prng.split(t)[0] for t in prng.split(prng.PRNGKey(seed), n_trees)]
 
 
+def knuth_work_sass() -> dict:
+    """The instructions ``poisson_knuth``'s function needs, from the SASS of
+    ``probes/knuth_work.cu`` (a row's Knuth loop run to its end on prng.cu's
+    hash and float steps, with none of the kernel's design), built as a
+    cubin with the package's code-generation flags: an iteration (its inner
+    loop's pass: the table read, the hash, the uniform's conversion, logf,
+    the add, the compare and the count) and a row (its outer loop's pass
+    less the inner loop: the counter, the loop's start, the count's store
+    and the step to the next row)."""
+    from orange3_spark_tpu_torch.ops import cuda_build
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probes", "knuth_work.cu")
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = cuda_build.BUILD_DIR / "knuth_work.cubin"
+    flags = [f for f in cuda_build.NVCC_FLAGS if f.startswith(("-gencode", "-std", "-O"))]
+    subprocess.run([cuda_build.nvcc_path(), *flags, "-cubin", "-o", str(cubin), src],
+                   capture_output=True, text=True, timeout=300, check=True)
+    funcs = sass_functions(sass_text(cubin))
+    if "knuth_work" not in funcs:
+        raise AssertionError(f"knuth_work's SASS not found: {sorted(funcs)}")
+    rows, iters = sass_loop(funcs["knuth_work"]), sass_loop(funcs["knuth_work"], innermost=True)
+    if rows["span"] == iters["span"] or rows["calls"] or iters["calls"]:
+        raise AssertionError(f"knuth_work's SASS is not a loop in a loop: {rows}, {iters}")
+    return {"iteration": iters["instructions"],
+            "row": rows["instructions"] - iters["instructions"],
+            "iteration_opcodes": iters["opcodes"], "row_loop_opcodes": rows["opcodes"]}
+
+
+def knuth_sass() -> dict:
+    """The issued instructions of one pass of ``poisson_knuth``'s loop in
+    the built library's SASS (``sass_loop``: the function's work and the
+    design's: the table's branch, the stage write, the refill and the
+    convergence barriers; the call past the table left out), of one
+    ``split_chain`` call (two hashes), the production build's, and the
+    work its function needs (``knuth_work_sass``)."""
+    from orange3_spark_tpu_torch.ops import cuda_build
+
+    funcs = sass_functions(sass_text(cuda_build.library_path("prng")))
+    kernel = [f for f in funcs if "poisson_knuthILb0E" in f]
+    if len(kernel) != 1:
+        raise AssertionError(f"poisson_knuth's SASS not found: {sorted(funcs)}")
+    loop = sass_loop(funcs[kernel[0]])
+    if len(loop["calls"]) != 1:
+        # inlined, the split's two hashes would count in every pass
+        raise AssertionError(f"poisson_knuth's loop does not call split_chain once: {loop}")
+    return {"loop": loop, "split_chain": sass_callee(funcs, funcs[kernel[0]], loop["calls"][0]),
+            "work": knuth_work_sass()}
+
+
+def _knuth_shares(counts, slots) -> dict:
+    """The share of issued lane-slots that did an iteration: this kernel's
+    (lane-iterations over 32 x warp-iterations, counted by its measurement
+    build), and the one-lane-a-thread design's, worked out from the same
+    counts, not measured (a warp of 32 consecutive lanes runs its slowest
+    lane's iterations)."""
+    import torch
+
+    iters = counts.reshape(-1) + 1
+    pad = (-iters.numel()) % 32
+    warps = torch.cat([iters, iters.new_zeros(pad)]).reshape(-1, 32)
+    warp_iters, lane_iters = (int(v) for v in slots.cpu())
+    return {"warp_iterations": warp_iters, "lane_iterations": lane_iters,
+            "useful_share": lane_iters / (32 * warp_iters),
+            "useful_share_one_lane_a_thread": int(iters.sum()) / (32 * int(warps.amax(1).sum()))}
+
+
+def _knuth_case(keys, lam, n, sass, mem_bw, int_rate) -> dict:
+    """``poisson_knuth`` of ``keys`` x ``n`` rows at ``lam`` on the card:
+    bitwise the plain version, the launch captured (10 in a graph, on the
+    wrapper's table uploaded once), the wrapper eager, the measurement
+    build's useful share of lane-slots, and the bounds: 4 B written a lane,
+    and the operations of this run's iterations and rows two ways, the hash
+    alone (``HASH_INT_OPS`` a hash, two more hashes an iteration past the
+    table) and the instructions the function needs (``knuth_sass``'s work:
+    an iteration's and a row's, a ``split_chain`` call more an iteration
+    past the table), each at the card's issue rate; beside them the
+    instructions of a pass of the kernel's own loop."""
+    import torch
+
+    from orange3_spark_tpu_torch.ops import prng
+
+    dev = torch.device("cuda")
+    T = len(keys)
+    got = prng.poisson_knuth(keys, lam, n, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = prng.poisson_reference(keys, lam, n, dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = torch.equal(got, want)
+    del want
+    torch.cuda.empty_cache()
+    J = prng.chain_table_size(lam)
+    packed = prng._knuth_table(keys, J, dev)
+    out = torch.empty((T, n), dtype=torch.int32, device=dev)
+    kernel_ms = graph_ms(lambda: prng._launch_knuth(packed, lam, out, J), 10)
+    eager_ms = cuda_ms(lambda: prng.poisson_knuth(keys, lam, n, dev), 5, warmup=1)
+    slots = torch.zeros(2, dtype=torch.int64, device=dev)
+    prng._launch_knuth(packed, lam, out, J, slots)
+    counts = got.to(torch.int64)
+    shares = _knuth_shares(counts, slots)
+    # this run's work: count + 1 iterations a lane; past the table an
+    # iteration also splits the chain
+    iters = int(counts.sum()) + counts.numel()
+    past = int(torch.clamp_min(counts + 1 - J, 0).sum())
+    equal_build = torch.equal(out, got) and shares["lane_iterations"] == iters
+    rows, work = counts.numel(), sass["work"]
+    hash_only = _prng_bound(4 * rows, HASH_INT_OPS * (iters + 2 * past), mem_bw, int_rate)
+    recount = _prng_bound(4 * rows, work["iteration"] * iters + work["row"] * rows
+                          + sass["split_chain"] * past, mem_bw, int_rate)
+    line = {"trees": T, "rows": n, "lam": lam, "chain_table": J,
+            "tile_rows": prng.KNUTH_TILE_ROWS,
+            "bitwise_plain": equal, "measurement_build_equal": equal_build,
+            "ms": kernel_ms, "eager_ms": eager_ms,
+            "plain_ms": plain_s * 1e3,
+            "max_count": int(counts.max()), "lanes_past_table": int((counts + 1 > J).sum()),
+            "iterations": iters, "hashes": iters + 2 * past,
+            **shares,
+            "instructions_per_iteration": sass["loop"]["instructions"],
+            "work_instructions_per_iteration": work["iteration"],
+            "work_instructions_per_row": work["row"],
+            "bytes": recount["bytes"], "bytes_ms": recount["bytes_ms"],
+            "issue_ops": recount["int_ops"], "bound_ms": recount["bound_ms"],
+            "bound_by": recount["bound_by"], "x_bound": kernel_ms / recount["bound_ms"],
+            "int_ops": hash_only["int_ops"], "hash_bound_ms": hash_only["bound_ms"],
+            "x_hash_bound": kernel_ms / hash_only["bound_ms"]}
+    del got, counts, out
+    torch.cuda.empty_cache()
+    return line
+
+
 def phase_prng(mem_bw, int_rate) -> dict:
     """``threefry_bits`` at a 10M uniform and at one tree's row count of
     the forest's draw, ``poisson_knuth`` at the forest's (20 trees x
-    10,737,856 rows, lam 1): bitwise their plain versions on the card, the
-    kernels timed captured (20 launches in a graph; ``poisson_knuth``'s
-    launch on a table uploaded once), the wrappers eager, the plain
-    versions, and each bound (4 B written a lane; 73 integer operations a
-    hash at the card's integer rate)."""
+    10,737,856 rows, lam 1) and at GBT's subsampled round (one key, lam
+    0.8): bitwise their plain versions on the card, the kernels timed
+    captured (20 launches in a graph; ``poisson_knuth``'s launch on a table
+    uploaded once), the wrappers eager, the plain versions, and each bound
+    (4 B written a lane; 73 integer operations a hash at the card's issue
+    rate; for ``poisson_knuth`` also the instructions its function needs,
+    from ``probes/knuth_work.cu``'s SASS, beside its own loop's pass, and
+    the share of issued lane-slots that did work)."""
     import torch
 
     from orange3_spark_tpu_torch.ops import prng
@@ -5886,40 +6143,21 @@ def phase_prng(mem_bw, int_rate) -> dict:
             "plain_ms": graph_ms(lambda n=n: prng.threefry_bits_reference(key, n, dev), 3),
             **_prng_bound(4 * n, HASH_INT_OPS * n, mem_bw, int_rate)}
         torch.cuda.empty_cache()
-    keys = _forest_keys(0, PRNG_TREES)
-    got = prng.poisson_knuth(keys, 1.0, PRNG_ROWS, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = prng.poisson_reference(keys, 1.0, PRNG_ROWS, dev)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    equal = torch.equal(got, want)
-    del want
-    torch.cuda.empty_cache()
-    # the launch alone, on the wrapper's table uploaded once
-    packed = prng._knuth_table(keys, dev)
-    out = torch.empty((PRNG_TREES, PRNG_ROWS), dtype=torch.int32, device=dev)
-    kernel_ms = graph_ms(lambda: prng._launch_knuth(packed, 1.0, out), 10)
-    eager_ms = cuda_ms(lambda: prng.poisson_knuth(keys, 1.0, PRNG_ROWS, dev), 5, warmup=1)
-    counts = got.to(torch.int64)
-    # this run's work: each lane hashes one uniform an iteration (count + 1
-    # iterations) and splits twice an iteration past the table
-    iters = int(counts.sum()) + counts.numel()
-    past = int(torch.clamp_min(counts + 1 - prng.CHAIN_TABLE, 0).sum())
-    poisson = {"trees": PRNG_TREES, "rows": PRNG_ROWS, "lam": 1.0,
-               "bitwise_plain": equal, "ms": kernel_ms, "eager_ms": eager_ms,
-               "plain_ms": plain_s * 1e3, "max_count": int(counts.max()),
-               "lanes_past_table": int((counts + 1 > prng.CHAIN_TABLE).sum()),
-               "hashes": iters + 2 * past,
-               **_prng_bound(4 * counts.numel(), HASH_INT_OPS * (iters + 2 * past),
-                             mem_bw, int_rate)}
-    del got, counts, out
-    torch.cuda.empty_cache()
-    line = {"threefry_bits": bits, "poisson_knuth": poisson, "int32_ops_per_s": int_rate}
+    sass = knuth_sass()
+    poisson = {**_knuth_case(_forest_keys(0, PRNG_TREES), 1.0, PRNG_ROWS, sass, mem_bw,
+                             int_rate),
+               "ms_one_lane_a_thread": POISSON_MS_ONE_LANE}
+    gbt = _knuth_case([prng.split(prng.PRNGKey(0))[1]], PRNG_GBT_LAM, PRNG_ROWS, sass,
+                      mem_bw, int_rate)
+    line = {"threefry_bits": bits, "poisson_knuth": poisson, "poisson_knuth_gbt_round": gbt,
+            "knuth_sass": {"loop": sass["loop"], "split_chain_instructions": sass["split_chain"],
+                           "work": sass["work"]},
+            "int32_ops_per_s": int_rate}
     bad = [n for n, b in bits.items() if not b["bitwise_plain"]]
-    if bad or not equal:
-        raise AssertionError(f"prng kernels differ from their plain versions "
-                             f"({bad}, poisson {equal}): {line}")
+    bad += [n for n, c in (("forest", poisson), ("gbt_round", gbt))
+            if not (c["bitwise_plain"] and c["measurement_build_equal"])]
+    if bad:
+        raise AssertionError(f"prng kernels differ from their plain versions ({bad}): {line}")
     return line
 
 
@@ -6879,12 +7117,23 @@ def _run(args) -> int:
             "launches_counted_over": "the gbt and rf phases (the forest's bootstrap)",
             "max_abs_err": 0, "bitwise_plain": pk["bitwise_plain"],
             **{k: pk[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "bytes", "int_ops", "hashes", "max_count",
-                                  "lanes_past_table")},
+                                  "x_bound", "work_instructions_per_iteration",
+                                  "work_instructions_per_row", "instructions_per_iteration",
+                                  "issue_ops", "hash_bound_ms", "x_hash_bound", "int_ops",
+                                  "bytes", "useful_share", "hashes", "max_count",
+                                  "chain_table", "lanes_past_table")},
+            "bound": "the instructions the function needs an iteration and a row "
+                     "(probes/knuth_work.cu's SASS) at the issue rate; hash_bound_ms: 73 "
+                     "integer operations a hash; instructions_per_iteration: a pass of "
+                     "the kernel's own loop",
             "library_ms": None, "library": "no PyTorch call computes JAX's stream",
             "timed": "the launch captured (10 in a graph, its table uploaded once); "
                      "eager_ms the wrapper; plain_ms one plain run (a host read an iteration)",
             "at": f"the forest's draw: {pk['trees']} trees x {pk['rows']} rows, lam 1",
+            "gbt_round": {k: prng_line["poisson_knuth_gbt_round"][k]
+                          for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "x_bound",
+                                    "hash_bound_ms", "x_hash_bound", "useful_share",
+                                    "bitwise_plain", "tile_rows")},
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,29 +16,56 @@
 //                  output words xor-ed (JAX's partitionable layout, so a
 //                  draw of n elements is the prefix of any longer draw).
 //                  uint32 adds and xors, rotates by funnel shift.
-//   poisson_knuth  one lane (tree t, row i) runs its own Knuth loop: its
-//                  j-th iteration draws the uniform of row i under the j-th
+//   poisson_knuth  the Knuth loop of lane (tree t, row i): its j-th
+//                  iteration draws the uniform of row i under the j-th
 //                  subkey of tree t's split chain (rng, sub = split(rng)),
 //                  and it stops once log_prod <= -lam. A lane's count does
 //                  not depend on when the other lanes stop, so it equals
 //                  JAX's whole-batch while_loop (which freezes a finished
-//                  lane). The wrapper hands in the chain's first J0
-//                  subkeys of every tree and the chain's state after them;
-//                  a lane that runs past J0 goes on splitting in the thread.
+//                  lane), whatever order the lanes run in. The wrapper
+//                  hands in the chain's first J subkeys of every tree (J
+//                  sized from lam) and the chain's state after them; a
+//                  lane that runs past J goes on splitting in the thread.
 //                  logf is the full-precision libm function (no
 //                  --use_fast_math, never __logf), so the counts are
 //                  bitwise those of the plain torch loop on the card.
 //
-// What bounds them: integer issue. A hash is 73 32-bit integer operations
-// (2 initial key adds; 20 rounds of add, funnel shift, xor; 5 key
-// injections of two adds; the final xor) against 4 bytes written a lane:
-// at the H100's 128 issue lanes an SM a clock (33.5 T ops/s at 1980 MHz) a
-// hash costs 2.2 ps of the card against 1.2 ps for its 4 bytes at
-// 3.35 TB/s, so both kernels sit on the issue side. The design keeps every
-// word in registers, unrolls the rounds with constant rotations, and writes
-// each output once, coalesced. In poisson_knuth a warp runs until its
-// slowest lane stops (about 5 iterations of 32 lanes against a mean of 2
-// at lam 1), which no reordering of the lanes removes without moving them.
+// What bounds them: issue. A hash is 73 32-bit integer operations (2
+// initial key adds; 20 rounds of add, funnel shift, xor; 5 key injections
+// of two adds; the final xor) against 4 bytes written a lane: at the
+// H100's 128 issue lanes an SM a clock (33.5 T ops/s at 1980 MHz) a hash
+// costs 2.2 ps of the card against 1.2 ps for its 4 bytes at 3.35 TB/s, so
+// both kernels sit on the issue side. threefry_bits keeps every word in
+// registers, unrolls the rounds with constant rotations, and writes each
+// output once, coalesced.
+//
+// poisson_knuth's iteration is the hash, logf, the uniform's conversion,
+// the compare, the table read and the refill below. Its lanes need
+// Poisson(lam) + 1 iterations each, 2 on average at lam 1, and the slowest
+// of 32 about 5: a warp that ran one lane a thread to its end spent 44 % of
+// its issued lane-slots on iterations at the forest's draw (lam 1). So a
+// thread here holds one live lane at a time, not one row: a block owns a
+// tile of one tree's rows, and after each iteration every thread whose lane
+// stopped writes its count to the tile's staging array in shared memory and
+// takes the tile's next unstarted row from a shared counter (the compiler
+// makes the atomicAdd one a warp). A warp stays full until its tile runs
+// out of rows (96 % of the lane-slots do an iteration at the forest's
+// draw), and the counts leave in one coalesced pass. The tree and the tile
+// come from blockIdx in 32-bit arithmetic (no 64-bit division a lane); the
+// tree's table sits in shared memory, where lanes at different j read their
+// own subkeys. The function needs 104 instructions an iteration (69 the
+// hash, 28 logf with the uniform's conversion, 2 the table read, 2 the
+// count, the add, compare and branch) and 12 a row, counted in the SASS of
+// probes/knuth_work.cu, which runs a row's loop to its end on the hash and
+// float steps below; a pass of this kernel's loop issues 145, its design's
+// share the table's branch, the stage write, the refill and convergence
+// barriers. 48 registers and 32 KB of staging a block leave 5 blocks of 8
+// warps an SM to hide the hash's chain of dependent rounds. On an NVIDIA
+// H100 80GB HBM3 at 700.00 W the forest's draw (20 x 10,737,856 lanes,
+// 429.5M iterations) takes 2.458 ms against 5.132 ms for the
+// one-lane-a-thread kernel, 1.74x the 1.412 ms its work takes at the issue
+// rate; a tile of 2048 rows, not 8192, takes 2.782 ms there and 0.132 ms
+// against 0.122 at GBT's subsampled round (probes/poisson_knuth_ab.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,47 +123,111 @@ threefry_bits(uint32_t k0, uint32_t k1, long long n, uint32_t* __restrict__ out)
     out[i] = bits_at(k0, k1, static_cast<unsigned long long>(i));
 }
 
-// table: u32[T, J0, 2], the subkeys of the first J0 iterations of each
-// tree's chain; rng: u32[T, 2], the chain's key after them. out: i32[T, N].
-__global__ void __launch_bounds__(kThreads)
-poisson_knuth(const uint32_t* __restrict__ table, const uint32_t* __restrict__ rng, int J0,
-              long long T, long long N, float neg_lam, int* __restrict__ out) {
-  const long long total = T * N;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; g < total;
-       g += stride) {
-    const long long t = g / N;
-    const unsigned long long i = static_cast<unsigned long long>(g - t * N);
-    const uint32_t* tab = table + t * J0 * 2;
-    float log_prod = 0.0f;
-    int k = 0;
-    uint32_t r0 = 0, r1 = 0;
-    for (int j = 0; log_prod > neg_lam; ++j) {
-      ++k;
-      uint32_t s0, s1;
-      if (j < J0) {
-        s0 = tab[2 * j];
-        s1 = tab[2 * j + 1];
-      } else {
-        if (j == J0) {
-          r0 = rng[2 * t];
-          r1 = rng[2 * t + 1];
-        }
-        // rng, sub = split(rng): the hashes of the counters (0, 0) and (0, 1)
-        uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
-        threefry2x32(r0, r1, a0, a1);
-        threefry2x32(r0, r1, b0, b1);
-        r0 = a0;
-        r1 = a1;
-        s0 = b0;
-        s1 = b1;
-      }
-      const uint32_t b = bits_at(s0, s1, i);
-      const float u = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-      log_prod = __fadd_rn(log_prod, logf(u));
-    }
-    out[g] = k - 1;
+// The next subkey past the table: rng, sub = split(rng), the hashes of the
+// counters (0, 0) and (0, 1). Out of line: a lane gets here only past the
+// table, which the wrapper sizes so that this is rare (chip_smoke.py counts
+// the loop's SASS without this call's block).
+__device__ __noinline__ uint4 split_chain(uint32_t r0, uint32_t r1) {
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+  threefry2x32(r0, r1, a0, a1);
+  threefry2x32(r0, r1, b0, b1);
+  return make_uint4(a0, a1, b0, b1);
+}
+
+constexpr int kKnuthThreads = 256;
+constexpr int kKnuthTileMax = 8192;
+constexpr int kKnuthTableMax = 64;
+
+// table: u32[T, J, 2], the subkeys of the first J iterations of each tree's
+// chain (J <= kKnuthTableMax); rng: u32[T, 2], the chain's key after them;
+// out: i32[T, N]. Block b owns rows [tile * tile_rows, +tile_rows) of tree
+// t (b = t * tiles_per_tree + tile). kCountSlots: also add the block's
+// warp-iterations and lane-iterations to slots[0] and slots[1] (a
+// measurement build).
+template <bool kCountSlots>
+__global__ void __launch_bounds__(kKnuthThreads, 4)
+poisson_knuth(const uint32_t* __restrict__ table, const uint32_t* __restrict__ rng, int J,
+              int tiles_per_tree, int tile_rows, long long N, float neg_lam,
+              int* __restrict__ out, unsigned long long* __restrict__ slots) {
+  __shared__ uint2 tab[kKnuthTableMax + 1];
+  __shared__ int next_row;
+  extern __shared__ int stage[];                            // [tile_rows]
+  const int t = static_cast<int>(blockIdx.x) / tiles_per_tree;
+  const int tile = static_cast<int>(blockIdx.x) - t * tiles_per_tree;
+  const long long row0 = static_cast<long long>(tile) * tile_rows;
+  const long long left = N - row0;
+  const int rows = left < tile_rows ? static_cast<int>(left) : tile_rows;
+  const uint2* tree_tab = reinterpret_cast<const uint2*>(table) + static_cast<long long>(t) * J;
+  for (int k = threadIdx.x; k < J; k += kKnuthThreads) tab[k] = tree_tab[k];
+  if (threadIdx.x == 0) {
+    tab[J] = reinterpret_cast<const uint2*>(rng)[t];
+    next_row = kKnuthThreads;
   }
+  __syncthreads();
+
+  // Every lane runs the iteration each pass (no branch around it): a warp
+  // is full but in its tile's last passes, where a lane without a row
+  // computes for nothing and keeps j at 0.
+  int r = threadIdx.x;
+  bool live = r < rows;
+  int j = 0;
+  float log_prod = 0.0f;
+  unsigned long long i = static_cast<unsigned long long>(row0 + r);
+  uint32_t c0 = static_cast<uint32_t>(i >> 32), c1 = static_cast<uint32_t>(i);
+  uint32_t r0 = 0u, r1 = 0u;
+  [[maybe_unused]] unsigned long long warp_iters = 0, lane_iters = 0;
+  for (;;) {
+    if constexpr (kCountSlots) {
+      const unsigned on = __ballot_sync(0xFFFFFFFFu, live);
+      warp_iters += on != 0u;
+      lane_iters += __popc(on);
+    }
+    uint32_t s0, s1;
+    if (j < J) {
+      const uint2 s = tab[j];
+      s0 = s.x;
+      s1 = s.y;
+    } else {
+      if (j == J) {
+        r0 = tab[J].x;
+        r1 = tab[J].y;
+      }
+      const uint4 s = split_chain(r0, r1);
+      r0 = s.x;
+      r1 = s.y;
+      s0 = s.z;
+      s1 = s.w;
+    }
+    uint32_t x0 = c0, x1 = c1;
+    threefry2x32(s0, s1, x0, x1);
+    const uint32_t b = x0 ^ x1;
+    const float u = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+    log_prod = __fadd_rn(log_prod, logf(u));
+    ++j;
+    const bool stop = !(log_prod > neg_lam);
+    if (live && stop) stage[r] = j - 1;
+    // a stopped lane, or one without a row, takes the tile's next row (the
+    // compiler makes the atomic one a warp: ballot, popc, shfl)
+    if (!live || stop) {
+      r = atomicAdd(&next_row, 1);
+      live = r < rows;
+      j = 0;
+      log_prod = 0.0f;
+      i = static_cast<unsigned long long>(row0 + r);
+      c0 = static_cast<uint32_t>(i >> 32);
+      c1 = static_cast<uint32_t>(i);
+    }
+    if (!__any_sync(0xFFFFFFFFu, live)) break;
+  }
+  if constexpr (kCountSlots) {
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(slots, warp_iters);
+      atomicAdd(slots + 1, lane_iters);
+    }
+  }
+  __syncthreads();
+  int* dst = out + static_cast<long long>(t) * N + row0;
+  for (int k = threadIdx.x; k < rows; k += kKnuthThreads) dst[k] = stage[k];
 }
 
 int grid_for(long long n, int sms) {
@@ -145,7 +236,49 @@ int grid_for(long long n, int sms) {
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
+// threefry2x32 on the host, for the chains' tables (the same rounds as
+// threefry2x32 above, with plain shifts for the rotations).
+void threefry2x32_host(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
+  static const int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kParity};
+  x0 += ks[0];
+  x1 += ks[1];
+  for (int i = 0; i < 5; ++i) {
+    for (const int r : kRot[i % 2]) {
+      x0 += x1;
+      x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
 }  // namespace
+
+// Host code, no launch: the first J subkeys of each key's chain rng, sub =
+// split(rng) (out[t, j] = sub of step j, u32[T, J, 2]), then each chain's
+// key after them (u32[T, 2], after the tables), from keys u32[T, 2]. What
+// ops/prng._split_chains computes in numpy, in microseconds instead of
+// milliseconds of numpy calls; the wrapper uploads it as poisson_knuth's
+// table. Returns 0, or cudaErrorInvalidValue for T < 1 or J < 1.
+extern "C" int knuth_chain_table(const unsigned* keys, long long T, int J, unsigned* out) {
+  if (T < 1 || J < 1) return static_cast<int>(cudaErrorInvalidValue);
+  for (long long t = 0; t < T; ++t) {
+    uint32_t r0 = keys[2 * t], r1 = keys[2 * t + 1];
+    for (int j = 0; j < J; ++j) {
+      uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+      threefry2x32_host(r0, r1, a0, a1);
+      threefry2x32_host(r0, r1, b0, b1);
+      out[(t * J + j) * 2] = b0;
+      out[(t * J + j) * 2 + 1] = b1;
+      r0 = a0;
+      r1 = a1;
+    }
+    out[T * J * 2 + 2 * t] = r0;
+    out[T * J * 2 + 2 * t + 1] = r1;
+  }
+  return 0;
+}
 
 extern "C" const char* prng_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -163,15 +296,32 @@ extern "C" int threefry_bits_launch(unsigned k0, unsigned k1, long long n, void*
 }
 
 // Writes the Poisson(lam) counts of T trees x N rows to out (i32[T, N]) on
-// `stream`; table (u32[T, J0, 2]) and rng (u32[T, 2]) are device memory.
-// lam > 0. Returns a cudaError_t. Allocates nothing and does not
-// synchronise.
-extern "C" int poisson_knuth_launch(const void* table, const void* rng, int J0, long long T,
-                                    long long N, float lam, void* out, int sms, void* stream) {
-  if (T < 1 || N < 1 || J0 < 1 || !(lam > 0.0f) || sms < 1)
+// `stream`, a block a tile of tile_rows rows of one tree; table (u32[T, J,
+// 2]) and rng (u32[T, 2]) are device memory. lam > 0; J in [1,
+// kKnuthTableMax]; tile_rows a multiple of 32 in [kKnuthThreads,
+// kKnuthTileMax]. slots: null, or u64[2] that the
+// measurement build adds its warp-iterations and lane-iterations to.
+// Returns a cudaError_t. Allocates nothing and does not synchronise.
+extern "C" int poisson_knuth_launch(const void* table, const void* rng, int J, long long T,
+                                    long long N, float lam, int tile_rows, void* out,
+                                    void* slots, int sms, void* stream) {
+  if (T < 1 || N < 1 || J < 1 || J > kKnuthTableMax || !(lam > 0.0f) || sms < 1 ||
+      tile_rows < kKnuthThreads || tile_rows > kKnuthTileMax || tile_rows % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  poisson_knuth<<<grid_for(T * N, sms), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(table), static_cast<const uint32_t*>(rng), J0, T, N, -lam,
-      static_cast<int*>(out));
+  const long long tiles = (N + tile_rows - 1) / tile_rows;
+  if (T * tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = sizeof(int) * tile_rows;
+  const dim3 grid(static_cast<unsigned>(T * tiles));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto* key = static_cast<const uint32_t*>(rng);
+  if (slots == nullptr)
+    poisson_knuth<false><<<grid, kKnuthThreads, shared, s>>>(
+        tab, key, J, static_cast<int>(tiles), tile_rows, N, -lam, static_cast<int*>(out),
+        nullptr);
+  else
+    poisson_knuth<true><<<grid, kKnuthThreads, shared, s>>>(
+        tab, key, J, static_cast<int>(tiles), tile_rows, N, -lam, static_cast<int*>(out),
+        static_cast<unsigned long long*>(slots));
   return static_cast<int>(cudaGetLastError());
 }

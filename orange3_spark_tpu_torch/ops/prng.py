@@ -53,10 +53,15 @@ __all__ = ["PRNGKey", "bernoulli", "categorical", "gumbel", "normal", "poisson",
 _U32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-#: iterations of each tree's split chain the wrapper of ``poisson_knuth``
-#: hands the kernel as a table; a lane past them splits on in the thread
-#: (at lam = 1 a count past 15 has probability ~4e-13)
-CHAIN_TABLE = 16
+#: the wrapper of ``poisson_knuth`` hands the kernel each tree's split
+#: chain for as many iterations as a count runs past with probability
+#: below this (``chain_table_size``); a lane past the table splits on in
+#: the thread
+CHAIN_PAST_P = 1e-9
+#: rows of one tree a block of ``poisson_knuth`` owns (shorter tiles lose
+#: more lane-slots to each tile's tail, also where they fill a short grid:
+#: probes/poisson_knuth_ab.py --tiles)
+KNUTH_TILE_ROWS = 8192
 _F32_TINY = float(np.finfo(np.float32).tiny)
 # XLA's float32 log on the CPU (Cephes' logf, as Eigen's plog): p0..p8, q1, q2
 _LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
@@ -132,7 +137,8 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
 
 def _split_chains(keys: list[tuple[int, int]], n: int):
     """The first ``n`` subkeys of each key's chain ``rng, sub = split(rng)``
-    (u32[T, n, 2]) and each chain's key after them (u32[T, 2])."""
+    (u32[T, n, 2]) and each chain's key after them (u32[T, 2]): the plain
+    version of the library's ``knuth_chain_table``."""
     r0 = np.array([k[0] for k in keys], dtype=np.uint32)
     r1 = np.array([k[1] for k in keys], dtype=np.uint32)
     T = r0.shape[0]
@@ -157,8 +163,10 @@ def _lib() -> ctypes.CDLL:
         p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
         lib.threefry_bits_launch.argtypes = [u, u, ll, p, i, p]
         lib.threefry_bits_launch.restype = i
-        lib.poisson_knuth_launch.argtypes = [p, p, i, ll, ll, ctypes.c_float, p, i, p]
+        lib.poisson_knuth_launch.argtypes = [p, p, i, ll, ll, ctypes.c_float, i, p, p, i, p]
         lib.poisson_knuth_launch.restype = i
+        lib.knuth_chain_table.argtypes = [p, ll, i, p]
+        lib.knuth_chain_table.restype = i
         lib.prng_error_string.argtypes = [i]
         lib.prng_error_string.restype = ctypes.c_char_p
     return lib
@@ -405,9 +413,10 @@ def poisson_reference(keys: list[tuple[int, int]], lam: float, n: int, device) -
 def poisson_knuth(keys: list[tuple[int, int]], lam: float, n: int, device) -> torch.Tensor:
     """``jax.vmap(lambda k: jax.random.poisson(k, lam, (n,)))(keys)``
     (i32[T, n]; lam < 10, Knuth's branch; lam == 0 gives 0). A CUDA device
-    launches ``poisson_knuth`` (one lane a thread, the chains' first
-    ``CHAIN_TABLE`` subkeys from a table built on the host), the CPU runs
-    the plain version."""
+    launches ``poisson_knuth`` (a block a tile of one tree's rows, a thread
+    a live lane, refilled from the tile as lanes stop; the chains' first
+    ``chain_table_size(lam)`` subkeys from a table built on the host), the
+    CPU runs the plain version."""
     device = torch.device(device)
     if device.type != "cuda":
         return poisson_reference(keys, lam, n, device)
@@ -415,27 +424,61 @@ def poisson_knuth(keys: list[tuple[int, int]], lam: float, n: int, device) -> to
     T = len(keys)
     if lam32 == 0 or n == 0 or T == 0:
         return torch.zeros((T, n), dtype=torch.int32, device=device)
+    J = chain_table_size(lam32)
     out = torch.empty((T, n), dtype=torch.int32, device=device)
-    _launch_knuth(_knuth_table(keys, device), lam32, out)
+    _launch_knuth(_knuth_table(keys, J, device), lam32, out, J)
     poisson_knuth.launches += 1
     return out
 
 
-def _knuth_table(keys: list[tuple[int, int]], device) -> torch.Tensor:
-    """The kernel's table on ``device``: the chains' first ``CHAIN_TABLE``
-    subkeys (u32[T, CHAIN_TABLE, 2]), then each chain's key after them
-    (u32[T, 2]), as int32 words."""
-    table, rng = _split_chains(keys, CHAIN_TABLE)
-    words = np.concatenate([table.reshape(-1), rng.reshape(-1)]).view(np.int32)
-    return torch.from_numpy(words).to(device)
+@functools.lru_cache(maxsize=None)
+def chain_table_size(lam: float) -> int:
+    """Subkeys of each chain ``poisson_knuth``'s table holds at ``lam``: the
+    least J >= 1 with P(Poisson(lam) >= J) < ``CHAIN_PAST_P`` (a count of J
+    needs J + 1 iterations, one past the table; cached: tens of microseconds
+    of Python a lam)."""
+    lam = float(lam)
+    J = 1
+    while _poisson_tail(lam, J) >= CHAIN_PAST_P:
+        J += 1
+    return J
 
 
-def _launch_knuth(packed: torch.Tensor, lam32, out: torch.Tensor) -> None:
+def _poisson_tail(lam: float, J: int) -> float:
+    """P(Poisson(lam) >= J), summed from J up in float64."""
+    term = math.exp(J * math.log(lam) - lam - math.lgamma(J + 1))
+    total, k = 0.0, J
+    while term > 1e-30 * max(total, 1e-300):
+        total += term
+        k += 1
+        term *= lam / k
+    return total
+
+
+def _knuth_table(keys: list[tuple[int, int]], J: int, device) -> torch.Tensor:
+    """The kernel's table on the CUDA ``device``: the chains' first ``J``
+    subkeys (u32[T, J, 2]), then each chain's key after them (u32[T, 2]), as
+    int32 words, from the library's host function ``knuth_chain_table``
+    (``_split_chains``' words, without ~3 ms of numpy calls a draw)."""
+    T = len(keys)
+    flat = np.array([int(w) & _U32 for k in keys for w in k], dtype=np.uint32)
+    words = np.empty(T * (J + 1) * 2, dtype=np.uint32)
+    err = _lib().knuth_chain_table(flat.ctypes.data, T, J, words.ctypes.data)
+    if err != 0:
+        raise ValueError(f"knuth_chain_table(T={T}, J={J}) refused: cudaError {err}")
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def _launch_knuth(packed: torch.Tensor, lam32, out: torch.Tensor, J: int,
+                  slots: torch.Tensor | None = None) -> None:
     """One launch of ``poisson_knuth`` into ``out`` (i32[T, n]) from
-    ``_knuth_table``'s words (uncounted: the wrapper counts)."""
+    ``_knuth_table(keys, J)``'s words (uncounted: the wrapper counts).
+    ``slots`` (i64[2] on the card) launches the measurement build instead,
+    which adds its warp-iterations and lane-iterations there."""
     T, n = out.shape
-    _launch("poisson_knuth", packed.data_ptr(), packed.data_ptr() + 4 * T * CHAIN_TABLE * 2,
-            CHAIN_TABLE, T, n, float(lam32), out.data_ptr(), dev=out.device)
+    _launch("poisson_knuth", packed.data_ptr(), packed.data_ptr() + 4 * T * J * 2, J, T, n,
+            float(lam32), KNUTH_TILE_ROWS, out.data_ptr(),
+            None if slots is None else slots.data_ptr(), dev=out.device)
 
 
 #: kernel launches (one a call on CUDA); counted where the kernel launches

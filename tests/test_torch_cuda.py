@@ -2056,27 +2056,62 @@ def test_threefry_bits_kernel_bitwise_its_plain_version(cuda_device, seed):
         assert torch.equal(draw(key, n, cuda_device).cpu(), draw(key, n, "cpu"))
 
 
+# (trees, rows, lam, chain table: None is the wrapper's, sized from lam)
+_KNUTH_CASES = [
+    pytest.param(20, 100_003, 0.5, None, id="0.5"),
+    pytest.param(20, 100_003, 1.0, None, id="1.0"),
+    pytest.param(20, 100_003, 0.8, None, id="0.8"),
+    # a table of 16 at lam 9.5: lanes run past it (~25 iterations)
+    pytest.param(20, 100_003, 9.5, 16, id="9.5"),
+    pytest.param(20, 100_003, 9.5, None, id="9.5-table-from-lam"),
+    # a table of 2 at lam 1: every lane with a count above 1 splits on
+    pytest.param(4, 100_003, 1.0, 2, id="1.0-table-2"),
+    pytest.param(20, 1, 1.0, None, id="n-1"),
+    pytest.param(3, 1000, 1.0, None, id="n-below-a-tile"),
+    pytest.param(2, 3 * 8192 + 777, 1.0, None, id="n-ragged"),
+    pytest.param(1, (1 << 20) + 3, 0.8, None, id="T-1-gbt"),
+    pytest.param(20, 100_003, 1e-3, None, id="lam-1e-3"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lam", [0.5, 1.0, 0.8, 9.5])
-def test_poisson_knuth_kernel_bitwise_its_plain_version(cuda_device, lam):
-    """``poisson_knuth`` (one lane a thread, the chain's first subkeys from
-    the wrapper's table, then split in the thread) against the plain
-    whole-batch loop on the card: every count, for a batch of 20 keys as
-    the forest draws them, the count moving one launch a call; a lane run
-    past the table (lam 9.5 needs ~25 iterations) included."""
+@pytest.mark.parametrize("T,n,lam,table", _KNUTH_CASES)
+def test_poisson_knuth_kernel_bitwise_its_plain_version(cuda_device, T, n, lam, table):
+    """``poisson_knuth`` (a block a tile of one tree's rows, a thread a live
+    lane refilled from the tile, the chain's first subkeys from the
+    wrapper's table, then split in the thread) against the plain
+    whole-batch loop on the card: every count, for a batch of keys as the
+    forest draws them, the wrapper's count moving one launch a call; at
+    one row, a tile's part, a ragged last tile, one key (GBT's round), a
+    lam where nearly every lane stops at once, and lanes run past the table
+    (lam 9.5 on a table of 16, a table of 2 at lam 1) or not (the table
+    sized from lam); the table the wrapper builds on the host equal to
+    ``_split_chains``' words."""
     from orange3_spark_tpu_torch.ops import prng
 
-    keys = [prng.split(k)[0] for k in prng.split(prng.PRNGKey(3), 20)]
-    n = 100_003
+    keys = [prng.split(k)[0] for k in prng.split(prng.PRNGKey(3), T)]
     before = prng.poisson_knuth.launches
-    got = prng.poisson_knuth(keys, lam, n, cuda_device)
-    assert prng.poisson_knuth.launches == before + 1
+    if table is None:
+        got = prng.poisson_knuth(keys, lam, n, cuda_device)
+        assert prng.poisson_knuth.launches == before + 1
+    else:       # the launch on a shorter table than the wrapper's
+        got = torch.empty((T, n), dtype=torch.int32, device=cuda_device)
+        prng._launch_knuth(prng._knuth_table(keys, table, cuda_device), np.float32(lam), got,
+                           table)
     want = prng.poisson_reference(keys, lam, n, cuda_device)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    if lam == 9.5:
-        assert int(got.max()) > prng.CHAIN_TABLE
-    assert torch.equal(prng.poisson(keys[0], lam, 777, cuda_device),
-                       want[0, :777])
+    J = prng.chain_table_size(lam) if table is None else table
+    # the table the wrapper uploads: the library's host chain, numpy's words
+    chain, after = prng._split_chains(keys, J)
+    words = np.concatenate([chain.reshape(-1), after.reshape(-1)]).view(np.int32)
+    assert torch.equal(prng._knuth_table(keys, J, cuda_device).cpu(), torch.from_numpy(words))
+    past = int((got + 1 > J).sum())
+    if table is not None:
+        assert past > 0
+    if lam == 9.5 and table is None:
+        assert J > 16 and past == 0
+    m = min(n, 777)
+    assert torch.equal(prng.poisson(keys[0], lam, m, cuda_device), want[0, :m])
 
 
 @pytest.mark.cuda

@@ -187,3 +187,111 @@ def test_split_chain_table_continues_the_chain():
             key, sub = prng.split(key)
             assert (int(table[t, j, 0]), int(table[t, j, 1])) == sub
         assert (int(rng[t, 0]), int(rng[t, 1])) == key
+
+
+@pytest.mark.parametrize("lam", [1e-3, 0.8, 1.0, 2.0, 5.0, 9.5])
+def test_chain_table_sized_from_lam(lam):
+    """``poisson_knuth``'s table at ``lam``: the least J past which a count
+    runs with probability below ``CHAIN_PAST_P`` (scipy's Poisson tail)."""
+    from scipy.stats import poisson
+
+    J = prng.chain_table_size(lam)
+    assert J >= 1 and poisson.sf(J - 1, lam) < prng.CHAIN_PAST_P
+    assert J == 1 or poisson.sf(J - 2, lam) >= prng.CHAIN_PAST_P
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_113poisson_knuthILb0EEEvPKjS2_iiixfPiPy
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_3:
+        /*0020*/                   IADD3 R2, R2, R3, RZ ;
+        /*0030*/              @!P0 BRA `(.L_x_1) ;
+        /*0040*/                   MOV R4, R2 ;
+        /*0050*/                   CALL.REL.NOINC `(.L_x_9) ;
+        /*0060*/                   MOV R2, R4 ;
+.L_x_1:
+        /*0070*/                   SHF.L.W.U32.HI R3, R3, 0xd, R3 ;
+        /*0080*/                   LOP3.LUT R3, R3, R2, RZ, 0x3c, !PT ;
+        /*0090*/               @P1 BRA `(.L_x_3) ;
+        /*00a0*/                   STG.E [R4.64], R2 ;
+        /*00b0*/                   EXIT ;
+.L_x_4:
+        /*00c0*/                   BRA `(.L_x_4);
+.L_x_9:
+        /*00d0*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*00e0*/                   LOP3.LUT R5, R4, R5, RZ, 0x3c, !PT ;
+        /*00f0*/                   RET.REL.NODEC R20 `(_ZN12_GLOBAL__N_113poisson_knuthILb0EEEvPKjS2_iiixfPiPy) ;
+        /*0100*/                   NOP;
+\t\tFunction : _ZN12_GLOBAL__N_113threefry_bitsEjjxPj
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_loop_counts_a_pass_without_the_call():
+    """``chip_smoke.sass_loop``, the yardstick of ``poisson_knuth``'s bound:
+    a cuobjdump listing's labels resolve to addresses, the longest backward
+    branch spans the loop, and the block that calls out of line (the split
+    past the table) and the NOP padding are left out of a pass; the call's
+    own instructions, its callee in the caller's listing, up to its RET."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    funcs = smoke.sass_functions(_SASS)
+    assert len(funcs) == 2
+    kernel = funcs["_ZN12_GLOBAL__N_113poisson_knuthILb0EEEvPKjS2_iiixfPiPy"]
+    assert [a for a, _, _ in kernel][:3] == [0x0, 0x10, 0x20]
+    loop = smoke.sass_loop(kernel)
+    assert loop["span"] == ["0x20", "0x90"] and loop["call_blocks_left_out"] == 1
+    assert loop["instructions"] == 5
+    assert loop["opcodes"] == {"IADD3": 1, "BRA": 2, "SHF": 1, "LOP3": 1}
+    assert smoke.sass_callee(funcs, kernel, loop["calls"][0]) == 3
+
+
+_SASS_NESTED = """
+\t\tFunction : knuth_work
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_0:
+        /*0010*/                   IADD3 R2, R0, R5, RZ ;
+        /*0020*/                   MOV R3, RZ ;
+.L_x_1:
+        /*0030*/                   LDG.E.64 R6, [R8.64] ;
+        /*0040*/                   LOP3.LUT R6, R6, R2, RZ, 0x3c, !PT ;
+        /*0050*/                   FADD R3, R3, R6 ;
+        /*0060*/                   FSETP.GT.AND P0, PT, R3, R4, PT ;
+        /*0070*/               @P0 BRA `(.L_x_1) ;
+        /*0080*/                   STG.E [R10.64], R2 ;
+        /*0090*/                   IADD3 R0, R0, 0x100, RZ ;
+        /*00a0*/                   ISETP.GE.AND P1, PT, R0, R12, PT ;
+        /*00b0*/              @!P1 BRA `(.L_x_0) ;
+        /*00c0*/                   EXIT ;
+.L_x_2:
+        /*00d0*/                   BRA `(.L_x_2);
+        /*00e0*/                   NOP;
+"""
+
+
+def test_sass_loop_innermost_counts_the_inner_pass():
+    """``chip_smoke.sass_loop`` over a loop in a loop (``knuth_work``'s
+    shape, the yardstick of ``poisson_knuth``'s work): the longest
+    backward branch spans a row, ``innermost`` an iteration, and the
+    function's closing branch to itself is no loop."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    insns = smoke.sass_functions(_SASS_NESTED)["knuth_work"]
+    rows, iters = smoke.sass_loop(insns), smoke.sass_loop(insns, innermost=True)
+    assert rows["span"] == ["0x10", "0xb0"] and rows["instructions"] == 11
+    assert iters["span"] == ["0x30", "0x70"] and iters["instructions"] == 5
+    assert iters["opcodes"] == {"LDG": 1, "LOP3": 1, "FADD": 1, "FSETP": 1, "BRA": 1}
