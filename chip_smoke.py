@@ -373,7 +373,44 @@ through ``threefry_bits``):
                   held-out metric no worse than the cut's by 0.005, a served
                   request bitwise raw, CV's fold ids bitwise the CPU's
 
-then the ``kernels`` line of six kernels (``node_histograms``: launches
+then MLlib's unsupervised, text, pattern and statistics modules (PyTorch
+ops; the grouped passes, Spearman's ranks, PIC's edge sums and Word2Vec's
+table gradients through ``segment_sum_sorted``; Word2Vec's negatives
+through ``categorical_gumbel``):
+
+  unsupervised    the card's float32 sqrt against the float64 root
+                  rounded (the premise of ``core/fmath.sqrt32``);
+                  GaussianMixture(k=10) and BisectingKMeans(k=10) on
+                  config 5's 10M x 8 taxi table after StandardScaler, both
+                  LSH families' approx_nearest_neighbors there; on the
+                  HIGGS proxy (11M x 28) Correlation (pearson, spearman),
+                  Summarizer, ANOVATest, FValueTest, MultivariateGaussian's
+                  logpdf, RobustScaler, VarianceThresholdSelector and
+                  UnivariateFeatureSelector; ChiSquareTest and
+                  ChiSqSelector of the 10M TLC trips' categorical columns
+                  against payment_type; PowerIterationClustering(k=2,
+                  max_iter=20, degree start) on a planted-partition graph
+                  of com-LiveJournal's size (3,997,962 nodes, 34,681,189
+                  edges, the denser community sourcing 60 % of them), held
+                  to the planted partition; on a Zipf corpus of 20 Newsgroups' 18,846
+                  documents Tokenizer, StopWordsRemover, NGram(2),
+                  HashingTF(2^18), CountVectorizer(10000), IDF, LDA(k=20,
+                  max_iter=20) and Word2Vec(100, min_count=5, window 5,
+                  negative 5; max_pairs cut to 2^16); FPGrowth(
+                  min_support=0.01) on T10I4D100K-shaped transactions and
+                  PrefixSpan (MLlib's defaults) on 10,000 of them. Each
+                  fit or call is timed
+                  (after a warm-up where its shapes ran first) and held to
+                  the CPU path on a cut (20,000 rows; 500 documents for
+                  LDA, 300 for Word2Vec; 10,000 transactions); then
+                  ``categorical_gumbel`` bitwise its plain version on the
+                  first 4,096 pairs' draws and timed at the fit's draw
+                  beside the instructions an element needs (the SASS of
+                  ``probes/categorical_work.cu`` with single-rounding
+                  FFMAs; its float64 form's count beside) at the issue
+                  rate
+
+then the ``kernels`` line of seven kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
 ``criteo`` phase's adam arm (the ``overload`` fit's beside them), the
@@ -388,8 +425,10 @@ beside it as ``criteo_shape``); ``normal_equations_sorted``: launches counted ov
 ``movielens_als`` phase's timed fit, the times of its user half-step, the
 item and skewed item half-steps beside; ``threefry_bits`` and
 ``poisson_knuth``: launches over the gbt and rf phases (and, for the
-words, the ``wrangle`` phase), the times of the ``prng`` phase; each fails
-the run if it counted no launch),
+words, the ``wrangle`` phase), the times of the ``prng`` phase;
+``categorical_gumbel``: launches over the ``unsupervised`` phase's timed
+Word2Vec fit, its times there; each fails the run if it counted no
+launch),
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ``ok`` line, as does a machine without CUDA or a directory without the
@@ -6644,6 +6683,522 @@ def phase_supervised(sess, higgs, smi) -> dict:
     return out
 
 
+# ------------------------------------------- MLlib's unsupervised, text,
+# frequent-pattern and statistics modules (ROADMAP queue 1 item 4b)
+UNSUP_CUT = 20_000              # the CPU path's rows of each compared fit
+UNSUP_TAXI_ROWS = 10_000_000    # config 5's table
+UNSUP_W2V_PAIRS = 1 << 16       # Word2Vec's max_pairs, cut from the reference's 2^20
+UNSUP_W2V_CHECK_PAIRS = 4096    # the kernel's bitwise check: the first pairs' draws
+UNSUP_PREFIXSPAN_SEQS = 10_000  # cut from 100,000: PrefixSpan's recursion is a host loop
+UNSUP_TEXT_CUT_DOCS = 500       # the CPU path's documents of the compared LDA fit
+UNSUP_W2V_CUT_DOCS, UNSUP_W2V_CUT_PAIRS = 300, 512   # the compared Word2Vec fit
+UNSUP_CORPUS_VOCAB = 20_000     # the corpus' word types
+# "pic": the share of nodes assigned differently card vs CPU; a node within
+# float32's resolution of the two centres' midpoint may flip (12 of the
+# 20,000 lie within 1e-4 of it, relative)
+UNSUP_TOL = {"gmm": 1e-3, "bkm": 1e-4, "stat": 1e-4, "lda": 1e-3, "w2v": 1e-5, "pic": 1e-3}
+UNSUP_PIC_FIRST_SHARE = 0.6     # the denser community's share of the edges' sources
+UNSUP_PIC_MIN_PLANTED = 0.99    # every PIC assignment against the planted partition
+
+
+def categorical_work_sass() -> dict:
+    """The instructions ``categorical_gumbel``'s function needs an element
+    (a hash, the uniform, XLA's log twice, the logit's add and the first-
+    maximum compare), from the SASS of ``probes/categorical_work.cu``'s
+    loop, built as a cubin with the package's code-generation flags: with
+    each multiply-add one single-rounding FFMA (``element``, the bound's
+    count; the same bits as the float64 form for every uniform JAX draws),
+    and in the kernel's own float64 form (``element_float64_form``)."""
+    from orange3_spark_tpu_torch.ops import cuda_build
+
+    src = os.path.join(ROOT, "probes", "categorical_work.cu")
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in cuda_build.NVCC_FLAGS if f.startswith(("-gencode", "-std", "-O"))]
+    out = {}
+    for name, define in (("element", ["-DPRNG_FMA32_SINGLE"]), ("element_float64_form", [])):
+        cubin = cuda_build.BUILD_DIR / f"categorical_work_{name}.cubin"
+        subprocess.run([cuda_build.nvcc_path(), *flags, *define, "-cubin", "-o", str(cubin),
+                        src], capture_output=True, text=True, timeout=300, check=True)
+        funcs = sass_functions(sass_text(cubin))
+        if "categorical_work" not in funcs:
+            raise AssertionError(f"categorical_work's SASS not found: {sorted(funcs)}")
+        loop = sass_loop(funcs["categorical_work"])
+        if loop["calls"]:
+            raise AssertionError(f"categorical_work's loop calls out of line: {loop}")
+        out[name] = loop["instructions"]
+        out[name.replace("element", "opcodes")] = loop["opcodes"]
+    return out
+
+
+def _sqrt_card_check() -> dict:
+    """The premise of ``core/fmath.sqrt32`` on CUDA: the card's float32
+    ``torch.sqrt`` of 1,000,000 seeded values equals the float64 root
+    rounded once."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(1e-6, 1e6, 1_000_000)
+                         .astype(np.float32)).cuda()
+    misses = int((torch.sqrt(x) != torch.sqrt(x.double()).float()).sum())
+    if misses:
+        raise AssertionError(f"the card's float32 sqrt is not correctly rounded: {misses} "
+                             "of 1,000,000 differ from the float64 root rounded")
+    return {"values": 1_000_000, "misses": misses}
+
+
+def _unsup_rel(a, b) -> float:
+    """The largest |a - b| / max(1, |a|) over paired arrays or tensors."""
+    import numpy as np
+    import torch
+
+    def host(v):
+        return np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, np.float64)
+    a, b = host(a), host(b)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(a)), initial=0.0))
+
+
+def _unsup_timed(fn):
+    """(result, seconds) of ``fn()`` on the card, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _unsup_check(out: dict, name: str, err, tol, **extra) -> None:
+    out[name] = {"card_vs_cpu_cut": err, "tolerance": tol, **extra}
+    print(json.dumps({"unsupervised": name, **out[name]}), file=sys.stderr, flush=True)
+    if not err <= tol:
+        raise AssertionError(f"unsupervised {name}: card cut {err} from the CPU's "
+                             f"(tolerance {tol}); {json.dumps(out[name])}")
+
+
+def _unsup_tables(domain, X, Y, sess, cpu, cut=UNSUP_CUT, metas=None):
+    """(card table, card cut, CPU cut) of the same rows."""
+    from orange3_spark_tpu_torch import TorchTable
+
+    def mk(s, n):
+        return TorchTable.from_numpy(domain, X[:n], None if Y is None else Y[:n],
+                                     None if metas is None else metas[:n], session=s)
+    return mk(sess, None), mk(sess, cut), mk(cpu, cut)
+
+
+def _unsup_clusters(sess, cpu, out) -> None:
+    """GaussianMixture(k=10) and BisectingKMeans(k=10) on config 5's taxi
+    table after StandardScaler, then both LSH families' neighbours."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.datasets import make_taxi_proxy, taxi_domain
+    from orange3_spark_tpu_torch.models import feature_extra as FE
+    from orange3_spark_tpu_torch.models.bisecting_kmeans import BisectingKMeans
+    from orange3_spark_tpu_torch.models.gaussian_mixture import GaussianMixture
+    from orange3_spark_tpu_torch.models.preprocess import StandardScaler
+
+    X = make_taxi_proxy(UNSUP_TAXI_ROWS)
+    raw = TorchTable.from_numpy(taxi_domain(), X, session=sess)
+    del X
+    scaled, s_scale = _unsup_timed(lambda: StandardScaler(with_mean=True).fit(raw)
+                                   .transform(raw))
+    Xs = scaled.X.cpu().numpy()
+    full, card_cut, cpu_cut = _unsup_tables(taxi_domain(), Xs, None, sess, cpu)
+    del raw, scaled, Xs
+    out["taxi"] = {"rows": full.n_rows, "features": full.n_attrs, "scaler_s": s_scale}
+
+    gm_cmp = GaussianMixture(k=10, max_iter=5, seed=0)
+    a, b = gm_cmp.fit(card_cut), gm_cmp.fit(cpu_cut)
+    err = max(_unsup_rel(getattr(b, f), getattr(a, f)) for f in ("weights", "means", "covs"))
+    GaussianMixture(k=10, seed=0).fit(card_cut)                  # warm-up
+    gm, fit_s = _unsup_timed(lambda: GaussianMixture(k=10, seed=0).fit(full))
+    _unsup_check(out, "gaussian_mixture", err, UNSUP_TOL["gmm"], compared_at_iterations=5,
+                 iterations_equal=a.n_iter_ == b.n_iter_, fit_s=fit_s, n_iter=gm.n_iter_,
+                 log_likelihood=gm.log_likelihood_,
+                 cluster_sizes=gm.cluster_sizes_.cpu().numpy().tolist())
+    if not np.isfinite(gm.log_likelihood_) or a.n_iter_ != b.n_iter_:
+        raise AssertionError(f"gaussian_mixture: {out['gaussian_mixture']}")
+
+    bk = BisectingKMeans(k=10, seed=0)
+    a, b = bk.fit(card_cut), bk.fit(cpu_cut)
+    err = _unsup_rel(b.centers, a.centers)
+    bm, fit_s = _unsup_timed(lambda: bk.fit(full))
+    _unsup_check(out, "bisecting_kmeans", err, UNSUP_TOL["bkm"], fit_s=fit_s,
+                 leaves=int(bm.centers.shape[0]), training_cost=bm.training_cost_,
+                 cluster_sizes=bm.cluster_sizes_.cpu().numpy().tolist())
+
+    key = full.X[0].cpu().numpy()
+    for name, est in (("brp_lsh", FE.BucketedRandomProjectionLSH(bucket_length=2.0,
+                                                                  num_hash_tables=3, seed=0)),
+                      ("minhash_lsh", FE.MinHashLSH(num_hash_tables=3, seed=0))):
+        ic, dc = est.fit(card_cut).approx_nearest_neighbors(card_cut, key, k=10)
+        ih, dh = est.fit(cpu_cut).approx_nearest_neighbors(cpu_cut, key, k=10)
+        model = est.fit(full)
+        model.approx_nearest_neighbors(full, key, k=10)           # warm-up
+        (idx, dist), s = _unsup_timed(lambda: model.approx_nearest_neighbors(full, key, k=10))
+        _unsup_check(out, name, 0 if np.array_equal(ic, ih) else 1, 0, neighbours_s=s,
+                     distance_rel=_unsup_rel(dh, dc), found=len(idx),
+                     nearest=[int(i) for i in idx[:3]])
+    del full, card_cut, cpu_cut
+    torch.cuda.empty_cache()
+
+
+def _unsup_stats(sess, cpu, higgs, out) -> None:
+    """``models/stat`` and the feature selectors on config 3's HIGGS proxy
+    (11,000,000 x 28), each held to the CPU path on a cut."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import higgs_domain
+    from orange3_spark_tpu_torch.models import feature_extra as FE
+    from orange3_spark_tpu_torch.models import stat as S
+
+    X, y = higgs
+    full, card_cut, cpu_cut = _unsup_tables(higgs_domain(), X, y, sess, cpu)
+    out["higgs"] = {"rows": full.n_rows, "features": full.n_attrs}
+    mean = X[:UNSUP_CUT].astype(np.float64).mean(0)
+    cov = np.cov(X[:UNSUP_CUT].astype(np.float64), rowvar=False)
+    cases = {
+        "pearson": lambda t: S.Correlation.corr(t, "pearson"),
+        "spearman": lambda t: S.Correlation.corr(t, "spearman"),
+        "summarizer": lambda t: np.stack([S.Summarizer.metrics(t).variance,
+                                          S.Summarizer.metrics(t).mean]),
+        "anova": lambda t: S.ANOVATest.test(t).f_values,
+        "fvalue": lambda t: S.FValueTest.test(t).f_values,
+        "mvn_logpdf": lambda t: S.MultivariateGaussian(mean, cov, device=t.X.device)
+        .logpdf(t.X[: t.n_rows]),
+        "robust_scaler": lambda t: FE.RobustScaler().fit(t).iqr,
+    }
+    for name, fn in cases.items():
+        err = _unsup_rel(fn(cpu_cut), fn(card_cut))
+        res, s = _unsup_timed(lambda: fn(full))
+        finite = bool(np.isfinite(np.asarray(res.detach().cpu() if isinstance(
+            res, torch.Tensor) else res)).all())
+        _unsup_check(out, name, err, UNSUP_TOL["stat"], s=s, finite=finite)
+        if not finite:
+            raise AssertionError(f"unsupervised {name}: non-finite output on the card")
+        del res
+    for name, est in (("variance_threshold", FE.VarianceThresholdSelector(
+                           variance_threshold=1.0)),
+                      ("univariate_selector", FE.UnivariateFeatureSelector(
+                          selection_threshold=10))):
+        same = est.fit(card_cut).selected == est.fit(cpu_cut).selected
+        model, s = _unsup_timed(lambda: est.fit(full))
+        _unsup_check(out, name, 0 if same else 1, 0, fit_s=s, selected=len(model.selected))
+    del full, card_cut, cpu_cut
+    torch.cuda.empty_cache()
+
+
+def _unsup_tlc(sess, cpu, out) -> None:
+    """ChiSquareTest and ChiSqSelector of the TLC trips' categorical columns
+    against payment_type (rows with a missing value weighted 0)."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.core.domain import Domain
+    from orange3_spark_tpu_torch.datasets import TLC_COLUMNS, make_tlc_trips, tlc_domain
+    from orange3_spark_tpu_torch.models import feature_extra as FE
+    from orange3_spark_tpu_torch.models import stat as S
+
+    T = make_tlc_trips(WRANGLE_ROWS)
+    cols = ("VendorID", "PULocationID", "DOLocationID", "passenger_count")
+    full_dom = tlc_domain()
+    dom = Domain([full_dom[c] for c in cols], full_dom["payment_type"])
+    idx = [TLC_COLUMNS.index(c) for c in cols]
+    X, Y = T[:, idx], T[:, TLC_COLUMNS.index("payment_type")]
+    del T
+    tabs = [t.dropna() for t in _unsup_tables(dom, X, Y, sess, cpu)]
+    full, card_cut, cpu_cut = tabs
+    a, b = S.ChiSquareTest.test(card_cut), S.ChiSquareTest.test(cpu_cut)
+    same = (np.array_equal(a.statistics, b.statistics)
+            and np.array_equal(a.degrees_of_freedom, b.degrees_of_freedom))
+    S.ChiSquareTest.test(card_cut)
+    res, s = _unsup_timed(lambda: S.ChiSquareTest.test(full))
+    _unsup_check(out, "chi_square", 0 if same else 1, 0, rows=full.n_rows, s=s,
+                 dof=res.degrees_of_freedom.tolist(), statistics=res.statistics.tolist())
+    sel = FE.ChiSqSelector(selection_threshold=2, n_bins=16)
+    same = sel.fit(card_cut).selected == sel.fit(cpu_cut).selected
+    model, s = _unsup_timed(lambda: sel.fit(full))
+    _unsup_check(out, "chisq_selector", 0 if same else 1, 0, fit_s=s,
+                 selected=list(model.selected))
+    del full, card_cut, cpu_cut, tabs
+    torch.cuda.empty_cache()
+
+
+def _unsup_pic(sess, cpu, out) -> None:
+    """PowerIterationClustering(k=2, max_iter=20, init_mode='degree') on a
+    planted-partition graph of com-LiveJournal's size whose first community
+    is the denser one (it sources ``UNSUP_PIC_FIRST_SHARE`` of the edges),
+    so the degree start carries the partition. ``assign_clusters`` is held
+    card against CPU on a 20,000-node graph of the same kind, and every
+    assignment, the full-size fit's included, to the planted partition.
+    (From a random start the pseudo-eigenvector's spread shrinks as
+    1/sqrt(nodes), and the reference's float32 1-D k-means, a matmul
+    identity, cannot split it at this size.)"""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import (
+        LIVEJOURNAL_EDGES, LIVEJOURNAL_NODES, make_planted_graph,
+    )
+    from orange3_spark_tpu_torch.models.power_iteration import PowerIterationClustering
+
+    def planted(assign) -> float:
+        hit = float(np.mean(assign == (np.arange(len(assign)) >= len(assign) // 2)))
+        return max(hit, 1.0 - hit)
+
+    pic = PowerIterationClustering(k=2, max_iter=20, init_mode="degree", seed=0)
+    n_small = UNSUP_CUT
+    small = make_planted_graph(n_small, n_small * LIVEJOURNAL_EDGES // LIVEJOURNAL_NODES,
+                               first_share=UNSUP_PIC_FIRST_SHARE)
+    card_cut = pic.assign_clusters(small, device=sess.device)      # also the warm-up
+    cpu_cut = pic.assign_clusters(small, device=cpu.device)
+    err = float(np.mean(card_cut != cpu_cut))
+    graph = make_planted_graph(LIVEJOURNAL_NODES, LIVEJOURNAL_EDGES,
+                               first_share=UNSUP_PIC_FIRST_SHARE)
+    assign, s = _unsup_timed(lambda: pic.assign_clusters(graph, device=sess.device))
+    agreement = {"cut_card": planted(card_cut), "cut_cpu": planted(cpu_cut),
+                 "full_card": planted(assign)}
+    _unsup_check(out, "power_iteration", err, UNSUP_TOL["pic"], nodes=LIVEJOURNAL_NODES,
+                 edges=LIVEJOURNAL_EDGES, fit_s=s, init_mode="degree",
+                 first_share=UNSUP_PIC_FIRST_SHARE, planted_agreement=agreement,
+                 min_planted_agreement=UNSUP_PIC_MIN_PLANTED,
+                 sizes=np.bincount(assign, minlength=2).tolist(),
+                 compared=f"the share of {n_small} nodes that assign_clusters puts in "
+                          "another cluster on the card than on the CPU")
+    if min(agreement.values()) < UNSUP_PIC_MIN_PLANTED:
+        raise AssertionError(f"power_iteration misses the planted partition: "
+                             f"{out['power_iteration']}")
+    torch.cuda.empty_cache()
+
+
+def _text_table(docs, sess):
+    import numpy as np
+
+    from orange3_spark_tpu_torch import TorchTable
+    from orange3_spark_tpu_torch.core.domain import Domain, StringVariable
+
+    return TorchTable.from_numpy(Domain([], None, [StringVariable("text")]),
+                                 np.zeros((len(docs), 0), np.float32), metas=docs, session=sess)
+
+
+def _unsup_text(sess, cpu, out, mem_bw, int_rate) -> dict:
+    """The text path on a seeded Zipf corpus of 20 Newsgroups' 18,846
+    documents: the string stages into HashingTF(2^18), CountVectorizer(
+    10000) then IDF, LDA(k=20, max_iter=20) on the counts, Word2Vec; then
+    ``categorical_gumbel`` held bitwise against its plain version on the
+    first pairs' draws and timed at the fit's full shape. Returns the
+    kernel's line."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.datasets import NEWSGROUPS_DOCS, make_zipf_corpus
+    from orange3_spark_tpu_torch.models import text as T
+    from orange3_spark_tpu_torch.models.lda import LDA
+    from orange3_spark_tpu_torch.ops import prng
+
+    docs = make_zipf_corpus(NEWSGROUPS_DOCS, vocab=UNSUP_CORPUS_VOCAB)
+    table = _text_table(docs, sess)
+    stages = {}
+    t = table
+    for name, st in (("tokenizer", T.Tokenizer()), ("stop_words", T.StopWordsRemover()),
+                     ("ngram", T.NGram(input_col="filtered", output_col="bigrams"))):
+        t, stages[name] = _unsup_timed(lambda: st.transform(t))
+    tokens = int(sum(len(x) for x in t.metas[:, -1]))
+    htf = T.HashingTF(input_col="bigrams", num_features=1 << 18)
+    hashed, stages["hashing_tf"] = _unsup_timed(lambda: htf.transform(t))
+    cut_rows = 200
+    small = T.NGram(input_col="filtered", output_col="bigrams").transform(
+        T.StopWordsRemover().transform(T.Tokenizer().transform(_text_table(docs[:cut_rows],
+                                                                           cpu))))
+    same_hash = torch.equal(hashed.X[:cut_rows].cpu(), htf.transform(small).X)
+    hashed_sum = float(hashed.X.sum())
+    del hashed
+    torch.cuda.empty_cache()
+    toks = T.Tokenizer().transform(table)
+    cv, stages["count_vectorizer_fit"] = _unsup_timed(
+        lambda: T.CountVectorizer(vocab_size=10000).fit(toks))
+    counts, stages["count_vectorizer"] = _unsup_timed(lambda: cv.transform(toks))
+    idf, stages["idf_fit"] = _unsup_timed(lambda: T.IDF().fit(counts))
+    _, stages["idf"] = _unsup_timed(lambda: idf.transform(counts))
+
+    def cut_fits(s):
+        """CountVectorizer(10000) then IDF fitted on the first documents."""
+        tk = T.Tokenizer().transform(_text_table(docs[:cut_rows], s))
+        model = T.CountVectorizer(vocab_size=10000).fit(tk)
+        c = model.transform(tk)
+        return model.vocabulary, c.X[: c.n_rows].cpu(), T.IDF().fit(c).idf.cpu()
+
+    (voc_card, cnt_card, idf_card), (voc_cpu, cnt_cpu, idf_cpu) = cut_fits(sess), cut_fits(cpu)
+    equal_cpu = {"hashing_tf": same_hash, "count_vectorizer_vocabulary": voc_card == voc_cpu,
+                 "count_vectorizer_counts": torch.equal(cnt_card, cnt_cpu),
+                 "idf_weights": torch.equal(idf_card, idf_cpu)}
+    _unsup_check(out, "text_stages", sum(not v for v in equal_cpu.values()), 0, **stages,
+                 documents=len(docs), tokens_after_ngram=tokens, hashed_total=hashed_sum,
+                 equal_cpu=equal_cpu, compared_documents=cut_rows, vocab=len(cv.vocabulary),
+                 compared="stages that differ card vs CPU on the first documents, each "
+                          "fitted on its own device and held bitwise")
+
+    lda_small = LDA(k=20, max_iter=3, seed=0)
+    cut_docs = UNSUP_TEXT_CUT_DOCS
+    card_cut = cv.transform(T.Tokenizer().transform(_text_table(docs[:cut_docs], sess)))
+    cpu_cut = cv.transform(T.Tokenizer().transform(_text_table(docs[:cut_docs], cpu)))
+    err = _unsup_rel(lda_small.fit(cpu_cut).lam, lda_small.fit(card_cut).lam)
+    lda, fit_s = _unsup_timed(lambda: LDA(k=20, max_iter=20, seed=0).fit(counts))
+    perplexity = lda.log_perplexity(counts)
+    _unsup_check(out, "lda", err, UNSUP_TOL["lda"], fit_s=fit_s, compared_at_iterations=3,
+                 matrix=[counts.n_rows, counts.n_attrs],
+                 matrix_mb=counts.n_rows * counts.n_attrs * 4 / 1e6,
+                 log_perplexity=perplexity)
+    if not np.isfinite(perplexity):
+        raise AssertionError("lda: non-finite perplexity")
+    del counts, card_cut, cpu_cut, lda
+    torch.cuda.empty_cache()
+
+    w2v_kw = dict(vector_size=100, min_count=5, window_size=5, negative=5)
+    cut_w2v = dict(max_pairs=UNSUP_W2V_CUT_PAIRS, **w2v_kw)
+    a = T.Word2Vec(**cut_w2v).fit(
+        T.Tokenizer().transform(_text_table(docs[:UNSUP_W2V_CUT_DOCS], sess)))
+    b = T.Word2Vec(**cut_w2v).fit(
+        T.Tokenizer().transform(_text_table(docs[:UNSUP_W2V_CUT_DOCS], cpu)))
+    err = float((a.vectors.cpu() - b.vectors).abs().max())
+    prng.categorical_gumbel.launches = 0
+    w2v, fit_s = _unsup_timed(lambda: T.Word2Vec(max_pairs=UNSUP_W2V_PAIRS, **w2v_kw)
+                              .fit(toks))
+    launches = prng.categorical_gumbel.launches
+    again = T.Word2Vec(max_pairs=UNSUP_W2V_PAIRS, **w2v_kw).fit(toks)
+    bitwise_refit = torch.equal(again.vectors, w2v.vectors)
+    V = len(w2v.vocabulary)
+    _unsup_check(out, "word2vec", err, UNSUP_TOL["w2v"], fit_s=fit_s, vocab=V,
+                 pairs=UNSUP_W2V_PAIRS, steps=10, kernel_launches=launches,
+                 two_fits_bitwise=bitwise_refit, compared="max |vectors| difference, "
+                 f"{UNSUP_W2V_CUT_DOCS} documents, {UNSUP_W2V_CUT_PAIRS} pairs")
+    if launches != 10 or not bitwise_refit:
+        raise AssertionError(f"word2vec: {out['word2vec']}")
+
+    # the kernel at the fit's draw: P x negative rows over V
+    freq = _w2v_probs(toks, w2v.vocabulary)
+    logits = prng._xla_log(torch.from_numpy(freq).to(sess.device))
+    key = prng.split(prng.split(prng.PRNGKey(0))[0])[1]
+    rows = UNSUP_W2V_PAIRS * w2v_kw["negative"]
+    check_rows = UNSUP_W2V_CHECK_PAIRS * w2v_kw["negative"]
+    got = prng.categorical_gumbel(key, logits, rows)
+    plain, plain_s = _unsup_timed(lambda: prng.categorical_gumbel_reference(key, logits,
+                                                                            check_rows))
+    bitwise = torch.equal(got[:check_rows], plain)
+    prefix_ms = cuda_ms(lambda: prng.categorical_gumbel(key, logits, check_rows), 5, warmup=1)
+    ms = cuda_ms(lambda: prng.categorical_gumbel(key, logits, rows), 2)
+    sass = categorical_work_sass()
+    elements = rows * V
+    bound = _prng_bound(4 * rows + 4 * V, sass["element"] * elements, mem_bw, int_rate)
+    line = {"rows": rows, "V": V, "elements": elements, "check_rows": check_rows,
+            "bitwise_plain": bitwise, "max_abs_err": 0 if bitwise else None,
+            "ms": ms, "prefix_ms": prefix_ms, "plain_prefix_ms": plain_s * 1e3,
+            "plain_ms": plain_s * 1e3, "plain_at": f"the first {check_rows} rows",
+            "launches": launches, "instructions_per_element": sass["element"],
+            "instructions_per_element_float64_form": sass["element_float64_form"],
+            "element_opcodes": sass["opcodes"],
+            "element_opcodes_float64_form": sass["opcodes_float64_form"], **bound,
+            "x_bound": ms / bound["bound_ms"]}
+    if not bitwise:
+        raise AssertionError(f"categorical_gumbel differs from its plain version: {line}")
+    del got, plain
+    torch.cuda.empty_cache()
+    return line
+
+
+def _w2v_probs(toks, vocab):
+    """Word2Vec's unigram^0.75 distribution over ``vocab`` (float32)."""
+    import numpy as np
+
+    counts: dict[str, int] = {}
+    live = toks.W[: toks.n_rows].cpu().numpy() > 0
+    for i, ts in enumerate(toks.metas[:, -1]):
+        if live[i]:
+            for w in ts:
+                counts[w] = counts.get(w, 0) + 1
+    freq = np.asarray([counts[w] for w in vocab], dtype=np.float64) ** 0.75
+    return (freq / freq.sum()).astype(np.float32)
+
+
+def _unsup_fpm(sess, cpu, out) -> None:
+    """FPGrowth(min_support=0.01) on T10I4D100K-shaped transactions, held
+    to the CPU on 10,000 of them; PrefixSpan at MLlib's defaults
+    (minSupport 0.1, maxPatternLength 10) on the first
+    ``UNSUP_PREFIXSPAN_SEQS`` of them as sequences of 3-item itemsets."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.core.domain import Domain, StringVariable
+    from orange3_spark_tpu_torch.datasets import make_transactions
+    from orange3_spark_tpu_torch.models.fpm import FPGrowth, PrefixSpan
+
+    tx = make_transactions()
+    dom = Domain([], None, [StringVariable("items")])
+    X = np.zeros((len(tx), 0), np.float32)
+    full, card_cut, cpu_cut = _unsup_tables(dom, X, None, sess, cpu, cut=10_000, metas=tx)
+    fp = FPGrowth(items_col="items", min_support=0.01, min_confidence=0.5)
+    a, b = fp.fit(card_cut), fp.fit(cpu_cut)
+    same = a.freq_itemsets_ == b.freq_itemsets_ and a.association_rules_ == b.association_rules_
+    model, fit_s = _unsup_timed(lambda: fp.fit(full))
+    pred, tr_s = _unsup_timed(lambda: model.transform(full))
+    sizes = np.bincount([len(s) for s, _ in model.freq_itemsets_])
+    _unsup_check(out, "fpgrowth", 0 if same else 1, 0, transactions=len(tx),
+                 mean_length=float(np.mean([len(t) for t in tx[:, 0]])), fit_s=fit_s,
+                 transform_s=tr_s, itemsets_by_size=sizes.tolist(),
+                 rules=len(model.association_rules_), predicted_items=pred.n_attrs)
+    seqs = np.empty((UNSUP_PREFIXSPAN_SEQS, 1), dtype=object)
+    seqs[:, 0] = [[t[i:i + 3] for i in range(0, len(t), 3)]
+                  for t in tx[:UNSUP_PREFIXSPAN_SEQS, 0]]
+    _, card_seq, cpu_seq = _unsup_tables(Domain([], None, [StringVariable("sequence")]),
+                                         X[:UNSUP_PREFIXSPAN_SEQS], None, sess, cpu,
+                                         cut=UNSUP_PREFIXSPAN_SEQS, metas=seqs)
+    ps = PrefixSpan()
+    pats, s = _unsup_timed(lambda: ps.find_frequent_sequential_patterns(card_seq))
+    same = pats == ps.find_frequent_sequential_patterns(cpu_seq)
+    _unsup_check(out, "prefix_span", 0 if same else 1, 0, sequences=UNSUP_PREFIXSPAN_SEQS,
+                 s=s, patterns=len(pats))
+
+
+def phase_unsupervised(sess, higgs, mem_bw, int_rate) -> dict:
+    """ROADMAP queue 1 item 4b at full width on the card, each fit or call
+    timed (after a warm-up where the same shapes ran first) and held to
+    the CPU path on a cut. ``segment_sum_sorted`` and
+    ``categorical_gumbel``'s launches are counted over the phase."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.ops import prng
+    from orange3_spark_tpu_torch.ops.segment_sum import segment_sum_sorted
+
+    cpu = TorchSession("cpu")
+    t_start = time.perf_counter()
+    out = {"sqrt_card": _sqrt_card_check()}
+    segment_sum_sorted.launches = 0
+    prng.categorical_gumbel.launches = 0
+    sections = {}
+
+    def section(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        sections[name] = time.perf_counter() - t0
+        return res
+
+    section("clusters_lsh", lambda: _unsup_clusters(sess, cpu, out))
+    section("stats_higgs", lambda: _unsup_stats(sess, cpu, higgs, out))
+    section("chi_square_tlc", lambda: _unsup_tlc(sess, cpu, out))
+    section("pic", lambda: _unsup_pic(sess, cpu, out))
+    kernel = section("text", lambda: _unsup_text(sess, cpu, out, mem_bw, int_rate))
+    section("fpm", lambda: _unsup_fpm(sess, cpu, out))
+    out["section_s"] = sections
+    out["segment_sum_launches"] = segment_sum_sorted.launches
+    out["categorical_gumbel"] = kernel
+    out["cuts"] = {"word2vec_max_pairs": f"{UNSUP_W2V_PAIRS} (the reference's 2^20)",
+                   "prefix_span_sequences": f"{UNSUP_PREFIXSPAN_SEQS} (the corpus' 100,000)",
+                   "cpu_cut_rows": UNSUP_CUT}
+    out["phase_s"] = time.perf_counter() - t_start
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -6933,6 +7488,14 @@ def _run(args) -> int:
         phase = "supervised"
         emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
               **phase_supervised(sess, higgs, nvidia_smi_line())})
+        torch.cuda.empty_cache()
+
+        # ---- MLlib's unsupervised, text, pattern and statistics modules
+        # (segment_sum_sorted's grouped passes; Word2Vec's negatives on
+        # categorical_gumbel)
+        phase = "unsupervised"
+        unsup_line = phase_unsupervised(sess, higgs, mem_bw, int32_rate())
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(), **unsup_line})
         del higgs
         torch.cuda.empty_cache()
 
@@ -6954,6 +7517,11 @@ def _run(args) -> int:
         for name, n in main_draws.items():
             if n == 0:
                 raise AssertionError(f"the main path's forest fit never launched {name}")
+        cg = unsup_line["categorical_gumbel"]
+        if cg["launches"] == 0:
+            raise AssertionError("the Word2Vec fit never launched categorical_gumbel")
+        if unsup_line["segment_sum_launches"] == 0:
+            raise AssertionError("the unsupervised phase never launched segment_sum_sorted")
         pk, tb = prng_line["poisson_knuth"], prng_line["threefry_bits"]
         gbk = wrangle_line["kernel"]
         ne = als_line["kernel"]["user"]
@@ -7134,6 +7702,28 @@ def _run(args) -> int:
                           for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "x_bound",
                                     "hash_bound_ms", "x_hash_bound", "useful_share",
                                     "bitwise_plain", "tile_rows")},
+        }, {
+            "name": "categorical_gumbel",
+            "route": "cuda",
+            "source": "orange3_spark_tpu_torch/ops/csrc/prng.cu",
+            # no Pallas kernel: XLA fuses jax.random.categorical's gumbel and argmax
+            "replaces": "none",
+            "launches": cg["launches"],
+            "launches_counted_over": "the unsupervised phase's timed Word2Vec fit",
+            "max_abs_err": cg["max_abs_err"], "bitwise_plain": cg["bitwise_plain"],
+            **{k: cg[k] for k in ("ms", "prefix_ms", "plain_ms", "plain_at", "bound_ms",
+                                  "bound_by", "bytes", "int_ops", "x_bound",
+                                  "instructions_per_element",
+                                  "instructions_per_element_float64_form", "rows", "V",
+                                  "elements")},
+            "bound": "the instructions an element needs (probes/categorical_work.cu's "
+                     "SASS, each multiply-add one FFMA) x the draw's elements at the "
+                     "issue rate",
+            "library_ms": None, "library": "no PyTorch call computes JAX's stream",
+            "timed": "CUDA events: ms 2 launches at the fit's draw, prefix_ms 5 at the "
+                     "checked rows; plain_ms one plain run of the checked rows",
+            "at": f"Word2Vec's negatives: {cg['rows']} rows (2^16 pairs x 5) over "
+                  f"{cg['V']} words",
         }]})
         print(nvidia_smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

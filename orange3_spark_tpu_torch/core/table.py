@@ -21,6 +21,7 @@ from orange3_spark_tpu_torch.core.domain import (
     Domain,
     Variable,
 )
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.core.session import TorchSession
 from orange3_spark_tpu_torch.ops.stats import weighted_moments, weighted_quantiles
 
@@ -267,7 +268,7 @@ class TorchTable:
         mean, var, _ = weighted_moments(self.X, self.W)
         big = float(np.finfo(np.float32).max)
         live = self.W[:, None] > 0
-        stats = {"mean": mean, "std": torch.sqrt(var),
+        stats = {"mean": mean, "std": sqrt32(var),
                  "min": torch.where(live, self.X, big).amin(dim=0),
                  "max": torch.where(live, self.X, -big).amax(dim=0)}
         return {k: v.cpu().numpy() for k, v in stats.items()}

@@ -1,6 +1,9 @@
-"""Datasets of the PyTorch package: the Iris table (BASELINE config 1) and
+"""Datasets of the PyTorch package: the Iris table (BASELINE config 1),
 generators that give the JAX package's draws from the same seed (the
-HIGGS, taxi and MovieLens proxies, ``make_blobs``, ``make_ratings``)."""
+HIGGS, taxi and MovieLens proxies, ``make_blobs``, ``make_ratings``), and
+seeded stand-ins of public data at its size (a planted-partition graph of
+com-LiveJournal's size, a Zipf corpus of 20 Newsgroups' documents,
+T10I4D100K-shaped transactions)."""
 
 from __future__ import annotations
 
@@ -269,6 +272,89 @@ def make_movielens_proxy(n_ratings: int, seed: int = 1) -> np.ndarray:
     return np.stack(
         [uu.astype(np.float32), ii.astype(np.float32), rr], axis=1
     ).astype(np.float32)
+
+
+#: SNAP's com-LiveJournal: nodes and undirected edges
+LIVEJOURNAL_NODES, LIVEJOURNAL_EDGES = 3_997_962, 34_681_189
+#: 20 Newsgroups (the "bydate" split's two halves): documents
+NEWSGROUPS_DOCS = 18_846
+#: FIMI's T10I4D100K: transactions, items, mean transaction length
+T10I4D100K = (100_000, 870, 10)
+
+
+def make_planted_graph(n_nodes: int, n_edges: int, p_in: float = 0.9,
+                       seed: int = 0, first_share: float | None = None,
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A seeded planted-partition similarity graph: two communities of
+    half the nodes each, each edge's source uniform (or, with
+    ``first_share``, in the first community with that probability and
+    uniform within it, so the communities' mean degrees differ), its
+    destination in the source's community with probability ``p_in``, its
+    weight uniform in [0.1, 1.1). Returns (src int64, dst int64, weight
+    f32) and nothing is symmetrised (PIC does that)."""
+    rng = np.random.default_rng(seed)
+    half = n_nodes // 2
+    if first_share is None:
+        src = rng.integers(0, n_nodes, n_edges, dtype=np.int64)
+    else:
+        upper = rng.random(n_edges) >= first_share
+        src = np.where(upper, half + (rng.random(n_edges) * (n_nodes - half)).astype(np.int64),
+                       (rng.random(n_edges) * half).astype(np.int64))
+    same = rng.random(n_edges) < p_in
+    side = (src >= half) == same                     # True: the upper community
+    lo = np.where(side, half, 0)
+    span = np.where(side, n_nodes - half, half)
+    dst = lo + (rng.random(n_edges) * span).astype(np.int64)
+    w = (rng.random(n_edges) + 0.1).astype(np.float32)
+    return src, dst, w
+
+
+def make_zipf_corpus(n_docs: int, mean_tokens: int = 200, vocab: int = 50_000,
+                     seed: int = 0) -> np.ndarray:
+    """A seeded corpus of ``n_docs`` documents of Poisson(``mean_tokens``)
+    words drawn Zipf(1.0) over ``vocab`` word types ("w<rank>"; the
+    default English stop words take the top ranks, so StopWordsRemover has
+    work). Returns object [n_docs, 1] of strings, a meta column."""
+    from orange3_spark_tpu_torch.models.text import _DEFAULT_STOP_WORDS
+
+    rng = np.random.default_rng(seed)
+    words = np.array(list(_DEFAULT_STOP_WORDS)
+                     + [f"w{r}" for r in range(vocab - len(_DEFAULT_STOP_WORDS))], dtype=object)
+    p = 1.0 / np.arange(1, vocab + 1)
+    lengths = np.maximum(rng.poisson(mean_tokens, n_docs), 1)
+    ids = rng.choice(vocab, size=int(lengths.sum()), p=p / p.sum())
+    cuts = np.cumsum(lengths)[:-1]
+    out = np.empty((n_docs, 1), dtype=object)
+    out[:, 0] = [" ".join(words[d]) for d in np.split(ids, cuts)]
+    return out
+
+
+def make_transactions(n: int = T10I4D100K[0], n_items: int = T10I4D100K[1],
+                      mean_len: int = T10I4D100K[2], n_patterns: int = 2000,
+                      mean_pattern: int = 4, seed: int = 0) -> np.ndarray:
+    """Transactions shaped after IBM Quest's generator (FIMI's T10I4D100K):
+    ``n_patterns`` potential itemsets of Poisson(``mean_pattern``) items
+    with Zipf-weighted popularity; a transaction of Poisson(``mean_len``)
+    items takes whole patterns until it is full. Returns object [n, 1] of
+    sorted item-name lists, a meta column."""
+    rng = np.random.default_rng(seed)
+    item_p = 1.0 / np.arange(1, n_items + 1)
+    item_p /= item_p.sum()
+    patterns = [np.unique(rng.choice(n_items, max(1, rng.poisson(mean_pattern)), p=item_p))
+                for _ in range(n_patterns)]
+    pat_p = rng.exponential(1.0, n_patterns)
+    pat_p /= pat_p.sum()
+    sizes = np.maximum(rng.poisson(mean_len, n), 1)
+    picks = rng.choice(n_patterns, size=int(sizes.sum()), p=pat_p)
+    out = np.empty((n, 1), dtype=object)
+    at = 0
+    for i, size in enumerate(sizes):
+        items: set[int] = set()
+        while len(items) < size:
+            items.update(patterns[picks[at % len(picks)]].tolist())
+            at += 1
+        out[i, 0] = [f"i{j}" for j in sorted(items)]
+    return out
 
 
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:

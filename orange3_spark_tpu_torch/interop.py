@@ -390,3 +390,123 @@ def cross_validator_model(best_model, params: Mapping, best_params: Mapping,
     cls = TrainValidationSplitParams if "train_ratio" in params else CrossValidatorParams
     return CrossValidatorModel(cls(**params), best_model, dict(best_params),
                                [float(m) for m in avg_metrics])
+
+
+# ------------------------------- the unsupervised, text, feature and pattern estimators
+def gaussian_mixture_model(state, params: Mapping, device=None):
+    """A ``GaussianMixtureModel`` from the JAX model's state (weights [k],
+    means [k, d], covs [k, d, d]) and params."""
+    from orange3_spark_tpu_torch.models.gaussian_mixture import (
+        GaussianMixtureModel, GaussianMixtureParams,
+    )
+
+    return GaussianMixtureModel(GaussianMixtureParams(**params),
+                                *_f32(state, ("weights", "means", "covs"), device))
+
+
+def bisecting_kmeans_model(state, params: Mapping, device=None):
+    """A ``BisectingKMeansModel`` from the JAX model's state (the leaf
+    centers [k, d]) and params."""
+    from orange3_spark_tpu_torch.models.bisecting_kmeans import (
+        BisectingKMeansModel, BisectingKMeansParams,
+    )
+
+    return BisectingKMeansModel(BisectingKMeansParams(**params),
+                                *_f32(state, ("centers",), device))
+
+
+def lda_model(state, params: Mapping, device=None):
+    """An ``LDAModel`` from the JAX model's state (``lam`` [k, V]) and
+    params."""
+    from orange3_spark_tpu_torch.models.lda import LDAModel, LDAParams
+
+    (lam,) = _f32(state, ("lam",), device)
+    return LDAModel(LDAParams(**params), lam, lam.shape[1])
+
+
+def count_vectorizer_model(params: Mapping, vocabulary: Sequence[str]):
+    """A ``CountVectorizerModel`` of the JAX model's vocabulary."""
+    from orange3_spark_tpu_torch.models.text import CountVectorizerModel, CountVectorizerParams
+
+    return CountVectorizerModel(CountVectorizerParams(**params), vocabulary)
+
+
+def idf_model(state, params: Mapping, col_idx: Sequence[int], device=None):
+    """An ``IDFModel`` from the JAX model's state (``idf`` [m]), params and
+    the scaled columns' indices."""
+    from orange3_spark_tpu_torch.models.text import IDFModel, IDFParams
+
+    return IDFModel(IDFParams(**params), *_f32(state, ("idf",), device),
+                    _tensor(np.asarray(col_idx), torch.int64, device))
+
+
+def word2vec_model(state, params: Mapping, vocabulary: Sequence[str], device=None):
+    """A ``Word2VecModel`` from the JAX model's state (``vectors`` [V, D]),
+    params and vocabulary."""
+    from orange3_spark_tpu_torch.models.text import Word2VecModel, Word2VecParams
+
+    return Word2VecModel(Word2VecParams(**params), vocabulary,
+                         *_f32(state, ("vectors",), device))
+
+
+def robust_scaler_model(state, params: Mapping, idx: Sequence[int], device=None):
+    """A ``RobustScalerModel`` from the JAX model's state (median, iqr),
+    params and scaled column indices."""
+    from orange3_spark_tpu_torch.models.feature_extra import (
+        RobustScalerModel, RobustScalerParams,
+    )
+
+    return RobustScalerModel(RobustScalerParams(**params),
+                             *_f32(state, ("median", "iqr"), device),
+                             _tensor(np.asarray(idx), torch.int64, device))
+
+
+def vector_indexer_model(params: Mapping, category_maps: Mapping):
+    """A ``VectorIndexerModel`` of the JAX model's category maps
+    ({column index: sorted distinct values})."""
+    from orange3_spark_tpu_torch.models.feature_extra import (
+        VectorIndexerModel, VectorIndexerParams,
+    )
+
+    return VectorIndexerModel(VectorIndexerParams(**params),
+                              {int(j): list(v) for j, v in category_maps.items()})
+
+
+def column_selector_model(params, selected: Sequence[str]):
+    """The model of a fitted VarianceThresholdSelector, UnivariateFeatureSelector
+    or ChiSqSelector: its params (the port's params object) and the
+    selected column names."""
+    from orange3_spark_tpu_torch.models.feature_extra import _ColumnSelectorModel
+
+    return _ColumnSelectorModel(params, tuple(selected))
+
+
+def brp_lsh_model(state, params: Mapping, device=None):
+    """A ``BucketedRandomProjectionLSHModel`` from the JAX model's state
+    (``R`` [d, T]) and params."""
+    from orange3_spark_tpu_torch.models.feature_extra import (
+        BucketedRandomProjectionLSHModel, BucketedRandomProjectionLSHParams,
+    )
+
+    return BucketedRandomProjectionLSHModel(BucketedRandomProjectionLSHParams(**params),
+                                            *_f32(state, ("R",), device))
+
+
+def minhash_lsh_model(a, b, params: Mapping):
+    """A ``MinHashLSHModel`` of the JAX model's hash coefficients (host
+    int64 ``a``, ``b``) and params."""
+    from orange3_spark_tpu_torch.models.feature_extra import MinHashLSHModel, MinHashLSHParams
+
+    return MinHashLSHModel(MinHashLSHParams(**params), np.asarray(a), np.asarray(b))
+
+
+def fpgrowth_model(params: Mapping, item_names: Sequence[str], freq_itemsets,
+                   n_rows_weighted: float):
+    """An ``FPGrowthModel`` of the JAX model's items, frequent itemsets
+    ((frozenset of item ids, support count) pairs) and total weight; its
+    rules follow from them."""
+    from orange3_spark_tpu_torch.models.fpm import FPGrowthModel, FPGrowthParams
+
+    return FPGrowthModel(FPGrowthParams(**params), item_names,
+                         [(frozenset(s), float(c)) for s, c in freq_itemsets],
+                         float(n_rows_weighted))

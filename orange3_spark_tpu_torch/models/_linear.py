@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orange3_spark_tpu_torch.core.fmath import norm32, sqrt32
 from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
 from orange3_spark_tpu_torch.ops.stats import inv_std_scale as column_inv_std
 
@@ -426,7 +427,7 @@ def lbfgs_minimize(objective, theta0: torch.Tensor, tol: float, max_iter: int, *
     while True:
         fresh = not np.isfinite(value)
         if fresh and count > 0:    # the loop test reads the state's gradient
-            (gnorm,) = read(torch.sqrt(torch.dot(grad, grad)))
+            (gnorm,) = read(sqrt32(torch.dot(grad, grad)))
             if not (count < max_iter and gnorm > tol):
                 break
         if fresh:
@@ -441,7 +442,7 @@ def lbfgs_minimize(objective, theta0: torch.Tensor, tol: float, max_iter: int, *
             den = torch.dot(du, du)
             scale = torch.where(den > 0, sy / den, 1.0)
         else:
-            scale = torch.clamp_max(1.0 / torch.sqrt(torch.dot(grad, grad)), 1.0)
+            scale = torch.clamp_max(1.0 / sqrt32(torch.dot(grad, grad)), 1.0)
         vec, alphas = grad, []
         for dw, du, rho in reversed(memory):
             alpha = rho * torch.dot(dw, vec)
@@ -455,7 +456,7 @@ def lbfgs_minimize(objective, theta0: torch.Tensor, tol: float, max_iter: int, *
         if fresh:
             value, slope_init = read(value_t, slope)
         else:
-            gnorm, slope_init = read(torch.sqrt(torch.dot(grad, grad)), slope)
+            gnorm, slope_init = read(sqrt32(torch.dot(grad, grad)), slope)
             if not (count < max_iter and gnorm > tol):
                 break
         prev = (theta, grad)
@@ -515,13 +516,13 @@ def owlqn_minimize(objective, x0: torch.Tensor, l1_weight: torch.Tensor, tol: fl
 
     f0, g = objective.value_and_grad(x0)
     F, gpnorm = read(f0 + (l1_weight * torch.abs(x0)).sum(),
-                     torch.linalg.vector_norm(_pseudo_grad(x0, g, l1_weight)))
+                     norm32(_pseudo_grad(x0, g, l1_weight)))
     x, memory, it, stalled = x0, [], 0, False
     while it < max_iter and gpnorm > tol and not stalled:
         gp = _pseudo_grad(x, g, l1_weight)
         d = -_two_loop(gp, memory)
         d = torch.where(d * gp < 0, d, 0.0)
-        nonzero, dnorm = read((d != 0).any(), torch.linalg.vector_norm(d))
+        nonzero, dnorm = read((d != 0).any(), norm32(d))
         xi = torch.where(x != 0, torch.sign(x), torch.sign(-gp))
         t = _F32(1.0) if memory else _F32(1.0) / max(dnorm, _F32(1e-12))
         ok = False
@@ -538,7 +539,7 @@ def owlqn_minimize(objective, x0: torch.Tensor, l1_weight: torch.Tensor, tol: fl
         _, g_new = objective.value_and_grad(x_t)
         s, y = x_t - x, g_new - g
         sy_dev = torch.dot(s, y)
-        sy, gpnorm = read(sy_dev, torch.linalg.vector_norm(
+        sy, gpnorm = read(sy_dev, norm32(
             _pseudo_grad(x_t, g_new, l1_weight)))
         if sy > _F32(1e-10):    # the curvature condition: a well-posed pair
             memory.append((s, y, 1.0 / sy_dev))

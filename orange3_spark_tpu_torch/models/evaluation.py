@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models.base import Params
 from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
@@ -194,7 +195,7 @@ class RegressionEvaluator(_Evaluator):
         err = pred - label
         if metric in ("rmse", "mse"):
             mse = (err * err * w).sum() / tot
-            return torch.sqrt(mse) if metric == "rmse" else mse
+            return sqrt32(mse) if metric == "rmse" else mse
         if metric == "mae":
             return (torch.abs(err) * w).sum() / tot
         if metric == "r2":

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.core.domain import ContinuousVariable
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models._linear import dense_logits
 from orange3_spark_tpu_torch.models.base import (
@@ -65,7 +66,7 @@ def _link_fns(link: str, link_power: float):
     if link == "inverse":
         return (lambda m: 1.0 / m, lambda e: 1.0 / e, lambda e: -1.0 / (e * e))
     if link == "sqrt":
-        return (torch.sqrt, lambda e: e * e, lambda e: 2.0 * e)
+        return (sqrt32, lambda e: e * e, lambda e: 2.0 * e)
     if link == "probit":
         return (torch.special.ndtri, torch.special.ndtr,
                 lambda e: torch.exp(-0.5 * e * e) * _INV_SQRT_2PI)
@@ -305,7 +306,7 @@ class GeneralizedLinearRegression(Estimator):
         if p.reg_param == 0.0:
             # MLlib's summary inference stats exist only for the
             # unregularised fit; [coefficients..., intercept last]
-            se = torch.sqrt(r.cov_diag[:rank] * disp)
+            se = sqrt32(r.cov_diag[:rank] * disp)
             tval = r.beta[:rank] / torch.clamp_min(se, 1e-30)
             pval = (two_sided_z_pvalue(tval) if fixed_disp
                     else two_sided_t_pvalue(tval, r.sum_w - rank))

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.core.domain import DiscreteVariable, Domain
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models._linear import row_products
 from orange3_spark_tpu_torch.models.base import (
@@ -102,7 +103,7 @@ def _lloyd_step(X, w, centers, tol, k, compute_dtype):
     counts = onehot.sum(dim=0)
     new = torch.where(counts[:, None] > 0,
                       sums / torch.clamp_min(counts, 1e-12)[:, None], centers)
-    move = torch.sqrt(((new - centers) ** 2).sum(dim=1))
+    move = sqrt32(((new - centers) ** 2).sum(dim=1))
     return new, torch.all(move < tol)
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from orange3_spark_tpu_torch.core.domain import ContinuousVariable, Domain
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models._linear import (
     dense_logits, fit_linear, penalties, record_fit_counts,
@@ -53,7 +54,7 @@ def _training_summary(X, y, w, coef, intercept):
     # Spark's RegressionMetrics centres SSreg on the label mean, not the
     # prediction mean (they differ for through-origin or early-stopped fits)
     expl = (w * (yhat - ybar) ** 2).sum() / tot
-    return rss, 1.0 - rss / tss, torch.sqrt(rss / tot), mae, expl
+    return rss, 1.0 - rss / tss, sqrt32(rss / tot), mae, expl
 
 
 def _normal_equations(X, y, w):
@@ -152,10 +153,10 @@ class LinearRegression(Estimator):
             df = torch.clamp_min(tot - rank, 1.0)
             sigma2 = rss / df
             inv_A = _solve_pos(A + 1e-8 * eye, eye)
-            se = torch.sqrt(torch.diagonal(inv_A) * sigma2)
+            se = sqrt32(torch.diagonal(inv_A) * sigma2)
             beta = coef
             if p.fit_intercept:
-                se_int = torch.sqrt(sigma2 * (1.0 / tot + mean_x @ inv_A @ mean_x))
+                se_int = sqrt32(sigma2 * (1.0 / tot + mean_x @ inv_A @ mean_x))
                 se = torch.cat([se, se_int[None]])
                 beta = torch.cat([coef, intercept[None]])
             tval = beta / torch.clamp_min(se, 1e-30)

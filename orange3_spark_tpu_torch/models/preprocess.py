@@ -34,6 +34,7 @@ from orange3_spark_tpu_torch.core.domain import (
     DiscreteVariable,
     Domain,
 )
+from orange3_spark_tpu_torch.core.fmath import norm32, sqrt32
 from orange3_spark_tpu_torch.core.table import TorchTable
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params, Transformer
 from orange3_spark_tpu_torch.ops.stats import (
@@ -135,7 +136,7 @@ class StandardScaler(Estimator):
     def _finalize(self, mean, var, idxs) -> StandardScalerModel:
         p = self.params
         mean = mean.to(torch.float32)
-        std = torch.sqrt(var.to(torch.float32))
+        std = sqrt32(var.to(torch.float32))
         scale = (torch.where(std > 1e-12, 1.0 / std, 1.0) if p.with_std
                  else torch.ones_like(std))
         shift = mean if p.with_mean else torch.zeros_like(mean)
@@ -544,7 +545,9 @@ class Normalizer(Transformer):
     ParamsCls = NormalizerParams
 
     def transform(self, table: TorchTable) -> TorchTable:
-        norms = torch.linalg.vector_norm(table.X, ord=self.params.p, dim=1, keepdim=True)
+        p = self.params.p
+        norms = (norm32(table.X, dim=1, keepdim=True) if p == 2.0 else
+                 torch.linalg.vector_norm(table.X, ord=p, dim=1, keepdim=True))
         return table.with_X(table.X / torch.clamp_min(norms, 1e-12))
 
 

@@ -67,6 +67,25 @@
 // rate; a tile of 2048 rows, not 8192, takes 2.782 ms there and 0.132 ms
 // against 0.122 at GBT's subsampled round (probes/poisson_knuth_ab.py).
 
+// categorical_gumbel (added beside them, no TPU kernel behind it either:
+// XLA fuses the reference's jax.random.categorical(key, logits[None, :],
+// shape=(P, negative)), Word2Vec's negative draw, into one loop fusion).
+// Draw r of n is the argmax over v of -log(-log(u)) + logits[v], u JAX's
+// uniform on [tiny, 1) of the word at flat index r * V + v (hi and lo
+// counter words: the index passes 2^32 at real sizes), the logs XLA's CPU
+// form (Cephes' logf as ops/prng._xla_log writes it out: float32 steps
+// with every fused multiply-add taken as a float64 product and sum rounded
+// once, no contraction), the first index on a tie (jnp.argmax). A block
+// takes one draw: its threads stride over v, each keeping its running
+// first maximum, then a shuffle and shared-memory reduction picks the
+// largest value and, on equal values, the smaller v. Only the i32 result
+// is written: the [n, V] gumbel array never exists. What bounds it:
+// issue. Every element costs a hash, two logs and the uniform, so the
+// operations the function needs are n * V elements times the SASS
+// instructions of one element (chip_smoke.py counts them in
+// probes/categorical_work.cu, each multiply-add one FFMA); the V logits (read from L2 by every block)
+// and the 4 n bytes written are far below that.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -230,6 +249,99 @@ poisson_knuth(const uint32_t* __restrict__ table, const uint32_t* __restrict__ r
   for (int k = threadIdx.x; k < rows; k += kKnuthThreads) dst[k] = stage[k];
 }
 
+constexpr int kCatThreads = 256;
+constexpr float kTiny = 1.17549435e-38f;
+
+// float32 a * b + c as ops/prng._fma32 forms it: the float64 product
+// (exact) and sum, rounded once to float32. Built with PRNG_FMA32_SINGLE
+// (only probes/categorical_work.cu's count of the function's work is),
+// one single-rounding FFMA instead: the two give the same gumbel for every
+// uniform JAX can draw (tests/test_torch_prng.py enumerates all 2^23), so
+// the float64 steps are this kernel's design, not its function's work.
+#ifdef PRNG_FMA32_SINGLE
+__device__ __forceinline__ float fma32(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+#else
+__device__ __forceinline__ float fma32(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+                                     static_cast<double>(c)));
+}
+#endif
+
+// XLA's float32 log on the CPU, step for step as ops/prng._xla_log.
+__device__ __forceinline__ float xla_log(float x) {
+  const float xi = fmaxf(x, kTiny);
+  const int bits = __float_as_int(xi);
+  float e = __fadd_rn(static_cast<float>((bits >> 23) - 0x7F), 1.0f);
+  const float m = __int_as_float((bits & ~0x7F800000) | 0x3F000000);
+  const bool low = m < 0.707106769f;
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  float t = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  const float x2 = __fmul_rn(t, t);
+  const float x3 = __fmul_rn(x2, t);
+  float y = fma32(fma32(t, 7.0376836292E-2f, -1.1514610310E-1f), t, 1.1676998740E-1f);
+  const float y1 = fma32(fma32(t, -1.2420140846E-1f, 1.4249322787E-1f), t, -1.6668057665E-1f);
+  const float y2 = fma32(fma32(t, 2.0000714765E-1f, -2.4999993993E-1f), t, 3.3333331174E-1f);
+  y = fma32(fma32(fma32(y, x3, y1), x3, y2), x3, __fmul_rn(-2.12194440e-4f, e));
+  t = __fadd_rn(__fsub_rn(t, __fmul_rn(0.5f, x2)), y);
+  float out = fma32(0.693359375f, e, t);
+  if (x >= 0.0f && x < kTiny) out = -__int_as_float(0x7F800000);
+  if (x == __int_as_float(0x7F800000)) out = x;
+  if (x < 0.0f || x != x) out = __int_as_float(0x7FC00000);
+  return out;
+}
+
+// The gumbel-plus-logit value of element i (flat index r * V + v).
+__device__ __forceinline__ float gumbel_at(uint32_t k0, uint32_t k1, unsigned long long i) {
+  const uint32_t b = bits_at(k0, k1, i);
+  const float f = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
+  const float u = fmaxf(__double2float_rn(__dadd_rn(static_cast<double>(f),
+                                                    static_cast<double>(kTiny))), kTiny);
+  return -xla_log(-xla_log(u));
+}
+
+// Keeps (a, ia) as the first maximum of itself and (b, ib).
+__device__ __forceinline__ void first_max(float& a, int& ia, float b, int ib) {
+  if (b > a || (b == a && ib < ia)) {
+    a = b;
+    ia = ib;
+  }
+}
+
+__global__ void __launch_bounds__(kCatThreads)
+categorical_gumbel(uint32_t k0, uint32_t k1, const float* __restrict__ logits, int V,
+                   long long n, long long first_row, int* __restrict__ out) {
+  __shared__ float best_v[kCatThreads / 32];
+  __shared__ int best_i[kCatThreads / 32];
+  for (long long r = blockIdx.x; r < n; r += gridDim.x) {
+    const unsigned long long base = static_cast<unsigned long long>(first_row + r) * V;
+    float best = -__int_as_float(0x7F800000);
+    int arg = V;
+    for (int v = threadIdx.x; v < V; v += kCatThreads) {
+      const float val = __fadd_rn(gumbel_at(k0, k1, base + v), __ldg(logits + v));
+      if (val > best || arg == V) {   // v rises: a strict > keeps the first
+        best = val;
+        arg = v;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_down_sync(0xFFFFFFFFu, best, o);
+      const int oi = __shfl_down_sync(0xFFFFFFFFu, arg, o);
+      first_max(best, arg, ov, oi);
+    }
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      best_v[warp] = best;
+      best_i[warp] = arg;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kCatThreads / 32; ++w) first_max(best, arg, best_v[w], best_i[w]);
+      out[r] = arg;
+    }
+    __syncthreads();
+  }
+}
+
 int grid_for(long long n, int sms) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sms) * 16;
@@ -323,5 +435,23 @@ extern "C" int poisson_knuth_launch(const void* table, const void* rng, int J, l
     poisson_knuth<true><<<grid, kKnuthThreads, shared, s>>>(
         tab, key, J, static_cast<int>(tiles), tile_rows, N, -lam, static_cast<int*>(out),
         static_cast<unsigned long long*>(slots));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes draws first_row .. first_row + n - 1 of JAX's categorical over the
+// V float32 logits (device memory) under (k0, k1) to out (i32[n]) on
+// `stream`, a block a draw (at most 64 blocks an SM, each striding over
+// further draws). Returns a cudaError_t. Allocates nothing and does not
+// synchronise.
+extern "C" int categorical_gumbel_launch(unsigned k0, unsigned k1, const void* logits,
+                                         long long V, long long n, long long first_row,
+                                         void* out, int sms, void* stream) {
+  if (V < 1 || V > 0x7FFFFFFFLL || n < 1 || first_row < 0 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long cap = static_cast<long long>(sms) * 64;
+  const unsigned grid = static_cast<unsigned>(n < cap ? n : cap);
+  categorical_gumbel<<<grid, kCatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      k0, k1, static_cast<const float*>(logits), static_cast<int>(V), n, first_row,
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

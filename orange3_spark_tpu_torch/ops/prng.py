@@ -44,9 +44,11 @@ import math
 import numpy as np
 import torch
 
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.ops import cuda_build
 
-__all__ = ["PRNGKey", "bernoulli", "categorical", "gumbel", "normal", "poisson",
+__all__ = ["PRNGKey", "bernoulli", "categorical", "categorical_gumbel",
+           "categorical_gumbel_reference", "gumbel", "normal", "poisson",
            "poisson_knuth", "poisson_reference", "randint", "random_bits", "split",
            "threefry2x32", "threefry_bits", "threefry_bits_reference", "uniform"]
 
@@ -167,6 +169,8 @@ def _lib() -> ctypes.CDLL:
         lib.poisson_knuth_launch.restype = i
         lib.knuth_chain_table.argtypes = [p, ll, i, p]
         lib.knuth_chain_table.restype = i
+        lib.categorical_gumbel_launch.argtypes = [u, u, p, ll, ll, ll, p, i, p]
+        lib.categorical_gumbel_launch.restype = i
         lib.prng_error_string.argtypes = [i]
         lib.prng_error_string.restype = ctypes.c_char_p
     return lib
@@ -340,10 +344,7 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     ±1 maps to ±inf (x times XLA's MaxValue, +inf for a float)."""
     w = -_xla_log1p(-(x * x))
     lt = w < 5.0
-    # √w in float64, rounded once: IEEE's correctly rounded float32 sqrt
-    # (XLA's on the CPU) on either device; the card's float32 sqrt kernel
-    # is not correctly rounded
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt32(w) - 3.0)
     p = torch.where(lt, float(np.float32(_ERFINV_LT5[0])),
                     float(np.float32(_ERFINV_GE5[0]))).to(torch.float32)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
@@ -368,12 +369,90 @@ def gumbel(key: tuple[int, int], shape, device) -> torch.Tensor:
     return -_xla_log(-_xla_log(uniform(key, shape, device, _F32_TINY, 1.0)))
 
 
-def categorical(key: tuple[int, int], logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """``jax.random.categorical(key, logits, axis)`` with replacement: the
-    argmax of a gumbel of ``logits``' shape plus the logits (the first
-    index on a tie, as ``jnp.argmax``)."""
-    g = gumbel(key, tuple(logits.shape), logits.device)
-    return torch.argmax(g + logits, dim=axis)
+def categorical(key: tuple[int, int], logits: torch.Tensor, axis: int = -1,
+                shape=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis, shape)`` with
+    replacement: the argmax of a gumbel plus the logits (the first index on
+    a tie, as ``jnp.argmax``). Without ``shape`` the gumbel has the logits'
+    shape. With ``shape`` the logits are one row of V (f32[V], or [1, V]
+    along the last axis) and the draw is JAX's gumbel of shape (*shape, V):
+    element (r, v), r the flat index into ``shape``, is the word at r·V +
+    v (past 2^32 at real sizes, hence the hi and lo counter words). A CUDA
+    device launches ``categorical_gumbel`` (one pass, only the int32
+    [*shape] result written), the CPU runs its plain version
+    (``categorical_gumbel_reference``)."""
+    if shape is None:
+        g = gumbel(key, tuple(logits.shape), logits.device)
+        return torch.argmax(g + logits, dim=axis)
+    V = logits.shape[axis]
+    if logits.numel() != V or axis not in (-1, logits.ndim - 1):
+        raise ValueError("categorical(shape=...): the logits must be one row of V along the "
+                         f"last axis, got shape {tuple(logits.shape)} and axis {axis}")
+    shape, n = _numel(shape)
+    row = logits.reshape(V).to(torch.float32).contiguous()
+    if row.device.type == "cuda":
+        return categorical_gumbel(key, row, n).reshape(shape)
+    return categorical_gumbel_reference(key, row, n).reshape(shape)
+
+
+#: elements (rows x V) of one block of ``categorical_gumbel_reference``
+CATEGORICAL_BLOCK = 1 << 22
+
+
+def _uniform_tiny(bits: torch.Tensor) -> torch.Tensor:
+    """``uniform``'s float32 on [tiny, 1) from bit patterns (gumbel's)."""
+    span = float(np.float32(1.0) - np.float32(_F32_TINY))
+    out = (_uniform01(bits).to(torch.float64) * span + _F32_TINY).to(torch.float32)
+    return torch.clamp_min(out, _F32_TINY)
+
+
+def categorical_gumbel_reference(key: tuple[int, int], logits: torch.Tensor, n: int,
+                                 first_row: int = 0) -> torch.Tensor:
+    """The plain version of ``categorical_gumbel``: i32[n], row r the
+    argmax over v of -log(-log(u)) + logits[v], u JAX's uniform on [tiny,
+    1) of the word at r·V + v under ``key`` (the logs ``_xla_log``'s form),
+    for the rows r from ``first_row`` on (a window of a longer draw).
+    Taken a block of rows at a time (``CATEGORICAL_BLOCK`` elements), so it
+    never holds the whole [n, V] draw."""
+    V = logits.shape[0]
+    dev = logits.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = max(1, CATEGORICAL_BLOCK // max(V, 1))
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        i = torch.arange((first_row + r0) * V, (first_row + r1) * V, dtype=torch.int64,
+                         device=dev)
+        b0, b1 = threefry2x32(key, i >> 32, i & _U32)
+        g = -_xla_log(-_xla_log(_uniform_tiny((b0 ^ b1).to(torch.int32))))
+        out[r0:r1] = torch.argmax(g.reshape(r1 - r0, V) + logits, dim=1).to(torch.int32)
+    return out
+
+
+def categorical_gumbel(key: tuple[int, int], logits: torch.Tensor, n: int,
+                       first_row: int = 0) -> torch.Tensor:
+    """i32[n]: draws ``first_row`` .. ``first_row + n - 1`` of JAX's
+    categorical over one row of V float32 ``logits``, draw r's gumbel words
+    at r·V + v under ``key``. A CUDA tensor launches the kernel of
+    ``csrc/prng.cu`` (a block a draw, its threads striding over v, each
+    keeping its running first maximum; bitwise the plain version); a CPU
+    tensor runs the plain version."""
+    if logits.device.type != "cuda":
+        return categorical_gumbel_reference(key, logits, n, first_row)
+    if logits.dtype != torch.float32 or logits.ndim != 1 or not logits.is_contiguous():
+        raise ValueError("categorical_gumbel: logits must be a contiguous float32 [V] tensor, "
+                         f"got {logits.dtype} {tuple(logits.shape)}")
+    V = logits.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=logits.device)
+    if n and V:
+        _launch("categorical_gumbel", int(key[0]) & _U32, int(key[1]) & _U32,
+                logits.data_ptr(), V, n, int(first_row), out.data_ptr(), dev=logits.device)
+        categorical_gumbel.launches += 1
+    return out
+
+
+#: kernel launches (one a call); counted where the kernel launches and
+#: nowhere else
+categorical_gumbel.launches = 0
 
 
 def _check_lam(lam: float) -> np.float32:
@@ -390,8 +469,12 @@ def poisson_reference(keys: list[tuple[int, int]], lam: float, n: int, device) -
     whole batch (i32[T, n], row t under ``keys[t]``): each iteration splits
     every chain, adds one to each lane still above -lam, and adds the log of
     a fresh uniform; it ends when no lane is (one host read an iteration).
-    The words come from the plain threefry."""
+    The words come from the plain threefry. The log is XLA's form on the
+    CPU (bitwise ``jnp.log`` there, and run-to-run steady, which torch's
+    CPU log is not) and ``torch.log`` on CUDA, which the kernel's full-
+    precision ``logf`` matches."""
     lam32 = _check_lam(lam)
+    log = torch.log if torch.device(device).type == "cuda" else _xla_log
     T = len(keys)
     count = torch.zeros((T, n), dtype=torch.int32, device=device)
     if lam32 == 0 or n == 0 or T == 0:
@@ -406,7 +489,7 @@ def poisson_reference(keys: list[tuple[int, int]], lam: float, n: int, device) -
             rngs[t], sub = split(rngs[t])
             subs.append(sub)
         u = torch.stack([_uniform01(threefry_bits_reference(s, n, device)) for s in subs])
-        log_prod = log_prod + torch.log(u)
+        log_prod = log_prod + log(u)
     return count - 1
 
 

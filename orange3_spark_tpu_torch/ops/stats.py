@@ -9,6 +9,7 @@ linear models' inference statistics.
 from __future__ import annotations
 
 import torch
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 
 #: guard for total-weight division on empty/fully-filtered tables
 EPS_TOTAL_WEIGHT = 1e-12
@@ -32,13 +33,13 @@ def inv_std_scale(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1/std per column (1.0 for constant columns): MLlib's scale-only
     standardization factor."""
     _, var, _ = weighted_moments(X, w)
-    std = torch.sqrt(var)
+    std = sqrt32(var)
     return torch.where(std > 1e-12, 1.0 / std, 1.0)
 
 
 def two_sided_z_pvalue(z: torch.Tensor) -> torch.Tensor:
     """2·Φ̄(|z|), the two-sided normal test, on the device via erfc."""
-    return torch.special.erfc(torch.abs(z) / torch.sqrt(torch.tensor(2.0, dtype=z.dtype)))
+    return torch.special.erfc(torch.abs(z) / sqrt32(torch.tensor(2.0, dtype=z.dtype)))
 
 
 def two_sided_t_pvalue(t: torch.Tensor, df) -> torch.Tensor:

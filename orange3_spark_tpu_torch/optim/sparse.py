@@ -82,6 +82,7 @@ import os
 import numpy as np
 import torch
 
+from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.io.codec import bit_width, flat_words, pack_flat_np, unpack_flat
 from orange3_spark_tpu_torch.ops.segment_sum import (
     ROUND_TO, RULE_SLOTS, segment_sum_sorted, segment_update_sorted,
@@ -184,10 +185,10 @@ def apply_rule(kind: str, p, slots: dict, g, lr: float, reg: float, l1: float):
     if kind == "ftrl":
         n, z = slots["n"], slots["z"]
         n2 = n + g * g
-        sigma = (torch.sqrt(n2) - torch.sqrt(n)) / lr
+        sigma = (sqrt32(n2) - sqrt32(n)) / lr
         z2 = z + g - sigma * p
         shrunk = torch.sign(z2) * torch.clamp_min(torch.abs(z2) - l1, 0.0)
-        p2 = -shrunk / ((FTRL_BETA + torch.sqrt(n2)) / lr + 2.0 * reg)
+        p2 = -shrunk / ((FTRL_BETA + sqrt32(n2)) / lr + 2.0 * reg)
         return p2, {"n": n2, "z": z2}
     raise ValueError(f"unknown rule kind {kind!r}")
 
@@ -230,7 +231,7 @@ def adam_update(theta: dict, grads: dict, state: dict, lr: float):
         g = grads[k]
         mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * state["mu"][k]
         nu[k] = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][k]
-        u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + ADAM_EPS)
+        u = (mu[k] / bc1) / (sqrt32(nu[k] / bc2) + ADAM_EPS)
         new_theta[k] = p + lr * -u
     return new_theta, {"count": count, "mu": mu, "nu": nu}
 

@@ -495,7 +495,12 @@ def _build_catalog() -> None:
     from orange3_spark_tpu_torch.models import preprocess as P
     from orange3_spark_tpu_torch.models.aft import AFTSurvivalRegression
     from orange3_spark_tpu_torch.models.als import ALS
-    from orange3_spark_tpu_torch.models.feature_extra import SQLTransformer
+    from orange3_spark_tpu_torch.models import feature_extra as FE
+    from orange3_spark_tpu_torch.models import text as T
+    from orange3_spark_tpu_torch.models.bisecting_kmeans import BisectingKMeans
+    from orange3_spark_tpu_torch.models.fpm import FPGrowth
+    from orange3_spark_tpu_torch.models.gaussian_mixture import GaussianMixture
+    from orange3_spark_tpu_torch.models.lda import LDA
     from orange3_spark_tpu_torch.models.fm import FMClassifier, FMRegressor
     from orange3_spark_tpu_torch.models.glm import GeneralizedLinearRegression
     from orange3_spark_tpu_torch.models.isotonic import IsotonicRegression
@@ -525,15 +530,21 @@ def _build_catalog() -> None:
         GBTClassifier, GBTRegressor,
         DecisionTreeClassifier, DecisionTreeRegressor,
         StreamingKMeans, StreamingHashedLinearEstimator, ALS,
-        # the supervised estimators of MLlib (the reference's catalog:
-        # NaiveBayes, the GLM family, RFormula; GaussianMixture,
-        # BisectingKMeans and LDA are still to be ported)
         NaiveBayes, GeneralizedLinearRegression, IsotonicRegression,
         AFTSurvivalRegression, FMClassifier, FMRegressor,
         MultilayerPerceptronClassifier, RFormula,
+        # the reference's clustering, text, feature and pattern blocks
+        GaussianMixture, BisectingKMeans, LDA,
+        T.CountVectorizer, T.IDF, T.Word2Vec,
+        FE.RobustScaler, FE.VectorIndexer, FE.VarianceThresholdSelector,
+        FE.UnivariateFeatureSelector, FE.ChiSqSelector,
+        FE.BucketedRandomProjectionLSH, FE.MinHashLSH, FPGrowth,
     ):
         widget_for_estimator(est)
-    for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher, SQLTransformer):
+    for tr in (P.Normalizer, P.Binarizer, P.Bucketizer, P.FeatureHasher,
+               T.Tokenizer, T.RegexTokenizer, T.StopWordsRemover, T.NGram, T.HashingTF,
+               FE.PolynomialExpansion, FE.DCT, FE.Interaction, FE.ElementwiseProduct,
+               FE.VectorSlicer, FE.IndexToString, FE.SQLTransformer):
         widget_for_transformer(tr)
     _evaluation_widget(E.BinaryClassificationEvaluator, "OWBinaryEvaluator")
     _evaluation_widget(E.MulticlassClassificationEvaluator, "OWMulticlassEvaluator")

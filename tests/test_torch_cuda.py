@@ -2155,3 +2155,64 @@ def test_small_wrangle_on_cuda_against_the_cpu(cuda_device, tmp_path):
         assert ows["tables_on_card"] and ows["segment_sum_launches"]["cuda"] > 0
     finally:
         cs.WRANGLE_ROWS, cs.WRANGLE_CUT, cs.WRANGLE_WARM_ROWS, cs.OWS_TRIPS = saved
+
+
+@pytest.mark.cuda
+# ------------------------------------------------------------ categorical_gumbel
+@pytest.mark.parametrize("V,n,first_row,seed", [(1, 7, 0, 0), (255, 300, 0, 1),
+                                                (1000, 64, 0, 2), (20_011, 40, 0, 3),
+                                                (50_000, 6, 85_897, 4),
+                                                (50_000, 6, 171_797, 5)])
+def test_categorical_gumbel_kernel_bitwise_its_plain_version(cuda_device, V, n, first_row,
+                                                             seed):
+    """``categorical_gumbel`` against ``categorical_gumbel_reference`` on the
+    card: vocabularies below, at and past a block's 256 threads, a -inf
+    logit, and windows of rows whose flat index passes 2^32 and 2^33."""
+    from orange3_spark_tpu_torch.ops import prng
+
+    rng = np.random.default_rng(seed)
+    p = rng.random(V).astype(np.float32)
+    p[min(3, V - 1) if V > 1 else 0] = 0.0 if V > 1 else 1.0
+    logits = prng._xla_log(torch.from_numpy(p / p.sum()).to(cuda_device))
+    key = prng.split(prng.PRNGKey(seed))[1]
+    before = prng.categorical_gumbel.launches
+    got = prng.categorical_gumbel(key, logits, n, first_row)
+    want = prng.categorical_gumbel_reference(key, logits, n, first_row)
+    torch.cuda.synchronize()
+    assert prng.categorical_gumbel.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if first_row == 0:
+        assert torch.equal(prng.categorical(key, logits[None, :], shape=(n,)), got)
+
+
+@pytest.mark.cuda
+def test_word2vec_fits_on_cuda_give_the_same_bits(cuda_device):
+    """Two seeded Word2Vec fits on the card: the negatives from the kernel,
+    the table gradients summed by segment_sum_sorted (no float atomics)."""
+    from orange3_spark_tpu_torch import TorchSession, TorchTable
+    from orange3_spark_tpu_torch.core.domain import Domain, StringVariable
+    from orange3_spark_tpu_torch.datasets import make_zipf_corpus
+    from orange3_spark_tpu_torch.models.text import Tokenizer, Word2Vec
+    from orange3_spark_tpu_torch.ops import prng
+
+    docs = make_zipf_corpus(300, mean_tokens=60, vocab=2000, seed=1)
+    sess = TorchSession("cuda")
+    t = TorchTable.from_numpy(Domain([], None, [StringVariable("text")]),
+                              np.zeros((len(docs), 0), np.float32), metas=docs, session=sess)
+    t = Tokenizer().transform(t)
+    before = prng.categorical_gumbel.launches
+    a, b = (Word2Vec(vector_size=16, min_count=2, max_pairs=4096, seed=2).fit(t)
+            for _ in range(2))
+    assert prng.categorical_gumbel.launches == before + 20
+    assert torch.equal(a.vectors, b.vectors) and a.vectors.is_cuda
+
+
+@pytest.mark.cuda
+def test_sqrt32_on_cuda_is_correctly_rounded(cuda_device):
+    """The premise of ``core.fmath.sqrt32``'s CUDA branch: the card's float32
+    ``torch.sqrt`` equals the float64 root rounded once."""
+    from orange3_spark_tpu_torch.core.fmath import sqrt32
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(1e-6, 1e6, 1_000_000)
+                         .astype(np.float32)).to(cuda_device)
+    assert torch.equal(sqrt32(x), torch.sqrt(x.double()).float())

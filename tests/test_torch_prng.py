@@ -5,6 +5,8 @@ rows is the prefix of a draw padded to a multiple of 8 (the partitionable
 threefry layout), the property that lets the port pad a table to another
 row count than the reference and keep the same rows."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,6 +134,55 @@ def test_xla_log_and_log1p_bitwise():
                                   np.asarray(jnp.log(ends)))
 
 
+def _fma_single_rounding(a, b, c) -> torch.Tensor:
+    """float32 a·b + c rounded once from the exact value (a fused
+    multiply-add): the float64 product is exact, TwoSum gives the float64
+    sum's error e, and a float64 sum that sits exactly on a float32
+    midpoint goes to e's side of it."""
+    def wide(v):
+        return v.to(torch.float64) if torch.is_tensor(v) else float(np.float32(v))
+    p = wide(a) * wide(b)
+    c = wide(c)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.to(torch.float32)
+    other = torch.nextafter(r, torch.where(s > r.to(torch.float64), math.inf, -math.inf)
+                            .to(torch.float32))
+    at_mid = (s == (r.to(torch.float64) + other.to(torch.float64)) * 0.5) & (e != 0)
+    toward_e = torch.sign(other.to(torch.float64) - r.to(torch.float64)) == torch.sign(e)
+    return torch.where(at_mid & toward_e, other, r)
+
+
+def test_fma_single_rounding_catches_double_rounding():
+    """The exact multiply-add above against the float64 form on triples
+    whose float64 sum lands on a float32 midpoint: (1 + 2^-12)² = 1 +
+    2^-11 + 2^-24 lies halfway between two floats, so ± 2^-60 decides the
+    rounding, which the float64 sum loses."""
+    a = torch.full((2,), 1 + 2.0 ** -12, dtype=torch.float32)
+    c = torch.tensor([2.0 ** -60, -(2.0 ** -60)], dtype=torch.float32)
+    exact = _fma_single_rounding(a, a, c)
+    assert exact.tolist() == [1 + 2.0 ** -11 + 2.0 ** -23, 1 + 2.0 ** -11]
+    assert prng._fma32(a, a, c).tolist() == [1 + 2.0 ** -11, 1 + 2.0 ** -11]
+
+
+def test_gumbel_fma_forms_agree_on_every_uniform(monkeypatch):
+    """Every value JAX's gumbel can take: u over all 2^23 uniforms on
+    [tiny, 1). The logs' multiply-adds as a float64 product and sum (the
+    port's form, ``categorical_gumbel``'s too) give the same bits as one
+    single-rounding fused multiply-add, and as ``jnp.log``: so the float64
+    steps are not part of the function's work (its bound counts FFMAs)."""
+    k = torch.arange(1, 1 << 23, dtype=torch.int64)
+    u = torch.cat([torch.tensor([np.finfo(np.float32).tiny], dtype=torch.float32),
+                   (k.to(torch.float64) * 2.0 ** -23).to(torch.float32)])
+    wide = -prng._xla_log(-prng._xla_log(u))
+    monkeypatch.setattr(prng, "_fma32", _fma_single_rounding)
+    single = -prng._xla_log(-prng._xla_log(u))
+    ref = np.asarray(-jnp.log(-jnp.log(u.numpy())))
+    assert np.array_equal(wide.numpy().view(np.uint32), single.numpy().view(np.uint32))
+    assert np.array_equal(wide.numpy().view(np.uint32), ref.view(np.uint32))
+
+
 @pytest.mark.parametrize("seed", [0, 9])
 def test_gumbel_and_categorical(seed):
     """gumbel: -log(-log u) through XLA's log, written out: bitwise;
@@ -152,7 +203,7 @@ def test_gumbel_and_categorical(seed):
 
 @pytest.mark.parametrize("lam", [0.0, 0.5, 1.0, 9.5])
 def test_poisson_bitwise(lam):
-    """Knuth's loop (lam < 10) on JAX's uniforms with torch.log: every
+    """Knuth's loop (lam < 10) on JAX's uniforms with XLA's log (the CPU path): every
     count of 200k lanes equals ``jax.random.poisson``; lam == 0 gives 0."""
     n = 200_000
     ref = np.asarray(jax.random.poisson(jax.random.PRNGKey(1), lam, (n,)))
