@@ -404,11 +404,13 @@ through ``categorical_gumbel``):
                   the CPU path on a cut (20,000 rows; 500 documents for
                   LDA, 300 for Word2Vec; 10,000 transactions); then
                   ``categorical_gumbel`` bitwise its plain version on the
-                  first 4,096 pairs' draws and timed at the fit's draw
-                  beside the instructions an element needs (the SASS of
-                  ``probes/categorical_work.cu`` with single-rounding
-                  FFMAs; its float64 form's count beside) at the issue
-                  rate
+                  first and the last 4,096 pairs' draws, its bound table
+                  equal to the CPU's and to the kernel's own gumbel's
+                  bucket maxima, the share of elements it evaluated (its
+                  measurement build), and timed at the fit's draw beside
+                  the function's floor (the SASS of
+                  ``probes/categorical_work.cu``'s hash-only loop) and a
+                  full evaluation's count, at the issue rate
 
 then the ``kernels`` line of seven kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
@@ -6702,31 +6704,56 @@ UNSUP_PIC_MIN_PLANTED = 0.99    # every PIC assignment against the planted parti
 
 
 def categorical_work_sass() -> dict:
-    """The instructions ``categorical_gumbel``'s function needs an element
-    (a hash, the uniform, XLA's log twice, the logit's add and the first-
-    maximum compare), from the SASS of ``probes/categorical_work.cu``'s
-    loop, built as a cubin with the package's code-generation flags: with
-    each multiply-add one single-rounding FFMA (``element``, the bound's
-    count; the same bits as the float64 form for every uniform JAX draws),
-    and in the kernel's own float64 form (``element_float64_form``)."""
+    """The instructions ``categorical_gumbel``'s function needs an element,
+    from the SASS of ``probes/categorical_work.cu``'s loops, built as a
+    cubin with the package's code-generation flags: ``element``, a full
+    evaluation (a hash, the uniform, XLA's log twice with each multiply-add
+    one FFMA, the logit's add and the first-maximum compare); ``floor``,
+    what every element needs whatever the design (the hash, the uniform's
+    bits and the logit's read)."""
     from orange3_spark_tpu_torch.ops import cuda_build
 
     src = os.path.join(ROOT, "probes", "categorical_work.cu")
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in cuda_build.NVCC_FLAGS if f.startswith(("-gencode", "-std", "-O"))]
+    cubin = cuda_build.BUILD_DIR / "categorical_work.cubin"
+    subprocess.run([cuda_build.nvcc_path(), *flags, "-cubin", "-o", str(cubin), src],
+                   capture_output=True, text=True, timeout=300, check=True)
+    funcs = sass_functions(sass_text(cubin))
     out = {}
-    for name, define in (("element", ["-DPRNG_FMA32_SINGLE"]), ("element_float64_form", [])):
-        cubin = cuda_build.BUILD_DIR / f"categorical_work_{name}.cubin"
-        subprocess.run([cuda_build.nvcc_path(), *flags, *define, "-cubin", "-o", str(cubin),
-                        src], capture_output=True, text=True, timeout=300, check=True)
-        funcs = sass_functions(sass_text(cubin))
-        if "categorical_work" not in funcs:
-            raise AssertionError(f"categorical_work's SASS not found: {sorted(funcs)}")
-        loop = sass_loop(funcs["categorical_work"])
+    for name, fn in (("element", "categorical_work"), ("floor", "categorical_floor")):
+        if fn not in funcs:
+            raise AssertionError(f"{fn}'s SASS not found: {sorted(funcs)}")
+        loop = sass_loop(funcs[fn])
         if loop["calls"]:
-            raise AssertionError(f"categorical_work's loop calls out of line: {loop}")
+            raise AssertionError(f"{fn}'s loop calls out of line: {loop}")
         out[name] = loop["instructions"]
-        out[name.replace("element", "opcodes")] = loop["opcodes"]
+        out[name.replace("element", "opcodes").replace("floor", "opcodes_floor")] = \
+            loop["opcodes"]
+    return out
+
+
+def gumbel_table_check(device) -> dict:
+    """``categorical_gumbel``'s bound table on the card against the same
+    table built on the CPU, and against each bucket's largest gumbel as the
+    kernel's own code computes it (``prng.gumbel_values``: all 2^23
+    uniforms)."""
+    import math
+
+    import torch
+
+    from orange3_spark_tpu_torch.ops import prng
+
+    card = prng.gumbel_bucket_table(device)
+    host = prng.gumbel_bucket_table("cpu")
+    own = prng.gumbel_values(device)
+    codes = prng.gumbel_bucket(torch.arange(1 << 23, dtype=torch.int32, device=device) << 9)
+    own_table = torch.full_like(card, -math.inf).scatter_reduce_(0, codes, own, "amax")
+    out = {"card_equals_cpu": torch.equal(card.cpu(), host),
+           "card_equals_kernel_own": torch.equal(card, own_table),
+           "buckets_used": int(torch.isfinite(card).sum()),
+           "largest_slack": float((card[codes] - own).max())}
+    out["equal"] = out["card_equals_cpu"] and out["card_equals_kernel_own"]
     return out
 
 
@@ -6989,8 +7016,8 @@ def _unsup_text(sess, cpu, out, mem_bw, int_rate) -> dict:
     documents: the string stages into HashingTF(2^18), CountVectorizer(
     10000) then IDF, LDA(k=20, max_iter=20) on the counts, Word2Vec; then
     ``categorical_gumbel`` held bitwise against its plain version on the
-    first pairs' draws and timed at the fit's full shape. Returns the
-    kernel's line."""
+    first and the last pairs' draws, its bound table checked, and timed at
+    the fit's full shape. Returns the kernel's line."""
     import numpy as np
     import torch
 
@@ -7087,21 +7114,39 @@ def _unsup_text(sess, cpu, out, mem_bw, int_rate) -> dict:
     got = prng.categorical_gumbel(key, logits, rows)
     plain, plain_s = _unsup_timed(lambda: prng.categorical_gumbel_reference(key, logits,
                                                                             check_rows))
-    bitwise = torch.equal(got[:check_rows], plain)
+    last = rows - check_rows
+    tail = prng.categorical_gumbel_reference(key, logits, check_rows, first_row=last)
+    windows = {"first": torch.equal(got[:check_rows], plain),
+               "last": torch.equal(got[last:], tail)}
+    bitwise = all(windows.values())
+    counts = torch.zeros(2, dtype=torch.int64, device=logits.device)
+    counted = torch.empty(rows, dtype=torch.int32, device=logits.device)
+    prng._launch_categorical(key, logits, 0, counted, counts)
+    evaluated, passes = (int(c) for c in counts.cpu())
     prefix_ms = cuda_ms(lambda: prng.categorical_gumbel(key, logits, check_rows), 5, warmup=1)
-    ms = cuda_ms(lambda: prng.categorical_gumbel(key, logits, rows), 2)
+    ms = cuda_ms(lambda: prng.categorical_gumbel(key, logits, rows), 5, warmup=1)
     sass = categorical_work_sass()
     elements = rows * V
-    bound = _prng_bound(4 * rows + 4 * V, sass["element"] * elements, mem_bw, int_rate)
+    bound = _prng_bound(4 * rows + 4 * V, sass["floor"] * elements, mem_bw, int_rate)
+    full = _prng_bound(4 * rows + 4 * V, sass["element"] * elements, mem_bw, int_rate)
     line = {"rows": rows, "V": V, "elements": elements, "check_rows": check_rows,
-            "bitwise_plain": bitwise, "max_abs_err": 0 if bitwise else None,
+            "checked_windows": {"first": [0, check_rows], "last": [last, rows]},
+            "bitwise_plain": bitwise, "bitwise_windows": windows,
+            "measurement_build_bitwise": torch.equal(counted, got),
+            "max_abs_err": 0 if bitwise else None,
             "ms": ms, "prefix_ms": prefix_ms, "plain_prefix_ms": plain_s * 1e3,
             "plain_ms": plain_s * 1e3, "plain_at": f"the first {check_rows} rows",
-            "launches": launches, "instructions_per_element": sass["element"],
-            "instructions_per_element_float64_form": sass["element_float64_form"],
-            "element_opcodes": sass["opcodes"],
-            "element_opcodes_float64_form": sass["opcodes_float64_form"], **bound,
-            "x_bound": ms / bound["bound_ms"]}
+            "launches": launches, "evaluated": evaluated, "evaluated_share": evaluated / elements,
+            "evaluation_passes": passes, "evaluation_passes_per_row": passes / rows,
+            "instructions_per_element_floor": sass["floor"],
+            "instructions_per_element_full_evaluation": sass["element"],
+            "floor_opcodes": sass["opcodes_floor"], "element_opcodes": sass["opcodes"],
+            **bound, "x_bound": ms / bound["bound_ms"],
+            "full_evaluation_bound_ms": full["bound_ms"],
+            "x_full_evaluation_bound": ms / full["bound_ms"],
+            "gumbel_table": gumbel_table_check(logits.device)}
+    if not line["measurement_build_bitwise"] or not line["gumbel_table"]["equal"]:
+        bitwise = False
     if not bitwise:
         raise AssertionError(f"categorical_gumbel differs from its plain version: {line}")
     del got, plain
@@ -7713,15 +7758,19 @@ def _run(args) -> int:
             "max_abs_err": cg["max_abs_err"], "bitwise_plain": cg["bitwise_plain"],
             **{k: cg[k] for k in ("ms", "prefix_ms", "plain_ms", "plain_at", "bound_ms",
                                   "bound_by", "bytes", "int_ops", "x_bound",
-                                  "instructions_per_element",
-                                  "instructions_per_element_float64_form", "rows", "V",
-                                  "elements")},
-            "bound": "the instructions an element needs (probes/categorical_work.cu's "
-                     "SASS, each multiply-add one FFMA) x the draw's elements at the "
-                     "issue rate",
+                                  "full_evaluation_bound_ms", "x_full_evaluation_bound",
+                                  "evaluated_share", "instructions_per_element_floor",
+                                  "instructions_per_element_full_evaluation", "rows", "V",
+                                  "elements", "checked_windows")},
+            "bound": "the function's floor: the instructions every element needs (the "
+                     "hash, the uniform's bits, the logit's read; probes/"
+                     "categorical_work.cu's categorical_floor in SASS) x the draw's "
+                     "elements at the issue rate; full_evaluation_bound_ms: every element "
+                     "also through both logs (its categorical_work)",
             "library_ms": None, "library": "no PyTorch call computes JAX's stream",
-            "timed": "CUDA events: ms 2 launches at the fit's draw, prefix_ms 5 at the "
-                     "checked rows; plain_ms one plain run of the checked rows",
+            "timed": "CUDA events: ms 5 launches at the fit's draw, prefix_ms 5 at the "
+                     "first checked rows, each after a warm-up; plain_ms one plain run "
+                     "of the first checked rows",
             "at": f"Word2Vec's negatives: {cg['rows']} rows (2^16 pairs x 5) over "
                   f"{cg['V']} words",
         }]})

@@ -813,7 +813,7 @@ def _stream_step(theta: dict, opt_state: dict, X, y, w, reg: float, lr: float, *
     ``Σ G``. The update is optax's ``adam(1.0)`` scaled by ``lr``
     (``optim/sparse.adam_update``). A bf16-cached X (a bfloat16 tensor) is
     widened to float32 here, exactly. Nothing waits for the device."""
-    from orange3_spark_tpu_torch.models._linear import per_row_loss, per_row_loss_grad
+    from orange3_spark_tpu_torch.models._linear import per_row_loss_and_grad
     from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
     from orange3_spark_tpu_torch.optim.sparse import adam_update
 
@@ -821,9 +821,8 @@ def _stream_step(theta: dict, opt_state: dict, X, y, w, reg: float, lr: float, *
     coef, intercept = theta["coef"], theta["intercept"]
     sum_w = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
     logits = Xc @ coef + intercept
-    loss = ((per_row_loss(loss_kind, logits, y) * w).sum() / sum_w
-            + 0.5 * reg * (coef * coef).sum())
-    G = per_row_loss_grad(loss_kind, logits, y) * (w * (1.0 / sum_w))[:, None]
+    rows, G = per_row_loss_and_grad(loss_kind, logits, y, w * (1.0 / sum_w))
+    loss = (rows * w).sum() / sum_w + 0.5 * reg * (coef * coef).sum()
     grads = {"coef": Xc.T @ G + reg * coef, "intercept": G.sum(dim=0)}
     theta, opt_state = adam_update(theta, grads, opt_state, lr)
     return theta, opt_state, loss

@@ -42,17 +42,89 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orange3_spark_tpu_torch.core.fmath import norm32, sqrt32
+from orange3_spark_tpu_torch.core.fmath import norm32, sqrt32, xla_sum
+from orange3_spark_tpu_torch.ops.prng import _fma32, _xla_exp, _xla_log, _xla_log1p
 from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
 from orange3_spark_tpu_torch.ops.stats import inv_std_scale as column_inv_std
 
 __all__ = ["AutogradObjective", "EPS_TOTAL_WEIGHT", "LOGIT_BLOCK_ROWS", "LOSS_KINDS", "LinearFitResult",
            "LinearObjective", "column_inv_std",
            "dense_logits", "fit_linear", "lbfgs_minimize", "owlqn_minimize",
-           "penalties", "per_row_loss", "per_row_loss_grad", "record_fit_counts"]
+           "penalties", "per_row_loss", "per_row_loss_and_grad", "per_row_loss_grad",
+           "record_fit_counts"]
 
 LOSS_KINDS = ("logistic", "binary_logistic", "hinge", "squared_hinge", "squared")
 _F32 = np.float32
+
+
+def _xla_log_softmax(logits: torch.Tensor):
+    """``jax.nn.log_softmax`` over the last axis as XLA:CPU runs it:
+    ``shifted = z - max``, then ``shifted - log(Σ exp(shifted))`` with
+    XLA's exp and log and the k entries summed in its order. Returns the
+    log-probabilities, exp(shifted) and the sum (the backward's inputs)."""
+    shifted = logits - torch.amax(logits, dim=-1, keepdim=True)
+    e = _xla_exp(shifted)
+    s = xla_sum(e, dim=-1, keepdim=True)
+    return shifted - _xla_log(s), e, s
+
+
+#: elements of one row block of the CPU path's written-out losses: an op
+#: on fewer than torch's parallel grain (32,768) runs on the calling
+#: thread, where an OpenMP region an op would cost more than the work on a
+#: machine whose cores are shared (tens of ops an element here)
+_CPU_BLOCK = (1 << 15) - 1
+
+
+def _by_row_blocks(fn, logits: torch.Tensor, *rows: torch.Tensor):
+    """``fn(logits, *rows)`` (a tensor or a tuple of them) a block of at
+    most ``_CPU_BLOCK`` logits at a time, concatenated: every step of
+    ``fn`` is row by row, so the blocks give its bits."""
+    step = max(1, _CPU_BLOCK // max(1, logits.shape[1]))
+    if logits.shape[0] <= step:
+        return fn(logits, *rows)
+    parts = [fn(logits[i:i + step], *(r[i:i + step] for r in rows))
+             for i in range(0, logits.shape[0], step)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def _xla_logistic(loss_kind: str, logits: torch.Tensor, y: torch.Tensor,
+                  ct: torch.Tensor | None):
+    """The CPU path of the two logistic losses: the row losses with XLA's
+    exp, log, log1p and sum order, and (``ct`` given) their gradient times
+    ``ct`` as the reference's ``jax.grad`` steps through its jaxpr.
+    Softmax cross-entropy: -log_softmax at the label; the one-hot
+    cotangent c = -ct at the label, then c + (Σ(-c) / Σexp) · exp(shifted),
+    that multiply-add fused as XLA:CPU fuses it (on an AVX-512 host every
+    column but the last of k = 3, whose vector tail it leaves as a product
+    and a sum). Binary: max(z, 0) - z·y + log1p(u), u = exp(-|z|); b = ct /
+    (u + 1) · u, then ±b (by the sign of z) + (-ct)·y + ct·step(z).
+    Returns (rows, gradient or None)."""
+    if loss_kind == "logistic":
+        logp, e, s = _xla_log_softmax(logits)
+        label = y.to(torch.int64)[:, None]
+        rows = -torch.gather(logp, 1, label)[:, 0]
+        if ct is None:
+            return rows, None
+        c = torch.zeros_like(logits).scatter_add_(1, label, (-ct)[:, None])
+        b = xla_sum(-c, dim=1, keepdim=True) / s
+        g = _fma32(b, e, c)
+        if logits.shape[1] == 3:
+            g[:, 2] = c[:, 2] + b[:, 0] * e[:, 2]
+        return rows, g
+    z = logits[:, 0]
+    u = _xla_exp(-torch.abs(z))
+    rows = torch.clamp_min(z, 0.0) - z * y + _xla_log1p(u)
+    if ct is None:
+        return rows, None
+    b = ct / (u + 1.0) * u
+    g = torch.where(z >= 0, -b, b) + (-ct) * y
+    return rows, (g + ct * _tie_step(z))[:, None]
+
+
+def _xla_path(loss_kind: str, logits: torch.Tensor) -> bool:
+    return not logits.is_cuda and loss_kind in ("logistic", "binary_logistic")
 
 
 def per_row_loss(loss_kind: str, logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -61,7 +133,12 @@ def per_row_loss(loss_kind: str, logits: torch.Tensor, y: torch.Tensor) -> torch
     'logistic' is softmax cross-entropy over k classes; 'binary_logistic'
     the single-logit sigmoid form (k = 1), softplus(z) - z·y written
     stably; 'hinge'/'squared_hinge' the SVM margins on the first logit;
-    'squared' least squares."""
+    'squared' least squares. On the CPU the two logistic losses take XLA's
+    exp, log and log1p and its sum order (``_xla_logistic``): bitwise the
+    reference's; on the card torch's."""
+    if _xla_path(loss_kind, logits):
+        return _by_row_blocks(lambda z, yy: _xla_logistic(loss_kind, z, yy, None)[0],
+                              logits, y)
     if loss_kind == "logistic":
         logp = torch.log_softmax(logits, dim=-1)
         return -torch.gather(logp, 1, y.to(torch.int64)[:, None])[:, 0]
@@ -81,13 +158,22 @@ def _tie_step(a: torch.Tensor) -> torch.Tensor:
     return torch.where(a > 0, 1.0, torch.where(a == 0, 0.5, 0.0))
 
 
-def per_row_loss_grad(loss_kind: str, logits: torch.Tensor,
-                      y: torch.Tensor) -> torch.Tensor:
-    """[N, k] d per_row_loss / d logits, row by row."""
+def per_row_loss_grad(loss_kind: str, logits: torch.Tensor, y: torch.Tensor,
+                      ct: torch.Tensor | None = None) -> torch.Tensor:
+    """[N, k] d per_row_loss / d logits, row by row, times ``ct`` ([N], each
+    row loss's cotangent, e.g. wᵢ·(1/Σw); 1 when None). On the CPU the
+    logistic losses follow the reference's autodiff step for step
+    (``_xla_logistic``: bitwise its ``jax.grad``); elsewhere the
+    derivative is formed, then scaled by ``ct``."""
+    if ct is None:
+        ct = torch.ones_like(logits[:, 0])
+    if _xla_path(loss_kind, logits):
+        return per_row_loss_and_grad(loss_kind, logits, y, ct)[1]
     if loss_kind == "logistic":
         p = torch.softmax(logits, dim=-1)
-        return p - torch.nn.functional.one_hot(
+        g = p - torch.nn.functional.one_hot(
             y.to(torch.int64), logits.shape[1]).to(logits.dtype)
+        return g * ct[:, None]
     z = logits[:, 0]
     if loss_kind == "binary_logistic":
         x = torch.exp(-torch.abs(z))
@@ -103,7 +189,18 @@ def per_row_loss_grad(loss_kind: str, logits: torch.Tensor,
         g = z - y
     else:
         raise ValueError(loss_kind)
-    return g[:, None]
+    return g[:, None] * ct[:, None]
+
+
+def per_row_loss_and_grad(loss_kind: str, logits: torch.Tensor, y: torch.Tensor,
+                          ct: torch.Tensor):
+    """(``per_row_loss``, ``per_row_loss_grad`` given ``ct``) in one pass:
+    the CPU path's logistic losses share their exp and log_softmax."""
+    if _xla_path(loss_kind, logits):
+        return _by_row_blocks(lambda z, yy, cc: _xla_logistic(loss_kind, z, yy, cc),
+                              logits, y, ct)
+    return (per_row_loss(loss_kind, logits, y),
+            per_row_loss_grad(loss_kind, logits, y, ct))
 
 
 LOGIT_BLOCK_ROWS = 1 << 16
@@ -164,6 +261,15 @@ class HostReads:
 
 
 # ------------------------------------------------------------- objective
+def _sum(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    """The objective's sums: on the CPU in XLA:CPU's order (``xla_sum``; a
+    full sum of the flattened tensor), bitwise the reference's where its
+    reduction is one tree; on the card torch's."""
+    if x.is_cuda:
+        return x.sum() if dim is None else x.sum(dim=dim)
+    return xla_sum(x.reshape(-1)) if dim is None else xla_sum(x, dim)
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result. Two bf16 operands: on CUDA one cuBLAS
     product with f32 output (``aten::mm.dtype``); on the CPU, which has no
@@ -199,7 +305,7 @@ class LinearObjective:
         self.reg_l2 = float(_F32(reg_l2))
         self.col_scale = col_scale[:, None]
         self.loss_kind, self.fit_intercept = loss_kind, fit_intercept
-        self.sum_w = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
+        self.sum_w = torch.clamp_min(_sum(w), EPS_TOTAL_WEIGHT)
         # d(loss)/d(row loss): the reference's autodiff takes 1/Σw, then × w
         self.row_ct = w * (1.0 / self.sum_w)
         self.n_evals = 0
@@ -219,10 +325,11 @@ class LinearObjective:
         logits = _mm_f32(self.Xc, B)
         return logits + intercept if self.fit_intercept else logits
 
-    def _value(self, coef, logits):
-        rows = per_row_loss(self.loss_kind, logits, self.y)
-        data = (rows * self.w).sum() / self.sum_w
-        return data + 0.5 * self.reg_l2 * (coef * coef).sum()
+    def _value(self, coef, logits, rows=None):
+        if rows is None:
+            rows = per_row_loss(self.loss_kind, logits, self.y)
+        data = _sum(rows * self.w) / self.sum_w
+        return data + 0.5 * self.reg_l2 * _sum(coef * coef)
 
     def value(self, theta: torch.Tensor) -> torch.Tensor:
         self.n_evals += 1
@@ -233,7 +340,7 @@ class LinearObjective:
         self.n_evals += 1
         coef, intercept = self._split(theta)
         logits = self._logits(coef, intercept)
-        G = per_row_loss_grad(self.loss_kind, logits, self.y) * self.row_ct[:, None]
+        rows, G = per_row_loss_and_grad(self.loss_kind, logits, self.y, self.row_ct)
         if self.Xc.dtype == torch.float32:
             gB = self.Xc.T @ G
         else:   # the reference rounds the coefficient gradient once to bf16
@@ -241,8 +348,8 @@ class LinearObjective:
             P = _mm_f32(self.Xc.T, _split_bf16(G))
             gB = ((P[:, :k] + P[:, k:2 * k]) + P[:, 2 * k:]).to(self.Xc.dtype).float()
         g_coef = gB * self.col_scale + self.reg_l2 * coef
-        g_int = G.sum(dim=0) if self.fit_intercept else torch.zeros_like(intercept)
-        return self._value(coef, logits), torch.cat([g_coef.reshape(-1), g_int])
+        g_int = _sum(G, 0) if self.fit_intercept else torch.zeros_like(intercept)
+        return self._value(coef, logits, rows), torch.cat([g_coef.reshape(-1), g_int])
 
 
 class AutogradObjective:

@@ -91,7 +91,7 @@ from orange3_spark_tpu_torch.io.codec import (
     bf16_bits_np, bf16_to_f32, bit_width, pack_rows_np, resolve_cache_dtype, unpack_rows,
 )
 from orange3_spark_tpu_torch.models._linear import (
-    EPS_TOTAL_WEIGHT, dense_logits, per_row_loss, per_row_loss_grad,
+    EPS_TOTAL_WEIGHT, dense_logits, per_row_loss, per_row_loss_and_grad,
 )
 from orange3_spark_tpu_torch.models.base import Estimator, Model, Params
 from orange3_spark_tpu_torch.obs import prof
@@ -540,8 +540,8 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
                                 compute_dtype=compute_dtype)
     with record_function("loss_grad"):
         sw = torch.clamp_min(wv.sum(), EPS_TOTAL_WEIGHT)
-        loss = (per_row_loss(loss_kind, logits, yv) * wv).sum() / sw
-        dl = per_row_loss_grad(loss_kind, logits, yv) * (wv / sw)[:, None]   # [N, k]
+        rows, dl = per_row_loss_and_grad(loss_kind, logits, yv, wv / sw)   # dl: [N, k]
+        loss = (rows * wv).sum() / sw
         g_coef = _rounded(dense, compute_dtype).T @ dl
         if not sparse:          # differentiated through the rounded coef
             g_coef = _rounded(g_coef, compute_dtype)

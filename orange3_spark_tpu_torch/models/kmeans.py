@@ -94,26 +94,36 @@ def _assign(X, centers, w, compute_dtype=torch.float32):
     return assign.to(torch.int32), (mind2 * w).sum()
 
 
-def _lloyd_step(X, w, centers, tol, k, compute_dtype):
-    """One Lloyd iteration: (new centers, converged as a device bool)."""
+def _lloyd_step(X, w, centers, tol, k, compute_dtype, wide_sums=False):
+    """One Lloyd iteration: (new centers, converged as a device bool).
+    ``wide_sums``: the clusters' sums and weights in float64, each center
+    rounded once to float32. cuBLAS and the CPU's BLAS sum in other
+    orders, and in float32 those orders part the centers by ulps that,
+    over the iterations, move points near a boundary to another cluster
+    (5 of 200,000 taxi rows, centers 3.3e-4 apart); in float64 both round
+    to the same centers (the assignment is bitwise on both devices
+    already). KMeans takes it; PIC's and the bisecting splits' 1-D and
+    2-centre runs keep the reference's float32 sums."""
     assign, _ = _assign(X, centers, w, compute_dtype)
+    acc = torch.float64 if wide_sums else torch.float32
     onehot = (assign[:, None] == torch.arange(k, dtype=torch.int32, device=X.device)
-              ).to(torch.float32) * w[:, None]
-    sums = onehot.T @ X
+              ).to(acc) * w[:, None].to(acc)
+    sums = onehot.T @ X.to(acc)
     counts = onehot.sum(dim=0)
     new = torch.where(counts[:, None] > 0,
-                      sums / torch.clamp_min(counts, 1e-12)[:, None], centers)
+                      (sums / torch.clamp_min(counts, 1e-12)[:, None]).to(torch.float32),
+                      centers)
     move = sqrt32(((new - centers) ** 2).sum(dim=1))
     return new, torch.all(move < tol)
 
 
 def _lloyd(X, w, centers0, tol, *, k: int, max_iter: int,
-           compute_dtype=torch.float32):
+           compute_dtype=torch.float32, wide_sums: bool = False):
     """Lloyd's loop on the host: one flag read an iteration. Returns
     (centers, assign, cost, n_iter) with n_iter an int."""
     centers, n_iter = centers0, 0
     while n_iter < max_iter:
-        centers, converged = _lloyd_step(X, w, centers, tol, k, compute_dtype)
+        centers, converged = _lloyd_step(X, w, centers, tol, k, compute_dtype, wide_sums)
         n_iter += 1
         if bool(converged):
             break
@@ -122,7 +132,7 @@ def _lloyd(X, w, centers0, tol, *, k: int, max_iter: int,
 
 
 def _lloyd_fixed(X, w, centers0, tol, *, k: int, max_iter: int,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, wide_sums: bool = False):
     """The same loop with a fixed trip count and no host read: ``max_iter``
     iterations, the centers frozen by a device ``done`` flag once they
     converged. Bitwise ``_lloyd``'s centers, assignment, cost and count
@@ -131,7 +141,7 @@ def _lloyd_fixed(X, w, centers0, tol, *, k: int, max_iter: int,
     done = torch.zeros((), dtype=torch.bool, device=X.device)
     n_iter = torch.zeros((), dtype=torch.int32, device=X.device)
     for _ in range(max_iter):
-        new, converged = _lloyd_step(X, w, centers, tol, k, compute_dtype)
+        new, converged = _lloyd_step(X, w, centers, tol, k, compute_dtype, wide_sums)
         centers = torch.where(done, centers, new)
         n_iter = n_iter + (~done).to(torch.int32)
         done = done | converged
@@ -320,7 +330,8 @@ class KMeans(Estimator):
 
     def _fit(self, table: TorchTable) -> KMeansModel:
         p = self.params
-        kw = dict(k=p.k, max_iter=p.max_iter, compute_dtype=_dtype(p.compute_dtype))
+        kw = dict(k=p.k, max_iter=p.max_iter, compute_dtype=_dtype(p.compute_dtype),
+                  wide_sums=True)
         lloyd = _lloyd_fixed if staging_active() else _lloyd
         if p.n_init <= 1:
             centers, assign, cost, n_iter = lloyd(

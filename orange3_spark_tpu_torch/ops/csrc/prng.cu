@@ -73,18 +73,46 @@
 // Draw r of n is the argmax over v of -log(-log(u)) + logits[v], u JAX's
 // uniform on [tiny, 1) of the word at flat index r * V + v (hi and lo
 // counter words: the index passes 2^32 at real sizes), the logs XLA's CPU
-// form (Cephes' logf as ops/prng._xla_log writes it out: float32 steps
-// with every fused multiply-add taken as a float64 product and sum rounded
-// once, no contraction), the first index on a tie (jnp.argmax). A block
-// takes one draw: its threads stride over v, each keeping its running
-// first maximum, then a shuffle and shared-memory reduction picks the
-// largest value and, on equal values, the smaller v. Only the i32 result
-// is written: the [n, V] gumbel array never exists. What bounds it:
-// issue. Every element costs a hash, two logs and the uniform, so the
-// operations the function needs are n * V elements times the SASS
-// instructions of one element (chip_smoke.py counts them in
-// probes/categorical_work.cu, each multiply-add one FFMA); the V logits (read from L2 by every block)
-// and the 4 n bytes written are far below that.
+// form (Cephes' logf as ops/prng._xla_log writes it out, each fused
+// multiply-add one FFMA), the first index on a tie (jnp.argmax). Only the
+// i32 result is written: the [n, V] gumbel array never exists.
+//
+// What bounds it: issue. A full evaluation costs an element the hash, two
+// logs and the uniform (about 160 SASS instructions), but a draw's answer
+// is one argmax over V elements, and the logs decide nothing for an
+// element whose gumbel cannot lift it to the best value held. The gumbel
+// depends only on the word's top 23 bits m, so a table of ~3,000 buckets
+// of m (finer where the gumbel rises steeply, as u -> 1) holds each
+// bucket's largest gumbel, as the kernel's own function gives it
+// (ops/prng.gumbel_bucket_table; no monotonicity assumed). Rounded
+// addition is monotone, so fl(gumbel + logit) <= fl(bucket max + logit):
+// an element whose bound lies strictly below a value already reached in
+// its draw can neither win nor tie, and skips both logs. What is left for
+// every element is the hash, the bucket, a shared-memory read of its
+// bound, the logit's read and a compare: the function's floor, counted in
+// probes/categorical_work.cu's SASS.
+//
+// A warp takes one draw and walks its V elements 32 at a time. The
+// survivors of a step (all of the first step's, a few later) go to the
+// warp's queue in shared memory (__ballot_sync and popcount give each its
+// slot) and are evaluated 32 at a time, a survivor a lane, so the logs run
+// with the warp converged; a butterfly of first_max (the value, then the
+// smaller v) folds them into the warp's best, whose value is the next
+// threshold. An element's value depends only on itself, so moving it
+// between lanes changes no bit. The threshold is never NaN and starts at
+// -inf, so nothing is skipped before a value is held; a -inf logit is
+// skipped once a finite value is held, a NaN logit never (torch.argmax's
+// order puts NaN first, and first_max keeps it). A lane steps its 64-bit
+// counter by 32 and keeps four steps' hashes in flight (41 registers, 6
+// blocks of 8 warps an SM); the first step of a draw runs alone.
+//
+// On an NVIDIA H100 80GB HBM3 at 700.00 W, Word2Vec's draw (327,680 rows
+// over 20,000 words) takes 22.64 ms against 85.58 ms for the block-a-draw
+// kernel that evaluated every element (probes/categorical_gumbel_ab.py);
+// 0.19 % of the elements take the logs, 1.86 evaluation passes a draw.
+// The floor (78 instructions an element) takes 15.28 ms at the all-lane
+// issue rate, so the kernel is at 1.48x; 55 of those 78 are integer-pipe
+// instructions, which Hopper issues at half that rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -250,22 +278,18 @@ poisson_knuth(const uint32_t* __restrict__ table, const uint32_t* __restrict__ r
 }
 
 constexpr int kCatThreads = 256;
+constexpr int kCatWarps = kCatThreads / 32;
+// 32-element steps of a warp whose hashes are in flight together
+constexpr int kCatUnroll = 4;
 constexpr float kTiny = 1.17549435e-38f;
+// Buckets of the gumbel's upper bound: codes 0 .. 2944 of k = 2^23 - m
+constexpr int kGumbelBuckets = 2945;
 
-// float32 a * b + c as ops/prng._fma32 forms it: the float64 product
-// (exact) and sum, rounded once to float32. Built with PRNG_FMA32_SINGLE
-// (only probes/categorical_work.cu's count of the function's work is),
-// one single-rounding FFMA instead: the two give the same gumbel for every
-// uniform JAX can draw (tests/test_torch_prng.py enumerates all 2^23), so
-// the float64 steps are this kernel's design, not its function's work.
-#ifdef PRNG_FMA32_SINGLE
+// float32 a * b + c rounded once (one FFMA). ops/prng._fma32, the plain
+// version's form, takes the float64 product and sum rounded once instead:
+// the two give the same gumbel for every uniform JAX draws
+// (tests/test_torch_prng.py enumerates all 2^23).
 __device__ __forceinline__ float fma32(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-#else
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                                     static_cast<double>(c)));
-}
-#endif
 
 // XLA's float32 log on the CPU, step for step as ops/prng._xla_log.
 __device__ __forceinline__ float xla_log(float x) {
@@ -290,56 +314,179 @@ __device__ __forceinline__ float xla_log(float x) {
   return out;
 }
 
-// The gumbel-plus-logit value of element i (flat index r * V + v).
-__device__ __forceinline__ float gumbel_at(uint32_t k0, uint32_t k1, unsigned long long i) {
-  const uint32_t b = bits_at(k0, k1, i);
+// The gumbel of a word b: -log(-log(u)), u JAX's uniform on [tiny, 1)
+// from b's top 23 bits m. JAX forms u = max(tiny, f * (1 - tiny) + tiny),
+// f = m / 2^23, with 1 - tiny == 1 in float32; f is 0 or at least 2^-23,
+// so that sum rounds to f, or to tiny at m = 0: u = max(f, tiny).
+__device__ __forceinline__ float gumbel_of(uint32_t b) {
   const float f = __fsub_rn(__uint_as_float((b >> 9) | 0x3F800000u), 1.0f);
-  const float u = fmaxf(__double2float_rn(__dadd_rn(static_cast<double>(f),
-                                                    static_cast<double>(kTiny))), kTiny);
-  return -xla_log(-xla_log(u));
+  return -xla_log(-xla_log(fmaxf(f, kTiny)));
 }
 
-// Keeps (a, ia) as the first maximum of itself and (b, ib).
+// The gumbel of element i (flat index r * V + v).
+__device__ __forceinline__ float gumbel_at(uint32_t k0, uint32_t k1, unsigned long long i) {
+  return gumbel_of(bits_at(k0, k1, i));
+}
+
+// The bucket of word b: k = 2^23 - m (1 .. 2^23) by its exponent and its
+// 7 bits below the leading one, (exponent - 127) * 128 + those bits, in
+// [0, kGumbelBuckets). The gumbel rises as -log(k / 2^23) near u = 1, so a
+// bucket spans a relative step of 2^-7 in k and its gumbels lie within
+// log(1 + 2^-7) of each other there; k < 128 is exact. Formed in float32
+// without a conversion: 2 - (1 + m / 2^23) is k / 2^23 exactly (Sterbenz),
+// whose bits carry k's exponent less 23. ops/prng.gumbel_bucket is the
+// same map.
+__device__ __forceinline__ int gumbel_bucket(uint32_t b) {
+  const float k = __fsub_rn(2.0f, __uint_as_float((b >> 9) | 0x3F800000u));
+  return static_cast<int>(__float_as_uint(k) >> 16) - 0x3400;
+}
+
+// (a, ia) becomes the first maximum of itself and (b, ib): the larger
+// value, NaN above every number (torch.argmax's order), the smaller index
+// on equal values or two NaNs.
 __device__ __forceinline__ void first_max(float& a, int& ia, float b, int ib) {
-  if (b > a || (b == a && ib < ia)) {
+  const bool an = a != a, bn = b != b;
+  const bool take = bn ? (!an || ib < ia) : (!an && (b > a || (b == a && ib < ia)));
+  if (take) {
     a = b;
     ia = ib;
   }
 }
 
+// A warp's queue of elements that survived the bound (v and their word),
+// evaluated 32 at a time.
+struct CatQueue {
+  int v[64];
+  uint32_t b[64];
+};
+
+// Evaluates the first cnt (<= 32) entries of the warp's queue, a lane an
+// entry, and folds their first maximum into the warp's (best, arg).
+__device__ __forceinline__ void cat_evaluate(const CatQueue& q, int cnt, int lane,
+                                             const float* __restrict__ logits, int V,
+                                             float& best, int& arg) {
+  __syncwarp();
+  float val = -__int_as_float(0x7F800000);
+  int vi = V;
+  if (lane < cnt) {
+    vi = q.v[lane];
+    val = __fadd_rn(gumbel_of(q.b[lane]), __ldg(logits + vi));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xFFFFFFFFu, val, o);
+    const int oi = __shfl_xor_sync(0xFFFFFFFFu, vi, o);
+    first_max(val, vi, ov, oi);
+  }
+  first_max(best, arg, val, vi);
+}
+
+// gmax_table: f32[kGumbelBuckets], bucket c's largest gumbel_of over
+// every word in it (ops/prng.gumbel_bucket_table). kCount: also add the
+// elements evaluated and the evaluation passes to counts[0] and counts[1]
+// (a measurement build).
+template <bool kCount>
 __global__ void __launch_bounds__(kCatThreads)
 categorical_gumbel(uint32_t k0, uint32_t k1, const float* __restrict__ logits, int V,
-                   long long n, long long first_row, int* __restrict__ out) {
-  __shared__ float best_v[kCatThreads / 32];
-  __shared__ int best_i[kCatThreads / 32];
-  for (long long r = blockIdx.x; r < n; r += gridDim.x) {
-    const unsigned long long base = static_cast<unsigned long long>(first_row + r) * V;
-    float best = -__int_as_float(0x7F800000);
-    int arg = V;
-    for (int v = threadIdx.x; v < V; v += kCatThreads) {
-      const float val = __fadd_rn(gumbel_at(k0, k1, base + v), __ldg(logits + v));
-      if (val > best || arg == V) {   // v rises: a strict > keeps the first
-        best = val;
-        arg = v;
+                   long long n, long long first_row, const float* __restrict__ gmax_table,
+                   int* __restrict__ out, unsigned long long* __restrict__ counts) {
+  __shared__ float gmax[kGumbelBuckets];
+  __shared__ CatQueue queues[kCatWarps];
+  for (int c = threadIdx.x; c < kGumbelBuckets; c += kCatThreads) gmax[c] = gmax_table[c];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  CatQueue& q = queues[threadIdx.x >> 5];
+  unsigned long long evaluated = 0, passes = 0;
+  for (long long r = static_cast<long long>(blockIdx.x) * kCatWarps + (threadIdx.x >> 5); r < n;
+       r += static_cast<long long>(gridDim.x) * kCatWarps) {
+    // lane's counter: the flat index of its element, stepped 32 at a time
+    unsigned long long i = static_cast<unsigned long long>(first_row + r) * V + lane;
+    // warp-uniform: the first maximum over the evaluated elements, and the
+    // skip threshold, a value some evaluated element reached (NaN never)
+    float best = -__int_as_float(0x7F800000), thr = best;
+    int arg = V, queued = 0;
+    // The step's survivors into the queue; 32 queued are evaluated at once.
+    auto offer = [&](bool keep, int v, uint32_t b) {
+      const unsigned mask = __ballot_sync(0xFFFFFFFFu, keep);
+      if (mask == 0u) return;
+      if (keep) {
+        const int slot = queued + __popc(mask & below);
+        q.v[slot] = v;
+        q.b[slot] = b;
+      }
+      queued += __popc(mask);
+      if (queued >= 32) {
+        cat_evaluate(q, 32, lane, logits, V, best, arg);
+        thr = fmaxf(thr, best);
+        queued -= 32;
+        if constexpr (kCount) {
+          evaluated += 32;
+          passes += 1;
+        }
+        __syncwarp();
+        if (lane < queued) {
+          q.v[lane] = q.v[lane + 32];
+          q.b[lane] = q.b[lane + 32];
+        }
+        __syncwarp();
+      }
+    };
+    // fl(gumbel + logit) <= fl(bucket max + logit): rounding is monotone.
+    // Below thr (strictly) the element can neither win nor tie.
+    auto step = [&](int v0, unsigned long long at) {
+      const int v = v0 + lane;
+      uint32_t b = 0u;
+      bool keep = false;
+      if (v < V) {
+        b = bits_at(k0, k1, at);
+        keep = !(__fadd_rn(gmax[gumbel_bucket(b)], __ldg(logits + v)) < thr);
+      }
+      offer(keep, v, b);
+    };
+    // The first step alone (every element survives it: nothing is held),
+    // then the steps whose 32 lanes all lie below V kCatUnroll at a time,
+    // their hashes independent (a later step's test may use the earlier
+    // thr, which only skips less), then the rest, the last ragged.
+    step(0, i);
+    const int full = V & ~31;
+    int v0 = 32;
+    for (i += 32; v0 + 32 * kCatUnroll <= full; v0 += 32 * kCatUnroll, i += 32 * kCatUnroll) {
+      uint32_t b[kCatUnroll];
+      bool keep[kCatUnroll];
+#pragma unroll
+      for (int u = 0; u < kCatUnroll; ++u) {
+        b[u] = bits_at(k0, k1, i + 32 * u);
+        keep[u] = !(__fadd_rn(gmax[gumbel_bucket(b[u])], __ldg(logits + v0 + 32 * u + lane))
+                    < thr);
+      }
+#pragma unroll
+      for (int u = 0; u < kCatUnroll; ++u) offer(keep[u], v0 + 32 * u + lane, b[u]);
+    }
+    for (; v0 < V; v0 += 32, i += 32) step(v0, i);
+    if (queued > 0) {
+      cat_evaluate(q, queued, lane, logits, V, best, arg);
+      if constexpr (kCount) {
+        evaluated += queued;
+        passes += 1;
       }
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_down_sync(0xFFFFFFFFu, best, o);
-      const int oi = __shfl_down_sync(0xFFFFFFFFu, arg, o);
-      first_max(best, arg, ov, oi);
-    }
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      best_v[warp] = best;
-      best_i[warp] = arg;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kCatThreads / 32; ++w) first_max(best, arg, best_v[w], best_i[w]);
-      out[r] = arg;
-    }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) out[r] = arg;
   }
+  if constexpr (kCount) {
+    if (lane == 0) {
+      atomicAdd(counts, evaluated);
+      atomicAdd(counts + 1, passes);
+    }
+  }
+}
+
+// out[m] = gumbel_of(m << 9) for every m < 2^23: the kernel's own gumbel
+// of each uniform, for the check that ops/prng.gumbel_bucket_table bounds
+// it (not on any draw's path).
+__global__ void __launch_bounds__(kThreads) gumbel_values(float* __restrict__ out) {
+  const int m = blockIdx.x * kThreads + threadIdx.x;
+  if (m < (1 << 23)) out[m] = gumbel_of(static_cast<uint32_t>(m) << 9);
 }
 
 int grid_for(long long n, int sms) {
@@ -440,18 +587,40 @@ extern "C" int poisson_knuth_launch(const void* table, const void* rng, int J, l
 
 // Writes draws first_row .. first_row + n - 1 of JAX's categorical over the
 // V float32 logits (device memory) under (k0, k1) to out (i32[n]) on
-// `stream`, a block a draw (at most 64 blocks an SM, each striding over
-// further draws). Returns a cudaError_t. Allocates nothing and does not
+// `stream`, a warp a draw, kCatWarps draws a block (at most 16 blocks an
+// SM, each striding over further draws). gmax: f32[kGumbelBuckets] on the
+// device, ops/prng.gumbel_bucket_table. counts: null, or u64[2] that the
+// measurement build adds the elements it evaluated and its evaluation
+// passes to. Returns a cudaError_t. Allocates nothing and does not
 // synchronise.
 extern "C" int categorical_gumbel_launch(unsigned k0, unsigned k1, const void* logits,
                                          long long V, long long n, long long first_row,
-                                         void* out, int sms, void* stream) {
-  if (V < 1 || V > 0x7FFFFFFFLL || n < 1 || first_row < 0 || sms < 1)
+                                         const void* gmax, void* out, void* counts, int sms,
+                                         void* stream) {
+  if (V < 1 || V > 0x7FFFFFFFLL - 32 || n < 1 || first_row < 0 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long cap = static_cast<long long>(sms) * 64;
-  const unsigned grid = static_cast<unsigned>(n < cap ? n : cap);
-  categorical_gumbel<<<grid, kCatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, static_cast<const float*>(logits), static_cast<int>(V), n, first_row,
-      static_cast<int*>(out));
+  const long long blocks = (n + kCatWarps - 1) / kCatWarps;
+  const long long cap = static_cast<long long>(sms) * 16;
+  const unsigned grid = static_cast<unsigned>(blocks < cap ? blocks : cap);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* lg = static_cast<const float*>(logits);
+  const auto* gm = static_cast<const float*>(gmax);
+  if (counts == nullptr)
+    categorical_gumbel<false><<<grid, kCatThreads, 0, s>>>(
+        k0, k1, lg, static_cast<int>(V), n, first_row, gm, static_cast<int*>(out), nullptr);
+  else
+    categorical_gumbel<true><<<grid, kCatThreads, 0, s>>>(
+        k0, k1, lg, static_cast<int>(V), n, first_row, gm, static_cast<int*>(out),
+        static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes the kernel's own gumbel of every uniform (f32[2^23], m's at m) to
+// out on `stream`: the check of ops/prng.gumbel_bucket_table. Returns a
+// cudaError_t.
+extern "C" int gumbel_values_launch(void* out, int sms, void* stream) {
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  gumbel_values<<<(1 << 23) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,8 +47,9 @@ import torch
 from orange3_spark_tpu_torch.core.fmath import sqrt32
 from orange3_spark_tpu_torch.ops import cuda_build
 
-__all__ = ["PRNGKey", "bernoulli", "categorical", "categorical_gumbel",
-           "categorical_gumbel_reference", "gumbel", "normal", "poisson",
+__all__ = ["GUMBEL_BUCKETS", "PRNGKey", "bernoulli", "categorical", "categorical_gumbel",
+           "categorical_gumbel_reference", "gumbel", "gumbel_bucket", "gumbel_bucket_table",
+           "gumbel_values", "normal", "poisson",
            "poisson_knuth", "poisson_reference", "randint", "random_bits", "split",
            "threefry2x32", "threefry_bits", "threefry_bits_reference", "uniform"]
 
@@ -65,6 +66,13 @@ CHAIN_PAST_P = 1e-9
 #: probes/poisson_knuth_ab.py --tiles)
 KNUTH_TILE_ROWS = 8192
 _F32_TINY = float(np.finfo(np.float32).tiny)
+# XLA's float32 exp on the CPU (Cephes' expf): the clamp, log2(e), ln 2 in
+# two parts (C1 + C2), p0..p5
+_EXP_LO, _EXP_HI = 88.3762626647949, 88.72283935546875
+_EXP_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3, 4.1665795894E-2,
+          1.6666665459E-1, 5.0000001201E-1)
 # XLA's float32 log on the CPU (Cephes' logf, as Eigen's plog): p0..p8, q1, q2
 _LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
           1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
@@ -169,8 +177,10 @@ def _lib() -> ctypes.CDLL:
         lib.poisson_knuth_launch.restype = i
         lib.knuth_chain_table.argtypes = [p, ll, i, p]
         lib.knuth_chain_table.restype = i
-        lib.categorical_gumbel_launch.argtypes = [u, u, p, ll, ll, ll, p, i, p]
+        lib.categorical_gumbel_launch.argtypes = [u, u, p, ll, ll, ll, p, p, p, i, p]
         lib.categorical_gumbel_launch.restype = i
+        lib.gumbel_values_launch.argtypes = [p, i, p]
+        lib.gumbel_values_launch.restype = i
         lib.prng_error_string.argtypes = [i]
         lib.prng_error_string.restype = ctypes.c_char_p
     return lib
@@ -314,10 +324,11 @@ def _xla_log(x: torch.Tensor) -> torch.Tensor:
     x2 = t * t
     x3 = x2 * t
     P = _LOG_P
-    y = _fma32(_fma32(t, P[0], P[1]), t, P[2])
-    y1 = _fma32(_fma32(t, P[3], P[4]), t, P[5])
-    y2 = _fma32(_fma32(t, P[6], P[7]), t, P[8])
-    y = _fma32(_fma32(_fma32(y, x3, y1), x3, y2), x3, float(np.float32(_LOG_Q1)) * e)
+    t64, x3_64 = t.to(torch.float64), x3.to(torch.float64)     # widened once (exact)
+    y = _fma32(_fma32(t64, P[0], P[1]), t64, P[2])
+    y1 = _fma32(_fma32(t64, P[3], P[4]), t64, P[5])
+    y2 = _fma32(_fma32(t64, P[6], P[7]), t64, P[8])
+    y = _fma32(_fma32(_fma32(y, x3_64, y1), x3_64, y2), x3_64, float(np.float32(_LOG_Q1)) * e)
     t = (t - 0.5 * x2) + y
     out = _fma32(_LOG_Q2, e, t)
     out = torch.where((x >= 0) & (x < float(np.finfo(np.float32).tiny)), -math.inf, out)
@@ -336,6 +347,31 @@ def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
     small = x + _fma32(-0.5, xs, (x * xs) * (num / den))
     return torch.where(x.abs() < float(np.float32(0.41421356237309504880)), small,
                        _xla_log(x + 1.0))
+
+
+def _xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` as it runs on the CPU: Cephes' expf, every
+    multiply-add fused (``_fma32``'s form). x is clamped to [-88.376...,
+    88.722...], n = min(floor(x·log2(e) + 0.5), 127), r = x - n·ln 2 in two
+    parts, a degree-5 polynomial p with y = p·r² + r + 1, then y·2^n; a
+    result below float32's smallest normal is 0 (XLA flushes denormals),
+    x above the clamp gives +inf, NaN stays NaN. Bitwise ``jnp.exp`` on the
+    CPU, on either device (torch's own exp differs from it in ~10 % of
+    values)."""
+    hi = float(np.float32(_EXP_HI))
+    xc = torch.clamp(x, float(np.float32(-_EXP_LO)), hi)
+    n = torch.clamp_max(torch.floor(_fma32(xc, _EXP_LOG2E, 0.5)), 127.0)
+    r = _fma32(n, -_EXP_C1, xc)
+    r = _fma32(n, -_EXP_C2, r)
+    r64 = r.to(torch.float64)                                  # widened once (exact)
+    y = torch.full_like(r, float(np.float32(_EXP_P[0])))
+    for p in _EXP_P[1:]:
+        y = _fma32(y, r64, p)
+    y = _fma32(y, r * r, r64) + 1.0
+    out = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = torch.where(out.abs() < _F32_TINY, 0.0, out)
+    out = torch.where(x > hi, math.inf, out)
+    return torch.where(torch.isnan(x), x, out)
 
 
 def _erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -433,20 +469,76 @@ def categorical_gumbel(key: tuple[int, int], logits: torch.Tensor, n: int,
     """i32[n]: draws ``first_row`` .. ``first_row + n - 1`` of JAX's
     categorical over one row of V float32 ``logits``, draw r's gumbel words
     at r·V + v under ``key``. A CUDA tensor launches the kernel of
-    ``csrc/prng.cu`` (a block a draw, its threads striding over v, each
-    keeping its running first maximum; bitwise the plain version); a CPU
-    tensor runs the plain version."""
+    ``csrc/prng.cu`` (a warp a draw; an element whose gumbel bound,
+    ``gumbel_bucket_table``, leaves it below the draw's best skips the logs;
+    bitwise the plain version); a CPU tensor runs the plain version."""
     if logits.device.type != "cuda":
         return categorical_gumbel_reference(key, logits, n, first_row)
     if logits.dtype != torch.float32 or logits.ndim != 1 or not logits.is_contiguous():
         raise ValueError("categorical_gumbel: logits must be a contiguous float32 [V] tensor, "
                          f"got {logits.dtype} {tuple(logits.shape)}")
-    V = logits.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=logits.device)
-    if n and V:
-        _launch("categorical_gumbel", int(key[0]) & _U32, int(key[1]) & _U32,
-                logits.data_ptr(), V, n, int(first_row), out.data_ptr(), dev=logits.device)
+    if n and logits.shape[0]:
+        _launch_categorical(key, logits, first_row, out)
         categorical_gumbel.launches += 1
+    return out
+
+
+def _launch_categorical(key: tuple[int, int], logits: torch.Tensor, first_row: int,
+                        out: torch.Tensor, counts: torch.Tensor | None = None) -> None:
+    """One launch of ``categorical_gumbel`` into ``out`` (i32[n]; uncounted:
+    the wrapper counts). ``counts`` (i64[2] on the card) launches the
+    measurement build instead, which adds the elements it evaluated and its
+    evaluation passes there."""
+    _launch("categorical_gumbel", int(key[0]) & _U32, int(key[1]) & _U32, logits.data_ptr(),
+            logits.shape[0], out.shape[0], int(first_row),
+            gumbel_bucket_table(logits.device).data_ptr(), out.data_ptr(),
+            None if counts is None else counts.data_ptr(), dev=logits.device)
+
+
+#: buckets of ``gumbel_bucket``: codes 0 .. 2944
+GUMBEL_BUCKETS = 2945
+
+
+def gumbel_bucket(bits: torch.Tensor) -> torch.Tensor:
+    """i64 bucket of each word (int32 bit patterns), the kernel's map: k =
+    2^23 - m for m the word's top 23 bits (k in 1 .. 2^23, exact in
+    float32), coded by k's exponent and its 7 bits below the leading one,
+    (exponent - 127)·128 + those bits. Non-increasing in m: the buckets are
+    narrow where the gumbel rises steeply, as u -> 1."""
+    k = (((bits.to(torch.int64) & _U32) ^ _U32) >> 9) + 1
+    return (k.to(torch.float32).view(torch.int32) >> 16).to(torch.int64) - 0x3F80
+
+
+@functools.cache
+def _bucket_table(device: torch.device) -> torch.Tensor:
+    m = torch.arange(1 << 23, dtype=torch.int32, device=device)
+    bits = m << 9
+    g = -_xla_log(-_xla_log(_uniform_tiny(bits)))
+    table = torch.full((GUMBEL_BUCKETS,), -math.inf, dtype=torch.float32, device=device)
+    return table.scatter_reduce_(0, gumbel_bucket(bits), g, "amax")
+
+
+def gumbel_bucket_table(device) -> torch.Tensor:
+    """f32[GUMBEL_BUCKETS] on ``device``: each bucket's largest gumbel
+    ``-log(-log(u))`` over every one of the 2^23 uniforms JAX draws whose
+    word falls in it (the plain ``_xla_log`` form; an unused code holds
+    -inf). Built once a process and device, in a few ms on the card. The
+    kernel's own gumbel (single-rounding FMAs) gives the same values
+    (``gumbel_values`` checks it on the card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _bucket_table(device)
+
+
+def gumbel_values(device) -> torch.Tensor:
+    """f32[2^23]: the kernel's own gumbel of every uniform (m's at m), from
+    ``csrc/prng.cu``'s check export on the CUDA ``device``, for holding
+    ``gumbel_bucket_table`` to it. Not on any draw's path, not counted."""
+    device = torch.device(device)
+    out = torch.empty(1 << 23, dtype=torch.float32, device=device)
+    _launch("gumbel_values", out.data_ptr(), dev=device)
     return out
 
 

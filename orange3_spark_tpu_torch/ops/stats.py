@@ -9,7 +9,7 @@ linear models' inference statistics.
 from __future__ import annotations
 
 import torch
-from orange3_spark_tpu_torch.core.fmath import sqrt32
+from orange3_spark_tpu_torch.core.fmath import sqrt32, xla_sum
 
 #: guard for total-weight division on empty/fully-filtered tables
 EPS_TOTAL_WEIGHT = 1e-12
@@ -21,11 +21,13 @@ BETAINC_ITERS = 100
 
 def weighted_moments(X: torch.Tensor, w: torch.Tensor):
     """Per-column weighted moments: (mean[d], var[d], total_weight[]), the
-    population variance (MLlib's convention for standardization)."""
-    tot = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
+    population variance (MLlib's convention for standardization). The
+    column sums in XLA:CPU's order (``xla_sum``) on either device: the
+    one-device reference's bits."""
+    tot = torch.clamp_min(xla_sum(w), EPS_TOTAL_WEIGHT)
     wcol = w[:, None]
-    mean = (X * wcol).sum(dim=0) / tot
-    var = ((X - mean) ** 2 * wcol).sum(dim=0) / tot
+    mean = xla_sum(X * wcol) / tot
+    var = xla_sum((X - mean) ** 2 * wcol) / tot
     return mean, var, tot
 
 

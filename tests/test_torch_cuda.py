@@ -2166,7 +2166,7 @@ def test_small_wrangle_on_cuda_against_the_cpu(cuda_device, tmp_path):
 def test_categorical_gumbel_kernel_bitwise_its_plain_version(cuda_device, V, n, first_row,
                                                              seed):
     """``categorical_gumbel`` against ``categorical_gumbel_reference`` on the
-    card: vocabularies below, at and past a block's 256 threads, a -inf
+    card: vocabularies below, at and past a warp's 32 lanes and 256, a -inf
     logit, and windows of rows whose flat index passes 2^32 and 2^33."""
     from orange3_spark_tpu_torch.ops import prng
 
@@ -2183,6 +2183,64 @@ def test_categorical_gumbel_kernel_bitwise_its_plain_version(cuda_device, V, n, 
     assert got.dtype == torch.int32 and torch.equal(got, want)
     if first_row == 0:
         assert torch.equal(prng.categorical(key, logits[None, :], shape=(n,)), got)
+
+
+def _skip_case_logits(case: str, rng) -> tuple[np.ndarray, int, int]:
+    """Logits, rows and first row of a case of the kernel's bound skip."""
+    if case == "all_neg_inf":       # no finite value: the first index
+        return np.full(300, -np.inf, np.float32), 40, 0
+    if case == "ties":              # at 2^24 (float32 spacing 2) most sums round equal
+        return (2.0 ** 24 + 2.0 * (np.arange(1000) % 4)).astype(np.float32), 400, 0
+    if case == "nan":               # torch.argmax's order: the first NaN
+        lg = np.log(rng.random(500)).astype(np.float32)
+        lg[[77, 301]] = np.nan
+        return lg, 64, 0
+    if case == "sparse_finite":     # a few finite logits among -inf
+        lg = np.full(2000, -np.inf, np.float32)
+        lg[[5, 900, 1999]] = [-1.0, 0.5, 0.25]
+        return lg, 200, 0
+    V = {"v1": 1, "v31": 31, "v33": 33, "past_2_33": 20_000}[case]
+    p = rng.random(V)
+    first = 429_500 if case == "past_2_33" else 0      # 429,500 x 20,000 > 2^33
+    return np.log(p / p.sum()).astype(np.float32), 300 if V < 64 else 48, first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_neg_inf", "ties", "nan", "sparse_finite", "v1", "v31",
+                                  "v33", "past_2_33"])
+def test_categorical_gumbel_bound_skip_keeps_the_plain_answer(cuda_device, case):
+    """The kernel skips the logs of an element whose bucket bound leaves it
+    below its draw's best: a row of -inf logits, repeated logits near 2^24
+    (where most gumbel sums round to equal values, so ties decide), NaN logits, finite logits among -inf, V 1, 31 and 33 (a warp's
+    step ragged) and a window past flat index 2^33 at V 20,000, each
+    bitwise the plain version; the measurement build gives the same draws
+    and evaluates fewer elements than it skips where V is large."""
+    from orange3_spark_tpu_torch.ops import prng
+
+    lg, n, first_row = _skip_case_logits(case, np.random.default_rng(7))
+    logits = torch.from_numpy(lg).to(cuda_device)
+    key = prng.split(prng.PRNGKey(11))[1]
+    got = prng.categorical_gumbel(key, logits, n, first_row)
+    want = prng.categorical_gumbel_reference(key, logits, n, first_row)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    counted = torch.empty_like(got)
+    prng._launch_categorical(key, logits, first_row, counted, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(counted, got)
+    evaluated, passes = (int(c) for c in counts.cpu())
+    assert 0 < evaluated <= n * lg.size and passes >= n
+    if case == "past_2_33":
+        assert evaluated < 0.05 * n * lg.size
+
+
+@pytest.mark.cuda
+def test_gumbel_bucket_table_on_the_card_equals_the_cpu_and_the_kernel(cuda_device):
+    """The kernel's bound table built on the card equals the one built on
+    the CPU, and each bucket's largest gumbel as the kernel's own code
+    computes it over all 2^23 uniforms (``chip_smoke.gumbel_table_check``)."""
+    line = _smoke().gumbel_table_check(cuda_device)
+    assert line["card_equals_cpu"] and line["card_equals_kernel_own"], line
+    assert 2000 < line["buckets_used"] <= 2945
 
 
 @pytest.mark.cuda

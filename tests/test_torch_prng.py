@@ -169,9 +169,9 @@ def test_fma_single_rounding_catches_double_rounding():
 def test_gumbel_fma_forms_agree_on_every_uniform(monkeypatch):
     """Every value JAX's gumbel can take: u over all 2^23 uniforms on
     [tiny, 1). The logs' multiply-adds as a float64 product and sum (the
-    port's form, ``categorical_gumbel``'s too) give the same bits as one
-    single-rounding fused multiply-add, and as ``jnp.log``: so the float64
-    steps are not part of the function's work (its bound counts FFMAs)."""
+    plain version's form) give the same bits as one single-rounding fused
+    multiply-add (``categorical_gumbel``'s kernel's), and as ``jnp.log``:
+    so the kernel takes FFMAs and stays bitwise the plain version."""
     k = torch.arange(1, 1 << 23, dtype=torch.int64)
     u = torch.cat([torch.tensor([np.finfo(np.float32).tiny], dtype=torch.float32),
                    (k.to(torch.float64) * 2.0 ** -23).to(torch.float32)])
@@ -181,6 +181,30 @@ def test_gumbel_fma_forms_agree_on_every_uniform(monkeypatch):
     ref = np.asarray(-jnp.log(-jnp.log(u.numpy())))
     assert np.array_equal(wide.numpy().view(np.uint32), single.numpy().view(np.uint32))
     assert np.array_equal(wide.numpy().view(np.uint32), ref.view(np.uint32))
+
+
+def test_gumbel_bucket_table_bounds_every_uniform():
+    """``categorical_gumbel``'s skip rests on its table: over all 2^23
+    uniforms JAX draws, each bucket's entry is the largest gumbel of the
+    words in it (``jnp.log``'s, computed apart from the port's logs), so no
+    gumbel exceeds its bucket's bound; the bucket map is non-increasing in
+    the word's 23 bits m, covers 0 .. GUMBEL_BUCKETS - 1 and is exact
+    (one m a bucket) for the 127 largest m, where the gumbel is steepest."""
+    m = torch.arange(1 << 23, dtype=torch.int32)
+    bits = m << 9
+    u = np.maximum(m.numpy().astype(np.float32) * np.float32(2.0 ** -23),
+                   np.finfo(np.float32).tiny)
+    g = torch.from_numpy(np.array(-jnp.log(-jnp.log(u))))
+    codes = prng.gumbel_bucket(bits)
+    table = prng.gumbel_bucket_table("cpu")
+    assert table.shape == (prng.GUMBEL_BUCKETS,) and table.dtype == torch.float32
+    assert int(codes.min()) == 0 and int(codes.max()) == prng.GUMBEL_BUCKETS - 1
+    assert bool((codes[1:] <= codes[:-1]).all())
+    assert bool((g <= table[codes]).all())
+    want = torch.full_like(table, -math.inf).scatter_reduce_(0, codes, g, "amax")
+    assert torch.equal(table, want)
+    top = codes[-127:]
+    assert torch.unique(top).numel() == 127
 
 
 @pytest.mark.parametrize("seed", [0, 9])
