@@ -321,6 +321,37 @@ adam fit through ``segment_sum_sorted``):
                   bitwise the unpressured fit's, the cache's ledger entry
                   0, ``memory_allocated`` falling by the dropped bytes)
 
+then bench.py's fleet, tenancy and online configs at bench's sizes, every
+replica serving on the card (bench pins its replicas to the CPU):
+
+  fleet           a 2^12-dim CTR model published; replica processes
+                  (``python -m orange3_spark_tpu_torch.fleet.replica
+                  --device cuda``) under ``OTPU_ADMISSION_MAX_INFLIGHT=1``
+                  and ``overload:delay_ms=30``: 64 requests on 1 replica
+                  against 4 (scaling >= 2.5x), the collector's A/B and the
+                  SLO burn drill (one fleet bundle), a SIGKILL mid-burst
+                  (nothing lost or hung, the replica restarted and
+                  re-admitted), a rolling swap under traffic (0 failed)
+                  and a poisoned version rolled back, a 400 ms straggler
+                  (hedged p99 <= 0.5x unhedged), the wire's fresh,
+                  keep-alive and fast-path arms (>= 3x), trace coverage 1,
+                  ``OTPU_FLEET=0`` bitwise; each replica's start (spawn to
+                  ready) and device
+  tenancy         the fairness A/B on the card (light p99 >= 3x tighter
+                  under weighted-fair tenancy, the burster shed typed),
+                  the autoscaler growing a fleet on the card to >= 2
+                  replicas and draining it back with 0 failed requests,
+                  both kill switches bitwise
+  online          an in-process two-replica fleet on the card and bench's
+                  five claims: learn and promote (AUC over the frozen
+                  model's), drift rejected typed (CURRENT untouched), an
+                  SLO burn rolled back, a trainer crash resumed bitwise,
+                  the unguarded loop shipping the bad model and
+                  ``OTPU_ONLINE=0`` bitwise; then the trainer on the card
+                  against the CPU (``_theta_err``) for bench's adam model
+                  and a sparse_adagrad one (``segment_update_sorted`` a
+                  step); both segment kernels' launches over the phase
+
 then data wrangling and the canvas (``ops/relational``, ``ops/window``,
 the readers, ``workflow/ows``; the grouped passes through
 ``segment_sum_sorted``):
@@ -415,12 +446,13 @@ through ``categorical_gumbel``):
 then the ``kernels`` line of seven kernels (``node_histograms``: launches
 counted over the gbt and rf phases, ``per_fit`` from the timed fits' launch
 counts and the profile; ``segment_sum_sorted``: launches counted over the
-``criteo`` phase's adam arm (the ``overload`` fit's beside them), the
+``criteo`` phase's adam arm (the ``overload`` fit's and the ``online``
+phase's beside them), the
 times of the ``segment_sum`` phase, and ``group_by``: its launches over the
 ``wrangle`` phase, its times at ``group_by``'s inputs;
 ``segment_update_sorted``: launches counted over the ``criteo`` phase's
 timed fit, the times of the ``segment_update`` phase, the chain's time as
-its yardstick, and ``with_values``: one step of the ``libsvm_hashed`` fit
+its yardstick, its launches over the ``online`` phase beside them, and ``with_values``: one step of the ``libsvm_hashed`` fit
 at its own inputs (its time, its bound with the 4 B a value more, bitwise
 the chain; launches over that fit), the criteo step given per-pair values
 beside it as ``criteo_shape``); ``normal_equations_sorted``: launches counted over the
@@ -440,6 +472,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -5458,6 +5491,1134 @@ def phase_overload(sess, kind, smi) -> dict:
     return line
 
 
+# ------------------------------------------- the serving fleet, tenancy, online
+# bench.py's fleet, tenancy and online configs (bench.py:1634-2306,
+# 2308-2646, 2648-3001) at bench's sizes. bench pins its replica processes
+# to the CPU; here every replica serves on the card (``--device cuda``): a
+# fresh interpreter each, spawned by Popen, with its own CUDA context.
+FLEET = dict(requests=64, service_ms=30.0, straggler_ms=400.0, replicas=4, seed=7,
+             rows_fit=1 << 13, n_dense=4, n_cat=4, n_dims=1 << 12, chunk_rows=2048,
+             ladder_max=1 << 9)
+TENANCY = dict(service_ms=20.0, n_light=12, n_heavy=96, drill_service_ms=30.0)
+ONLINE = dict(rows=4096, n_dims=1 << 10, chunk_rows=1024, seed=3,
+              trainer=dict(chunk_rows=256, join_window=64, ckpt_steps=4))
+# a replica's start on the card: the interpreter, torch, the CUDA context
+# and one captured graph a ladder rung, several replicas at once
+FLEET_READY_S = 240.0
+# the replicas' own host threads: five processes share the machine's cores
+REPLICA_ENV = {"OMP_NUM_THREADS": "1"}
+
+
+def _ctr_xy(seed: int, rows: int, n_dense: int, n_cat: int, levels: int = 500):
+    """bench's CTR rows: normal dense columns, integer codes, 30 % positives."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    X = np.concatenate([r.standard_normal((rows, n_dense)).astype(np.float32),
+                        r.integers(0, levels, (rows, n_cat)).astype(np.float32)], axis=1)
+    y = (r.random(rows) < 0.3).astype(np.float32)
+    return X, y
+
+
+@contextlib.contextmanager
+def _env(**set_to):
+    """Set (a string) or unset (None) environment variables for the block,
+    and restore their values after it (the bench arms' convention)."""
+    saved = {k: os.environ.get(k) for k in set_to}
+    try:
+        for k, v in set_to.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _start_fleet(managers, root, n, env, ladder_max, per_replica_env=None) -> tuple:
+    """A ``ReplicaManager`` of ``n`` replicas on the card, started and
+    ready; returns (manager, the start line: seconds from spawn to the
+    first /readyz 200 of each replica, each replica's device from its
+    /healthz)."""
+    from orange3_spark_tpu_torch.fleet.supervisor import ReplicaManager
+
+    mgr = ReplicaManager(root, n_replicas=n, ladder_max=ladder_max, device="cuda",
+                         env={**REPLICA_ENV, **env}, per_replica_env=per_replica_env)
+    managers.append(mgr)
+    t0 = time.perf_counter()
+    mgr.start()
+    if not mgr.wait_ready(timeout_s=FLEET_READY_S):
+        raise AssertionError(f"{n} replica(s) on the card not ready in {FLEET_READY_S:.0f} s; "
+                             f"logs under {mgr.log_dir}")
+    devices = {}
+    for h in mgr.handles:
+        status, body = mgr.client(h.replica_id).get_json("/healthz")
+        devices[f"replica-{h.replica_id}"] = body.get("device")
+    return mgr, {"ready_s": [h.ready_after_s for h in mgr.handles],
+                 "all_ready_s": time.perf_counter() - t0, "devices": devices}
+
+
+def _counter_total(name) -> int:
+    from orange3_spark_tpu_torch.obs.registry import REGISTRY
+
+    m = REGISTRY.get(name)
+    return int(m.total()) if m is not None else 0
+
+
+def phase_fleet(sess) -> dict:
+    """``bench.py --config fleet`` (bench.py:1634-2306) at bench's sizes
+    with every replica a process on the card: a
+    ``StreamingHashedLinearEstimator(n_dims=2^12, n_dense=4, n_cat=4,
+    step_size=0.05, chunk_rows=2048)`` fit of 8192 rows (``default_rng(7)``)
+    published, then 64 requests log-uniform on 64-256 rows over 8 threads
+    under ``OTPU_ADMISSION_MAX_INFLIGHT=1`` and ``overload:delay_ms=30`` in
+    each replica: one replica against ``OTPU_FLEET_REPLICAS`` (4; bench's
+    one re-measure under 2.5x), the collector's A/B and the SLO burn drill,
+    a SIGKILL mid-burst, a rolling swap under traffic and a poisoned
+    version, a 400 ms straggler unhedged and hedged, the wire's fresh /
+    keep-alive / fast-path arms on a replica without injected service, and
+    ``OTPU_FLEET=0``. Bench's fields, each manager's start (seconds from
+    spawn to ready a replica) and devices, and bench's bars
+    (tests/test_bench_contract.py's fleet assertions) as ``failed``."""
+    import concurrent.futures
+    import json as _json
+    import threading
+
+    import numpy as np
+
+    from orange3_spark_tpu_torch.fleet import FleetFrontend
+    from orange3_spark_tpu_torch.fleet.rollout import Rollout, publish_version, read_current
+    from orange3_spark_tpu_torch.fleet.router import FleetRouter, HedgeSchedule
+    from orange3_spark_tpu_torch.fleet.rpc import (
+        NoReplicaAvailableError, ReplicaDrainingError, ReplicaUnavailableError,
+    )
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.obs import fleetobs as fobs
+    from orange3_spark_tpu_torch.obs import flight
+    from orange3_spark_tpu_torch.obs.prof import LEDGER
+    from orange3_spark_tpu_torch.obs.registry import REGISTRY
+
+    cfg = FLEET
+    requests, service_ms, n_replicas = cfg["requests"], cfg["service_ms"], cfg["replicas"]
+    n_dense, n_cat, rows_fit = cfg["n_dense"], cfg["n_cat"], cfg["rows_fit"]
+    n_chips = sess.n_devices
+    typed = (ReplicaUnavailableError, ReplicaDrainingError, NoReplicaAvailableError)
+    X, y = _ctr_xy(cfg["seed"], rows_fit, n_dense, n_cat)
+
+    def fit(epochs):
+        return StreamingHashedLinearEstimator(
+            n_dims=cfg["n_dims"], n_dense=n_dense, n_cat=n_cat, epochs=epochs,
+            step_size=0.05, chunk_rows=cfg["chunk_rows"],
+        ).fit_stream(array_chunk_source(X, y, chunk_rows=cfg["chunk_rows"]), session=sess)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    managers: list = []
+    starts: dict = {}
+    rng = np.random.default_rng(cfg["seed"])
+    sizes = np.exp(rng.uniform(np.log(64), np.log(256), requests)).astype(np.int64)
+    offs = rng.integers(0, rows_fit - int(sizes.max()), requests)
+    burst_rows = int(sizes.sum())
+    base_env = {"OTPU_ADMISSION_MAX_INFLIGHT": "1",
+                "OTPU_FAULT_SPEC": f"overload:delay_ms={service_ms}"}
+
+    def burst(router, n_req=requests, threads=8):
+        lat, outcomes = [], []
+
+        def one(i):
+            o, s = int(offs[i % requests]), int(sizes[i % requests])
+            t0 = time.perf_counter()
+            try:
+                out = router.predict(X[o:o + s])
+            except typed:
+                return "typed", (time.perf_counter() - t0) * 1e3
+            dt = (time.perf_counter() - t0) * 1e3
+            return ("ok" if out.shape[0] == s else "wrong"), dt
+
+        t0 = time.perf_counter()
+        ex = concurrent.futures.ThreadPoolExecutor(threads)
+        try:
+            futs = [ex.submit(one, i) for i in range(n_req)]
+            done, pending = concurrent.futures.wait(futs, timeout=300.0)
+        finally:
+            ex.shutdown(wait=False)
+        wall = time.perf_counter() - t0
+        for f in done:
+            k, ms = f.result()
+            outcomes.append(k)
+            if k == "ok":
+                lat.append(ms)
+        return {"lat": lat, "outcomes": outcomes, "wall_s": wall, "pending": len(pending)}
+
+    try:
+        with _env(OTPU_FLEET_COALESCE="0"):
+            t0 = time.perf_counter()
+            model = fit(1)
+            sess.synchronize()
+            fit_s = time.perf_counter() - t0
+            publish_version(model, root, n_cols=n_dense + n_cat)
+
+            # ---- arm 1: one replica
+            def single_arm():
+                mgr1, st = _start_fleet(managers, root, 1, base_env, cfg["ladder_max"])
+                starts.setdefault("single", []).append(st)
+                r1 = FleetRouter(mgr1.endpoints(), hedging=False)
+                r1.refresh()
+                b = burst(r1)
+                r1.close()
+                mgr1.stop_all()
+                if b["outcomes"].count("ok") != requests:
+                    raise AssertionError(f"single-replica burst: {b['outcomes']}")
+                return b
+
+            b1 = single_arm()
+            thr_1 = burst_rows / b1["wall_s"] / n_chips
+
+            # ---- arm 2: N replicas (+ telemetry, kill, rollout on the same fleet)
+            mgrN, starts["fleet"] = _start_fleet(managers, root, n_replicas, base_env,
+                                                 cfg["ladder_max"])
+            rN = FleetRouter(mgrN.endpoints(), hedging=False)
+            rN.refresh()
+            req0 = _counter_total("otpu_fleet_requests_total")
+            prop0 = _counter_total("otpu_fleet_trace_propagated_total")
+            bN = burst(rN)
+            traced_requests = _counter_total("otpu_fleet_requests_total") - req0
+            propagated = _counter_total("otpu_fleet_trace_propagated_total") - prop0
+            if bN["outcomes"].count("ok") != requests:
+                raise AssertionError(f"fleet burst: {bN['outcomes']}")
+            thr_n = burst_rows / bN["wall_s"] / n_chips
+            scaling = thr_n / thr_1
+            scaling_retried, scaling_first = False, None
+            if scaling < 2.5:          # bench's one structured re-measure
+                scaling_retried, scaling_first = True, scaling
+                b1 = single_arm()
+                thr_1 = burst_rows / b1["wall_s"] / n_chips
+                bN = burst(rN)
+                thr_n = burst_rows / bN["wall_s"] / n_chips
+                scaling = thr_n / thr_1
+
+            # ---- the fleet telemetry plane: the collector's A/B, the SLO drill
+            col = fobs.FleetCollector(mgrN.endpoints(), router=rN, scrape_s=0.5)
+            walls_on, walls_off = [], []
+            for _ in range(4):
+                col.start()
+                walls_on.append(burst(rN)["wall_s"])
+                col.stop()
+                walls_off.append(burst(rN)["wall_s"])
+            wall_on, wall_off = min(walls_on), min(walls_off)
+            collector_overhead_pct = (wall_on - wall_off) / wall_off * 100.0
+            fleet_digest = col.scrape_once()
+            fleetz = col.fleetz()
+            ages = [a for a in col.staleness().values() if a is not None]
+            scrape_stale_n = len(col.stale_replicas())
+            fleet_agg_rpc = fleetz["aggregates"].get("otpu_fleet_rpc_requests_total", 0.0)
+            fit_rep = getattr(model, "run_report_", None)
+            goodput_rec = (fit_rep.to_dict() if fit_rep is not None else {}).get("goodput")
+            ledger_rec = {"parent_owners": LEDGER.owner_bytes(),
+                          "replicas": {r.replica: r.device_bytes
+                                       for r in fleet_digest.replicas}}
+            fobs.reset_fleet_rate_limit()
+
+            def slo_bundles():
+                m = REGISTRY.get("otpu_flight_bundles_total")
+                if m is None:
+                    return 0
+                return int(sum(v for k, v in m.per_label("reason").items()
+                               if k.startswith("slo_")))
+
+            slo_bundles0 = slo_bundles()
+            slo_engine = fobs.SLOEngine(fobs.parse_slo_spec("burn_drill:target=99.0,p99_ms=1"),
+                                        fast_s=5.0, slow_s=20.0)
+            rS = FleetRouter(mgrN.endpoints(), hedging=False, slo=slo_engine)
+            rS.refresh()
+            colS = fobs.FleetCollector(mgrN.endpoints(), router=rS, slo=slo_engine,
+                                       scrape_s=0.25)
+            for _ in range(24):
+                rS.predict(X[:64])
+            slo_verdicts = slo_engine.evaluate()
+            colS.scrape_once()
+            colS.join_incident_dump()
+            rS.close()
+            slo_alerts = len(slo_engine.alerts)
+            fleet_incident_bundles = slo_bundles() - slo_bundles0
+            fleet_bundle_replicas = None
+            if colS.last_incident_path:
+                with open(colS.last_incident_path) as f:
+                    fleet_bundle_replicas = len(_json.load(f).get("live_replicas", []))
+            ref_fobs = np.asarray(rN.predict(X[:128]))
+            with _env(OTPU_FLEETOBS="0"):
+                off_fobs = np.asarray(rN.predict(X[:128]))
+                col_off = fobs.FleetCollector(mgrN.endpoints()).start()
+                fleetobs_parity = bool(np.array_equal(ref_fobs, off_fobs)) and not col_off.active
+
+            # ---- kill arm: SIGKILL one replica mid-burst
+            expect64 = np.asarray(rN.predict(X[:64]))
+            restarts0 = _counter_total("otpu_fleet_replica_restarts_total")
+            kill_req = max(24, requests // 2)
+
+            def kone(i):
+                time.sleep(i * 0.008)
+                try:
+                    out = rN.predict(X[:64])
+                    return "ok" if np.array_equal(out, expect64) else "wrong"
+                except typed:
+                    return "typed"
+                except Exception:  # noqa: BLE001 - an untyped escape is 'lost'
+                    return "lost"
+
+            ex = concurrent.futures.ThreadPoolExecutor(8)
+            try:
+                t_kill0 = time.perf_counter()
+                futs = [ex.submit(kone, i) for i in range(kill_req)]
+                time.sleep(0.1)
+                mgrN.kill(0)
+                done, pending = concurrent.futures.wait(futs, timeout=120.0)
+                kill_hung = len(pending)
+                kill_outcomes = [f.result() for f in done]
+            finally:
+                ex.shutdown(wait=False)
+            deadline = time.monotonic() + FLEET_READY_S
+            readmitted = False
+            while time.monotonic() < deadline:
+                rN.refresh()
+                ep = rN.endpoint(0)
+                if ep.ready and ep.breaker.state() != "open":
+                    readmitted = True
+                    break
+                time.sleep(0.25)
+            kill_recovery_s = time.perf_counter() - t_kill0
+            replica_restarted = _counter_total("otpu_fleet_replica_restarts_total") > restarts0
+            restarted_device = mgrN.client(0).get_json("/healthz")[1].get("device")
+
+            # ---- rollout arm: a rolling swap under traffic, a poisoned version
+            model2 = fit(2)
+            v2 = publish_version(model2, root, n_cols=n_dense + n_cat)
+            stop = threading.Event()
+            ro_fails: list = []
+            ro_oks: list = []
+
+            def traffic():
+                while not stop.is_set():
+                    try:
+                        rN.predict(X[:64])
+                        ro_oks.append(1)
+                    except Exception as e:  # noqa: BLE001 - the claim is zero
+                        ro_fails.append(repr(e))
+                    time.sleep(0.01)
+
+            th = threading.Thread(target=traffic)
+            th.start()
+            try:
+                ro_res = Rollout(rN, root, canary_input=X[:16]).roll(v2)
+            finally:
+                stop.set()
+                th.join(timeout=10)
+            v2_ref = np.asarray(rN.predict(X[:64]))
+            bad = os.path.join(root, ".staging-bad")
+            os.makedirs(bad, exist_ok=True)
+            with open(os.path.join(bad, "model.pkl"), "wb") as f:
+                f.write(b"poisoned payload, not a pickle")
+            os.replace(bad, os.path.join(root, "v0099"))
+            rb_res = Rollout(rN, root, canary_input=X[:16]).roll("v0099")
+            current_after = read_current(root)
+            post_ok = bool(np.array_equal(np.asarray(rN.predict(X[:64])), v2_ref))
+            rN.close()
+            mgrN.stop_all()
+
+            # ---- hedge arm: one straggler replica, unhedged against hedged
+            strag_env = {n_replicas - 1: {
+                "OTPU_FAULT_SPEC": f"overload:delay_ms={cfg['straggler_ms']}"}}
+            mgrH, starts["hedge"] = _start_fleet(managers, root, n_replicas, base_env,
+                                                 cfg["ladder_max"], per_replica_env=strag_env)
+            rU = FleetRouter(mgrH.endpoints(), hedging=False)
+            rU.refresh()
+            bU = burst(rU)
+            rU.close()
+            hedges0 = _counter_total("otpu_fleet_hedges_total")
+            wins0 = _counter_total("otpu_fleet_hedge_wins_total")
+            rH = FleetRouter(mgrH.endpoints(), hedging=True,
+                             schedule=HedgeSchedule(floor_ms=2 * service_ms))
+            rH.refresh()
+            bH = burst(rH)
+            rH.close()
+            mgrH.stop_all()
+            hedges = _counter_total("otpu_fleet_hedges_total") - hedges0
+            hedge_wins = _counter_total("otpu_fleet_hedge_wins_total") - wins0
+            p99_u, p99_h = _pctl(bU["lat"], 99), _pctl(bH["lat"], 99)
+
+        # ---- wire arms: fresh TCP, keep-alive, the fast path (no injected service)
+        mgrW, starts["wire"] = _start_fleet(managers, root, 1, {}, cfg["ladder_max"])
+        wire_arms = {
+            "fresh": {"OTPU_FLEET_FASTWIRE": "0"},
+            "keepalive": {"OTPU_FLEET_FASTWIRE": "1", "OTPU_FLEET_SHM": "0",
+                          "OTPU_FLEET_COALESCE": "0"},
+            "fastpath": {"OTPU_FLEET_FASTWIRE": "1", "OTPU_FLEET_SHM": "1",
+                         "OTPU_FLEET_COALESCE": "1", "OTPU_FLEET_COALESCE_WAIT_MS": "0.5"},
+        }
+        wire_keys = sorted({k for e in wire_arms.values() for k in e}
+                           | {"OTPU_FLEET_SHM_MIN_BYTES"})
+
+        def wire_burst(threads=16, per_thread=30, rows=64):
+            router = FleetRouter(mgrW.endpoints(), hedging=False)
+            router.refresh()
+            for _ in range(5):
+                router.predict(X[:rows])
+            lat: list = []
+            outcomes: list = []
+            lock = threading.Lock()
+
+            def worker():
+                mine, outs = [], []
+                for _ in range(per_thread):
+                    t0 = time.perf_counter()
+                    try:
+                        out = router.predict(X[:rows])
+                        outs.append("ok" if out.shape[0] == rows else "wrong")
+                    except typed:
+                        outs.append("typed")
+                    except Exception:  # noqa: BLE001 - untyped escape = lost
+                        outs.append("lost")
+                    mine.append((time.perf_counter() - t0) * 1e3)
+                with lock:
+                    lat.extend(mine)
+                    outcomes.extend(outs)
+
+            ts = [threading.Thread(target=worker) for _ in range(threads)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120.0)
+            hung = sum(1 for t in ts if t.is_alive())
+            co = router.coalescer.stats()
+            pool: dict = {}
+            for ep in router.endpoints:
+                p = getattr(ep.client, "pool", None)
+                if p is not None:
+                    s = p.stats()
+                    for k in ("opened", "reused", "stale_retries"):
+                        pool[k] = pool.get(k, 0) + s[k]
+            router.close()
+            return {"lat": lat, "outcomes": outcomes, "hung": hung, "coalesce": co,
+                    "pool": pool}
+
+        def with_arm(env, fn):
+            with _env(**{**dict.fromkeys(wire_keys), **env}):
+                return fn()
+
+        wire_rounds: dict = {name: [] for name in wire_arms}
+        wire_last: dict = {}
+        for _round in range(3):
+            for name, env in wire_arms.items():
+                res = with_arm(env, wire_burst)
+                wire_rounds[name].append(_pctl(res["lat"], 50))
+                wire_last[name] = res
+        wire_p50 = {name: min(v) for name, v in wire_rounds.items()}
+        co_fast = wire_last["fastpath"]["coalesce"]
+        wire_outcomes = [o for r in wire_last.values() for o in r["outcomes"]]
+        wire_hung = sum(r["hung"] for r in wire_last.values())
+        conn_reuse = wire_last["fastpath"]["pool"]
+        reuse_total = conn_reuse.get("opened", 0) + conn_reuse.get("reused", 0)
+
+        def wire_ref():
+            router = FleetRouter(mgrW.endpoints(), hedging=False)
+            router.refresh()
+            try:
+                return np.asarray(router.predict(X[:200]))
+            finally:
+                router.close()
+
+        ref_legacy = with_arm(wire_arms["fresh"], wire_ref)
+        ref_fast = with_arm(dict(wire_arms["fastpath"], OTPU_FLEET_SHM_MIN_BYTES="0"), wire_ref)
+        fastwire_parity = bool(np.array_equal(ref_legacy, ref_fast))
+        mgrW.stop_all()
+
+        # ---- the kill switch: OTPU_FLEET=0 is the single-process path
+        with _env(OTPU_FLEET="0"):
+            fe = FleetFrontend(model2)
+            kill_switch_parity = bool(np.array_equal(fe.predict(X[:256]),
+                                                     model2.predict(X[:256])))
+            kill_switch_local = fe.mode == "local" and fe.manager is None
+            fe.close()
+    finally:
+        for m in managers:
+            m.stop_all()
+        shutil.rmtree(root, ignore_errors=True)
+
+    all_devices = [d for st in starts.values() for s in (st if isinstance(st, list) else [st])
+                   for d in s["devices"].values()] + [restarted_device]
+    line = {
+        "replicas": n_replicas, "requests": requests, "burst_rows": burst_rows,
+        "service_ms_injected": service_ms, "fit_s": fit_s,
+        "replica_start": starts, "replica_devices_cuda": all(
+            str(d).startswith("cuda") for d in all_devices),
+        "throughput_single_rows_per_s_per_chip": thr_1,
+        "throughput_fleet_rows_per_s_per_chip": thr_n,
+        "scaling_factor": scaling, "scaling_retried": scaling_retried,
+        "scaling_factor_first": scaling_first,
+        "wall_single_s": b1["wall_s"], "wall_fleet_s": bN["wall_s"],
+        "straggler_ms_injected": cfg["straggler_ms"],
+        "p50_ms_unhedged": _pctl(bU["lat"], 50), "p99_ms_unhedged": p99_u,
+        "p50_ms_hedged": _pctl(bH["lat"], 50), "p99_ms_hedged": p99_h,
+        "hedged_p99_ratio": p99_h / p99_u if p99_u else None,
+        "hedges_issued": hedges, "hedge_wins": hedge_wins,
+        "kill_requests": kill_req, "kill_completed": kill_outcomes.count("ok"),
+        "kill_typed_failures": kill_outcomes.count("typed"),
+        "kill_wrong_results": kill_outcomes.count("wrong"), "kill_hung": kill_hung,
+        "kill_lost": kill_outcomes.count("lost"), "replica_restarted": replica_restarted,
+        "killed_replica_readmitted": readmitted, "kill_recovery_s": kill_recovery_s,
+        "restarted_replica_device": restarted_device,
+        "rollout_outcome": ro_res["outcome"], "rollout_failed_requests": len(ro_fails),
+        "rollout_traffic_requests": len(ro_oks), "rollout_version": ro_res["version"],
+        "rollback_outcome": rb_res["outcome"], "rollback_current_untouched": current_after == v2,
+        "rollback_post_traffic_ok": post_ok,
+        "traced_requests": traced_requests,
+        "trace_coverage": propagated / traced_requests if traced_requests else None,
+        "flight_bundles_written": flight.bundles_written(),
+        "collector_overhead_pct": collector_overhead_pct,
+        "wall_scrape_on_s": wall_on, "wall_scrape_off_s": wall_off,
+        "scrape_stale_replicas": scrape_stale_n,
+        "scrape_age_max_s": max(ages) if ages else None,
+        "fleet_agg_rpc_requests": fleet_agg_rpc,
+        "fleet_replicas_scraped": sorted(fleetz["replicas"]),
+        "slo_alerts": slo_alerts,
+        "slo_burn_long": slo_verdicts[0]["rules"]["fast"]["burn_long"],
+        "slo_budget_remaining": slo_verdicts[0]["budget_remaining"],
+        "fleet_incident_bundles": fleet_incident_bundles,
+        "fleet_bundle_replicas": fleet_bundle_replicas,
+        "fleetobs_kill_switch_parity": fleetobs_parity,
+        "goodput": goodput_rec, "ledger": ledger_rec,
+        "wire_fresh_p50_ms": wire_p50["fresh"], "wire_keepalive_p50_ms": wire_p50["keepalive"],
+        "wire_fastpath_p50_ms": wire_p50["fastpath"],
+        "wire_keepalive_speedup": wire_p50["fresh"] / wire_p50["keepalive"],
+        "wire_fastpath_speedup": wire_p50["fresh"] / wire_p50["fastpath"],
+        "coalesce_merge_factor": co_fast["merge_factor"],
+        "coalesce_members": co_fast["members"], "coalesce_dispatches": co_fast["dispatches"],
+        "coalesce_sheds": co_fast["sheds"], "wire_requests": len(wire_outcomes),
+        "wire_ok": wire_outcomes.count("ok"), "wire_typed_failures": wire_outcomes.count("typed"),
+        "wire_lost": wire_outcomes.count("lost"), "wire_wrong": wire_outcomes.count("wrong"),
+        "wire_hung": wire_hung,
+        "wire_conn_reuse_pct": (100.0 * conn_reuse.get("reused", 0) / reuse_total
+                                if reuse_total else 0.0),
+        "wire_conn_stale_retries": conn_reuse.get("stale_retries", 0),
+        "fastwire_kill_switch_parity": fastwire_parity,
+        "kill_switch_local_parity": kill_switch_parity,
+        "kill_switch_no_subprocesses": kill_switch_local,
+    }
+    gp = goodput_rec or {}
+    led = ledger_rec["replicas"]
+    # bench's bars: tests/test_bench_contract.py's fleet assertions
+    bars = (
+        ("replicas_on_cuda", line["replica_devices_cuda"]),
+        ("scaling_2_5x", scaling >= 2.5),
+        ("hedged_p99_half", line["hedged_p99_ratio"] is not None
+         and line["hedged_p99_ratio"] <= 0.5),
+        ("hedges_issued", hedges >= 1),
+        ("kill_none_hung_or_lost", kill_hung == 0 and line["kill_lost"] == 0),
+        ("kill_no_wrong_result", line["kill_wrong_results"] == 0),
+        ("kill_accounted", line["kill_completed"] + line["kill_typed_failures"] == kill_req),
+        ("replica_restarted", replica_restarted),
+        ("killed_replica_readmitted", readmitted),
+        ("rollout_completed", ro_res["outcome"] == "completed"),
+        ("rollout_zero_failed", not ro_fails),
+        ("poisoned_rolled_back", rb_res["outcome"] == "rolled_back"),
+        ("rollback_current_untouched", current_after == v2),
+        ("trace_coverage_1", line["trace_coverage"] == 1.0),
+        ("kill_switch_bitwise", kill_switch_parity and kill_switch_local),
+        ("collector_overhead_under_2pct", collector_overhead_pct < 2.0),
+        ("scrape_fresh", scrape_stale_n == 0),
+        ("fleet_rpc_aggregate", fleet_agg_rpc >= requests),
+        ("slo_alerted", slo_alerts >= 1 and line["slo_burn_long"] >= 14.4),
+        ("one_fleet_bundle", fleet_incident_bundles == 1
+         and fleet_bundle_replicas == n_replicas),
+        ("fleetobs_kill_switch_bitwise", fleetobs_parity),
+        ("goodput_fractions", bool(gp) and abs(sum(gp["fractions"].values()) - 1.0) <= 0.02),
+        ("ledger_serve_executables", len(led) == n_replicas
+         and any("serve_executables" in dev for dev in led.values())),
+        ("wire_fastpath_3x", line["wire_fastpath_speedup"] >= 3.0),
+        ("coalesce_merge_2x", co_fast["merge_factor"] >= 2.0 and co_fast["dispatches"] >= 1),
+        ("wire_none_lost_hung_wrong", line["wire_lost"] == line["wire_hung"]
+         == line["wire_wrong"] == 0),
+        ("wire_accounted", line["wire_ok"] + line["wire_typed_failures"]
+         == line["wire_requests"]),
+        ("wire_conn_reuse_over_half", line["wire_conn_reuse_pct"] > 50.0),
+        ("fastwire_kill_switch_bitwise", fastwire_parity),
+    )
+    line["failed"] = [name for name, ok in bars if not ok]
+    if line["failed"]:
+        raise AssertionError(f"fleet failed {line['failed']}: {line}")
+    return line
+
+
+def phase_tenancy(sess) -> dict:
+    """``bench.py --config tenancy`` (bench.py:2308-2646) at bench's sizes:
+    the same CTR fit (one epoch of 8192 rows), then the fairness A/B on the
+    card in this process (96 heavy and 12 light requests of 64 rows into a
+    2-slot admission controller under ``overload:delay_ms=20``: FCFS under
+    ``OTPU_TENANCY=0`` against ``light:weight=4;heavy:weight=1,
+    max_inflight=1``; bench's one re-measure under 3x), the autoscaler
+    drill over a real fleet on the card (one replica under eight loaders,
+    grown by the digest-driven ``Autoscaler(min 1, max 3, up 2.0, down
+    0.5, cooldown 2 s)``, then drained back under trickle traffic), and
+    both kill switches off. Bench's fields, the replicas' starts and
+    devices, and bench's bars as ``failed``."""
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+
+    from orange3_spark_tpu_torch.fleet.control import Autoscaler
+    from orange3_spark_tpu_torch.fleet.rollout import publish_version
+    from orange3_spark_tpu_torch.fleet.router import FleetRouter
+    from orange3_spark_tpu_torch.fleet.rpc import (
+        NoReplicaAvailableError, ReplicaDrainingError, ReplicaUnavailableError,
+    )
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.obs import fleetobs as fobs
+    from orange3_spark_tpu_torch.resilience import OverloadShedError, inject_faults
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+    from orange3_spark_tpu_torch.serve.tenancy import TenantQuotaShedError, tenant_scope
+
+    fc, cfg = FLEET, TENANCY
+    n_dense, n_cat = fc["n_dense"], fc["n_cat"]
+    X, y = _ctr_xy(fc["seed"], fc["rows_fit"], n_dense, n_cat)
+    model = StreamingHashedLinearEstimator(
+        n_dims=fc["n_dims"], n_dense=n_dense, n_cat=n_cat, epochs=1, step_size=0.05,
+        chunk_rows=fc["chunk_rows"],
+    ).fit_stream(array_chunk_source(X, y, chunk_rows=fc["chunk_rows"]), session=sess)
+    ladder = BucketLadder(min_bucket=64, max_bucket=1 << 10)
+    n_light, n_heavy = cfg["n_light"], cfg["n_heavy"]
+    arm_keys = ("OTPU_RESILIENCE", "OTPU_ADMISSION_MAX_INFLIGHT", "OTPU_ADMISSION_MAX_QUEUE",
+                "OTPU_TENANCY", "OTPU_TENANT_SPEC")
+
+    def run_arm(env: dict) -> dict:
+        light_lat, heavy_lat, outcomes = [], [], []
+        lock = threading.Lock()
+        with _env(**{**dict.fromkeys(arm_keys), **env}):
+            with ServingContext(ladder, micro_batch=False) as ctx:
+                ctx.warmup(model, n_cols=n_dense + n_cat, kinds=("array",))
+
+                def one(tenant: str, i: int):
+                    if tenant == "light":
+                        time.sleep(i * 0.03)
+                    t0 = time.perf_counter()
+                    try:
+                        with tenant_scope(tenant):
+                            out = model.predict(X[:64])
+                        kind = "ok" if out.shape[0] == 64 else "lost"
+                    except TenantQuotaShedError:
+                        kind = "tenant_shed"
+                    except OverloadShedError:
+                        kind = "shed"
+                    except Exception:  # noqa: BLE001 - untyped = lost
+                        kind = "lost"
+                    ms = (time.perf_counter() - t0) * 1e3
+                    with lock:
+                        outcomes.append((tenant, kind))
+                        if kind == "ok":
+                            (light_lat if tenant == "light" else heavy_lat).append(ms)
+
+                with inject_faults(f"overload:delay_ms={cfg['service_ms']}"):
+                    ex = concurrent.futures.ThreadPoolExecutor(n_light + 12)
+                    try:
+                        futs = [ex.submit(one, "heavy", i) for i in range(n_heavy)]
+                        futs += [ex.submit(one, "light", i) for i in range(n_light)]
+                        done, pending = concurrent.futures.wait(futs, timeout=120.0)
+                        hung = len(pending)
+                    finally:
+                        ex.shutdown(wait=False)
+        return {"light_lat": light_lat, "heavy_lat": heavy_lat, "outcomes": outcomes,
+                "hung": hung}
+
+    unfair_env = {"OTPU_RESILIENCE": "1", "OTPU_ADMISSION_MAX_INFLIGHT": "2",
+                  "OTPU_ADMISSION_MAX_QUEUE": "256", "OTPU_TENANCY": "0"}
+    fair_env = dict(unfair_env, OTPU_TENANCY="1",
+                    OTPU_TENANT_SPEC="light:weight=4;heavy:weight=1,max_inflight=1")
+
+    def fairness_ab():
+        u, f = run_arm(unfair_env), run_arm(fair_env)
+        p99_u = _pctl(u["light_lat"], 99) if u["light_lat"] else None
+        p99_f = _pctl(f["light_lat"], 99) if f["light_lat"] else None
+        return u, f, p99_u, p99_f, (p99_u / p99_f if p99_u and p99_f else None)
+
+    unfair, fair, light_p99_u, light_p99_f, factor = fairness_ab()
+    fairness_retried, factor_first = False, None
+    if factor is None or factor < 3.0:    # bench's one structured re-measure
+        fairness_retried, factor_first = True, factor
+        unfair, fair, light_p99_u, light_p99_f, factor = fairness_ab()
+    heavy_typed_sheds = sum(1 for t, k in fair["outcomes"] if t == "heavy" and k == "tenant_shed")
+    all_outcomes = unfair["outcomes"] + fair["outcomes"]
+    lost = sum(1 for _t, k in all_outcomes if k == "lost")
+    hung = unfair["hung"] + fair["hung"]
+
+    # ---- elasticity: a real fleet on the card grows and drains back
+    root = tempfile.mkdtemp(prefix="chip_smoke_tenancy_")
+    managers: list = []
+    typed = (ReplicaUnavailableError, ReplicaDrainingError, NoReplicaAvailableError,
+             OverloadShedError)
+    try:
+        publish_version(model, root, n_cols=n_dense + n_cat)
+        base_env = {"OTPU_ADMISSION_MAX_INFLIGHT": "1",
+                    "OTPU_FAULT_SPEC": f"overload:delay_ms={cfg['drill_service_ms']}"}
+        mgr, start1 = _start_fleet(managers, root, 1, base_env, fc["ladder_max"])
+        with _env(OTPU_FLEET_COALESCE="0"):
+            router = FleetRouter(mgr.endpoints(), hedging=False)
+            router.refresh()
+            scaler = Autoscaler(mgr, router, min_replicas=1, max_replicas=3, up_x=2.0,
+                                down_x=0.5, cooldown_s=2.0)
+
+            def scrape_step():
+                col = fobs.FleetCollector(mgr.endpoints(), router=router)
+                return scaler.step(col.scrape_once())
+
+            stop = threading.Event()
+            load_failures: list = []
+
+            def loader(rows):
+                while not stop.is_set():
+                    try:
+                        router.predict(X[:rows])
+                    except typed:
+                        pass
+                    except Exception as e:  # noqa: BLE001 - untyped = a failure
+                        load_failures.append(repr(e))
+
+            threads = [threading.Thread(target=loader, args=(16 + 8 * i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            peak = 1
+            t_up = time.perf_counter()
+            deadline = time.monotonic() + FLEET_READY_S
+            while time.monotonic() < deadline:
+                router.refresh()
+                scrape_step()
+                peak = max(peak, len(mgr.handles))
+                if peak >= 3 and mgr.wait_ready(timeout_s=1):
+                    break
+                time.sleep(0.5)
+            scale_up_s = time.perf_counter() - t_up
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+            load_hung = sum(1 for t in threads if t.is_alive())
+            grown_ready_s = [h.ready_after_s for h in mgr.handles]
+            grown_devices = {f"replica-{h.replica_id}": mgr.client(h.replica_id).get_json(
+                "/healthz")[1].get("device") for h in mgr.handles}
+            trickle_ok, trickle_failures = 0, []
+            t_down = time.perf_counter()
+            deadline = time.monotonic() + FLEET_READY_S
+            while time.monotonic() < deadline:
+                try:
+                    out = router.predict(X[:64])
+                    trickle_ok += int(out.shape[0] == 64)
+                except Exception as e:  # noqa: BLE001 - the claim is zero
+                    trickle_failures.append(repr(e))
+                router.refresh()
+                scrape_step()
+                if len(mgr.handles) <= scaler.min_replicas:
+                    break
+                time.sleep(0.3)
+            scale_down_s = time.perf_counter() - t_down
+            final_replicas = len(mgr.handles)
+            decisions = [d.to_dict() for d in scaler.decisions]
+            router.close()
+            mgr.stop_all()
+
+        # ---- both kill switches off: the fixed fleet, bitwise
+        with _env(OTPU_TENANCY="0", OTPU_AUTOSCALE="0"):
+            with ServingContext(ladder, micro_batch=False) as ctx:
+                ctx.warmup(model, n_cols=n_dense + n_cat, kinds=("array",))
+                ref = np.asarray(model.predict(X[:256]))
+                with tenant_scope("ghost"):
+                    scoped = np.asarray(model.predict(X[:256]))
+                fair_never_built = ctx.admission._fair_share is None
+            stepped = Autoscaler(mgr, router, min_replicas=1, max_replicas=3, up_x=2.0,
+                                 down_x=0.5, cooldown_s=2.0).step(
+                {"replicas": {"replica-0": {"up": True, "stale": False, "queue_depth": 99,
+                                            "inflight": 9, "shed_total": 9,
+                                            "brownout_level": 3}}})
+            parity = bool(np.array_equal(ref, scoped)) and fair_never_built and stepped is None
+    finally:
+        for m in managers:
+            m.stop_all()
+        shutil.rmtree(root, ignore_errors=True)
+
+    elasticity = peak / max(final_replicas, 1)
+    line = {
+        "requests": len(all_outcomes), "service_ms_injected": cfg["service_ms"],
+        "fairness_p99_bound_factor": factor, "fairness_retried": fairness_retried,
+        "fairness_p99_bound_factor_first": factor_first,
+        "light_p99_ms_unfair": light_p99_u, "light_p99_ms_fair": light_p99_f,
+        "light_p50_ms_fair": _pctl(fair["light_lat"], 50) if fair["light_lat"] else None,
+        "heavy_typed_sheds": heavy_typed_sheds,
+        "heavy_completed_fair": sum(1 for t, k in fair["outcomes"] if t == "heavy" and k == "ok"),
+        "light_completed_fair": sum(1 for t, k in fair["outcomes"] if t == "light" and k == "ok"),
+        "completed": sum(1 for _t, k in all_outcomes if k == "ok"), "hung": hung, "lost": lost,
+        "replica_start": {"first": start1, "grown_ready_s": grown_ready_s,
+                          "grown_devices": grown_devices},
+        "autoscale_peak_replicas": peak, "autoscale_final_replicas": final_replicas,
+        "autoscale_min_replicas": scaler.min_replicas,
+        "autoscale_max_replicas": scaler.max_replicas,
+        "autoscale_decisions": len(decisions), "autoscale_decision_log": decisions,
+        "autoscale_scale_up_s": scale_up_s, "autoscale_scale_down_s": scale_down_s,
+        "autoscale_scaledown_failures": len(trickle_failures),
+        "autoscale_scaledown_trickle_ok": trickle_ok,
+        "autoscale_load_failures": len(load_failures), "autoscale_load_hung": load_hung,
+        "elasticity_factor": elasticity, "tenancy_kill_switch_parity": parity,
+    }
+    devices = list(start1["devices"].values()) + list(grown_devices.values())
+    bars = (
+        ("replicas_on_cuda", all(str(d).startswith("cuda") for d in devices)),
+        ("fairness_3x", factor is not None and factor >= 3.0),
+        ("heavy_typed_sheds", heavy_typed_sheds >= 1),
+        ("light_completed", line["light_completed_fair"] >= 1),
+        ("none_hung_or_lost", hung == 0 and lost == 0),
+        ("grew_to_2", peak >= 2),
+        ("drained_to_min", final_replicas == scaler.min_replicas),
+        ("scaledown_zero_failed", not trickle_failures and trickle_ok >= 1),
+        ("load_none_failed_or_hung", not load_failures and load_hung == 0),
+        ("decisions", len(decisions) >= 2),
+        ("elasticity_2x", elasticity >= 2.0),
+        ("kill_switches_bitwise", parity),
+    )
+    line["failed"] = [name for name, ok in bars if not ok]
+    if line["failed"]:
+        raise AssertionError(f"tenancy failed {line['failed']}: {line}")
+    return line
+
+
+def _online_twin_check(model, rlog_path, root, sess, trainer_kw) -> dict:
+    """The incremental trainer on the card against the same trainer on the
+    CPU: both warm-started from ``model``'s state, both read the log at
+    ``rlog_path`` to its end; the candidates' theta within ``_theta_err``'s
+    tolerance, the steps and join counts equal."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.reqlog import RequestLog
+    from orange3_spark_tpu_torch.models.hashed_linear import HashedLinearModel
+    from orange3_spark_tpu_torch.online.trainer import IncrementalTrainer
+
+    cpu_model = HashedLinearModel(model.params, {k: v.cpu() for k, v in model.theta.items()},
+                                  model.salts, model.class_values)
+    out = {}
+    for name, m, s in (("card", model, sess), ("cpu", cpu_model, TorchSession("cpu"))):
+        log = RequestLog(rlog_path)
+        tr = IncrementalTrainer(m, log, session=s,
+                                checkpoint_path=os.path.join(
+                                    root, f"twin-{model.params.optim_update}-{name}.ckpt"),
+                                **trainer_kw)
+        t0 = time.perf_counter()
+        tr.consume_available()
+        s.synchronize()
+        out[name] = (tr.status(), tr.candidate_model().state_pytree, time.perf_counter() - t0)
+        log.close()
+    errs, ok = _theta_err(out["card"][1], out["cpu"][1])
+    same = all(out["card"][0][k] == out["cpu"][0][k] for k in ("steps", "examples",
+                                                               "join_counts"))
+    return {"optim_update": model.params.optim_update, "steps": out["card"][0]["steps"],
+            "card_s": out["card"][2], "cpu_s": out["cpu"][2], "theta_max_abs_err": errs,
+            "tolerance": f"atol {THETA_ATOL} + rtol {THETA_RTOL}", "ok": ok and same}
+
+
+def phase_online(sess) -> dict:
+    """``bench.py --config online`` (bench.py:2648-3001) at bench's sizes
+    on the card: a frozen ``StreamingHashedLinearEstimator(n_dims=2^10,
+    n_dense=4, n_cat=4, step_size=0.05, chunk_rows=1024)`` fit (adam, the
+    params' default) on 4096 rows (``default_rng(3)``) whose label rule
+    then inverts; an in-process two-replica fleet on the card behind the
+    router; the five claims (learn and promote, drift rejected, SLO-burn
+    rollback, trainer crash and bitwise resume, the unguarded loop and
+    ``OTPU_ONLINE=0``). Then the trainer on the card against the same
+    trainer on the CPU over the resume arm's log, for bench's model (adam:
+    the table gradient through ``segment_sum_sorted``) and for the same fit
+    under ``sparse_adagrad`` (the 'sort' lowering: one
+    ``segment_update_sorted`` launch a step). Both kernels' launches are
+    counted over the phase. Bench's fields and bars as ``failed``."""
+    import threading
+
+    import numpy as np
+
+    from orange3_spark_tpu_torch.fleet import rollout as ro
+    from orange3_spark_tpu_torch.fleet.replica import ReplicaRuntime
+    from orange3_spark_tpu_torch.fleet.router import FleetRouter, ReplicaEndpoint
+    from orange3_spark_tpu_torch.io.reqlog import RequestLog
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+    from orange3_spark_tpu_torch.obs import fleetobs as fobs
+    from orange3_spark_tpu_torch.online import OnlineLoop
+    from orange3_spark_tpu_torch.online.trainer import IncrementalTrainer, OnlineTrainerError
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.resilience.faults import inject_faults
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    cfg = ONLINE
+    rng = np.random.default_rng(cfg["seed"])
+    n_dense = n_cat = 4
+    X = np.concatenate([rng.standard_normal((cfg["rows"], n_dense)).astype(np.float32),
+                        rng.integers(0, 500, (cfg["rows"], n_cat)).astype(np.float32)], axis=1)
+    y0 = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float32)
+    y1 = 1.0 - y0
+    est_kw = dict(n_dims=cfg["n_dims"], n_dense=n_dense, n_cat=n_cat, epochs=1,
+                  step_size=0.05, chunk_rows=cfg["chunk_rows"])
+    # ---- the main path: both segment kernels' counts start at 0 here
+    ss.segment_sum_sorted.launches = 0
+    ss.segment_update_sorted.launches = 0
+    t_phase = time.perf_counter()
+    model = StreamingHashedLinearEstimator(**est_kw).fit_stream(
+        array_chunk_source(X, y0, chunk_rows=cfg["chunk_rows"]), session=sess)
+    fit_launches = ss.segment_sum_sorted.launches
+    root = tempfile.mkdtemp(prefix="chip_smoke_online_")
+    store = os.path.join(root, "store")
+    holdout_shifted = array_chunk_source(X[2048:], y1[2048:], chunk_rows=cfg["chunk_rows"])
+    trainer_kw = dict(cfg["trainer"])
+    ladder = BucketLadder(min_bucket=64, max_bucket=512)
+    runtimes: list = []
+    router = None
+
+    def drive(loop, yv, chunks=8, epochs=1):
+        for _ in range(epochs):
+            for i in range(0, chunks * 256, 256):
+                model.predict(X[i:i + 256])
+                rid = loop.tap.last_request_id()
+                if rid is not None:
+                    loop.tap.tap_label(rid, yv[i:i + 256])
+
+    def wait_steps(loop, n, budget_s=180.0):
+        t0 = time.perf_counter()
+        while (time.perf_counter() - t0 < budget_s and loop.trainer.status()["steps"] < n
+               and not loop.trainer.status()["died"]):
+            time.sleep(0.1)
+
+    try:
+        ro.publish_version(model, store, n_cols=n_dense + n_cat)
+        eps = []
+        for i in range(2):
+            rt = ReplicaRuntime(store, name=f"replica-{i}", session=sess,
+                                ladder=BucketLadder(min_bucket=64, max_bucket=512))
+            rt.activate()
+            runtimes.append(rt)
+            eps.append(ReplicaEndpoint(i, "127.0.0.1", rt.serve_background().port))
+        router = FleetRouter(eps, hedging=False)
+        router.refresh()
+        replica_devices = [rt.health()[0]["device"] for rt in runtimes]
+
+        def traffic_during(fn):
+            stop = threading.Event()
+            oks: list = []
+            fails: list = []
+
+            def _t():
+                while not stop.is_set():
+                    try:
+                        router.predict(X[:64])
+                        oks.append(1)
+                    except Exception as e:  # noqa: BLE001 - the claim is zero
+                        fails.append(repr(e))
+                    time.sleep(0.01)
+
+            th = threading.Thread(target=_t)
+            th.start()
+            try:
+                res = fn()
+            finally:
+                stop.set()
+                th.join(timeout=10)
+            return res, len(oks), fails
+
+        # ---- arm 1: learn + guarded promotion
+        loop_a = OnlineLoop(model, store, os.path.join(root, "a.log"), session=sess,
+                            reference_X=X, holdout_source=holdout_shifted, router=router,
+                            canary_input=X[:16], min_examples=512, trainer_kw=trainer_kw,
+                            shadow_kw={"disagree_threshold": 0.95})
+        with ServingContext(ladder), loop_a:
+            drive(loop_a, y1, epochs=3)
+            wait_steps(loop_a, 24)
+            metr_frozen = model.evaluate_stream(holdout_shifted)
+            metr_cont = loop_a.trainer.candidate_model().evaluate_stream(holdout_shifted)
+            res_a, ok_a, fails_a = traffic_during(loop_a.publish_cycle)
+            status_a = loop_a.trainer.status()
+        current_after_promo = ro.read_current(store)
+        router.refresh()
+
+        # ---- arm 2: injected drift rejected before any replica flips
+        versions_before = [ep.version for ep in router.endpoints]
+        with inject_faults("drift:shift=8,after=4"):
+            loop_b = OnlineLoop(model, store, os.path.join(root, "b.log"), session=sess,
+                                reference_X=X, holdout_source=holdout_shifted, router=router,
+                                canary_input=X[:16], min_examples=512, trainer_kw=trainer_kw)
+            with ServingContext(ladder), loop_b:
+                drive(loop_b, y0)
+                wait_steps(loop_b, 8)
+                res_b = loop_b.publish_cycle()
+        router.refresh()
+        drift_no_flip = [ep.version for ep in router.endpoints] == versions_before
+        drift_current_untouched = ro.read_current(store) == current_after_promo
+
+        # ---- arm 3: past the gates, tripped by SLO burn during the roll
+        slo = fobs.SLOEngine(fobs.parse_slo_spec("online_drill:target=99.0,p99_ms=1"),
+                             fast_s=60.0, slow_s=240.0)
+        loop_c = OnlineLoop(model, store, os.path.join(root, "c.log"), session=sess,
+                            reference_X=X, holdout_source=array_chunk_source(
+                                X[2048:], y0[2048:], chunk_rows=cfg["chunk_rows"]),
+                            router=router, canary_input=X[:16], slo_engine=slo,
+                            min_examples=512, trainer_kw=trainer_kw,
+                            drift_kw={"holdout_drop": 0.2},
+                            shadow_kw={"disagree_threshold": 0.95})
+        roll_seen = threading.Event()
+
+        def burn_when_rolling():
+            while not roll_seen.is_set():
+                if any(not ep.admitted for ep in router.endpoints):
+                    roll_seen.set()
+                time.sleep(0.005)
+            for _ in range(64):
+                slo.record(True, latency_s=0.5)
+
+        with ServingContext(ladder), loop_c:
+            drive(loop_c, y0)
+            wait_steps(loop_c, 8)
+            burner = threading.Thread(target=burn_when_rolling)
+            burner.start()
+            try:
+                res_c, ok_c, fails_c = traffic_during(loop_c.publish_cycle)
+            finally:
+                roll_seen.set()
+                burner.join(timeout=10)
+        slo_current_untouched = ro.read_current(store) == current_after_promo
+
+        # ---- arm 4: trainer crash -> typed death -> checkpoint resume
+        rlog_path = os.path.join(root, "r.log")
+        rlog = RequestLog(rlog_path)
+        for i in range(0, 2048, 256):
+            rid = rlog.append_request(X[i:i + 256])
+            rlog.append_label(rid, y0[i:i + 256])
+        resume_kw = dict(trainer_kw, ckpt_steps=2)
+        tref = IncrementalTrainer(model, rlog, session=sess,
+                                  checkpoint_path=os.path.join(root, "ref.ckpt"), **resume_kw)
+        tref.consume_available()
+        ref_leaves = [v.cpu().numpy() for v in tref.candidate_model().state_pytree.values()]
+        crash_typed = False
+        with inject_faults("trainer_crash:at=3"):
+            tcrash = IncrementalTrainer(model, rlog, session=sess,
+                                        checkpoint_path=os.path.join(root, "crash.ckpt"),
+                                        **resume_kw)
+            tcrash.start()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 120 and not tcrash.status()["died"]:
+                time.sleep(0.1)
+            try:
+                tcrash.result()
+            except OnlineTrainerError:
+                crash_typed = True
+        tres = IncrementalTrainer(model, rlog, session=sess,
+                                  checkpoint_path=os.path.join(root, "crash.ckpt"), **resume_kw)
+        resumed_from = tres.status()["resumed_from_step"]
+        tres.consume_available()
+        res_leaves = [v.cpu().numpy() for v in tres.candidate_model().state_pytree.values()]
+        resume_parity = all(np.array_equal(a, b) for a, b in zip(ref_leaves, res_leaves))
+        rlog.close()
+
+        # ---- arm 5: the unguarded loop ships the bad model; the kill switch
+        with _env(OTPU_RESILIENCE="0"):
+            with inject_faults("drift:shift=8,after=4"):
+                loop_u = OnlineLoop(model, os.path.join(root, "ustore"),
+                                    os.path.join(root, "u.log"), session=sess, reference_X=X,
+                                    holdout_source=holdout_shifted, min_examples=512,
+                                    trainer_kw=resume_kw)
+                with ServingContext(ladder), loop_u:
+                    drive(loop_u, y0)
+                    wait_steps(loop_u, 8)
+                    res_u = loop_u.publish_cycle()
+        unguarded_ships_bad = res_u["outcome"] == "published"
+        with _env(OTPU_ONLINE="0"):
+            loop_k = OnlineLoop(model, os.path.join(root, "kstore"),
+                                os.path.join(root, "k.log"), session=sess, reference_X=X,
+                                min_examples=1, trainer_kw=resume_kw)
+            with ServingContext(ladder), loop_k:
+                ref_out = model.predict(X[:256])
+                kill_log_empty = loop_k.log.size_bytes == loop_k.log.data_start
+                kill_cycle = loop_k.publish_cycle()["outcome"]
+        with ServingContext(ladder):
+            kill_parity = bool(np.array_equal(ref_out, model.predict(X[:256])))
+
+        # ---- the trainer on the card against the CPU: bench's model
+        # (adam) and the same fit under sparse_adagrad ('sort' lowering)
+        twin_adam = _online_twin_check(model, rlog_path, root, sess, resume_kw)
+        sparse = StreamingHashedLinearEstimator(
+            **est_kw, optim_update="sparse_adagrad").fit_stream(
+            array_chunk_source(X, y0, chunk_rows=cfg["chunk_rows"]), session=sess)
+        upd0 = ss.segment_update_sorted.launches
+        twin_sparse = _online_twin_check(sparse, rlog_path, root, sess, resume_kw)
+        sparse_trainer_launches = ss.segment_update_sorted.launches - upd0
+        sess.synchronize()
+        phase_s = time.perf_counter() - t_phase
+        launches = {"segment_sum_sorted": ss.segment_sum_sorted.launches,
+                    "segment_update_sorted": ss.segment_update_sorted.launches}
+        # ----
+        quarantined = ro.list_quarantined(store)
+    finally:
+        if router is not None:
+            router.close()
+        for rt in runtimes:
+            rt.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    auc_frozen, auc_cont = metr_frozen["auc"], metr_cont["auc"]
+    line = {
+        "phase_s": phase_s, "replica_devices": replica_devices,
+        "auc_frozen": auc_frozen, "auc_continuous": auc_cont, "auc_gain": auc_cont - auc_frozen,
+        "online_steps": status_a["steps"], "online_examples": status_a["examples"],
+        "label_join_counts": status_a["join_counts"],
+        "trainer_examples_per_s": status_a["examples_per_s"],
+        "promotion_outcome": res_a["outcome"], "promotion_version": res_a.get("version"),
+        "promotion_failed_requests": len(fails_a), "promotion_traffic_requests": ok_a,
+        "promotion_current": current_after_promo,
+        "drift_outcome": res_b["outcome"], "drift_error": (res_b.get("error") or "")[:200],
+        "drift_quarantined": bool(res_b.get("quarantined")),
+        "drift_current_untouched": drift_current_untouched,
+        "drift_no_replica_flip": drift_no_flip,
+        "slo_rollback_outcome": res_c["outcome"],
+        "slo_rollback_failed_requests": len(fails_c), "slo_rollback_traffic_requests": ok_c,
+        "slo_quarantined": bool(res_c.get("quarantined")),
+        "slo_current_untouched": slo_current_untouched,
+        "trainer_crash_typed": crash_typed, "trainer_resumed_from_step": resumed_from,
+        "resume_parity_bitwise": resume_parity, "unguarded_ships_bad": unguarded_ships_bad,
+        "kill_switch_parity": kill_parity, "kill_switch_log_empty": kill_log_empty,
+        "kill_switch_cycle": kill_cycle, "quarantined_versions": quarantined,
+        "card_vs_cpu": {"adam": twin_adam, "sparse_adagrad": twin_sparse},
+        "fit_segment_sum_launches": fit_launches, "launches": launches,
+        "sparse_trainer_segment_update_launches": sparse_trainer_launches,
+    }
+    bars = (
+        ("replicas_on_cuda", all(str(d).startswith("cuda") for d in replica_devices)),
+        ("learned", auc_cont > auc_frozen and status_a["steps"] >= 1
+         and status_a["join_counts"]["joined"] >= 1),
+        ("promoted", res_a["outcome"] == "completed" and not fails_a and ok_a >= 1
+         and current_after_promo == res_a.get("version")),
+        ("drift_rejected", res_b["outcome"] == "rejected_drift"
+         and "DriftDetectedError" in line["drift_error"] and line["drift_quarantined"]
+         and drift_current_untouched and drift_no_flip),
+        ("slo_rolled_back", res_c["outcome"] == "rolled_back" and not fails_c
+         and line["slo_quarantined"] and slo_current_untouched),
+        ("resume_bitwise", crash_typed and resumed_from >= 1 and resume_parity),
+        ("unguarded_ships_bad", unguarded_ships_bad),
+        ("kill_switch", kill_parity and kill_log_empty and kill_cycle == "disabled"),
+        ("quarantined_two", len(quarantined) >= 2),
+        ("card_vs_cpu_adam", twin_adam["ok"]),
+        ("card_vs_cpu_sparse_adagrad", twin_sparse["ok"]),
+        ("segment_sum_launched", launches["segment_sum_sorted"] > 0),
+        ("segment_update_launched", sparse_trainer_launches >= twin_sparse["steps"] > 0),
+    )
+    line["failed"] = [name for name, ok in bars if not ok]
+    if line["failed"]:
+        raise AssertionError(f"online failed {line['failed']}: {line}")
+    return line
+
+
 # ------------------------------------------- data wrangling and the canvas
 # the wrangle phase: a month of TLC-shaped yellow-taxi trips
 # (datasets.make_tlc_trips), 10 columns, 400 MB on the card
@@ -7509,6 +8670,23 @@ def _run(args) -> int:
         emit({"phase": phase, **overload_line})
         torch.cuda.empty_cache()
 
+        # ---- bench's fleet, tenancy and online configs: replica processes
+        # on the card behind the router, the autoscaler, the online loop
+        # (its trainer's steps through segment_sum_sorted under adam and
+        # segment_update_sorted under sparse_adagrad)
+        phase = "fleet"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_fleet(sess)})
+        torch.cuda.empty_cache()
+        phase = "tenancy"
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+              **phase_tenancy(sess)})
+        torch.cuda.empty_cache()
+        phase = "online"
+        online_line = phase_online(sess)
+        emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(), **online_line})
+        torch.cuda.empty_cache()
+
         # ---- data wrangling (ops/relational, ops/window, the readers; the
         # grouped passes through segment_sum_sorted) and the canvas's entry
         # point (workflow/ows)
@@ -7557,6 +8735,11 @@ def _run(args) -> int:
             raise AssertionError("the value-weighted fit never launched segment_update_sorted")
         if overload_line["segment_sum_launches"] == 0:
             raise AssertionError("the overload phase's fit never launched segment_sum_sorted")
+        if online_line["sparse_trainer_segment_update_launches"] == 0:
+            raise AssertionError("the online phase's sparse_adagrad trainer never launched "
+                                 "segment_update_sorted")
+        if online_line["launches"]["segment_sum_sorted"] == 0:
+            raise AssertionError("the online phase never launched segment_sum_sorted")
         if wrangle_line["segment_sum_launches"] == 0:
             raise AssertionError("the wrangle phase never launched segment_sum_sorted")
         for name, n in main_draws.items():
@@ -7597,6 +8780,9 @@ def _run(args) -> int:
             "launches": criteo_line["segment_sum_launches"],
             "launches_counted_over": "the criteo phase's adam arm (pure_step_ms_dense)",
             "overload_fit_launches": overload_line["segment_sum_launches"],
+            "online_launches": online_line["launches"]["segment_sum_sorted"],
+            "online_launches_counted_over": "the online phase (its fits and the adam "
+                                            "trainers' steps)",
             "max_abs_err": seg_line["max_abs_err"],
             "deterministic": seg_line["deterministic"],
             "ms": seg_line["ms"], "plain_ms": seg_line["plain_ms"],
@@ -7628,6 +8814,14 @@ def _run(args) -> int:
             "replaces": "orange3_spark_tpu/optim/sparse.py:477-511",
             "launches": criteo_line["segment_update_launches"],
             "launches_counted_over": "the criteo phase's timed fit",
+            # bench's online loop trains with adam (segment_sum_sorted); this
+            # kernel runs in the incremental trainer only under the sparse rules
+            "online_twin_trainer_launches": online_line["sparse_trainer_segment_update_launches"],
+            "online_twin_trainer_launches_counted_over": (
+                "the online phase's incremental trainer steps on the card for a "
+                "sparse_adagrad twin of bench's online model, not bench's adam loop"),
+            "online_trainer": {k: online_line["card_vs_cpu"]["sparse_adagrad"][k]
+                               for k in ("steps", "theta_max_abs_err", "tolerance", "ok")},
             "max_abs_err": upd_line["max_abs_err"],
             "deterministic": upd_line["bitwise_repeat"],
             "ms": upd_line["ms"], "plain_ms": upd_line["plain_ms"],

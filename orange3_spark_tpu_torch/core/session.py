@@ -12,6 +12,8 @@ back to the CPU by itself. Tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 
 import torch
@@ -22,6 +24,9 @@ class TorchSession:
 
     _lock = threading.Lock()
     _active: "TorchSession | None" = None
+    #: the session a ``use()`` block installed (thread/task-local)
+    _ctx_active: contextvars.ContextVar = contextvars.ContextVar(
+        "otpu_torch_session", default=None)
     #: what ``cache_dtype='auto'`` resolves to (io/codec.py): full compression
     default_cache_dtype: str = "packed"
 
@@ -48,7 +53,20 @@ class TorchSession:
 
     @classmethod
     def active(cls) -> "TorchSession":
-        return cls.builder_get_or_create()
+        """The innermost ``use()`` block's session, else the singleton."""
+        s = cls._ctx_active.get()
+        return s if s is not None else cls.builder_get_or_create()
+
+    @contextlib.contextmanager
+    def use(self):
+        """Install as the active session within this context (thread/task-
+        local, so concurrent ``use()`` blocks can't clobber each other's
+        view): a model unpickled inside lands on this session's device."""
+        token = TorchSession._ctx_active.set(self)
+        try:
+            yield self
+        finally:
+            TorchSession._ctx_active.reset(token)
 
     @property
     def n_devices(self) -> int:

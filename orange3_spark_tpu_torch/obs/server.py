@@ -1,9 +1,7 @@
 """Live telemetry endpoint — a scrapeable serving process, zero deps.
 
-A copy of the JAX package's ``obs/server.py`` without the fleet side (the
-fleet collector, ``/fleetz`` and the autoscaler's readiness keys wait for
-the port's ``fleet/``). A stdlib ``ThreadingHTTPServer`` on a daemon
-thread exposes:
+A copy of the JAX package's ``obs/server.py``. A stdlib
+``ThreadingHTTPServer`` on a daemon thread exposes:
 
 * ``GET /metrics``  — Prometheus text exposition of the whole registry
   (the serving counters, dispatches, retries, histograms, the device-memory
@@ -28,6 +26,12 @@ thread exposes:
   a flight bundle written now (obs/flight.py), every thread's stack, the
   span ring (optionally one ``?trace_id=``);
 * ``POST /debug/profile?duration_ms=`` — a deep capture (obs/prof.py).
+
+With a fleet collector attached (``TelemetryServer(fleet=...)``, the
+router-side shape — obs/fleetobs.py), ``/metrics`` serves the FLEET
+exposition (per-replica-labeled series + aggregates) and ``/fleetz``
+the JSON fleet view; ``/debug/spans?trace_id=`` serves this process's
+span-ring payload for cross-process trace assembly either way.
 
 Opt-in by ``OTPU_OBS_PORT`` (0 = ephemeral, for tests): ``ServingContext``
 activation starts it, the last deactivation stops it. Inert under
@@ -126,13 +130,18 @@ def ready_body(context=None) -> tuple[dict, bool]:
         "warmup_complete": warm,
         "context_active": ctx is not None,
     }
-    # control-plane status: the key appears ONLY once a tenant was shed —
-    # tenant-less processes keep the exact pre-tenancy body
+    # control-plane status: keys appear ONLY when the control plane has
+    # something to say — tenant-less processes with no autoscaler keep
+    # the exact pre-tenancy body, byte for byte
+    from orange3_spark_tpu_torch.fleet.control import active_autoscaler_state
     from orange3_spark_tpu_torch.serve.tenancy import tenant_shed_counts
 
     sheds = tenant_shed_counts()
     if sheds:
         body["tenants"] = {"sheds": sheds}
+    scaler = active_autoscaler_state()
+    if scaler is not None:
+        body["autoscaler"] = scaler
     return body, ready
 
 
@@ -219,8 +228,25 @@ class _Handler(BaseHTTPRequestHandler):
             if route == "/metrics":
                 from orange3_spark_tpu_torch.obs.registry import REGISTRY
 
-                self._send(200, REGISTRY.to_prometheus().encode(),
-                           PROM_CONTENT_TYPE)
+                fleet = owner._fleet
+                if fleet is not None:
+                    # the fleet exposition: this process's registry is
+                    # one more source ("router") beside every scraped
+                    # replica, re-labeled + aggregated by the collector
+                    body = fleet.to_prometheus().encode()
+                else:
+                    body = REGISTRY.to_prometheus().encode()
+                self._send(200, body, PROM_CONTENT_TYPE)
+            elif route == "/fleetz":
+                fleet = owner._fleet
+                if fleet is None:
+                    self._send(404, b"no fleet collector attached\n",
+                               "text/plain")
+                else:
+                    self._send(200,
+                               json.dumps(fleet.fleetz(),
+                                          default=str).encode(),
+                               "application/json")
             elif route == "/debug/spans":
                 self._send(200,
                            json.dumps(spans_body(self.path),
@@ -250,7 +276,7 @@ class _Handler(BaseHTTPRequestHandler):
                            "application/json")
             else:
                 self._send(404, b"not found: try /metrics, /healthz, "
-                                b"/readyz, /debug/flight, "
+                                b"/readyz, /fleetz, /debug/flight, "
                                 b"/debug/stacks, /debug/spans or "
                                 b"POST /debug/profile\n",
                            "text/plain")
@@ -291,11 +317,15 @@ class TelemetryServer:
     """One /metrics + /healthz listener; start() binds, stop() joins."""
 
     def __init__(self, port: int = 0, *, stale_s: float | None = None,
-                 context=None):
+                 context=None, fleet=None):
         self.port = port
         self.stale_s = (stale_s if stale_s is not None
                         else float(knobs.get_float("OTPU_OBS_STALE_S")))
         self._context = context      # owning ServingContext (queue depth)
+        # attached FleetCollector (obs/fleetobs.py): /metrics becomes the
+        # fleet exposition and /fleetz serves the JSON fleet view — the
+        # router-side shape of this server
+        self._fleet = fleet
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 

@@ -41,10 +41,14 @@ either explicit ordinals or a seeded hash, never wall-clock or id()):
   ``frac=F`` to the brownout watermarks (after the first ``after=K``
   queries, default 0) — drives the shrink-admission/force-spill/degrade
   ladder without actually exhausting host RAM.
-
-The JAX package's ``label_skew`` and ``trainer_crash`` kinds are not kept:
-what consumes them (the label joiner, the online trainer) is not ported,
-so a spec naming them raises here instead of injecting nothing.
+* ``label_skew``    the label joiner flips a ``flip=F`` fraction of
+  joined labels (seeded per-example crc32 coin, ``seed=S``) from joined
+  chunk ``after=K`` on — feature stats stay clean, so only the holdout
+  regression bound can catch the poisoned candidate.
+* ``trainer_crash`` the ``at=N``-th incremental-trainer device step
+  (1-based) raises instead of running — the SIGKILL stand-in the
+  checkpoint-resume drill kills the online trainer thread with.
+  Consumed once.
 
 State (per-ordinal fail budgets, sync counters) lives on the ``FaultSpec``
 instance, so a retried read observes the budget already consumed — that is
@@ -91,7 +95,8 @@ class TransientBuildError(RuntimeError):
 
 
 _KINDS = ("source_io", "slow_source", "spill_corrupt", "wedge", "aot_build",
-          "overload", "mem_pressure", "drift")
+          "overload", "mem_pressure", "drift", "label_skew",
+          "trainer_crash")
 
 
 def _record_fault(kind: str) -> None:
@@ -285,6 +290,42 @@ class FaultSpec:
                 _record_fault("drift")
             return c._arg("shift", 3.0)
         return None
+
+    def take_label_flip(self, ordinal: int, n_rows: int):
+        """Boolean mask of labels to flip in joined chunk ``ordinal``,
+        else None. Seeded per-(chunk, row) crc32 coin so the SAME rows
+        flip in a subprocess bench arm and an in-process test; counter
+        ticks once per clause."""
+        for c in self._of("label_skew"):
+            fire = False
+            with self._lock:
+                if ordinal < int(c._arg("after", 0, cast=int)):
+                    continue
+                if not c.fired:
+                    c.fired = True
+                    fire = True
+            if fire:
+                _record_fault("label_skew")
+            frac = c._arg("flip", 0.5)
+            seed = int(c._arg("seed", 0, cast=int))
+            mask = [
+                zlib.crc32(f"{seed}:{ordinal}:{r}".encode()) / 0xFFFFFFFF
+                < frac for r in range(n_rows)
+            ]
+            return mask
+        return None
+
+    def take_trainer_crash(self) -> bool:
+        """True when THIS trainer device step (the Nth since the spec was
+        installed, 1-based ``at=N``) should die. Consumed once per
+        matching clause."""
+        for c in self._of("trainer_crash"):
+            with self._lock:
+                c.sync_seen += 1
+                if c.sync_seen == int(c._arg("at", 1, cast=int)):
+                    _record_fault("trainer_crash")
+                    return True
+        return False
 
     # ----------------------------------------------------- serving hooks
     def maybe_fail_aot_build(self, key) -> None:

@@ -73,6 +73,7 @@ import copy
 import logging
 import threading
 import time
+from contextlib import contextmanager
 from typing import Any, Callable
 
 import numpy as np
@@ -161,6 +162,21 @@ def take_dispatch_traces():
     ids = getattr(_DISPATCH_TLS, "ids", None)
     _DISPATCH_TLS.ids = None
     return ids
+
+
+@contextmanager
+def dispatch_traces_scope(ids):
+    """Attach coalesced members' trace ids to the next dispatch on THIS
+    thread and clear them on exit even when the dispatch raises. The
+    fleet RPC handler (fleet/rpc.py) uses this around ``runtime.predict``
+    for a wire-coalesced request: a bare set/take pair would leak stale
+    ids onto the next request served by the same pooled handler thread
+    whenever the predict fails between set and take."""
+    set_dispatch_traces(list(ids) if ids else None)
+    try:
+        yield
+    finally:
+        _DISPATCH_TLS.ids = None
 
 
 def route(kind: str, raw_fn: Callable, model, *args, **kwargs):

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's knob table, cut to the knobs the ported
 modules read (the serving path, the resilience and observability layers it
-stands on, the chunk cache and the sparse optimizer), with the same names,
+stands on, the chunk cache, the sparse optimizer, the serving fleet, its
+telemetry and the online loop), with the same names,
 types, defaults and help text (``knob_table_md`` renders each row as the
 JAX package does). Every knob declares its name, type, default, owning
 subsystem and a one-line doc; call sites resolve through the typed getters
@@ -190,6 +191,158 @@ _ALL = [
     Knob("OTPU_FLIGHT_RATE_S", "float", 60.0, "obs",
          "Min seconds between AUTOMATIC flight bundles (an anomaly storm "
          "must not become an IO storm); manual dumps are unlimited."),
+    # ---------------------------------------------- fleet/, online/, SLOs
+    Knob("OTPU_FLEET", "flag", "1", "fleet",
+         "Serving-fleet kill-switch; 0 = FleetFrontend serves on the "
+         "single-process path exactly (no replica subprocesses spawn, "
+         "predict() is the raw in-process call)."),
+    Knob("OTPU_FLEET_REPLICAS", "int", 4, "fleet",
+         "Replica subprocesses a ReplicaManager/FleetFrontend spawns by "
+         "default (bench.py --config fleet uses it for the N-replica "
+         "scaling arm)."),
+    Knob("OTPU_FLEET_PORT_BASE", "int", 0, "fleet",
+         "First replica RPC port (replica i binds base+i); 0 = pick a "
+         "free ephemeral port per replica."),
+    Knob("OTPU_FLEET_HEDGE_MS", "float", 30.0, "fleet",
+         "Floor on the router's tail-hedging delay: a second copy of an "
+         "idempotent predict is issued to a different replica once the "
+         "primary has been outstanding this long (raised by the "
+         "EWMA-p95 estimate; 0 keeps the pure percentile schedule)."),
+    Knob("OTPU_FLEET_HEDGE_PCTL", "float", 95.0, "fleet",
+         "Latency percentile the hedge delay derives from (EWMA "
+         "mean + z(pctl) * EWMA stddev of observed request latency)."),
+    Knob("OTPU_FLEET_TIMEOUT_S", "float", 30.0, "fleet",
+         "Default per-request connect/read deadline on the fleet RPC "
+         "client (an explicit deadline or request_deadline() scope "
+         "outranks it)."),
+    Knob("OTPU_DRAIN_S", "float", 5.0, "fleet",
+         "Graceful-drain budget: a draining replica (SIGTERM or POST "
+         "/drain) finishes in-flight requests up to this many seconds "
+         "before exiting."),
+    Knob("OTPU_ROLLOUT_CANARY", "int", 4, "fleet",
+         "Canary predicts the rollout sends through each freshly-flipped "
+         "replica; a failure trips the rollout breaker and rolls the "
+         "fleet back to the previous version."),
+    Knob("OTPU_ROLLOUT_TIMEOUT_S", "float", 60.0, "fleet",
+         "Per-replica budget for one rollout step (reload + warm + "
+         "readiness re-poll) before the rollout aborts and rolls back."),
+    Knob("OTPU_FLEET_FASTWIRE", "flag", "1", "fleet",
+         "Fleet data-plane fast-path kill-switch; 0 = the wire "
+         "bitwise (one fresh TCP connection + npy body per request, no "
+         "pooling, no SHM, no cross-caller coalescing)."),
+    Knob("OTPU_FLEET_POOL_CONNS", "int", 8, "fleet",
+         "Idle keep-alive connections a FleetClient pool retains per "
+         "replica (excess connections close on release)."),
+    Knob("OTPU_FLEET_SHM", "flag", "1", "fleet",
+         "Shared-memory zero-copy tensor wire for loopback replicas; "
+         "0 = arrays always ride the npy HTTP body (any SHM failure "
+         "also falls back there, typed, per request)."),
+    Knob("OTPU_FLEET_SHM_MIN_BYTES", "int", 1 << 22, "fleet",
+         "Payload floor for the SHM wire: arrays smaller than this ride "
+         "the npy body even with OTPU_FLEET_SHM=1 — below ~4 MiB the "
+         "segment create/map/unlink syscalls cost more than the socket "
+         "copies they avoid (0 = always use SHM, the parity-test "
+         "setting)."),
+    Knob("OTPU_FLEET_UDS", "flag", "0", "fleet",
+         "Unix-domain-socket RPC transport for loopback replicas; the "
+         "replica binds a 0600 socket under the fleet run dir next to "
+         "its TCP port and the client prefers it when the socket file "
+         "exists."),
+    Knob("OTPU_FLEET_RUN_DIR", "str", "", "fleet",
+         "Directory holding per-fleet runtime state (UDS socket files); "
+         "empty = otpu-fleet-<uid> under the system temp dir, created "
+         "0700."),
+    Knob("OTPU_FLEET_COALESCE", "flag", "1", "fleet",
+         "Router-side cross-caller coalescing: concurrent same-shape "
+         "predicts from different callers merge into one wire dispatch "
+         "before replica selection; 0 = every caller dispatches alone."),
+    Knob("OTPU_FLEET_COALESCE_WAIT_MS", "float", 0.0, "fleet",
+         "Extra bounded wait a coalescer leader lingers to accumulate "
+         "more members before dispatching (0 = merge only what is "
+         "already queued)."),
+    Knob("OTPU_FLEET_COALESCE_ROWS", "int", 4096, "fleet",
+         "Row cap on one coalesced wire dispatch (ladder-clamped merge "
+         "size: matches the default serving-ladder max bucket)."),
+    Knob("OTPU_AUTOSCALE", "flag", "1", "fleet",
+         "Digest-driven elastic autoscaling kill-switch; 0 = no "
+         "Autoscaler ever scales (the fixed-size fleet, bitwise)."),
+    Knob("OTPU_AUTOSCALE_MIN", "int", 1, "fleet",
+         "Replica floor the autoscaler never drains below."),
+    Knob("OTPU_AUTOSCALE_MAX", "int", 8, "fleet",
+         "Replica ceiling the autoscaler never grows past."),
+    Knob("OTPU_AUTOSCALE_UP_X", "float", 2.0, "fleet",
+         "Scale-up hysteresis band: grow one replica when per-replica "
+         "load pressure (queue depth + in-flight per up replica, plus "
+         "any shed delta or brownout) is at or above this."),
+    Knob("OTPU_AUTOSCALE_DOWN_X", "float", 0.5, "fleet",
+         "Scale-down hysteresis band: drain one replica when per-replica "
+         "load pressure is at or below this with no sheds in the "
+         "window (the bands never overlap: DOWN_X < UP_X enforced)."),
+    Knob("OTPU_AUTOSCALE_COOLDOWN_S", "float", 10.0, "fleet",
+         "Minimum seconds between scale decisions (deterministic on the "
+         "injected clock — no wall-clock randomness)."),
+    Knob("OTPU_FLEET_INPROC", "int", 0, "fleet",
+         "In-process multi-device replica mode: N > 0 serves through N "
+         "device-pinned lanes in THIS process (no sockets, no "
+         "serialization) behind the same router/breaker/hedge paths; "
+         "0 = subprocess replicas."),
+    Knob("OTPU_ONLINE_PUBLISH_S", "float", 30.0, "online",
+         "Guarded-promotion cadence: seconds between publish cycles of "
+         "the online loop's background publisher thread."),
+    Knob("OTPU_ONLINE_JOIN_WINDOW", "int", 4096, "online",
+         "Label-join window: unlabeled requests held for their label "
+         "before eviction (a label arriving later counts as 'late')."),
+    Knob("OTPU_ONLINE_CHUNK_ROWS", "int", 1024, "online",
+         "Joined examples per incremental-trainer device step."),
+    Knob("OTPU_ONLINE_MIN_EXAMPLES", "int", 512, "online",
+         "Joined examples the trainer must consume before a candidate "
+         "may enter the promotion gate ladder."),
+    Knob("OTPU_ONLINE_DRIFT_Z", "float", 6.0, "online",
+         "Drift gate: max normalized per-feature mean shift (z-score) of "
+         "recent tapped traffic vs the serving model's training stats."),
+    Knob("OTPU_ONLINE_HOLDOUT_DROP", "float", 0.02, "online",
+         "Drift gate: max holdout-metric regression (AUC, falling back "
+         "to accuracy) the candidate may show vs the serving model."),
+    Knob("OTPU_ONLINE_SHADOW_SAMPLE", "float", 0.25, "online",
+         "Shadow gate: fraction of logged request chunks the candidate "
+         "re-scores (deterministic per-ordinal coin)."),
+    Knob("OTPU_ONLINE_SHADOW_DISAGREE", "float", 0.25, "online",
+         "Shadow gate: max fraction of shadow-scored rows whose "
+         "predicted class disagrees with the serving model."),
+    Knob("OTPU_ONLINE_CKPT_STEPS", "int", 8, "online",
+         "Trainer steps per epoch-boundary checkpoint (a SIGKILL'd "
+         "trainer resumes from the last one without re-reading the "
+         "consumed log prefix)."),
+    Knob("OTPU_FLEETOBS", "flag", "1", "obs",
+         "Fleet telemetry-plane kill-switch; 0 restores the plain "
+         "fleet exactly (no collector scrapes, no router serve spans, no "
+         "SLO samples, no fleet bundles)."),
+    Knob("OTPU_FLEETOBS_SCRAPE_S", "float", 2.0, "obs",
+         "FleetCollector scrape cadence: seconds between /metrics pulls "
+         "from each replica (deterministically jittered ±10% so fleet "
+         "scrapes decorrelate)."),
+    Knob("OTPU_FLEETOBS_STALE_X", "float", 3.0, "obs",
+         "Staleness multiplier: a replica whose last successful scrape is "
+         "older than STALE_X * SCRAPE_S gets its fleet series stale-"
+         "flagged instead of silently frozen."),
+    Knob("OTPU_SLO_SPEC", "str",
+         "availability:target=99.0;latency:target=99.0,p99_ms=1000", "obs",
+         "Declarative SLO specs, ';'-separated name:key=val,... items; "
+         "target= is the good-request percent, p99_ms= makes it a "
+         "latency SLO (a request slower than the bound burns budget)."),
+    Knob("OTPU_SLO_WINDOW_FAST_S", "float", 60.0, "obs",
+         "Fast (paging) burn-rate window in seconds; the confirming "
+         "short window is 1/12 of it (SRE-workbook multi-window rule)."),
+    Knob("OTPU_SLO_WINDOW_SLOW_S", "float", 600.0, "obs",
+         "Slow (ticket) burn-rate window in seconds; the confirming "
+         "short window is 1/12 of it."),
+    Knob("OTPU_SLO_BURN_FAST", "float", 14.4, "obs",
+         "Burn-rate threshold for the fast rule: alert when the error "
+         "budget burns this many times faster than uniform in BOTH the "
+         "fast window and its short confirm window."),
+    Knob("OTPU_SLO_BURN_SLOW", "float", 6.0, "obs",
+         "Burn-rate threshold for the slow rule (same two-window shape "
+         "over the slow window)."),
 ]
 
 KNOBS: dict[str, Knob] = {k.name: k for k in _ALL}

@@ -2274,3 +2274,120 @@ def test_sqrt32_on_cuda_is_correctly_rounded(cuda_device):
     x = torch.from_numpy(np.random.default_rng(0).uniform(1e-6, 1e6, 1_000_000)
                          .astype(np.float32)).to(cuda_device)
     assert torch.equal(sqrt32(x), torch.sqrt(x.double()).float())
+
+
+# ------------------------------------------------ the fleet and the online loop
+def _ctr_model(device, optim_update="adam", seed=3):
+    """A small hashed CTR model fitted on ``device``, and its rows."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.streaming import array_chunk_source
+    from orange3_spark_tpu_torch.models.hashed_linear import StreamingHashedLinearEstimator
+
+    rng = np.random.default_rng(seed)
+    X = np.concatenate([rng.standard_normal((2048, 4)).astype(np.float32),
+                        rng.integers(0, 500, (2048, 4)).astype(np.float32)], axis=1)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float32)
+    model = StreamingHashedLinearEstimator(
+        n_dims=1 << 10, n_dense=4, n_cat=4, epochs=1, step_size=0.05, chunk_rows=256,
+        optim_update=optim_update, reg_param=1e-3,
+    ).fit_stream(array_chunk_source(X, y, chunk_rows=256), session=TorchSession(device))
+    return model, X, y
+
+
+@pytest.mark.cuda
+def test_replica_process_on_cuda_serves_bitwise_its_serving_context(cuda_device, tmp_path):
+    """A replica process on the card (``--device cuda``) answers what a
+    ``ServingContext`` in this process serves from the same model on the
+    card, bit for bit, and its ``/healthz`` names the card."""
+    from orange3_spark_tpu_torch.fleet import rollout as ro
+    from orange3_spark_tpu_torch.fleet.supervisor import ReplicaManager
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    model, X, _ = _ctr_model("cuda")
+    root = str(tmp_path / "store")
+    ro.publish_version(model, root, n_cols=8)
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=512)) as ctx:
+        ctx.warmup(model, n_cols=8, kinds=("array",))
+        want = [np.asarray(model.predict(X[:n])) for n in (1, 64, 300)]
+    mgr = ReplicaManager(root, n_replicas=1, ladder_max=512, device="cuda")
+    try:
+        mgr.start()
+        assert mgr.wait_ready(timeout_s=240), f"replica not ready; logs in {mgr.log_dir}"
+        c = mgr.client(0)
+        assert c.get_json("/healthz")[1]["device"].startswith("cuda")
+        for n, w in zip((1, 64, 300), want):
+            out, _ = c.predict(X[:n])
+            assert out.dtype == w.dtype and np.array_equal(out, w)
+    finally:
+        mgr.stop_all()
+
+
+@pytest.mark.cuda
+def test_online_trainer_on_cuda_launches_segment_update_and_matches_cpu(cuda_device, tmp_path):
+    """The incremental trainer's step on the card under sparse_adagrad: one
+    ``segment_update_sorted`` launch a step, theta within chip_smoke's
+    ``_theta_err`` tolerance (atol 1e-5, rtol 1e-4) of the same trainer on
+    the CPU; the serving model's tensors keep their bits."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.reqlog import RequestLog
+    from orange3_spark_tpu_torch.models.hashed_linear import HashedLinearModel
+    from orange3_spark_tpu_torch.online.trainer import IncrementalTrainer
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+
+    model, X, y = _ctr_model("cuda", "sparse_adagrad")
+    before = {k: v.clone() for k, v in model.theta.items()}
+    path = str(tmp_path / "req.log")
+    log = RequestLog(path)
+    for i in range(0, 2048, 256):
+        rid = log.append_request(X[i:i + 256])
+        log.append_label(rid, 1.0 - y[i:i + 256])
+    log.close()
+    cpu_model = HashedLinearModel(model.params, {k: v.cpu() for k, v in model.theta.items()},
+                                  model.salts, model.class_values)
+    out = {}
+    for name, m, dev in (("cuda", model, "cuda"), ("cpu", cpu_model, "cpu")):
+        tr = IncrementalTrainer(m, RequestLog(path), session=TorchSession(dev),
+                                checkpoint_path=str(tmp_path / f"{name}.ck"),
+                                chunk_rows=256, join_window=64, ckpt_steps=100)
+        n0 = ss.segment_update_sorted.launches
+        tr.consume_available()
+        out[name] = (tr.status()["steps"], ss.segment_update_sorted.launches - n0,
+                     tr.candidate_model().state_pytree)
+    assert out["cuda"][0] == out["cpu"][0] == 8
+    assert out["cuda"][1] >= 8 and out["cpu"][1] == 0
+    for k, w in out["cpu"][2].items():
+        g = out["cuda"][2][k]
+        assert g.is_cuda
+        assert bool(((g.cpu() - w).abs() <= 1e-5 + 1e-4 * w.abs()).all()), k
+    assert all(torch.equal(model.theta[k], before[k]) for k in before)
+
+
+@pytest.mark.parametrize("optim_update", ["adam", "sparse_adagrad"])
+@pytest.mark.cuda
+def test_online_trainer_never_changes_the_served_bits_on_cuda(cuda_device, tmp_path,
+                                                              optim_update):
+    """20 trainer steps on the card (the update writes its standby tables in
+    place): what a ``ServingContext`` serves from the model it started from
+    keeps its bits, captured graphs included."""
+    from orange3_spark_tpu_torch import TorchSession
+    from orange3_spark_tpu_torch.io.reqlog import RequestLog
+    from orange3_spark_tpu_torch.online.trainer import IncrementalTrainer
+    from orange3_spark_tpu_torch.serve import BucketLadder, ServingContext
+
+    model, X, y = _ctr_model("cuda", optim_update)
+    log = RequestLog(str(tmp_path / "req.log"))
+    for j in range(20):
+        i = (j % 8) * 256
+        rid = log.append_request(X[i:i + 256])
+        log.append_label(rid, 1.0 - y[i:i + 256])
+    with ServingContext(BucketLadder(min_bucket=64, max_bucket=512)) as ctx:
+        ctx.warmup(model, n_cols=8, kinds=("array",))
+        served0 = model.predict_proba(X[:300])
+        tr = IncrementalTrainer(model, log, session=TorchSession("cuda"),
+                                checkpoint_path=str(tmp_path / "ck"), chunk_rows=256,
+                                join_window=64, ckpt_steps=100)
+        tr.consume_available()
+        assert tr.status()["steps"] == 20
+        served1 = model.predict_proba(X[:300])
+    log.close()
+    assert np.array_equal(served0, served1)

@@ -52,15 +52,39 @@ def _bundles(d):
 
 
 # ------------------------------------------------------------- the knobs
+# three of the reference's help texts name the reference's own pull
+# requests; the port's program text names none, so these three rows hold
+# the port's own text, and every other row is the reference's exactly
+OWN_DOCS = {
+    "OTPU_FLEET_FASTWIRE": (
+        "Fleet data-plane fast-path kill-switch; 0 = the wire bitwise (one "
+        "fresh TCP connection + npy body per request, no pooling, no SHM, "
+        "no cross-caller coalescing)."),
+    "OTPU_AUTOSCALE": (
+        "Digest-driven elastic autoscaling kill-switch; 0 = no Autoscaler "
+        "ever scales (the fixed-size fleet, bitwise)."),
+    "OTPU_FLEETOBS": (
+        "Fleet telemetry-plane kill-switch; 0 restores the plain fleet "
+        "exactly (no collector scrapes, no router serve spans, no SLO "
+        "samples, no fleet bundles)."),
+}
+
+
 def test_knob_table_rows_equal_the_reference():
     """``knob_table_md`` renders each knob the port holds exactly as the
-    reference renders it; ``resolved`` types every value as the getters."""
+    reference renders it, but for the three rows of ``OWN_DOCS``, which
+    equal the reference's row with that effect text in place of its own;
+    ``resolved`` types every value as the getters."""
     ref_rows = {ln.split("|")[1].strip(): ln for ln in j_knobs.knob_table_md().splitlines()[2:]}
+    for name, doc in OWN_DOCS.items():
+        row = ref_rows[f"`{name}`"]
+        ref_rows[f"`{name}`"] = row.replace(f"| {j_knobs.KNOBS[name].doc} |", f"| {doc} |")
+        assert ref_rows[f"`{name}`"] != row
     rows = t_knobs.knob_table_md().splitlines()
     assert rows[:2] == j_knobs.knob_table_md().splitlines()[:2]
     for ln in rows[2:]:
         assert ln == ref_rows[ln.split("|")[1].strip()]
-    assert len(rows) - 2 == len(t_knobs.KNOBS) == 45
+    assert len(rows) - 2 == len(t_knobs.KNOBS) == 87
     res = t_knobs.resolved()
     ref = j_knobs.resolved()
     assert set(res) == set(t_knobs.KNOBS)

@@ -274,13 +274,28 @@ def test_fault_spec_grammar_equals_reference():
 
 
 @pytest.mark.parametrize("kind", ["label_skew:flip=0.5", "trainer_crash:at=1"])
-def test_fault_kinds_without_a_consumer_raise(kind):
-    """Kinds whose consumer is not ported (the label joiner, the online
-    trainer) raise instead of injecting nothing; the JAX package parses
-    them."""
-    j_faults.FaultSpec.parse(kind)
-    with pytest.raises(ValueError, match="unknown fault kind"):
-        t_faults.FaultSpec.parse(kind)
+def test_label_skew_and_trainer_crash_parse_and_inject_like_the_reference(kind):
+    """``label_skew`` and ``trainer_crash`` have their consumers now (the
+    online trainer's label flips, its device step): each parses as the
+    reference does, flips the same labels of the same joined chunks and
+    crashes the same step, ticking the fault counter once a clause."""
+    j, t = j_faults.FaultSpec.parse(kind), t_faults.FaultSpec.parse(kind)
+    assert [(c.kind, c.args) for c in t.clauses] == [(c.kind, c.args) for c in j.clauses]
+    name = kind.split(":")[0]
+
+    def trace(fs, prof):
+        before = prof.resilience_counters()["faults_by_kind"].get(name, 0)
+        flips = [fs.take_label_flip(o, 37) for o in range(4)]
+        crashes = [fs.take_trainer_crash() for _ in range(4)]
+        return flips, crashes, prof.resilience_counters()["faults_by_kind"].get(name, 0) - before
+
+    got, want = trace(t, t_prof), trace(j, j_prof)
+    assert got == want
+    assert got[2] == 1
+    if name == "label_skew":
+        assert 0 < sum(got[0][0]) < 37 and got[1] == [False] * 4
+    else:
+        assert got[0] == [None] * 4 and got[1] == [True, False, False, False]
 
 
 @pytest.mark.parametrize("spec", [
