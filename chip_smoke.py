@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
 It builds the CUDA kernels from ``orange3_spark_tpu_torch/ops/csrc`` (nvcc,
 ``sm_90a``, into the git-ignored ``orange3_spark_tpu_torch/_build/``), then
-prints one JSON line per phase:
+prints one JSON line per phase, each with ``phase_s``, the seconds since the
+line before it:
 
   env      torch / CUDA versions, the card's name and power limit
   build    nvcc wall seconds, ptxas' register / shared-memory report and
@@ -265,6 +266,33 @@ CUDA graphs, no kernel of the package), on the Criteo CSV:
                   pad zeroing, the graph's device time, the copy back, the
                   Python around them; the launches in the graph
 
+then bench.py's multihost config and the Criteo hashed fit across ranks
+(gangs of ``parallel/mh_worker`` processes from ``MultihostLauncher``, all
+sharing the one card; gloo collectives on host tensors, staged through
+pinned buffers; each step's sums folded in rank order):
+
+  multihost       bench.py:3003-3199 at its geometry: 49,152 Criteo rows, 4
+                  ranks, 1024 rows a rank a chunk, 16 epochs, logistic, step
+                  0.05, the device cache and an epoch checkpointer; one rank
+                  on its share against the 4-rank gang (rows/s, their ratio
+                  without a bar: four ranks time-slice one H100), the
+                  gang's collective and compute ms a step, each rank's
+                  goodput and ledger; bars: theta within 1e-6 of the
+                  OTPU_MULTIHOST=0 arm over the gang's global chunks, the
+                  ranks bitwise equal, the kill-switch partitioner bitwise
+                  the stock source, the lost-host drill on 4 ranks (a lost
+                  host, a gang restart, bitwise resume, 0 lost steps)
+  multihost_hashed the criteo phase's width (2^22 dims, sparse_adagrad, the
+                  'sort' lowering, the packed cache) on its CSV's first 2^21
+                  rows, 3 epochs, a global chunk of 2^18: one process, a
+                  4-rank data-parallel gang and a data 2 x model 2 gang
+                  (against a 2-rank data-parallel gang on the same chunks);
+                  bars: ranks bitwise equal, the data-parallel table within
+                  _theta_err of one process and its holdout AUC (the next
+                  2^18 rows) within 1e-3, the model-split table within rtol
+                  1e-5 / atol 1e-6, ``segment_update_sorted`` launched once
+                  a step in every rank
+
 then the dense streaming fit (``StreamingLinearEstimator``: PyTorch ops
 and captured CUDA graphs, no kernel of the package) and the value-weighted
 hashed fit (``segment_update_sorted`` given the pairs' values):
@@ -499,7 +527,18 @@ CRITEO_HOLDOUT_CHUNKS = 2
 RATES = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
 
 
+#: when the last line was printed (the smoke's start before the first)
+_LAST_LINE_AT = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line. A phase's line also carries
+    ``phase_s``: the seconds since the line before it, the phase's share of
+    the smoke's wall."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_s": now - _LAST_LINE_AT[0]}
+    _LAST_LINE_AT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -8405,6 +8444,310 @@ def phase_unsupervised(sess, higgs, mem_bw, int_rate) -> dict:
     return out
 
 
+# ------------------------------------------------- multi-process training
+# bench.py --config multihost (bench.py:3003-3199) at its geometry
+MH_ROWS, MH_HOSTS, MH_CHUNK, MH_EPOCHS, MH_LR = 49_152, 4, 1024, 16, 0.05
+# the hashed fit across ranks: the criteo phase's width (CRITEO) on the
+# first 2^21 rows of its CSV, a global chunk of 2^18 rows, 3 epochs
+MHH_ROWS, MHH_CHUNK, MHH_EPOCHS, MHH_HOLDOUT = 1 << 21, 1 << 18, 3, 1 << 18
+
+
+def _rank_env() -> dict:
+    """A gang rank's environment: the package first on PYTHONPATH, the
+    host's cores shared out among the ranks."""
+    from orange3_spark_tpu_torch.parallel.drill import worker_env
+
+    return worker_env({"OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // MH_HOSTS))})
+
+
+def _mh_gang(out, n, *, device, csv, n_total, chunk, epochs, lr, class_col="label", extra=(),
+             model_parallel=1):
+    """One ``MultihostLauncher`` gang of ``parallel/mh_worker`` ranks on
+    ``device`` (the card): (GangResult, rank 0's theta, the ranks' records)."""
+    from orange3_spark_tpu_torch.parallel.drill import read_gang
+    from orange3_spark_tpu_torch.parallel.launcher import MultihostLauncher
+
+    def argv(r, size, coord):
+        return [sys.executable, "-m", "orange3_spark_tpu_torch.parallel.mh_worker",
+                "--rank", str(r), "--nprocs", str(size), "--coord", coord, "--csv", csv,
+                "--class-col", class_col, "--n-total", str(n_total), "--n-features", "39",
+                "--chunk-rows", str(chunk), "--epochs", str(epochs), "--step-size", str(lr),
+                "--out-dir", out, "--device", device, "--backend", "gloo",
+                "--model-parallel", str(model_parallel), *extra]
+
+    res = MultihostLauncher(argv, n, env=_rank_env(), log_dir=os.path.join(out, "logs"),
+                            max_gang_restarts=0, wall_s=300.0,
+                            model_parallel=model_parallel).run()
+    theta, hosts = read_gang(out)
+    return res, theta, hosts
+
+
+def _gang_ranks_equal(hosts) -> bool:
+    return len({h["theta_sha256"] for h in hosts.values()}) == 1
+
+
+def _per_step(hosts) -> dict:
+    """A gang's step from its slowest rank's record: over the replay (the
+    epochs after the first, with no parse), the step's wall, its
+    collectives (staging + gloo, waits for the slowest rank included) and
+    the rest; the collectives over the whole fit beside them."""
+    h = max(hosts.values(), key=lambda r: r["fit_wall_s"])
+    n = max(1, h["n_steps"])
+    steps = max(1, n - n // h["epochs"])
+    c, r = h["collectives"], h["replay_collectives"]
+    replay_ms = 1e3 * sum(h["epoch_s"][1:]) / steps
+    coll_ms = 1e3 * (r["stage_s"] + r["gloo_s"]) / steps
+    return {"steps": h["n_steps"], "epoch1_s": h["epoch_s"][0], "replay_step_ms": replay_ms,
+            "collective_ms": coll_ms, "stage_ms": 1e3 * r["stage_s"] / steps,
+            "gloo_ms": 1e3 * r["gloo_s"] / steps, "compute_ms": replay_ms - coll_ms,
+            "collectives_per_step": r["calls"] / steps, "bytes_per_step": r["bytes"] / steps,
+            "fit_collective_s": c["stage_s"] + c["gloo_s"],
+            "timed": "the replay epochs' walls and their steps' collectives"}
+
+
+def _rank_digest(hosts) -> dict:
+    """Each rank's goodput (fractions, bottleneck) and ledger digest: the
+    owners at the fit's end (``model_state`` then holds the gathered table)
+    and the fit's peak; the peak less the cached chunks is the state the
+    rank held while it stepped (its table shard, slots and timestamps)."""
+    out = {}
+    for name, h in sorted(hosts.items()):
+        g, m = h.get("goodput", {}), h.get("device_memory", {})
+        owners, peak = m.get("owners") or {}, m.get("peak_bytes_fit")
+        out[name] = {"fit_wall_s": h["fit_wall_s"], "goodput": g.get("fractions"),
+                     "bottleneck": g.get("bottleneck"), "ledger_owners": owners,
+                     "ledger_peak_bytes": peak,
+                     "ledger_state_bytes_fit": (None if peak is None else
+                                                peak - owners.get("cache_chunks", 0))}
+    return out
+
+
+def _stream_fit_arm(src, sess, chunk, ck_path):
+    """The dense fit of a gang rank (``mh_worker``'s) in this process."""
+    from orange3_spark_tpu_torch.io.streaming import StreamingLinearEstimator
+    from orange3_spark_tpu_torch.utils.fault import StreamCheckpointer
+
+    est = StreamingLinearEstimator(loss="logistic", epochs=MH_EPOCHS, step_size=MH_LR,
+                                   chunk_rows=chunk, replay_granularity="epoch",
+                                   checkpoint_every_epochs=1)
+    t0 = time.perf_counter()
+    m = est.fit_stream(src, n_features=39, session=sess, cache_device=True,
+                       checkpointer=StreamCheckpointer(ck_path, every_steps=10 ** 9))
+    sess.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def phase_multihost(tmp, sess) -> dict:
+    """``bench.py --config multihost`` at its geometry on the card: a
+    49,152-row Criteo CSV, 1024 rows a rank a chunk, 16 epochs,
+    ``StreamingLinearEstimator(loss='logistic', step_size=0.05)`` with the
+    device cache and an epoch checkpointer armed. Arms: one rank on its
+    share of the rows and a real 4-rank ``MultihostLauncher`` gang (gloo,
+    four CUDA contexts sharing the one H100), each through
+    ``parallel/mh_worker``; the ``OTPU_MULTIHOST=0`` arm in this process over
+    the gang's global chunks; the kill-switch partitioner against the stock
+    source; the lost-host drill on 4 ranks. A failed gang probe fails the
+    phase (bench's single-process-mesh mode is not ported)."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.io.streaming import csv_chunk_source
+    from orange3_spark_tpu_torch.parallel import DataParallelPartitioner
+    from orange3_spark_tpu_torch.parallel.drill import gang_global_chunks, run_drill
+    from orange3_spark_tpu_torch.parallel.launcher import cross_process_collectives_supported
+
+    t_phase = time.perf_counter()
+    ok_x, why = cross_process_collectives_supported()
+    if not ok_x:
+        raise AssertionError(f"no 2-rank gloo gang on this machine: {why}")
+    csv = os.path.join(tmp, "multihost.csv")
+    gen_criteo_csv(csv, MH_ROWS, seed=0)          # bench's ensure_criteo_csv(rows)
+    rows_1p = MH_ROWS // MH_HOSTS
+    dev = sess.device.type
+    kw = dict(device=dev, csv=csv, chunk=MH_CHUNK, epochs=MH_EPOCHS, lr=MH_LR)
+    out1, outn = os.path.join(tmp, "mh_1p"), os.path.join(tmp, "mh_np")
+    _, _, hosts1 = _mh_gang(out1, 1, n_total=rows_1p,
+                                 extra=("--ckpt-dir", os.path.join(out1, "ck")), **kw)
+    res_n, theta_n, hosts_n = _mh_gang(outn, MH_HOSTS, n_total=MH_ROWS,
+                                       extra=("--ckpt-dir", os.path.join(outn, "ck")), **kw)
+    wall_1p = hosts1["host_0"]["fit_wall_s"]
+    wall_np = max(h["fit_wall_s"] for h in hosts_n.values())
+    v_1p, v_np = rows_1p * MH_EPOCHS / wall_1p, MH_ROWS * MH_EPOCHS / wall_np
+    # the OTPU_MULTIHOST=0 arm over the gang's global chunks (built first:
+    # the kill-switch makes a sharded source the plain one)
+    glob_src = gang_global_chunks(csv, "label", MH_ROWS, MH_CHUNK, MH_HOSTS)
+    with _env(OTPU_MULTIHOST="0"):
+        off, off_wall = _stream_fit_arm(glob_src, sess, MH_HOSTS * MH_CHUNK,
+                                        os.path.join(tmp, "mh_off.ckpt"))
+        part = DataParallelPartitioner(device=dev)
+        ks, _ = _stream_fit_arm(part.shard_csv(csv, "label", n_total=MH_ROWS,
+                                               chunk_rows=MH_HOSTS * MH_CHUNK),
+                                part.session, MH_HOSTS * MH_CHUNK,
+                                os.path.join(tmp, "mh_ks.ckpt"))
+    stock, _ = _stream_fit_arm(csv_chunk_source(csv, "label", chunk_rows=MH_HOSTS * MH_CHUNK),
+                               sess, MH_HOSTS * MH_CHUNK, os.path.join(tmp, "mh_stock.ckpt"))
+    kill_parity = _coef_equal(ks, stock)
+    theta_diff = max(float(np.abs(theta_n["coef"] - off.coef.cpu().numpy()).max()),
+                     float(np.abs(theta_n["intercept"] - off.intercept.cpu().numpy()).max()))
+    t_drill = time.perf_counter()
+    drill = run_drill(procs=MH_HOSTS, rows=2048, epochs=3, chunk_rows=256,
+                      out_root=os.path.join(tmp, "mh_drill"), device=dev,
+                      env={"OMP_NUM_THREADS": _rank_env()["OMP_NUM_THREADS"]})
+    drill_s = time.perf_counter() - t_drill
+    bars = {
+        "theta_max_abs_diff<=1e-6": theta_diff <= 1e-6,
+        "ranks_bitwise_equal": _gang_ranks_equal(hosts_n),
+        "kill_switch_parity": kill_parity,
+        "drill_hosts_lost>=1": drill["hosts_lost"] >= 1,
+        "drill_gang_restarts>=1": drill["gang_restarts"] >= 1,
+        "drill_resume_parity_bitwise": drill["resume_parity_bitwise"],
+        "drill_ranks_bitwise_equal": drill["ranks_bitwise_equal"],
+        "drill_lost_work_steps==0": drill["lost_work_steps"] == 0,
+    }
+    failed = [k for k, v in bars.items() if not v]
+    line = {
+        "backend": "gloo", "ranks": MH_HOSTS, "rows": MH_ROWS, "epochs": MH_EPOCHS,
+        "chunk_rows_per_rank": MH_CHUNK, "steps_per_epoch": MH_ROWS // (MH_HOSTS * MH_CHUNK),
+        "replay_rows_per_s_1p": v_1p, "replay_rows_per_s_np": v_np,
+        "multihost_scaling": v_np / v_1p,
+        "scaling_note": ("no bar: the 4 ranks time-slice one H100 (4 CUDA contexts, gloo "
+                         "on host tensors over loopback), so the ratio measures sharing one "
+                         "card, not a pod; rates are rows x epochs / the slowest rank's fit "
+                         "wall, each arm a launcher gang through mh_worker"),
+        "wall_1p_s": wall_1p, "wall_np_s": wall_np, "gang_wall_s": res_n.wall_s,
+        "off_arm_fit_s": off_wall,
+        "per_step_np": _per_step(hosts_n), "per_step_1p": _per_step(hosts1),
+        "theta_max_abs_diff": theta_diff,
+        "multihost_parity_bitwise": theta_diff == 0.0, "kill_switch_parity": kill_parity,
+        "ranks": _rank_digest(hosts_n),
+        "drill": {k: v for k, v in drill.items() if k != "hosts"}, "drill_s": drill_s,
+        "phase_s": time.perf_counter() - t_phase, "bars": bars, "failed": failed,
+    }
+    if failed:
+        raise AssertionError(f"multihost bars failed: {failed}: "
+                             f"{json.dumps({k: line[k] for k in ('theta_max_abs_diff', 'drill')})}")
+    return line
+
+
+def _criteo_holdout(path, start, rows):
+    """Rows ``[start, start + rows)`` of the Criteo CSV as (X, y)."""
+    import numpy as np
+
+    from orange3_spark_tpu_torch.io.streaming import csv_raw_chunk_source
+
+    got, pos = [], 0
+    for c in csv_raw_chunk_source(path, chunk_rows=1 << 18)():
+        lo, hi = max(start - pos, 0), min(start + rows - pos, len(c))
+        if hi > lo:
+            got.append(c[lo:hi])
+        pos += len(c)
+        if pos >= start + rows:
+            break
+    raw = np.concatenate(got)
+    return np.ascontiguousarray(raw[:, 1:]), raw[:, 0]
+
+
+def phase_multihost_hashed(path, sess) -> dict:
+    """The Criteo hashed fit across ranks at the criteo phase's width
+    (2^22 dims, 13 dense + 26 categorical, sparse_adagrad, the 'sort'
+    lowering, the packed cache, reg 1e-5), depth cut to the first 2^21 rows
+    of its CSV and 3 epochs, a global chunk of 2^18 rows. Arms: one process
+    over the gang's global chunks (this process; its replay one captured
+    graph an epoch); a 4-rank data-parallel gang (2^16 rows a rank); a
+    4-rank gang at data 2 x model 2 and the 2-rank data-parallel gang over
+    the same global chunks (2^17 rows a rank). Each gang rank's
+    ``segment_update_sorted`` launches are counted in the rank."""
+    import numpy as np
+    import torch
+
+    from orange3_spark_tpu_torch.models.hashed_linear import (
+        HashedLinearModel, StreamingHashedLinearEstimator, hashed_salts,
+    )
+    from orange3_spark_tpu_torch.ops import segment_sum as ss
+    from orange3_spark_tpu_torch.parallel.drill import gang_global_chunks
+
+    t_phase = time.perf_counter()
+    tmp = os.path.dirname(path)
+    cfg = dict(n_dims=CRITEO["n_dims"], n_dense=13, n_cat=26, step_size=CRITEO["step_size"],
+               reg_param=CRITEO["reg_param"], loss="logistic", label_in_chunk=True,
+               optim_update="sparse_adagrad", cache_dtype="packed",
+               replay_granularity="epoch", epochs=MHH_EPOCHS)
+    extra = ("--hashed", "--n-dims", str(cfg["n_dims"]), "--optim-update", "sparse_adagrad",
+             "--cache-dtype", "packed", "--reg-param", str(cfg["reg_param"]))
+    kw = dict(device=sess.device.type, csv=path, n_total=MHH_ROWS, epochs=MHH_EPOCHS,
+              lr=cfg["step_size"], class_col="", extra=extra)
+
+    def raw(src):
+        def open_stream():
+            for X, _, w in src():
+                if w is not None:
+                    raise AssertionError("the cut divides evenly: no lockstep pads")
+                yield X
+        return open_stream
+
+    # one process over the 4-rank gang's global chunks
+    ss.segment_update_sorted.launches = 0
+    est = StreamingHashedLinearEstimator(chunk_rows=MHH_CHUNK, **cfg)
+    t0 = time.perf_counter()
+    one = est.fit_stream(raw(gang_global_chunks(path, "", MHH_ROWS, MHH_CHUNK // MH_HOSTS,
+                                                MH_HOSTS)),
+                         session=sess, cache_device=True)
+    sess.synchronize()
+    one_s, one_launches = time.perf_counter() - t0, ss.segment_update_sorted.launches
+    gangs = {}
+    for name, n, mp in (("dp4", 4, 1), ("mp2x2", 4, 2), ("dp2", 2, 1)):
+        chunk = MHH_CHUNK * mp // n
+        res, theta, hosts = _mh_gang(os.path.join(tmp, f"mhh_{name}"), n, chunk=chunk,
+                                     model_parallel=mp, **kw)
+        gangs[name] = (res, theta, hosts)
+    theta_dp, theta_mp, theta_dp2 = (gangs[k][1] for k in ("dp4", "mp2x2", "dp2"))
+    errs, dp_ok = _theta_err({k: torch.from_numpy(theta_dp[k]) for k in one.theta},
+                             one.theta)
+    mp_close = all(np.allclose(theta_mp[k], theta_dp2[k], rtol=1e-5, atol=1e-6)
+                   for k in ("emb", "coef", "intercept"))
+    mp_err = {k: float(np.abs(theta_mp[k] - theta_dp2[k]).max())
+              for k in ("emb", "coef", "intercept")}
+    Xh, yh = _criteo_holdout(path, MHH_ROWS, MHH_HOLDOUT)
+    hold = lambda: iter([(Xh, yh)])  # noqa: E731
+    auc_one = one.evaluate_stream(hold)["auc"]
+    gang_model = HashedLinearModel(one.params, {k: torch.from_numpy(theta_dp[k]).to(sess.device)
+                                                for k in one.theta},
+                                   hashed_salts(one.params), one.class_values)
+    auc_dp = gang_model.evaluate_stream(hold)["auc"]
+    launches = {name: {r: h["launches"]["segment_update_sorted"] for r, h in g[2].items()}
+                for name, g in gangs.items()}
+    steps = {name: {r: h["n_steps"] for r, h in g[2].items()} for name, g in gangs.items()}
+    bars = {
+        "ranks_bitwise_equal": all(_gang_ranks_equal(g[2]) for g in gangs.values()),
+        "dp_within_theta_err": dp_ok,
+        "holdout_auc_within_1e-3": abs(auc_dp - auc_one) <= 1e-3,
+        "mp_within_rtol1e-5_atol1e-6_of_dp": mp_close,
+        "segment_update_launches==steps": all(
+            launches[n][r] == steps[n][r] > 0 for n in gangs for r in gangs[n][2]),
+    }
+    failed = [k for k, v in bars.items() if not v]
+    line = {
+        "backend": "gloo", "rows": MHH_ROWS, "epochs": MHH_EPOCHS,
+        "global_chunk_rows": MHH_CHUNK, "n_dims": cfg["n_dims"],
+        "cuts": {"rows": f"the first {MHH_ROWS} of the criteo phase's {CRITEO_ROWS}-row CSV",
+                 "epochs": f"{MHH_EPOCHS}, not bench's {CRITEO_EPOCHS}"},
+        "one_process": {"fit_s": one_s, "steps": one.n_steps_, "auc": auc_one,
+                        "segment_update_launches": one_launches},
+        "dp4_vs_one_theta_err": errs, "dp4_auc": auc_dp, "mp2x2_vs_dp2_max_abs": mp_err,
+        "gangs": {name: {"ranks": len(g[2]), "gang_wall_s": g[0].wall_s,
+                         "fit_wall_s": max(h["fit_wall_s"] for h in g[2].values()),
+                         "per_step": _per_step(g[2]),
+                         "segment_update_launches": launches[name], "steps": steps[name],
+                         "ledger": _rank_digest(g[2])}
+                  for name, g in gangs.items()},
+        "phase_s": time.perf_counter() - t_phase, "bars": bars, "failed": failed,
+    }
+    if failed:
+        raise AssertionError(f"multihost_hashed bars failed: {failed}: "
+                             f"{json.dumps({k: line[k] for k in ('dp4_vs_one_theta_err', 'mp2x2_vs_dp2_max_abs', 'dp4_auc')})} auc_one={auc_one}")
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=11_000_000,
@@ -8639,6 +8982,15 @@ def _run(args) -> int:
             emit({"phase": phase, "device": kind, "nvidia_smi": smi,
                   **phase_serving_profile(serve_model, pool)})
             del serve_model, pool
+            torch.cuda.empty_cache()
+            # ---- bench's multihost config and the hashed fit across ranks:
+            # gangs of rank processes sharing the card, gloo collectives
+            phase = "multihost"
+            emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(),
+                  **phase_multihost(tmp, sess)})
+            phase = "multihost_hashed"
+            mhh_line = phase_multihost_hashed(path, sess)
+            emit({"phase": phase, "device": kind, "nvidia_smi": nvidia_smi_line(), **mhh_line})
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -8738,6 +9090,10 @@ def _run(args) -> int:
         if online_line["sparse_trainer_segment_update_launches"] == 0:
             raise AssertionError("the online phase's sparse_adagrad trainer never launched "
                                  "segment_update_sorted")
+        if not all(n > 0 for g in mhh_line["gangs"].values()
+                   for n in g["segment_update_launches"].values()):
+            raise AssertionError("a multihost_hashed gang rank never launched "
+                                 "segment_update_sorted")
         if online_line["launches"]["segment_sum_sorted"] == 0:
             raise AssertionError("the online phase never launched segment_sum_sorted")
         if wrangle_line["segment_sum_launches"] == 0:
@@ -8822,6 +9178,13 @@ def _run(args) -> int:
                 "sparse_adagrad twin of bench's online model, not bench's adam loop"),
             "online_trainer": {k: online_line["card_vs_cpu"]["sparse_adagrad"][k]
                                for k in ("steps", "theta_max_abs_err", "tolerance", "ok")},
+            # each gang rank counts its own launches (one a step)
+            "multihost_launches_per_rank": {
+                name: g["segment_update_launches"] for name, g in mhh_line["gangs"].items()},
+            "multihost_launches_counted_over": ("the multihost_hashed phase's gangs, in each "
+                                                "rank process"),
+            "multihost_one_process_launches": mhh_line["one_process"][
+                "segment_update_launches"],
             "max_abs_err": upd_line["max_abs_err"],
             "deterministic": upd_line["bitwise_repeat"],
             "ms": upd_line["ms"], "plain_ms": upd_line["plain_ms"],

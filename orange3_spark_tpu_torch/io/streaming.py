@@ -13,7 +13,9 @@ step t. This module holds the host side of that pipeline: re-iterable
 sources (CSV through the native parser, parquet a row group at a time,
 in-memory arrays), rechunking and padding, the prefetch thread, the
 budgeted cache that keeps epoch 1's device chunks for the replay epochs,
-and the disk spill that replays them when the cache overflows. It also
+and the disk spill that replays them when the cache overflows; for a gang
+of ranks, ``sharded_csv_chunk_source`` (each rank's row block in lockstep
+chunks) and the parquet sources' ``shard=True``. It also
 holds ``StreamingLinearEstimator`` (MLlib's out-of-core linear learner:
 logistic, squared or squared-hinge loss, adam over epochs of chunks,
 returning the in-memory estimators' model classes) and the streaming half
@@ -80,32 +82,188 @@ def csv_chunk_source(
     return open_stream
 
 
-def _parquet_groups(row_groups, shard: bool):
+def _parquet_groups(path: str, row_groups, shard: bool, world=None):
     """The row groups a parquet source reads: ``row_groups`` as given (None:
-    all). ``shard=True`` would pick this process's share of a multi-host
-    ingest, which is not ported (ROADMAP queue 1 item 6): it raises."""
-    if shard and row_groups is None:
-        raise NotImplementedError(
-            "parquet shard=True needs io/multihost, not ported to orange3_spark_tpu_torch "
-            "yet (ROADMAP queue 1 item 6); pass row_groups= for a subset of the groups")
-    return None if row_groups is None else list(row_groups)
+    all). ``shard=True`` without ``row_groups`` picks this rank's contiguous
+    share (``io/multihost.shard_row_groups``), except under the
+    ``OTPU_MULTIHOST=0`` kill-switch, where it reads the whole file.
+    Row-group splitting has no lockstep padding: the caller owns group
+    balance across ranks (a rank whose stream ends early leaves its peers
+    in a collective until the backend's timeout or the launcher's wall
+    budget)."""
+    if row_groups is not None:
+        return list(row_groups)
+    if shard:
+        from orange3_spark_tpu_torch.io.multihost import shard_row_groups
+        from orange3_spark_tpu_torch.utils import knobs
+
+        if knobs.get_bool("OTPU_MULTIHOST"):
+            return shard_row_groups(path, world)
+    return None
+
+
+def sharded_csv_chunk_source(
+    path, class_col: str = "", *, shard_total_rows: int | None = None,
+    chunk_rows: int = 1 << 20, delimiter: str = ",", header: bool = True,
+    n_threads: int = 0, world=None,
+) -> Callable[[], Iterator[Chunk]]:
+    """Per-rank CSV ingest for multi-process fits.
+
+    Single shared file: every rank streams only its contiguous
+    ``io.multihost.process_row_slice(shard_total_rows)`` row block (the
+    parse STOPS at the block's end, so rows past it are never decoded),
+    then re-chunks the block into an emission schedule that is IDENTICAL
+    on every gang member: ``ceil(lockstep_rows/chunk_rows)`` chunks, all
+    of ``chunk_rows`` rows but the last. A rank holding fewer rows than the
+    common per-rank target tops up with dead rows (features 0, label 0,
+    weight 0 — the weight-mask pad convention ``put_sharded`` names), so
+    all ranks run the same chunk schedule and the rank-order folds stay in
+    lockstep. ``world`` (default: the active session's) assigns the block
+    by its data index.
+
+    ``path`` may also be a LIST of paths: file-per-executor splitting via
+    ``io.multihost.shard_paths`` (round-robin; ``shard_total_rows`` is
+    ignored). In that mode the caller owns row-count balance across ranks:
+    a rank whose stream ends early leaves its peers in a collective until
+    the backend's timeout or the launcher's wall budget.
+
+    Under ``OTPU_MULTIHOST=0`` (the kill-switch) the single-path form IS
+    ``csv_chunk_source`` — the pre-multihost stream, bitwise. With the
+    switch on in a single rank over a file holding exactly
+    ``shard_total_rows`` rows, the emitted chunks are the parser's own
+    buffers unchanged (same values, zero extra copies).
+
+    Yields ``(X, y, w)`` triples (``array_chunk_source``'s form): ``w`` is
+    ``None`` on pure-data chunks and a 0-mask tail on padded ones."""
+    from orange3_spark_tpu_torch.io.multihost import (
+        lockstep_rows, process_row_slice, shard_paths,
+    )
+    from orange3_spark_tpu_torch.utils import knobs
+
+    if isinstance(path, (list, tuple)):
+        multi = knobs.get_bool("OTPU_MULTIHOST")
+        paths = shard_paths(path, world) if multi else sorted(str(p) for p in path)
+
+        def open_paths() -> Iterator[Chunk]:
+            for p in paths:
+                yield from csv_chunk_source(p, class_col, chunk_rows=chunk_rows,
+                                            delimiter=delimiter, header=header,
+                                            n_threads=n_threads)()
+
+        return open_paths
+
+    if not knobs.get_bool("OTPU_MULTIHOST"):
+        return csv_chunk_source(path, class_col, chunk_rows=chunk_rows,
+                                delimiter=delimiter, header=header, n_threads=n_threads)
+    if shard_total_rows is None:
+        raise ValueError(
+            "sharded_csv_chunk_source over a single shared file needs "
+            "shard_total_rows (the file's exact row count) to assign rank row blocks")
+    n_total = int(shard_total_rows)
+    has_y = bool(class_col)
+    inner = csv_chunk_source(path, class_col, chunk_rows=chunk_rows, delimiter=delimiter,
+                             header=header, n_threads=n_threads)
+
+    def open_stream() -> Iterator[Chunk]:
+        sl = process_row_slice(n_total, world)
+        target = lockstep_rows(n_total, world)
+        if target == 0:
+            return
+        k = -(-target // chunk_rows)
+        sizes = [chunk_rows] * (k - 1) + [target - chunk_rows * (k - 1)]
+        pend: list[tuple] = []      # sliced (X, y, w) pieces pending emit
+        pend_n = 0
+
+        def take(n_take: int) -> Chunk:
+            nonlocal pend_n
+            pieces, got = [], 0
+            while got < n_take:
+                X, y, w = pend[0]
+                need = n_take - got
+                if len(X) <= need:
+                    pend.pop(0)
+                    pieces.append((X, y, w))
+                    got += len(X)
+                else:
+                    pieces.append((X[:need], None if y is None else y[:need],
+                                   None if w is None else w[:need]))
+                    pend[0] = (X[need:], None if y is None else y[need:],
+                               None if w is None else w[need:])
+                    got = n_take
+            pend_n -= n_take
+            if len(pieces) == 1:
+                return pieces[0]
+            Xo = np.concatenate([q[0] for q in pieces])
+            yo = np.concatenate([q[1] for q in pieces]) if has_y else None
+            if all(q[2] is None for q in pieces):
+                wo = None
+            else:
+                wo = np.concatenate([np.ones(len(q[0]), np.float32) if q[2] is None else q[2]
+                                     for q in pieces])
+            return Xo, yo, wo
+
+        pos = have = si = 0
+        n_feat = None
+        it = inner()
+        try:
+            for c in it:
+                X, y = c[0], c[1]
+                base, n = pos, len(X)
+                pos += n
+                if n_feat is None:
+                    n_feat = X.shape[1]
+                lo, hi = max(sl.start, base), min(sl.stop, base + n)
+                if hi > lo:
+                    pend.append((X[lo - base:hi - base],
+                                 None if y is None else y[lo - base:hi - base], None))
+                    pend_n += hi - lo
+                    have += hi - lo
+                    while si < len(sizes) and pend_n >= sizes[si]:
+                        yield take(sizes[si])
+                        si += 1
+                if pos >= sl.stop:
+                    break       # our block is done — stop parsing
+        finally:
+            it.close()
+        if have < sl.stop - sl.start:
+            raise ValueError(
+                f"sharded_csv_chunk_source: {path!r} exhausted at row {pos} — "
+                f"shard_total_rows={n_total} overstates the file, rank block {sl} "
+                f"holds only {have} rows")
+        dead = target - have
+        if dead:
+            if n_feat is None:
+                raise ValueError(
+                    f"sharded_csv_chunk_source: {path!r} holds no data rows — cannot "
+                    "shape the lockstep dead-row padding")
+            pend.append((np.zeros((dead, n_feat), np.float32),
+                         np.zeros((dead,), np.float32) if has_y else None,
+                         np.zeros((dead,), np.float32)))
+            pend_n += dead
+        while si < len(sizes) and pend_n >= sizes[si]:
+            yield take(sizes[si])
+            si += 1
+
+    return open_stream
 
 
 def parquet_chunk_source(
     path: str, class_col: str = "", *, chunk_rows: int = 1 << 20,
     columns: tuple | None = None, row_groups: tuple | None = None,
-    shard: bool = False,
+    shard: bool = False, world=None,
 ) -> Callable[[], Iterator[Chunk]]:
     """Re-iterable source of ``(X [n, d] f32, y [n] f32 | None)`` chunks over a
     parquet file, read a row group at a time (``pyarrow.ParquetFile.
     iter_batches``), so host memory stays bounded by the row group however
     large the file is. ``class_col`` is split off as the label; ``columns``
     picks and orders the columns; ``row_groups`` restricts the stream to
-    those group indices. pyarrow is imported when the stream opens."""
-    groups = _parquet_groups(row_groups, shard)
+    those group indices, and ``shard=True`` to this rank's share of them
+    (``_parquet_groups``). pyarrow is imported when the stream opens."""
 
     def open_stream() -> Iterator[Chunk]:
         import pyarrow.parquet as pq
+
+        groups = _parquet_groups(path, row_groups, shard, world)
 
         pf = pq.ParquetFile(path)
         try:
@@ -130,15 +288,16 @@ def parquet_chunk_source(
 
 def parquet_raw_chunk_source(
     path: str, *, chunk_rows: int = 1 << 20, columns: tuple | None = None,
-    row_groups: tuple | None = None, shard: bool = False,
+    row_groups: tuple | None = None, shard: bool = False, world=None,
 ) -> Callable[[], Iterator[np.ndarray]]:
     """Parquet twin of ``csv_raw_chunk_source``: RAW [n, ncols] f32 chunks,
     no host-side label split, for an estimator's ``label_in_chunk`` mode;
     a row group at a time, like ``parquet_chunk_source``."""
-    groups = _parquet_groups(row_groups, shard)
 
     def open_stream() -> Iterator[np.ndarray]:
         import pyarrow.parquet as pq
+
+        groups = _parquet_groups(path, row_groups, shard, world)
 
         pf = pq.ParquetFile(path)
         try:
@@ -717,7 +876,6 @@ def _rechunk(stream: Iterator[Chunk], rows: int) -> Iterator[tuple]:
 
     for chunk in stream:
         X, y, w = (tuple(chunk) + (None, None))[:3]
-        bx.append(X)
         if y is not None:
             by.append(y)
             any_y = True
@@ -726,8 +884,15 @@ def _rechunk(stream: Iterator[Chunk], rows: int) -> Iterator[tuple]:
                 raise ValueError(
                     "negative row weights are not supported (weights mean "
                     "row multiplicity/importance; w == 0 marks dead rows)")
+            if not any_w:
+                # pending rows that came without weights weigh 1 (a sharded
+                # source weighs only its padded chunks)
+                bw = [np.ones(len(b), np.float32) for b in bx]
             bw.append(w)
             any_w = True
+        elif any_w:
+            bw.append(np.ones(len(X), np.float32))
+        bx.append(X)
         have += len(X)
         while have >= rows:
             yield flush(rows)
@@ -800,7 +965,7 @@ def check_replay_granularity(value: str) -> None:
 
 
 def _stream_step(theta: dict, opt_state: dict, X, y, w, reg: float, lr: float, *,
-                 loss_kind: str):
+                 loss_kind: str, group=None):
     """One adam step of the streaming fit on one padded chunk: (theta,
     opt_state, loss), new tensors.
 
@@ -812,31 +977,58 @@ def _stream_step(theta: dict, opt_state: dict, X, y, w, reg: float, lr: float, *
     reference's autodiff at z = 0 included), ``Xᵀ G + reg·coef`` and
     ``Σ G``. The update is optax's ``adam(1.0)`` scaled by ``lr``
     (``optim/sparse.adam_update``). A bf16-cached X (a bfloat16 tensor) is
-    widened to float32 here, exactly. Nothing waits for the device."""
+    widened here, exactly. Nothing waits for the device.
+
+    ``group``: the data group of a gang (None for one rank). The chunk is
+    then this rank's part of the global chunk: ``Σw`` is folded over the
+    ranks (``parallel/collectives.world_fold``) before ``G`` is formed, as
+    the reference's ``w.sum()`` over sharded rows is, and ``Xᵀ G``, ``Σ G``
+    and the loss's ``Σ wᵢ·lossᵢ`` are folded in one gather after it. The
+    folds wait for the device.
+
+    The step's sums over rows (the logits' dot products, ``Σw``, ``Xᵀ G``,
+    ``Σ G``, the loss) run in float64 and are rounded to float32 once, in
+    one process as in a gang. A product of two float32 values is exact in
+    float64, and the order of a float64 sum moves it by far less than a
+    float32 ulp, so however a step's rows are split (one process, or a
+    gang's ranks folded in rank order) its float32 result is the same but
+    for the rare sum that lies at a float32 rounding boundary, where the
+    last bit may differ. In float32 the fit's trajectory carries the order
+    of its sums: bench's multihost geometry (192 adam steps) amplifies a
+    6e-8 difference after one epoch to 2.5e-2 after sixteen. This departs
+    from the reference, whose step sums in float32."""
     from orange3_spark_tpu_torch.models._linear import per_row_loss_and_grad
     from orange3_spark_tpu_torch.ops.stats import EPS_TOTAL_WEIGHT
     from orange3_spark_tpu_torch.optim.sparse import adam_update
+    from orange3_spark_tpu_torch.parallel.collectives import world_fold
 
-    Xc = X if X.dtype == torch.float32 else X.to(torch.float32)
+    f32, f64 = torch.float32, torch.float64
+    X64 = X.to(f64)
     coef, intercept = theta["coef"], theta["intercept"]
-    sum_w = torch.clamp_min(w.sum(), EPS_TOTAL_WEIGHT)
-    logits = Xc @ coef + intercept
+    w64 = w.to(f64)
+    sum_w = torch.clamp_min(world_fold(w64.sum(), group).to(f32), EPS_TOTAL_WEIGHT)
+    logits = (X64 @ coef.to(f64)).to(f32) + intercept
     rows, G = per_row_loss_and_grad(loss_kind, logits, y, w * (1.0 / sum_w))
-    loss = (rows * w).sum() / sum_w + 0.5 * reg * (coef * coef).sum()
-    grads = {"coef": Xc.T @ G + reg * coef, "intercept": G.sum(dim=0)}
+    G64 = G.to(f64)
+    dk, k = coef.numel(), coef.shape[1]
+    tot = world_fold(torch.cat([(X64.T @ G64).reshape(-1), G64.sum(dim=0),
+                                (rows.to(f64) * w64).sum().reshape(1)]), group).to(f32)
+    data_loss, g_coef, g_int = tot[-1], tot[:dk].view(coef.shape), tot[dk:dk + k]
+    loss = data_loss / sum_w + 0.5 * reg * (coef * coef).sum()
+    grads = {"coef": g_coef + reg * coef, "intercept": g_int}
     theta, opt_state = adam_update(theta, grads, opt_state, lr)
     return theta, opt_state, loss
 
 
 def _stream_step_into(theta: dict, opt_state: dict, chunk: tuple, reg: float, lr: float,
-                      loss_kind: str) -> torch.Tensor:
+                      loss_kind: str, group=None) -> torch.Tensor:
     """``_stream_step`` on a device chunk ``(X, y, w)``, written back into
     ``theta`` and ``opt_state`` in place (a captured replay reads and writes
     them at fixed addresses). Returns the loss (a device scalar)."""
     from orange3_spark_tpu_torch.models.hashed_linear import _write_back
 
     new_theta, new_opt, loss = _stream_step(theta, opt_state, *chunk, reg, lr,
-                                            loss_kind=loss_kind)
+                                            loss_kind=loss_kind, group=group)
     _write_back(theta, new_theta)
     _write_back(opt_state, new_opt)
     return loss
@@ -862,6 +1054,7 @@ class StreamingLinearEstimator(Estimator):
 
     ParamsCls = StreamingLinearParams
     params: StreamingLinearParams
+    gang_fold = True            # each step folds its sums over the ranks
 
     def _fit(self, table):
         """Estimator protocol: an in-memory table streamed in chunks."""
@@ -892,7 +1085,8 @@ class StreamingLinearEstimator(Estimator):
           ``cache_spill_dir`` gives the overflow its disk spill
           (``DiskChunkCache``, released when the fit returns).
         stage_times: receives 'epoch_s' (one wall an epoch; the fused replay
-          one wall), 'n_steps', 'replay_source' ('fused', 'fused_epoch',
+          one wall), 'epoch_collectives' (``collective_stats()`` at the end
+          of each of those walls), 'n_steps', 'replay_source' ('fused', 'fused_epoch',
           'hbm', 'disk', 'stream' or None), 'retries' (transient reads
           retried), 'cache_bytes' and 'graph_capture_s'.
         """
@@ -903,6 +1097,7 @@ class StreamingLinearEstimator(Estimator):
             _HostToDevice, _load_into, _Replay,
         )
         from orange3_spark_tpu_torch.optim.sparse import init_adam_state
+        from orange3_spark_tpu_torch.parallel.collectives import collective_stats
         from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
         from orange3_spark_tpu_torch.resilience.retry import resilient_source
         from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
@@ -921,6 +1116,10 @@ class StreamingLinearEstimator(Estimator):
         source = resilient_source(source, stats=pipe_stats)
         session = session or TorchSession.active()
         dev = session.device
+        # a gang's data group: each step folds its sums over the ranks, and
+        # a replay epoch then runs eagerly (a CUDA graph cannot hold a gloo
+        # collective, and each step waits for its fold anyway)
+        group = session.world.data_group
         if p.loss == "logistic":
             if class_values is not None:
                 k = max(2, len(class_values))
@@ -1005,7 +1204,7 @@ class StreamingLinearEstimator(Estimator):
             return {"theta": theta, "opt_state": opt_state}
 
         def step(th, op, chunk):
-            return _stream_step_into(th, op, chunk, reg, lr, p.loss)
+            return _stream_step_into(th, op, chunk, reg, lr, p.loss, group)
 
         def run_step(chunk):
             nonlocal n_steps, last_loss
@@ -1025,6 +1224,12 @@ class StreamingLinearEstimator(Estimator):
                                     resume_from, snapshot, ckpt_meta)
 
         epoch_walls: list = []
+        epoch_collectives: list = []
+
+        def close_epoch(wall):
+            epoch_walls.append(wall)
+            epoch_collectives.append(collective_stats())
+
         replay_source = None
         graph_capture_s = None
         try:
@@ -1038,7 +1243,7 @@ class StreamingLinearEstimator(Estimator):
                             continue
                         run_step(chunk)
                     epoch_snapshot(epoch)
-                    epoch_walls.append(time.perf_counter() - t_epoch)
+                    close_epoch(time.perf_counter() - t_epoch)
                     continue
                 if epoch > 0 and use_disk:
                     # off the disk spill: read + copy, no parse; checkpointed
@@ -1049,7 +1254,7 @@ class StreamingLinearEstimator(Estimator):
                     for chunk in staged(read_record, iter(range(skip, spill.n_records))):
                         run_step(chunk)
                     epoch_snapshot(epoch)
-                    epoch_walls.append(time.perf_counter() - t_epoch)
+                    close_epoch(time.perf_counter() - t_epoch)
                     continue
                 if epoch > 0:
                     replay_source = "stream"
@@ -1089,7 +1294,7 @@ class StreamingLinearEstimator(Estimator):
                             warn_cache_overflow(cache_device_bytes, n_replay)
                 if stage_times is not None:
                     session.synchronize()
-                epoch_walls.append(time.perf_counter() - t_epoch)
+                close_epoch(time.perf_counter() - t_epoch)
                 if (epoch == 0 and n_replay > 0 and cache.enabled and cache.batches
                         and ((checkpointer is None and resume_from == 0) or ckpt_epoch_ok)
                         # the reference's gate for its stacked copy of the cache
@@ -1101,7 +1306,7 @@ class StreamingLinearEstimator(Estimator):
                     replay = _Replay(theta, opt_state, cache.batches, step)
                     n_steps, last, graph_capture_s = replay_epochs(
                         replay, lambda: replay.losses[-1], n_replay, len(cache.batches),
-                        n_steps, capture=dev.type == "cuda",
+                        n_steps, capture=dev.type == "cuda" and group is None,
                         granularity=p.replay_granularity,
                         epochs_per_dispatch=p.epochs_per_dispatch, resume_from=resume_from,
                         checkpointer=checkpointer, snapshot=snapshot, ckpt_meta=ckpt_meta,
@@ -1113,7 +1318,7 @@ class StreamingLinearEstimator(Estimator):
                                          else "fused")
                         if stage_times is not None:
                             session.synchronize()
-                        epoch_walls.append(time.perf_counter() - t_rep)
+                        close_epoch(time.perf_counter() - t_rep)
                     del replay
                     break
         finally:
@@ -1131,7 +1336,8 @@ class StreamingLinearEstimator(Estimator):
             report.stage_times.update(n_steps=n_steps, replay_source=replay_source)
             model.run_report_ = report.finish()
         if stage_times is not None:
-            stage_times.update(epoch_s=epoch_walls, n_steps=n_steps,
+            stage_times.update(epoch_s=epoch_walls, epoch_collectives=epoch_collectives,
+                               n_steps=n_steps,
                                replay_source=replay_source, retries=pipe_stats.retries,
                                cache_bytes=cache.nbytes, cache_chunks=len(cache.batches),
                                cache_dtype="bf16" if cache_bf16 else "f32",
@@ -1265,6 +1471,7 @@ def stream_feature_stats(source: Callable[[], Iterator[Chunk]], *, session=None,
     from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
 
     session = session or TorchSession.builder_get_or_create()
+    session.require_fold("stream_feature_stats")
     pad_rows = session.pad_rows(chunk_rows)
     h2d = _HostToDevice(session.device)
 
@@ -1563,6 +1770,7 @@ class StreamingKMeans(Estimator):
         from orange3_spark_tpu_torch.resilience.retry import resilient_source
         from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
 
+        (session or TorchSession.active()).require_fold(type(self).__name__)
         p = self.params
         if p.replay_granularity not in ("all", "epoch"):
             raise ValueError(f"replay_granularity must be 'all' or 'epoch', "

@@ -298,14 +298,21 @@ class LinearObjective:
     over one table's X, y, w. ``n_evals`` counts the passes."""
 
     def __init__(self, X, y, w, reg_l2, col_scale, *, loss_kind: str, k: int,
-                 fit_intercept: bool, compute_dtype: torch.dtype):
+                 fit_intercept: bool, compute_dtype: torch.dtype, group=None):
+        from orange3_spark_tpu_torch.parallel.collectives import world_fold
+
         self.d, self.k = X.shape[1], k
         self.Xc = X.to(compute_dtype)        # once a fit, never once an evaluation
         self.y, self.w = y, w
         self.reg_l2 = float(_F32(reg_l2))
         self.col_scale = col_scale[:, None]
         self.loss_kind, self.fit_intercept = loss_kind, fit_intercept
-        self.sum_w = torch.clamp_min(_sum(w), EPS_TOTAL_WEIGHT)
+        # a gang's data group (None for one rank): X, y, w are this rank's
+        # rows, and Σw, the data loss and the gradient are folded over the
+        # ranks in rank order, Σw once a fit, the rest in one gathered
+        # vector an evaluation
+        self.group = group
+        self.sum_w = torch.clamp_min(world_fold(_sum(w), group), EPS_TOTAL_WEIGHT)
         # d(loss)/d(row loss): the reference's autodiff takes 1/Σw, then × w
         self.row_ct = w * (1.0 / self.sum_w)
         self.n_evals = 0
@@ -325,11 +332,14 @@ class LinearObjective:
         logits = _mm_f32(self.Xc, B)
         return logits + intercept if self.fit_intercept else logits
 
-    def _value(self, coef, logits, rows=None):
-        if rows is None:
-            rows = per_row_loss(self.loss_kind, logits, self.y)
-        data = _sum(rows * self.w) / self.sum_w
-        return data + 0.5 * self.reg_l2 * _sum(coef * coef)
+    def _value(self, coef, logits, rows=None, data_sum=None):
+        from orange3_spark_tpu_torch.parallel.collectives import world_fold
+
+        if data_sum is None:
+            if rows is None:
+                rows = per_row_loss(self.loss_kind, logits, self.y)
+            data_sum = world_fold(_sum(rows * self.w), self.group)
+        return data_sum / self.sum_w + 0.5 * self.reg_l2 * _sum(coef * coef)
 
     def value(self, theta: torch.Tensor) -> torch.Tensor:
         self.n_evals += 1
@@ -340,16 +350,28 @@ class LinearObjective:
         self.n_evals += 1
         coef, intercept = self._split(theta)
         logits = self._logits(coef, intercept)
+        from orange3_spark_tpu_torch.parallel.collectives import world_fold
+
         rows, G = per_row_loss_and_grad(self.loss_kind, logits, self.y, self.row_ct)
+        k = self.k
         if self.Xc.dtype == torch.float32:
             gB = self.Xc.T @ G
-        else:   # the reference rounds the coefficient gradient once to bf16
-            k = self.k
+        else:
             P = _mm_f32(self.Xc.T, _split_bf16(G))
-            gB = ((P[:, :k] + P[:, k:2 * k]) + P[:, 2 * k:]).to(self.Xc.dtype).float()
-        g_coef = gB * self.col_scale + self.reg_l2 * coef
+            gB = (P[:, :k] + P[:, k:2 * k]) + P[:, 2 * k:]
         g_int = _sum(G, 0) if self.fit_intercept else torch.zeros_like(intercept)
-        return self._value(coef, logits, rows), torch.cat([g_coef.reshape(-1), g_int])
+        data_sum = _sum(rows * self.w)
+        if self.group is not None:
+            dk = self.d * k
+            tot = world_fold(torch.cat([gB.reshape(-1), g_int, data_sum.reshape(1)]),
+                             self.group)
+            gB, g_int, data_sum = tot[:dk].view(self.d, k), tot[dk:dk + k], tot[-1]
+        if self.Xc.dtype != torch.float32:
+            # the reference rounds the coefficient gradient once to bf16
+            gB = gB.to(self.Xc.dtype).float()
+        g_coef = gB * self.col_scale + self.reg_l2 * coef
+        return (self._value(coef, logits, data_sum=data_sum),
+                torch.cat([g_coef.reshape(-1), g_int]))
 
 
 class AutogradObjective:
@@ -673,6 +695,7 @@ def fit_linear(
     fit_intercept: bool = True,
     memory_size: int = 10,
     compute_dtype: str | torch.dtype = torch.float32,
+    group=None,
 ) -> LinearFitResult:
     """The L-BFGS (or, given ``reg_l1``, OWLQN) fit of a linear model.
 
@@ -681,14 +704,16 @@ def fit_linear(
     scaled space, as in MLlib. ``col_scale`` scales X's columns inside the
     product's coefficient side (X @ (coef·s)), so no scaled copy of X is
     made; the returned coef is the scaled-space coefficient, which callers
-    multiply by the scale."""
+    multiply by the scale. ``group``: a gang's data group (X, y, w this
+    rank's rows; ``LinearObjective`` folds over the ranks), None for one."""
     if isinstance(compute_dtype, str):
         compute_dtype = getattr(torch, compute_dtype)
     d, dev = X.shape[1], X.device
     if col_scale is None:
         col_scale = torch.ones((d,), dtype=torch.float32, device=dev)
     objective = LinearObjective(X, y, w, reg_l2, col_scale, loss_kind=loss_kind, k=k,
-                           fit_intercept=fit_intercept, compute_dtype=compute_dtype)
+                                fit_intercept=fit_intercept, compute_dtype=compute_dtype,
+                                group=group)
     theta0 = torch.zeros((d * k + k,), dtype=torch.float32, device=dev)
     read = HostReads()
     if reg_l1 is not None:

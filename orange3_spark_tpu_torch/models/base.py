@@ -232,7 +232,14 @@ class Estimator(HasParams):
         device between captured segments."""
         return False
 
+    #: whether the fit folds its sums over a gang's data-parallel ranks; an
+    #: estimator without that fold raises on such a session
+    #: (``TorchSession.require_fold``) rather than fit its local rows alone
+    gang_fold = False
+
     def fit(self, table: TorchTable) -> Model:
+        if not self.gang_fold:
+            table.session.require_fold(type(self).__name__)
         if staging_active():
             # inside a staged refit: no wall clock, no wait for the device
             return self._fit(table)
@@ -284,6 +291,8 @@ class Estimator(HasParams):
 class Pipeline(Estimator):
     """Chain of estimators/transformers (pyspark.ml.Pipeline): each
     estimator is fit on the table the stages before it transformed."""
+
+    gang_fold = True            # each stage's own fit checks its fold
 
     def __init__(self, stages: Sequence[Estimator | Transformer]):
         super().__init__(Params())

@@ -67,6 +67,15 @@ logistic regression over a CSV stream.
   with ``round_to``). The sparse rules' gradients stay float32, as the
   reference's.
 
+* A gang of ranks (``core/session.World``, ``parallel/``): each rank steps
+  on its block of the global chunk; ``Σw`` and the dense gradients are
+  folded over the data ranks in rank order, and every rank sorts the
+  gathered global occurrence list, so its table update is the one-process
+  update of the global chunk. Under model parallelism a rank holds the
+  table rows of its model index, with their slots and timestamps, and the
+  whole table is gathered once at the end. A gang's replay runs its steps
+  eagerly: a CUDA graph cannot hold a gloo collective.
+
 The update rules are optim/sparse.py's ``adam`` and ``{dense,sparse}_
 {sgd,adagrad,ftrl}``.
 """
@@ -103,9 +112,12 @@ from orange3_spark_tpu_torch.ops.hashing import (
 )
 from orange3_spark_tpu_torch.optim.sparse import (
     EMB_UPDATES, adam_update, build_plan_np, dense_table_grad, dense_update, finalize_lazy_decay,
-    init_optim_state, is_sparse_update, optim_kind, pack_plan_np, plan_field_shapes,
-    plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
-    sparse_embedding_update, unpack_plan,
+    init_optim_state, is_sparse_update, occurrence_keys, optim_kind, pack_plan_np,
+    plan_field_shapes, plan_packed_field_shapes, resolve_optim_update, resolve_sparse_lowering,
+    sorted_keys_update, sparse_embedding_update, unpack_plan,
+)
+from orange3_spark_tpu_torch.parallel.collectives import (
+    collective_stats, fold, gather_host, gather_packed, to_device, world_fold,
 )
 from orange3_spark_tpu_torch.resilience.numerics import check_finite_training
 from orange3_spark_tpu_torch.utils.dispatch import bound_dispatch
@@ -494,6 +506,99 @@ def warm_eval_chunk(p: HashedLinearParams, session: TorchSession) -> tuple:
     return h2d.ready((Xd, 1, zy, zw), h2d.done())
 
 
+# ------------------------------------------------------------------ the gang
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Gang:
+    """A fit's place in a gang of ranks (``core/session.World``): its data
+    group (None: one data rank), its model group (None: the whole table
+    lives here) and the table rows it owns, ``[lo, lo + rows)``: under
+    model parallelism model rank m owns ``[m·D/mp, (m+1)·D/mp)`` with their
+    optimizer slots and timestamps (the reference's ``P('model', None)``
+    table)."""
+
+    data_group: object
+    model_group: object
+    lo: int
+    rows: int
+
+
+def _gang_of(session: TorchSession, p: HashedLinearParams) -> "_Gang | None":
+    """The gang of a fit on ``session``; None for a world of one rank, so
+    that fit is the one-process fit, bit for bit."""
+    w = session.world
+    if w.size == 1:
+        return None
+    mp = w.model_parallel
+    if p.n_dims % mp:
+        raise ValueError(f"model_parallel={mp} does not divide n_dims={p.n_dims}")
+    rows = p.n_dims // mp
+    return _Gang(w.data_group, w.model_group, w.model_index * rows, rows)
+
+
+def _owned_keys(keys: torch.Tensor, gang: "_Gang | None", sentinel: int) -> torch.Tensor:
+    """Global table rows -> this model rank's rows (``key - lo``), every
+    key outside ``[lo, lo + rows)`` (the dead sentinel included) to
+    ``sentinel``. The identity without model parallelism."""
+    if gang is None or gang.model_group is None:
+        return keys
+    local = keys - gang.lo
+    return torch.where((local >= 0) & (local < gang.rows), local,
+                       torch.full_like(local, sentinel))
+
+
+def _sharded_logits(theta: dict, dense, idx, vals, gang: _Gang,
+                    compute_dtype: torch.dtype) -> torch.Tensor:
+    """``_hashed_logits`` over a model-split table: each model rank sums the
+    rows it owns of every logit of its data block (the others count 0), the
+    partial logits are folded over the model group in rank order, then the
+    dense term and the intercept are added."""
+    emb = theta["emb"]
+    N, C = idx.shape
+    local = idx - gang.lo
+    owned = (local >= 0) & (local < gang.rows)
+    rows = emb.index_select(0, local.clamp(0, gang.rows - 1).reshape(-1)).view(N, C, -1)
+    rows = torch.where(owned[:, :, None], _rounded(rows, compute_dtype), 0.0)
+    if vals is not None:
+        rows = rows * vals[:, :, None]
+    logits = world_fold(rows.sum(dim=1), gang.model_group)
+    if theta["coef"].shape[0]:
+        logits = logits + dense_logits(_rounded(dense, compute_dtype),
+                                       _rounded(theta["coef"], compute_dtype))
+    return logits + theta["intercept"]
+
+
+def _gang_gather(gang: "_Gang | None", keys, dl, vals, small: list):
+    """One gather over the data group of this rank's occurrence keys (i32
+    [N·C]), ``dl`` [N, k], the pairs' values (f32 [N·C] or None) and the
+    small dense partials ``small`` (the coefficients' and intercept's
+    gradients and the data loss). Returns the global occurrence list (keys,
+    dl, vals: every rank's, concatenated in rank order, on the device: the
+    one-process global chunk's list in its order) and the partials folded in
+    rank order. The identity for one rank (no gang, or a data group of
+    one)."""
+    if gang is None or gang.data_group is None:
+        return keys, dl, vals, small
+    dev = dl.device
+    sizes = [t.numel() for t in small]
+    tensors = ([keys.to(torch.int32), dl] + ([vals] if vals is not None else [])
+               + [torch.cat([t.reshape(-1) for t in small])])
+    parts = gather_packed(tensors, gang.data_group)
+    cat = [to_device(torch.cat([q[i] for q in parts]), dev) for i in range(len(tensors) - 1)]
+    flat = to_device(fold([q[-1] for q in parts]), dev)
+    small = [v.view(t.shape) for v, t in zip(torch.split(flat, sizes), small)]
+    return cat[0], cat[1], (cat[2] if vals is not None else None), small
+
+
+def _gather_table(emb: torch.Tensor, gang: "_Gang | None") -> torch.Tensor:
+    """The whole table from the model ranks' row blocks (concatenated in
+    model rank order), once at the end of a fit; the table itself without
+    model parallelism."""
+    if gang is None or gang.model_group is None:
+        return emb
+    return to_device(torch.cat(gather_host(emb.contiguous(), gang.model_group)), emb.device)
+
+
 # ------------------------------------------------------------------ the step
 
 def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: float,
@@ -502,7 +607,7 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
                optim_update: str, sparse_lowering: str = "none",
                use_decay: bool = False, codec: _ChunkCodec | None = None,
                emb_update: str = "fused", value_weighted: bool = False,
-               compute_dtype: torch.dtype = torch.float32):
+               compute_dtype: torch.dtype = torch.float32, gang: _Gang | None = None):
     """One optimizer step on one chunk. Returns (theta, opt_state, loss).
 
     'adam' is the reference's dense optax path: the loss includes the L2
@@ -520,7 +625,19 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
     'adam' and the dense twins), ``value_weighted`` (pair chunks) and
     ``compute_dtype`` (the products' operands rounded to it) as the module
     docstring says. Nothing here waits for the device, so the step can be
-    captured. Its stages run in profiler ranges named by ``STEP_STAGES``."""
+    captured. Its stages run in profiler ranges named by ``STEP_STAGES``.
+
+    ``gang`` (None for one rank): the chunk is this rank's block of the
+    global chunk. The forward runs per rank (over a model-split table, the
+    model group folds the partial logits); ``Σw`` is folded over the data
+    group before ``dl`` is formed; then one gather hands every rank the
+    global occurrence list (keys with the dead ones at the sentinel, ``dl``,
+    the values) and the folded dense gradients and loss. Every rank then
+    runs the same stable sort and ``segment_update_sorted`` (the sparse
+    rules; the 'sort' lowering) or ``dense_table_grad`` (adam, the dense
+    twins) on that list, filtered to the rows it owns, so its table update
+    is the one-process update of the global chunk. The collectives wait for
+    the device."""
     kind = optim_kind(optim_update)
     sparse = is_sparse_update(optim_update)
     with record_function("split_hash"):
@@ -535,37 +652,64 @@ def _step_core(theta: dict, opt_state: dict, Xall, n_valid, y, w, salts, reg: fl
             if plan is not None and codec.mode == "packed":
                 plan = unpack_plan(plan, idx.shape[0], codec.n_cat, n_dims)
     with record_function("forward"):
-        logits = _hashed_logits(theta, dense, idx, vals,
-                                emb_update="fused" if sparse else emb_update,
-                                compute_dtype=compute_dtype)
+        if gang is not None and gang.model_group is not None:
+            logits = _sharded_logits(theta, dense, idx, vals, gang, compute_dtype)
+        else:
+            logits = _hashed_logits(theta, dense, idx, vals,
+                                    emb_update="fused" if sparse else emb_update,
+                                    compute_dtype=compute_dtype)
     with record_function("loss_grad"):
-        sw = torch.clamp_min(wv.sum(), EPS_TOTAL_WEIGHT)
+        sw = torch.clamp_min(wv.sum() if gang is None else world_fold(wv.sum(), gang.data_group),
+                             EPS_TOTAL_WEIGHT)
         rows, dl = per_row_loss_and_grad(loss_kind, logits, yv, wv / sw)   # dl: [N, k]
-        loss = (rows * wv).sum() / sw
-        g_coef = _rounded(dense, compute_dtype).T @ dl
+        C = idx.shape[1]
+        plan_lowering = sparse and sparse_lowering == "plan"
+        # the occurrence list (with the 'sort' lowering's dead keys at the
+        # sentinel) and the dense partials: this rank's, or in a gang every
+        # rank's list and the partials folded
+        keys = (None if plan_lowering else
+                occurrence_keys(idx, n_valid, n_dims, cats if value_weighted else None)
+                if sparse else idx.reshape(-1))
+        keys, g_dl, g_vals, (g_coef, g_int, data_loss) = _gang_gather(
+            gang, keys, dl, None if vals is None else vals.reshape(-1).contiguous(),
+            [_rounded(dense, compute_dtype).T @ dl, dl.sum(dim=0), (rows * wv).sum()])
+        loss = data_loss / sw
         if not sparse:          # differentiated through the rounded coef
             g_coef = _rounded(g_coef, compute_dtype)
-        g_int = dl.sum(dim=0)
         if kind == "adam":
-            loss = loss + 0.5 * reg * ((theta["emb"] ** 2).sum()
-                                       + (theta["coef"] ** 2).sum())
+            emb_sq = (theta["emb"] ** 2).sum()
+            if gang is not None:
+                emb_sq = world_fold(emb_sq, gang.model_group)
+            loss = loss + 0.5 * reg * (emb_sq + (theta["coef"] ** 2).sum())
             g_coef = g_coef + reg * theta["coef"]
     with record_function("embedding_update"):
-        if sparse:
-            decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
+        D = theta["emb"].shape[0]
+        decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
+        if plan_lowering:
             emb, t, eslots = sparse_embedding_update(
                 kind, theta["emb"], opt_state["t"], opt_state["slots"]["emb"], dl, idx,
-                lr, decay, reg, l1, opt_state["step"], lowering=sparse_lowering,
-                use_decay=use_decay, plan=plan, n_valid=n_valid,
-                raw_cats=cats if value_weighted else None, vals=vals)
+                lr, decay, reg, l1, opt_state["step"], lowering="plan",
+                use_decay=use_decay, plan=plan, n_valid=n_valid, vals=vals)
+        elif sparse and gang is None and isinstance(n_valid, int) and n_valid == 0:
+            # every occurrence dead: no row moves
+            emb, t, eslots = theta["emb"], opt_state["t"], opt_state["slots"]["emb"]
+        elif sparse:
+            emb, t, eslots = sorted_keys_update(
+                kind, theta["emb"], opt_state["t"], opt_state["slots"]["emb"], g_dl,
+                _owned_keys(keys, gang, D), C, lr, decay, reg, l1, opt_state["step"],
+                use_decay=use_decay, vals=g_vals)
         else:
-            g_emb = dense_table_grad(idx, dl, theta["emb"].shape[0], vals=vals,
-                                     emb_update=emb_update, round_to=compute_dtype)
+            # over a model-split table, a key this rank does not own lands on
+            # a spare row D, dropped
+            spare = int(gang is not None and gang.model_group is not None)
+            g_emb = dense_table_grad(
+                _owned_keys(keys, gang, D).view(-1, C), g_dl, D + spare,
+                vals=None if g_vals is None else g_vals.view(-1, C),
+                emb_update=emb_update, round_to=compute_dtype)[:D]
             if kind == "adam":
                 return (*adam_update(
                     theta, {"emb": g_emb + reg * theta["emb"], "coef": g_coef,
                             "intercept": g_int}, opt_state, lr), loss)
-            decay = float(np.float32(1.0) - np.float32(lr) * np.float32(reg))
             t = opt_state["t"]
             emb, eslots = dense_update(kind, theta["emb"], opt_state["slots"]["emb"],
                                        g_emb, lr, decay, reg, l1, use_decay=use_decay)
@@ -908,14 +1052,28 @@ def hashed_salts(p: HashedLinearParams) -> np.ndarray:
 def _init_fit_state(p: HashedLinearParams, session: TorchSession):
     """Fresh (theta, opt_state, salts_np, salts, static_kw) exactly as a fit
     starts: a zero theta, the rule's zero state, the numpy salts and the
-    resolved statics (rule, lowering, codec), so two fits (or this package
-    and the JAX package) compare step for step."""
+    resolved statics (rule, lowering, codec, the gang), so two fits (or this
+    package and the JAX package) compare step for step. In a gang with
+    model parallelism the table, its slots and timestamps hold this rank's
+    rows only; a gang's sparse rules take the 'sort' lowering ('auto'
+    resolves to it, 'plan' raises)."""
     _check_ported(p)
     optim = resolve_optim_update(p.optim_update)
     k = _effective_k(p)
     dev = session.device
+    gang = _gang_of(session, p)
+    lowering = "none"
+    if is_sparse_update(optim):
+        lowering = resolve_sparse_lowering(p.sparse_lowering, dev)
+        if gang is not None:
+            # a host plan is one rank's chunk; the gang sorts the global list
+            if p.sparse_lowering == "plan":
+                raise ValueError("sparse_lowering='plan' sorts each rank's own chunk; a "
+                                 "gang's update sorts the global chunk: use 'sort' or 'auto'")
+            lowering = "sort"
     theta = {
-        "emb": torch.zeros((p.n_dims, k), dtype=torch.float32, device=dev),
+        "emb": torch.zeros((p.n_dims if gang is None else gang.rows, k), dtype=torch.float32,
+                           device=dev),
         "coef": torch.zeros((p.n_dense, k), dtype=torch.float32, device=dev),
         "intercept": torch.zeros((k,), dtype=torch.float32, device=dev),
     }
@@ -927,8 +1085,7 @@ def _init_fit_state(p: HashedLinearParams, session: TorchSession):
         emb_update=resolve_emb_update(p), value_weighted=p.value_weighted,
         compute_dtype=COMPUTE_DTYPES[p.compute_dtype],
         optim_update=optim,
-        sparse_lowering=(resolve_sparse_lowering(p.sparse_lowering, dev)
-                         if is_sparse_update(optim) else "none"),
+        sparse_lowering=lowering, gang=gang,
         # reg == 0 runs the sparse step without the timestamp gathers and
         # the pow (and ftrl owns its L2 in closed form)
         use_decay=(p.reg_param != 0.0 and optim_kind(optim) not in ("ftrl", "adam")),
@@ -1006,6 +1163,17 @@ class _HostToDevice:
         return chunk
 
 
+def _live_prefix(w: np.ndarray) -> int:
+    """The live rows of a label-in-chunk chunk's weights: the chunk masks
+    its rows by a count (``n_valid``), so its weights must be ones then a
+    dead tail of zeros (a sharded source's lockstep pads). Raises otherwise."""
+    n = int(np.count_nonzero(w))
+    if not (np.all(w[:n] == 1.0) and not np.any(w[n:])):
+        raise ValueError("label_in_chunk chunks take row weights only as ones followed by "
+                         "a dead (w=0) tail")
+    return n
+
+
 def _chunk_slot(chunk: tuple) -> tuple:
     """Device buffers shaped like ``chunk``, with ``n_valid`` as a device
     int32 scalar: a slot of the captured disk-group replay, refilled by
@@ -1046,6 +1214,7 @@ class StreamingHashedLinearEstimator(Estimator):
 
     ParamsCls = HashedLinearParams
     params: HashedLinearParams
+    gang_fold = True            # each step folds and gathers over the ranks
 
     def _fit(self, table):
         """Estimator protocol: an in-memory table streamed in chunks."""
@@ -1074,10 +1243,12 @@ class StreamingHashedLinearEstimator(Estimator):
         train chunks the fit will cache. Without ``defer_epoch1`` one eager
         step runs first, as epoch 1 would. Returns ``(theta, salts_np)``
         after one warm replay epoch, or None where the fit has no fused
-        replay (``fused_replay`` off, one epoch without defer, no chunks)."""
+        replay (``fused_replay`` off, one epoch without defer, no chunks, a
+        gang's session)."""
         p = self.params
         session = session or TorchSession.active()
-        if not (p.fused_replay and (p.epochs > 1 or p.defer_epoch1) and n_chunks > 0):
+        if not (p.fused_replay and (p.epochs > 1 or p.defer_epoch1) and n_chunks > 0
+                and session.world.size == 1):
             return None
         pad_rows = session.pad_rows(p.chunk_rows)
         theta, opt, salts_np, salts, kw = _init_fit_state(p, session)
@@ -1147,7 +1318,9 @@ class StreamingHashedLinearEstimator(Estimator):
           overlap device work) and 'epoch_s', one wall per epoch, each
           ended by a device synchronize; with the fused replay 'epoch_s'
           is [epoch 1, the whole replay] and 'replay_fused_s' (the replay
-          phase, capture included) and 'graph_capture_s' say so; plus the
+          phase, capture included) and 'graph_capture_s' say so;
+          'epoch_collectives', ``collective_stats()`` at the end of each of
+          those walls; plus the
           resolved rule, lowering, codec, 'replay_source' and the cache's
           bytes ('cache_bytes', and 'cache_raw_bytes' at float32), and the
           transient source reads retried ('retries').
@@ -1218,7 +1391,10 @@ class StreamingHashedLinearEstimator(Estimator):
         # pipe_stats
         source = resilient_source(source, stats=pipe_stats)
         h2d = _HostToDevice(session.device)
-        is_cuda = session.device.type == "cuda"
+        gang = static_kw["gang"]
+        # a CUDA graph cannot hold a gloo collective: a gang's replay epochs
+        # run eagerly (each step waits for its collectives anyway)
+        is_cuda = session.device.type == "cuda" and gang is None
 
         def put_chunk(payload, n, yp, wp, plan_store):
             """(X, n_valid, y, w[, plan]) on the device, and its event."""
@@ -1272,20 +1448,23 @@ class StreamingHashedLinearEstimator(Estimator):
             """Prefetch-thread side: pad, hash and encode, build the plan,
             spill, copy to the device."""
             if p.label_in_chunk:
-                X_np = (host_chunk if isinstance(host_chunk, np.ndarray)
-                        else host_chunk[0])
-                y_np = w_np = None
+                X_np, _, w_np = ((host_chunk, None, None) if isinstance(host_chunk, np.ndarray)
+                                 else (tuple(host_chunk) + (None, None))[:3])
+                y_np = None
             else:
                 X_np, y_np, w_np = (tuple(host_chunk) + (None, None))[:3]
             if X_np.shape[1] != n_cols:
                 raise ValueError(f"chunk has {X_np.shape[1]} columns, expected {n_cols}")
             n = X_np.shape[0]
             if p.label_in_chunk:
+                if w_np is not None:
+                    # a sharded source's lockstep pads: a dead (w=0) tail
+                    n = _live_prefix(w_np)
                 if n == pad_rows:
                     Xp = np.ascontiguousarray(X_np, dtype=np.float32)
                 else:
                     Xp = np.zeros((pad_rows, n_cols), np.float32)
-                    Xp[:n] = X_np
+                    Xp[:n] = X_np[:n]
                 yp = wp = None
             else:
                 Xp, yp, wp = _pad_chunk(X_np, y_np, w_np, pad_rows, n_cols)
@@ -1321,9 +1500,12 @@ class StreamingHashedLinearEstimator(Estimator):
             return put_chunk(payload, n, yp, wp, plan_store)
 
         def host_chunks():
-            """The rechunked host stream, with parse time attributed."""
+            """The rechunked host stream, with parse time attributed. Raw
+            label-in-chunk arrays may come as ``(X, None, w)`` triples (a
+            sharded source's), their weights a dead tail."""
             if p.label_in_chunk:
-                it = _rechunk(((c, None) for c in source()), pad_rows)
+                it = _rechunk(((c, None) if isinstance(c, np.ndarray) else c
+                               for c in source()), pad_rows)
             else:
                 it = _rechunk(source(), pad_rows)
             while True:
@@ -1333,7 +1515,7 @@ class StreamingHashedLinearEstimator(Estimator):
                 except StopIteration:
                     return
                 times["parse_s"] += time.perf_counter() - t0
-                yield item[0] if p.label_in_chunk else item
+                yield item[0] if p.label_in_chunk and item[2] is None else item
 
         def staged(fn, items, depth):
             """``fn`` over ``items`` behind the prefetch thread (or inline
@@ -1419,6 +1601,12 @@ class StreamingHashedLinearEstimator(Estimator):
         fuse_replay = (p.fused_replay and cache_device and (p.epochs > 1 or defer)
                        and ((checkpointer is None and resume_from == 0) or ckpt_epoch_ok))
         epoch_walls: list = []
+        epoch_collectives: list = []
+
+        def close_epoch(wall):
+            epoch_walls.append(wall)
+            epoch_collectives.append(collective_stats())
+
         replay_fused_s = graph_capture_s = None
         disk_replay: _Replay | None = None
         try:
@@ -1518,7 +1706,7 @@ class StreamingHashedLinearEstimator(Estimator):
                     # an explicit barrier is synchronization, not device
                     # pace (the periodic wait charged that)
                     prof.note_sync(time.perf_counter() - t_bar, barrier=True)
-                epoch_walls.append(time.perf_counter() - t_epoch)
+                close_epoch(time.perf_counter() - t_epoch)
                 if acc is not None:
                     # close the epoch's goodput window: its stage deltas
                     # and the bottleneck, classified with hysteresis
@@ -1547,7 +1735,7 @@ class StreamingHashedLinearEstimator(Estimator):
                         # and waited for the last; nothing is left queued
                         session.synchronize()
                         replay_fused_s = time.perf_counter() - t_rep
-                        epoch_walls.append(replay_fused_s)
+                        close_epoch(replay_fused_s)
                     if acc is not None and last is not None:
                         acc.epoch_boundary(p.epochs - 1, encode_s=_encode_s())
                     del replay
@@ -1566,6 +1754,9 @@ class StreamingHashedLinearEstimator(Estimator):
         # settle the decay the table still owes, so the returned model
         # equals the dense schedule's
         theta = finalize_lazy_decay(theta, opt_state, hyper[1], hyper[0], optim_resolved)
+        # a model-split table is gathered once, so serving and saving see the
+        # whole table
+        theta = dict(theta, emb=_gather_table(theta["emb"], gang))
         if stage_times is not None or report is not None:
             # one stage dict feeds the caller's stage_times= and the report
             st = dict(times, encode_s=pipe_stats.encode_s)
@@ -1593,7 +1784,7 @@ class StreamingHashedLinearEstimator(Estimator):
             if report is not None:
                 report.stage_times.update(st)
             if stage_times is not None:
-                stage_times.update(st)
+                stage_times.update(st, epoch_collectives=epoch_collectives)
         model = HashedLinearModel(
             p, theta, salts_np,
             class_values or (tuple(str(i) for i in range(p.n_classes))

@@ -75,6 +75,9 @@ class LinearSVCModel(Model):
 class LinearSVC(Estimator):
     ParamsCls = LinearSVCParams
     params: LinearSVCParams
+    #: fits a gang's local tables: its moments and objective fold over the
+    #: ranks (models/_linear.LinearObjective)
+    gang_fold = True
 
     def _fit(self, table: TorchTable) -> LinearSVCModel:
         p = self.params
@@ -85,14 +88,15 @@ class LinearSVC(Estimator):
             raise ValueError(
                 f"LinearSVC is binary (MLlib parity); got {len(class_values)} classes")
         X, w = table.X, table.W
-        inv_std = column_inv_std(X, w) if p.standardization else None
+        group = table.session.world.data_group
+        inv_std = column_inv_std(X, w, group) if p.standardization else None
         reg_l2, reg_l1 = penalties(p.reg_param, p.elastic_net_param)
         if reg_l1 is not None and p.loss == "hinge":
             raise ValueError("elastic_net_param > 0 needs a smooth data term for OWLQN; "
                              "use loss='squared_hinge'")
         result = fit_linear(X, table.y, w, reg_l2, p.tol, p.max_iter, inv_std, reg_l1,
                             loss_kind=p.loss, k=1, fit_intercept=p.fit_intercept,
-                            compute_dtype=p.compute_dtype)
+                            compute_dtype=p.compute_dtype, group=group)
         coef = result.coef
         if inv_std is not None:
             coef = coef * inv_std[:, None]

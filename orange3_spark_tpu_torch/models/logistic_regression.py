@@ -107,6 +107,9 @@ class LogisticRegressionModel(Model):
 class LogisticRegression(Estimator):
     ParamsCls = LogisticRegressionParams
     params: LogisticRegressionParams
+    #: fits a gang's local tables: its moments and objective fold over the
+    #: ranks (models/_linear.LinearObjective)
+    gang_fold = True
 
     def _fit(self, table: TorchTable) -> LogisticRegressionModel:
         p = self.params
@@ -115,11 +118,12 @@ class LogisticRegression(Estimator):
         if p.family == "binomial" and k != 2:
             raise ValueError(f"binomial family needs 2 classes, got {k}")
         X, w = table.X, table.W
-        inv_std = column_inv_std(X, w) if p.standardization else None
+        group = table.session.world.data_group
+        inv_std = column_inv_std(X, w, group) if p.standardization else None
         reg_l2, reg_l1 = penalties(p.reg_param, p.elastic_net_param)
         result = fit_linear(X, table.y, w, reg_l2, p.tol, p.max_iter, inv_std, reg_l1,
                             loss_kind="logistic", k=k, fit_intercept=p.fit_intercept,
-                            compute_dtype=p.compute_dtype)
+                            compute_dtype=p.compute_dtype, group=group)
         coef = result.coef
         if inv_std is not None:
             coef = coef * inv_std[:, None]   # back to the original feature space

@@ -83,7 +83,9 @@ def _stream_index(n: int, device) -> torch.Tensor:
 def _session_device(session):
     from orange3_spark_tpu_torch.core.session import TorchSession
 
-    return (session or TorchSession.builder_get_or_create()).device
+    session = session or TorchSession.builder_get_or_create()
+    session.require_fold("a streaming feature transformer's fit")
+    return session.device
 
 
 # ---------------------------------------------------------------------------

@@ -19,22 +19,31 @@ EPS_TOTAL_WEIGHT = 1e-12
 BETAINC_ITERS = 100
 
 
-def weighted_moments(X: torch.Tensor, w: torch.Tensor):
+def weighted_moments(X: torch.Tensor, w: torch.Tensor, group=None):
     """Per-column weighted moments: (mean[d], var[d], total_weight[]), the
     population variance (MLlib's convention for standardization). The
     column sums in XLA:CPU's order (``xla_sum``) on either device: the
-    one-device reference's bits."""
-    tot = torch.clamp_min(xla_sum(w), EPS_TOTAL_WEIGHT)
+    one-device reference's bits. ``group``: a gang's data group (X, w this
+    rank's rows): the sums are then folded over the ranks in rank order,
+    (Σw, Σw·x) in one gather and Σw·(x - mean)² in a second."""
+    from orange3_spark_tpu_torch.parallel.collectives import world_fold
+
     wcol = w[:, None]
-    mean = xla_sum(X * wcol) / tot
-    var = xla_sum((X - mean) ** 2 * wcol) / tot
+    if group is None:
+        tot = torch.clamp_min(xla_sum(w), EPS_TOTAL_WEIGHT)
+        mean = xla_sum(X * wcol) / tot
+    else:
+        first = world_fold(torch.cat([xla_sum(w).reshape(1), xla_sum(X * wcol)]), group)
+        tot = torch.clamp_min(first[0], EPS_TOTAL_WEIGHT)
+        mean = first[1:] / tot
+    var = world_fold(xla_sum((X - mean) ** 2 * wcol), group) / tot
     return mean, var, tot
 
 
-def inv_std_scale(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def inv_std_scale(X: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
     """1/std per column (1.0 for constant columns): MLlib's scale-only
-    standardization factor."""
-    _, var, _ = weighted_moments(X, w)
+    standardization factor (over a gang's ranks with ``group``)."""
+    _, var, _ = weighted_moments(X, w, group)
     std = sqrt32(var)
     return torch.where(std > 1e-12, 1.0 / std, 1.0)
 

@@ -95,8 +95,8 @@ __all__ = [
     "dense_update", "ADAM_B1", "ADAM_B2", "ADAM_EPS", "init_adam_state",
     "adam_update", "plan_slots", "plan_field_shapes", "build_plan_np",
     "plan_pack_widths", "plan_packed_field_shapes", "pack_plan_np", "unpack_plan",
-    "occurrence_dead", "sparse_embedding_update", "dense_table_grad", "EMB_UPDATES",
-    "finalize_lazy_decay",
+    "occurrence_dead", "occurrence_keys", "sorted_keys_update", "sparse_embedding_update",
+    "dense_table_grad", "EMB_UPDATES", "finalize_lazy_decay",
 ]
 
 SPARSE_UPDATES = ("sparse_sgd", "sparse_adagrad", "sparse_ftrl")
@@ -557,14 +557,30 @@ def sparse_embedding_update(kind, emb, t, slots, dl, idx, lr, decay, reg, l1, st
         raise ValueError(f"unknown sparse lowering {lowering!r}")
     if isinstance(n_valid, int) and n_valid == 0:
         return emb, t, slots          # every occurrence dead: no row moves
+    return sorted_keys_update(kind, emb, t, slots, dl, occurrence_keys(idx, n_valid, D, raw_cats),
+                              idx.shape[1], lr, decay, reg, l1, step, use_decay=use_decay,
+                              vals=None if vals is None else vals.reshape(-1).contiguous())
+
+
+def occurrence_keys(idx: torch.Tensor, n_valid, D: int, raw_cats=None) -> torch.Tensor:
+    """The 'sort' lowering's flat [N·C] occurrence keys: the table row of
+    each occurrence, or the sentinel ``D`` for a dead one (padding rows,
+    value-weighted pads; ``occurrence_dead``), which sorts last."""
     N, C = idx.shape
-    dead = occurrence_dead(N, C, n_valid, idx.device, raw_cats)
-    # dead occurrences (padding rows, value-weighted pads) take the
-    # sentinel D and sort last
-    s_idx, order = torch.sort(idx.masked_fill(dead, D).reshape(-1), stable=True)
+    return idx.masked_fill(occurrence_dead(N, C, n_valid, idx.device, raw_cats), D).reshape(-1)
+
+
+def sorted_keys_update(kind, emb, t, slots, dl, keys, C: int, lr, decay, reg, l1, step, *,
+                       use_decay: bool, vals=None):
+    """The 'sort' lowering after its keys: a stable sort of ``keys`` (i32
+    [M], the sentinel ``emb.shape[0]`` for dead occurrences; occurrence i
+    takes ``dl[i // C]``, times ``vals[i]`` when given), then
+    ``segment_update_sorted`` in place. A gang calls it on the global
+    occurrence list (every rank's keys, in rank order), so every rank runs
+    the same arithmetic as one process on the global chunk."""
+    s_idx, order = torch.sort(keys, stable=True)
     return segment_update_sorted(kind, s_idx, order, C, dl, emb, slots, t, step, lr, decay,
-                                 reg, l1, use_decay=use_decay,
-                                 vals=None if vals is None else vals.reshape(-1).contiguous())
+                                 reg, l1, use_decay=use_decay, vals=vals)
 
 
 def finalize_lazy_decay(theta: dict, state: dict, lr: float, reg: float,

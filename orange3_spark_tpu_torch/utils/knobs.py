@@ -3,7 +3,7 @@
 A copy of the JAX package's knob table, cut to the knobs the ported
 modules read (the serving path, the resilience and observability layers it
 stands on, the chunk cache, the sparse optimizer, the serving fleet, its
-telemetry and the online loop), with the same names,
+telemetry, the online loop and the multi-process training gang), with the same names,
 types, defaults and help text (``knob_table_md`` renders each row as the
 JAX package does). Every knob declares its name, type, default, owning
 subsystem and a one-line doc; call sites resolve through the typed getters
@@ -137,6 +137,27 @@ _ALL = [
          "Stage-count ceiling for fusing a workflow DAG into one AOT "
          "executable; a DAG past it serves stage-by-stage (an XLA program "
          "over hundreds of stages compiles pathologically)."),
+    # -------------------------------------------------------- parallel/
+    Knob("OTPU_MULTIHOST", "flag", "1", "parallel",
+         "Multi-process data/model-parallel training kill-switch; 0 = "
+         "partitioners and sharded sources are inert facades over the "
+         "current single-process path (bitwise)."),
+    Knob("OTPU_MULTIHOST_PROCS", "int", 0, "parallel",
+         "Training processes a MultihostLauncher gang spawns (and the "
+         "bench's simulated-host count in fallback mode); 0 = auto "
+         "(2 for the launcher, 4 for bench --config multihost)."),
+    Knob("OTPU_MULTIHOST_COORD_PORT", "int", 0, "parallel",
+         "torch.distributed TCPStore port the gang rendezvouses on; "
+         "0 = a fresh FileStore file under the launcher's log dir per "
+         "gang launch."),
+    Knob("OTPU_MULTIHOST_RESTARTS", "int", 2, "parallel",
+         "Gang restarts the launcher attempts after a lost host before "
+         "raising HostLostError (each restart resumes every rank from "
+         "the aligned epoch-boundary checkpoint)."),
+    Knob("OTPU_MULTIHOST_WALL_S", "float", 600.0, "parallel",
+         "Wall budget per gang attempt; a gang still running past it is "
+         "treated as wedged and counts as a lost host (typed, not a "
+         "hang — the watchdog pattern)."),
     # ----------------------------------------------------------- online/
     Knob("OTPU_ONLINE", "flag", "1", "online",
          "Continuous train-while-serve kill-switch; 0 = the serving tap, "

@@ -2391,3 +2391,137 @@ def test_online_trainer_never_changes_the_served_bits_on_cuda(cuda_device, tmp_p
         served1 = model.predict_proba(X[:300])
     log.close()
     assert np.array_equal(served0, served1)
+
+
+# ------------------------------------------------ gangs of ranks on the card
+# each rank a fresh interpreter with its own CUDA context on the one card;
+# gloo collectives on host tensors (a CUDA tensor staged through a pinned
+# buffer both ways)
+_GATHER_SRC = r"""
+import sys
+import numpy as np
+import torch
+from orange3_spark_tpu_torch.core.session import TorchSession
+from orange3_spark_tpu_torch.parallel.collectives import gather_packed, world_fold
+
+world = TorchSession.initialize_distributed()
+rng = np.random.default_rng(world.rank)
+f = torch.from_numpy(rng.standard_normal((1000, 3)).astype(np.float32)).cuda()
+i = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 4097).astype(np.int32)).cuda()
+parts = gather_packed([f, i], world.data_group)
+folded = world_fold(f, world.data_group)
+assert folded.is_cuda
+np.savez(sys.argv[1] + f"/rank{world.rank}.npz", f=torch.cat([p[0] for p in parts]).numpy(),
+         i=torch.cat([p[1] for p in parts]).numpy(), fold=folded.cpu().numpy())
+TorchSession.shutdown_distributed()
+"""
+
+
+def _gang2(tmp, name, argv):
+    from orange3_spark_tpu_torch.parallel.drill import worker_env
+    from orange3_spark_tpu_torch.parallel.launcher import MultihostLauncher
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out, exist_ok=True)
+    MultihostLauncher(lambda r, n, c: argv(r, n, c, out), 2,
+                      env=worker_env({"OMP_NUM_THREADS": "2"}),
+                      log_dir=os.path.join(out, "logs"), max_gang_restarts=0,
+                      wall_s=300.0).run()
+    return out
+
+
+def _mh_argv(csv, device, *extra):
+    import sys
+
+    def argv(r, n, coord, out):
+        return [sys.executable, "-m", "orange3_spark_tpu_torch.parallel.mh_worker",
+                "--rank", str(r), "--nprocs", str(n), "--coord", coord, "--csv", csv,
+                "--out-dir", out, "--device", device, *extra]
+    return argv
+
+
+@pytest.fixture(scope="module")
+def card_gangs(tmp_path_factory):
+    """Four 2-rank gangs at once: the dense fit on the card and on the CPU,
+    the staged gather on the card, and a hashed sparse_adagrad fit on the
+    card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: gang ranks on the card (the CPU gangs run in "
+                    "tests/test_torch_multiprocess.py)")
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orange3_spark_tpu_torch.datasets import gen_criteo_csv
+    from orange3_spark_tpu_torch.parallel.drill import write_drill_csv
+
+    tmp = str(tmp_path_factory.mktemp("card_gangs"))
+    dcsv, hcsv = os.path.join(tmp, "d.csv"), os.path.join(tmp, "c.csv")
+    write_drill_csv(dcsv, 1024)
+    gen_criteo_csv(hcsv, 8192, seed=0)
+    dense = ("--class-col", "y", "--n-total", "1024", "--n-features", "8",
+             "--chunk-rows", "128", "--epochs", "3", "--step-size", "0.1")
+    hashed = ("--hashed", "--n-total", "8192", "--n-features", "39", "--chunk-rows", "1024",
+              "--epochs", "2", "--step-size", "0.04", "--n-dims", "4096",
+              "--optim-update", "sparse_adagrad", "--cache-dtype", "packed",
+              "--reg-param", "1e-5")
+    jobs = {"dense_cuda": _mh_argv(dcsv, "cuda", *dense),
+            "dense_cpu": _mh_argv(dcsv, "cpu", *dense),
+            "hashed_cuda": _mh_argv(hcsv, "cuda", *hashed),
+            "hashed_cpu": _mh_argv(hcsv, "cpu", *hashed),
+            "gather": lambda r, n, c, out: [sys.executable, "-c", _GATHER_SRC, out]}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {k: pool.submit(_gang2, tmp, k, v) for k, v in jobs.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.mark.cuda
+def test_gang_on_cuda_matches_the_cpu_gang(card_gangs):
+    """The dense streaming fit as a 2-rank gang on the card against the same
+    gang on the CPU (the streaming tolerance, rtol 1e-4 / atol 1e-5), its
+    ranks bitwise equal."""
+    from orange3_spark_tpu_torch.parallel.drill import read_gang
+
+    card, hosts = read_gang(card_gangs["dense_cuda"])
+    cpu, _ = read_gang(card_gangs["dense_cpu"])
+    assert len({h["theta_sha256"] for h in hosts.values()}) == 1
+    assert all(h["device"].startswith("cuda") for h in hosts.values())
+    for k in ("coef", "intercept"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_staged_all_gather_is_bitwise_the_concatenation(card_gangs):
+    """``gather_packed`` of CUDA tensors (float32 and int32 words through one
+    pinned buffer) hands every rank the ranks' tensors concatenated in rank
+    order, bit for bit; ``world_fold`` is the rank-order sum, back on the
+    card."""
+    out = card_gangs["gather"]
+    want_f, want_i = [], []
+    for r in range(2):
+        rng = np.random.default_rng(r)
+        want_f.append(rng.standard_normal((1000, 3)).astype(np.float32))
+        want_i.append(rng.integers(-2**31, 2**31 - 1, 4097).astype(np.int32))
+    for r in range(2):
+        got = np.load(os.path.join(out, f"rank{r}.npz"))
+        assert np.array_equal(got["f"].view(np.int32), np.concatenate(want_f).view(np.int32))
+        assert np.array_equal(got["i"], np.concatenate(want_i))
+        assert np.array_equal(got["fold"], want_f[0] + want_f[1])
+
+
+@pytest.mark.cuda
+def test_hashed_gang_launches_segment_update_once_a_step(card_gangs):
+    """A 2-rank data-parallel sparse_adagrad Criteo fit on the card: every
+    rank sorts the gathered occurrence list and launches
+    ``segment_update_sorted`` once a step; its ranks bitwise equal, its table
+    within ``chip_smoke._theta_err``'s tolerance of the same gang on the CPU."""
+    from orange3_spark_tpu_torch.parallel.drill import read_gang
+
+    card, hosts = read_gang(card_gangs["hashed_cuda"])
+    cpu, _ = read_gang(card_gangs["hashed_cpu"])
+    assert len({h["theta_sha256"] for h in hosts.values()}) == 1
+    for h in hosts.values():
+        assert h["n_steps"] == 8
+        assert h["launches"]["segment_update_sorted"] == h["n_steps"]
+    for k in ("emb", "coef", "intercept"):
+        err = np.abs(card[k] - cpu[k])
+        assert (err <= 1e-5 + 1e-4 * np.abs(cpu[k])).all(), (k, float(err.max()))

@@ -53,8 +53,9 @@ def _bundles(d):
 
 # ------------------------------------------------------------- the knobs
 # three of the reference's help texts name the reference's own pull
-# requests; the port's program text names none, so these three rows hold
-# the port's own text, and every other row is the reference's exactly
+# requests, and one names jax.distributed; the port's program text names
+# neither, so these four rows hold the port's own text, and every other row
+# is the reference's exactly
 OWN_DOCS = {
     "OTPU_FLEET_FASTWIRE": (
         "Fleet data-plane fast-path kill-switch; 0 = the wire bitwise (one "
@@ -67,12 +68,15 @@ OWN_DOCS = {
         "Fleet telemetry-plane kill-switch; 0 restores the plain fleet "
         "exactly (no collector scrapes, no router serve spans, no SLO "
         "samples, no fleet bundles)."),
+    "OTPU_MULTIHOST_COORD_PORT": (
+        "torch.distributed TCPStore port the gang rendezvouses on; 0 = a fresh "
+        "FileStore file under the launcher's log dir per gang launch."),
 }
 
 
 def test_knob_table_rows_equal_the_reference():
     """``knob_table_md`` renders each knob the port holds exactly as the
-    reference renders it, but for the three rows of ``OWN_DOCS``, which
+    reference renders it, but for the four rows of ``OWN_DOCS``, which
     equal the reference's row with that effect text in place of its own;
     ``resolved`` types every value as the getters."""
     ref_rows = {ln.split("|")[1].strip(): ln for ln in j_knobs.knob_table_md().splitlines()[2:]}
@@ -84,7 +88,7 @@ def test_knob_table_rows_equal_the_reference():
     assert rows[:2] == j_knobs.knob_table_md().splitlines()[:2]
     for ln in rows[2:]:
         assert ln == ref_rows[ln.split("|")[1].strip()]
-    assert len(rows) - 2 == len(t_knobs.KNOBS) == 87
+    assert len(rows) - 2 == len(t_knobs.KNOBS) == 92
     res = t_knobs.resolved()
     ref = j_knobs.resolved()
     assert set(res) == set(t_knobs.KNOBS)
